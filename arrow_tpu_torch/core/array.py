@@ -14,7 +14,8 @@ offset, buffers[], child_data[]). The same model as the JAX package's
   * **validity is a bool bytemask**, not Arrow's packed bitmap. ``None``
     means all-valid. Packing happens only at the pyarrow boundary
     (``core/interop.py``).
-  * constructors take an explicit ``device``; ``Array.to(device)`` moves one.
+  * constructors place their buffers on ``device``; with none given they
+    take ``default_device()``, the card. ``Array.to(device)`` moves one.
 
 Fixed-width columns only in this package so far: varlen, dictionary and
 nested layouts come with the kernels that need them.
@@ -30,7 +31,20 @@ import torch
 from . import datatype as dt
 
 __all__ = ["Array", "array", "array_from_numpy", "nulls", "full",
-           "row_mask"]
+           "row_mask", "default_device", "resolve_device"]
+
+
+def default_device() -> torch.device:
+    """Where an entry point places its data when the caller names no
+    device: the card. It does not probe and give way: on a machine without
+    one the allocation raises PyTorch's own error, and a caller that wants
+    the CPU says ``device="cpu"``."""
+    return torch.device("cuda")
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; ``None`` means the default."""
+    return default_device() if device is None else torch.device(device)
 
 
 def _is_static_len(length) -> bool:
@@ -151,6 +165,7 @@ def array_from_numpy(values, type: Optional[dt.DataType] = None,
 
     ``validity`` is an optional bool mask (False = null); ``capacity`` pads
     the buffers to a fixed size >= length; ``device`` places them."""
+    device = resolve_device(device)
     values = np.asarray(values)
     t = type or _infer_type(values)
     if not t.is_primitive or isinstance(t, (dt.DictionaryType,
@@ -186,6 +201,7 @@ def array(values, type: Optional[dt.DataType] = None, validity=None,
 
 def nulls(n: int, type: dt.DataType, capacity: Optional[int] = None,
           device=None) -> Array:
+    device = resolve_device(device)
     cap = capacity or max(n, 1)
     buf = torch.from_numpy(np.zeros((cap,), dtype=type.storage_np))
     return Array(type, buf.to(device),
@@ -195,6 +211,7 @@ def nulls(n: int, type: dt.DataType, capacity: Optional[int] = None,
 
 def full(n: int, value, type: dt.DataType, capacity: Optional[int] = None,
          device=None) -> Array:
+    device = resolve_device(device)
     cap = capacity or max(n, 1)
     if not type.is_primitive:
         raise NotImplementedError("full() supports primitive types only")

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from . import datatype as dt
-from .array import Array
+from .array import Array, resolve_device
 from .batch import Batch
 from .schema import Schema
 
@@ -70,6 +70,7 @@ def _check_fixed_width(t: dt.DataType):
 def array_from_pyarrow(pa_arr, capacity: Optional[int] = None,
                        device=None) -> Array:
     import pyarrow as pa
+    device = resolve_device(device)
     if isinstance(pa_arr, pa.ChunkedArray):
         pa_arr = pa_arr.combine_chunks()
     n = len(pa_arr)

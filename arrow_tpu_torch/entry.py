@@ -1,17 +1,27 @@
-"""The engine's flagship step on one device: filter -> dense group-by.
+"""The engine's flagship step on one device: filter -> group-by.
 
-``entry(device, n_rows, num_keys, seed)`` returns ``(step, (batch,))``:
-``step`` evaluates the predicate ``w > 0``, filters the batch with the
-stream-compaction kernel, routes the grouped aggregation as the JAX
-package's ``AggregateNode._consume_any`` does (one host read of the key
-range probe, then ``probe_route``), consumes through the dense route's
-kernel and finalizes. The columns (int64 key ``k``, float32 ``v``, int64
-``w``) are the schema on which the dense route fires.
+Two entry points return ``(step, (batch,))``; ``step`` evaluates the
+predicate ``w > 0``, filters the batch, routes the grouped aggregation as
+the JAX package's ``AggregateNode._consume_any`` does (one host read of the
+key range probe, then ``probe_route``), consumes and finalizes.
 
-Run it on the CPU at a small size::
+  * ``entry(device, n_rows, num_keys, seed)``: the schema on which the
+    dense route fires (int64 key ``k``, float32 ``v``, int64 ``w``). The
+    filter is one pass of the stream-compaction kernel and the consume one
+    pass of the dense group-by kernel.
+  * ``entry_generic(device, n_rows, num_keys, seed, max_groups)``: the
+    step as ``__graft_entry__.entry`` writes it for JAX (``v`` float64;
+    sum(v), min(w), count_all). The filter builds take indices on the
+    tile-compaction kernel and gathers the columns; the consume takes the
+    sort-grouping route, range-packed where the probe allows, on an empty
+    state (``first``).
 
-    python -c "from arrow_tpu_torch.entry import entry; \\
-        step, args = entry(n_rows=4096); print(step(*args).to_pydict())"
+With no ``device`` both place the batch on the card
+(``arrow_tpu_torch.default_device()``). Run one on the CPU at a small
+size::
+
+    python -c "from arrow_tpu_torch.entry import entry_generic as e; \\
+        step, args = e('cpu', n_rows=4096); print(step(*args).to_pydict())"
 """
 
 from __future__ import annotations
@@ -26,13 +36,16 @@ from .core.batch import Batch, batch_from_numpy
 from .ops.hash_aggregate import AggregateSpec, HashAggregate
 from .ops.selection import filter_batch
 
-__all__ = ["AGGREGATES", "MAX_GROUPS", "consume_routed", "entry",
-           "example_columns"]
+__all__ = ["AGGREGATES", "AGGREGATES_GENERIC", "MAX_GROUPS",
+           "consume_routed", "entry", "entry_generic", "example_columns",
+           "example_columns_generic"]
 
 AGGREGATES = (AggregateSpec("sum", "v"), AggregateSpec("min", "v"),
               AggregateSpec("sum", "w"), AggregateSpec("min", "w"),
               AggregateSpec("count_all"))
 MAX_GROUPS = 2048
+AGGREGATES_GENERIC = (AggregateSpec("sum", "v"), AggregateSpec("min", "w"),
+                      AggregateSpec("count_all"))
 
 
 def example_columns(n_rows: int, num_keys: int, seed: int
@@ -41,6 +54,17 @@ def example_columns(n_rows: int, num_keys: int, seed: int
     rng = np.random.default_rng(seed)
     return {"k": rng.integers(0, num_keys, n_rows, dtype=np.int64),
             "v": rng.standard_normal(n_rows, dtype=np.float32),
+            "w": rng.integers(-100, 100, n_rows, dtype=np.int64)}
+
+
+def example_columns_generic(n_rows: int, num_keys: int, seed: int
+                            ) -> Dict[str, np.ndarray]:
+    """``entry_generic``'s input columns, made with numpy from ``seed``:
+    int64 ``k`` uniform in [0, num_keys), float64 standard normal ``v``,
+    int64 ``w`` uniform in [-100, 100)."""
+    rng = np.random.default_rng(seed)
+    return {"k": rng.integers(0, num_keys, n_rows, dtype=np.int64),
+            "v": rng.standard_normal(n_rows),
             "w": rng.integers(-100, 100, n_rows, dtype=np.int64)}
 
 
@@ -57,34 +81,59 @@ def _host_probe(vals: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     return out
 
 
-def consume_routed(ha: HashAggregate, state, b: Batch):
+def consume_routed(ha: HashAggregate, state, b: Batch,
+                   first: bool = False):
     """One batch through the route the JAX AggregateNode picks
-    (``acero/nodes.py`` ``_consume_any``). Only the dense route with the
-    kernel is ported; any other route raises ``NotImplementedError``."""
+    (``acero/nodes.py`` ``_consume_any``): the dense kernel, range-packed
+    sort keys or the generic consume; ``first`` (the state is empty) skips
+    the table merge-insert of the two sort routes. The sorted dense
+    reduction is not ported and raises ``NotImplementedError``."""
     route = ("generic", None)
     if ha.dense_static_ok() or b.capacity >= (1 << 20):
         route = ha.probe_route(b, _host_probe(ha.probe_scalars(b)))
     kind, params = route
-    if kind != "dense" or params["impl"] != "pallas":
-        detail = params.get("impl") if kind == "dense" else ""
-        raise NotImplementedError(
-            f"aggregate route {kind!r} {detail} is not ported yet".strip())
-    return ha.consume_dense(state, b, params["lo"], params["G"],
-                            params["impl"])
+    if kind == "dense":
+        if params["impl"] != "pallas":
+            raise NotImplementedError(
+                f"aggregate route 'dense' {params['impl']} is not ported "
+                "yet")
+        return ha.consume_dense(state, b, params["lo"], params["G"],
+                                params["impl"])
+    if kind == "packed":
+        lo, shift, outmap, K, fold = params
+        return ha.consume(state, b, (lo, shift, outmap), (K, fold), first)
+    return ha.consume(state, b, None, None, first)
 
 
-def entry(device=None, n_rows: int = 1024, num_keys: int = 16,
-          seed: int = 0):
-    """(step, (batch,)): step(batch) -> the finalized group-by Batch."""
-    b = batch_from_numpy(example_columns(n_rows, num_keys, seed),
-                         device=device)
-    ha = HashAggregate(b.schema, ["k"], AGGREGATES, max_groups=MAX_GROUPS)
+def _make_step(ha: HashAggregate, impl: str, first: bool):
     predicate = field("w") > 0
 
     def step(batch: Batch) -> Batch:
         mask = execute_scalar_expression(predicate, batch)
-        filtered = filter_batch(batch, mask)
-        state = consume_routed(ha, ha.init_state(batch.device), filtered)
+        filtered = filter_batch(batch, mask, impl=impl)
+        state = consume_routed(ha, ha.init_state(batch.device), filtered,
+                               first)
         return ha.finalize(state)
 
-    return step, (b,)
+    return step
+
+
+def entry(device=None, n_rows: int = 1024, num_keys: int = 16,
+          seed: int = 0):
+    """(step, (batch,)): step(batch) -> the finalized group-by Batch, by
+    the compaction-kernel filter and the dense route."""
+    b = batch_from_numpy(example_columns(n_rows, num_keys, seed),
+                         device=device)
+    ha = HashAggregate(b.schema, ["k"], AGGREGATES, max_groups=MAX_GROUPS)
+    return _make_step(ha, "dma", False), (b,)
+
+
+def entry_generic(device=None, n_rows: int = 1024, num_keys: int = 16,
+                  seed: int = 0, max_groups: int = 64):
+    """(step, (batch,)): step(batch) -> the finalized group-by Batch, by
+    the take-index filter and the sort-grouping route on an empty state."""
+    b = batch_from_numpy(example_columns_generic(n_rows, num_keys, seed),
+                         device=device)
+    ha = HashAggregate(b.schema, ["k"], AGGREGATES_GENERIC,
+                       max_groups=max_groups)
+    return _make_step(ha, "pallas", True), (b,)

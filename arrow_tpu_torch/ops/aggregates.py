@@ -1,14 +1,15 @@
-"""Grouped aggregators: the init / merge / finalize state protocol.
+"""Grouped aggregators: the init / consume / merge / finalize protocol.
 
 Reference: the GroupedAggregator state protocol
-(``hash_aggregate_internal.h:39-58``: Resize/Consume/Merge(other,
-group_id_mapping)/Finalize); the counterpart of the JAX package's
-``ops/aggregates.py`` for count, count_all, sum, mean, min and max. States
-are fixed-capacity (max_groups,) tensors. Merge folds another state's group
-g into this state's group mapping[g]; mapping entries equal to the
-capacity are dropped (the JAX ``mode="drop"``), through one extra dump
-slot that is sliced off. The per-row consume comes with the generic
-grouped consume.
+(``hash_aggregate_internal.h:39-58``: Resize/Consume(values, group_ids)/
+Merge(other, group_id_mapping)/Finalize); the counterpart of the JAX
+package's ``ops/aggregates.py`` for count, count_all, sum, mean, min and
+max. States are fixed-capacity (max_groups,) tensors. ``consume`` folds
+rows into the state by their group id; ``consume_grouped`` reduces each
+run of a sort-grouped batch (``ops/segment``) and writes one element per
+distinct group; ``merge`` folds another state's group g into this state's
+group mapping[g]. Positions equal to the capacity are dropped (the JAX
+``mode="drop"``), through one extra dump slot that is sliced off.
 """
 
 from __future__ import annotations
@@ -19,7 +20,10 @@ import torch
 
 from ..core import datatype as dt
 from ..core.array import Array
+from .agg_options import CountOptions
 from .kernel_utils import torch_dtype
+from .segment import extreme_identity, seg_reduce_max, seg_reduce_min, \
+    seg_sum
 
 __all__ = ["GroupedAggregator", "make_grouped_aggregator",
            "GROUPED_AGGREGATORS"]
@@ -49,8 +53,53 @@ def _fold(state: torch.Tensor, mapping: torch.Tensor, other: torch.Tensor,
     return ext[:G]
 
 
+def _contrib_mask(values: Array, group_ids: torch.Tensor) -> torch.Tensor:
+    """Rows that contribute: in a group AND valid (skip_nulls)."""
+    m = group_ids >= 0
+    if values.validity is not None:
+        m = m & values.validity
+    return m
+
+
+def _positions(mask: torch.Tensor, group_ids: torch.Tensor, G: int
+               ) -> torch.Tensor:
+    """Fold positions: group id, or G (dropped) for non-contributors."""
+    return torch.where(mask, group_ids, G)
+
+
+def _sorted_inputs(values: Optional[Array], ctx):
+    """(values in sorted order | None, contribution flags in sorted order).
+    skip_nulls semantics: a row contributes iff active AND valid. Columns
+    that rode the grouping sort as payloads come from ctx.sorted_cols;
+    others gather through perm."""
+    ok = ctx.s_active
+    v_sorted = None
+    if values is not None:
+        cached = ctx.sorted_cols.get(id(values.values))
+        if cached is not None:
+            v_sorted, valid_sorted = cached
+        else:
+            v_sorted = values.values[ctx.perm]
+            valid_sorted = None if values.validity is None \
+                else values.validity[ctx.perm]
+        if valid_sorted is not None:
+            ok = ok & valid_sorted
+    return v_sorted, ok
+
+
+def _gpos(ctx, G: int) -> torch.Tensor:
+    """(R,) fold targets: persistent gid per run, G for pads — unique by
+    construction (one write per distinct group)."""
+    return torch.where(ctx.gid_global >= 0, ctx.gid_global, G)
+
+
+def _count_mode(options) -> str:
+    return options.mode if isinstance(options, CountOptions) \
+        else "only_valid"
+
+
 class GroupedAggregator:
-    """Base class. Subclasses define init/merge/finalize."""
+    """Base class. Subclasses define init/consume/merge/finalize."""
 
     name: str = ""
 
@@ -62,9 +111,22 @@ class GroupedAggregator:
     def init(self, device=None):
         raise NotImplementedError
 
+    def consume(self, state, values: Optional[Array],
+                group_ids: torch.Tensor):
+        """Fold the rows of ``values`` into the groups ``group_ids`` names
+        (-1 = no group)."""
+        raise NotImplementedError
+
     def merge(self, state, other, mapping: torch.Tensor):
         """Fold `other`'s group g into this state's group mapping[g]."""
         raise NotImplementedError
+
+    def consume_grouped(self, state, values: Optional[Array], ctx):
+        """Segment-reduction consume over a sort-grouped batch
+        (ops/segment.SegmentContext). The default is the row consume (it
+        needs ctx.row_gids); the aggregators below override it with run
+        reductions that write one element per distinct group."""
+        return self.consume(state, values, ctx.row_gids)
 
     def finalize(self, state, num_groups) -> Array:
         raise NotImplementedError
@@ -79,8 +141,37 @@ class GroupedCount(GroupedAggregator):
     def init(self, device=None):
         return torch.zeros((self.G,), dtype=torch.int64, device=device)
 
+    def _counted(self, values, in_group: torch.Tensor, validity):
+        """Rows the count mode counts: ``validity`` is the column's, laid
+        out like ``in_group`` (None = all valid)."""
+        mode = _count_mode(self.options)
+        if values is None or validity is None:
+            return in_group if mode != "only_null" \
+                else torch.zeros_like(in_group)
+        if mode == "only_valid":
+            return in_group & validity
+        if mode == "only_null":
+            return in_group & ~validity
+        return in_group
+
+    def consume(self, state, values, group_ids):
+        ok = self._counted(values, group_ids >= 0,
+                           None if values is None else values.validity)
+        return _fold(state, _positions(ok, group_ids, self.G),
+                     ok.to(torch.int64), 0)
+
     def merge(self, state, other, mapping):
         return _fold(state, mapping, other, 0)
+
+    def consume_grouped(self, state, values, ctx):
+        validity = None
+        if values is not None and values.validity is not None:
+            cached = ctx.sorted_cols.get(id(values.values))
+            validity = cached[1] if cached is not None \
+                else values.validity[ctx.perm]
+        ok = self._counted(values, ctx.s_active, validity)
+        return _fold(state, _gpos(ctx, self.G),
+                     seg_sum(ctx, ok.to(torch.int64)), 0)
 
     def finalize(self, state, num_groups) -> Array:
         return Array(dt.int64, state, None, length=num_groups)
@@ -90,6 +181,15 @@ class GroupedCountAll(GroupedCount):
     """hash_count_all (``hash_aggregate.cc:62``) — nullary, counts rows."""
 
     name = "count_all"
+
+    def consume(self, state, values, group_ids):
+        ok = group_ids >= 0
+        return _fold(state, _positions(ok, group_ids, self.G),
+                     ok.to(torch.int64), 0)
+
+    def consume_grouped(self, state, values, ctx):
+        return _fold(state, _gpos(ctx, self.G),
+                     seg_sum(ctx, ctx.s_active.to(torch.int64)), 0)
 
 
 class GroupedSum(GroupedAggregator):
@@ -109,10 +209,25 @@ class GroupedSum(GroupedAggregator):
         return (torch.zeros((self.G,), dtype=self._acc_dtype, device=device),
                 torch.zeros((self.G,), dtype=torch.int64, device=device))
 
+    def consume(self, state, values, group_ids):
+        acc, cnt = state
+        ok = _contrib_mask(values, group_ids)
+        pos = _positions(ok, group_ids, self.G)
+        v = torch.where(ok, values.values.to(self._acc_dtype), 0)
+        return (_fold(acc, pos, v, 0), _fold(cnt, pos, ok.to(torch.int64), 0))
+
     def merge(self, state, other, mapping):
         acc, cnt = state
         oacc, ocnt = other
         return (_fold(acc, mapping, oacc, 0), _fold(cnt, mapping, ocnt, 0))
+
+    def consume_grouped(self, state, values, ctx):
+        acc, cnt = state
+        v_sorted, ok = _sorted_inputs(values, ctx)
+        x = torch.where(ok, v_sorted.to(self._acc_dtype), 0)
+        gp = _gpos(ctx, self.G)
+        return (_fold(acc, gp, seg_sum(ctx, x), 0),
+                _fold(cnt, gp, seg_sum(ctx, ok.to(torch.int64)), 0))
 
     def finalize(self, state, num_groups) -> Array:
         acc, cnt = state
@@ -144,10 +259,7 @@ class _GroupedExtremum(GroupedAggregator):
         return self.in_type
 
     def _identity(self, dtype: torch.dtype):
-        if dtype.is_floating_point:
-            return float("inf") if self.is_min else float("-inf")
-        info = torch.iinfo(dtype)
-        return info.max if self.is_min else info.min
+        return extreme_identity(dtype, self.is_min)
 
     def _dtype(self) -> torch.dtype:
         d = torch_dtype(self.in_type)
@@ -159,13 +271,37 @@ class _GroupedExtremum(GroupedAggregator):
                            device=device),
                 torch.zeros((self.G,), dtype=torch.int64, device=device))
 
+    @property
+    def _reduce(self) -> str:
+        # scatter_reduce amin/amax propagate NaN, as jnp's scatter-min does
+        return "amin" if self.is_min else "amax"
+
+    def consume(self, state, values, group_ids):
+        acc, cnt = state
+        ok = _contrib_mask(values, group_ids)
+        pos = _positions(ok, group_ids, self.G)
+        ident = self._identity(acc.dtype)
+        v = torch.where(ok, values.values.to(acc.dtype), ident)
+        return (_fold(acc, pos, v, ident, self._reduce),
+                _fold(cnt, pos, ok.to(torch.int64), 0))
+
     def merge(self, state, other, mapping):
         acc, cnt = state
         oacc, ocnt = other
-        # scatter_reduce amin/amax propagate NaN, as jnp's scatter-min does
         acc = _fold(acc, mapping, oacc, self._identity(acc.dtype),
-                    "amin" if self.is_min else "amax")
+                    self._reduce)
         return acc, _fold(cnt, mapping, ocnt, 0)
+
+    def consume_grouped(self, state, values, ctx):
+        acc, cnt = state
+        v_sorted, ok = _sorted_inputs(values, ctx)
+        ident = self._identity(acc.dtype)
+        x = torch.where(ok, v_sorted.to(acc.dtype), ident)
+        partial = seg_reduce_min(ctx, x) if self.is_min else \
+            seg_reduce_max(ctx, x)
+        gp = _gpos(ctx, self.G)
+        return (_fold(acc, gp, partial, ident, self._reduce),
+                _fold(cnt, gp, seg_sum(ctx, ok.to(torch.int64)), 0))
 
     def finalize(self, state, num_groups) -> Array:
         acc, cnt = state

@@ -1,10 +1,13 @@
 """Hand-written CUDA kernels for Hopper, their wrappers and plain versions.
 
-The counterpart of the JAX package's ``ops/pallas_kernels.py`` for the two
-kernels on the filter -> dense group-by path:
+The counterpart of the JAX package's ``ops/pallas_kernels.py`` for the
+kernels on the filter -> group-by paths:
 
   * ``filter_compact_chunks`` (csrc/filter_compact.cu): stream compaction
     of (cap, C) u8 byte planes;
+  * ``tile_compact_local`` (csrc/tile_compact.cu): per 1024-row tile, the
+    local indices of the selected rows packed to the front, and their count
+    (level 1 of the take-index filter);
   * ``dense_group_reduce`` (csrc/dense_group.cu): per-slot reductions over a
     dense group id.
 
@@ -14,8 +17,9 @@ nothing falls back. ``LAUNCHES`` counts kernel launches per wrapper, so a
 run can show that its path went through the kernels.
 
 The sources build at first use with nvcc into ``<repo>/.kernels_build/``
-(one shared library with a plain C interface, loaded with ctypes), keyed by
-a hash of the sources and flags.
+(one compile per source, all started together, linked into one shared
+library with a plain C interface and loaded with ctypes), keyed by a hash
+of the sources and flags.
 """
 
 from __future__ import annotations
@@ -31,16 +35,18 @@ from typing import List, Sequence, Tuple
 import torch
 
 __all__ = ["filter_compact_chunks", "filter_compact_chunks_plain",
+           "tile_compact_local", "tile_compact_local_plain",
            "dense_group_reduce", "dense_group_reduce_plain", "build",
-           "LAUNCHES", "reset_launch_counts"]
+           "LAUNCHES", "reset_launch_counts", "TILE_ROWS"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / ".kernels_build"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # kernel launches per wrapper (only where the wrapper launches its kernel)
-LAUNCHES = {"filter_compact_chunks": 0, "dense_group_reduce": 0}
+LAUNCHES = {"filter_compact_chunks": 0, "tile_compact_local": 0,
+            "dense_group_reduce": 0}
 
 
 def reset_launch_counts() -> None:
@@ -62,25 +68,43 @@ def _find_nvcc() -> str:
 
 
 def build() -> Tuple[Path, str]:
-    """Compile csrc/*.cu into one shared library if it is not built yet.
-    Returns (library path, compiler output — empty when already built)."""
+    """Compile csrc/*.cu into one shared library if it is not built yet:
+    one nvcc per source, all started together, then one link. Returns
+    (library path, compiler output — empty when already built)."""
     sources = sorted(_CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
-    for s in sources:
+    for s in sources + sorted(_CSRC.glob("*.cuh")):
         h.update(s.name.encode())
         h.update(s.read_bytes())
-    lib = _BUILD_DIR / f"libarrow_tpu_torch_{h.hexdigest()[:16]}.so"
+    tag = h.hexdigest()[:16]
+    lib = _BUILD_DIR / f"libarrow_tpu_torch_{tag}.so"
     if lib.is_file():
         return lib, ""
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_find_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
-        capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    nvcc = _find_nvcc()
+    stem = f"{tag}.{os.getpid()}"
+    objs = [_BUILD_DIR / f"{s.stem}.{stem}.o" for s in sources]
+    procs = [subprocess.Popen(
+        [nvcc, *_NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for s, o in zip(sources, objs)]
+    log, failed = "", []
+    for s, proc in zip(sources, procs):
+        out, _ = proc.communicate()
+        log += out
+        if proc.returncode != 0:
+            failed.append(f"{s.name} ({proc.returncode})")
+    if failed:
+        raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n{log}")
+    tmp = _BUILD_DIR / f"lib.{stem}.tmp"
+    link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True)
+    log += link.stdout + link.stderr
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{log}")
     os.replace(tmp, lib)
+    for o in objs:
+        o.unlink()
     return lib, log
 
 
@@ -99,6 +123,8 @@ def _lib():
             "atp_fc_tile_rows": [],
             "atp_fc_count": [vp, i64, vp, vp],
             "atp_fc_scatter": [vp, vp, vp, i64, i32, vp, vp],
+            "atp_tc_tile_rows": [],
+            "atp_tile_compact_local": [vp, i64, vp, vp, vp],
             "atp_dense_group_reduce": [vp, i64, i32, i32, p_i32, p_i64,
                                        p_i64, p_i64, p_i64, vp, vp, i64,
                                        vp],
@@ -182,6 +208,63 @@ def filter_compact_chunks(sel: torch.Tensor,
                   "filter_compact_chunks scatter")
     LAUNCHES["filter_compact_chunks"] += 1
     return out
+
+
+# ---- tile_compact_local ------------------------------------------------------
+
+TILE_ROWS = 1024        # csrc/tile_compact.cu kTile; the TPU kernel's tile
+
+
+def _check_tc(sel: torch.Tensor) -> None:
+    _require(sel.ndim == 1 and sel.dtype == torch.bool,
+             "sel must be (cap,) bool")
+    _require(sel.shape[0] % TILE_ROWS == 0,
+             f"cap must be a multiple of {TILE_ROWS}: {sel.shape[0]}")
+
+
+def tile_compact_local_plain(sel: torch.Tensor):
+    """Plain version on (T, 1024) views: a cumsum along each tile ranks its
+    selected rows, and one scatter along the tile writes each selected
+    row's local index at its rank (column 1024 takes the rest)."""
+    _check_tc(sel)
+    T = sel.shape[0] // TILE_ROWS
+    s2 = sel.view(T, TILE_ROWS)
+    incl = torch.cumsum(s2, 1)
+    dst = torch.where(s2, incl - 1, TILE_ROWS)
+    iota = torch.arange(TILE_ROWS, dtype=torch.int32, device=sel.device)
+    loc = torch.zeros((T, TILE_ROWS + 1), dtype=torch.int32,
+                      device=sel.device)
+    loc.scatter_(1, dst, iota.expand(T, TILE_ROWS))
+    counts = incl[:, -1].to(torch.int32) if T else \
+        torch.zeros((0,), dtype=torch.int32, device=sel.device)
+    return loc[:, :TILE_ROWS].reshape(-1), counts
+
+
+def tile_compact_local(sel: torch.Tensor):
+    """(cap,) bool, cap % 1024 == 0 -> (loc (cap,) int32, counts
+    (cap / 1024,) int32): per 1024-row tile, the tile-local indices of its
+    selected rows packed to the tile's front in row order (slots past the
+    tile's count hold 0), and the tile's selected count. Level 2
+    (``ops/selection.py``) stitches the tiles into take indices."""
+    _check_tc(sel)
+    if _on_cpu((sel,)):
+        return tile_compact_local_plain(sel)
+    _require(sel.is_contiguous(), "tile_compact_local needs a contiguous "
+             "tensor")
+    lib = _lib()
+    _require(lib.atp_tc_tile_rows() == TILE_ROWS,
+             "csrc/tile_compact.cu and TILE_ROWS disagree")
+    cap = sel.shape[0]
+    dev = sel.device
+    loc = torch.empty((cap,), dtype=torch.int32, device=dev)
+    counts = torch.empty((cap // TILE_ROWS,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _check_rc(lib.atp_tile_compact_local(
+            sel.data_ptr(), cap, loc.data_ptr(), counts.data_ptr(), stream),
+            "tile_compact_local")
+    LAUNCHES["tile_compact_local"] += 1
+    return loc, counts
 
 
 # ---- dense_group_reduce ------------------------------------------------------

@@ -15,8 +15,10 @@ Where the two frameworks differ:
     here writes into a buffer with one extra dump slot, sliced off after.
   * JAX clamps out-of-range gathers; torch does not, so gathers clamp
     explicitly where the JAX code relies on it.
-The JAX sorts are unstable; the results below depend only on the order of
-distinct keys, which both give alike.
+The JAX sorts are unstable and recover each run's first row with a packed
+cummax; the sorts here are stable, so a run's first row sits at its head.
+The results are the same: they depend only on the order of distinct keys
+and on each run's smallest row.
 """
 
 from __future__ import annotations
@@ -25,11 +27,14 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from .segment import segmented_carry_last
+from .segment import _scatter, segmented_carry_last
 
 __all__ = ["SortGroup", "sort_group", "merge_find", "merge_insert"]
 
 _I32MAX = (1 << 31) - 1
+# lane 0 of an inactive row when the caller folds the inactive flag into
+# the sort lanes (range-packed lanes never reach it)
+_FOLD_SENTINEL = 0xFFFFFFFF
 
 
 class SortGroup(NamedTuple):
@@ -41,6 +46,7 @@ class SortGroup(NamedTuple):
       head         True at the first sorted position of each distinct run
       seg          run id per sorted position (garbage where inactive)
       codes        per ORIGINAL row: first-appearance group id, -1 inactive
+                   (None when the caller asked for no codes)
       gid_of_seg   run id -> first-appearance group id (R,)
       seg_of_gid   first-appearance group id -> run id (R,)
       unique_rows  gid -> original row of first occurrence (INT32_MAX pad)
@@ -54,7 +60,7 @@ class SortGroup(NamedTuple):
     s_active: torch.Tensor
     head: torch.Tensor
     seg: torch.Tensor
-    codes: torch.Tensor
+    codes: Optional[torch.Tensor]
     gid_of_seg: torch.Tensor
     seg_of_gid: torch.Tensor
     unique_rows: torch.Tensor
@@ -84,15 +90,6 @@ def _lexsort_perm(keys: Sequence[Tuple[torch.Tensor, int]]) -> torch.Tensor:
     return perm
 
 
-def _scatter(size: int, fill, index: torch.Tensor, src: torch.Tensor
-             ) -> torch.Tensor:
-    """out = full(size, fill); out[index] = src with index == size (the
-    dump slot) dropped: JAX's ``.at[index].set(src, mode="drop")``."""
-    buf = torch.full((size + 1,) + tuple(src.shape[1:]), fill,
-                     dtype=src.dtype, device=src.device)
-    return buf.index_copy_(0, index, src)[:size]
-
-
 def _lane_runs(s_lanes: torch.Tensor, s_act: torch.Tensor) -> torch.Tensor:
     """head flags of the runs of equal lanes among active sorted rows."""
     diff = (s_lanes[1:] != s_lanes[:-1]).any(dim=1)
@@ -102,18 +99,33 @@ def _lane_runs(s_lanes: torch.Tensor, s_act: torch.Tensor) -> torch.Tensor:
 
 def sort_group(lanes: torch.Tensor, active: torch.Tensor,
                rep_capacity: Optional[int] = None,
-               payloads: Tuple[torch.Tensor, ...] = ()):
+               payloads: Tuple[torch.Tensor, ...] = (),
+               folded: bool = False, need_codes: bool = True):
     """Returns (SortGroup, sorted_payloads). ``lanes`` (cap, L) int64 u32
     lanes; ``rep_capacity`` bounds the per-distinct-key arrays to R rows
     (runs past R are dropped; the caller flags overflow); ``payloads`` come
-    back in sorted order."""
+    back in sorted order (one gather through ``perm`` each).
+
+    ``folded=True``: the caller already wrote 0xFFFFFFFF into lane 0 of
+    every inactive row and guarantees that real lane-0 values never reach
+    it (range-packed lanes, the grouper's packed consume), so the separate
+    inactive sort key is dropped.
+
+    ``need_codes=False`` skips the per-ORIGINAL-row group ids (``codes`` is
+    None): a capacity-sized scatter that the segment reductions
+    (``ops/segment``, through head / seg / perm) never read."""
     cap, L = lanes.shape
     R = min(rep_capacity, cap) if rep_capacity else cap
     dev = lanes.device
-    perm = _lexsort_perm([((~active).long(), 1)] +
-                         [(lanes[:, j], 32) for j in range(L)])
-    s_lanes = lanes[perm]
-    s_active = active[perm]
+    lane_keys = [(lanes[:, j], 32) for j in range(L)]
+    if folded:
+        perm = _lexsort_perm(lane_keys)
+        s_lanes = lanes[perm]
+        s_active = s_lanes[:, 0] != _FOLD_SENTINEL
+    else:
+        perm = _lexsort_perm([((~active).long(), 1)] + lane_keys)
+        s_lanes = lanes[perm]
+        s_active = active[perm]
     s_payloads = tuple(p[perm] for p in payloads)
     head = _lane_runs(s_lanes, s_active)
     seg = (torch.cumsum(head, 0) - 1).to(torch.int32)
@@ -123,32 +135,31 @@ def sort_group(lanes: torch.Tensor, active: torch.Tensor,
         num_unique = torch.zeros((), dtype=torch.int32, device=dev)
     spos = torch.arange(cap, dtype=torch.int32, device=dev)
     ridx = torch.arange(R, dtype=torch.int32, device=dev)
-    # first (min-row) occurrence of each run: prefix-max of (seg,
-    # cap - perm) read at each run's LAST position
-    segc = seg.clamp(0, max(R - 1, 0)).long()
-    minwork = torch.where(s_active, cap - perm, 0)
-    cm = torch.cummax((segc << 32) | minwork, 0).values
-    rep_of_pos = (cap - (cm & 0xFFFFFFFF)).to(torch.int32)
     head_pos_of_seg = _scatter(R, cap, torch.where(head & (seg < R), seg, R)
                                .long(), spos)
     n_active = active.sum(dtype=torch.int32)
-    nxt = torch.cat([head_pos_of_seg[1:],
-                     torch.full((1,), cap, dtype=torch.int32, device=dev)])
     in_use = ridx < num_unique
-    last_pos = torch.where(ridx < num_unique - 1, nxt - 1, n_active - 1)
-    last_pos = torch.where(in_use, last_pos, 0).clamp(0, max(cap - 1, 0))
-    rep = torch.where(in_use, rep_of_pos[last_pos.long()], _I32MAX) \
-        if cap > 0 else torch.full((R,), _I32MAX, dtype=torch.int32,
-                                   device=dev)
+    # first (min-row) occurrence of each run: the sort is stable, so it is
+    # the row at the run's head (the JAX sort is unstable and recovers it
+    # with a packed cummax over the run). Runs past R fold into slot R - 1
+    # there, so that slot takes the smallest row of all of them.
+    if cap > 0:
+        rep = perm[head_pos_of_seg.clamp(0, cap - 1).long()]
+        rep[R - 1] = torch.where(s_active & (seg >= R - 1), perm, cap).min()
+        rep = torch.where(in_use, rep, _I32MAX).to(torch.int32)
+    else:
+        rep = torch.full((R,), _I32MAX, dtype=torch.int32, device=dev)
     # first-appearance rank: runs ordered by their first original row
     order = torch.argsort(rep, stable=True)          # gid -> seg
     gid_of_seg = torch.zeros((R,), dtype=torch.int32, device=dev)
     gid_of_seg[order] = ridx
     unique_rows = rep[order]
-    codes_sorted = gid_of_seg[seg.clamp(0, max(R - 1, 0)).long()]
-    codes = torch.zeros((cap,), dtype=torch.int32, device=dev)
-    codes[perm] = codes_sorted
-    codes = torch.where(active, codes, -1)
+    codes = None
+    if need_codes:
+        codes_sorted = gid_of_seg[seg.clamp(0, max(R - 1, 0)).long()]
+        codes = torch.zeros((cap,), dtype=torch.int32, device=dev)
+        codes[perm] = codes_sorted
+        codes = torch.where(active, codes, -1)
     head_pos = head_pos_of_seg[order]
     g = SortGroup(perm, s_active, head, seg, codes, gid_of_seg,
                   order.to(torch.int32), unique_rows, head_pos,

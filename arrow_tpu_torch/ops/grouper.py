@@ -12,7 +12,14 @@ counterpart of the JAX package's ``ops/grouper.py`` for fixed-width keys:
      (ops/distinct.sort_group); its unique representatives then
      sort-merge into the persistent lane-sorted table
      (ops/distinct.merge_insert): existing keys pick up their gid, new keys
-     get num_groups + rank.
+     get num_groups + rank. On an empty state (``first``) the table builds
+     directly from the batch's sort, and ``pack`` range-packs the key
+     lanes into fewer sort keys.
+
+The JAX package lets the original lanes ride the sort as payloads and
+scatters each run's head row into the rep table, because a TPU gather is
+slow; here the R rep rows are gathered through ``perm`` at the run heads
+(R x L elements instead of cap x L), which gives the same rows.
 
 Overflow (more groups than capacity) sets ``state.error`` (a deferred
 error, checked at the host boundary).
@@ -26,9 +33,10 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from ..core import datatype as dt
-from ..core.array import Array, row_mask
+from ..core.array import Array, resolve_device, row_mask
 from .bits import value_lanes32
-from .distinct import _scatter, merge_insert, sort_group
+from .bits import U32
+from .distinct import _FOLD_SENTINEL, merge_insert, sort_group
 
 __all__ = ["Grouper", "GrouperState", "group_key_lanes"]
 
@@ -99,6 +107,7 @@ class Grouper:
             self.num_lanes += width + (1 if nb else 0)
 
     def init_state(self, device=None) -> GrouperState:
+        device = resolve_device(device)
         S = self.table_size
         return GrouperState(
             table_lanes=torch.zeros((S, self.num_lanes), dtype=torch.int64,
@@ -108,11 +117,7 @@ class Grouper:
             error=torch.zeros((), dtype=torch.int32, device=device),
         )
 
-    def consume(self, state: GrouperState, keys: Sequence[Array],
-                length=None, active=None
-                ) -> Tuple[GrouperState, torch.Tensor]:
-        """Insert key rows; return (new_state, group_ids int32 (capacity,)).
-        Padding / inactive rows get group id -1."""
+    def _lanes_and_active(self, keys: Sequence[Array], length, active):
         cap = keys[0].capacity
         if length is None:
             length = keys[0].length
@@ -120,37 +125,111 @@ class Grouper:
         in_range = row_mask(cap, length, lanes.device)
         if active is not None:
             in_range = in_range & active
-        state, rep_gids, g = self.consume_lanes_grouped(state, lanes,
-                                                        in_range)
+        return lanes, in_range
+
+    def consume(self, state: GrouperState, keys: Sequence[Array],
+                length=None, active=None
+                ) -> Tuple[GrouperState, torch.Tensor]:
+        """Insert key rows; return (new_state, group_ids int32 (capacity,)).
+        Padding / inactive rows get group id -1."""
+        lanes, in_range = self._lanes_and_active(keys, length, active)
+        state, rep_gids, g, _ = self.consume_lanes_grouped(state, lanes,
+                                                           in_range)
         R = rep_gids.shape[0]
         row_gids = torch.where(
             g.codes >= 0, rep_gids[g.codes.clamp(0, max(R - 1, 0)).long()],
             -1)
         return state, row_gids.to(torch.int32)
 
+    def consume_with_group(self, state: GrouperState,
+                           keys: Sequence[Array], length=None, active=None,
+                           payloads=(), pack=None, first: bool = False,
+                           need_codes: bool = True):
+        """Like consume, but returns (new_state, rep_gids, SortGroup,
+        sorted_payloads) so callers can run segment-reduction aggregation
+        over the sorted batch (ops/segment) instead of row scatters.
+
+        ``pack``: optional (lo, shift, outmap, K, fold) range-packing of the
+        L key lanes into K < L sort lanes; lo / shift / outmap are (L,)
+        tensors on the keys' device (no host read), K and fold Python
+        values. Valid only when the caller verified on the host that the
+        per-bin bit totals fit (``HashAggregate.probe_route``). The
+        persistent table always stores the ORIGINAL lanes: packing only
+        shrinks this batch's sort key.
+
+        ``first``: the state is known empty, so the batch-local
+        first-appearance ids ARE the persistent gids and the (S + R)-row
+        merge-insert sort is skipped: the lane-sorted table builds directly
+        from this batch's sort."""
+        lanes, in_range = self._lanes_and_active(keys, length, active)
+        return self.consume_lanes_grouped(state, lanes, in_range,
+                                          payloads=payloads, pack=pack,
+                                          first=first, need_codes=need_codes)
+
     def consume_lanes_grouped(self, state: GrouperState,
-                              lanes: torch.Tensor, active: torch.Tensor):
-        """(new_state, rep_gids (R,), SortGroup): rep_gids maps the
-        batch-local first-appearance ids to persistent group ids."""
+                              lanes: torch.Tensor, active: torch.Tensor,
+                              payloads=(), pack=None, first: bool = False,
+                              need_codes: bool = True):
+        """(new_state, rep_gids (R,), SortGroup, sorted_payloads): rep_gids
+        maps the batch-local first-appearance ids to persistent group ids.
+        See ``consume_with_group`` for pack / first / need_codes."""
         cap, L = lanes.shape
         R = min(cap, self.table_size)
-        g, s_lanes = sort_group(lanes, active, rep_capacity=R,
-                                payloads=tuple(lanes[:, j]
-                                               for j in range(L)))
-        ridx = torch.arange(R, dtype=torch.int32, device=lanes.device)
+        dev = lanes.device
+        folded = False
+        sort_lanes = lanes
+        if pack is not None:
+            lo, shift, outmap, K, fold = pack
+            lo, shift, outmap = (x.to(dev) for x in (lo, shift, outmap))
+            cols = []
+            for k in range(K):
+                pk = torch.zeros((cap,), dtype=torch.int64, device=dev)
+                for j in range(L):
+                    # u32 arithmetic in int64: wrap after subtract and shift
+                    d = (lanes[:, j] - lo[j]) & U32
+                    pk |= torch.where(outmap[j] == k, (d << shift[j]) & U32,
+                                      0)
+                cols.append(pk)
+            if fold:
+                cols[0] = torch.where(active, cols[0], _FOLD_SENTINEL)
+                folded = True
+            sort_lanes = torch.stack(cols, dim=1)
+        g, s_payloads = sort_group(sort_lanes, active, rep_capacity=R,
+                                   payloads=tuple(payloads), folded=folded,
+                                   need_codes=need_codes)
+        del sort_lanes
+        ridx = torch.arange(R, dtype=torch.int32, device=dev)
         rep_active = ridx < torch.clamp(g.num_unique, max=R)
-        # rep lanes in first-appearance (gid) order via one unique scatter
-        segc = g.seg.clamp(0, max(R - 1, 0)).long()
-        rep_pos = torch.where(g.head & (g.seg < R), g.gid_of_seg[segc], R)
-        rep_lanes = _scatter(R, 0, rep_pos.long(),
-                             torch.stack(list(s_lanes), dim=1))
-        new_state, rep_gids = self._consume_lanes_table(state, rep_lanes,
-                                                        rep_active)
+
+        def head_lanes(head_pos, in_use):
+            """(n, L) original lanes of the rows at sorted positions
+            ``head_pos`` (cap = none), zero where not in use."""
+            rows = g.perm[head_pos.clamp(0, max(cap - 1, 0)).long()]
+            return torch.where(in_use[:, None], lanes[rows], 0)
+
+        if first:
+            S = self.table_size
+            rep_gids = torch.where(rep_active, ridx, -1).to(torch.int32)
+            # lane-sorted table directly from this batch's sort: run s in
+            # slot s
+            table_lanes = torch.zeros((S, L), dtype=torch.int64, device=dev)
+            table_lanes[:R] = head_lanes(g.head_pos_seg, rep_active)
+            gid_pad = torch.full((S,), -1, dtype=torch.int32, device=dev)
+            gid_pad[:R] = torch.where(ridx < g.num_unique, g.gid_of_seg, -1)
+            num_groups = torch.clamp(g.num_unique, max=R)
+            error = state.error | torch.where(
+                g.num_unique > self.max_groups, 1, 0).to(torch.int32)
+            new_state = GrouperState(table_lanes, gid_pad, num_groups, error)
+        else:
+            # rep lanes in first-appearance (gid) order
+            rep_lanes = head_lanes(g.head_pos, rep_active)
+            new_state, rep_gids = self._consume_lanes_table(state, rep_lanes,
+                                                            rep_active)
         overflow = torch.where(g.num_unique > R, 4, 0).to(torch.int32)
         new_state = GrouperState(new_state.table_lanes, new_state.table_gid,
                                  new_state.num_groups,
                                  new_state.error | overflow)
-        return new_state, rep_gids, g
+        return new_state, rep_gids, g, s_payloads
 
     def _consume_lanes_table(self, state: GrouperState, lanes: torch.Tensor,
                              active: torch.Tensor):
@@ -165,6 +244,43 @@ class Grouper:
         return (GrouperState(new_lanes, new_gid, num_groups, error),
                 rep_gids)
 
+    def uniques_scatter_reps(self, keys: Sequence[Array], g, rep_gids,
+                             uniques: Optional[Sequence[Array]] = None
+                             ) -> List[Array]:
+        """uniques_scatter specialized to first-appearance representatives:
+        one write per distinct key (unique indices), not per row."""
+        cap = keys[0].capacity
+        R = rep_gids.shape[0]
+        dev = rep_gids.device
+        rep_rows = g.unique_rows[:R].clamp(0, max(cap - 1, 0)).long()
+        ridx = torch.arange(R, dtype=torch.int32, device=dev)
+        rep_active = ridx < torch.clamp(g.num_unique, max=R)
+        pos = torch.where(rep_active & (rep_gids >= 0), rep_gids,
+                          self.max_groups).long()
+        return [self._scatter_unique(k, uniques, i, pos, k.values[rep_rows],
+                                     k.validity_or_true()[rep_rows])
+                for i, k in enumerate(keys)]
+
+    def _scatter_unique(self, k: Array, uniques, i: int, pos: torch.Tensor,
+                        vals_src: torch.Tensor, valid_src: torch.Tensor
+                        ) -> Array:
+        """Key column ``i``'s unique buffer (max_groups rows) with
+        ``vals_src`` / ``valid_src`` written at ``pos``; position max_groups
+        is the dump slot."""
+        if k.type.is_varlen:
+            raise NotImplementedError("unique buffers of varlen keys")
+        G = self.max_groups
+        if uniques is None:
+            vals = torch.zeros((G,), dtype=k.values.dtype, device=k.device)
+            valid = torch.zeros((G,), dtype=torch.bool, device=k.device)
+        else:
+            vals = uniques[i].values
+            valid = uniques[i].validity_or_true()
+        vals = torch.cat([vals, vals[:1]]).index_copy_(0, pos, vals_src)[:G]
+        valid = torch.cat([valid, valid[:1]]).index_copy_(
+            0, pos, valid_src)[:G]
+        return Array(k.type, vals, valid)
+
     def uniques_scatter(self, keys: Sequence[Array],
                         group_ids: torch.Tensor,
                         uniques: Optional[Sequence[Array]] = None
@@ -172,20 +288,7 @@ class Grouper:
         """Scatter this batch's key values into per-group unique buffers
         (GetUniques building block); capacity = max_groups. Rows with a
         negative group id go to the dump slot."""
-        G = self.max_groups
-        pos = torch.where(group_ids >= 0, group_ids, G).long()
-        out = []
-        for i, k in enumerate(keys):
-            dev = k.device
-            if uniques is None:
-                vals = torch.zeros((G,), dtype=k.values.dtype, device=dev)
-                valid = torch.zeros((G,), dtype=torch.bool, device=dev)
-            else:
-                vals = uniques[i].values
-                valid = uniques[i].validity_or_true()
-            vals = torch.cat([vals, vals[:1]]).index_copy_(
-                0, pos, k.values)[:G]
-            valid = torch.cat([valid, valid[:1]]).index_copy_(
-                0, pos, k.validity_or_true())[:G]
-            out.append(Array(k.type, vals, valid))
-        return out
+        pos = torch.where(group_ids >= 0, group_ids, self.max_groups).long()
+        return [self._scatter_unique(k, uniques, i, pos, k.values,
+                                     k.validity_or_true())
+                for i, k in enumerate(keys)]

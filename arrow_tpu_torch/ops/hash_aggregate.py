@@ -2,13 +2,20 @@
 
 Reference: ``GroupByNode`` (``acero/groupby_aggregate_node.cc``; Consume
 :210, Merge :255, Finalize :300). The counterpart of the JAX package's
-``ops/hash_aggregate.py``; this package has its dense-domain route: one
-probe of the key range on the host picks "dense" when the single integer
-key spans a small domain, and ``consume_dense`` then reduces every
-aggregate in one pass of the ``dense_group_reduce`` CUDA kernel and folds
-the per-slot partials into the state through ``merge_rows``. The generic
-and packed sort-grouping consume routes come later; a route this package
-does not run raises ``NotImplementedError`` in its caller.
+``ops/hash_aggregate.py``. One probe of the key range on the host picks
+the route (``probe_route``):
+
+  * "dense" when the single integer key spans a small domain:
+    ``consume_dense`` reduces every aggregate in one pass of the
+    ``dense_group_reduce`` CUDA kernel and folds the per-slot partials into
+    the state through ``merge_rows``;
+  * "packed" / "generic": ``consume`` sort-groups the batch by key (the key
+    lanes range-packed into fewer sort keys where the probe allows), runs
+    the grouper table over the unique reps and segment-reduces every
+    aggregate (``ops/segment``).
+
+A route this package does not run (the sorted dense reduction) raises
+``NotImplementedError`` in its caller.
 """
 
 from __future__ import annotations
@@ -19,13 +26,14 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..core.array import Array, row_mask
+from ..core.array import Array, resolve_device, row_mask
 from ..core.batch import Batch
 from ..core.schema import Field, Schema
-from .aggregates import make_grouped_aggregator
+from .aggregates import GroupedAggregator, make_grouped_aggregator
 from .bits import U32
 from .cuda_kernels import dense_group_reduce
 from .grouper import Grouper, GrouperState, group_key_lanes
+from .segment import make_segment_context
 
 __all__ = ["AggregateSpec", "HashAggregate"]
 
@@ -114,6 +122,7 @@ class HashAggregate:
 
     # -- state: (grouper_state, tuple(agg_states), tuple(unique key Arrays))
     def init_state(self, device=None):
+        device = resolve_device(device)
         return (self.grouper.init_state(device),
                 tuple(a.init(device) for a in self._aggregators), None)
 
@@ -125,6 +134,7 @@ class HashAggregate:
         states (nested tuples of arrays); the uniques (Arrays with
         .values / .validity, or None)."""
         gs, aggs, uniques = leaves
+        device = resolve_device(device)
 
         def t(x):
             return torch.from_numpy(np.array(x)).to(device)
@@ -142,6 +152,64 @@ class HashAggregate:
                              None if u.validity is None else t(u.validity))
                        for u, f in zip(uniques, self.key_fields))
         return (grouper_state, conv(tuple(aggs)), us)
+
+    def consume(self, state, batch: Batch, pack_arrays=None,
+                pack_static=None, first: bool = False):
+        """One pass: sort-group the batch by key (one sort), run the
+        grouper table over the unique reps, then segment-reduce every
+        aggregate (ops/segment): the only row-granular ops are the sort,
+        the gathers through its permutation and the run reductions; every
+        state update writes one element per distinct group.
+
+        ``pack_arrays`` ((lo, shift, outmap) tensors) + ``pack_static``
+        ((K, fold)): per-batch sort-key range packing; ``first``: the
+        empty-state path (skips the merge-insert table sort). Both come
+        from the host routing of ``probe_route``."""
+        pack = None
+        if pack_arrays is not None:
+            pack = (pack_arrays[0], pack_arrays[1], pack_arrays[2],
+                    pack_static[0], pack_static[1])
+        grouper_state, agg_states, uniques = state
+        key_cols = [batch.column(k) for k in self.keys]
+        # aggregate input columns come back in sorted order with the sort,
+        # once per column however many aggregates read it
+        payload_plan = []   # (buffer id, has_validity)
+        payloads = []
+        for spec in self.aggs:
+            if len(spec.targets) != 1:
+                continue
+            col = batch.column(spec.targets[0])
+            key = id(col.values)
+            if any(key == k for k, _ in payload_plan):
+                continue
+            payload_plan.append((key, col.validity is not None))
+            payloads.append(col.values)
+            if col.validity is not None:
+                payloads.append(col.validity)
+        # the per-row group ids (codes) are only needed by aggregators
+        # without a segment-consume override
+        need_codes = any(
+            type(a).consume_grouped is GroupedAggregator.consume_grouped
+            for a in self._aggregators)
+        grouper_state, rep_gids, g, s_payloads = \
+            self.grouper.consume_with_group(
+                grouper_state, key_cols, length=batch.length,
+                payloads=tuple(payloads), pack=pack, first=first,
+                need_codes=need_codes)
+        sorted_cols = {}
+        it = iter(s_payloads)
+        for key, has_valid in payload_plan:
+            v_sorted = next(it)
+            sorted_cols[key] = (v_sorted, next(it) if has_valid else None)
+        ctx = make_segment_context(g, rep_gids, sorted_cols)
+        uniques = tuple(self.grouper.uniques_scatter_reps(
+            key_cols, g, rep_gids, uniques))
+        new_agg_states = []
+        for spec, agg, st in zip(self.aggs, self._aggregators, agg_states):
+            ts = spec.targets
+            values = batch.column(ts[0]) if ts else None
+            new_agg_states.append(agg.consume_grouped(st, values, ctx))
+        return (grouper_state, tuple(new_agg_states), uniques)
 
     # ------------------------------------------------------------------
     # Dense-domain route (the reference's GrouperFastImpl specialization,
@@ -195,7 +263,8 @@ class HashAggregate:
         """Host routing from fetched ``probe_scalars``: ("dense", cfg) |
         ("packed", params) | ("generic", None), as the JAX package routes.
         ``params`` = (lo, shift, outmap, K, fold) packs the key lanes into
-        K 32-bit sort keys (first-fit decreasing)."""
+        K 32-bit sort keys (first-fit decreasing); its three tensors lie on
+        the batch's device."""
         if "dlo" in vals:
             lo, hi = int(vals["dlo"]), int(vals["dhi"])
             if hi >= lo:
@@ -241,9 +310,10 @@ class HashAggregate:
                 break
         if K + (0 if fold else 1) >= L + 1 or K > 2:
             return ("generic", None)
-        return ("packed", (torch.from_numpy(los.astype(np.int64)),
-                           torch.from_numpy(shifts.astype(np.int64)),
-                           torch.from_numpy(outmap.astype(np.int32)),
+        dev = batch.device
+        return ("packed", (torch.from_numpy(los.astype(np.int64)).to(dev),
+                           torch.from_numpy(shifts.astype(np.int64)).to(dev),
+                           torch.from_numpy(outmap.astype(np.int32)).to(dev),
                            K, fold))
 
     def consume_dense(self, state, batch: Batch, lo, G: int,

@@ -1,13 +1,22 @@
 """Selection kernels: filter / take / indices-from-mask.
 
 Reference: ``cpp/src/arrow/compute/kernels/vector_selection*.cc``; the
-counterpart of the JAX package's ``ops/selection.py``. A fixed-width batch
-filters in ONE pass of the stream-compaction kernel
-(``cuda_kernels.filter_compact_chunks``): every column's bytes sit side by
-side as (cap, C) u8 planes and compact together (the JAX package's
-``_filter_batch_dma`` path). ``filter_array`` and the take functions use
-the scatter form of ``get_take_indices``. All paths give the same rows in
-the same order.
+counterpart of the JAX package's ``ops/selection.py``, with its two kernel
+routes under their JAX names:
+
+  * ``impl="dma"`` (``filter_batch``'s default): a fixed-width batch filters
+    in ONE pass of the stream-compaction kernel
+    (``cuda_kernels.filter_compact_chunks``): every column's bytes sit side
+    by side as (cap, C) u8 planes and compact together (the JAX package's
+    ``_filter_batch_dma`` path).
+  * ``impl="pallas"``: take indices, then ``take_batch``.
+    ``get_take_indices`` compacts each 1024-row tile of the selection with
+    ``cuda_kernels.tile_compact_local`` (level 1) and stitches the tiles
+    with ``rows_of_positions`` and two gathers (level 2, the JAX
+    package's ``_pallas_take_indices``). ``filter_array`` and the take
+    functions run on it too.
+
+All paths give the same rows in the same order.
 
 Outputs keep the input capacity; ``length`` is the number of selected rows
 (a 0-d tensor on the device). Padding rows are unspecified.
@@ -23,10 +32,13 @@ from ..core import datatype as dt
 from ..core.array import Array
 from ..core.batch import Batch
 from ..compute.registry import Kind, NullHandling, register_function
-from .cuda_kernels import filter_compact_chunks
+from .cuda_kernels import TILE_ROWS, filter_compact_chunks, \
+    tile_compact_local
+from .segment import _scatter
 
 __all__ = ["FilterOptions", "TakeOptions", "get_take_indices", "take_array",
-           "filter_array", "take_batch", "filter_batch"]
+           "filter_array", "take_batch", "filter_batch",
+           "rows_of_positions"]
 
 
 class FilterOptions:
@@ -60,27 +72,93 @@ def _selection_mask(mask: Array, null_selection: str):
     return sel, emit_valid, out_len
 
 
+def rows_of_positions(new_off: torch.Tensor, out_cap: int) -> torch.Tensor:
+    """(out_cap,) int32 source-row index per output position p: the r with
+    ``new_off[r] <= p < new_off[r+1]`` (-1 before the first non-empty row,
+    junk past the total: clamp before use).
+
+    The JAX package scatters each non-empty row's id at its start and
+    forward-fills with a cummax. ``torch.cummax`` also tracks indices and
+    is far slower on the card than a cumsum (``PERF.md`` has both times),
+    so the fill is a cumsum here: each non-empty row scatters its id MINUS
+    the id of the non-empty row before it, and the running sum of those
+    steps is the row id. Same values."""
+    dev = new_off.device
+    starts = new_off[:-1]
+    nonempty = new_off[1:] > starts
+    n = starts.shape[0]
+    ridx = torch.arange(n, dtype=torch.int32, device=dev)
+    # id of the non-empty row before each row: compact the non-empty ids
+    # by their rank, then read rank - 2 (-1 where there is none)
+    rank = torch.cumsum(nonempty, 0)
+    ids = _scatter(n, -1, torch.where(nonempty, rank - 1, n), ridx)
+    before = torch.where(rank >= 2, ids[(rank - 2).clamp_(0)], -1)
+    pos = torch.where(nonempty, starts, out_cap).long()  # empty rows: dropped
+    steps = _scatter(out_cap, 0, pos, ridx - before)
+    return torch.cumsum(steps, 0, dtype=torch.int32) - 1
+
+
+def _tile_take_indices(sel: torch.Tensor, emit_valid):
+    """Level 1: ``tile_compact_local`` over the selection, padded with
+    unselected rows to a multiple of 1024. Level 2: per-tile counts ->
+    exclusive prefix sum = each tile's start in the output;
+    ``rows_of_positions`` sends every output position to its source tile,
+    and one gather stitches the tile-local indices into global take
+    indices. No host read: the count stays on the device."""
+    cap = sel.shape[0]
+    dev = sel.device
+    pad = (-cap) % TILE_ROWS
+    if pad:
+        sel = torch.cat([sel, torch.zeros((pad,), dtype=torch.bool,
+                                          device=dev)])
+    T = sel.shape[0] // TILE_ROWS
+    loc, counts = tile_compact_local(sel)
+    starts = torch.cat([torch.zeros((1,), dtype=torch.int32, device=dev),
+                        torch.cumsum(counts, 0, dtype=torch.int32)])
+    # at most cap rows are selected, so cap output positions suffice
+    tile_of = rows_of_positions(starts, cap).clamp_(0, T - 1)
+    j = torch.arange(cap, dtype=torch.int32, device=dev)
+    live = j < starts[-1]
+    within = (j - starts[tile_of.long()]).clamp_(0, TILE_ROWS - 1)
+    base = tile_of * TILE_ROWS
+    del tile_of
+    indices = base + loc[(base + within).long()]
+    indices = torch.where(live, indices, 0)      # padding stays in range
+    validity = None
+    if emit_valid is not None:
+        validity = emit_valid[indices.long()] | ~live
+    return indices, validity
+
+
+def _scatter_take_indices(sel: torch.Tensor, emit_valid):
+    """The scatter form (the JAX package's CPU default): each selected row
+    goes to its rank, slot ``cap`` is the dump. The reference the tests
+    hold the tile route against; no entry point takes it."""
+    cap = sel.shape[0]
+    dev = sel.device
+    pos = torch.where(sel, torch.cumsum(sel, 0) - 1, cap)
+    iota = torch.arange(cap, dtype=torch.int32, device=dev)
+    indices = _scatter(cap, 0, pos, iota)
+    validity = None
+    if emit_valid is not None:
+        validity = _scatter(cap, True, pos, emit_valid)
+    return indices, validity
+
+
 def get_take_indices(mask: Array,
                      null_selection: str = FilterOptions.DROP) -> Array:
-    """Filter mask -> int32 take indices (length = selected count), by one
-    scatter of each selected row to its rank (slot ``cap`` is the dump).
+    """Filter mask -> int32 take indices (length = selected count; rows
+    past it hold 0), through ``tile_compact_local`` on either device.
 
     DROP: selected = valid & true. EMIT_NULL: null mask slots are selected
     too but yield a null index (validity=False) so takes produce null rows.
     """
-    cap = mask.capacity
-    dev = mask.device
     sel, emit_valid, out_len = _selection_mask(mask, null_selection)
-    pos = torch.where(sel, torch.cumsum(sel, 0) - 1, cap)
-    iota = torch.arange(cap, dtype=torch.int32, device=dev)
-    indices = torch.zeros((cap + 1,), dtype=torch.int32, device=dev)
-    indices.index_copy_(0, pos, iota)
-    validity = None
-    if emit_valid is not None:
-        validity = torch.ones((cap + 1,), dtype=torch.bool, device=dev)
-        validity.index_copy_(0, pos, emit_valid)
-        validity = validity[:cap]
-    return Array(dt.int32, indices[:cap], validity, length=out_len)
+    if mask.capacity == 0:
+        return Array(dt.int32, sel.to(torch.int32), emit_valid,
+                     length=out_len)
+    indices, validity = _tile_take_indices(sel, emit_valid)
+    return Array(dt.int32, indices, validity, length=out_len)
 
 
 def _gather_validity(values: Array, idx: torch.Tensor,
@@ -175,8 +253,17 @@ def _filter_batch_chunks(b: Batch, mask: Array,
 
 
 def filter_batch(b: Batch, mask: Array,
-                 options: Optional[FilterOptions] = None) -> Batch:
+                 options: Optional[FilterOptions] = None,
+                 impl: str = "dma") -> Batch:
+    """Rows of ``b`` where ``mask`` selects. ``impl`` names the route as the
+    JAX package does: "dma" compacts the byte planes in one kernel pass,
+    "pallas" builds take indices and gathers every column."""
     opts = options or FilterOptions()
+    if impl == "pallas":
+        return take_batch(b, get_take_indices(
+            mask, opts.null_selection_behavior))
+    if impl != "dma":
+        raise ValueError(f"filter_batch impl {impl!r}: 'dma' or 'pallas'")
     for i in range(b.num_columns):
         t = b.column(i).type
         if t.is_varlen or t.is_nested or isinstance(

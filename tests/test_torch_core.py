@@ -35,7 +35,7 @@ def _cols(n, seed=0):
 def test_batch_from_numpy_matches_jax_batch():
     cols = _cols(777)
     jb = at.batch(cols)
-    tb = att.batch_from_numpy(cols)
+    tb = att.batch_from_numpy(cols, device="cpu")
     assert str(tb.schema) == str(jb.schema)
     assert tb.capacity == jb.capacity == 777 and len(tb) == 777
     for name in cols:
@@ -48,7 +48,7 @@ def test_batch_from_numpy_matches_jax_batch():
 def test_array_from_numpy_capacity_validity_and_constructors():
     vals = np.arange(10, dtype=np.int32)
     valid = np.arange(10) % 3 != 0
-    a = att.array(vals, validity=valid, capacity=16)
+    a = att.array(vals, validity=valid, capacity=16, device="cpu")
     assert a.capacity == 16 and len(a) == 10
     assert a.type == dt.int32
     assert a.null_count() == 4
@@ -56,9 +56,10 @@ def test_array_from_numpy_capacity_validity_and_constructors():
     np.testing.assert_array_equal(a.present_mask().numpy()[:10], valid)
     assert a.to_pylist() == [None if i % 3 == 0 else i for i in range(10)]
     with pytest.raises(ValueError):
-        att.array(vals, capacity=5)
-    assert att.nulls(3, dt.float32).to_pylist() == [None] * 3
-    assert att.full(4, 7, dt.int64, capacity=8).to_pylist() == [7] * 4
+        att.array(vals, capacity=5, device="cpu")
+    assert att.nulls(3, dt.float32, device="cpu").to_pylist() == [None] * 3
+    assert att.full(4, 7, dt.int64, capacity=8,
+                    device="cpu").to_pylist() == [7] * 4
     # a device length (0-d tensor) works wherever an int does
     b = a.with_length(torch.tensor(5))
     assert len(b) == 5 and b.row_mask().sum().item() == 5
@@ -74,13 +75,13 @@ def test_array_from_numpy_capacity_validity_and_constructors():
 ])
 def test_pyarrow_round_trip_with_nulls_vs_jax(pa_type, values):
     pa_arr = pa.array(values, type=pa_type)
-    ta = array_from_pyarrow(pa_arr)
+    ta = array_from_pyarrow(pa_arr, device="cpu")
     ja = at.array(pa_arr)
     assert ta.capacity == ja.capacity == pad_capacity(len(values))
     _same(array_to_pyarrow(ta), ja.to_pyarrow())
     _same(ta.to_pyarrow(), pa_arr)
     # sliced input (non-zero offset) keeps its rows
-    _same(array_from_pyarrow(pa_arr.slice(1, 3)).to_pyarrow(),
+    _same(array_from_pyarrow(pa_arr.slice(1, 3), device="cpu").to_pyarrow(),
           pa_arr.slice(1, 3))
 
 
@@ -93,16 +94,16 @@ def test_batch_pyarrow_round_trip_vs_jax():
                       mask=rng.random(n) < 0.2),
         "b": pa.array(rng.random(n) < 0.5, mask=rng.random(n) < 0.2),
     })
-    tb = batch_from_pyarrow(rb)
+    tb = batch_from_pyarrow(rb, device="cpu")
     jb = at.Batch.from_pyarrow(rb)
     assert tb.capacity == jb.capacity == 512
     assert tb.to_pyarrow().equals(jb.to_pyarrow())
     assert tb.to_pyarrow().equals(rb)
-    assert att.Batch.from_pyarrow(pa.Table.from_batches([rb])) \
+    assert att.Batch.from_pyarrow(pa.Table.from_batches([rb]), device="cpu") \
         .to_pyarrow().equals(rb)
     # batch() takes pyarrow, numpy and Arrays column by column
     mixed = att.batch({"k": rb["k"], "n": np.arange(n),
-                       "a": tb["v"]}, capacity=512)
+                       "a": tb["v"]}, capacity=512, device="cpu")
     assert mixed.capacity == 512 and len(mixed) == n
     assert mixed.to_pyarrow().column("k").equals(rb["k"])
     assert mixed.to_pyarrow().column("n").to_pylist() == list(range(n))
@@ -114,9 +115,9 @@ def test_batch_accessors_and_device_moves():
     assert tb["v"].type == dt.float32
     with pytest.raises(KeyError):
         tb.column("nope")
-    nb = tb.set_column("k", att.array(np.ones(40, np.int32)))
+    nb = tb.set_column("k", att.array(np.ones(40, np.int32), device="cpu"))
     assert nb["k"].type == dt.int32 and nb.num_columns == 6
-    nb = tb.set_column("z", att.array(np.ones(40, np.int32)))
+    nb = tb.set_column("z", att.array(np.ones(40, np.int32), device="cpu"))
     assert nb.column_names[-1] == "z"
     moved = tb.with_length(torch.tensor(10)).to("cpu")
     assert len(moved) == 10 and moved.device.type == "cpu"

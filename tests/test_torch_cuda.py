@@ -38,6 +38,34 @@ def test_filter_compact_chunks_kernel_vs_plain(cuda_device, cap, C, p):
     assert torch.equal(got[:n], want[:n])
 
 
+@pytest.mark.parametrize("cap,p", [(1024, 0.5), (1024, 0.0), (1024, 1.0),
+                                   (1 << 20, 0.5), (1 << 20, 0.001),
+                                   (1 << 20, 0.999), (3 * 1024, 0.3)])
+def test_tile_compact_local_kernel_vs_plain(cuda_device, cap, p):
+    g = torch.Generator(device=cuda_device).manual_seed(cap)
+    sel = torch.rand(cap, generator=g, device=cuda_device) < p
+    before = ck.LAUNCHES["tile_compact_local"]
+    loc, counts = ck.tile_compact_local(sel)
+    assert ck.LAUNCHES["tile_compact_local"] == before + 1
+    ploc, pcounts = ck.tile_compact_local_plain(sel)
+    assert torch.equal(counts, pcounts)
+    assert torch.equal(loc, ploc)          # zeros past each tile's count too
+
+
+def test_get_take_indices_on_card_matches_nonzero(cuda_device):
+    from arrow_tpu_torch.core import datatype as dt
+    from arrow_tpu_torch.core.array import Array
+    from arrow_tpu_torch.ops.selection import get_take_indices
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    for cap in (1000, 1024, 1_000_003):
+        sel = torch.rand(cap, generator=g, device=cuda_device) < 0.4
+        idx = get_take_indices(Array(dt.bool_, sel))
+        want = torch.nonzero(sel).flatten()
+        assert int(idx.length) == want.shape[0]
+        assert torch.equal(idx.values[:want.shape[0]].long(), want)
+        assert not idx.values[want.shape[0]:].any()
+
+
 @pytest.mark.parametrize("G", [128, 1024, 4096])
 def test_dense_group_reduce_kernel_vs_plain(cuda_device, G):
     g = torch.Generator(device=cuda_device).manual_seed(G)
@@ -112,7 +140,8 @@ def test_entry_slice_on_card_matches_cpu(cuda_device):
     ck.reset_launch_counts()
     step, args = entry(cuda_device, 200_000, 1000, 3)
     got = step(*args)
-    assert all(v == 1 for v in ck.LAUNCHES.values())
+    assert ck.LAUNCHES["filter_compact_chunks"] == 1
+    assert ck.LAUNCHES["dense_group_reduce"] == 1
     cstep, cargs = entry("cpu", 200_000, 1000, 3)
     want = cstep(*cargs)
     n = len(want)
@@ -122,5 +151,27 @@ def test_entry_slice_on_card_matches_cpu(cuda_device):
         b = want.column(c).values[:n].numpy()
         if c == "v_sum":
             np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-3)
+        else:
+            np.testing.assert_array_equal(a, b, err_msg=c)
+
+
+def test_entry_generic_slice_on_card_matches_cpu(cuda_device):
+    """The take-index filter and the sort-grouping consume on the card,
+    with no device named (the default is the card)."""
+    from arrow_tpu_torch.entry import entry_generic
+    ck.reset_launch_counts()
+    step, args = entry_generic(None, 300_000, 50_000, 3, 1 << 16)
+    assert args[0].device.type == "cuda"
+    got = step(*args)
+    assert ck.LAUNCHES["tile_compact_local"] == 1
+    cstep, cargs = entry_generic("cpu", 300_000, 50_000, 3, 1 << 16)
+    want = cstep(*cargs)
+    n = len(want)
+    assert len(got) == n
+    for c in want.column_names:
+        a = got.column(c).values[:n].cpu().numpy()
+        b = want.column(c).values[:n].numpy()
+        if c == "v_sum":        # the two devices may add in another order
+            np.testing.assert_allclose(a, b, rtol=0, atol=1e-10)
         else:
             np.testing.assert_array_equal(a, b, err_msg=c)

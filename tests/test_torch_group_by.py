@@ -190,7 +190,7 @@ def test_hash_aggregate_dense_route_vs_jax():
     rng = np.random.default_rng(21)
     rb = _record_batch(rng, 2500, -40, 60)
     jb = at.Batch.from_pyarrow(rb)
-    tb = batch_from_pyarrow(rb)
+    tb = batch_from_pyarrow(rb, device="cpu")
     jha = JHashAggregate(jb.schema, ["k"], _specs(True), max_groups=256)
     tha = HashAggregate(tb.schema, ["k"], _specs(False), max_groups=256)
     assert tha.dense_static_ok() and jha.dense_static_ok()
@@ -200,15 +200,15 @@ def test_hash_aggregate_dense_route_vs_jax():
         np.testing.assert_array_equal(tvals[k], np.asarray(jvals[k]), k)
     assert tha.probe_route(tb, tvals) == jha.probe_route(jb, jvals)
     want = jha.finalize(_jax_consume(jha, jha.init_state(), jb))
-    got = tha.finalize(consume_routed(tha, tha.init_state(), tb))
+    got = tha.finalize(consume_routed(tha, tha.init_state("cpu"), tb))
     assert int(got.length) == int(want.length)
     _assert_same_table(got.to_pyarrow(), want.to_pyarrow(), [rb])
     # a second batch folds into the same state (merge_rows with a table)
     rb2 = _record_batch(rng, 1000, -20, 80)
     jst = _jax_consume(jha, _jax_consume(jha, jha.init_state(), jb),
                        at.Batch.from_pyarrow(rb2))
-    tst = consume_routed(tha, consume_routed(tha, tha.init_state(), tb),
-                         batch_from_pyarrow(rb2))
+    tst = consume_routed(tha, consume_routed(tha, tha.init_state("cpu"), tb),
+                         batch_from_pyarrow(rb2, device="cpu"))
     _assert_same_table(tha.finalize(tst).to_pyarrow(),
                        jha.finalize(jst).to_pyarrow(), [rb, rb2])
 
@@ -222,14 +222,14 @@ def test_hash_aggregate_carried_state_jax_to_port():
     second = _record_batch(rng, 1500, 30, 110, nan=False)
     jb1, jb2 = at.Batch.from_pyarrow(first), at.Batch.from_pyarrow(second)
     jha = JHashAggregate(jb1.schema, ["k"], _specs(True), max_groups=512)
-    tha = HashAggregate(batch_from_pyarrow(first).schema, ["k"],
+    tha = HashAggregate(batch_from_pyarrow(first, device="cpu").schema, ["k"],
                         _specs(False), max_groups=512)
     jst1 = _jax_consume(jha, jha.init_state(), jb1)
     want = jha.finalize(_jax_consume(jha, jst1, jb2)).to_pyarrow()
     leaves = jax.tree_util.tree_map(np.asarray, jst1)
-    tst = tha.state_from_numpy(leaves)
+    tst = tha.state_from_numpy(leaves, device="cpu")
     assert int(tst[0].num_groups) == int(jst1[0].num_groups)
-    tst = consume_routed(tha, tst, batch_from_pyarrow(second))
+    tst = consume_routed(tha, tst, batch_from_pyarrow(second, device="cpu"))
     _assert_same_table(tha.finalize(tst).to_pyarrow(), want,
                        [first, second])
 
@@ -237,12 +237,14 @@ def test_hash_aggregate_carried_state_jax_to_port():
 def test_consume_routed_raises_for_routes_not_ported():
     rb = pa.record_batch({"k": pa.array(np.arange(0, 50000, 7)),
                           "v": pa.array(np.ones(7143, np.float32))})
-    tb = batch_from_pyarrow(rb)
+    tb = batch_from_pyarrow(rb, device="cpu")
     tha = HashAggregate(tb.schema, ["k"], [AggregateSpec("sum", "v")],
                         max_groups=1 << 16)
     with pytest.raises(NotImplementedError, match="sorted"):
-        consume_routed(tha, tha.init_state(), tb)
+        consume_routed(tha, tha.init_state("cpu"), tb)
+    # the sort-grouping routes run: 7143 distinct keys into 1024 slots
+    # leave the deferred error flag set
     tha = HashAggregate(tb.schema, ["k"], [AggregateSpec("sum", "v")],
                         max_groups=1024)
-    with pytest.raises(NotImplementedError, match="packed|generic"):
-        consume_routed(tha, tha.init_state(), tb)
+    st = consume_routed(tha, tha.init_state("cpu"), tb)
+    assert int(st[0].error) != 0

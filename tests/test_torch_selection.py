@@ -50,7 +50,7 @@ def test_filter_compact_chunks_any_capacity():
 
 def test_filter_batch_zero_capacity():
     b = att.batch_from_numpy({"k": np.zeros(0, np.int64),
-                              "b": np.zeros(0, np.bool_)})
+                              "b": np.zeros(0, np.bool_)}, device="cpu")
     out = tsel.filter_batch(b, call_function("greater", [b["k"], 0]))
     assert len(out) == 0 and out.to_pydict() == {"k": [], "b": []}
 
@@ -84,8 +84,8 @@ def test_filter_batch_vs_jax(monkeypatch, impl, behavior, n, cap):
     jb = at.Batch.from_pyarrow(rb, capacity=cap)
     jm = at.array(m, capacity=cap)
     want = jsel.filter_batch(jb, jm, jsel.FilterOptions(behavior))
-    tb = batch_from_pyarrow(rb, capacity=cap)
-    tm = array_from_pyarrow(m, capacity=cap)
+    tb = batch_from_pyarrow(rb, capacity=cap, device="cpu")
+    tm = array_from_pyarrow(m, capacity=cap, device="cpu")
     got = tsel.filter_batch(tb, tm, tsel.FilterOptions(behavior))
     assert got.capacity == cap
     assert int(got.length) == int(want.length)
@@ -97,7 +97,7 @@ def test_take_indices_filter_array_and_take_vs_jax(behavior):
     rng = np.random.default_rng(3)
     rb, m = _table(900, rng)
     jm = at.array(m, capacity=1024)
-    tm = array_from_pyarrow(m, capacity=1024)
+    tm = array_from_pyarrow(m, capacity=1024, device="cpu")
     jidx = jsel.get_take_indices(jm, behavior)
     tidx = tsel.get_take_indices(tm, behavior)
     n = int(jidx.length)
@@ -107,7 +107,8 @@ def test_take_indices_filter_array_and_take_vs_jax(behavior):
     assert tidx.to_pyarrow().equals(jidx.to_pyarrow())
     for name in rb.schema.names:
         ja = at.array(rb.column(name), capacity=1024)
-        ta = array_from_pyarrow(rb.column(name), capacity=1024)
+        ta = array_from_pyarrow(rb.column(name), capacity=1024,
+                                device="cpu")
         opts = jsel.FilterOptions(behavior)
         want = jsel.filter_array(ja, jm, opts)
         got = call_function("filter", [ta, tm],

@@ -1,23 +1,31 @@
-"""Port parity for the whole slice: ``arrow_tpu_torch.entry``'s step
-against the chain the JAX AggregateNode runs on the same numpy data —
-execute_scalar_expression -> filter_batch -> probe_scalars -> probe_route
-(dense, impl "pallas") -> consume_dense -> finalize.
+"""Port parity for the whole slices.
 
-Same groups in the same first-appearance order; keys, counts, int64 sums
-and mins and f32 mins exact; f32 sums within |diff| <= 1e-5 * sum(|v|) +
-1e-6 per group.
+``arrow_tpu_torch.entry.entry``'s step against the chain the JAX
+AggregateNode runs on the same numpy data — execute_scalar_expression ->
+filter_batch -> probe_scalars -> probe_route (dense, impl "pallas") ->
+consume_dense -> finalize. Same groups in the same first-appearance order;
+keys, counts, int64 sums and mins and f32 mins exact; f32 sums within
+|diff| <= 1e-5 * sum(|v|) + 1e-6 per group.
+
+``entry_generic``'s step against the JAX package's own flagship step
+(``__graft_entry__.entry()``: float64 ``v``, the generic consume), jitted,
+on the same data: keys, their order, ``w_min`` and ``count_all`` exact; f64
+sums within |diff| <= 1e-12 * sum(|v|) + 1e-12 per group (the two packages
+add in another order).
 """
 
 import jax
 import numpy as np
 import pytest
+import torch
 
 import arrow_tpu as at
 from arrow_tpu.compute.expressions import execute_scalar_expression, field
 from arrow_tpu.ops.hash_aggregate import AggregateSpec, HashAggregate
 from arrow_tpu.ops.selection import filter_batch
+import __graft_entry__ as graft
 from arrow_tpu_torch.entry import AGGREGATES, MAX_GROUPS, entry, \
-    example_columns
+    entry_generic, example_columns, example_columns_generic
 
 N_ROWS = 4096
 NUM_KEYS = 100
@@ -43,7 +51,7 @@ def _jax_chain(cols):
 def test_entry_step_matches_jax_chain(seed):
     cols = example_columns(N_ROWS, NUM_KEYS, seed)
     want = _jax_chain(cols)
-    step, args = entry(None, N_ROWS, NUM_KEYS, seed)
+    step, args = entry("cpu", N_ROWS, NUM_KEYS, seed)
     got = step(*args)
     n = int(want.length)
     assert int(got.length) == n
@@ -63,3 +71,53 @@ def test_entry_step_matches_jax_chain(seed):
     # first-appearance order of the keys among the selected rows
     keys, first = np.unique(cols["k"][sel], return_index=True)
     np.testing.assert_array_equal(g["k"], keys[np.argsort(first)])
+
+
+def test_entry_generic_step_matches_jax_entry():
+    """At ``__graft_entry__``'s own size: 1024 rows, 16 keys, seed 0, 64
+    groups."""
+    fn, (jb,) = graft.entry()
+    want = jax.jit(fn)(jb)
+    cols = example_columns_generic(1024, 16, 0)
+    for c in cols:                       # the same input in both packages
+        np.testing.assert_array_equal(cols[c], np.asarray(jb[c].values))
+    step, (tb,) = entry_generic("cpu", 1024, 16, 0, max_groups=64)
+    assert tb["v"].values.dtype == torch.float64
+    got = step(tb)
+    n = int(want[-1])
+    assert int(got.length) == n == 16
+    assert got.column_names == ("k", "v_sum", "w_min", "count_all")
+    g = [got.column(c).values[:n].numpy() for c in got.column_names]
+    w = [np.asarray(x)[:n] for x in want[:-1]]
+    for i in (0, 2, 3):
+        np.testing.assert_array_equal(g[i], w[i], got.column_names[i])
+    sel = cols["w"] > 0
+    abs_sum = np.bincount(cols["k"][sel], weights=np.abs(cols["v"][sel]),
+                          minlength=16)[g[0]]
+    d = np.abs(g[1] - w[1])
+    assert (d <= 1e-12 * abs_sum + 1e-12).all(), d.max()
+
+
+@pytest.mark.parametrize("n_rows,num_keys,max_groups",
+                         [(5000, 700, 1024), (3000, 3000, 2048)])
+def test_entry_generic_step_matches_numpy(n_rows, num_keys, max_groups):
+    cols = example_columns_generic(n_rows, num_keys, 5)
+    step, args = entry_generic("cpu", n_rows, num_keys, 5, max_groups)
+    got = step(*args)
+    sel = cols["w"] > 0
+    k, v, w = cols["k"][sel], cols["v"][sel], cols["w"][sel]
+    keys, first = np.unique(k, return_index=True)
+    keys = keys[np.argsort(first)]
+    n = len(keys)
+    assert int(got.length) == n
+    np.testing.assert_array_equal(got["k"].values[:n].numpy(), keys)
+    np.testing.assert_array_equal(got["count_all"].values[:n].numpy(),
+                                  np.bincount(k, minlength=num_keys)[keys])
+    w_min = np.full(num_keys, np.iinfo(np.int64).max)
+    np.minimum.at(w_min, k, w)
+    np.testing.assert_array_equal(got["w_min"].values[:n].numpy(),
+                                  w_min[keys])
+    v_sum = np.bincount(k, weights=v, minlength=num_keys)[keys]
+    v_abs = np.bincount(k, weights=np.abs(v), minlength=num_keys)[keys]
+    d = np.abs(got["v_sum"].values[:n].numpy() - v_sum)
+    assert (d <= 1e-12 * v_abs + 1e-12).all(), d.max()
