@@ -18,7 +18,9 @@ from .core.array import (  # noqa: F401
     Array, array, array_from_numpy, nulls, full, default_device,
 )
 from .core.schema import Field, Schema, field, schema  # noqa: F401
-from .core.batch import Batch, batch, batch_from_numpy  # noqa: F401
+from .core.batch import (  # noqa: F401
+    Batch, Table, batch, batch_from_numpy, empty_batch,
+)
 from .compute.registry import ensure_kernels_loaded as _ekl
 
 _ekl()

@@ -1,5 +1,6 @@
 """Times of the torch primitives the sort-grouping consume chooses between,
-at the second slice's shape, on one GPU.
+at the second slice's shape, on one GPU; and of the exchange's histogram
+kernel and the merge's folds at the third slice's shapes.
 
     python -m arrow_tpu_torch.bench_reductions [--rows N] [--keys N]
 
@@ -8,8 +9,13 @@ grouper does and times, with CUDA events after a warm-up: the per-run
 float64 sum by ``index_add_`` and by ``torch.segment_reduce``; the per-run
 int64 minimum by ``scatter_reduce_``; ``cumsum`` and ``cummax`` over the
 rows; ``torch.sort`` of the key as int64 and as int32; a gather through the
-permutation; ``torch.nonzero``. One line per primitive, then one JSON
-object. Needs a CUDA device; the numbers in ``PERF.md`` that name this
+permutation; ``torch.nonzero``. Then the ``partition_histogram`` kernel
+beside ``torch.bincount`` and its byte bound over ``--rows`` destinations,
+for P = 1, 8, 32, 64, 128 and uniform, one-value and out-of-range
+destinations (its time should not depend on them); and an int64
+``index_add_`` of 2^24 rows into 2^21 slots, all rows spread against 15/16
+of them aimed at one dump slot, as the padding rows of an exchange buffer
+are in ``merge_rows``. One line per primitive, then one JSON object. Needs a CUDA device; the numbers in ``PERF.md`` that name this
 script come from it.
 """
 
@@ -95,6 +101,33 @@ def main() -> int:
     report("sort_i32", lambda: torch.sort(key32, stable=True))
     report("gather_f64_by_perm", lambda: x[perm])
     report("nonzero", lambda: torch.nonzero(active))
+    del key, skey, perm, x, w, i32, key32, slot, seg, head, s_active, active
+
+    from .ops.cuda_kernels import partition_histogram
+    results["partition_histogram_bound"] = 4 * n / 3.35e12 * 1e3
+    print(f"{'partition_histogram_bound':34s} "
+          f"{results['partition_histogram_bound']:10.3f} ms")
+    for P in (1, 8, 32, 64, 128):
+        for name, dest in (
+                ("uniform", torch.randint(0, P, (n,), generator=gen,
+                                          device=dev, dtype=torch.int32)),
+                ("one_value", torch.zeros(n, dtype=torch.int32, device=dev)),
+                ("out_of_range", torch.full((n,), P, dtype=torch.int32,
+                                            device=dev))):
+            report(f"partition_histogram_P{P}_{name}",
+                   lambda: partition_histogram(dest, P))
+            report(f"bincount_P{P}_{name}",
+                   lambda: torch.bincount(dest, minlength=P))
+    del dest
+
+    G, rows = 1 << 21, 1 << 24
+    ones = torch.ones(rows, dtype=torch.int64, device=dev)
+    spread = torch.randint(0, G, (rows,), generator=gen, device=dev)
+    dumped = torch.where(torch.arange(rows, device=dev) < rows // 16,
+                         spread, G)
+    for name, idx in (("spread", spread), ("15_of_16_to_dump_slot", dumped)):
+        report(f"index_add_i64_{name}", lambda: torch.zeros(
+            G + 1, dtype=torch.int64, device=dev).index_add_(0, idx, ones))
     print(json.dumps(results))
     return 0
 

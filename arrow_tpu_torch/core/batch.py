@@ -2,20 +2,23 @@
 
 Reference: ``cpp/src/arrow/record_batch.h:41`` and Acero's ExecBatch
 (``compute/exec.h:174``); the counterpart of the JAX package's
-``core/batch.py``. ``Table`` and ``TableGroupBy`` come with the plan engine.
+``core/batch.py``. ``Table`` holds a result's batches; its query methods
+(``group_by``, ``sort_by``, ``join``, ``filter``) and ``TableGroupBy`` come
+with the plan engine (ROADMAP queue item A7).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from .array import Array, array as make_array, array_from_numpy, row_mask
+from .array import Array, array as make_array, array_from_numpy, \
+    resolve_device, row_mask
 from .schema import Field, Schema
 
-__all__ = ["Batch", "batch", "batch_from_numpy"]
+__all__ = ["Batch", "Table", "batch", "batch_from_numpy", "empty_batch"]
 
 
 class Batch:
@@ -116,6 +119,89 @@ class Batch:
                      device=None) -> "Batch":
         from .interop import batch_from_pyarrow
         return batch_from_pyarrow(rb, capacity=capacity, device=device)
+
+
+class Table:
+    """Host-side container of Batches sharing a schema (Arrow's Table /
+    ChunkedArray analog), for user-facing materialization: a distributed
+    result holds one batch per shard that has rows, each on its shard's
+    device."""
+
+    def __init__(self, schema: Schema, batches: List[Batch]):
+        self.schema = schema
+        self.batches = list(batches)
+
+    @property
+    def num_rows(self) -> int:
+        return sum(len(b) for b in self.batches)
+
+    @property
+    def num_columns(self) -> int:
+        return len(self.schema)
+
+    @property
+    def column_names(self):
+        return self.schema.names
+
+    def to_pyarrow(self):
+        import pyarrow as pa
+        from .interop import batch_to_pyarrow
+        if not self.batches:
+            return self.schema.to_pyarrow().empty_table()
+        return pa.Table.from_batches(
+            [batch_to_pyarrow(b) for b in self.batches],
+            schema=self.schema.to_pyarrow())
+
+    def to_pydict(self):
+        return self.to_pyarrow().to_pydict()
+
+    def _one_batch(self) -> Batch:
+        """All rows as ONE batch on the first batch's device (chunks are
+        independent batches; cross-chunk operators combine first)."""
+        if not self.batches:
+            return Batch(self.schema, [], 0)
+        if len(self.batches) == 1:
+            return self.batches[0]
+        dev = self.batches[0].device
+        arrays = []
+        for i, f in enumerate(self.schema.fields):
+            cols = [b.column(i) for b in self.batches]
+            values = torch.cat([c.values[:len(c)].to(dev) for c in cols])
+            validity = None
+            if any(c.validity is not None for c in cols):
+                validity = torch.cat([c.validity_or_true()[:len(c)].to(dev)
+                                      for c in cols])
+            arrays.append(Array(f.type, values, validity))
+        return Batch(self.schema, arrays, self.num_rows)
+
+    def combine_chunks(self) -> "Table":
+        """One batch holding all rows (Table.combine_chunks parity)."""
+        if len(self.batches) <= 1:
+            return self
+        return Table(self.schema, [self._one_batch()])
+
+    def equals(self, other) -> bool:
+        o = other.to_pyarrow() if hasattr(other, "to_pyarrow") else other
+        return self.to_pyarrow().equals(o)
+
+    def __repr__(self) -> str:
+        return (f"Table(rows={self.num_rows}, batches={len(self.batches)}, "
+                f"cols={list(self.schema.names)})")
+
+
+def empty_batch(schema: Schema, capacity: int = 16, device=None) -> Batch:
+    """A batch of no rows with ``schema``'s fixed-width columns."""
+    device = resolve_device(device)
+    arrays = []
+    for f in schema.fields:
+        if f.type.is_varlen:
+            raise NotImplementedError(f"empty_batch of {f.type} columns")
+        values = torch.from_numpy(
+            np.zeros((capacity,), dtype=f.type.storage_np)).to(device)
+        validity = torch.zeros((capacity,), dtype=torch.bool, device=device) \
+            if f.nullable else None
+        arrays.append(Array(f.type, values, validity, length=0))
+    return Batch(schema, arrays, 0)
 
 
 def _from_columns(names, arrays) -> Batch:

@@ -1,9 +1,11 @@
-"""The engine's flagship step on one device: filter -> group-by.
+"""The engine's flagship step: filter -> group-by, on one device and
+distributed over a mesh.
 
-Two entry points return ``(step, (batch,))``; ``step`` evaluates the
-predicate ``w > 0``, filters the batch, routes the grouped aggregation as
-the JAX package's ``AggregateNode._consume_any`` does (one host read of the
-key range probe, then ``probe_route``), consumes and finalizes.
+The entry points return ``(step, (batch,))``. The one-device ``step``
+evaluates the predicate ``w > 0``, filters the batch, routes the grouped
+aggregation as the JAX package's ``AggregateNode._consume_any`` does (one
+host read of the key range probe, then ``probe_route``), consumes and
+finalizes.
 
   * ``entry(device, n_rows, num_keys, seed)``: the schema on which the
     dense route fires (int64 key ``k``, float32 ``v``, int64 ``w``). The
@@ -15,8 +17,14 @@ key range probe, then ``probe_route``), consumes and finalizes.
     tile-compaction kernel and gathers the columns; the consume takes the
     sort-grouping route, range-packed where the probe allows, on an empty
     state (``first``).
+  * ``entry_distributed(device, n_shards, n_rows, num_keys,
+    max_groups_per_shard, seed)``: the group-by of the JAX package's
+    ``dryrun_multichip`` (filter -> exchange -> grouped aggregation):
+    ``DistContext.group_by`` with the predicate as ``pre_filter`` over
+    ``n_shards`` logical shards of ``device``; its step returns the
+    ``Table`` with one batch per shard.
 
-With no ``device`` both place the batch on the card
+With no ``device`` they place the batch on the card
 (``arrow_tpu_torch.default_device()``). Run one on the CPU at a small
 size::
 
@@ -32,13 +40,15 @@ import numpy as np
 import torch
 
 from .compute.expressions import execute_scalar_expression, field
-from .core.batch import Batch, batch_from_numpy
+from .core.array import resolve_device
+from .core.batch import Batch, Table, batch_from_numpy
 from .ops.hash_aggregate import AggregateSpec, HashAggregate
 from .ops.selection import filter_batch
+from .parallel import DistContext
 
 __all__ = ["AGGREGATES", "AGGREGATES_GENERIC", "MAX_GROUPS",
-           "consume_routed", "entry", "entry_generic", "example_columns",
-           "example_columns_generic"]
+           "consume_routed", "entry", "entry_distributed", "entry_generic",
+           "example_columns", "example_columns_generic"]
 
 AGGREGATES = (AggregateSpec("sum", "v"), AggregateSpec("min", "v"),
               AggregateSpec("sum", "w"), AggregateSpec("min", "w"),
@@ -137,3 +147,25 @@ def entry_generic(device=None, n_rows: int = 1024, num_keys: int = 16,
     ha = HashAggregate(b.schema, ["k"], AGGREGATES_GENERIC,
                        max_groups=max_groups)
     return _make_step(ha, "pallas", True), (b,)
+
+
+def entry_distributed(device=None, n_shards: int = 8, n_rows: int = 1024,
+                      num_keys: int = 16, max_groups_per_shard: int = 64,
+                      seed: int = 0):
+    """(step, (batch,)): step(batch) -> the distributed group-by's Table.
+    The mesh is ``n_shards`` logical shards of ``device``; each shard
+    filters and pre-aggregates its block of rows, the per-group state rows
+    are exchanged by key hash and merged, so every group ends on exactly
+    one shard."""
+    device = resolve_device(device)
+    b = batch_from_numpy(example_columns_generic(n_rows, num_keys, seed),
+                         device=device)
+    ctx = DistContext(devices=[device] * n_shards)
+    predicate = field("w") > 0
+
+    def step(batch: Batch) -> Table:
+        return ctx.group_by(batch, ["k"], AGGREGATES_GENERIC,
+                            max_groups_per_shard=max_groups_per_shard,
+                            pre_filter=predicate)
+
+    return step, (b,)

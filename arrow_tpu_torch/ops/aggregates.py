@@ -102,6 +102,9 @@ class GroupedAggregator:
     """Base class. Subclasses define init/consume/merge/finalize."""
 
     name: str = ""
+    # the state is one row per group (tensors of max_groups rows), so a
+    # distributed combine can exchange state ROWS between shards
+    dist_rows: bool = True
 
     def __init__(self, in_type: Optional[dt.DataType], G: int, options=None):
         self.in_type = in_type
@@ -203,7 +206,17 @@ class GroupedSum(GroupedAggregator):
 
     @property
     def _acc_dtype(self) -> torch.dtype:
-        return torch_dtype(self.out_type)
+        """The accumulator's dtype. Unsigned sums (uint64 out) are held as
+        the int64 with the same bits: torch can neither cumsum nor
+        index_add a uint64, and two's-complement addition is the same
+        addition mod 2^64; ``finalize`` views the bits as uint64."""
+        d = torch_dtype(self.out_type)
+        return torch.int64 if d == torch.uint64 else d
+
+    def _to_acc(self, v: torch.Tensor) -> torch.Tensor:
+        if v.dtype == torch.uint64:
+            return v.view(torch.int64)
+        return v.to(self._acc_dtype)
 
     def init(self, device=None):
         return (torch.zeros((self.G,), dtype=self._acc_dtype, device=device),
@@ -213,7 +226,7 @@ class GroupedSum(GroupedAggregator):
         acc, cnt = state
         ok = _contrib_mask(values, group_ids)
         pos = _positions(ok, group_ids, self.G)
-        v = torch.where(ok, values.values.to(self._acc_dtype), 0)
+        v = torch.where(ok, self._to_acc(values.values), 0)
         return (_fold(acc, pos, v, 0), _fold(cnt, pos, ok.to(torch.int64), 0))
 
     def merge(self, state, other, mapping):
@@ -224,13 +237,15 @@ class GroupedSum(GroupedAggregator):
     def consume_grouped(self, state, values, ctx):
         acc, cnt = state
         v_sorted, ok = _sorted_inputs(values, ctx)
-        x = torch.where(ok, v_sorted.to(self._acc_dtype), 0)
+        x = torch.where(ok, self._to_acc(v_sorted), 0)
         gp = _gpos(ctx, self.G)
         return (_fold(acc, gp, seg_sum(ctx, x), 0),
                 _fold(cnt, gp, seg_sum(ctx, ok.to(torch.int64)), 0))
 
     def finalize(self, state, num_groups) -> Array:
         acc, cnt = state
+        if self.out_type == dt.uint64:
+            acc = acc.view(torch.uint64)
         # all-null / empty group -> null (Arrow: sum of no rows is null)
         return Array(self.out_type, acc, cnt > 0, length=num_groups)
 
@@ -244,6 +259,9 @@ class GroupedMean(GroupedSum):
     @property
     def _acc_dtype(self) -> torch.dtype:
         return torch.float64
+
+    def _to_acc(self, v: torch.Tensor) -> torch.Tensor:
+        return v.to(torch.float64)
 
     def finalize(self, state, num_groups) -> Array:
         acc, cnt = state

@@ -23,14 +23,15 @@ U32 = 0xFFFFFFFF
 
 
 def split_u64(x: torch.Tensor) -> List[torch.Tensor]:
-    """[hi, lo] u32 lanes (int64) of a 64-bit integer tensor."""
-    x = x.to(torch.int64)
+    """[hi, lo] u32 lanes (int64) of a 64-bit integer tensor (a uint64
+    tensor by its bits)."""
+    x = x.view(torch.int64) if x.dtype == torch.uint64 else x.to(torch.int64)
     return [(x >> 32) & U32, x & U32]
 
 
 def value_lanes32(values: torch.Tensor, type_) -> List[torch.Tensor]:
-    """Bit-equality u32 lanes (int64 tensors) of an integer, float or bool
-    values buffer."""
+    """Bit-equality u32 lanes (int64 tensors) of an integer, temporal,
+    float or bool values buffer."""
     t = type_
     v = values
     if isinstance(t, dt.BoolType):
@@ -45,8 +46,11 @@ def value_lanes32(values: torch.Tensor, type_) -> List[torch.Tensor]:
         if t.bits == 32:
             bits = v.view(torch.int32).to(torch.int64) & U32
             return [torch.where(torch.isnan(v), 0x7FC00000, bits)]
+        bits = v.view(torch.int16).to(torch.int64) & 0xFFFF
+        return [torch.where(torch.isnan(v), 0x7E00, bits)]
+    if isinstance(t, (dt.DictionaryType, dt.DecimalType)):
         raise NotImplementedError(f"value lanes for {t}")
-    if t.is_integer:
+    if t.is_integer or t.is_temporal:
         if t.bit_width == 64:
             return split_u64(v)
         return [v.to(torch.int64) & U32]

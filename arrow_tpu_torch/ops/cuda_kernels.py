@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels for Hopper, their wrappers and plain versions.
 
 The counterpart of the JAX package's ``ops/pallas_kernels.py`` for the
-kernels on the filter -> group-by paths:
+kernels on the filter -> group-by paths and the exchange:
 
   * ``filter_compact_chunks`` (csrc/filter_compact.cu): stream compaction
     of (cap, C) u8 byte planes;
@@ -9,7 +9,9 @@ kernels on the filter -> group-by paths:
     local indices of the selected rows packed to the front, and their count
     (level 1 of the take-index filter);
   * ``dense_group_reduce`` (csrc/dense_group.cu): per-slot reductions over a
-    dense group id.
+    dense group id;
+  * ``partition_histogram`` (csrc/partition_hist.cu): rows per destination
+    of an exchange.
 
 Each wrapper takes the plain PyTorch version (``*_plain``, same module) only
 when its tensors lie on the CPU. CUDA tensors launch the kernel or raise;
@@ -36,8 +38,9 @@ import torch
 
 __all__ = ["filter_compact_chunks", "filter_compact_chunks_plain",
            "tile_compact_local", "tile_compact_local_plain",
-           "dense_group_reduce", "dense_group_reduce_plain", "build",
-           "LAUNCHES", "reset_launch_counts", "TILE_ROWS"]
+           "dense_group_reduce", "dense_group_reduce_plain",
+           "partition_histogram", "partition_histogram_plain", "build",
+           "LAUNCHES", "reset_launch_counts", "TILE_ROWS", "MAX_PARTITIONS"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / ".kernels_build"
@@ -46,7 +49,7 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # kernel launches per wrapper (only where the wrapper launches its kernel)
 LAUNCHES = {"filter_compact_chunks": 0, "tile_compact_local": 0,
-            "dense_group_reduce": 0}
+            "dense_group_reduce": 0, "partition_histogram": 0}
 
 
 def reset_launch_counts() -> None:
@@ -128,11 +131,16 @@ def _lib():
             "atp_dense_group_reduce": [vp, i64, i32, i32, p_i32, p_i64,
                                        p_i64, p_i64, p_i64, vp, vp, i64,
                                        vp],
+            "atp_ph_max_partitions": [],
+            "atp_partition_histogram": [vp, i64, i32, vp, vp],
         }
         for name, argtypes in sigs.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        if lib.atp_ph_max_partitions() != MAX_PARTITIONS:
+            raise RuntimeError(
+                "csrc/partition_hist.cu and MAX_PARTITIONS disagree")
         _lib_handle = lib
     return _lib_handle
 
@@ -425,3 +433,49 @@ def dense_group_reduce(gid: torch.Tensor, inputs, kinds: tuple, G: int):
                 ws_bytes, stream), "dense_group_reduce")
     LAUNCHES["dense_group_reduce"] += 1
     return rows, [o for os_ in outs_of for o in os_]
+
+
+# ---- partition_histogram -----------------------------------------------------
+
+MAX_PARTITIONS = 128    # csrc/partition_hist.cu kMaxP: four bins per lane
+
+
+def _check_ph(dest: torch.Tensor, P: int) -> None:
+    _require(dest.ndim == 1 and dest.dtype == torch.int32,
+             "dest must be (n,) int32")
+    _require(1 <= P <= MAX_PARTITIONS,
+             f"P must be in [1, {MAX_PARTITIONS}]: {P}")
+    _require(dest.shape[0] < (1 << 31), "counts are int32: n must be < 2^31")
+
+
+def partition_histogram_plain(dest: torch.Tensor, P: int) -> torch.Tensor:
+    """Plain version: one bincount over P + 1 bins, the last taking every
+    value outside [0, P)."""
+    _check_ph(dest, P)
+    d = dest.long()
+    slot = torch.where((d >= 0) & (d < P), d, P)
+    return torch.bincount(slot, minlength=P + 1)[:P].to(torch.int32)
+
+
+def partition_histogram(dest: torch.Tensor, P: int) -> torch.Tensor:
+    """(n,) int32 destinations -> (P,) int32 counts of dest == p for p in
+    [0, P); values outside [0, P) are ignored (padding rows carry P or
+    -1). P is at most ``MAX_PARTITIONS``; n = 0 gives zeros."""
+    _check_ph(dest, P)
+    if _on_cpu((dest,)):
+        return partition_histogram_plain(dest, P)
+    n = dest.shape[0]
+    dev = dest.device
+    if n == 0:
+        return torch.zeros((P,), dtype=torch.int32, device=dev)
+    _require(dest.is_contiguous(), "partition_histogram needs a contiguous "
+             "tensor")
+    lib = _lib()
+    out = torch.empty((P,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _check_rc(lib.atp_partition_histogram(
+            dest.data_ptr(), n, P, out.data_ptr(), stream),
+            "partition_histogram")
+    LAUNCHES["partition_histogram"] += 1
+    return out

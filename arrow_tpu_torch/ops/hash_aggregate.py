@@ -144,8 +144,11 @@ class HashAggregate:
             t(gs.num_groups), t(gs.error))
 
         def conv(x):
-            return tuple(conv(y) for y in x) if isinstance(x, tuple) \
-                else t(x)
+            if isinstance(x, tuple):
+                return tuple(conv(y) for y in x)
+            x = np.asarray(x)
+            # unsigned sums are held as int64 bits (GroupedSum._acc_dtype)
+            return t(x.view(np.int64) if x.dtype == np.uint64 else x)
         us = None
         if uniques is not None:
             us = tuple(Array(f.type, t(u.values),
@@ -468,9 +471,30 @@ class HashAggregate:
                 o_states.append((outs_for((tgt, agg.name), 1)[0], cnt))
         return self.merge_rows(state, [o_key], tuple(o_states), o_count)
 
+    def merge(self, state, other_state):
+        """Cross-shard combine: feed the other state's unique keys through
+        this grouper to build the group-id mapping, then merge each
+        aggregator (the reference's Merge-with-group_id_mapping,
+        ``groupby_aggregate_node.cc:255``)."""
+        o_grouper_state, o_agg_states, o_uniques = other_state
+        if o_uniques is None:           # the other state consumed nothing
+            return state
+        return self.merge_rows(state, list(o_uniques), o_agg_states,
+                               o_grouper_state.num_groups)
+
+    @property
+    def supports_state_exchange(self) -> bool:
+        """True when every aggregator's state is one row per group, so the
+        distributed combine can exchange pre-aggregated state rows
+        (skew-immune) instead of raw input rows."""
+        return all(a.dist_rows for a in self._aggregators)
+
     def merge_rows(self, state, o_keys, o_agg_states, o_count):
         """Fold per-group state ROWS (keys + one state row per group) into
-        this state; rows past ``o_count`` are dropped."""
+        this state. The rows may come from another state's buffers
+        (``merge``) or from an exchange of pre-aggregated shard states
+        (``parallel/dist_agg``): any capacity works, and rows past
+        ``o_count`` are dropped."""
         grouper_state, agg_states, uniques = state
         grouper_state, mapping = self.grouper.consume(
             grouper_state, o_keys, length=o_count)

@@ -1,7 +1,15 @@
 """Per-layer device times of one step of the port's slices, on one GPU.
 
-    python -m arrow_tpu_torch.profile_step [--path generic|dense]
-        [--rows N] [--keys N] [--max-groups N] [--steps N] [--seed N]
+    python -m arrow_tpu_torch.profile_step
+        [--path generic|dense|dist|exchange] [--rows N] [--keys N]
+        [--max-groups N] [--shards N] [--steps N] [--seed N]
+
+``--path dist`` is the distributed group-by (``entry_distributed``) over
+``--shards`` logical shards of the card (default 8), ``--path exchange``
+the raw-row exchange (``shuffle_batch`` by the hash of ``k``, buckets of
+twice the local capacity) of the same batch (default 4 shards); their
+layers are called once per shard and step, and a layer's time is the sum
+over the shards.
 
 Wraps the functions that make up the step's layers so that each call is
 bracketed by two CUDA events on the current stream (no synchronisation
@@ -25,11 +33,14 @@ from collections import defaultdict
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("generic", "dense"),
-                    default="generic")
+    ap.add_argument("--path", choices=("generic", "dense", "dist",
+                                       "exchange"), default="generic")
+    ap.add_argument("--shards", type=int, default=None)
     ap.add_argument("--rows", type=int, default=100_000_000)
     ap.add_argument("--keys", type=int, default=None)
-    ap.add_argument("--max-groups", type=int, default=1 << 22)
+    ap.add_argument("--max-groups", type=int, default=None,
+                    help="state slots (per shard for --path dist); default "
+                    "2^22, 2^21 for dist")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -41,6 +52,7 @@ def main() -> int:
     from . import entry as entry_mod
     from .ops import aggregates, cuda_kernels, distinct, grouper, \
         hash_aggregate, selection
+    from .parallel import context, dist_agg, shuffle
 
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
@@ -90,11 +102,45 @@ def main() -> int:
                 aggregates._GroupedExtremum):
         layer(cls, "consume_grouped", f"agg_{cls.name or 'min_max'}")
     layer(HA, "finalize", "finalize")
+    # the distributed group-by: per-shard steps, the exchange between them
+    layer(dist_agg, "execute_scalar_expression", "expression")
+    layer(dist_agg, "filter_batch", "filter")
+    layer(dist_agg.DistGroupBy, "_state_rows", "hash_and_dest")
+    layer(shuffle, "partition_for_exchange", "partition_for_exchange")
+    layer(shuffle, "hash32", "hash")
+    layer(shuffle, "_bucket_rows", "sort_by_dest_and_send_scatter")
+    layer(shuffle, "flatten_received", "flatten_received")
+    layer(shuffle, "partition_histogram", "B4_partition_histogram")
+    layer(shuffle, "exchange", "exchange")
+    layer(shuffle, "shuffle_rows_receive", "receive_compaction")
+    layer(grouper.Grouper, "consume", "grouper_consume")
+    layer(grouper.Grouper, "uniques_scatter", "uniques_scatter")
+    for cls in (aggregates.GroupedCount, aggregates.GroupedSum,
+                aggregates._GroupedExtremum):
+        layer(cls, "merge", f"agg_merge_{cls.name or 'min_max'}")
+    layer(grouper, "merge_insert", "merge_insert")
+    layer(distinct, "segmented_carry_last", "carry_last_cummax")
+    layer(context.DistContext, "_collect_shards", "collect")
 
     if args.path == "generic":
         step, (b,) = entry_mod.entry_generic(
             None, args.rows, args.keys or 3_000_000, args.seed,
-            args.max_groups)
+            args.max_groups or 1 << 22)
+    elif args.path == "dist":
+        step, (b,) = entry_mod.entry_distributed(
+            None, args.shards or 8, args.rows, args.keys or 1_000_000,
+            args.max_groups or 1 << 21, args.seed)
+    elif args.path == "exchange":
+        from .core.batch import batch_from_numpy
+        b = batch_from_numpy(entry_mod.example_columns_generic(
+            args.rows, args.keys or 1_000_000, args.seed))
+        ctx = context.DistContext(devices=[b.device] * (args.shards or 4))
+
+        def step(batch):
+            sharded = ctx.shard_batch(batch)
+            return shuffle.shuffle_batch(
+                sharded.shards, ["k"], ctx.devices,
+                bucket_capacity=2 * sharded.local_capacity)
     else:
         step, (b,) = entry_mod.entry(None, args.rows, args.keys or 1000,
                                      args.seed)

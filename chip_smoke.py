@@ -2,15 +2,21 @@
 """Smoke test of the PyTorch port (arrow_tpu_torch) on one NVIDIA GPU.
 
 Builds the CUDA kernels from csrc/, checks each kernel against its plain
-PyTorch version on the card, then drives the two slices of the port at
-100M rows (BASELINE config #2) and checks each result against a numpy
-oracle:
+PyTorch version on the card, then drives the slices of the port at 100M
+rows (BASELINE config #2) and checks each result against a numpy oracle:
 
   path 1  ``arrow_tpu_torch.entry.entry``: compaction-kernel filter ->
           dense group-by kernel (1K distinct int64 keys, float32 values);
   path 2  ``arrow_tpu_torch.entry.entry_generic``: take-index filter on the
           tile-compaction kernel -> sort-grouping consume (3M distinct
-          keys, float64 values, 4M-slot state).
+          keys, float64 values, 4M-slot state);
+  path 3a ``arrow_tpu_torch.entry.entry_distributed``: the distributed
+          group-by over 8 logical shards of the card (1M distinct keys):
+          per-shard filter + pre-aggregation, state-row exchange on the
+          partition-histogram kernel, merge;
+  path 3b ``arrow_tpu_torch.parallel.shuffle.shuffle_batch``: the raw-row
+          exchange of the same batch by key hash over 4 logical shards,
+          and one shard's send side of the same exchange over 8.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -18,11 +24,13 @@ Run from the repository root on a machine with a CUDA card:
 
 Prints the card's name and power limit, one line per check, a JSON line
 ``{"kernels": [...]}`` with each kernel's launches on its path's counted
-run, its error against the plain version, its time, the plain version's,
-the least time the card could take (``bound_ms``: bytes moved over the
-memory rate) and the time of one PyTorch call computing the same function
-(``library_ms``, null where there is none), and last ``{"ok": true,
-"device": {...}}``. Exits non-zero, printing no result, when there is no
+run and, at the arguments that path gave it, its error against the plain
+version, its time, the plain version's, the least time the card could take
+(``bound_ms``: bytes moved over the memory rate) and the time of one
+PyTorch call computing the same function (``library_ms``, null where there
+is none); a kernel that further paths launch carries the same numbers at
+their arguments under suffixed keys (``ms_path_3b`` ...). Last comes
+``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when there is no
 CUDA device or any check fails.
 """
 
@@ -50,6 +58,16 @@ MAX_GROUPS_GENERIC = 1 << 22
 SUM64_RTOL = 1e-12      # times the sum of |v| in the group
 SUM64_ATOL = 1e-12
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
+# path 3
+NUM_KEYS_DIST = 1_000_000
+N_SHARDS = 8
+MAX_GROUPS_PER_SHARD = 1 << 21
+# The raw-row exchange allocates, per shard, send and receive buffers of
+# P * B = 2 * N_ROWS rows per leaf (B = 2 x the local capacity) and a result
+# of the same capacity: 4.8 GB each at 24 B a row. With 8 shards the send
+# buffers and the results alone are 77 GB, so path 3b runs 4 shards; rows,
+# keys and the bucket factor are not cut.
+N_SHARDS_RAW = 4
 
 
 def check(cond, msg: str) -> None:
@@ -121,6 +139,82 @@ def check_filter(torch, ck, sel, chunks, label: str) -> float:
     print(f"filter_compact_chunks {label}: cap={sel.shape[0]} "
           f"C={chunks.shape[1]} selected={n} equal")
     return err
+
+
+def check_partition_hist(torch, ck, dest, P: int, label: str) -> float:
+    """Kernel vs plain version: equal counts. Returns the max abs
+    difference (0 when equal)."""
+    before = ck.LAUNCHES["partition_histogram"]
+    got = ck.partition_histogram(dest, P)
+    want = ck.partition_histogram_plain(dest, P)
+    check(ck.LAUNCHES["partition_histogram"] - before ==
+          (1 if dest.shape[0] else 0),
+          f"partition_histogram {label}: launch count")
+    err = float((got.long() - want.long()).abs().max())
+    check(err == 0 and got.dtype == torch.int32 and got.shape == (P,),
+          f"partition_histogram {label}: counts differ")
+    print(f"partition_histogram {label}: n={dest.shape[0]} P={P} "
+          f"counted={int(got.sum())} equal")
+    return err
+
+
+def partition_hist_cases(torch, n: int, P: int, gen, dev):
+    """(label, dest) cases: uniform over [0, P), all one value, all out of
+    range (P and -1), and Zipf(1.5)-skewed over [0, P)."""
+    i32 = dict(dtype=torch.int32, device=dev)
+    yield "uniform", torch.randint(0, P, (n,), generator=gen, **i32)
+    yield "one value", torch.full((n,), P - 1, **i32)
+    yield "all P", torch.full((n,), P, **i32)
+    yield "all -1", torch.full((n,), -1, **i32)
+    w = 1.0 / torch.arange(1, P + 1, dtype=torch.float64, device=dev) ** 1.5
+    cdf = torch.cumsum(w / w.sum(), 0)
+    u = torch.rand(n, generator=gen, device=dev, dtype=torch.float64)
+    yield "zipf", torch.searchsorted(cdf, u).clamp(max=P - 1).to(torch.int32)
+
+
+def measure_filter(torch, ck, sel, chunks, label: str) -> dict:
+    """filter_compact_chunks at the arguments a path gave it: compared with
+    its plain version, then timed beside it, the library call and the
+    bound."""
+    cap, C = chunks.shape
+    return {
+        "max_abs_err": check_filter(torch, ck, sel, chunks, label),
+        "ms": cuda_ms(torch, lambda: ck.filter_compact_chunks(sel, chunks),
+                      10),
+        "plain_ms": cuda_ms(
+            torch, lambda: ck.filter_compact_chunks_plain(sel, chunks), 3),
+        # selection and planes read once, the selected rows written once
+        "bound_ms": bound_ms(cap + cap * C + int(sel.sum()) * C),
+        "library_ms": cuda_ms(torch, lambda: chunks[sel], 3)}
+
+
+def measure_partition_hist(torch, ck, dest, P: int, label: str) -> dict:
+    """partition_histogram at the arguments a path gave it: compared with
+    its plain version, then timed beside it, torch.bincount and the bound.
+    ``host_ms`` is the host's time to issue one call (10 calls on the host
+    clock, the card not waited for): where it equals ``ms`` the events
+    read the wrapper, not the kernel."""
+    m = {
+        "max_abs_err": check_partition_hist(torch, ck, dest, P, label),
+        "ms": cuda_ms(torch, lambda: ck.partition_histogram(dest, P), 10),
+        "plain_ms": cuda_ms(
+            torch, lambda: ck.partition_histogram_plain(dest, P), 3),
+        # dest read once, the P counts written once
+        "bound_ms": bound_ms(4 * dest.shape[0] + 4 * P),
+        # dest holds P for the rows to drop: bincount sees no negative value
+        "library_ms": cuda_ms(
+            torch, lambda: torch.bincount(dest, minlength=P), 3)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        ck.partition_histogram(dest, P)
+    m["host_ms"] = (time.perf_counter() - t0) * 1e2
+    torch.cuda.synchronize()
+    print(f"partition_histogram {label}, n={dest.shape[0]} P={P}: "
+          f"{m['ms']:.4f} ms ({m['host_ms']:.4f} ms of host a call), bound "
+          f"{m['bound_ms']:.4f} ms, plain "
+          f"{m['plain_ms']:.3f} ms, torch.bincount {m['library_ms']:.3f} ms")
+    return m
 
 
 def dg_compare(torch, ck, gid, inputs, kinds, G, label: str) -> float:
@@ -268,6 +362,37 @@ def check_slice_generic(out, oracle) -> int:
     return n
 
 
+def check_dist_group_by(np_, table, oracle, n_shards: int, shard_of) -> int:
+    """Path 3a's Table against the numpy oracle: the groups as a set, every
+    key once (so on exactly one shard) and on the shard its hash names,
+    integers exact, f64 sums within tolerance."""
+    check(len(table.batches) == n_shards, "path 3a: a shard has no groups")
+    col = {name: [] for name in table.column_names}
+    for s, b in enumerate(table.batches):
+        n = len(b)
+        for name in table.column_names:
+            a = b.column(name)
+            check(a.validity is None or bool(a.validity[:n].all()),
+                  f"path 3a: nulls in {name}")
+            col[name].append(a.values[:n].cpu().numpy())
+        check(bool((shard_of(b.column("k"))[:n] == s).all()),
+              f"path 3a: a group of shard {s} hashes elsewhere")
+    col = {name: np_.concatenate(v) for name, v in col.items()}
+    keys = col["k"]
+    check(np_.unique(keys).shape[0] == keys.shape[0],
+          "path 3a: a group lies on more than one shard")
+    check(np_.array_equal(np_.sort(keys), np_.sort(oracle["keys"])),
+          "path 3a: the set of groups")
+    check(np_.array_equal(col["count_all"], oracle["count"][keys]),
+          "path 3a: count_all")
+    check(np_.array_equal(col["w_min"], oracle["w_min"][keys]),
+          "path 3a: w_min")
+    d = np_.abs(col["v_sum"] - oracle["v_sum"][keys])
+    check(bool((d <= SUM64_RTOL * oracle["v_abs"][keys] + SUM64_ATOL).all()),
+          f"path 3a: v_sum off by up to {d.max():.3g}")
+    return keys.shape[0]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -347,6 +472,13 @@ def main() -> int:
         dg_compare(torch, ck, gid, inputs, kinds, G, f"all kinds G={G}")
     del gid, inputs
 
+    # ---- partition_histogram against its plain version -----------------
+    for n in (0, 1, 1000, 1 << 20, N_ROWS):
+        for P in (1, 8, 128):
+            for name, dest in partition_hist_cases(torch, n, P, gen, dev):
+                check_partition_hist(torch, ck, dest, P, name)
+    del dest
+
     # ---- path 1: arrow_tpu_torch.entry.entry ----------------------------
     t0 = time.time()
     cols = example_columns(N_ROWS, NUM_KEYS, args.seed)
@@ -397,14 +529,7 @@ def main() -> int:
 
     # ---- path 1's kernels at its shapes: error, times, bound ------------
     sel, chunks = seen["filter_compact_chunks"]
-    fc_err = check_filter(torch, ck, sel, chunks, "path 1 shape")
-    fc_ms = cuda_ms(torch, lambda: ck.filter_compact_chunks(sel, chunks), 10)
-    fc_plain = cuda_ms(torch,
-                       lambda: ck.filter_compact_chunks_plain(sel, chunks), 3)
-    fc_lib = cuda_ms(torch, lambda: chunks[sel], 3)
-    cap, C = chunks.shape
-    # selection and planes read once, the selected rows written once
-    fc_bound = bound_ms(cap + cap * C + int(sel.sum()) * C)
+    fc = measure_filter(torch, ck, sel, chunks, "path 1 shape")
     del sel, chunks
     gid, inputs, kinds, G = seen["dense_group_reduce"]
     dg_err = dg_compare(torch, ck, gid, inputs, kinds, G, "path 1 shape")
@@ -480,27 +605,215 @@ def main() -> int:
     # selection read once, loc and counts written once
     tc_bound = bound_ms(cap + 4 * cap + 4 * (cap // ck.TILE_ROWS))
     del sel, mask
+    seen.clear()
+    torch.cuda.empty_cache()
 
-    def row(name, source, replaces, n_launches, err, ms, plain, bound, lib):
+    # ---- path 3a: arrow_tpu_torch.entry.entry_distributed ---------------
+    from arrow_tpu_torch.ops.hashing import hash32
+    from arrow_tpu_torch.parallel import dist_agg, shuffle
+    t0 = time.time()
+    cols = example_columns_generic(N_ROWS, NUM_KEYS_DIST, args.seed)
+    step, (b,) = entry_mod.entry_distributed(
+        dev, N_SHARDS, N_ROWS, NUM_KEYS_DIST, MAX_GROUPS_PER_SHARD,
+        args.seed)
+    torch.cuda.synchronize()
+    print(f"path 3 data: {N_ROWS} rows made and staged in "
+          f"{time.time() - t0:.1f} s")
+    # exchanged per state row: key (8 B + 1 B validity), sum (8 + 8),
+    # min (8 + 8), count_all (8) = 49 B; per shard a send buffer, a
+    # received buffer and its compaction of P * G rows each
+    xrows = N_SHARDS * MAX_GROUPS_PER_SHARD
+    print(f"path 3a reckoned: exchange buffers {N_SHARDS} shards x 3 x "
+          f"{xrows} rows x 49 B = {N_SHARDS * 3 * xrows * 49} B, input "
+          f"{N_ROWS * 24} B")
+
+    step(b)                     # warm-up
+    torch.cuda.synchronize()
+
+    # the timed, counted run of path 3a
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    table = step(b)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches3 = dict(ck.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check(launches3["partition_histogram"] == N_SHARDS,
+          f"path 3a launched partition_histogram "
+          f"{launches3['partition_histogram']} times, not once per shard")
+    check(launches3["filter_compact_chunks"] == N_SHARDS,
+          "path 3a: one pre-filter kernel pass per shard")
+
+    def shard_of(seed, n_shards):
+        return lambda key: hash32([key], seed=seed) % n_shards
+
+    n_groups = check_dist_group_by(
+        np, table, numpy_oracle_generic(cols, NUM_KEYS_DIST), N_SHARDS,
+        shard_of(dist_agg._STATE_EXCHANGE_SEED, N_SHARDS))
+    print(f"path 3a: {N_ROWS} rows over {N_SHARDS} logical shards in "
+          f"{secs * 1e3:.3f} ms = {N_ROWS / secs:.6g} rows/s; {n_groups} "
+          f"groups match the numpy oracle, each on the one shard its hash "
+          f"names; peak device memory {peak} B; launches {launches3}")
+    del table
+
+    # one more run, recording what the last shard's kernels get; then both
+    # kernels at those arguments: error, times, bound
+    recorded(selection, "filter_compact_chunks", lambda: recorded(
+        shuffle, "partition_histogram", lambda: step(b)))
+    del step
+    sel, chunks = seen["filter_compact_chunks"]
+    # the planes are padded to whole tiles of rows
+    check(chunks.shape[0] >= N_ROWS // N_SHARDS and chunks.shape[1] == 24,
+          f"path 3a: a shard's filter planes are {tuple(chunks.shape)}")
+    fc3a = measure_filter(torch, ck, sel, chunks, "path 3a shape")
+    del sel, chunks
+    dest, P = seen["partition_histogram"]
+    check(dest.shape[0] == MAX_GROUPS_PER_SHARD and P == N_SHARDS,
+          f"path 3a: the exchange counts {dest.shape[0]} rows over {P}")
+    ph = measure_partition_hist(torch, ck, dest, P, "path 3a shape")
+    del dest
+    seen.clear()
+    torch.cuda.empty_cache()
+
+    # ---- path 3b: the raw-row exchange (shuffle_batch) ------------------
+    from arrow_tpu_torch.parallel import DistContext
+    ctx = DistContext(devices=[dev] * N_SHARDS_RAW)
+    sharded = ctx.shard_batch(b)
+    bucket = 2 * sharded.local_capacity
+    print(f"path 3b: {N_SHARDS_RAW} logical shards (8 would need "
+          f"{2 * 8 * 2 * N_ROWS * 24} B for send buffers and results "
+          f"alone), bucket capacity {bucket}, reckoned send + received + "
+          f"result buffers {3 * N_SHARDS_RAW * 2 * N_ROWS * 24} B")
+
+    def raw_exchange():
+        return shuffle.shuffle_batch(sharded.shards, ["k"], ctx.devices,
+                                     bucket_capacity=bucket)
+
+    out = raw_exchange()        # warm-up
+    torch.cuda.synchronize()
+    del out
+
+    # the timed, counted run of path 3b
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = raw_exchange()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches3b = dict(ck.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check(launches3b["partition_histogram"] == N_SHARDS_RAW,
+          "path 3b: one partition_histogram launch per shard")
+    check(not any(bool(err) for _, err in out), "path 3b: error flag set")
+    place = shard_of(shuffle.EXCHANGE_SEED, N_SHARDS_RAW)
+    rows, k_sum, w_sum, v_sum = 0, 0, 0, 0.0
+    for p, (rb, _) in enumerate(out):
+        n = len(rb)
+        rows += n
+        k = rb.column("k")
+        check(bool((place(k)[:n] == p).all()),
+              f"path 3b: a row of shard {p} hashes elsewhere")
+        k_sum += int(k.values[:n].sum())
+        w_sum += int(rb.column("w").values[:n].sum())
+        v_sum += float(rb.column("v").values[:n].sum())
+        for name in rb.column_names:
+            check(not bool(rb.column(name).values[n:].any()),
+                  f"path 3b: {name} of shard {p} is not zero past its rows")
+    check(rows == N_ROWS, f"path 3b: {rows} rows came out of {N_ROWS}")
+    check(k_sum == int(cols["k"].sum()) and w_sum == int(cols["w"].sum()),
+          "path 3b: integer column sums changed")
+    check(abs(v_sum - float(cols["v"].sum())) <=
+          1e-12 * float(np.abs(cols["v"]).sum()) + 1e-9,
+          "path 3b: v column sum changed")
+    print(f"path 3b: {N_ROWS} rows exchanged over {N_SHARDS_RAW} logical "
+          f"shards in {secs * 1e3:.3f} ms = {N_ROWS / secs:.6g} rows/s; row "
+          f"count and column sums kept, every row on shard hash(k) % "
+          f"{N_SHARDS_RAW}, no error flag; peak device memory {peak} B; "
+          f"launches {launches3b}")
+    del out, rb, k, cols
+    torch.cuda.empty_cache()
+
+    # ---- B4 at path 3b's call (one shard of 4) --------------------------
+    recorded(shuffle, "partition_histogram",
+             lambda: shuffle.partition_for_exchange(
+                 sharded.shards[0], ["k"], N_SHARDS_RAW, bucket))
+    dest, P = seen["partition_histogram"]
+    del sharded
+    ph3b = measure_partition_hist(torch, ck, dest, P, "path 3b shape")
+    del dest
+    seen.clear()
+    torch.cuda.empty_cache()
+
+    # ---- one shard's send side of the exchange over 8 shards ------------
+    # what 3b's cut leaves out on the send side: hash, dest, B4 and the
+    # (8, B) send buffers of one 12.5M-row shard, B = 2 x its capacity
+    shard = DistContext(devices=[dev] * N_SHARDS).shard_batch(b).shards[0]
+    torch.cuda.reset_peak_memory_stats()
+    send, counts, error = recorded(
+        shuffle, "partition_histogram",
+        lambda: shuffle.partition_for_exchange(
+            shard, ["k"], N_SHARDS, 2 * shard.capacity))
+    peak = torch.cuda.max_memory_allocated()
+    dest, P = seen["partition_histogram"]
+    check(dest.shape[0] == N_ROWS // N_SHARDS and P == N_SHARDS,
+          f"8-shard send: counted {dest.shape[0]} rows over {P}")
+    check(int(counts.sum()) == len(shard) and not bool(error),
+          "8-shard send: rows lost or error flag set")
+    place = shard_of(shuffle.EXCHANGE_SEED, N_SHARDS)(shard.column("k"))
+    k_send = send[0]            # leaf 0: the values of column k, (P, B)
+    for p in range(N_SHARDS):
+        c = int(counts[p])
+        check(torch.equal(k_send[p, :c],
+                          shard.column("k").values[place == p]),
+              f"8-shard send: bucket {p} does not hold its keys in order")
+        check(not bool(k_send[p, c:].any()),
+              f"8-shard send: bucket {p} is not zero past its rows")
+    print(f"8-shard send side, one shard: {len(shard)} rows into "
+          f"{N_SHARDS} buckets of {2 * shard.capacity}, each bucket its "
+          f"keys in row order; peak device memory {peak} B")
+    del send, k_send, place, shard, b
+    torch.cuda.empty_cache()
+    ph8 = measure_partition_hist(torch, ck, dest, P, "8-shard send shape")
+    del dest
+    seen.clear()
+
+    def row(name, source, replaces, n_launches, m):
         return {"name": name, "route": "cuda",
                 "source": f"arrow_tpu_torch/csrc/{source}",
                 "replaces": f"arrow_tpu/ops/pallas_kernels.py:{replaces}",
-                "launches": n_launches, "max_abs_err": err, "ms": ms,
-                "plain_ms": plain, "bound_ms": bound, "bound_by": "bytes",
-                "library_ms": lib}
+                "launches": n_launches, "max_abs_err": m["max_abs_err"],
+                "ms": m["ms"], "plain_ms": m["plain_ms"],
+                "bound_ms": m["bound_ms"], "bound_by": "bytes",
+                "library_ms": m["library_ms"]}
+
+    def also(kernel, suffix, m, n_launches=None):
+        """The same numbers at a further path's arguments; the launches of
+        that path's counted run, where it has one."""
+        if n_launches is not None:
+            kernel[f"launches_{suffix}"] = n_launches
+        for key, value in m.items():
+            kernel[f"{key}_{suffix}"] = value
 
     kernels = [
         row("filter_compact_chunks", "filter_compact.cu", 492,
-            launches["filter_compact_chunks"], fc_err, fc_ms, fc_plain,
-            fc_bound, fc_lib),
+            launches["filter_compact_chunks"], fc),
         row("dense_group_reduce", "dense_group.cu", 327,
-            launches["dense_group_reduce"], dg_err, dg_ms, dg_plain,
-            dg_bound, None),
+            launches["dense_group_reduce"],
+            {"max_abs_err": dg_err, "ms": dg_ms, "plain_ms": dg_plain,
+             "bound_ms": dg_bound, "library_ms": None}),
         row("tile_compact_local", "tile_compact.cu", 392,
-            launches2["tile_compact_local"], tc_err, tc_ms, tc_plain,
-            tc_bound, tc_lib),
+            launches2["tile_compact_local"],
+            {"max_abs_err": tc_err, "ms": tc_ms, "plain_ms": tc_plain,
+             "bound_ms": tc_bound, "library_ms": tc_lib}),
+        row("partition_histogram", "partition_hist.cu", 76,
+            launches3["partition_histogram"], ph),
     ]
     kernels[2]["take_indices_ms"] = ti_ms
+    kernels[3]["host_ms"] = ph["host_ms"]
+    also(kernels[0], "path_3a", fc3a, launches3["filter_compact_chunks"])
+    also(kernels[3], "path_3b", ph3b, launches3b["partition_histogram"])
+    also(kernels[3], "send_8_shards", ph8)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

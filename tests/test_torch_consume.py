@@ -201,9 +201,9 @@ def test_consume_narrow_value_types_vs_jax(vtype):
         "k": pa.array(rng.integers(0, 30, n)),
         "x": pa.array(x, mask=rng.random(n) < 0.2)})
     tb, jb = batch_from_pyarrow(rb, device="cpu"), at.Batch.from_pyarrow(rb)
-    # sums of unsigned types accumulate in uint64, which torch cannot add
-    fns = ("min", "max") if vtype in (np.bool_, np.uint8) else \
-        ("min", "max", "sum")
+    # sums of unsigned types accumulate in uint64 (the port holds the bits
+    # as int64 and views them as uint64 at finalize)
+    fns = ("min", "max", "sum")
     tha = HashAggregate(tb.schema, ["k"],
                         [AggregateSpec(f, "x") for f in fns], max_groups=64)
     jha = JHashAggregate(jb.schema, ["k"], [JSpec(f, "x") for f in fns],
@@ -211,6 +211,65 @@ def test_consume_narrow_value_types_vs_jax(vtype):
     want = jha.finalize(jha.consume(jha.init_state(), jb)).to_pyarrow()
     got = tha.finalize(tha.consume(tha.init_state("cpu"), tb)).to_pyarrow()
     _assert_same_table(got, want, [rb], ("k",))
+
+
+@pytest.mark.parametrize("mode,first", [("generic", False), ("generic", True),
+                                        ("packed", True)],
+                         ids=["generic_merge", "generic_first",
+                              "packed_first"])
+def test_unsigned_sums_vs_jax(mode, first):
+    """Grouped sums of uint8 / uint16 / uint32 / uint64 columns accumulate
+    in uint64 (held as int64 bits by the port): equal to the JAX package
+    bit for bit, with totals past 2^63; then the same through ``merge`` of
+    two states and through a state carried from JAX."""
+    rng = np.random.default_rng(31)
+    n = 1200
+    cols = {"k": pa.array(rng.integers(0, 25, n))}
+    for name, npd in (("a", np.uint8), ("b", np.uint16), ("c", np.uint32)):
+        cols[name] = pa.array(rng.integers(0, np.iinfo(npd).max, n,
+                                           dtype=npd, endpoint=True),
+                              mask=rng.random(n) < 0.1)
+    cols["d"] = pa.array(rng.integers(1 << 60, 1 << 64, n, dtype=np.uint64),
+                         mask=rng.random(n) < 0.1)
+    rb = pa.record_batch(cols)
+    tb, jb = batch_from_pyarrow(rb, device="cpu"), at.Batch.from_pyarrow(rb)
+    tha = HashAggregate(tb.schema, ["k"],
+                        [AggregateSpec("sum", c) for c in "abcd"],
+                        max_groups=64)
+    jha = JHashAggregate(jb.schema, ["k"], [JSpec("sum", c) for c in "abcd"],
+                         max_groups=64)
+    tst, jst = _consume_both(tha, jha, tha.init_state("cpu"),
+                             jha.init_state(), rb, mode, first)
+    got, want = tha.finalize(tst).to_pyarrow(), jha.finalize(jst).to_pyarrow()
+    assert got.equals(want)
+    assert got["d_sum"].type == pa.uint64()
+    assert max(got["d_sum"].to_pylist()) > (1 << 63)
+    # merge of two states == the JAX merge; and a state carried from JAX
+    tm = tha.finalize(tha.merge(tst, tst)).to_pyarrow()
+    jm = jha.finalize(jha.merge(jst, jst)).to_pyarrow()
+    assert tm.equals(jm)
+    carried = tha.state_from_numpy(jax.tree_util.tree_map(np.asarray, jst),
+                                   device="cpu")
+    assert tha.finalize(carried).to_pyarrow().equals(want)
+
+
+def test_merge_of_states_vs_jax():
+    """``HashAggregate.merge``: another state's groups fold in through the
+    group-id mapping; an empty other state changes nothing."""
+    rng = np.random.default_rng(41)
+    rb1 = _record_batch(rng, 900, ("k",), key_hi=30)
+    rb2 = _record_batch(rng, 700, ("k",), key_hi=60, nan=False)
+    tha, jha = _pair(rb1, ("k",), max_groups=128)
+    t1, j1 = _consume_both(tha, jha, tha.init_state("cpu"), jha.init_state(),
+                           rb1, "generic", False)
+    t2, j2 = _consume_both(tha, jha, tha.init_state("cpu"), jha.init_state(),
+                           rb2, "generic", False)
+    tm, jm = tha.merge(t1, t2), jha.merge(j1, j2)
+    _assert_same_state(tm, jm)
+    _assert_same_table(tha.finalize(tm).to_pyarrow(),
+                       jha.finalize(jm).to_pyarrow(), [rb1, rb2], ("k",))
+    assert tha.merge(t1, tha.init_state("cpu")) is t1
+    assert tha.supports_state_exchange and jha.supports_state_exchange
 
 
 @pytest.mark.parametrize("mode", ["generic", "packed"])

@@ -128,6 +128,84 @@ def test_dense_group_reduce_many_kinds_split_over_launches(cuda_device):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("P", [1, 2, 8, 33, 64, 128])
+@pytest.mark.parametrize("n", [1, 5, 1000, 1 << 20, (1 << 20) + 7])
+def test_partition_histogram_kernel_vs_plain(cuda_device, n, P):
+    """Equal counts for uniform, one-value, out-of-range and skewed dest,
+    and for a dest that does not start on a 16-byte boundary."""
+    g = torch.Generator(device=cuda_device).manual_seed(n + P)
+    base = torch.randint(-1, P + 2, (n + 3,), generator=g,
+                         dtype=torch.int32, device=cuda_device)
+    skew = (torch.rand(n, generator=g, device=cuda_device) ** 4 * P) \
+        .to(torch.int32)
+    cases = [base[:n], base[1:n + 1], base[3:], skew,
+             torch.full((n,), P - 1, dtype=torch.int32, device=cuda_device),
+             torch.full((n,), P, dtype=torch.int32, device=cuda_device),
+             torch.full((n,), -1, dtype=torch.int32, device=cuda_device)]
+    for dest in cases:
+        before = ck.LAUNCHES["partition_histogram"]
+        got = ck.partition_histogram(dest.contiguous(), P)
+        assert ck.LAUNCHES["partition_histogram"] == before + 1
+        assert got.dtype == torch.int32
+        assert torch.equal(got, ck.partition_histogram_plain(dest, P))
+
+
+def test_partition_histogram_on_card_edges(cuda_device):
+    empty = torch.zeros((0,), dtype=torch.int32, device=cuda_device)
+    before = ck.LAUNCHES["partition_histogram"]
+    assert ck.partition_histogram(empty, 8).tolist() == [0] * 8
+    assert ck.LAUNCHES["partition_histogram"] == before     # no launch
+    d = torch.zeros((64,), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        ck.partition_histogram(d, ck.MAX_PARTITIONS + 1)
+    with pytest.raises(ValueError):
+        ck.partition_histogram(d[::2], 4)                   # not contiguous
+
+
+def test_entry_distributed_on_card_matches_cpu(cuda_device):
+    """The distributed group-by over 8 logical shards of the card, with no
+    device named, against the same on the CPU: per shard, in row order."""
+    from arrow_tpu_torch.entry import entry_distributed
+    ck.reset_launch_counts()
+    step, args = entry_distributed(None, 8, 400_000, 30_000, 1 << 16, 3)
+    assert args[0].device.type == "cuda"
+    got = step(*args)
+    assert ck.LAUNCHES["partition_histogram"] == 8
+    assert ck.LAUNCHES["filter_compact_chunks"] == 8
+    cstep, cargs = entry_distributed("cpu", 8, 400_000, 30_000, 1 << 16, 3)
+    want = cstep(*cargs)
+    assert [len(b) for b in got.batches] == [len(b) for b in want.batches]
+    for gb, wb in zip(got.batches, want.batches):
+        n = len(wb)
+        for c in wb.column_names:
+            a = gb.column(c).values[:n].cpu().numpy()
+            b = wb.column(c).values[:n].numpy()
+            if c == "v_sum":    # the two devices may add in another order
+                np.testing.assert_allclose(a, b, rtol=0, atol=1e-10)
+            else:
+                np.testing.assert_array_equal(a, b, err_msg=c)
+
+
+def test_shuffle_batch_on_card_matches_cpu(cuda_device):
+    """The raw-row exchange on the card against the CPU, whole buffers."""
+    from arrow_tpu_torch.entry import example_columns_generic
+    from arrow_tpu_torch.core.batch import batch_from_numpy
+    from arrow_tpu_torch.parallel import DistContext, shuffle
+    cols = example_columns_generic(100_000, 5000, 1)
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        ctx = DistContext(devices=[dev] * 4)
+        sb = ctx.shard_batch(batch_from_numpy(cols, device=dev))
+        outs.append(shuffle.shuffle_batch(sb.shards, ["k"], ctx.devices,
+                                          bucket_capacity=sb.local_capacity))
+    for (gb, gerr), (wb, werr) in zip(*outs):
+        assert int(gerr) == int(werr) == 0
+        assert int(gb.length) == int(wb.length)
+        for c in wb.column_names:
+            assert torch.equal(gb.column(c).values.cpu(),
+                               wb.column(c).values)
+
+
 def test_wrappers_refuse_mixed_devices(cuda_device):
     sel = torch.ones(8, dtype=torch.bool)
     chunks = torch.zeros((8, 4), dtype=torch.uint8, device=cuda_device)
