@@ -15,8 +15,14 @@ for P = 1, 8, 32, 64, 128 and uniform, one-value and out-of-range
 destinations (its time should not depend on them); and an int64
 ``index_add_`` of 2^24 rows into 2^21 slots, all rows spread against 15/16
 of them aimed at one dump slot, as the padding rows of an exchange buffer
-are in ``merge_rows``. One line per primitive, then one JSON object. Needs a CUDA device; the numbers in ``PERF.md`` that name this
-script come from it.
+are in ``merge_rows``. Last the ``dense_group_reduce`` kernel at the first
+slice's call (first_row, sum and min of an f32 column, sum64 and min64 of
+an int64 column; 49.5 % of ``--rows`` rows active) for G = 128, 1024, 4096
+over key distributions (uniform; every row in one slot; 90 %, 50 %, 25 % of
+the rows in one slot; Zipf(1.5)), with the kernel's warp-combined path for
+hot slots on and off, and each kind alone at G = 1024. One line per
+primitive, then one JSON object. Needs a CUDA device; the numbers in
+``PERF.md`` that name this script come from it.
 """
 
 from __future__ import annotations
@@ -80,7 +86,7 @@ def main() -> int:
 
     def report(name, fn):
         results[name], out = ms(fn)
-        print(f"{name:34s} {results[name]:10.3f} ms")
+        print(f"{name:40s} {results[name]:10.3f} ms")
         return out
 
     by_add = report("sum_f64_index_add", lambda: torch.zeros(
@@ -128,6 +134,59 @@ def main() -> int:
     for name, idx in (("spread", spread), ("15_of_16_to_dump_slot", dumped)):
         report(f"index_add_i64_{name}", lambda: torch.zeros(
             G + 1, dtype=torch.int64, device=dev).index_add_(0, idx, ones))
+    del ones, spread, dumped, idx
+
+    from .ops import cuda_kernels as ck
+    act = int(n * 0.495)
+    v = torch.randn(n, generator=gen, device=dev)
+    w = torch.randint(1, 100, (n,), generator=gen, device=dev)
+    streams = {"sum": v, "min": v, "sum64": w, "min64": w}
+    kinds = ("first_row", "sum", "min", "sum64", "min64")
+
+    def gids(nkeys, dist):
+        """(n,) int32: the first ``act`` rows active, by distribution."""
+        gid = torch.full((n,), -1, dtype=torch.int32, device=dev)
+        if dist == "zipf_1.5":
+            p = 1.0 / torch.arange(1, nkeys + 1, dtype=torch.float64,
+                                   device=dev) ** 1.5
+            u = torch.rand(act, generator=gen, device=dev,
+                           dtype=torch.float64)
+            gid[:act] = torch.searchsorted(
+                torch.cumsum(p / p.sum(), 0), u).clamp(max=nkeys - 1)
+            return gid
+        gid[:act] = torch.randint(0, nkeys, (act,), generator=gen,
+                                  device=dev, dtype=torch.int32)
+        share = {"uniform": 0.0, "one_slot": 1.0}.get(dist)
+        if share is None:
+            share = float(dist.split("_")[0]) / 100
+        hot = torch.rand(act, generator=gen, device=dev) < share
+        gid[:act][hot] = 7
+        return gid
+
+    def dg(gid, G, sub=kinds):
+        return ck.dense_group_reduce(
+            gid, tuple(streams[k] for k in sub if k in streams), sub, G)
+
+    hot_rows = ck._DG_HOT_ROWS
+    try:
+        for G, nkeys in ((128, 100), (1024, 1000), (4096, 4000)):
+            for dist in ("uniform", "one_slot", "90_hot", "50_hot", "25_hot",
+                         "zipf_1.5"):
+                gid = gids(nkeys, dist)
+                for label, threshold in (("", hot_rows),
+                                         ("_no_hot_path", 129)):
+                    ck._DG_HOT_ROWS = threshold
+                    report(f"dense_group_G{G}_{dist}{label}",
+                           lambda: dg(gid, G))
+                if G == 1024 and dist == "uniform":
+                    ck._DG_HOT_ROWS = hot_rows
+                    report(f"dense_group_G{G}_only_rows",
+                           lambda: dg(gid, G, ()))
+                    for kind in kinds:
+                        report(f"dense_group_G{G}_only_{kind}",
+                               lambda: dg(gid, G, (kind,)))
+    finally:
+        ck._DG_HOT_ROWS = hot_rows
     print(json.dumps(results))
     return 0
 

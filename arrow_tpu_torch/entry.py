@@ -42,6 +42,7 @@ import torch
 from .compute.expressions import execute_scalar_expression, field
 from .core.array import resolve_device
 from .core.batch import Batch, Table, batch_from_numpy
+from .ops.bits import SIGNED_OF, unsigned_to_int64
 from .ops.hash_aggregate import AggregateSpec, HashAggregate
 from .ops.selection import filter_batch
 from .parallel import DistContext
@@ -81,12 +82,19 @@ def example_columns_generic(n_rows: int, num_keys: int, seed: int
 def _host_probe(vals: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """Fetch the probe scalars with ONE device-to-host copy."""
     names = list(vals)
-    flat = torch.cat([vals[k].reshape(-1).to(torch.int64) for k in names])
+    # as int64: a wide unsigned key's range by its value (uint64: its bits,
+    # read back as uint64 on the host)
+    flat = torch.cat([
+        unsigned_to_int64(vals[k].reshape(-1)) if vals[k].dtype in SIGNED_OF
+        else vals[k].reshape(-1).to(torch.int64) for k in names])
     host = flat.cpu().numpy()
     out, pos = {}, 0
     for k in names:
         n = vals[k].numel()
-        out[k] = host[pos:pos + n].reshape(vals[k].shape)
+        piece = host[pos:pos + n]
+        if vals[k].dtype == torch.uint64:
+            piece = piece.view(np.uint64)
+        out[k] = piece.reshape(vals[k].shape)
         pos += n
     return out
 

@@ -16,11 +16,14 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..core import datatype as dt
 from ..core.array import Array
 from .agg_options import CountOptions
+from .bits import SIGNED_OF, from_ordered_signed, gather_rows, \
+    ordered_signed, unsigned_to_int64
 from .kernel_utils import torch_dtype
 from .segment import extreme_identity, seg_reduce_max, seg_reduce_min, \
     seg_sum
@@ -79,7 +82,7 @@ def _sorted_inputs(values: Optional[Array], ctx):
         if cached is not None:
             v_sorted, valid_sorted = cached
         else:
-            v_sorted = values.values[ctx.perm]
+            v_sorted = gather_rows(values.values, ctx.perm)
             valid_sorted = None if values.validity is None \
                 else values.validity[ctx.perm]
         if valid_sorted is not None:
@@ -133,6 +136,15 @@ class GroupedAggregator:
 
     def finalize(self, state, num_groups) -> Array:
         raise NotImplementedError
+
+    def acc_from_numpy(self, acc):
+        """The port's accumulator (first state leaf, numpy) from the JAX
+        package's: the same array unless the port holds it otherwise."""
+        return acc
+
+    def acc_to_numpy(self, acc):
+        """Inverse of ``acc_from_numpy``."""
+        return acc
 
 
 class GroupedCount(GroupedAggregator):
@@ -214,8 +226,8 @@ class GroupedSum(GroupedAggregator):
         return torch.int64 if d == torch.uint64 else d
 
     def _to_acc(self, v: torch.Tensor) -> torch.Tensor:
-        if v.dtype == torch.uint64:
-            return v.view(torch.int64)
+        if v.dtype in SIGNED_OF:
+            return unsigned_to_int64(v)
         return v.to(self._acc_dtype)
 
     def init(self, device=None):
@@ -241,6 +253,12 @@ class GroupedSum(GroupedAggregator):
         gp = _gpos(ctx, self.G)
         return (_fold(acc, gp, seg_sum(ctx, x), 0),
                 _fold(cnt, gp, seg_sum(ctx, ok.to(torch.int64)), 0))
+
+    def acc_from_numpy(self, acc):
+        return acc.view(np.int64) if acc.dtype == np.uint64 else acc
+
+    def acc_to_numpy(self, acc):
+        return acc.view(np.uint64) if self.out_type == dt.uint64 else acc
 
     def finalize(self, state, num_groups) -> Array:
         acc, cnt = state
@@ -270,6 +288,11 @@ class GroupedMean(GroupedSum):
 
 
 class _GroupedExtremum(GroupedAggregator):
+    """min / max. The accumulator has the column's dtype, except that a
+    uint16 / uint32 / uint64 column is held as its ordered signed value
+    (``bits.ordered_signed``; torch reduces no wide unsigned type) and a
+    bool column as uint8; ``finalize`` turns both back."""
+
     is_min = True
 
     @property
@@ -281,7 +304,24 @@ class _GroupedExtremum(GroupedAggregator):
 
     def _dtype(self) -> torch.dtype:
         d = torch_dtype(self.in_type)
-        return torch.uint8 if d == torch.bool else d
+        return torch.uint8 if d == torch.bool else SIGNED_OF.get(d, d)
+
+    def _to_acc(self, v: torch.Tensor) -> torch.Tensor:
+        if v.dtype in SIGNED_OF:
+            return ordered_signed(v)
+        return v.to(self._dtype())
+
+    def acc_from_numpy(self, acc):
+        if acc.dtype.kind == "u" and acc.dtype.itemsize > 1:
+            signed = np.dtype(f"i{acc.dtype.itemsize}")
+            return acc.view(signed) ^ np.iinfo(signed).min
+        return acc
+
+    def acc_to_numpy(self, acc):
+        want = np.dtype(self.in_type.storage_np)
+        if want.kind == "u" and want.itemsize > 1:
+            return (acc ^ np.iinfo(acc.dtype).min).view(want)
+        return acc
 
     def init(self, device=None):
         d = self._dtype()
@@ -299,7 +339,7 @@ class _GroupedExtremum(GroupedAggregator):
         ok = _contrib_mask(values, group_ids)
         pos = _positions(ok, group_ids, self.G)
         ident = self._identity(acc.dtype)
-        v = torch.where(ok, values.values.to(acc.dtype), ident)
+        v = torch.where(ok, self._to_acc(values.values), ident)
         return (_fold(acc, pos, v, ident, self._reduce),
                 _fold(cnt, pos, ok.to(torch.int64), 0))
 
@@ -314,7 +354,7 @@ class _GroupedExtremum(GroupedAggregator):
         acc, cnt = state
         v_sorted, ok = _sorted_inputs(values, ctx)
         ident = self._identity(acc.dtype)
-        x = torch.where(ok, v_sorted.to(acc.dtype), ident)
+        x = torch.where(ok, self._to_acc(v_sorted), ident)
         partial = seg_reduce_min(ctx, x) if self.is_min else \
             seg_reduce_max(ctx, x)
         gp = _gpos(ctx, self.G)
@@ -323,8 +363,11 @@ class _GroupedExtremum(GroupedAggregator):
 
     def finalize(self, state, num_groups) -> Array:
         acc, cnt = state
-        out = acc.to(torch.bool) if isinstance(self.in_type, dt.BoolType) \
-            else acc
+        d = torch_dtype(self.in_type)
+        if d in SIGNED_OF:
+            out = from_ordered_signed(acc, d)
+        else:
+            out = acc.to(torch.bool) if d == torch.bool else acc
         return Array(self.in_type, out, cnt > 0, length=num_groups)
 
 

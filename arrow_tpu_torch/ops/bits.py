@@ -17,15 +17,58 @@ import torch
 
 from ..core import datatype as dt
 
-__all__ = ["U32", "split_u64", "value_lanes32"]
+__all__ = ["U32", "SIGNED_OF", "as_signed_bits", "gather_rows",
+           "ordered_signed", "from_ordered_signed", "unsigned_to_int64",
+           "split_u64", "value_lanes32"]
 
 U32 = 0xFFFFFFFF
+
+# torch's unsigned types wider than 8 bits (newer releases only) and the
+# signed type of the same width: they have no index_copy_, scatter_reduce_,
+# cumsum or min, and on the card no gather or arithmetic either, so they are
+# moved as the signed type with the same bits, ordered as the signed value
+# ``bits ^ sign bit`` and computed with as int64.
+SIGNED_OF = {getattr(torch, "u" + n): getattr(torch, n)
+             for n in ("int16", "int32", "int64") if hasattr(torch, "u" + n)}
+
+
+def as_signed_bits(x: torch.Tensor) -> torch.Tensor:
+    """A uint16 / uint32 / uint64 tensor viewed as the signed type with the
+    same bits (no copy); any other tensor unchanged."""
+    signed = SIGNED_OF.get(x.dtype)
+    return x if signed is None else x.view(signed)
+
+
+def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]`` along axis 0, for wide unsigned types too."""
+    return as_signed_bits(x)[idx].view(x.dtype)
+
+
+def unsigned_to_int64(x: torch.Tensor) -> torch.Tensor:
+    """uint16 / uint32 -> int64 by value; uint64 -> the int64 with the same
+    bits (so sums and differences are right mod 2^64)."""
+    s = as_signed_bits(x).to(torch.int64)
+    bits = 8 * x.element_size()
+    return s if bits == 64 else s & ((1 << bits) - 1)
+
+
+def ordered_signed(x: torch.Tensor) -> torch.Tensor:
+    """uint16 / uint32 / uint64 -> the signed tensor of the same width whose
+    order is the unsigned order (``bits ^ sign bit``: 0 becomes the signed
+    minimum, the unsigned maximum the signed maximum)."""
+    signed = SIGNED_OF[x.dtype]
+    return x.view(signed) ^ torch.iinfo(signed).min
+
+
+def from_ordered_signed(s: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of ``ordered_signed``: back to the unsigned ``dtype``."""
+    return (s ^ torch.iinfo(s.dtype).min).view(dtype)
 
 
 def split_u64(x: torch.Tensor) -> List[torch.Tensor]:
     """[hi, lo] u32 lanes (int64) of a 64-bit integer tensor (a uint64
     tensor by its bits)."""
-    x = x.view(torch.int64) if x.dtype == torch.uint64 else x.to(torch.int64)
+    x = as_signed_bits(x).to(torch.int64)
     return [(x >> 32) & U32, x & U32]
 
 
@@ -53,5 +96,7 @@ def value_lanes32(values: torch.Tensor, type_) -> List[torch.Tensor]:
     if t.is_integer or t.is_temporal:
         if t.bit_width == 64:
             return split_u64(v)
+        if v.dtype in SIGNED_OF:
+            return [unsigned_to_int64(v)]
         return [v.to(torch.int64) & U32]
     raise NotImplementedError(f"value lanes for {t}")

@@ -1,15 +1,23 @@
 """Hand-written CUDA kernels for Hopper, their wrappers and plain versions.
 
 The counterpart of the JAX package's ``ops/pallas_kernels.py`` for the
-kernels on the filter -> group-by paths and the exchange:
+kernels on the filter -> group-by paths and the exchange; five kernels:
 
   * ``filter_compact_chunks`` (csrc/filter_compact.cu): stream compaction
     of (cap, C) u8 byte planes;
   * ``tile_compact_local`` (csrc/tile_compact.cu): per 1024-row tile, the
     local indices of the selected rows packed to the front, and their count
     (level 1 of the take-index filter);
+  * ``tile_stitch`` (csrc/tile_compact.cu): every tile's local indices to
+    their place in the output as global take indices (level 2; the JAX
+    package does it with a scan and gathers because the TPU cannot
+    scatter, which is this kernel's plain version);
   * ``dense_group_reduce`` (csrc/dense_group.cu): per-slot reductions over a
-    dense group id;
+    dense group id: the TPU kernel's nine kinds over 32-bit streams, and
+    the card's native ones ("sum64", "min64", "max64" over an int64
+    stream, "first_row", a validity stream per kind); the slot of a row
+    is given (a gid) or formed in the kernel from the key column
+    (``DenseKey``);
   * ``partition_histogram`` (csrc/partition_hist.cu): rows per destination
     of an exchange.
 
@@ -32,12 +40,16 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import List, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
+from .segment import rows_of_positions
+
 __all__ = ["filter_compact_chunks", "filter_compact_chunks_plain",
            "tile_compact_local", "tile_compact_local_plain",
+           "tile_stitch", "tile_stitch_plain",
+           "DenseKey", "dense_key_gid",
            "dense_group_reduce", "dense_group_reduce_plain",
            "partition_histogram", "partition_histogram_plain", "build",
            "LAUNCHES", "reset_launch_counts", "TILE_ROWS", "MAX_PARTITIONS"]
@@ -49,7 +61,8 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # kernel launches per wrapper (only where the wrapper launches its kernel)
 LAUNCHES = {"filter_compact_chunks": 0, "tile_compact_local": 0,
-            "dense_group_reduce": 0, "partition_histogram": 0}
+            "tile_stitch": 0, "dense_group_reduce": 0,
+            "partition_histogram": 0}
 
 
 def reset_launch_counts() -> None:
@@ -128,9 +141,10 @@ def _lib():
             "atp_fc_scatter": [vp, vp, vp, i64, i32, vp, vp],
             "atp_tc_tile_rows": [],
             "atp_tile_compact_local": [vp, i64, vp, vp, vp],
+            "atp_tile_stitch": [vp, vp, vp, i64, i64, vp, vp],
             "atp_dense_group_reduce": [vp, i64, i32, i32, p_i32, p_i64,
-                                       p_i64, p_i64, p_i64, vp, vp, i64,
-                                       vp],
+                                       p_i64, p_i64, p_i64, p_i64, vp, i32,
+                                       vp, i64, vp, i64, vp, vp, i64, vp],
             "atp_ph_max_partitions": [],
             "atp_partition_histogram": [vp, i64, i32, vp, vp],
         }
@@ -141,6 +155,9 @@ def _lib():
         if lib.atp_ph_max_partitions() != MAX_PARTITIONS:
             raise RuntimeError(
                 "csrc/partition_hist.cu and MAX_PARTITIONS disagree")
+        if lib.atp_tc_tile_rows() != TILE_ROWS:
+            raise RuntimeError(
+                "csrc/tile_compact.cu and TILE_ROWS disagree")
         _lib_handle = lib
     return _lib_handle
 
@@ -252,16 +269,16 @@ def tile_compact_local(sel: torch.Tensor):
     """(cap,) bool, cap % 1024 == 0 -> (loc (cap,) int32, counts
     (cap / 1024,) int32): per 1024-row tile, the tile-local indices of its
     selected rows packed to the tile's front in row order (slots past the
-    tile's count hold 0), and the tile's selected count. Level 2
-    (``ops/selection.py``) stitches the tiles into take indices."""
+    tile's count hold 0), and the tile's selected count. ``tile_stitch``
+    (level 2) turns them into take indices. A view that starts at any byte
+    is taken as it is (the kernel reads it with 1-byte loads when its
+    address is not a multiple of 16)."""
     _check_tc(sel)
     if _on_cpu((sel,)):
         return tile_compact_local_plain(sel)
     _require(sel.is_contiguous(), "tile_compact_local needs a contiguous "
              "tensor")
     lib = _lib()
-    _require(lib.atp_tc_tile_rows() == TILE_ROWS,
-             "csrc/tile_compact.cu and TILE_ROWS disagree")
     cap = sel.shape[0]
     dev = sel.device
     loc = torch.empty((cap,), dtype=torch.int32, device=dev)
@@ -275,41 +292,145 @@ def tile_compact_local(sel: torch.Tensor):
     return loc, counts
 
 
+# ---- tile_stitch --------------------------------------------------------------
+
+def _check_ts(loc, counts, starts, out_cap: int) -> int:
+    T = counts.shape[0]
+    _require(T >= 1 and loc.shape == (T * TILE_ROWS,) and
+             starts.shape == (T + 1,),
+             "loc (T * 1024,), counts (T,), starts (T + 1,) with T >= 1")
+    _require(loc.dtype == counts.dtype == starts.dtype == torch.int32,
+             "loc, counts and starts must be int32")
+    _require(0 <= out_cap < (1 << 31) and loc.shape[0] < (1 << 31),
+             "indices are int32: capacities must be < 2^31")
+    return T
+
+
+def tile_stitch_plain(loc: torch.Tensor, counts: torch.Tensor,
+                      starts: torch.Tensor, out_cap: int) -> torch.Tensor:
+    """Plain version, the gather form of the JAX package's level 2 (the
+    TPU cannot scatter): ``rows_of_positions`` sends every output position
+    to its source tile, and two gathers (the tile's start, the tile-local
+    index) give the global index. ``counts`` is implied by ``starts``."""
+    T = _check_ts(loc, counts, starts, out_cap)
+    tile_of = rows_of_positions(starts, out_cap).clamp_(0, T - 1)
+    j = torch.arange(out_cap, dtype=torch.int32, device=loc.device)
+    within = (j - starts[tile_of.long()]).clamp_(0, TILE_ROWS - 1)
+    base = tile_of * TILE_ROWS
+    del tile_of
+    indices = base + loc[(base + within).long()]
+    return torch.where(j < starts[-1], indices, 0)
+
+
+def tile_stitch(loc: torch.Tensor, counts: torch.Tensor,
+                starts: torch.Tensor, out_cap: int) -> torch.Tensor:
+    """Level 2 of the take-index filter: ``tile_compact_local``'s (loc,
+    counts) and ``starts`` (T + 1,) int32, the exclusive prefix sum of
+    counts with the total last -> indices (out_cap,) int32 with
+    ``indices[starts[t] + r] = t * 1024 + loc[t * 1024 + r]`` for
+    ``r < counts[t]`` and 0 from ``starts[T]`` to ``out_cap`` (so a take
+    through padding rows stays in range). ``out_cap`` must hold the total;
+    nothing is read on the host."""
+    T = _check_ts(loc, counts, starts, out_cap)
+    if _on_cpu((loc, counts, starts)):
+        return tile_stitch_plain(loc, counts, starts, out_cap)
+    _require(loc.is_contiguous() and counts.is_contiguous() and
+             starts.is_contiguous(), "tile_stitch needs contiguous tensors")
+    lib = _lib()
+    dev = loc.device
+    indices = torch.empty((out_cap,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _check_rc(lib.atp_tile_stitch(
+            loc.data_ptr(), counts.data_ptr(), starts.data_ptr(), T, out_cap,
+            indices.data_ptr(), stream), "tile_stitch")
+    LAUNCHES["tile_stitch"] += 1
+    return indices
+
+
 # ---- dense_group_reduce ------------------------------------------------------
 
-# The TPU kernel's constants (pallas_kernels.py _DG_IDENT / _DG_ARITY):
-# kind -> (#inputs, #outputs) and the identity an empty slot keeps.
+# kind -> (#inputs, #outputs) and the identity an empty slot keeps. The
+# first nine are the TPU kernel's (pallas_kernels.py _DG_IDENT / _DG_ARITY),
+# over 32-bit streams; the last four are this card's native kinds: one int64
+# stream for "sum64" / "min64" / "max64", none for "first_row".
+_I64MAX = (1 << 63) - 1
+_I64MIN = -(1 << 63)
 _DG_IDENT = {
     "sum": 0.0, "min": float("inf"), "max": float("-inf"),
     "imin": (1 << 31) - 1, "imax": -(1 << 31), "count": 0, "sumc": 0,
+    "sum64": 0, "min64": _I64MAX, "max64": _I64MIN,
+    "first_row": (1 << 31) - 1,
 }
 _DG_ARITY = {
     "sum": (1, 1), "min": (1, 1), "max": (1, 1), "imin": (1, 1),
     "imax": (1, 1), "count": (1, 1), "sumc": (1, 2),
     "imin64": (2, 2), "imax64": (2, 2),
+    "sum64": (1, 1), "min64": (1, 1), "max64": (1, 1), "first_row": (0, 1),
 }
 # kind codes of csrc/dense_group.cu
 _DG_KINDS = {"sum": 0, "min": 1, "max": 2, "imin": 3, "imax": 4,
-             "count": 5, "sumc": 6, "imin64": 7, "imax64": 8}
+             "count": 5, "sumc": 6, "imin64": 7, "imax64": 8,
+             "sum64": 9, "min64": 10, "max64": 11, "first_row": 12}
 _DG_F32 = ("sum", "min", "max")
-_I64MAX = (1 << 63) - 1
-_I64MIN = -(1 << 63)
+_DG_I64 = ("sum64", "min64", "max64")
+# kinds whose accumulator takes 8 bytes a slot (csrc/dense_group.cu wide())
+_DG_WIDE = ("sumc", "imin64", "imax64") + _DG_I64
 _BIAS32 = 0x80000000
 _U32 = 0xFFFFFFFF
-# Shared memory one launch may use: half of the 227 KB a block can have,
-# so that two blocks fit on an SM. Kinds past it go to another launch.
-_DG_SMEM_BUDGET = 227 * 1024 // 2
+# Shared memory one launch may use: all a block can have on an H100 (the
+# kernel runs one block of 1024 threads an SM above half of it, two of 512
+# below). Kinds past it go to another launch.
+_DG_SMEM_BUDGET = 227 * 1024
 _DG_MAX_KINDS = 16          # csrc/dense_group.cu kMaxKinds
+# Rows of a warp's 128-row step in one slot from which the kernel combines
+# them with shuffles before the atomic (above 128: never). Uniform keys stay
+# far below it; ``bench_reductions`` times the kernel with and without.
+_DG_HOT_ROWS = 16
+
+
+class DenseKey(NamedTuple):
+    """Where ``dense_group_reduce`` takes the slots from a key column in
+    place of a ready ``gid``: row r lies in slot ``values[r] - lo`` (its low
+    32 bits as an int32), in the null-key slot G - 1 where ``validity[r]``
+    is False, and in none (-1) where r >= ``length``. The kernel forms the
+    slot as it reads the row, which saves the elementwise passes that
+    build a gid."""
+    values: torch.Tensor                    # (n,) int64
+    lo: int
+    length: Union[int, torch.Tensor]        # rows in use: int or 0-d tensor
+    validity: Optional[torch.Tensor]        # (n,) bool, or None
+
+
+def dense_key_gid(key: DenseKey, G: int) -> torch.Tensor:
+    """The (n,) int32 gid a ``DenseKey`` stands for, in plain PyTorch."""
+    n = key.values.shape[0]
+    in_range = torch.arange(n, device=key.values.device) < key.length
+    gid = torch.where(in_range, (key.values - key.lo).to(torch.int32), -1)
+    if key.validity is not None:
+        gid = torch.where(key.validity | ~in_range, gid, G - 1)
+    return gid
+
+
+def _dg_dtype(kind: str) -> torch.dtype:
+    """dtype of a kind's input streams and outputs."""
+    if kind in _DG_F32:
+        return torch.float32
+    return torch.int64 if kind in _DG_I64 else torch.int32
+
+
+def _dg_acc_bytes(kind: str, G: int) -> int:
+    return G * (8 if kind in _DG_WIDE else 4)
 
 
 def _dg_launch_groups(kinds: Sequence[str], G: int) -> List[List[int]]:
     """Split kind indices into launches of at most ``_DG_MAX_KINDS`` kinds
-    whose shared memory, 4 * G * (1 + outputs) bytes, fits
-    ``_DG_SMEM_BUDGET``."""
+    whose shared memory (4 * G bytes of row counts + each kind's
+    accumulators) fits ``_DG_SMEM_BUDGET``."""
     groups: List[List[int]] = []
     used = 0
     for i, k in enumerate(kinds):
-        need = 4 * G * _DG_ARITY[k][1]
+        need = _dg_acc_bytes(k, G)
         if not groups or len(groups[-1]) == _DG_MAX_KINDS or \
                 used + need > _DG_SMEM_BUDGET:
             groups.append([])
@@ -318,52 +439,78 @@ def _dg_launch_groups(kinds: Sequence[str], G: int) -> List[List[int]]:
             raise ValueError(f"kind {k!r} at G={G} exceeds shared memory")
         groups[-1].append(i)
         used += need
-    return groups
+    return groups or [[]]       # no kinds: one launch for the row counts
 
 
-def _check_dg(gid, inputs, kinds, G):
+def _check_dg(gid, inputs, kinds, G, valid):
     _require(G % 128 == 0 and G > 0, f"G must be a multiple of 128: {G}")
     _require(all(k in _DG_ARITY for k in kinds), f"unknown kind in {kinds}")
     _require(len(inputs) == sum(_DG_ARITY[k][0] for k in kinds),
              f"{len(inputs)} inputs for kinds {kinds}")
-    _require(gid.ndim == 1 and gid.dtype == torch.int32, "gid must be (n,) "
-             "int32")
+    if isinstance(gid, DenseKey):
+        _require(gid.values.ndim == 1 and gid.values.dtype == torch.int64,
+                 "DenseKey.values must be (n,) int64")
+        _require(gid.validity is None or (
+            gid.validity.shape == gid.values.shape and
+            gid.validity.dtype == torch.bool),
+            "DenseKey.validity must be (n,) bool")
+        _require(-(1 << 63) <= gid.lo < (1 << 63), "DenseKey.lo must fit "
+                 "int64")
+        gid = gid.values
+    else:
+        _require(gid.ndim == 1 and gid.dtype == torch.int32, "gid must be "
+                 "(n,) int32")
+    _require(gid.shape[0] < (1 << 31), "row indices are int32: n must be "
+             "< 2^31")
+    _require(len(valid) == len(kinds), "one validity entry (or None) per "
+             "kind")
     ij = 0
-    for k in kinds:
-        want = torch.float32 if k in _DG_F32 else torch.int32
+    for k, v in zip(kinds, valid):
         for x in inputs[ij:ij + _DG_ARITY[k][0]]:
-            _require(x.shape == gid.shape and x.dtype == want,
-                     f"input of kind {k!r} must be ({gid.shape[0]},) {want}")
+            _require(x.shape == gid.shape and x.dtype == _dg_dtype(k),
+                     f"input of kind {k!r} must be ({gid.shape[0]},) "
+                     f"{_dg_dtype(k)}")
+        _require(v is None or (v.shape == gid.shape and
+                               v.dtype == torch.bool),
+                 f"validity of kind {k!r} must be ({gid.shape[0]},) bool")
         ij += _DG_ARITY[k][0]
 
 
-def dense_group_reduce_plain(gid: torch.Tensor, inputs, kinds: tuple,
-                             G: int):
+def dense_group_reduce_plain(gid, inputs, kinds: tuple, G: int, valid=None):
     """Plain version: index_add / scatter_reduce per kind into G + 1 slots
-    (slot G takes every row outside [0, G) and is dropped)."""
+    (slot G takes every row outside [0, G), and for a kind with a validity
+    stream its invalid rows, and is dropped)."""
+    if isinstance(gid, DenseKey):
+        gid = dense_key_gid(gid, G)
     dev = gid.device
     slot = torch.where((gid >= 0) & (gid < G), gid, G).long()
+    valid = (None,) * len(kinds) if valid is None else valid
 
-    def acc(x, init, reduce=None):
+    def acc(x, init, reduce=None, at=slot):
         buf = torch.full((G + 1,), init, dtype=x.dtype, device=dev)
         if reduce is None:
-            return buf.index_add_(0, slot, x)[:G]
-        return buf.scatter_reduce_(0, slot, x, reduce)[:G]
+            return buf.index_add_(0, at, x)[:G]
+        return buf.scatter_reduce_(0, at, x, reduce)[:G]
 
     rows = acc(torch.ones_like(gid), 0)
     outs = []
     ij = 0
-    for kind in kinds:
-        x = inputs[ij]
-        if kind in ("sum", "count"):
-            outs.append(acc(x, 0))
-        elif kind in ("min", "max", "imin", "imax"):
+    for kind, v in zip(kinds, valid):
+        at = slot if v is None else torch.where(v, slot, G)
+        x = inputs[ij] if _DG_ARITY[kind][0] else None
+        if kind in ("sum", "count", "sum64"):       # int64 adds wrap
+            outs.append(acc(x, 0, at=at))
+        elif kind in ("min", "max", "imin", "imax", "min64", "max64"):
             # scatter_reduce amin/amax propagate NaN (CPU and CUDA), as
             # jnp.min / jnp.max do
             outs.append(acc(x, _DG_IDENT[kind],
-                            "amin" if "min" in kind else "amax"))
+                            "amin" if "min" in kind else "amax", at=at))
+        elif kind == "first_row":
+            outs.append(acc(torch.arange(gid.shape[0], dtype=torch.int32,
+                                         device=dev),
+                            _DG_IDENT[kind], "amin", at=at))
         elif kind == "sumc":
-            t = acc(x.long() & _U32, 0)
+            t = acc(x.long() & _U32, 0, at=at)
             # int64 -> int32 keeps the low 32 bits (u32 bits in an i32)
             outs += [(t & _U32).to(torch.int32), (t >> 32).to(torch.int32)]
         else:                                   # imin64 / imax64
@@ -371,37 +518,62 @@ def dense_group_reduce_plain(gid: torch.Tensor, inputs, kinds: tuple,
                 ((inputs[ij + 1].long() & _U32) ^ _BIAS32)
             is_min = kind == "imin64"
             r = acc(key, _I64MAX if is_min else _I64MIN,
-                    "amin" if is_min else "amax")
+                    "amin" if is_min else "amax", at=at)
             outs += [(r >> 32).to(torch.int32),
                      ((r & _U32) ^ _BIAS32).to(torch.int32)]
         ij += _DG_ARITY[kind][0]
     return rows, outs
 
 
-def dense_group_reduce(gid: torch.Tensor, inputs, kinds: tuple, G: int):
-    """Dense-domain grouped reduction (the TPU kernel's contract).
+def dense_group_reduce(gid, inputs, kinds: tuple, G: int, valid=None):
+    """Dense-domain grouped reduction.
 
     gid: (n,) int32 slot per row; rows outside [0, G) are ignored
-      (negative = inactive).
-    inputs: per kind, (n,) float32 for sum/min/max, int32 otherwise;
-      pre-masked by the caller (inactive rows hold the op identity).
-    kinds: "sum"|"min"|"max"|"count"|"imin"|"imax" (one input, one output),
-      "sumc" (16-bit limbs -> (u32-wrap lo, carry)), "imin64"/"imax64"
-      ((hi, biased lo) pairs -> their lexicographic min/max pair).
+      (negative = inactive). Or a ``DenseKey``: the kernel forms the slot
+      from the key column itself.
+    kinds, with their input streams in ``inputs`` in order:
+      "sum"|"min"|"max" (one float32 stream), "count"|"imin"|"imax" (one
+      int32 stream), "sumc" (int32 stream of 16-bit limbs -> (u32-wrap lo,
+      carry)), "imin64"/"imax64" ((hi, biased lo) int32 pair -> their
+      lexicographic min/max pair): the TPU kernel's contract;
+      "sum64" (one int64 stream, the sum mod 2^64), "min64"|"max64" (one
+      int64 stream), "first_row" (no stream: the slot's least row index).
+    valid: None, or per kind None or a (n,) bool stream: where it is False
+      the row is skipped for that kind (it still counts in ``rows``). Two
+      kinds may share a stream: the kernel reads it once a row.
     G: slot count, a multiple of 128.
 
-    Returns (rows (G,) int32 active-row count per slot, [outputs (G,)]);
+    Returns (rows (G,) int32 active-row count per slot, [outputs (G,)]:
+    float32 for sum/min/max, int64 for sum64/min64/max64, else int32);
     empty slots hold each kind's identity."""
     kinds = tuple(kinds)
     inputs = tuple(inputs)
-    _check_dg(gid, inputs, kinds, G)
-    if _on_cpu((gid,) + inputs):
-        return dense_group_reduce_plain(gid, inputs, kinds, G)
-    _require(all(t.is_contiguous() for t in (gid,) + inputs),
+    valid = (None,) * len(kinds) if valid is None else tuple(valid)
+    _check_dg(gid, inputs, kinds, G, valid)
+    key = gid if isinstance(gid, DenseKey) else None
+    tensors = inputs + tuple(v for v in valid if v is not None)
+    if key is None:
+        tensors += (gid,)
+    else:
+        tensors += tuple(t for t in key if isinstance(t, torch.Tensor))
+    if _on_cpu(tensors):
+        return dense_group_reduce_plain(gid, inputs, kinds, G, valid)
+    _require(all(t.is_contiguous() for t in tensors),
              "dense_group_reduce needs contiguous tensors")
     lib = _lib()
-    dev = gid.device
-    n = gid.shape[0]
+    dev = tensors[-1].device
+    n = (gid if key is None else key.values).shape[0]
+    # where the slots come from: (gid, key, lo, length on the device,
+    # length, key validity); the kernel reads a device length itself
+    if key is None:
+        slots = (gid.data_ptr(), None, 0, None, 0, None)
+    else:
+        on_device = isinstance(key.length, torch.Tensor)
+        length = key.length.to(torch.int64) if on_device else None
+        slots = (None, key.values.data_ptr(), key.lo,
+                 length.data_ptr() if on_device else None,
+                 0 if on_device else int(key.length),
+                 None if key.validity is None else key.validity.data_ptr())
     rows = torch.empty((G,), dtype=torch.int32, device=dev)
     # per kind: its input tensors and its output tensors
     ins, outs_of = [], []
@@ -409,8 +581,7 @@ def dense_group_reduce(gid: torch.Tensor, inputs, kinds: tuple, G: int):
     for k in kinds:
         ni, no = _DG_ARITY[k]
         ins.append(inputs[ij:ij + ni])
-        dtype = torch.float32 if k in _DG_F32 else torch.int32
-        outs_of.append([torch.empty((G,), dtype=dtype, device=dev)
+        outs_of.append([torch.empty((G,), dtype=_dg_dtype(k), device=dev)
                         for _ in range(no)])
         ij += ni
     with torch.cuda.device(dev):
@@ -418,19 +589,24 @@ def dense_group_reduce(gid: torch.Tensor, inputs, kinds: tuple, G: int):
         for gi, group in enumerate(_dg_launch_groups(kinds, G)):
             nk = len(group)
             codes = (ctypes.c_int * nk)(*[_DG_KINDS[kinds[i]] for i in group])
-            in0, in1, out0, out1 = ((ctypes.c_int64 * nk)() for _ in range(4))
+            in0, in1, vld, out0, out1 = ((ctypes.c_int64 * nk)()
+                                         for _ in range(5))
             ws_bytes = 4 * G
             for j, i in enumerate(group):
-                in0[j] = ins[i][0].data_ptr()
-                in1[j] = ins[i][-1].data_ptr()
+                if ins[i]:
+                    in0[j] = ins[i][0].data_ptr()
+                    in1[j] = ins[i][-1].data_ptr()
+                if valid[i] is not None:
+                    vld[j] = valid[i].data_ptr()
                 out0[j] = outs_of[i][0].data_ptr()
                 out1[j] = outs_of[i][-1].data_ptr()
-                ws_bytes += 4 * G * len(outs_of[i])
+                ws_bytes += _dg_acc_bytes(kinds[i], G)
             ws = torch.empty((ws_bytes,), dtype=torch.uint8, device=dev)
             _check_rc(lib.atp_dense_group_reduce(
-                gid.data_ptr(), n, G, nk, codes, in0, in1, out0, out1,
-                rows.data_ptr() if gi == 0 else None, ws.data_ptr(),
-                ws_bytes, stream), "dense_group_reduce")
+                slots[0], n, G, nk, codes, in0, in1, vld, out0, out1,
+                rows.data_ptr() if gi == 0 else None, _DG_HOT_ROWS,
+                *slots[1:],
+                ws.data_ptr(), ws_bytes, stream), "dense_group_reduce")
     LAUNCHES["dense_group_reduce"] += 1
     return rows, [o for os_ in outs_of for o in os_]
 

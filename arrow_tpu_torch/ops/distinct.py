@@ -27,6 +27,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from .bits import gather_rows
 from .segment import _scatter, segmented_carry_last
 
 __all__ = ["SortGroup", "sort_group", "merge_find", "merge_insert"]
@@ -126,7 +127,7 @@ def sort_group(lanes: torch.Tensor, active: torch.Tensor,
         perm = _lexsort_perm([((~active).long(), 1)] + lane_keys)
         s_lanes = lanes[perm]
         s_active = active[perm]
-    s_payloads = tuple(p[perm] for p in payloads)
+    s_payloads = tuple(gather_rows(p, perm) for p in payloads)
     head = _lane_runs(s_lanes, s_active)
     seg = (torch.cumsum(head, 0) - 1).to(torch.int32)
     if cap > 0:

@@ -34,8 +34,7 @@ import torch
 
 from ..core import datatype as dt
 from ..core.array import Array, resolve_device, row_mask
-from .bits import value_lanes32
-from .bits import U32
+from .bits import U32, as_signed_bits, gather_rows, value_lanes32
 from .distinct import _FOLD_SENTINEL, merge_insert, sort_group
 
 __all__ = ["Grouper", "GrouperState", "group_key_lanes"]
@@ -257,7 +256,8 @@ class Grouper:
         rep_active = ridx < torch.clamp(g.num_unique, max=R)
         pos = torch.where(rep_active & (rep_gids >= 0), rep_gids,
                           self.max_groups).long()
-        return [self._scatter_unique(k, uniques, i, pos, k.values[rep_rows],
+        return [self._scatter_unique(k, uniques, i, pos,
+                                     gather_rows(k.values, rep_rows),
                                      k.validity_or_true()[rep_rows])
                 for i, k in enumerate(keys)]
 
@@ -276,7 +276,10 @@ class Grouper:
         else:
             vals = uniques[i].values
             valid = uniques[i].validity_or_true()
-        vals = torch.cat([vals, vals[:1]]).index_copy_(0, pos, vals_src)[:G]
+        # wide unsigned keys move as their signed bits (no index_copy_)
+        vals = torch.cat([as_signed_bits(vals), as_signed_bits(vals[:1])]) \
+            .index_copy_(0, pos, as_signed_bits(vals_src))[:G] \
+            .view(vals.dtype)
         valid = torch.cat([valid, valid[:1]]).index_copy_(
             0, pos, valid_src)[:G]
         return Array(k.type, vals, valid)

@@ -7,8 +7,9 @@ the route (``probe_route``):
 
   * "dense" when the single integer key spans a small domain:
     ``consume_dense`` reduces every aggregate in one pass of the
-    ``dense_group_reduce`` CUDA kernel and folds the per-slot partials into
-    the state through ``merge_rows``;
+    ``dense_group_reduce`` CUDA kernel, which reads the columns as they
+    are (its native 64-bit kinds and validity streams), and folds the
+    per-slot partials into the state through ``merge_rows``;
   * "packed" / "generic": ``consume`` sort-groups the batch by key (the key
     lanes range-packed into fewer sort keys where the probe allows), runs
     the grouper table over the unique reps and segment-reduces every
@@ -30,8 +31,9 @@ from ..core.array import Array, resolve_device, row_mask
 from ..core.batch import Batch
 from ..core.schema import Field, Schema
 from .aggregates import GroupedAggregator, make_grouped_aggregator
-from .bits import U32
-from .cuda_kernels import dense_group_reduce
+from .bits import SIGNED_OF, U32, from_ordered_signed, ordered_signed, \
+    unsigned_to_int64
+from .cuda_kernels import DenseKey, dense_group_reduce
 from .grouper import Grouper, GrouperState, group_key_lanes
 from .segment import make_segment_context
 
@@ -39,7 +41,6 @@ __all__ = ["AggregateSpec", "HashAggregate"]
 
 _I32MAX = (1 << 31) - 1
 _I32MIN = -(1 << 31)
-_I64MIN = -(1 << 63)
 _BIAS32 = 0x80000000
 
 
@@ -76,9 +77,14 @@ def _probe_key_domain(key: Array):
     active rows, min > max."""
     act = key.present_mask()
     v = key.values
+    wide_unsigned = v.dtype in SIGNED_OF    # torch has no min / max of them
+    if wide_unsigned:
+        v = ordered_signed(v)
     info = torch.iinfo(v.dtype)
     lo = torch.where(act, v, info.max).min()
     hi = torch.where(act, v, info.min).max()
+    if wide_unsigned:
+        lo, hi = from_ordered_signed(torch.stack([lo, hi]), key.values.dtype)
     return lo, hi
 
 
@@ -143,18 +149,21 @@ class HashAggregate:
             t(np.asarray(gs.table_lanes).astype(np.int64)), t(gs.table_gid),
             t(gs.num_groups), t(gs.error))
 
-        def conv(x):
-            if isinstance(x, tuple):
-                return tuple(conv(y) for y in x)
-            x = np.asarray(x)
-            # unsigned sums are held as int64 bits (GroupedSum._acc_dtype)
-            return t(x.view(np.int64) if x.dtype == np.uint64 else x)
+        def conv(agg, st):
+            # the accumulator leaf in the port's representation (unsigned
+            # sums as int64 bits, unsigned min / max as ordered signed)
+            if isinstance(st, tuple):
+                return (t(agg.acc_from_numpy(np.asarray(st[0]))),) + \
+                    tuple(t(x) for x in st[1:])
+            return t(st)
         us = None
         if uniques is not None:
             us = tuple(Array(f.type, t(u.values),
                              None if u.validity is None else t(u.validity))
                        for u, f in zip(uniques, self.key_fields))
-        return (grouper_state, conv(tuple(aggs)), us)
+        return (grouper_state,
+                tuple(conv(a, st) for a, st in zip(self._aggregators, aggs)),
+                us)
 
     def consume(self, state, batch: Batch, pack_arrays=None,
                 pack_static=None, first: bool = False):
@@ -323,121 +332,95 @@ class HashAggregate:
                       impl: str = "pallas"):
         """Dense-domain consume with ``G`` slots from key ``lo`` up. Only
         impl "pallas" (the ``dense_group_reduce`` kernel) is ported; the
-        sorted dense reduction for larger domains comes later."""
+        sorted dense reduction for larger domains comes later.
+
+        The kernel reads the columns as they are: the key for the slot (a
+        ``DenseKey``: no gid is built), "first_row" for the
+        group order, "sum" / "min" / "max" over a float32 column, "sum64" /
+        "min64" / "max64" over an int64 column, the column's validity as
+        the kind's validity stream, two kinds over one column sharing its
+        stream. A "count" stream is built only for a column that has nulls
+        (else the kernel's row count is the count). The JAX package feeds
+        its kernel limb, pair and identity-masked 32-bit streams instead
+        (the TPU has no 64-bit arithmetic); the results are the same."""
         if impl != "pallas":
             raise NotImplementedError(f"dense impl {impl!r}")
         key = batch.column(self.keys[0])
-        cap = key.capacity
-        dev = key.device
-        in_range = row_mask(cap, batch.length, dev)
-        kv = (key.values - lo).to(torch.int32)
-        gid = torch.where(in_range, kv, -1).to(torch.int32)
-        if key.validity is not None:
-            # null key rows form their own group in slot G-1 (the probe
-            # reserved it)
-            gid = torch.where(key.validity | ~in_range, gid, G - 1)
-        iota = torch.arange(cap, dtype=torch.int32, device=dev)
-        inputs = [torch.where(gid >= 0, iota, _I32MAX)]
-        kinds = ["imin"]
-        slot_of = {}            # sig -> kind-entry index
+        kdtype = key.values.dtype
+        lo = int(lo)
+        if kdtype in SIGNED_OF:
+            # wide unsigned keys: int64 arithmetic (mod 2^64 for uint64)
+            kv64 = unsigned_to_int64(key.values)
+            lo = lo - (1 << 64) if lo >= (1 << 63) else lo
+        else:
+            kv64 = key.values.to(torch.int64)
+        # the kernel forms the slot from the key itself: key - lo, the
+        # null-key slot G - 1 (the probe reserved it), none past the length
+        slots = DenseKey(kv64, lo, batch.length, key.validity)
+        kinds, inputs, valid = ["first_row"], [], [None]
+        out_of = {}             # sig -> index of the kind (= of its output)
 
-        def add(sig, build):
-            """Register one kind entry (1+ inputs) once per signature."""
-            if sig not in slot_of:
-                slot_of[sig] = len(kinds)
-                xs, kind = build()
-                inputs.extend(xs if isinstance(xs, (list, tuple))
-                              else [xs])
+        def add(sig, kind, x, v=None):
+            """Register one kind once per signature."""
+            if sig not in out_of:
+                out_of[sig] = len(kinds)
                 kinds.append(kind)
-
-        def _i64_limbs(v, ok):
-            """int64 -> four 16-bit limbs of the SIGN-BIASED value (u32
-            wrap + carry accumulation in the kernel is exact mod 2^64)."""
-            u = v ^ _I64MIN
-            return [torch.where(ok, (u >> (16 * k)) & 0xFFFF, 0)
-                    .to(torch.int32) for k in range(4)]
-
-        def _i64_pair(v, ok, is_min):
-            ident = _I32MAX if is_min else _I32MIN
-            hi = (v >> 32).to(torch.int32)
-            lo_b = ((v & U32) - _BIAS32).to(torch.int32)
-            return [torch.where(ok, hi, ident), torch.where(ok, lo_b, ident)]
-
-        def i32(x):
-            return x.to(torch.int32)
+                inputs.append(x)
+                valid.append(v)
 
         def is_i64(agg):
             it = agg.in_type
             return it.is_signed_integer and it.bit_width == 64
 
-        active = gid >= 0
         for spec, agg in zip(self.aggs, self._aggregators):
             if agg.name == "count_all":
                 continue        # served by the kernel's rows output
-            col = batch.column(spec.targets[0])
-            ok = active if col.validity is None else (active & col.validity)
             tgt = spec.targets[0]
+            col = batch.column(tgt)
+            mode = getattr(agg.options, "mode", "only_valid") \
+                if agg.name == "count" else "only_valid"
+            # a column without nulls needs no count stream: the kernel's
+            # rows are its valid count and its null count is 0
+            if col.validity is not None and mode == "only_null":
+                add((tgt, "count_null"), "count",
+                    (~col.validity).to(torch.int32))
+            elif col.validity is not None and mode == "only_valid":
+                add((tgt, "countv"), "count", col.validity.to(torch.int32))
             if agg.name == "count":
-                mode = getattr(agg.options, "mode", "only_valid")
-                if mode == "only_null":
-                    okn = active & ~col.validity_or_true()
-                    add((tgt, "count_null"), lambda okn=okn: (i32(okn),
-                                                              "count"))
-                elif mode == "all":
-                    add((None, "rows"), lambda: (i32(active), "count"))
-                else:
-                    add((tgt, "countv"), lambda ok=ok: (i32(ok), "count"))
                 continue
-            add((tgt, "countv"), lambda ok=ok: (i32(ok), "count"))
             if is_i64(agg):
-                v = col.values
-                if agg.name == "sum":
-                    add((tgt, "sum64"),
-                        lambda v=v, ok=ok: (_i64_limbs(v, ok), "sumc"))
-                elif agg.name in ("min", "max"):
-                    is_min = agg.name == "min"
-                    add((tgt, agg.name + "64"), lambda v=v, ok=ok, m=is_min:
-                        (_i64_pair(v, ok, m), "imin64" if m else "imax64"))
-                continue
-            v = col.values.to(torch.float32)
-            if agg.name in ("sum", "mean"):
-                add((tgt, "sum"), lambda v=v, ok=ok: (
-                    torch.where(ok, v, 0.0), "sum"))
-            elif agg.name == "min":
-                add((tgt, "min"), lambda v=v, ok=ok: (
-                    torch.where(ok, v, float("inf")), "min"))
-            elif agg.name == "max":
-                add((tgt, "max"), lambda v=v, ok=ok: (
-                    torch.where(ok, v, float("-inf")), "max"))
-
-        # int64 sums need FOUR sumc entries (one per limb); expand the
-        # single "sumc" marker into the real kind list
-        flat_kinds = []
-        entry_first_out = []    # kind-entry index -> first output index
-        out_pos = 0
-        for k in kinds:
-            entry_first_out.append(out_pos)
-            if k == "sumc":
-                flat_kinds.extend(["sumc"] * 4)
-                out_pos += 8
+                add((tgt, agg.name), agg.name + "64", col.values,
+                    col.validity)
             else:
-                flat_kinds.append(k)
-                out_pos += 2 if k in ("imin64", "imax64") else 1
-        rows, outs = dense_group_reduce(gid, tuple(inputs),
-                                        tuple(flat_kinds), G)
+                kind = "sum" if agg.name == "mean" else agg.name
+                add((tgt, kind), kind, col.values.to(torch.float32),
+                    col.validity)
+        rows, outs = dense_group_reduce(slots, tuple(inputs), tuple(kinds), G,
+                                        tuple(valid))
         present = rows > 0
         order_key = torch.where(present, outs[0], _I32MAX)
         perm = torch.argsort(order_key, stable=True)  # slots by appearance
         o_count = present.sum(dtype=torch.int32)
-        kvals = lo + perm.to(key.values.dtype)
+        if kdtype in SIGNED_OF:
+            # back to the key's type by its low bits
+            kvals = (lo + perm).to(SIGNED_OF[kdtype]).view(kdtype)
+        else:
+            kvals = lo + perm.to(kdtype)
         kvalid = perm != G - 1 if key.validity is not None else None
         o_key = Array(key.type, kvals, kvalid, length=o_count)
 
-        def outs_for(sig, n):
-            base = entry_first_out[slot_of[sig]]
-            return [outs[base + j][perm] for j in range(n)]
-
         rp = rows[perm].to(torch.int64)
+
+        def out_for(sig):
+            return outs[out_of[sig]][perm]
+
+        def count_for(tgt, what):
+            """Valid ("countv") or null ("count_null") rows of column
+            ``tgt`` per group."""
+            if batch.column(tgt).validity is None:
+                return rp if what == "countv" else torch.zeros_like(rp)
+            return out_for((tgt, what)).to(torch.int64)
+
         o_states = []
         for spec, agg in zip(self.aggs, self._aggregators):
             if agg.name == "count_all":
@@ -446,29 +429,17 @@ class HashAggregate:
             tgt = spec.targets[0]
             if agg.name == "count":
                 mode = getattr(agg.options, "mode", "only_valid")
-                sig = {"only_null": (tgt, "count_null"),
-                       "all": (None, "rows")}.get(mode, (tgt, "countv"))
-                o_states.append(outs_for(sig, 1)[0].to(torch.int64))
+                o_states.append(
+                    rp if mode == "all" else count_for(
+                        tgt, "count_null" if mode == "only_null"
+                        else "countv"))
                 continue
-            cnt = outs_for((tgt, "countv"), 1)[0].to(torch.int64)
-            if is_i64(agg) and agg.name == "sum":
-                parts = outs_for((tgt, "sum64"), 8)
-                total = torch.zeros_like(cnt)
-                for k in range(4):
-                    limb = (parts[2 * k + 1].long() << 32) | \
-                        (parts[2 * k].long() & U32)
-                    total = total + (limb << (16 * k))   # wraps mod 2^64
-                # un-bias: subtract count * 2^63 (mod 2^64)
-                o_states.append((total - (cnt << 63), cnt))
-            elif is_i64(agg):                              # min / max
-                hi, lo_b = outs_for((tgt, agg.name + "64"), 2)
-                val = (hi.long() << 32) | ((lo_b.long() & U32) ^ _BIAS32)
-                o_states.append((val, cnt))
-            elif agg.name in ("sum", "mean"):
-                o_states.append((outs_for((tgt, "sum"), 1)[0]
-                                 .to(agg._acc_dtype), cnt))
-            else:                                          # f32 min / max
-                o_states.append((outs_for((tgt, agg.name), 1)[0], cnt))
+            cnt = count_for(tgt, "countv")
+            if agg.name in ("sum", "mean") and not is_i64(agg):
+                o_states.append((out_for((tgt, "sum")).to(agg._acc_dtype),
+                                 cnt))
+            else:       # int64 sum / min / max, f32 min / max: as they are
+                o_states.append((out_for((tgt, agg.name)), cnt))
         return self.merge_rows(state, [o_key], tuple(o_states), o_count)
 
     def merge(self, state, other_state):

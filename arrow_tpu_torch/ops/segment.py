@@ -34,7 +34,11 @@ from typing import NamedTuple, Optional
 
 import torch
 
-__all__ = ["SegmentContext", "make_segment_context", "segmented_scan",
+from .bits import SIGNED_OF, as_signed_bits, from_ordered_signed, \
+    ordered_signed
+
+__all__ = ["SegmentContext", "make_segment_context", "rows_of_positions",
+           "segmented_scan",
            "segmented_carry_last", "running_scan", "seg_sum",
            "seg_reduce_min", "seg_reduce_max"]
 
@@ -45,10 +49,39 @@ _BIAS32 = 0x80000000
 def _scatter(size: int, fill, index: torch.Tensor, src: torch.Tensor
              ) -> torch.Tensor:
     """out = full(size, fill); out[index] = src with index == size (the
-    dump slot) dropped: JAX's ``.at[index].set(src, mode="drop")``."""
+    dump slot) dropped: JAX's ``.at[index].set(src, mode="drop")``. Wide
+    unsigned types move as their signed bits (no ``index_copy_`` for
+    them)."""
     buf = torch.full((size + 1,) + tuple(src.shape[1:]), fill,
                      dtype=src.dtype, device=src.device)
-    return buf.index_copy_(0, index, src)[:size]
+    return as_signed_bits(buf).index_copy_(
+        0, index, as_signed_bits(src))[:size].view(src.dtype)
+
+
+def rows_of_positions(new_off: torch.Tensor, out_cap: int) -> torch.Tensor:
+    """(out_cap,) int32 source-row index per output position p: the r with
+    ``new_off[r] <= p < new_off[r+1]`` (-1 before the first non-empty row,
+    junk past the total: clamp before use).
+
+    The JAX package scatters each non-empty row's id at its start and
+    forward-fills with a cummax. ``torch.cummax`` also tracks indices and
+    is far slower on the card than a cumsum (``PERF.md`` has both times),
+    so the fill is a cumsum here: each non-empty row scatters its id MINUS
+    the id of the non-empty row before it, and the running sum of those
+    steps is the row id. Same values."""
+    dev = new_off.device
+    starts = new_off[:-1]
+    nonempty = new_off[1:] > starts
+    n = starts.shape[0]
+    ridx = torch.arange(n, dtype=torch.int32, device=dev)
+    # id of the non-empty row before each row: compact the non-empty ids
+    # by their rank, then read rank - 2 (-1 where there is none)
+    rank = torch.cumsum(nonempty, 0)
+    ids = _scatter(n, -1, torch.where(nonempty, rank - 1, n), ridx)
+    before = torch.where(rank >= 2, ids[(rank - 2).clamp_(0)], -1)
+    pos = torch.where(nonempty, starts, out_cap).long()  # empty rows: dropped
+    steps = _scatter(out_cap, 0, pos, ridx - before)
+    return torch.cumsum(steps, 0, dtype=torch.int32) - 1
 
 
 class SegmentContext(NamedTuple):
@@ -214,9 +247,8 @@ def segmented_carry_last(values_i32: torch.Tensor,
 # code in both directions, as torch.minimum / maximum propagate them.
 
 _PACKED_INTS = (torch.int8, torch.int16, torch.int32)
-# torch.uint16 / uint32 exist only in newer PyTorch releases
-_PACKED_UINTS = (torch.bool, torch.uint8) + tuple(
-    getattr(torch, n) for n in ("uint16", "uint32") if hasattr(torch, n))
+# wider unsigned types reach the reductions as their ordered signed values
+_PACKED_UINTS = (torch.bool, torch.uint8)
 
 
 def _asc_enc32(x: torch.Tensor):
@@ -266,6 +298,9 @@ def extreme_identity(dtype: torch.dtype, is_min: bool):
 def seg_reduce_min(ctx: SegmentContext, x_sorted: torch.Tensor
                    ) -> torch.Tensor:
     """(R,) minimum per run (NaN wins)."""
+    if x_sorted.dtype in SIGNED_OF:
+        return from_ordered_signed(
+            seg_reduce_min(ctx, ordered_signed(x_sorted)), x_sorted.dtype)
     enc, kind = _asc_enc32(x_sorted)
     if enc is None:
         return _fold_runs(ctx, x_sorted,
@@ -283,6 +318,9 @@ def seg_reduce_min(ctx: SegmentContext, x_sorted: torch.Tensor
 def seg_reduce_max(ctx: SegmentContext, x_sorted: torch.Tensor
                    ) -> torch.Tensor:
     """(R,) maximum per run (NaN wins)."""
+    if x_sorted.dtype in SIGNED_OF:
+        return from_ordered_signed(
+            seg_reduce_max(ctx, ordered_signed(x_sorted)), x_sorted.dtype)
     enc, kind = _asc_enc32(x_sorted)
     if enc is None:
         return _fold_runs(ctx, x_sorted,

@@ -12,9 +12,12 @@ routes under their JAX names:
   * ``impl="pallas"``: take indices, then ``take_batch``.
     ``get_take_indices`` compacts each 1024-row tile of the selection with
     ``cuda_kernels.tile_compact_local`` (level 1) and stitches the tiles
-    with ``rows_of_positions`` and two gathers (level 2, the JAX
-    package's ``_pallas_take_indices``). ``filter_array`` and the take
-    functions run on it too.
+    into global indices with ``cuda_kernels.tile_stitch`` (level 2, the JAX
+    package's ``_pallas_take_indices``). On the card both levels are
+    hand-written kernels (the stitch scatters each tile's indices straight
+    to their place); on the CPU both take their plain versions, the
+    stitch's being the JAX package's form: ``rows_of_positions`` and two
+    gathers. ``filter_array`` and the take functions run on it too.
 
 All paths give the same rows in the same order.
 
@@ -33,8 +36,9 @@ from ..core.array import Array
 from ..core.batch import Batch
 from ..compute.registry import Kind, NullHandling, register_function
 from .cuda_kernels import TILE_ROWS, filter_compact_chunks, \
-    tile_compact_local
-from .segment import _scatter
+    tile_compact_local, tile_stitch
+from .bits import gather_rows
+from .segment import _scatter, rows_of_positions
 
 __all__ = ["FilterOptions", "TakeOptions", "get_take_indices", "take_array",
            "filter_array", "take_batch", "filter_batch",
@@ -55,79 +59,51 @@ class TakeOptions:
         self.boundscheck = boundscheck
 
 
-def _selection_mask(mask: Array, null_selection: str):
-    """(selected bool (capacity,), emit_valid bool or None, out_len)."""
+def _selection_mask(mask: Array, null_selection: str, count: bool = True):
+    """(selected bool (capacity,), emit_valid bool or None, out_len: the
+    selected count as a 0-d int32, or None where ``count`` is False because
+    the caller has it from elsewhere)."""
     mvals = mask.values.to(torch.bool)
-    in_range = mask.row_mask()
     mvalid = mask.validity
+    # no padding rows to mask off when the length is the whole capacity
+    full = mask.has_static_length and len(mask) == mask.capacity
+    in_range = None if full else mask.row_mask()
     if null_selection == FilterOptions.DROP or mvalid is None:
         sel = mvals if mvalid is None else (mvals & mvalid)
-        sel = sel & in_range
         emit_valid = None
     else:
-        is_null = (~mvalid) & in_range
-        sel = ((mvals & mvalid) | is_null) & in_range
+        sel = (mvals & mvalid) | ~mvalid
         emit_valid = mvalid  # selected-and-null -> null output row
-    out_len = torch.sum(sel, dtype=torch.int32)
+    if in_range is not None:
+        sel = sel & in_range
+    out_len = torch.sum(sel, dtype=torch.int32) if count else None
     return sel, emit_valid, out_len
-
-
-def rows_of_positions(new_off: torch.Tensor, out_cap: int) -> torch.Tensor:
-    """(out_cap,) int32 source-row index per output position p: the r with
-    ``new_off[r] <= p < new_off[r+1]`` (-1 before the first non-empty row,
-    junk past the total: clamp before use).
-
-    The JAX package scatters each non-empty row's id at its start and
-    forward-fills with a cummax. ``torch.cummax`` also tracks indices and
-    is far slower on the card than a cumsum (``PERF.md`` has both times),
-    so the fill is a cumsum here: each non-empty row scatters its id MINUS
-    the id of the non-empty row before it, and the running sum of those
-    steps is the row id. Same values."""
-    dev = new_off.device
-    starts = new_off[:-1]
-    nonempty = new_off[1:] > starts
-    n = starts.shape[0]
-    ridx = torch.arange(n, dtype=torch.int32, device=dev)
-    # id of the non-empty row before each row: compact the non-empty ids
-    # by their rank, then read rank - 2 (-1 where there is none)
-    rank = torch.cumsum(nonempty, 0)
-    ids = _scatter(n, -1, torch.where(nonempty, rank - 1, n), ridx)
-    before = torch.where(rank >= 2, ids[(rank - 2).clamp_(0)], -1)
-    pos = torch.where(nonempty, starts, out_cap).long()  # empty rows: dropped
-    steps = _scatter(out_cap, 0, pos, ridx - before)
-    return torch.cumsum(steps, 0, dtype=torch.int32) - 1
 
 
 def _tile_take_indices(sel: torch.Tensor, emit_valid):
     """Level 1: ``tile_compact_local`` over the selection, padded with
     unselected rows to a multiple of 1024. Level 2: per-tile counts ->
-    exclusive prefix sum = each tile's start in the output;
-    ``rows_of_positions`` sends every output position to its source tile,
-    and one gather stitches the tile-local indices into global take
-    indices. No host read: the count stays on the device."""
+    exclusive prefix sum = each tile's start in the output, and
+    ``tile_stitch`` moves every tile's local indices to their place as
+    global take indices (zeros past the count, so padding stays in range).
+    Returns (indices, validity or None, the selected count: the last
+    start). No host read: the count stays on the device."""
     cap = sel.shape[0]
     dev = sel.device
     pad = (-cap) % TILE_ROWS
     if pad:
         sel = torch.cat([sel, torch.zeros((pad,), dtype=torch.bool,
                                           device=dev)])
-    T = sel.shape[0] // TILE_ROWS
     loc, counts = tile_compact_local(sel)
     starts = torch.cat([torch.zeros((1,), dtype=torch.int32, device=dev),
                         torch.cumsum(counts, 0, dtype=torch.int32)])
     # at most cap rows are selected, so cap output positions suffice
-    tile_of = rows_of_positions(starts, cap).clamp_(0, T - 1)
-    j = torch.arange(cap, dtype=torch.int32, device=dev)
-    live = j < starts[-1]
-    within = (j - starts[tile_of.long()]).clamp_(0, TILE_ROWS - 1)
-    base = tile_of * TILE_ROWS
-    del tile_of
-    indices = base + loc[(base + within).long()]
-    indices = torch.where(live, indices, 0)      # padding stays in range
+    indices = tile_stitch(loc, counts, starts, cap)
     validity = None
     if emit_valid is not None:
+        live = torch.arange(cap, dtype=torch.int32, device=dev) < starts[-1]
         validity = emit_valid[indices.long()] | ~live
-    return indices, validity
+    return indices, validity, starts[-1]
 
 
 def _scatter_take_indices(sel: torch.Tensor, emit_valid):
@@ -153,11 +129,12 @@ def get_take_indices(mask: Array,
     DROP: selected = valid & true. EMIT_NULL: null mask slots are selected
     too but yield a null index (validity=False) so takes produce null rows.
     """
-    sel, emit_valid, out_len = _selection_mask(mask, null_selection)
+    sel, emit_valid, _ = _selection_mask(mask, null_selection, count=False)
     if mask.capacity == 0:
         return Array(dt.int32, sel.to(torch.int32), emit_valid,
-                     length=out_len)
-    indices, validity = _tile_take_indices(sel, emit_valid)
+                     length=torch.zeros((), dtype=torch.int32,
+                                        device=sel.device))
+    indices, validity, out_len = _tile_take_indices(sel, emit_valid)
     return Array(dt.int32, indices, validity, length=out_len)
 
 
@@ -179,7 +156,7 @@ def take_array(values: Array, indices: Array) -> Array:
             isinstance(values.type, dt.DictionaryType):
         raise NotImplementedError(f"take of {values.type}")
     idx = indices.values.long()
-    return Array(values.type, values.values[idx],
+    return Array(values.type, gather_rows(values.values, idx),
                  _gather_validity(values, idx, indices.validity),
                  length=indices.length)
 

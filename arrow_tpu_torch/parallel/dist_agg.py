@@ -36,7 +36,6 @@ from ..core import datatype as dt
 from ..core.array import Array
 from ..core.batch import Batch, Table
 from ..core.schema import Schema
-from ..ops.aggregates import GroupedSum
 from ..ops.hash_aggregate import AggregateSpec, HashAggregate
 from ..ops.hashing import hash32
 from ..ops.selection import filter_batch
@@ -189,11 +188,6 @@ class DistGroupBy:
 # num_groups, error; every aggregator state leaf; per key column the unique
 # buffer's values, validity and length.
 
-def _unsigned_sum(agg) -> bool:
-    return isinstance(agg, GroupedSum) and agg._acc_dtype == torch.int64 \
-        and agg.out_type == dt.uint64
-
-
 def state_from_numpy(dgb: DistGroupBy, leaves) -> List:
     """The port's per-shard states from the JAX ``DistGroupBy`` state whose
     leaves were fetched as numpy; shard s's state lands on shard s's
@@ -231,8 +225,8 @@ def state_to_numpy(dgb: DistGroupBy, state: List) -> tuple:
         for agg, agg_st in zip(dgb.ha._aggregators, agg_states):
             sts = [host(x) for x in
                    (agg_st if isinstance(agg_st, tuple) else (agg_st,))]
-            if _unsigned_sum(agg):
-                sts[0] = sts[0].view(np.uint64)
+            if isinstance(agg_st, tuple):
+                sts[0] = agg.acc_to_numpy(sts[0])
             leaves += sts
         for u in uniques:
             leaves += [host(u.values), host(u.validity_or_true()),

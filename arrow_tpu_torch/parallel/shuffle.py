@@ -34,6 +34,7 @@ import torch
 from ..core.array import Array, row_mask
 from ..core.batch import Batch
 from ..core.schema import Schema
+from ..ops.bits import as_signed_bits, gather_rows
 from ..ops.cuda_kernels import partition_histogram
 from ..ops.hashing import hash32
 
@@ -45,20 +46,14 @@ __all__ = ["partition_for_exchange", "exchange", "flatten_received",
 # key of one local grouper slot to one shard
 EXCHANGE_SEED = 0x5108FF1E
 
-_SIGNED_OF = {getattr(torch, "u" + n): getattr(torch, n)
-              for n in ("int16", "int32", "int64") if hasattr(torch, "u" + n)}
-
-
 def _scatter_rows(size: int, pos: torch.Tensor, src: torch.Tensor
                   ) -> torch.Tensor:
     """A zero-filled buffer of ``size`` rows with ``src``'s rows written at
     ``pos``; position ``size`` is the dump slot that is sliced off (JAX's
     ``.at[pos].set(src, mode="drop")``)."""
-    signed = _SIGNED_OF.get(src.dtype)      # no index_copy_ for these
-    if signed is not None:
-        return _scatter_rows(size, pos, src.view(signed)).view(src.dtype)
-    buf = src.new_zeros((size + 1,) + tuple(src.shape[1:]))
-    return buf.index_copy_(0, pos, src)[:size]
+    bits = as_signed_bits(src)      # no index_copy_ for wide unsigned types
+    buf = bits.new_zeros((size + 1,) + tuple(src.shape[1:]))
+    return buf.index_copy_(0, pos, bits)[:size].view(src.dtype)
 
 
 def _exclusive_starts(counts: torch.Tensor) -> torch.Tensor:
@@ -85,7 +80,7 @@ def _bucket_rows(leaves: Sequence[Optional[torch.Tensor]],
         if leaf is None:
             send.append(None)
             continue
-        buf = _scatter_rows(P * B, flat_pos, leaf[perm])
+        buf = _scatter_rows(P * B, flat_pos, gather_rows(leaf, perm))
         send.append(buf.reshape((P, B) + tuple(leaf.shape[1:])))
     return send, counts, error
 

@@ -84,7 +84,8 @@ def main() -> int:
     layer(entry_mod, "filter_batch", "filter")
     layer(selection, "get_take_indices", "take_indices")
     layer(selection, "tile_compact_local", "B2_tile_compact_local")
-    layer(selection, "rows_of_positions", "rows_of_positions")
+    layer(selection, "_selection_mask", "selection_mask")
+    layer(selection, "tile_stitch", "B2b_tile_stitch")
     layer(selection, "take_batch", "take_batch")
     layer(selection, "filter_compact_chunks", "B1_filter_compact_chunks")
     layer(HA, "probe_scalars", "probe")

@@ -8,8 +8,8 @@ rows (BASELINE config #2) and checks each result against a numpy oracle:
   path 1  ``arrow_tpu_torch.entry.entry``: compaction-kernel filter ->
           dense group-by kernel (1K distinct int64 keys, float32 values);
   path 2  ``arrow_tpu_torch.entry.entry_generic``: take-index filter on the
-          tile-compaction kernel -> sort-grouping consume (3M distinct
-          keys, float64 values, 4M-slot state);
+          tile-compaction and tile-stitch kernels -> sort-grouping consume
+          (3M distinct keys, float64 values, 4M-slot state);
   path 3a ``arrow_tpu_torch.entry.entry_distributed``: the distributed
           group-by over 8 logical shards of the card (1M distinct keys):
           per-shard filter + pre-aggregation, state-row exchange on the
@@ -29,7 +29,9 @@ version, its time, the plain version's, the least time the card could take
 (``bound_ms``: bytes moved over the memory rate) and the time of one
 PyTorch call computing the same function (``library_ms``, null where there
 is none); a kernel that further paths launch carries the same numbers at
-their arguments under suffixed keys (``ms_path_3b`` ...). Last comes
+their arguments under suffixed keys (``ms_path_3b`` ...), and the dense
+group-by kernel also those of the twelve-stream call the earlier slices made
+(``ms_nine_kinds`` ...). Last comes
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when there is no
 CUDA device or any check fails.
 """
@@ -111,9 +113,37 @@ def check_tile_compact(torch, ck, sel, label: str) -> float:
     return err
 
 
+def check_tile_stitch(torch, ck, sel, out_cap: int, label: str) -> float:
+    """tile_stitch against its plain version on tile_compact_local's output
+    for ``sel``: equal over all ``out_cap`` slots. Returns the max abs
+    difference."""
+    loc, counts = ck.tile_compact_local(sel)
+    starts = torch.cat([counts.new_zeros(1),
+                        torch.cumsum(counts, 0, dtype=torch.int32)])
+    got = ck.tile_stitch(loc, counts, starts, out_cap)
+    want = ck.tile_stitch_plain(loc, counts, starts, out_cap)
+    err = float((got - want).abs().max())
+    check(err == 0 and got.dtype == torch.int32 and
+          got.shape == (out_cap,), f"tile_stitch {label}: indices differ")
+    print(f"tile_stitch {label}: cap={sel.shape[0]} out_cap={out_cap} "
+          f"selected={int(starts[-1])} equal")
+    return err
+
+
+def selection_cases(torch, cap: int, gen, dev):
+    """(label, sel) cases of a (cap,) selection, cap a multiple of 1024:
+    none, all, half, and 30 % with every other stretch of 8 tiles empty."""
+    yield "none", torch.zeros(cap, dtype=torch.bool, device=dev)
+    yield "all", torch.ones(cap, dtype=torch.bool, device=dev)
+    yield "half", torch.rand(cap, generator=gen, device=dev) < 0.5
+    sel = torch.rand(cap, generator=gen, device=dev) < 0.3
+    tile = torch.arange(cap, device=dev, dtype=torch.int32) // 1024
+    yield "empty stretches", sel & ((tile // 8) % 2 == 1)
+
+
 def check_take_indices(torch, selection, Array, bool_type, sel,
                        label: str) -> None:
-    """get_take_indices (kernel + stitch) vs torch.nonzero."""
+    """get_take_indices (both kernels) vs torch.nonzero."""
     idx = selection.get_take_indices(Array(bool_type, sel))
     want = torch.nonzero(sel).flatten()
     n = want.shape[0]
@@ -217,27 +247,39 @@ def measure_partition_hist(torch, ck, dest, P: int, label: str) -> dict:
     return m
 
 
-def dg_compare(torch, ck, gid, inputs, kinds, G, label: str) -> float:
+def dg_compare(torch, ck, gid, inputs, kinds, G, label: str,
+               valid=None) -> float:
     """Kernel vs plain version slot for slot: integers and f32 min/max
     exact (NaN equal to NaN), f32 sums within the stated tolerance.
     Returns the max abs error over the f32 sums (0 elsewhere)."""
-    rows, outs = ck.dense_group_reduce(gid, inputs, kinds, G)
-    prows, pouts = ck.dense_group_reduce_plain(gid, inputs, kinds, G)
+    rows, outs = ck.dense_group_reduce(gid, inputs, kinds, G, valid=valid)
+    prows, pouts = ck.dense_group_reduce_plain(gid, inputs, kinds, G, valid)
     check(torch.equal(rows, prows), f"dense_group_reduce {label}: rows")
+    if isinstance(gid, ck.DenseKey):
+        gid = ck.dense_key_gid(gid, G)
     slot = torch.where((gid >= 0) & (gid < G), gid, G).long()
     err = 0.0
     oi = ij = 0
-    for kind in kinds:
+    for k, kind in enumerate(kinds):
         ni, no = ck._DG_ARITY[kind]
         for j in range(no):
             a, b = outs[oi + j], pouts[oi + j]
+            check(a.dtype == b.dtype and a.shape == b.shape,
+                  f"dense_group_reduce {label}: {kind} output type")
             if kind == "sum":
+                at = slot if valid is None or valid[k] is None else \
+                    torch.where(valid[k], slot, G)
                 absum = torch.zeros(G + 1, dtype=torch.float64,
                                     device=gid.device).index_add_(
-                    0, slot, inputs[ij].double().abs())[:G]
-                d = (a.double() - b.double()).abs()
-                err = max(err, float(d.max()))
-                check(bool((d <= SUM_RTOL * absum + SUM_ATOL_KERNEL).all()),
+                    0, at, inputs[ij].double().abs())[:G]
+                finite = ~absum.isnan()         # a NaN slot: NaN in both
+                check(torch.equal(a.isnan(), b.isnan()),
+                      f"dense_group_reduce {label}: sum NaN slots")
+                d = (a.double() - b.double()).abs()[finite & ~a.isnan()]
+                if d.numel():
+                    err = max(err, float(d.max()))
+                check(bool((d <= (SUM_RTOL * absum + SUM_ATOL_KERNEL)[
+                    finite & ~a.isnan()]).all()),
                       f"dense_group_reduce {label}: sum out of tolerance")
             else:
                 same = (a == b) | (torch.isnan(a) & torch.isnan(b)) \
@@ -252,8 +294,8 @@ def dg_compare(torch, ck, gid, inputs, kinds, G, label: str) -> float:
 
 
 def synthetic_dg_inputs(torch, n: int, G: int, gen, dev):
-    """Every kind once; gid in [-1, G + 8): inactive rows, rows past G,
-    and one slot whose f32 inputs hold a NaN."""
+    """Every kind of the TPU contract once; gid in [-1, G + 8): inactive
+    rows, rows past G, and one slot whose f32 inputs hold a NaN."""
     gid = torch.randint(-1, G + 8, (n,), generator=gen, device=dev,
                         dtype=torch.int32)
     kinds, inputs = [], []
@@ -274,6 +316,82 @@ def synthetic_dg_inputs(torch, n: int, G: int, gen, dev):
         else:
             inputs.append(torch.randint(-1000, 1000, (n,), **i32))
     return gid, tuple(inputs), tuple(kinds)
+
+
+def synthetic_native_dg_inputs(torch, n: int, G: int, gen, dev, gid=None):
+    """The card's native kinds over shared streams: first_row; sum, min and
+    max of one f32 column (NaNs in slot 3); sum64, min64 and max64 of one
+    int64 column (the type's extremes, sums that wrap); a count. ``gid`` as
+    in ``synthetic_dg_inputs`` unless given. Returns (gid, inputs, kinds,
+    valid): each column with its own validity stream."""
+    if gid is None:
+        gid = torch.randint(-1, G + 8, (n,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    v = torch.randn(n, generator=gen, device=dev)
+    v[gid == 3] = float("nan")
+    w = torch.randint(-(1 << 62), 1 << 62, (n,), generator=gen, device=dev,
+                      dtype=torch.int64)
+    w[:n // 3] = torch.randint(-100, 100, (n // 3,), generator=gen,
+                               device=dev, dtype=torch.int64)
+    w[gid == 5] = (1 << 63) - 1 - torch.randint(
+        0, 1000, (int((gid == 5).sum()),), generator=gen, device=dev,
+        dtype=torch.int64)
+    w[-1] = -(1 << 63)
+    v_ok = torch.rand(n, generator=gen, device=dev) < 0.8
+    w_ok = torch.rand(n, generator=gen, device=dev) < 0.8
+    kinds = ("first_row", "sum", "min", "max", "sum64", "min64", "max64",
+             "count")
+    inputs = (v, v, v, w, w, w, w_ok.to(torch.int32))
+    valid = (None, v_ok, v_ok, v_ok, w_ok, w_ok, w_ok, None)
+    return gid, inputs, kinds, valid
+
+
+def dg_bounds(torch, ck, gid, inputs, G, n_out_bytes: int, valid=None):
+    """(bound_ms over the bytes this call's data needs, bound_ms with every
+    stream read at every row): the gid read once, or of a ``DenseKey`` the
+    key (and its validity) up to the length; each distinct input and
+    validity stream read once at the active rows (slot in [0, G): the
+    kernel needs no other row of them), or at every row; the outputs
+    written once."""
+    if isinstance(gid, ck.DenseKey):
+        n = gid.values.shape[0]
+        key_row = 8 + (0 if gid.validity is None else 1)
+        slot_bytes, slot_bytes_all = key_row * int(gid.length), key_row * n
+        gid = ck.dense_key_gid(gid, G)
+    else:
+        n = gid.shape[0]
+        slot_bytes = slot_bytes_all = 4 * n
+    streams = {x.data_ptr(): x.element_size() for x in inputs}
+    streams.update({v.data_ptr(): 1 for v in valid or () if v is not None})
+    per_row = sum(streams.values())
+    active = int(((gid >= 0) & (gid < G)).sum())
+    return (bound_ms(slot_bytes + active * per_row + n_out_bytes),
+            bound_ms(slot_bytes_all + n * per_row + n_out_bytes))
+
+
+def nine_kind_call(torch, gid, v, w):
+    """The twelve 4-byte streams the earlier slices' ``consume_dense`` fed
+    the kernel for path 1's query (the TPU caller's form): first row as an
+    identity-masked iota under "imin", the valid counts of v and w, sum and
+    min of v pre-masked, the int64 sum of w as four 16-bit limb streams of
+    the sign-biased value, its int64 min as a (hi, biased lo) pair."""
+    n = gid.shape[0]
+    ok = gid >= 0
+    i32max = (1 << 31) - 1
+    iota = torch.arange(n, dtype=torch.int32, device=gid.device)
+    u = w ^ (-(1 << 63))
+    limbs = [torch.where(ok, (u >> (16 * k)) & 0xFFFF, 0).to(torch.int32)
+             for k in range(4)]
+    hi = torch.where(ok, (w >> 32).to(torch.int32), i32max)
+    lo_b = torch.where(ok, ((w & 0xFFFFFFFF) - (1 << 31)).to(torch.int32),
+                       i32max)
+    count = ok.to(torch.int32)
+    inputs = (torch.where(ok, iota, i32max), count, torch.where(ok, v, 0.0),
+              torch.where(ok, v, float("inf")), count.clone(), *limbs, hi,
+              lo_b)
+    kinds = ("imin", "count", "sum", "min", "count", "sumc", "sumc", "sumc",
+             "sumc", "imin64")
+    return inputs, kinds
 
 
 def numpy_oracle(cols):
@@ -452,25 +570,81 @@ def main() -> int:
         check_filter(torch, ck, sel, chunks, name)
     del chunks, sel
 
-    # ---- tile_compact_local against its plain version ------------------
+    # ---- tile_compact_local and tile_stitch against their plain versions
     padded = N_ROWS + (-N_ROWS) % ck.TILE_ROWS
     for cap in (1024, 1 << 20, padded):
-        for name, sel in (
-                ("half", torch.rand(cap, generator=gen, device=dev) < 0.5),
-                ("none", torch.zeros(cap, dtype=torch.bool, device=dev)),
-                ("all", torch.ones(cap, dtype=torch.bool, device=dev))):
+        for name, sel in selection_cases(torch, cap, gen, dev):
             check_tile_compact(torch, ck, sel, name)
+            check_tile_stitch(torch, ck, sel, cap, name)
+        # a view that starts off the 16-byte grid is read as it is
+        base = torch.rand(cap + 16, generator=gen, device=dev) < 0.5
+        for off in (1, 4, 9):
+            view = base[off:off + cap]
+            check(view.data_ptr() % 16 != 0, "the view is aligned")
+            check_tile_compact(torch, ck, view, f"view at byte {off}")
+    # tiles with 0, 1, 1023 and 1024 selected rows; bytes other than 0 / 1
+    sel = torch.zeros(4096, dtype=torch.bool, device=dev)
+    sel[1024 + 5] = True
+    sel[2048:3071] = True
+    sel[3072:] = True
+    check_tile_compact(torch, ck, sel, "0 / 1 / 1023 / 1024 a tile")
+    check(ck.tile_compact_local(sel)[1].tolist() == [0, 1, 1023, 1024],
+          "tile_compact_local: counts of the edge tiles")
+    check_tile_stitch(torch, ck, sel, 4096, "0 / 1 / 1023 / 1024 a tile")
+    check_tile_stitch(torch, ck, sel, 2048 + 3, "out_cap = the count + 3")
+    raw = torch.randint(0, 256, (1 << 20,), generator=gen, device=dev,
+                        dtype=torch.uint8)
+    raw[torch.rand(1 << 20, generator=gen, device=dev) < 0.5] = 0
+    loc, counts = ck.tile_compact_local(raw.view(torch.bool))
+    ploc, pcounts = ck.tile_compact_local_plain(raw != 0)
+    check(torch.equal(loc, ploc) and torch.equal(counts, pcounts),
+          "tile_compact_local: a nonzero byte other than 1 is selected")
+    del raw, loc, counts, ploc, pcounts, base, view
     for cap in (1000, N_ROWS):
         sel = torch.rand(cap, generator=gen, device=dev) < 0.5
         check_take_indices(torch, selection, Array, datatype.bool_, sel,
                            "half")
     del sel
+    torch.cuda.empty_cache()
 
     # ---- dense_group_reduce against its plain version ------------------
     for G in (128, 1024, 4096):
-        gid, inputs, kinds = synthetic_dg_inputs(torch, 1 << 20, G, gen, dev)
-        dg_compare(torch, ck, gid, inputs, kinds, G, f"all kinds G={G}")
-    del gid, inputs
+        n = (1 << 20) + 3               # a last step of 3 rows
+        gid, inputs, kinds = synthetic_dg_inputs(torch, n, G, gen, dev)
+        dg_compare(torch, ck, gid, inputs, kinds, G, f"TPU kinds G={G}")
+        gid, inputs, kinds, valid = synthetic_native_dg_inputs(
+            torch, n, G, gen, dev)
+        dg_compare(torch, ck, gid, inputs, kinds, G, f"native kinds G={G}",
+                   valid)
+        dg_compare(torch, ck, gid, inputs, kinds, G,
+                   f"native kinds, no validity, G={G}")
+        dg_compare(torch, ck, gid[1:], tuple(x[1:] for x in inputs), kinds,
+                   G, f"native kinds, views off the 16-byte grid, G={G}",
+                   tuple(x if x is None else x[1:] for x in valid))
+        # the slots formed in the kernel from a key column: null keys,
+        # keys outside the domain, rows past a length on the device
+        lo = -(1 << 40)
+        key = ck.DenseKey(gid.long() + lo, lo,
+                          torch.tensor(n - n // 5, device=dev),
+                          torch.rand(n, generator=gen, device=dev) < 0.9)
+        check(int((ck.dense_key_gid(key, G) == G - 1).sum()) > n // 20,
+              "dense_key_gid: the null-key slot")
+        dg_compare(torch, ck, key, inputs, kinds, G,
+                   f"native kinds, slots from the key column, G={G}", valid)
+        dg_compare(torch, ck, ck.DenseKey(key.values[1:], lo, n // 2, None),
+                   tuple(x[1:] for x in inputs), kinds, G,
+                   f"native kinds, key view off the 16-byte grid, G={G}")
+        # skew: every row in one slot; 60 % of the rows in one slot
+        one = torch.full((n,), G - 1, dtype=torch.int32, device=dev)
+        hot = torch.where(torch.rand(n, generator=gen, device=dev) < 0.6,
+                          5, gid)
+        for name, g in (("every row in one slot", one), ("60 % in one slot",
+                                                         hot)):
+            _, inputs, kinds, valid = synthetic_native_dg_inputs(
+                torch, n, G, gen, dev, g)
+            dg_compare(torch, ck, g, inputs, kinds, G,
+                       f"native kinds, {name}, G={G}", valid)
+    del gid, inputs, valid, one, hot, g, key
 
     # ---- partition_histogram against its plain version -----------------
     for n in (0, 1, 1000, 1 << 20, N_ROWS):
@@ -531,17 +705,42 @@ def main() -> int:
     sel, chunks = seen["filter_compact_chunks"]
     fc = measure_filter(torch, ck, sel, chunks, "path 1 shape")
     del sel, chunks
-    gid, inputs, kinds, G = seen["dense_group_reduce"]
-    dg_err = dg_compare(torch, ck, gid, inputs, kinds, G, "path 1 shape")
-    dg_ms = cuda_ms(torch, lambda: ck.dense_group_reduce(gid, inputs, kinds,
-                                                         G), 10)
-    dg_plain = cuda_ms(torch, lambda: ck.dense_group_reduce_plain(
-        gid, inputs, kinds, G), 3)
-    n_outs = 1 + sum(ck._DG_ARITY[k][1] for k in kinds)
-    # gid and every input stream read once, every (G,) output written once
-    dg_bound = bound_ms(4 * gid.shape[0] * (1 + len(inputs)) + 4 * G * n_outs)
-    del gid, inputs
+    gid, inputs, kinds, G, valid = seen["dense_group_reduce"]
+    check(isinstance(gid, ck.DenseKey) and
+          kinds == ("first_row", "sum", "min", "sum64", "min64") and
+          all(x is None for x in valid) and
+          inputs[0] is inputs[1] and inputs[2] is inputs[3],
+          f"path 1 gave dense_group_reduce {kinds} over {len(inputs)} "
+          "streams: not the key and the columns themselves, each once")
+
+    def measure_dg(gid, inputs, kinds, label):
+        out_bytes = 4 * G + sum(ck._dg_acc_bytes(k, G) for k in kinds)
+        bound, bound_all = dg_bounds(torch, ck, gid, inputs, G, out_bytes)
+        m = {"max_abs_err": dg_compare(torch, ck, gid, inputs, kinds, G,
+                                       label),
+             "ms": cuda_ms(torch, lambda: ck.dense_group_reduce(
+                 gid, inputs, kinds, G), 10),
+             "plain_ms": cuda_ms(torch, lambda: ck.dense_group_reduce_plain(
+                 gid, inputs, kinds, G), 3),
+             "bound_ms": bound, "bound_ms_all_rows": bound_all,
+             "library_ms": None}
+        print(f"dense_group_reduce {label}: {m['ms']:.3f} ms, bound "
+              f"{m['bound_ms']:.3f} ms ({m['bound_ms_all_rows']:.3f} with "
+              f"every stream read at every row), plain "
+              f"{m['plain_ms']:.3f} ms")
+        return m
+
+    dg = measure_dg(gid, inputs, kinds, "path 1 shape")
+    # the same query as the earlier slices asked it: a gid built by
+    # elementwise passes and twelve 32-bit streams
+    v, w = inputs[0], inputs[2]
+    del inputs
+    gid = ck.dense_key_gid(gid, G)
+    inputs9, kinds9 = nine_kind_call(torch, gid, v, w)
+    dg9 = measure_dg(gid, inputs9, kinds9, "path 1 shape, nine-kind call")
+    del gid, v, w, inputs9
     seen.clear()
+    torch.cuda.empty_cache()
 
     # ---- path 2: arrow_tpu_torch.entry.entry_generic --------------------
     t0 = time.time()
@@ -564,13 +763,14 @@ def main() -> int:
     secs = time.perf_counter() - t0
     launches2 = dict(ck.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    check(launches2["tile_compact_local"] > 0,
-          "tile_compact_local was not launched on path 2's run")
+    for name in ("tile_compact_local", "tile_stitch"):
+        check(launches2[name] > 0,
+              f"{name} was not launched on path 2's run")
     n_groups = check_slice_generic(
         out, numpy_oracle_generic(cols, NUM_KEYS_GENERIC))
     del out, cols
 
-    # one more run, recording the kernel's argument and the route taken
+    # one more run, recording the kernels' arguments and the route taken
     routes = []
     probe_route = hash_aggregate.HashAggregate.probe_route
 
@@ -579,7 +779,8 @@ def main() -> int:
         return routes[-1]
     hash_aggregate.HashAggregate.probe_route = route_rec
     try:
-        recorded(selection, "tile_compact_local", lambda: step(b))
+        recorded(selection, "tile_compact_local", lambda: recorded(
+            selection, "tile_stitch", lambda: step(b)))
     finally:
         hash_aggregate.HashAggregate.probe_route = probe_route
     check(len(routes) == 1, "path 2: one probe per step")
@@ -591,20 +792,42 @@ def main() -> int:
           f"{launches2}")
     del b, step
 
-    # ---- path 2's kernel at its shape: error, times, bound --------------
+    # ---- path 2's kernels at its shape: error, times, bound -------------
     (sel,) = seen["tile_compact_local"]
     tc_err = check_tile_compact(torch, ck, sel, "path 2 shape")
     tc_ms = cuda_ms(torch, lambda: ck.tile_compact_local(sel), 10)
     tc_plain = cuda_ms(torch, lambda: ck.tile_compact_local_plain(sel), 3)
-    # the library call gives the END result (kernel + stitch), so the
-    # whole of get_take_indices is timed beside it too
+    # the library call gives the END result (both kernels), so the whole
+    # of get_take_indices is timed beside it too
     tc_lib = cuda_ms(torch, lambda: torch.nonzero(sel), 3)
     mask = Array(datatype.bool_, sel[:N_ROWS])
     ti_ms = cuda_ms(torch, lambda: selection.get_take_indices(mask), 3)
     cap = sel.shape[0]
     # selection read once, loc and counts written once
     tc_bound = bound_ms(cap + 4 * cap + 4 * (cap // ck.TILE_ROWS))
+    print(f"tile_compact_local path 2 shape: {tc_ms:.3f} ms, bound "
+          f"{tc_bound:.3f} ms, plain {tc_plain:.3f} ms, torch.nonzero "
+          f"{tc_lib:.3f} ms; get_take_indices {ti_ms:.3f} ms")
     del sel, mask
+    loc, counts, starts, out_cap = seen["tile_stitch"]
+    check(out_cap == N_ROWS and loc.shape[0] == cap,
+          f"path 2 stitched {loc.shape[0]} slots into {out_cap}")
+    got = ck.tile_stitch(loc, counts, starts, out_cap)
+    ts_err = float((got - ck.tile_stitch_plain(loc, counts, starts,
+                                               out_cap)).abs().max())
+    check(ts_err == 0, "tile_stitch path 2 shape: indices differ")
+    del got
+    ts_ms = cuda_ms(torch, lambda: ck.tile_stitch(loc, counts, starts,
+                                                  out_cap), 10)
+    ts_plain = cuda_ms(torch, lambda: ck.tile_stitch_plain(
+        loc, counts, starts, out_cap), 3)
+    # the live slots of loc, counts and starts read once; every index
+    # written once
+    ts_bound = bound_ms(4 * int(starts[-1]) + 4 * counts.shape[0] +
+                        4 * starts.shape[0] + 4 * out_cap)
+    print(f"tile_stitch path 2 shape: {ts_ms:.3f} ms, bound "
+          f"{ts_bound:.3f} ms, plain {ts_plain:.3f} ms")
+    del loc, counts, starts
     seen.clear()
     torch.cuda.empty_cache()
 
@@ -781,7 +1004,7 @@ def main() -> int:
     def row(name, source, replaces, n_launches, m):
         return {"name": name, "route": "cuda",
                 "source": f"arrow_tpu_torch/csrc/{source}",
-                "replaces": f"arrow_tpu/ops/pallas_kernels.py:{replaces}",
+                "replaces": f"arrow_tpu/ops/{replaces}",
                 "launches": n_launches, "max_abs_err": m["max_abs_err"],
                 "ms": m["ms"], "plain_ms": m["plain_ms"],
                 "bound_ms": m["bound_ms"], "bound_by": "bytes",
@@ -796,24 +1019,28 @@ def main() -> int:
             kernel[f"{key}_{suffix}"] = value
 
     kernels = [
-        row("filter_compact_chunks", "filter_compact.cu", 492,
-            launches["filter_compact_chunks"], fc),
-        row("dense_group_reduce", "dense_group.cu", 327,
-            launches["dense_group_reduce"],
-            {"max_abs_err": dg_err, "ms": dg_ms, "plain_ms": dg_plain,
-             "bound_ms": dg_bound, "library_ms": None}),
-        row("tile_compact_local", "tile_compact.cu", 392,
+        row("filter_compact_chunks", "filter_compact.cu",
+            "pallas_kernels.py:492", launches["filter_compact_chunks"], fc),
+        row("dense_group_reduce", "dense_group.cu", "pallas_kernels.py:327",
+            launches["dense_group_reduce"], dg),
+        row("tile_compact_local", "tile_compact.cu", "pallas_kernels.py:392",
             launches2["tile_compact_local"],
             {"max_abs_err": tc_err, "ms": tc_ms, "plain_ms": tc_plain,
              "bound_ms": tc_bound, "library_ms": tc_lib}),
-        row("partition_histogram", "partition_hist.cu", 76,
-            launches3["partition_histogram"], ph),
+        row("tile_stitch", "tile_compact.cu", "selection.py:102",
+            launches2["tile_stitch"],
+            {"max_abs_err": ts_err, "ms": ts_ms, "plain_ms": ts_plain,
+             "bound_ms": ts_bound, "library_ms": None}),
+        row("partition_histogram", "partition_hist.cu",
+            "pallas_kernels.py:76", launches3["partition_histogram"], ph),
     ]
+    kernels[1]["bound_ms_all_rows"] = dg["bound_ms_all_rows"]
+    also(kernels[1], "nine_kinds", dg9)
     kernels[2]["take_indices_ms"] = ti_ms
-    kernels[3]["host_ms"] = ph["host_ms"]
+    kernels[4]["host_ms"] = ph["host_ms"]
     also(kernels[0], "path_3a", fc3a, launches3["filter_compact_chunks"])
-    also(kernels[3], "path_3b", ph3b, launches3b["partition_histogram"])
-    also(kernels[3], "send_8_shards", ph8)
+    also(kernels[4], "path_3b", ph3b, launches3b["partition_histogram"])
+    also(kernels[4], "send_8_shards", ph8)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

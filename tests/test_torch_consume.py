@@ -332,3 +332,57 @@ def test_row_consume_matches_grouped_consume():
                 torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)
             else:
                 assert torch.equal(a, b), spec
+
+
+@pytest.mark.parametrize("mode,first", [("generic", False), ("generic", True),
+                                        ("packed", True)],
+                         ids=["generic_merge", "generic_first",
+                              "packed_first"])
+def test_unsigned_min_max_and_uint64_keys_vs_jax(mode, first):
+    """min / max of uint16 / uint32 / uint64 columns (values past 2^31 and
+    2^63; the port reduces their ordered signed values) grouped by a uint64
+    key past 2^63: equal to the JAX package bit for bit, group order and
+    uniques included; then through ``merge`` of two states and through a
+    state carried from JAX."""
+    rng = np.random.default_rng(47)
+    n = 1100
+    key = np.uint64(1 << 63) + rng.integers(0, 25, n).astype(np.uint64)
+    cols = {"k": pa.array(key, mask=rng.random(n) < 0.05)}
+    for name, npd in (("b", np.uint16), ("c", np.uint32)):
+        cols[name] = pa.array(rng.integers(0, np.iinfo(npd).max, n,
+                                           dtype=npd, endpoint=True),
+                              mask=rng.random(n) < 0.15)
+    cols["d"] = pa.array(rng.integers(0, 1 << 64, n, dtype=np.uint64),
+                         mask=rng.random(n) < 0.15)
+    rb = pa.record_batch(cols)
+    tb, jb = batch_from_pyarrow(rb, device="cpu"), at.Batch.from_pyarrow(rb)
+    fns = [(f, c) for c in "bcd" for f in ("min", "max")]
+    tha = HashAggregate(tb.schema, ["k"],
+                        [AggregateSpec(f, c) for f, c in fns], max_groups=64)
+    jha = JHashAggregate(jb.schema, ["k"], [JSpec(f, c) for f, c in fns],
+                         max_groups=64)
+    tst, jst = _consume_both(tha, jha, tha.init_state("cpu"),
+                             jha.init_state(), rb, mode, first)
+    _assert_same_state(tst, jst)
+    got, want = tha.finalize(tst).to_pyarrow(), jha.finalize(jst).to_pyarrow()
+    assert got.equals(want)
+    assert got["k"].type == pa.uint64() and got["d_max"].type == pa.uint64()
+    assert max(x for x in got["c_max"].to_pylist() if x is not None) \
+        > (1 << 31)
+    assert max(x for x in got["d_max"].to_pylist() if x is not None) \
+        > (1 << 63)
+    # a second batch with other keys folds in (the merge-insert route)
+    key2 = np.uint64(1 << 63) + rng.integers(10, 40, n).astype(np.uint64)
+    rb2 = pa.record_batch({**{c: rb[c] for c in "bcd"},
+                           "k": pa.array(key2)}).select(rb.schema.names)
+    tst2, jst2 = _consume_both(tha, jha, tst, jst, rb2, "generic", False)
+    assert tha.finalize(tst2).to_pyarrow().equals(
+        jha.finalize(jst2).to_pyarrow())
+    # merge of two states == the JAX merge; and a state carried from JAX
+    tm = tha.finalize(tha.merge(tst, tst2)).to_pyarrow()
+    jm = jha.finalize(jha.merge(jst, jst2)).to_pyarrow()
+    assert tm.equals(jm)
+    carried = tha.state_from_numpy(jax.tree_util.tree_map(np.asarray, jst2),
+                                   device="cpu")
+    assert tha.finalize(carried).to_pyarrow().equals(
+        jha.finalize(jst2).to_pyarrow())

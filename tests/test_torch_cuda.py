@@ -52,6 +52,63 @@ def test_tile_compact_local_kernel_vs_plain(cuda_device, cap, p):
     assert torch.equal(loc, ploc)          # zeros past each tile's count too
 
 
+@pytest.mark.parametrize("off", [1, 4, 15])
+def test_tile_compact_local_kernel_takes_views_off_the_16_byte_grid(
+        cuda_device, off):
+    g = torch.Generator(device=cuda_device).manual_seed(off)
+    base = torch.rand((1 << 18) + 16, generator=g, device=cuda_device) < 0.5
+    view = base[off:off + (1 << 18)]
+    assert view.data_ptr() % 16 != 0
+    loc, counts = ck.tile_compact_local(view)
+    ploc, pcounts = ck.tile_compact_local_plain(view.clone())
+    assert torch.equal(counts, pcounts) and torch.equal(loc, ploc)
+
+
+def test_tile_compact_local_kernel_edge_tiles_and_nonzero_bytes(cuda_device):
+    """Tiles with 0, 1, 1023 and 1024 selected rows; any nonzero byte of
+    the selection counts as selected."""
+    sel = torch.zeros(4096, dtype=torch.bool, device=cuda_device)
+    sel[1024 + 5] = True
+    sel[2048:3071] = True
+    sel[3072:] = True
+    loc, counts = ck.tile_compact_local(sel)
+    assert counts.tolist() == [0, 1, 1023, 1024]
+    assert torch.equal(loc, ck.tile_compact_local_plain(sel)[0])
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    raw = torch.randint(0, 256, (1 << 16,), generator=g, dtype=torch.uint8,
+                        device=cuda_device)
+    raw[torch.rand(1 << 16, generator=g, device=cuda_device) < 0.5] = 0
+    loc, counts = ck.tile_compact_local(raw.view(torch.bool))
+    ploc, pcounts = ck.tile_compact_local_plain(raw != 0)
+    assert torch.equal(counts, pcounts) and torch.equal(loc, ploc)
+
+
+@pytest.mark.parametrize("shape", ["none", "all", "half", "stretches"])
+@pytest.mark.parametrize("cap", [1024, 5 * 1024, 1 << 20])
+def test_tile_stitch_kernel_vs_plain(cuda_device, cap, shape):
+    g = torch.Generator(device=cuda_device).manual_seed(cap)
+    sel = {"none": torch.zeros(cap, dtype=torch.bool, device=cuda_device),
+           "all": torch.ones(cap, dtype=torch.bool, device=cuda_device),
+           }.get(shape)
+    if sel is None:
+        sel = torch.rand(cap, generator=g, device=cuda_device) < 0.5
+    if shape == "stretches":
+        tile = torch.arange(cap, device=cuda_device) // 1024
+        sel &= (tile // 2) % 2 == 1
+    loc, counts = ck.tile_compact_local(sel)
+    starts = torch.cat([counts.new_zeros(1),
+                        torch.cumsum(counts, 0, dtype=torch.int32)])
+    for out_cap in (cap, max(cap - 1000, int(starts[-1]))):
+        before = ck.LAUNCHES["tile_stitch"]
+        got = ck.tile_stitch(loc, counts, starts, out_cap)
+        assert ck.LAUNCHES["tile_stitch"] == before + (1 if out_cap else 0)
+        assert torch.equal(got, ck.tile_stitch_plain(loc, counts, starts,
+                                                     out_cap))
+        n = int(starts[-1])
+        assert torch.equal(got[:n].long(), torch.nonzero(sel).flatten())
+        assert not got[n:].any()
+
+
 def test_get_take_indices_on_card_matches_nonzero(cuda_device):
     from arrow_tpu_torch.core import datatype as dt
     from arrow_tpu_torch.core.array import Array
@@ -80,6 +137,9 @@ def test_dense_group_reduce_kernel_vs_plain(cuda_device, G):
                 x = torch.randn(n, generator=g, device=cuda_device)
                 if kind != "sum":
                     x[gid == 5] = float("nan")
+            elif kind in ck._DG_I64:
+                x = torch.randint(-(1 << 62), 1 << 62, (n,), generator=g,
+                                  dtype=torch.int64, device=cuda_device)
             elif kind == "sumc":
                 x = torch.randint(0, 1 << 16, (n,), generator=g,
                                   dtype=torch.int32, device=cuda_device)
@@ -111,6 +171,96 @@ def test_dense_group_reduce_kernel_vs_plain(cuda_device, G):
             assert torch.isnan(outs[oi][5])
         oi += no
         ij += ni
+
+
+@pytest.mark.parametrize("gids", ["spread", "one_slot", "mostly_one_slot"])
+@pytest.mark.parametrize("G", [128, 1024, 4096])
+def test_dense_group_reduce_native_kinds_kernel_vs_plain(cuda_device, G,
+                                                          gids):
+    """first_row, and sum / min / max of an f32 and of an int64 column with
+    their validity streams, each column's kinds sharing its stream; gids
+    out of range; all or most rows in one slot (the warp-combined path); a
+    view off the 16-byte grid."""
+    g = torch.Generator(device=cuda_device).manual_seed(G)
+    n = 300_003
+    gid = torch.randint(-1, G + 9, (n,), generator=g, dtype=torch.int32,
+                        device=cuda_device)
+    if gids == "one_slot":
+        gid = torch.full_like(gid, G - 1)
+    elif gids == "mostly_one_slot":
+        gid[torch.rand(n, generator=g, device=cuda_device) < 0.7] = 2
+    v = torch.randn(n, generator=g, device=cuda_device)
+    v[gid == 5] = float("nan")
+    w = torch.randint(-(1 << 62), 1 << 62, (n,), generator=g,
+                      dtype=torch.int64, device=cuda_device)
+    w[gid == 6] = (1 << 63) - 1
+    w[7] = -(1 << 63)
+    v_ok = torch.rand(n, generator=g, device=cuda_device) < 0.8
+    w_ok = torch.rand(n, generator=g, device=cuda_device) < 0.8
+    kinds = ("first_row", "sum", "min", "max", "sum64", "min64", "max64",
+             "count")
+    inputs = (v, v, v, w, w, w, w_ok.to(torch.int32))
+    valid = (None, v_ok, v_ok, v_ok, w_ok, w_ok, w_ok, None)
+    for cut in (0, 1):
+        cg = gid[cut:]
+        cin = tuple(x[cut:] for x in inputs)
+        cvalid = tuple(x if x is None else x[cut:] for x in valid)
+        for vd in (cvalid, None):
+            rows, outs = ck.dense_group_reduce(cg, cin, kinds, G, vd)
+            prows, pouts = ck.dense_group_reduce_plain(cg, cin, kinds, G, vd)
+            assert torch.equal(rows, prows)
+            for kind, a, b in zip(kinds, outs, pouts):
+                assert a.dtype == b.dtype
+                if kind == "sum":
+                    assert torch.equal(a.isnan(), b.isnan())
+                    d = (a.double() - b.double()).nan_to_num().abs()
+                    # 1e-5 of at most n rows of |v| around 0.8
+                    assert float(d.max()) <= 1e-5 * 0.8 * n + 1e-6
+                else:
+                    same = (a == b) | (a.isnan() & b.isnan())
+                    assert bool(same.all()), (kind, cut)
+
+
+@pytest.mark.parametrize("length", ["all", "static", "on_device"])
+@pytest.mark.parametrize("G", [128, 4096])
+def test_dense_group_reduce_slots_from_key_column_vs_plain(cuda_device, G,
+                                                           length):
+    """A ``DenseKey``: the kernel forms the slot from the int64 key, its
+    validity (null keys in slot G - 1) and the length, also on a view off
+    the 16-byte grid."""
+    g = torch.Generator(device=cuda_device).manual_seed(G + 1)
+    n = 200_003
+    lo = (1 << 50) + 3
+    keys = lo + torch.randint(-2, G + 5, (n,), generator=g, device=cuda_device)
+    k_ok = torch.rand(n, generator=g, device=cuda_device) < 0.9
+    w = torch.randint(-(1 << 62), 1 << 62, (n,), generator=g,
+                      dtype=torch.int64, device=cuda_device)
+    v = torch.randn(n, generator=g, device=cuda_device)
+    kinds = ("first_row", "sum64", "min64", "max")
+    for cut in (0, 1):
+        m = n - cut
+        rows_in_use = {"all": m, "static": m // 2,
+                       "on_device": torch.tensor(m // 3, dtype=torch.int32,
+                                                 device=cuda_device)}[length]
+        for ok in (k_ok[cut:], None):
+            key = ck.DenseKey(keys[cut:], lo, rows_in_use, ok)
+            xs = (w[cut:], w[cut:], v[cut:])
+            before = ck.LAUNCHES["dense_group_reduce"]
+            rows, outs = ck.dense_group_reduce(key, xs, kinds, G)
+            assert ck.LAUNCHES["dense_group_reduce"] == before + 1
+            prows, pouts = ck.dense_group_reduce_plain(key, xs, kinds, G)
+            assert torch.equal(rows, prows)
+            assert int(rows.sum()) <= int(rows_in_use)
+            for a, b in zip(outs, pouts):
+                assert torch.equal(a, b)
+
+
+def test_dense_group_reduce_no_kinds_gives_the_row_counts(cuda_device):
+    gid = torch.randint(-1, 200, (10_000,), dtype=torch.int32,
+                        device=cuda_device)
+    rows, outs = ck.dense_group_reduce(gid, (), (), 128)
+    assert outs == []
+    assert torch.equal(rows, ck.dense_group_reduce_plain(gid, (), (), 128)[0])
 
 
 def test_dense_group_reduce_many_kinds_split_over_launches(cuda_device):
@@ -211,6 +361,176 @@ def test_wrappers_refuse_mixed_devices(cuda_device):
     chunks = torch.zeros((8, 4), dtype=torch.uint8, device=cuda_device)
     with pytest.raises(ValueError):
         ck.filter_compact_chunks(sel, chunks)
+    loc = torch.zeros(1024, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        ck.tile_stitch(loc, torch.zeros(1, dtype=torch.int32),
+                       torch.zeros(2, dtype=torch.int32), 8)
+    gid = torch.zeros(8, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        ck.dense_group_reduce(gid, (), ("first_row",), 128,
+                              (torch.ones(8, dtype=torch.bool),))
+
+
+def _host_columns(out):
+    """name -> (values, validity or None) of a result batch's rows, as
+    numpy (no pyarrow on the card's machine)."""
+    n = len(out)
+    cols = {}
+    for name in out.column_names:
+        a = out.column(name)
+        cols[name] = (a.values[:n].cpu().numpy(),
+                      None if a.validity is None
+                      else a.validity[:n].cpu().numpy())
+    return cols
+
+
+def _assert_same_columns(got, want, float_cols=()):
+    assert list(got) == list(want)
+    for name, (b, b_ok) in want.items():
+        a, a_ok = got[name]
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert (a_ok is None) == (b_ok is None), name
+        keep = np.ones(a.shape, np.bool_)
+        if b_ok is not None:
+            np.testing.assert_array_equal(a_ok, b_ok, err_msg=name)
+            keep = b_ok                     # null rows hold anything
+        if name in float_cols:              # atomics add in another order
+            np.testing.assert_allclose(a[keep], b[keep], rtol=1e-4,
+                                       atol=1e-3, err_msg=name)
+        else:
+            np.testing.assert_array_equal(a[keep], b[keep], err_msg=name)
+
+
+def test_consume_dense_with_nulls_on_card_matches_cpu(cuda_device):
+    """``consume_dense`` with null keys and null values, every aggregate
+    and count mode: the card against the CPU (plain kernel version)."""
+    from arrow_tpu_torch.core.array import Array
+    from arrow_tpu_torch.core.batch import Batch, batch_from_numpy
+    from arrow_tpu_torch.entry import consume_routed
+    from arrow_tpu_torch.ops.agg_options import CountOptions
+    from arrow_tpu_torch.ops.hash_aggregate import AggregateSpec, \
+        HashAggregate
+    rng = np.random.default_rng(4)
+    n = 200_000
+    cols = {"k": rng.integers(-50, 900, n),
+            "v": rng.standard_normal(n).astype(np.float32),
+            "w": rng.integers(-(1 << 62), 1 << 62, n)}
+    nulls = {c: rng.random(n) < 0.1 for c in cols}
+    specs = [AggregateSpec("count_all")]
+    for c in ("v", "w"):
+        specs += [AggregateSpec(f, c) for f in ("sum", "min", "max",
+                                                "count")]
+        specs += [AggregateSpec("count", c, CountOptions("only_null"),
+                                name=f"{c}_nulls"),
+                  AggregateSpec("count", c, CountOptions("all"),
+                                name=f"{c}_all")]
+    specs.append(AggregateSpec("mean", "v"))
+    results = []
+    for dev in (cuda_device, torch.device("cpu")):
+        b = batch_from_numpy(cols, device=dev)
+        b = Batch(b.schema, [
+            Array(a.type, a.values, torch.from_numpy(~nulls[c]).to(dev),
+                  a.length) for c, a in zip(b.column_names, b.arrays)],
+            b.length)
+        ha = HashAggregate(b.schema, ["k"], specs, max_groups=2048)
+        before = ck.LAUNCHES["dense_group_reduce"]
+        out = ha.finalize(consume_routed(ha, ha.init_state(dev), b))
+        assert ck.LAUNCHES["dense_group_reduce"] - before == \
+            (1 if dev.type == "cuda" else 0)
+        results.append(_host_columns(out))
+    got, want = results
+    assert len(want["k"][0]) == 951         # 950 keys and the null key
+    _assert_same_columns(got, want, float_cols=("v_sum", "v_mean"))
+
+
+def _unsigned_columns(rng, n, key):
+    return {"k": key,
+            "a": rng.integers(0, 1 << 16, n, dtype=np.uint16),
+            "b": rng.integers(0, 1 << 32, n, dtype=np.uint32),
+            "c": rng.integers(0, 1 << 64, n, dtype=np.uint64)}
+
+
+def test_unsigned_columns_and_uint64_key_on_card_matches_cpu(cuda_device):
+    """sum / min / max of uint16 / uint32 / uint64 columns grouped by a
+    uint64 key past 2^63 through the sort-grouping consume and ``merge``:
+    the card against the CPU, bit for bit (torch gathers, scatters and
+    reduces no wide unsigned type on the card: the port moves them as
+    their signed bits)."""
+    from arrow_tpu_torch.core.batch import batch_from_numpy
+    from arrow_tpu_torch.ops.hash_aggregate import AggregateSpec, \
+        HashAggregate
+    rng = np.random.default_rng(9)
+    n = 50_000
+    cols = _unsigned_columns(
+        rng, n, np.uint64(1 << 63) + rng.integers(0, 300, n).astype(
+            np.uint64))
+    specs = [AggregateSpec(f, c) for c in "abc"
+             for f in ("sum", "min", "max")]
+    results = []
+    for dev in (cuda_device, torch.device("cpu")):
+        b = batch_from_numpy(cols, device=dev)
+        ha = HashAggregate(b.schema, ["k"], specs, max_groups=512)
+        st = ha.consume(ha.init_state(dev), b)
+        st = ha.merge(st, ha.consume(ha.init_state(dev), b))
+        results.append(_host_columns(ha.finalize(st)))
+    got, want = results
+    assert len(want["k"][0]) == 300 and want["k"][0].dtype == np.uint64
+    _assert_same_columns(got, want)
+
+
+@pytest.mark.parametrize("ktype,base", [(np.uint16, 40000),
+                                        (np.uint32, 3_000_000_000),
+                                        (np.uint64, (1 << 63) - 100)])
+def test_dense_route_unsigned_key_on_card_matches_cpu(cuda_device, ktype,
+                                                      base):
+    from arrow_tpu_torch.core.batch import batch_from_numpy
+    from arrow_tpu_torch.entry import consume_routed
+    from arrow_tpu_torch.ops.hash_aggregate import AggregateSpec, \
+        HashAggregate
+    rng = np.random.default_rng(10)
+    n = 100_000
+    cols = {"k": (np.uint64(base) + rng.integers(0, 500, n).astype(
+                np.uint64)).astype(ktype),
+            "v": rng.standard_normal(n).astype(np.float32),
+            "w": rng.integers(-1000, 1000, n)}
+    specs = [AggregateSpec("sum", "w"), AggregateSpec("min", "v"),
+             AggregateSpec("count_all")]
+    results = []
+    for dev in (cuda_device, torch.device("cpu")):
+        b = batch_from_numpy(cols, device=dev)
+        ha = HashAggregate(b.schema, ["k"], specs, max_groups=1024)
+        before = ck.LAUNCHES["dense_group_reduce"]
+        out = ha.finalize(consume_routed(ha, ha.init_state(dev), b))
+        assert ck.LAUNCHES["dense_group_reduce"] - before == \
+            (1 if dev.type == "cuda" else 0)
+        results.append(_host_columns(out))
+    got, want = results
+    assert want["k"][0].dtype == ktype and len(want["k"][0]) == 500
+    _assert_same_columns(got, want)
+
+
+def test_dist_group_by_unsigned_on_card_matches_cpu(cuda_device):
+    """The distributed group-by (4 logical shards) over a uint64 key with
+    unsigned value columns: hash, exchange and merge on the card against
+    the CPU, per shard."""
+    from arrow_tpu_torch.core.batch import batch_from_numpy
+    from arrow_tpu_torch.parallel import DistContext
+    rng = np.random.default_rng(11)
+    n = 40_000
+    cols = _unsigned_columns(
+        rng, n, np.uint64(1 << 63) + rng.integers(0, 200, n).astype(
+            np.uint64))
+    aggs = [(f, c) for c in "abc" for f in ("sum", "min", "max")]
+    tables = []
+    for dev in (cuda_device, torch.device("cpu")):
+        ctx = DistContext(devices=[dev] * 4)
+        tables.append(ctx.group_by(batch_from_numpy(cols, device=dev), ["k"],
+                                   aggs, max_groups_per_shard=256))
+    got, want = tables
+    assert [len(b) for b in got.batches] == [len(b) for b in want.batches]
+    assert sum(len(b) for b in want.batches) == 200
+    for gb, wb in zip(got.batches, want.batches):
+        _assert_same_columns(_host_columns(gb), _host_columns(wb))
 
 
 def test_entry_slice_on_card_matches_cpu(cuda_device):
@@ -242,6 +562,7 @@ def test_entry_generic_slice_on_card_matches_cpu(cuda_device):
     assert args[0].device.type == "cuda"
     got = step(*args)
     assert ck.LAUNCHES["tile_compact_local"] == 1
+    assert ck.LAUNCHES["tile_stitch"] == 1
     cstep, cargs = entry_generic("cpu", 300_000, 50_000, 3, 1 << 16)
     want = cstep(*cargs)
     n = len(want)

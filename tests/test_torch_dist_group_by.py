@@ -211,6 +211,48 @@ def test_dist_group_by_unsigned_sums_vs_jax(ctx, jctx, rng):
     assert max(d["b_sum"]) > (1 << 63)
 
 
+def test_dist_group_by_unsigned_min_max_and_uint64_key_vs_jax(ctx, jctx, rng):
+    """min / max of uint16 / uint32 / uint64 columns grouped by a uint64 key
+    past 2^63, through consume, the state-row exchange and the merge: equal
+    per shard bit for bit; and the state carried both ways."""
+    n = 2048
+    key = np.uint64(1 << 63) + rng.integers(0, 11, n).astype(np.uint64)
+    t = pa.table({
+        "k": pa.array(key),
+        "a": pa.array(rng.integers(0, 1 << 16, n, dtype=np.uint16)),
+        "b": pa.array(rng.integers(0, 1 << 32, n, dtype=np.uint32),
+                      mask=rng.random(n) < 0.1),
+        "c": pa.array(rng.integers(0, 1 << 64, n, dtype=np.uint64),
+                      mask=rng.random(n) < 0.1)})
+    aggs = [(f, c) for c in "abc" for f in ("min", "max")]
+    got, want = _both(ctx, jctx, t, ["k"], aggs, max_groups_per_shard=16)
+    _assert_same_per_shard(got, want, t, ["k"])
+    d = got.to_pydict()
+    assert min(d["k"]) >= (1 << 63)
+    assert max(d["b_max"]) > (1 << 31) and max(d["c_max"]) > (1 << 63)
+    exp = t.group_by("k").aggregate([("c", "min"), ("c", "max")])
+    assert dict(zip(d["k"], zip(d["c_min"], d["c_max"]))) == dict(
+        zip(exp["k"].to_pylist(), zip(exp["c_min"].to_pylist(),
+                                      exp["c_max"].to_pylist())))
+    # the unsigned accumulators carried from and to the JAX state
+    rb = t.to_batches()[0]
+    schema = batch_from_pyarrow(rb, device="cpu").schema
+    dgb = DistGroupBy(ctx, schema, ["k"], aggs, max_groups_per_shard=16)
+    jdgb = JDistGroupBy(jctx, at.Batch.from_pyarrow(rb).schema, ["k"], aggs,
+                        max_groups_per_shard=16)
+    state = dgb.consume(dgb.init_state(), batch_from_pyarrow(rb, device="cpu"))
+    jstate = jdgb.consume(jdgb.init_state(), at.Batch.from_pyarrow(rb))
+    jleaves = tuple(np.asarray(x) for x in jstate)
+    carried = dist_agg.state_from_numpy(dgb, jleaves)
+    _assert_same_per_shard(dgb.finalize_table(carried), want, t, ["k"])
+    ours = dist_agg.state_to_numpy(dgb, state)
+    for a, b in zip(ours, jleaves):
+        assert a.shape == b.shape and a.dtype.kind == b.dtype.kind
+        assert a.dtype == b.dtype or a.dtype.kind == "i"
+    back = jdgb.finalize_table(tuple(jnp.asarray(x) for x in ours))
+    _assert_same_per_shard(got, back, t, ["k"])
+
+
 def _stream(rng, n, morsel):
     t = pa.table({"k": pa.array(rng.integers(0, 200, n)),
                   "v": pa.array(rng.integers(-50, 50, n))})

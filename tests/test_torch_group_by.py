@@ -248,3 +248,122 @@ def test_consume_routed_raises_for_routes_not_ported():
                         max_groups=1024)
     st = consume_routed(tha, tha.init_state("cpu"), tb)
     assert int(st[0].error) != 0
+
+
+@pytest.mark.parametrize("null_keys,null_values",
+                         [(False, False), (True, False), (False, True),
+                          (True, True)],
+                         ids=["no_nulls", "null_keys", "null_values",
+                              "null_keys_and_values"])
+def test_consume_dense_native_kinds_vs_jax(monkeypatch, null_keys,
+                                           null_values):
+    """``consume_dense`` on the kernel's native kinds against the JAX
+    ``consume_dense`` (limb, pair and masked streams through its Pallas
+    kernel): every aggregate, ``count`` in its three modes and ``mean``,
+    with and without null keys and null values, over two batches. The port
+    hands the kernel the key and the columns themselves and builds no gid
+    and no 32-bit stream but the counts of a column with nulls."""
+    import arrow_tpu_torch.ops.hash_aggregate as tha_mod
+    calls = []
+    inner = tha_mod.dense_group_reduce
+
+    def rec(gid, inputs, kinds, G, valid=None):
+        calls.append((gid, inputs, kinds, valid))
+        return inner(gid, inputs, kinds, G, valid=valid)
+    monkeypatch.setattr(tha_mod, "dense_group_reduce", rec)
+    rng = np.random.default_rng(61 + 2 * null_keys + null_values)
+
+    def batch(n, lo, hi):
+        rb = _record_batch(rng, n, lo, hi)
+        cols = {"k": rb["k"] if null_keys else pa.array(rb["k"].fill_null(lo)),
+                "v": rb["v"] if null_values else
+                pa.array(rb["v"].fill_null(1.5)),
+                "w": rb["w"] if null_values else
+                pa.array(rb["w"].fill_null(-7))}
+        return pa.record_batch(cols)
+    rb, rb2 = batch(2500, -40, 60), batch(1200, -10, 80)
+    jb, tb = at.Batch.from_pyarrow(rb), batch_from_pyarrow(rb, device="cpu")
+    assert (tb.column("k").validity is not None) == null_keys
+    assert (tb.column("w").validity is not None) == null_values
+    jha = JHashAggregate(jb.schema, ["k"], _specs(True), max_groups=256)
+    tha = HashAggregate(tb.schema, ["k"], _specs(False), max_groups=256)
+    tst = consume_routed(tha, tha.init_state("cpu"), tb)
+    jst = _jax_consume(jha, jha.init_state(), jb)
+    _assert_same_table(tha.finalize(tst).to_pyarrow(),
+                       jha.finalize(jst).to_pyarrow(), [rb])
+    (slots, inputs, kinds, valid), = calls
+    # the slots come from the key column itself: no gid is built
+    k = tb.column("k")
+    assert isinstance(slots, tha_mod.DenseKey)
+    assert slots.values.data_ptr() == k.values.data_ptr()
+    assert slots.validity is k.validity and slots.length == 2500
+    # a count stream only for a column with nulls: v's valid and null
+    # counts, w's valid count
+    count = ["count"] if null_values else []
+    assert list(kinds) == ["first_row"] + count + ["sum", "min", "max"] \
+        + count + count + ["sum64", "min64", "max64"]
+    v, w = tb.column("v"), tb.column("w")
+    streams = dict(zip(kinds[1:], zip(inputs, valid[1:])))
+    for kind in ("sum", "min", "max"):
+        assert streams[kind][0].data_ptr() == v.values.data_ptr()
+        assert streams[kind][1] is v.validity
+    for kind in ("sum64", "min64", "max64"):
+        assert streams[kind][0].data_ptr() == w.values.data_ptr()
+        assert streams[kind][1] is w.validity
+    tst = consume_routed(tha, tst, batch_from_pyarrow(rb2, device="cpu"))
+    jst = _jax_consume(jha, jst, at.Batch.from_pyarrow(rb2))
+    _assert_same_table(tha.finalize(tst).to_pyarrow(),
+                       jha.finalize(jst).to_pyarrow(), [rb, rb2])
+
+
+@pytest.mark.parametrize("ktype,base", [(np.uint16, 40000),
+                                        (np.uint32, 3_000_000_000),
+                                        (np.uint64, (1 << 63) - 100)],
+                         ids=["uint16", "uint32", "uint64"])
+def test_dense_route_unsigned_keys(ktype, base):
+    """The dense route over a wide unsigned key (values past the signed
+    range of its width): probe and result equal to the JAX package for
+    uint16 and uint32; a uint64 key, which the JAX dense route refuses
+    (its key offset overflows), against numpy."""
+    rng = np.random.default_rng(3)
+    n = 3000
+    k = (np.uint64(base) + rng.integers(0, 90, n).astype(np.uint64)) \
+        .astype(ktype)
+    rb = pa.record_batch({
+        "k": pa.array(k, mask=rng.random(n) < 0.05),
+        "v": pa.array(rng.standard_normal(n).astype(np.float32)),
+        "w": pa.array(rng.integers(-1000, 1000, n))})
+    tb = batch_from_pyarrow(rb, device="cpu")
+    aggs = [("sum", "w"), ("min", "v"), ("count_all",)]
+    tha = HashAggregate(tb.schema, ["k"], [AggregateSpec(*a) for a in aggs],
+                        max_groups=256)
+    tvals = {name: v.numpy() for name, v in tha.probe_scalars(tb).items()}
+    kind, cfg = tha.probe_route(tb, tvals)
+    valid = np.array(rb["k"].is_valid().to_pylist())
+    assert kind == "dense" and cfg["lo"] == int(k[valid].min())
+    import arrow_tpu_torch.entry as entry_mod
+    assert tha.probe_route(tb, entry_mod._host_probe(
+        tha.probe_scalars(tb))) == (kind, cfg)
+    got = tha.finalize(consume_routed(tha, tha.init_state("cpu"), tb)) \
+        .to_pyarrow()
+    assert got["k"].type == rb["k"].type
+    if ktype is np.uint64:
+        keys = rb["k"].to_pylist()
+        order = list(dict.fromkeys(keys))
+        assert got["k"].to_pylist() == order
+        assert got["count_all"].to_pylist() == [keys.count(x) for x in order]
+        w = rb["w"].to_pylist()
+        assert got["w_sum"].to_pylist() == [
+            sum(x for x, kk in zip(w, keys) if kk == o) for o in order]
+        return
+    jb = at.Batch.from_pyarrow(rb)
+    jha = JHashAggregate(jb.schema, ["k"], [JSpec(*a) for a in aggs],
+                         max_groups=256)
+    jvals = jax.device_get(jha.probe_scalars(jb))
+    for name in jvals:
+        np.testing.assert_array_equal(tvals[name], np.asarray(jvals[name]),
+                                      name)
+    assert jha.probe_route(jb, jvals) == (kind, cfg)
+    want = jha.finalize(jha.consume_dense(
+        jha.init_state(), jb, np.int64(cfg["lo"]), cfg["G"], "pallas"))
+    assert got.equals(want.to_pyarrow())

@@ -169,3 +169,82 @@ def test_filter_array_and_take_batch_run_the_tile_route(monkeypatch):
     jidx = jsel.get_take_indices(jm, "emit_null")
     assert tsel.take_batch(tb, idx).to_pyarrow().equals(
         jsel.take_batch(jb, jidx).to_pyarrow())
+
+
+def _stitch_selection(rng, cap, shape):
+    """A padded (multiple of 1024) selection of ``cap`` rows by shape."""
+    sel = np.zeros((-(-cap // 1024)) * 1024, np.bool_)
+    if shape == "all":
+        sel[:cap] = True
+    elif shape == "half":
+        sel[:cap] = rng.random(cap) < 0.5
+    elif shape == "stretches":                  # whole tiles left empty
+        sel[:cap] = rng.random(cap) < 0.3
+        for t in range(0, len(sel) // 1024, 2):
+            sel[t * 1024:(t + 1) * 1024] = False
+    elif shape == "one":
+        sel[cap - 1] = True
+    return sel
+
+
+@pytest.mark.parametrize("shape", ["none", "all", "half", "stretches", "one"])
+@pytest.mark.parametrize("cap", [1, 1000, 1024, 4097, 8192])
+def test_tile_stitch_plain_vs_jax_and_numpy(cap, shape):
+    """``tile_stitch_plain`` after ``tile_compact_local_plain`` equals the
+    JAX package's ``_pallas_take_indices`` over the whole capacity and
+    ``np.nonzero`` up to the count, zeros past it."""
+    rng = np.random.default_rng(cap)
+    sel = _stitch_selection(rng, cap, shape)
+    loc, counts = ck.tile_compact_local(torch.from_numpy(sel))
+    starts = torch.cat([torch.zeros(1, dtype=torch.int32),
+                        torch.cumsum(counts, 0, dtype=torch.int32)])
+    got = ck.tile_stitch(loc, counts, starts, cap)
+    assert got.dtype == torch.int32 and got.shape == (cap,)
+    want = np.flatnonzero(sel)
+    np.testing.assert_array_equal(got.numpy()[:len(want)], want)
+    assert not got.numpy()[len(want):].any()
+    jidx, _ = jsel._pallas_take_indices(jnp.asarray(sel), None)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jidx)[:cap])
+    # the index formula, slot by slot
+    for t in np.flatnonzero(counts.numpy())[:3]:
+        r = int(counts[t]) - 1
+        assert int(got[int(starts[t]) + r]) == \
+            t * 1024 + int(loc[t * 1024 + r])
+
+
+@pytest.mark.parametrize("behavior", ["drop", "emit_null"])
+@pytest.mark.parametrize("cap", [1, 1000, 1024, 4097])
+def test_get_take_indices_vs_numpy_nonzero(cap, behavior):
+    """DROP: the indices are ``np.nonzero(valid & true)``; EMIT_NULL: null
+    mask slots are selected too and come out as null indices."""
+    rng = np.random.default_rng(cap + 7)
+    vals, valid = rng.random(cap) < 0.5, rng.random(cap) >= 0.2
+    m = pa.array(vals, mask=~valid)
+    got = tsel.get_take_indices(array_from_pyarrow(m, device="cpu"),
+                                behavior)
+    sel = (vals & valid) if behavior == "drop" else (vals | ~valid)
+    want = np.flatnonzero(sel)
+    assert int(got.length) == len(want)
+    np.testing.assert_array_equal(got.values.numpy()[:len(want)], want)
+    assert not got.values.numpy()[len(want):].any()
+    if behavior == "drop" or valid.all():
+        assert got.validity is None
+    else:
+        np.testing.assert_array_equal(got.validity.numpy()[:len(want)],
+                                      valid[want])
+        assert got.validity.numpy()[len(want):].all()
+
+
+def test_tile_stitch_refuses_what_the_kernel_does_not_take():
+    loc = torch.zeros(2048, dtype=torch.int32)
+    counts = torch.zeros(2, dtype=torch.int32)
+    starts = torch.zeros(3, dtype=torch.int32)
+    assert ck.tile_stitch(loc, counts, starts, 5).tolist() == [0] * 5
+    with pytest.raises(ValueError, match="starts"):
+        ck.tile_stitch(loc, counts, starts[:2], 5)
+    with pytest.raises(ValueError, match="int32"):
+        ck.tile_stitch(loc.long(), counts, starts, 5)
+    with pytest.raises(ValueError, match="2\\^31"):
+        ck.tile_stitch(loc, counts, starts, 1 << 31)
+    with pytest.raises(ValueError, match="T >= 1"):
+        ck.tile_stitch(loc[:0], counts[:0], starts[:1], 5)
