@@ -3,13 +3,17 @@ at the second slice's shape, on one GPU; and of the exchange's histogram
 kernel and the merge's folds at the third slice's shapes.
 
     python -m arrow_tpu_torch.bench_reductions [--rows N] [--keys N]
+                                               [--pack-lanes-only]
 
 Sorts ``--rows`` int64 keys (half of them inactive) into runs as the
 grouper does and times, with CUDA events after a warm-up: the per-run
 float64 sum by ``index_add_`` and by ``torch.segment_reduce``; the per-run
 int64 minimum by ``scatter_reduce_``; ``cumsum`` and ``cummax`` over the
 rows; ``torch.sort`` of the key as int64 and as int32; a gather through the
-permutation; ``torch.nonzero``. Then the ``partition_histogram`` kernel
+permutation; ``torch.nonzero``; ``torch.sort`` of full-range random keys by
+width (int32 / int64) and stability; ``torch.searchsorted`` of every row
+into a sorted table of 2^20 keys beside the merge form of the same find
+(the join's two forms). Then the ``partition_histogram`` kernel
 beside ``torch.bincount`` and its byte bound over ``--rows`` destinations,
 for P = 1, 8, 32, 64, 128 and uniform, one-value and out-of-range
 destinations (its time should not depend on them); and an int64
@@ -20,9 +24,13 @@ slice's call (first_row, sum and min of an f32 column, sum64 and min64 of
 an int64 column; 49.5 % of ``--rows`` rows active) for G = 128, 1024, 4096
 over key distributions (uniform; every row in one slot; 90 %, 50 %, 25 % of
 the rows in one slot; Zipf(1.5)), with the kernel's warp-combined path for
-hot slots on and off, and each kind alone at G = 1024. One line per
-primitive, then one JSON object. Needs a CUDA device; the numbers in
-``PERF.md`` that name this script come from it.
+hot slots on and off, and each kind alone at G = 1024. First of all the
+``pack_key_lanes`` kernel over ``--rows`` rows for 1, 2, 3, 4, 6 and 12 lanes
+beside its byte bound (``--pack-lanes-only`` stops after it: two versions
+of the kernel's source are compared by two runs on one machine: the build
+is keyed by the sources' hash).
+One line per primitive, then one JSON object. Needs a CUDA device; the
+numbers in ``PERF.md`` that name this script come from it.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ def main() -> int:
     ap.add_argument("--rows", type=int, default=100_000_000)
     ap.add_argument("--keys", type=int, default=3_000_000)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--pack-lanes-only", action="store_true")
     args = ap.parse_args()
 
     import torch
@@ -51,6 +60,52 @@ def main() -> int:
     n = args.rows
     sentinel = 0xFFFFFFFF
     gen = torch.Generator(device=dev).manual_seed(args.seed)
+
+    def ms(fn, reps: int = 3):
+        out = fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps, out
+
+    results = {"rows": n}
+
+    def report(name, fn, reps: int = 3):
+        results[name], out = ms(fn, reps)
+        print(f"{name:40s} {results[name]:10.3f} ms")
+        return out
+
+    # the join's key packing by lane count: every lane and the flag read
+    # once, the keys written once
+    from .ops import cuda_kernels as ck
+    flag = torch.rand(n, generator=gen, device=dev) < 0.9
+    lanes = []
+    for L in (1, 2, 3, 4, 6, 12):
+        while len(lanes) < L:
+            lanes.append(torch.randint(0, 1 << 10, (n,), generator=gen,
+                                       device=dev))
+        lo = torch.full((L,), 8, dtype=torch.int64, device=dev)
+        span = torch.full((L,), 1000, dtype=torch.int64, device=dev)
+        shift = torch.arange(L, device=dev) * 10
+        results[f"pack_key_lanes_L{L}_bound"] = \
+            n * (8 * L + 1 + 8) / 3.35e12 * 1e3
+        got = report(f"pack_key_lanes_L{L}", lambda: ck.pack_key_lanes(
+            lanes[:L], lo, span, shift, flag), reps=10)
+        if not torch.equal(got, ck.pack_key_lanes_plain(
+                lanes[:L], lo, span, shift, flag)):
+            raise RuntimeError(f"pack_key_lanes differs at {L} lanes")
+        print(f"{'  bound':40s} "
+              f"{results[f'pack_key_lanes_L{L}_bound']:10.3f} ms")
+    del lanes, flag, got
+    if args.pack_lanes_only:
+        print(json.dumps(results))
+        return 0
+
     active = torch.rand(n, generator=gen, device=dev) < 0.495
     key = torch.where(active, torch.randint(0, args.keys, (n,), generator=gen,
                                             device=dev), sentinel)
@@ -70,25 +125,7 @@ def main() -> int:
     w = torch.randint(-100, 100, (n,), generator=gen, device=dev)
     i32 = seg.to(torch.int32)
 
-    def ms(fn, reps: int = 3):
-        out = fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / reps, out
-
-    results = {"rows": n, "runs": n_runs, "slots": R}
-
-    def report(name, fn):
-        results[name], out = ms(fn)
-        print(f"{name:40s} {results[name]:10.3f} ms")
-        return out
-
+    results.update(runs=n_runs, slots=R)
     by_add = report("sum_f64_index_add", lambda: torch.zeros(
         R + 1, dtype=torch.float64, device=dev).index_add_(0, slot, x))
     by_seg = report("sum_f64_segment_reduce", lambda: torch.segment_reduce(
@@ -107,6 +144,36 @@ def main() -> int:
     report("sort_i32", lambda: torch.sort(key32, stable=True))
     report("gather_f64_by_perm", lambda: x[perm])
     report("nonzero", lambda: torch.nonzero(active))
+    # the sort and the join's find: full-range random keys by width, stable
+    # or not; a binary search of every row in a sorted 2^20-entry table
+    # against the merge form of the same find (table and rows sorted
+    # together, a cumsum, a scatter back)
+    full64 = torch.randint(-(1 << 62), 1 << 62, (n,), generator=gen,
+                           device=dev)
+    full32 = torch.randint(-(1 << 31), (1 << 31) - 1, (n,), generator=gen,
+                           device=dev, dtype=torch.int32)
+    for name, k_ in (("i64", full64), ("i32", full32)):
+        for stable in (True, False):
+            report(f"sort_full_range_{name}_{'stable' if stable else 'unstable'}",
+                   lambda: torch.sort(k_, stable=stable))
+    table = torch.sort(torch.randperm(1 << 22, generator=gen, device=dev)
+                       [:1 << 20]).values
+    probe = torch.randint(0, 1 << 22, (n,), generator=gen, device=dev)
+    report("searchsorted_into_2^20_i64", lambda: torch.searchsorted(
+        table, probe))
+    report("searchsorted_into_2^20_i64_out_i32", lambda: torch.searchsorted(
+        table, probe, out_int32=True))
+
+    def merge_form():
+        keyv = torch.cat([table << 1, (probe << 1) | 1])
+        skey_, order = torch.sort(keyv)
+        isb = (skey_ & 1) == 0
+        bseg = torch.cumsum(isb, 0) - 1
+        out = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+        return out.index_copy_(0, torch.where(isb, n, order - (1 << 20)),
+                               bseg)
+    report("merge_find_into_2^20_i64", merge_form)
+    del full64, full32, table, probe
     del key, skey, perm, x, w, i32, key32, slot, seg, head, s_active, active
 
     from .ops.cuda_kernels import partition_histogram
@@ -136,7 +203,6 @@ def main() -> int:
             G + 1, dtype=torch.int64, device=dev).index_add_(0, idx, ones))
     del ones, spread, dumped, idx
 
-    from .ops import cuda_kernels as ck
     act = int(n * 0.495)
     v = torch.randn(n, generator=gen, device=dev)
     w = torch.randint(1, 100, (n,), generator=gen, device=dev)

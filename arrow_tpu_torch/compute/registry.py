@@ -87,7 +87,7 @@ def _apply_intersection_validity(out: Array, args: Sequence[Datum]) -> Array:
 
 
 # the ported kernel modules, imported for their registrations
-_KERNEL_MODULES = ["scalar_compare", "selection"]
+_KERNEL_MODULES = ["scalar_compare", "selection", "sorting"]
 _kernels_loaded = False
 
 

@@ -79,6 +79,11 @@ class Batch:
         return row_mask(self.capacity, self.length, self.device)
 
     # ---- manipulation -------------------------------------------------------
+    def select(self, names: Sequence[str]) -> "Batch":
+        idxs = [self.schema.get_field_index(n) for n in names]
+        return Batch(self.schema.select(names),
+                     [self.arrays[i] for i in idxs], self.length, self.index)
+
     def set_column(self, name: str, arr: Array,
                    nullable: bool = True) -> "Batch":
         i = self.schema.get_field_index(name)

@@ -1,6 +1,7 @@
-"""Bit-lane extraction for key normalization (grouping).
+"""Bit-lane extraction for key normalization (grouping, sorting, join keys).
 
-The counterpart of ``value_lanes32`` in the JAX package's ``ops/bits.py``.
+The counterpart of ``value_lanes32``, ``ascending_lanes32`` and ``join_u32``
+in the JAX package's ``ops/bits.py``.
 Lanes are u32 values held in int64 tensors (torch has no add, shift,
 compare or min on uint32), so every lane value is in [0, 2^32) and int64
 order equals the u32 order. Group equality is Arrow's byte equality:
@@ -17,11 +18,14 @@ import torch
 
 from ..core import datatype as dt
 
-__all__ = ["U32", "SIGNED_OF", "as_signed_bits", "gather_rows",
+__all__ = ["U32", "SIGNED_OF", "as_signed_bits", "as_i32", "gather_rows",
            "ordered_signed", "from_ordered_signed", "unsigned_to_int64",
-           "split_u64", "value_lanes32"]
+           "split_u64", "join_u32", "value_lanes32", "ascending_lanes32",
+           "lane_windows"]
 
 U32 = 0xFFFFFFFF
+_BIAS32 = 0x80000000
+_QNAN64 = 0x7FF8000000000000
 
 # torch's unsigned types wider than 8 bits (newer releases only) and the
 # signed type of the same width: they have no index_copy_, scatter_reduce_,
@@ -72,6 +76,33 @@ def split_u64(x: torch.Tensor) -> List[torch.Tensor]:
     return [(x >> 32) & U32, x & U32]
 
 
+def join_u32(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """The int64 whose bits are the u64 ``hi << 32 | lo`` of two u32 lanes."""
+    return (hi << 32) | lo
+
+
+def as_i32(x: torch.Tensor) -> torch.Tensor:
+    """u32 values (int64) -> the int32 value with the same bits (int64)."""
+    return ((x & U32) ^ _BIAS32) - _BIAS32
+
+
+def lane_windows(lanes: torch.Tensor, active: torch.Tensor):
+    """Per-lane (lo, span) of the active rows of a (n, L) u32-lane matrix:
+    the tighter of the unsigned and the signed window. ``(lane - lo) mod
+    2^32`` maps either window one to one onto [0, span], so signed windows
+    range-pack too. With no active row span is 1 and lo 0xFFFFFFFF."""
+    act2 = active[:, None]
+    lo_u = torch.where(act2, lanes, U32).min(dim=0).values
+    hi_u = torch.where(act2, lanes, 0).max(dim=0).values
+    span_u = (hi_u - lo_u) & U32
+    lanes_i = as_i32(lanes)
+    lo_i = torch.where(act2, lanes_i, (1 << 31) - 1).min(dim=0).values
+    hi_i = torch.where(act2, lanes_i, -(1 << 31)).max(dim=0).values
+    span_i = (hi_i - lo_i) & U32
+    return (torch.where(span_i < span_u, lo_i & U32, lo_u),
+            torch.minimum(span_i, span_u))
+
+
 def value_lanes32(values: torch.Tensor, type_) -> List[torch.Tensor]:
     """Bit-equality u32 lanes (int64 tensors) of an integer, temporal,
     float or bool values buffer."""
@@ -82,8 +113,7 @@ def value_lanes32(values: torch.Tensor, type_) -> List[torch.Tensor]:
     if t.is_floating:
         if t.bits == 64:
             bits = torch.where(torch.isnan(v),
-                               torch.tensor(0x7FF8000000000000,
-                                            device=v.device),
+                               torch.tensor(_QNAN64, device=v.device),
                                v.view(torch.int64))
             return split_u64(bits)
         if t.bits == 32:
@@ -100,3 +130,50 @@ def value_lanes32(values: torch.Tensor, type_) -> List[torch.Tensor]:
             return [unsigned_to_int64(v)]
         return [v.to(torch.int64) & U32]
     raise NotImplementedError(f"value lanes for {t}")
+
+
+def ascending_lanes32(values: torch.Tensor, type_) -> List[torch.Tensor]:
+    """u32 lanes (int64 tensors) whose lexicographic order is the column's
+    ascending sort order (Arrow's radix key normalization, in lanes). NaNs
+    sort greatest (before nulls); -0.0 is canonicalized equal to 0.0 (ties
+    keep input order through the stable sort, as Arrow's comparator has
+    them). float64 lanes are the value's exact IEEE bits."""
+    t = type_
+    v = values
+    if isinstance(t, dt.BoolType):
+        return [v.to(torch.int64)]
+    if t.is_floating:
+        vv = torch.where(v == 0, torch.zeros_like(v), v)
+        if t.bits == 64:
+            bits = torch.where(torch.isnan(vv),
+                               torch.tensor(_QNAN64, device=v.device),
+                               vv.view(torch.int64))
+            hi, lo = split_u64(bits)
+            sign = (hi >> 31) != 0
+            return [torch.where(sign, hi ^ U32, hi | _BIAS32),
+                    torch.where(sign, lo ^ U32, lo)]
+        if t.bits == 32:
+            bits = vv.view(torch.int32).to(torch.int64) & U32
+            bits = torch.where(torch.isnan(vv), 0x7FC00000, bits)
+            return [torch.where((bits >> 31) != 0, bits ^ U32,
+                                bits | _BIAS32)]
+        bits = vv.view(torch.int16).to(torch.int64) & 0xFFFF
+        bits = torch.where(torch.isnan(vv), 0x7E00, bits)
+        return [torch.where((bits >> 15) != 0, bits ^ 0xFFFF, bits | 0x8000)]
+    if isinstance(t, dt.DecimalType) and t.wide:
+        # i128 order: signed hi limb (sign-biased), then the unsigned lo limb
+        hi_hi, hi_lo = split_u64(v[:, 1])
+        lo_hi, lo_lo = split_u64(v[:, 0])
+        return [hi_hi ^ _BIAS32, hi_lo, lo_hi, lo_lo]
+    if t.is_signed_integer or t.is_temporal or isinstance(t, dt.DecimalType):
+        if t.bit_width == 64:
+            hi, lo = split_u64(v)
+            return [hi ^ _BIAS32, lo]
+        return [(v.to(torch.int64) & U32) ^ _BIAS32]
+    if t.is_unsigned_integer:
+        if t.bit_width == 64:
+            return split_u64(v)
+        if v.dtype in SIGNED_OF:
+            return [unsigned_to_int64(v)]
+        return [v.to(torch.int64)]
+    raise NotImplementedError(f"ascending lanes for {t}")

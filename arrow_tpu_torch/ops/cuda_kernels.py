@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels for Hopper, their wrappers and plain versions.
 
 The counterpart of the JAX package's ``ops/pallas_kernels.py`` for the
-kernels on the filter -> group-by paths and the exchange; five kernels:
+kernels on the filter -> group-by paths, the exchange and the join; six
+kernels:
 
   * ``filter_compact_chunks`` (csrc/filter_compact.cu): stream compaction
     of (cap, C) u8 byte planes;
@@ -19,7 +20,10 @@ kernels on the filter -> group-by paths and the exchange; five kernels:
     is given (a gid) or formed in the kernel from the key column
     (``DenseKey``);
   * ``partition_histogram`` (csrc/partition_hist.cu): rows per destination
-    of an exchange.
+    of an exchange;
+  * ``pack_key_lanes`` (csrc/pack_lanes.cu): the hash join's key lanes
+    range-packed into one 32-bit word per row (the JAX package leaves these
+    elementwise passes to XLA's fusion; torch runs each as a launch).
 
 Each wrapper takes the plain PyTorch version (``*_plain``, same module) only
 when its tensors lie on the CPU. CUDA tensors launch the kernel or raise;
@@ -51,8 +55,10 @@ __all__ = ["filter_compact_chunks", "filter_compact_chunks_plain",
            "tile_stitch", "tile_stitch_plain",
            "DenseKey", "dense_key_gid",
            "dense_group_reduce", "dense_group_reduce_plain",
-           "partition_histogram", "partition_histogram_plain", "build",
-           "LAUNCHES", "reset_launch_counts", "TILE_ROWS", "MAX_PARTITIONS"]
+           "partition_histogram", "partition_histogram_plain",
+           "pack_key_lanes", "pack_key_lanes_plain", "build",
+           "LAUNCHES", "reset_launch_counts", "TILE_ROWS", "MAX_PARTITIONS",
+           "MAX_PACK_LANES", "PACK_MISS"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / ".kernels_build"
@@ -62,7 +68,7 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # kernel launches per wrapper (only where the wrapper launches its kernel)
 LAUNCHES = {"filter_compact_chunks": 0, "tile_compact_local": 0,
             "tile_stitch": 0, "dense_group_reduce": 0,
-            "partition_histogram": 0}
+            "partition_histogram": 0, "pack_key_lanes": 0}
 
 
 def reset_launch_counts() -> None:
@@ -147,6 +153,9 @@ def _lib():
                                        vp, i64, vp, i64, vp, vp, i64, vp],
             "atp_ph_max_partitions": [],
             "atp_partition_histogram": [vp, i64, i32, vp, vp],
+            "atp_pl_max_lanes": [],
+            "atp_pack_key_lanes": [p_i64, p_i64, i32, vp, vp, vp, vp, i64,
+                                   vp, vp],
         }
         for name, argtypes in sigs.items():
             fn = getattr(lib, name)
@@ -155,6 +164,9 @@ def _lib():
         if lib.atp_ph_max_partitions() != MAX_PARTITIONS:
             raise RuntimeError(
                 "csrc/partition_hist.cu and MAX_PARTITIONS disagree")
+        if lib.atp_pl_max_lanes() != MAX_PACK_LANES:
+            raise RuntimeError(
+                "csrc/pack_lanes.cu and MAX_PACK_LANES disagree")
         if lib.atp_tc_tile_rows() != TILE_ROWS:
             raise RuntimeError(
                 "csrc/tile_compact.cu and TILE_ROWS disagree")
@@ -654,4 +666,82 @@ def partition_histogram(dest: torch.Tensor, P: int) -> torch.Tensor:
             dest.data_ptr(), n, P, out.data_ptr(), stream),
             "partition_histogram")
     LAUNCHES["partition_histogram"] += 1
+    return out
+
+
+# ---- pack_key_lanes ---------------------------------------------------------
+
+MAX_PACK_LANES = 16     # csrc/pack_lanes.cu kMaxLanes
+PACK_MISS = 0x7FFFFFFE  # csrc/pack_lanes.cu kMiss: equals no packed build key
+
+
+def _check_pl(lanes, lo, span, shift, active) -> None:
+    L = len(lanes)
+    _require(1 <= L <= MAX_PACK_LANES,
+             f"1 to {MAX_PACK_LANES} lanes: {L}")
+    n = lanes[0].shape[0]
+    for x in lanes:
+        _require(x.ndim == 1 and x.dtype == torch.int64 and x.shape[0] == n,
+                 f"every lane must be ({n},) int64")
+    for name, x in (("lo", lo), ("span", span), ("shift", shift)):
+        _require(x.shape == (L,) and x.dtype == torch.int64,
+                 f"{name} must be ({L},) int64")
+    _require(active is None or (active.shape == (n,) and
+                                active.dtype == torch.bool),
+             f"active must be ({n},) bool")
+
+
+def pack_key_lanes_plain(lanes, lo, span, shift, active=None):
+    """Plain version: some eight elementwise passes per lane."""
+    _check_pl(lanes, lo, span, shift, active)
+    n = lanes[0].shape[0]
+    dev = lanes[0].device
+    packed = torch.zeros((n,), dtype=torch.int64, device=dev)
+    miss = torch.zeros((n,), dtype=torch.bool, device=dev) if active is None \
+        else ~active
+    shift = shift.clamp(max=32)
+    for j, lane in enumerate(lanes):
+        d = (lane - lo[j]) & _U32                  # u32 wraparound
+        miss = miss | (d > span[j])
+        packed = packed | ((d << shift[j]) & _U32)
+    return torch.where(miss, PACK_MISS, packed)
+
+
+def pack_key_lanes(lanes, lo, span, shift, active=None):
+    """Range-pack every row's key lanes into one 32-bit word (the join's
+    packed key).
+
+    lanes: L (n,) int64 tensors of u32 values (any stride: the columns of
+      a lane matrix will do). lo, span, shift: (L,) int64 tensors on the
+      lanes' device: per lane the window start, its width - 1 and the bit
+      offset; the wrapper reads none of them on the host. active: (n,)
+      bool or None.
+    Returns (n,) int64: OR over the lanes of ``((lane - lo) mod 2^32) <<
+    shift`` (mod 2^32; a shift of 32 or more leaves nothing) where every
+    lane lies in its window (``(lane - lo) mod 2^32 <= span``) and the row
+    is active, else ``PACK_MISS``."""
+    lanes = list(lanes)
+    _check_pl(lanes, lo, span, shift, active)
+    tensors = lanes + [lo, span, shift] + ([] if active is None else [active])
+    if _on_cpu(tensors):
+        return pack_key_lanes_plain(lanes, lo, span, shift, active)
+    n = lanes[0].shape[0]
+    dev = lanes[0].device
+    out = torch.empty((n,), dtype=torch.int64, device=dev)
+    if n == 0:
+        return out
+    for x in (lo, span, shift) + (() if active is None else (active,)):
+        _require(x.is_contiguous(), "pack_key_lanes needs contiguous lo, "
+                 "span, shift and active")
+    L = len(lanes)
+    ptrs = (ctypes.c_int64 * L)(*[x.data_ptr() for x in lanes])
+    strides = (ctypes.c_int64 * L)(*[x.stride(0) for x in lanes])
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _check_rc(lib.atp_pack_key_lanes(
+            ptrs, strides, L, lo.data_ptr(), span.data_ptr(),
+            shift.data_ptr(), None if active is None else active.data_ptr(),
+            n, out.data_ptr(), stream), "pack_key_lanes")
+    LAUNCHES["pack_key_lanes"] += 1
     return out

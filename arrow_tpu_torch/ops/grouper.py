@@ -37,7 +37,8 @@ from ..core.array import Array, resolve_device, row_mask
 from .bits import U32, as_signed_bits, gather_rows, value_lanes32
 from .distinct import _FOLD_SENTINEL, merge_insert, sort_group
 
-__all__ = ["Grouper", "GrouperState", "group_key_lanes"]
+__all__ = ["Grouper", "GrouperState", "group_key_lanes",
+           "group_key_lane_list"]
 
 
 def _raw_lanes(a: Array) -> List[torch.Tensor]:
@@ -47,11 +48,11 @@ def _raw_lanes(a: Array) -> List[torch.Tensor]:
     return value_lanes32(a.values, a.type)
 
 
-def group_key_lanes(columns: Sequence[Array],
-                    nullable: Optional[Sequence[bool]] = None
-                    ) -> torch.Tensor:
-    """(capacity, L) int64 u32-lane matrix. Value lanes of null rows are
-    zeroed (canonical) and a validity lane distinguishes null from zero."""
+def group_key_lane_list(columns: Sequence[Array],
+                        nullable: Optional[Sequence[bool]] = None
+                        ) -> List[torch.Tensor]:
+    """The L columns of ``group_key_lanes``'s matrix as separate (capacity,)
+    tensors, for a caller that reads them one by one."""
     lanes = []
     for i, c in enumerate(columns):
         is_nullable = c.validity is not None if nullable is None \
@@ -64,7 +65,15 @@ def group_key_lanes(columns: Sequence[Array],
         elif is_nullable:
             lanes.append(torch.ones_like(col_lanes[0]))
         lanes.extend(col_lanes)
-    return torch.stack(lanes, dim=1)
+    return lanes
+
+
+def group_key_lanes(columns: Sequence[Array],
+                    nullable: Optional[Sequence[bool]] = None
+                    ) -> torch.Tensor:
+    """(capacity, L) int64 u32-lane matrix. Value lanes of null rows are
+    zeroed (canonical) and a validity lane distinguishes null from zero."""
+    return torch.stack(group_key_lane_list(columns, nullable), dim=1)
 
 
 @dataclass

@@ -15,8 +15,9 @@ the route (``probe_route``):
     the grouper table over the unique reps and segment-reduces every
     aggregate (``ops/segment``).
 
-A route this package does not run (the sorted dense reduction) raises
-``NotImplementedError`` in its caller.
+Past the kernel's slot count (``DENSE_CAP``) and up to
+``SORTED_DENSE_CAP`` slots ``consume_dense`` takes ``sorted_group_reduce``
+instead: the same interface, one stable sort by slot.
 """
 
 from __future__ import annotations
@@ -31,17 +32,90 @@ from ..core.array import Array, resolve_device, row_mask
 from ..core.batch import Batch
 from ..core.schema import Field, Schema
 from .aggregates import GroupedAggregator, make_grouped_aggregator
-from .bits import SIGNED_OF, U32, from_ordered_signed, ordered_signed, \
-    unsigned_to_int64
-from .cuda_kernels import DenseKey, dense_group_reduce
+from .bits import SIGNED_OF, from_ordered_signed, lane_windows, \
+    ordered_signed, unsigned_to_int64
+from .cuda_kernels import _DG_ARITY, _DG_IDENT, DenseKey, dense_group_reduce, \
+    dense_key_gid
 from .grouper import Grouper, GrouperState, group_key_lanes
 from .segment import make_segment_context
 
-__all__ = ["AggregateSpec", "HashAggregate"]
+__all__ = ["AggregateSpec", "HashAggregate", "sorted_group_reduce"]
 
 _I32MAX = (1 << 31) - 1
-_I32MIN = -(1 << 31)
-_BIAS32 = 0x80000000
+# dump slots of ``sorted_group_reduce``'s scatter reductions (a power of two)
+_DUMP_SLOTS = 4096
+
+
+def sorted_group_reduce(gid, inputs, kinds: tuple, G: int, valid=None):
+    """Dense-domain grouped reduction for LARGE G: the sorted complement of
+    ``cuda_kernels.dense_group_reduce``, with its interface (a gid or a
+    ``DenseKey``, a validity stream per kind) for the kinds ``consume_dense``
+    passes: "first_row", "count", "sum" / "min" / "max" over float32 and
+    "sum64" / "min64" / "max64" over int64. Returns (rows (G,) int32, outs).
+
+    ONE stable sort by slot groups the rows; the slot of an output IS
+    ``key - lo``, so there is no group table and no unique-key extraction.
+    Per-slot bounds are two G-sized binary searches of the sorted slots.
+    Integer sums and counts are cumsum boundary differences (exact), float
+    sums one ``torch.segment_reduce`` pass over the runs (each run summed
+    from its first row to its last), the first row sits at its run's head
+    because the sort is stable, and an extreme is one ``scatter_reduce_``
+    of the rows as they lie (it needs no order); the rows it must drop go
+    to 4096 dump slots in turn, not to one (on an NVIDIA H100 80GB HBM3,
+    700.00 W, the atomics of 50.5M dropped rows on ONE slot made each
+    100M-row ``scatter_reduce_`` take 41.5 to 42.0 ms, ``PERF.md`` section
+    6). The JAX package scans the
+    sorted streams with a doubling scan per extreme and feeds 64-bit
+    values as limb and pair streams; the results are the same, a float sum
+    in another order."""
+    if isinstance(gid, DenseKey):
+        gid = dense_key_gid(gid, G)
+    n = gid.shape[0]
+    dev = gid.device
+    valid = (None,) * len(kinds) if valid is None else valid
+    slot = torch.where((gid >= 0) & (gid < G), gid, G)     # G: inactive
+    sk, perm = torch.sort(slot, stable=True)
+    gidx = torch.arange(G, dtype=slot.dtype, device=dev)
+    starts = torch.searchsorted(sk, gidx)
+    ends = torch.searchsorted(sk, gidx, right=True)
+    rows = (ends - starts).to(torch.int32)
+    present = rows > 0
+    offsets = torch.cat([starts, ends[-1:]])
+    slot64 = dump = None
+
+    outs = []
+    ij = 0
+    for kind, v in zip(kinds, valid):
+        x = inputs[ij] if _DG_ARITY[kind][0] else None
+        ij += _DG_ARITY[kind][0]
+        if kind == "first_row":
+            first = perm[starts.clamp(max=max(n - 1, 0))] if n else starts
+            outs.append(torch.where(present, first, _I32MAX)
+                        .to(torch.int32))
+        elif kind in ("count", "sum64"):
+            xs = (x if v is None else torch.where(v, x, 0))[perm]
+            C = torch.cat([xs.new_zeros((1,)),
+                           torch.cumsum(xs, 0, dtype=xs.dtype)])
+            outs.append(C[ends] - C[starts])
+        elif kind == "sum":
+            xs = (x if v is None else torch.where(v, x, 0.0))[perm]
+            outs.append(torch.segment_reduce(xs, "sum", offsets=offsets,
+                                             unsafe=True))
+        elif kind in ("min", "max", "min64", "max64"):
+            if slot64 is None:
+                dump = G + (torch.arange(n, device=dev) & (_DUMP_SLOTS - 1))
+                slot64 = torch.where(slot < G, slot, dump)
+            at = slot64 if v is None else torch.where(v, slot64, dump)
+            buf = torch.full((G + _DUMP_SLOTS,), _DG_IDENT[kind],
+                             dtype=x.dtype, device=dev)
+            outs.append(buf.scatter_reduce_(
+                0, at, x, "amin" if "min" in kind else "amax")[:G])
+        else:
+            raise NotImplementedError(
+                f"sorted_group_reduce kind {kind!r}: the limb and pair "
+                "streams of the 32-bit kernel interface have native 64-bit "
+                "kinds here")
+    return rows, outs
 
 
 @dataclass(frozen=True)
@@ -86,11 +160,6 @@ def _probe_key_domain(key: Array):
     if wide_unsigned:
         lo, hi = from_ordered_signed(torch.stack([lo, hi]), key.values.dtype)
     return lo, hi
-
-
-def _as_i32(x: torch.Tensor) -> torch.Tensor:
-    """u32 values (int64) -> the int32 with the same bits."""
-    return ((x & U32) ^ _BIAS32) - _BIAS32
 
 
 class HashAggregate:
@@ -256,17 +325,9 @@ class HashAggregate:
         domain when the dense kernel is statically eligible."""
         key_cols = [batch.column(k) for k in self.keys]
         lanes = group_key_lanes(key_cols, self.grouper.key_nullable)
-        act2 = row_mask(batch.capacity, batch.length, lanes.device)[:, None]
-        lo_u = torch.where(act2, lanes, U32).min(dim=0).values
-        hi_u = torch.where(act2, lanes, 0).max(dim=0).values
-        span_u = (hi_u - lo_u) & U32
-        lanes_i = _as_i32(lanes)
-        lo_i = torch.where(act2, lanes_i, _I32MAX).min(dim=0).values
-        hi_i = torch.where(act2, lanes_i, _I32MIN).max(dim=0).values
-        span_i = (hi_i - lo_i) & U32
-        use_i = span_i < span_u
-        out = {"lo": torch.where(use_i, lo_i & U32, lo_u),
-               "span": torch.minimum(span_i, span_u)}
+        lo, span = lane_windows(
+            lanes, row_mask(batch.capacity, batch.length, lanes.device))
+        out = {"lo": lo, "span": span}
         if self.dense_static_ok():
             out["dlo"], out["dhi"] = _probe_key_domain(key_cols[0])
         return out
@@ -330,9 +391,10 @@ class HashAggregate:
 
     def consume_dense(self, state, batch: Batch, lo, G: int,
                       impl: str = "pallas"):
-        """Dense-domain consume with ``G`` slots from key ``lo`` up. Only
-        impl "pallas" (the ``dense_group_reduce`` kernel) is ported; the
-        sorted dense reduction for larger domains comes later.
+        """Dense-domain consume with ``G`` slots from key ``lo`` up: impl
+        "pallas" is the ``dense_group_reduce`` kernel (up to ``DENSE_CAP``
+        slots), "sorted" ``sorted_group_reduce`` for larger domains; both
+        take the same arguments.
 
         The kernel reads the columns as they are: the key for the slot (a
         ``DenseKey``: no gid is built), "first_row" for the
@@ -343,8 +405,8 @@ class HashAggregate:
         (else the kernel's row count is the count). The JAX package feeds
         its kernel limb, pair and identity-masked 32-bit streams instead
         (the TPU has no 64-bit arithmetic); the results are the same."""
-        if impl != "pallas":
-            raise NotImplementedError(f"dense impl {impl!r}")
+        if impl not in ("pallas", "sorted"):
+            raise ValueError(f"dense impl {impl!r}: 'pallas' or 'sorted'")
         key = batch.column(self.keys[0])
         kdtype = key.values.dtype
         lo = int(lo)
@@ -395,8 +457,10 @@ class HashAggregate:
                 kind = "sum" if agg.name == "mean" else agg.name
                 add((tgt, kind), kind, col.values.to(torch.float32),
                     col.validity)
-        rows, outs = dense_group_reduce(slots, tuple(inputs), tuple(kinds), G,
-                                        tuple(valid))
+        reduce = dense_group_reduce if impl == "pallas" \
+            else sorted_group_reduce
+        rows, outs = reduce(slots, tuple(inputs), tuple(kinds), G,
+                            tuple(valid))
         present = rows > 0
         order_key = torch.where(present, outs[0], _I32MAX)
         perm = torch.argsort(order_key, stable=True)  # slots by appearance

@@ -19,6 +19,7 @@ import torch
 from ..core import datatype as dt
 from ..core.array import Array
 from ..compute.scalar import Scalar
+from .bits import SIGNED_OF, unsigned_to_int64
 
 __all__ = [
     "common_numeric_type", "promote_args", "values_of", "output_like",
@@ -84,7 +85,12 @@ def values_of(a: Union[Array, Scalar],
     else:
         v = torch.from_numpy(np.asarray(a.storage_value()))
     if out_type is not None:
-        v = v.to(torch_dtype(out_type))
+        want = torch_dtype(out_type)
+        if v.dtype != want and v.dtype in SIGNED_OF:
+            # the card converts no uint16 / uint32 / uint64: by value
+            # through int64 (uint64: its bits)
+            v = unsigned_to_int64(v)
+        v = v.to(want)
     return v
 
 

@@ -13,10 +13,17 @@ import torch
 
 from ..core import datatype as dt
 from ..compute.registry import Kind, NullHandling, register_function
+from .bits import SIGNED_OF, ordered_signed, unsigned_to_int64
 from .kernel_utils import (capacity_of, device_of, output_like, promote_args,
                            values_of)
 
 __all__ = []
+
+
+def _orderable(v: torch.Tensor) -> torch.Tensor:
+    if v.dtype == torch.uint64:
+        return ordered_signed(v)
+    return unsigned_to_int64(v) if v.dtype in SIGNED_OF else v
 
 
 def _comparable_values(args):
@@ -26,9 +33,12 @@ def _comparable_values(args):
         return [values_of(a) for a in args]
     if all(t.is_numeric for t in types):
         vals, _ = promote_args(args)
-        # torch has no compare for uint16/uint32: widen (exact) to int64
-        return [v.to(torch.int64) if v.dtype in (torch.uint16, torch.uint32)
-                else v for v in vals]
+        # torch has no compare for uint16 / uint32 / uint64, and on the card
+        # no conversion of them either: uint16 / uint32 widen (exact) to
+        # int64 through their signed bits, uint64 compares as the signed
+        # value with the same order (the common type of two integers is
+        # uint64 only when both are unsigned)
+        return [_orderable(v) for v in vals]
     if all(t.is_temporal for t in types) and len(set(types)) == 1:
         return [values_of(a) for a in args]
     raise TypeError(f"cannot compare {types}")

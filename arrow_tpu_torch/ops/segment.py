@@ -38,7 +38,7 @@ from .bits import SIGNED_OF, as_signed_bits, from_ordered_signed, \
     ordered_signed
 
 __all__ = ["SegmentContext", "make_segment_context", "rows_of_positions",
-           "segmented_scan",
+           "segmented_scan", "last_marked",
            "segmented_carry_last", "running_scan", "seg_sum",
            "seg_reduce_min", "seg_reduce_max"]
 
@@ -222,20 +222,34 @@ def segmented_scan(v: torch.Tensor, head: torch.Tensor, combine
     return v
 
 
+def last_marked(mark: torch.Tensor) -> torch.Tensor:
+    """(n,) int64: for every position the latest position <= it where
+    ``mark`` is True, -1 before the first one. A forward fill is a copy of
+    the last marked position's value, so it needs no running max
+    (``torch.cummax`` tracks indices as well and is far slower on the card
+    than a cumsum; ``PERF.md`` has both times): the marks are counted by a
+    cumsum, the marked positions compacted by their count, and every
+    position reads entry count - 1."""
+    n = mark.shape[0]
+    rank = torch.cumsum(mark, 0)
+    pos = torch.arange(n, device=mark.device)
+    marked = _scatter(n, 0, torch.where(mark, rank - 1, n), pos)
+    return torch.where(rank > 0, marked[(rank - 1).clamp_(0)], -1)
+
+
 def segmented_carry_last(values_i32: torch.Tensor,
                          head: torch.Tensor) -> torch.Tensor:
     """Within each head-delimited run, carry the value of the LATEST
-    position whose value >= 0 (-1 where the run has none yet): one cumsum
-    + one packed cummax over (segment id << 32 | source position + 1) +
-    one gather."""
+    position whose value >= 0 (-1 where the run has none yet): the last
+    position with a value (``last_marked``), kept where it lies at or after
+    the position's run head."""
     cap = values_i32.shape[0]
-    g = torch.cumsum(head, 0) - 1
-    pos = torch.arange(cap, device=values_i32.device)
-    tag = torch.where(values_i32 >= 0, pos + 1, 0)      # 0 == "no source"
-    cm = torch.cummax((g << 32) | tag, 0).values
-    src = (cm & _U32) - 1
-    return torch.where(src >= 0, values_i32[src.clamp(0, max(cap - 1, 0))],
-                       -1).to(torch.int32)
+    if cap == 0:
+        return values_i32.to(torch.int32)
+    src = last_marked(values_i32 >= 0)
+    run_head = last_marked(head)
+    ok = (src >= 0) & (src >= run_head)
+    return torch.where(ok, values_i32[src.clamp(0)], -1).to(torch.int32)
 
 
 # ---- packed-cummax segmented extremes ----------------------------------------

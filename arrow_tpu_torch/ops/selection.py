@@ -37,7 +37,7 @@ from ..core.batch import Batch
 from ..compute.registry import Kind, NullHandling, register_function
 from .cuda_kernels import TILE_ROWS, filter_compact_chunks, \
     tile_compact_local, tile_stitch
-from .bits import gather_rows
+from .bits import as_signed_bits, gather_rows
 from .segment import _scatter, rows_of_positions
 
 __all__ = ["FilterOptions", "TakeOptions", "get_take_indices", "take_array",
@@ -149,13 +149,17 @@ def _gather_validity(values: Array, idx: torch.Tensor,
     return validity
 
 
-def take_array(values: Array, indices: Array) -> Array:
+def take_array(values: Array, indices: Array, grow: int = 1) -> Array:
     """Gather rows of a fixed-width `values` at `indices` (Arrow `take`).
-    Indices must be in [0, values.capacity), padding rows included."""
+    Indices (any integer type; uint64 as ``sort_indices`` gives them) must
+    be in [0, values.capacity), padding rows included. ``grow`` sizes the
+    byte pool of a varlen result in the JAX package; a fixed-width take
+    does not read it."""
     if values.type.is_varlen or values.type.is_nested or \
             isinstance(values.type, dt.DictionaryType):
-        raise NotImplementedError(f"take of {values.type}")
-    idx = indices.values.long()
+        raise NotImplementedError(
+            f"take of {values.type} (ROADMAP queue item A3)")
+    idx = as_signed_bits(indices.values).long()
     return Array(values.type, gather_rows(values.values, idx),
                  _gather_validity(values, idx, indices.validity),
                  length=indices.length)

@@ -12,8 +12,9 @@ contiguous blocks of ``capacity / n`` rows, one local Batch per shard on
 its device; each shard's local length follows from the global length and
 its index.
 
-``join`` and ``sort_by`` wait for the join and sort operators (ROADMAP
-queue items A6 and A5).
+``join`` and ``sort_by``, the distributed forms of the join and sort
+operators (ROADMAP queue items A6 and A5, which are ported), come with queue
+item A8b.
 """
 
 from __future__ import annotations
@@ -238,13 +239,14 @@ class DistContext:
     def join(self, left, right, options, bucket_factor: int = 2,
              fanout_per_shard: Optional[int] = None) -> Table:
         raise NotImplementedError(
-            "DistContext.join needs the hash join (ROADMAP queue item A6)")
+            "DistContext.join, the distributed form of the hash join (queue "
+            "item A6), is not ported yet (ROADMAP queue item A8b)")
 
     def sort_by(self, b, sort_keys, bucket_factor: int = 3,
                 samples_per_shard: int = 256) -> Table:
         raise NotImplementedError(
-            "DistContext.sort_by needs the sort operator (ROADMAP queue "
-            "item A5)")
+            "DistContext.sort_by, the distributed form of the sort (queue "
+            "item A5), is not ported yet (ROADMAP queue item A8b)")
 
     # -------------------------------------------------------------------
     def _collect_shards(self, schema: Schema, outs: Sequence[Batch],

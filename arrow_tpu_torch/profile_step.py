@@ -1,15 +1,24 @@
 """Per-layer device times of one step of the port's slices, on one GPU.
 
     python -m arrow_tpu_torch.profile_step
-        [--path generic|dense|dist|exchange] [--rows N] [--keys N]
-        [--max-groups N] [--shards N] [--steps N] [--seed N]
+        [--path generic|dense|dist|exchange|sort|join] [--rows N]
+        [--keys N] [--max-groups N] [--shards N] [--steps N] [--seed N]
+        [--build-rows N] [--build-keys N] [--key-dist uniform|zipf]
+        [--join-type T] [--wide]
 
 ``--path dist`` is the distributed group-by (``entry_distributed``) over
 ``--shards`` logical shards of the card (default 8), ``--path exchange``
 the raw-row exchange (``shuffle_batch`` by the hash of ``k``, buckets of
 twice the local capacity) of the same batch (default 4 shards); their
 layers are called once per shard and step, and a layer's time is the sum
-over the shards.
+over the shards. ``--path dense`` with ``--keys`` past 4096 (and
+``--max-groups`` to hold them) is the sorted dense route. ``--path sort`` is
+``entry_sort`` (layers: lane build, each ``torch.argsort`` pass of the
+lexicographic sort, take); ``--path join`` is ``entry_join`` with
+``--build-rows`` build rows over ``--build-keys`` keys and ``--rows`` probe
+rows (layers: build, the route's host read, lane build, pack, find with its
+``searchsorted``, take indices or pair expansion,
+materialize with pack / row gather / unpack, finish).
 
 Wraps the functions that make up the step's layers so that each call is
 bracketed by two CUDA events on the current stream (no synchronisation
@@ -34,7 +43,15 @@ from collections import defaultdict
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", choices=("generic", "dense", "dist",
-                                       "exchange"), default="generic")
+                                       "exchange", "sort", "join"),
+                    default="generic")
+    ap.add_argument("--build-rows", type=int, default=1 << 20)
+    ap.add_argument("--build-keys", type=int, default=None)
+    ap.add_argument("--key-dist", choices=("uniform", "zipf"),
+                    default="uniform")
+    ap.add_argument("--join-type", default="inner")
+    ap.add_argument("--wide", action="store_true")
+    ap.add_argument("--fanout", type=int, default=None)
     ap.add_argument("--shards", type=int, default=None)
     ap.add_argument("--rows", type=int, default=100_000_000)
     ap.add_argument("--keys", type=int, default=None)
@@ -51,7 +68,7 @@ def main() -> int:
         return 2
     from . import entry as entry_mod
     from .ops import aggregates, cuda_kernels, distinct, grouper, \
-        hash_aggregate, selection
+        hash_aggregate, join, selection, sorting
     from .parallel import context, dist_agg, shuffle
 
     print(subprocess.run(
@@ -120,8 +137,39 @@ def main() -> int:
                 aggregates._GroupedExtremum):
         layer(cls, "merge", f"agg_merge_{cls.name or 'min_max'}")
     layer(grouper, "merge_insert", "merge_insert")
-    layer(distinct, "segmented_carry_last", "carry_last_cummax")
+    layer(distinct, "segmented_carry_last", "carry_last")
     layer(context.DistContext, "_collect_shards", "collect")
+    # the sorted dense route, sort and join
+    layer(hash_aggregate, "sorted_group_reduce", "sorted_group_reduce")
+    if args.path in ("sort", "join") or (args.path == "dense" and
+                                         (args.keys or 0) > 4096):
+        layer(torch, "argsort", "torch_argsort")
+        layer(torch, "sort", "torch_sort")
+        layer(torch, "searchsorted", "torch_searchsorted")
+        layer(torch, "segment_reduce", "torch_segment_reduce")
+    layer(sorting, "_key_lanes", "lane_build")
+    layer(sorting, "_lexsort_perm", "lexsort")
+    layer(entry_mod, "sort_indices_batch", "sort_indices")
+    layer(entry_mod, "take_batch", "take")
+    HJ = join.HashJoin
+    layer(entry_mod, "join_routed", "build_and_route")
+    layer(HJ, "build", "build")
+    layer(join, "sort_group", "sort_group")
+    layer(join, "lane_windows", "lane_windows")
+    layer(join, "group_key_lanes", "lane_build")
+    layer(join, "group_key_lane_list", "lane_build")
+    layer(join, "_pack_lanes", "pack")
+    layer(HJ, "probe", "probe")
+    layer(HJ, "_find_packed", "find")
+    layer(join, "merge_find", "merge_find")
+    layer(join, "get_take_indices", "take_indices")
+    layer(HJ, "_pair_geometry", "expansion")
+    layer(join, "rows_of_positions", "rows_of_positions")
+    layer(HJ, "_materialize", "materialize")
+    layer(join, "pack_columns", "pack_columns")
+    layer(join, "unpack_columns", "unpack_columns")
+    layer(join, "filter_batch", "filter")
+    layer(HJ, "finish", "finish")
 
     if args.path == "generic":
         step, (b,) = entry_mod.entry_generic(
@@ -142,9 +190,21 @@ def main() -> int:
             return shuffle.shuffle_batch(
                 sharded.shards, ["k"], ctx.devices,
                 bucket_capacity=2 * sharded.local_capacity)
+    elif args.path == "sort":
+        step, (b,) = entry_mod.entry_sort(None, args.rows, args.seed,
+                                          args.keys or 1_000_000)
+    elif args.path == "join":
+        jstep, pair = entry_mod.entry_join(
+            None, args.build_rows, args.rows, args.seed, args.join_type,
+            args.key_dist, args.build_keys, args.wide, args.fanout)
+        b = pair
+
+        def step(batches):
+            return jstep(*batches)
     else:
-        step, (b,) = entry_mod.entry(None, args.rows, args.keys or 1000,
-                                     args.seed)
+        step, (b,) = entry_mod.entry(
+            None, args.rows, args.keys or 1000, args.seed,
+            args.max_groups or entry_mod.MAX_GROUPS)
     step(b)
     torch.cuda.synchronize()
     spans.clear()

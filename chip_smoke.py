@@ -16,21 +16,39 @@ rows (BASELINE config #2) and checks each result against a numpy oracle:
           partition-histogram kernel, merge;
   path 3b ``arrow_tpu_torch.parallel.shuffle.shuffle_batch``: the raw-row
           exchange of the same batch by key hash over 4 logical shards,
-          and one shard's send side of the same exchange over 8.
+          and one shard's send side of the same exchange over 8;
+  path 4  ``arrow_tpu_torch.entry.entry_sort`` (BASELINE config #3): a
+          two-key stable sort of 100M rows (int64 ascending, int32 with 5 %
+          nulls descending, nulls last) and the take through it. Cut
+          against config #3: the second key is an int32, not a
+          dictionary-encoded string (varlen and dictionary columns are not
+          ported yet);
+  path 5a ``arrow_tpu_torch.entry.entry_join`` (BASELINE config #4): inner
+          join of a 100M-row probe side against 2^20 unique build keys, a
+          quarter of the probe rows matching (route "packed_u");
+  path 5b the same with Zipf(1.5)-skewed probe keys (every row matches);
+  path 5c the other routes at 10M probe rows: duplicate build keys
+          ("packed"), two wide keys ("sort"), and left semi / left anti /
+          full outer + finish on the packed route;
+  path 1b path 1 with 100,000 distinct keys: the sorted dense reduction.
 
 Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py [--seed N]
 
 Prints the card's name and power limit, one line per check, a JSON line
-``{"kernels": [...]}`` with each kernel's launches on its path's counted
+``{"kernels": [...]}`` (the four kernels that stand for the JAX package's
+Pallas kernels, the tile stitch and the join's key packing, which stand for
+passes it leaves to XLA) with each kernel's launches on its path's counted
 run and, at the arguments that path gave it, its error against the plain
 version, its time, the plain version's, the least time the card could take
 (``bound_ms``: bytes moved over the memory rate) and the time of one
 PyTorch call computing the same function (``library_ms``, null where there
 is none); a kernel that further paths launch carries the same numbers at
-their arguments under suffixed keys (``ms_path_3b`` ...), and the dense
-group-by kernel also those of the twelve-stream call the earlier slices made
+their arguments under suffixed keys (``ms_path_3b``,
+``ms_path_5c_left_semi`` ...: every call path 5c's semi, anti and outer
+joins make is held against the plain version too), and the dense group-by
+kernel also those of the twelve-stream call the earlier slices made
 (``ms_nine_kinds`` ...). Last comes
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when there is no
 CUDA device or any check fails.
@@ -70,6 +88,14 @@ MAX_GROUPS_PER_SHARD = 1 << 21
 # buffers and the results alone are 77 GB, so path 3b runs 4 shards; rows,
 # keys and the bucket factor are not cut.
 N_SHARDS_RAW = 4
+# path 4 (sort) and path 5 (join)
+NUM_KEYS_SORT = 1_000_000
+N_BUILD = 1 << 20
+N_PROBE_ROUTES = 10_000_000     # path 5c's probe depth
+BUILD_KEYS_DUP = 1 << 18        # path 5c: 2^20 build rows over 2^18 keys
+# path 1b
+NUM_KEYS_SORTED_DENSE = 100_000
+MAX_GROUPS_SORTED_DENSE = 1 << 17
 
 
 def check(cond, msg: str) -> None:
@@ -216,6 +242,53 @@ def measure_filter(torch, ck, sel, chunks, label: str) -> dict:
         # selection and planes read once, the selected rows written once
         "bound_ms": bound_ms(cap + cap * C + int(sel.sum()) * C),
         "library_ms": cuda_ms(torch, lambda: chunks[sel], 3)}
+
+
+def measure_tile_compact(torch, ck, sel, label: str) -> dict:
+    """tile_compact_local at the arguments a path gave it: compared with
+    its plain version, then timed beside it, torch.nonzero (which gives the
+    END result of both kernels) and the bound."""
+    cap = sel.shape[0]
+    m = {
+        "max_abs_err": check_tile_compact(torch, ck, sel, label),
+        "ms": cuda_ms(torch, lambda: ck.tile_compact_local(sel), 10),
+        "plain_ms": cuda_ms(
+            torch, lambda: ck.tile_compact_local_plain(sel), 3),
+        # selection read once, loc and counts written once
+        "bound_ms": bound_ms(cap + 4 * cap + 4 * (cap // ck.TILE_ROWS)),
+        "library_ms": cuda_ms(torch, lambda: torch.nonzero(sel), 3)}
+    print(f"tile_compact_local {label}: {m['ms']:.3f} ms, bound "
+          f"{m['bound_ms']:.3f} ms, plain {m['plain_ms']:.3f} ms, "
+          f"torch.nonzero {m['library_ms']:.3f} ms")
+    return m
+
+
+def measure_tile_stitch(torch, ck, loc, counts, starts, out_cap: int,
+                        label: str) -> dict:
+    """tile_stitch at the arguments a path gave it: compared with its plain
+    version over all ``out_cap`` slots, then timed beside it and the
+    bound."""
+    got = ck.tile_stitch(loc, counts, starts, out_cap)
+    err = float((got - ck.tile_stitch_plain(loc, counts, starts,
+                                            out_cap)).abs().max())
+    check(err == 0 and got.dtype == torch.int32 and
+          got.shape == (out_cap,), f"tile_stitch {label}: indices differ")
+    del got
+    m = {
+        "max_abs_err": err,
+        "ms": cuda_ms(torch, lambda: ck.tile_stitch(loc, counts, starts,
+                                                    out_cap), 10),
+        "plain_ms": cuda_ms(torch, lambda: ck.tile_stitch_plain(
+            loc, counts, starts, out_cap), 3),
+        # the live slots of loc, counts and starts read once; every index
+        # written once
+        "bound_ms": bound_ms(4 * int(starts[-1]) + 4 * counts.shape[0] +
+                             4 * starts.shape[0] + 4 * out_cap),
+        "library_ms": None}
+    print(f"tile_stitch {label}: cap={loc.shape[0]} out_cap={out_cap} "
+          f"selected={int(starts[-1])} equal; {m['ms']:.3f} ms, bound "
+          f"{m['bound_ms']:.3f} ms, plain {m['plain_ms']:.3f} ms")
+    return m
 
 
 def measure_partition_hist(torch, ck, dest, P: int, label: str) -> dict:
@@ -394,23 +467,37 @@ def nine_kind_call(torch, gid, v, w):
     return inputs, kinds
 
 
-def numpy_oracle(cols):
+def check_pack_lanes(torch, ck, lanes, lo, span, shift, active,
+                     label: str) -> float:
+    """pack_key_lanes against its plain version: equal word for word.
+    Returns the max abs difference."""
+    got = ck.pack_key_lanes(lanes, lo, span, shift, active)
+    want = ck.pack_key_lanes_plain(lanes, lo, span, shift, active)
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    check(err == 0 and got.dtype == torch.int64 and got.shape == want.shape,
+          f"pack_key_lanes {label}: packed keys differ")
+    print(f"pack_key_lanes {label}: n={got.shape[0]} L={len(lanes)} "
+          f"missed={int((got == ck.PACK_MISS).sum())} equal")
+    return err
+
+
+def numpy_oracle(cols, num_keys: int = NUM_KEYS):
     """Group-by of the slice computed independently with numpy: per key
     (first-appearance order) count, sums (float64 bincount), mins (sort)."""
     sel = cols["w"] > 0
     k, v, w = cols["k"][sel], cols["v"][sel], cols["w"][sel]
     keys, first = np.unique(k, return_index=True)
     keys = keys[np.argsort(first, kind="stable")]
-    cnt = np.bincount(k, minlength=NUM_KEYS)
-    v_sum = np.bincount(k, weights=v.astype(np.float64), minlength=NUM_KEYS)
+    cnt = np.bincount(k, minlength=num_keys)
+    v_sum = np.bincount(k, weights=v.astype(np.float64), minlength=num_keys)
     v_abs = np.bincount(k, weights=np.abs(v).astype(np.float64),
-                        minlength=NUM_KEYS)
-    w_sum = np.bincount(k, weights=w.astype(np.float64), minlength=NUM_KEYS)
+                        minlength=num_keys)
+    w_sum = np.bincount(k, weights=w.astype(np.float64), minlength=num_keys)
     order = np.argsort(k, kind="stable")
     ks = k[order]
     starts = np.flatnonzero(np.r_[True, ks[1:] != ks[:-1]])
-    v_min = np.full(NUM_KEYS, np.inf, np.float32)
-    w_min = np.zeros(NUM_KEYS, np.int64)
+    v_min = np.full(num_keys, np.inf, np.float32)
+    w_min = np.zeros(num_keys, np.int64)
     v_min[ks[starts]] = np.minimum.reduceat(v[order], starts)
     w_min[ks[starts]] = np.minimum.reduceat(w[order], starts)
     return dict(keys=keys, count=cnt, v_sum=v_sum, v_abs=v_abs,
@@ -509,6 +596,112 @@ def check_dist_group_by(np_, table, oracle, n_shards: int, shard_of) -> int:
     check(bool((d <= SUM64_RTOL * oracle["v_abs"][keys] + SUM64_ATOL).all()),
           f"path 3a: v_sum off by up to {d.max():.3g}")
     return keys.shape[0]
+
+
+def numpy_sort_oracle(cols):
+    """Path 4's stable sort permutation computed independently with numpy:
+    ONE composite uint64 key per row (k1 in the top bits, then the null
+    flag of k2, then k2 descending: its sign-biased bits inverted, 0 where
+    null), sorted with numpy's stable sort."""
+    k2 = (cols["k2"].astype(np.int64) + (1 << 31)).astype(np.uint64)
+    desc = np.where(cols["k2_valid"], np.uint64(0xFFFFFFFF) - k2,
+                    np.uint64(0))
+    key = (cols["k1"].astype(np.uint64) << np.uint64(33)) | \
+        ((~cols["k2_valid"]).astype(np.uint64) << np.uint64(32)) | desc
+    return np.argsort(key, kind="stable")
+
+
+def numpy_join_oracle(bcols, pcols, join_type: str):
+    """The join's rows computed independently with numpy, as columns (k,
+    k_valid, lv, lv_valid, rv, rv_valid): the build side sorted by key, a
+    per-key (start, count) lookup table, every probe row expanded by its
+    count (``np.repeat``). ``join_type``: inner, left outer, full outer,
+    left semi or left anti (no rv column for the last two)."""
+    bk, pk = bcols["k"], pcols["k"]
+    nk = int(max(bk.max(), pk.max())) + 1
+    order = np.argsort(bk, kind="stable")
+    count = np.bincount(bk, minlength=nk)
+    start = np.cumsum(count) - count
+    c = count[pk]
+    if join_type in ("left semi", "left anti"):
+        keep = (c > 0) if join_type == "left semi" else (c == 0)
+        n = int(keep.sum())
+        ones = np.ones(n, bool)
+        return dict(k=pk[keep], k_valid=ones, lv=pcols["lv"][keep],
+                    lv_valid=ones, rv=None, rv_valid=None)
+    emit = c if join_type == "inner" else np.maximum(c, 1)
+    r = np.repeat(np.arange(pk.shape[0]), emit)
+    first = np.cumsum(emit) - emit
+    o = np.arange(r.shape[0]) - first[r]
+    matched = o < c[r]
+    brow = order[np.where(matched, start[pk[r]] + o, 0)]
+    k, lv, rv = pk[r], pcols["lv"][r], bcols["rv"][brow]
+    k_valid = lv_valid = np.ones(r.shape[0], bool)
+    if join_type == "full outer":
+        un = np.bincount(pk, minlength=nk)[bk] == 0     # unmatched build rows
+        t = int(un.sum())
+        k = np.concatenate([k, np.zeros(t, k.dtype)])
+        lv = np.concatenate([lv, np.zeros(t, lv.dtype)])
+        rv = np.concatenate([rv, bcols["rv"][un]])
+        k_valid = lv_valid = np.concatenate([k_valid, np.zeros(t, bool)])
+        matched = np.concatenate([matched, np.ones(t, bool)])
+    return dict(k=k, k_valid=k_valid, lv=lv, lv_valid=lv_valid, rv=rv,
+                rv_valid=matched)
+
+
+def canonical_rows(torch, k, k_valid, lv, lv_valid, rv, rv_valid):
+    """Join rows on the card in one canonical order, as int64 columns (key,
+    lv bits, rv bits; a null as the smallest value): sorted by all three,
+    so that two row multisets are equal iff the results are."""
+    low = -(1 << 63)
+    cols = [torch.where(k_valid, k, low) if k_valid is not None else k,
+            lv.view(torch.int32).to(torch.int64)]
+    if lv_valid is not None:
+        cols[1] = torch.where(lv_valid, cols[1], low)
+    if rv is not None:
+        bits = rv.view(torch.int64)
+        cols.append(bits if rv_valid is None
+                    else torch.where(rv_valid, bits, low))
+    perm = torch.argsort(cols[-1], stable=True)
+    for c in cols[-2::-1]:
+        perm = perm[torch.argsort(c[perm], stable=True)]
+    return [c[perm] for c in cols]
+
+
+def check_join(torch, dev, label: str, outs, oracle, wide_mul=None) -> int:
+    """The join's output batches (probe output, finish output) against the
+    numpy oracle's rows, as multisets. Returns the row count."""
+    parts = {n: [] for n in ("k", "k_valid", "lv", "lv_valid", "rv",
+                             "rv_valid")}
+    has_rv = oracle["rv"] is not None
+    for b in outs:
+        if b is None:
+            continue
+        n = len(b)
+        names = ["k", "lv"] + (["rv"] if has_rv else [])
+        for name in names:
+            a = b.column(name)
+            parts[name].append(a.values[:n])
+            parts[name + "_valid"].append(
+                torch.ones(n, dtype=torch.bool, device=dev)
+                if a.validity is None else a.validity[:n])
+        if wide_mul is not None:        # the second key follows the first
+            k2 = b.column("k2")
+            check(bool((k2.values[:n] == b.column("k").values[:n] * wide_mul)
+                       .all()), f"{label}: k2 does not follow k")
+    got = {n: (torch.cat(v) if v else None) for n, v in parts.items()}
+    n_rows = got["k"].shape[0]
+    check(n_rows == oracle["k"].shape[0],
+          f"{label}: {n_rows} rows, the oracle has {oracle['k'].shape[0]}")
+    want = {n: (None if v is None else torch.from_numpy(v).to(dev))
+            for n, v in oracle.items()}
+    a = canonical_rows(torch, *[got[n] for n in parts])
+    del got
+    b = canonical_rows(torch, *[want[n] for n in parts])
+    del want
+    for x, y, name in zip(a, b, ("k", "lv", "rv")):
+        check(torch.equal(x, y), f"{label}: column {name} of the sorted rows")
+    return n_rows
 
 
 def main() -> int:
@@ -653,6 +846,29 @@ def main() -> int:
                 check_partition_hist(torch, ck, dest, P, name)
     del dest
 
+    # ---- pack_key_lanes against its plain version ----------------------
+    for n in (1, 1000, 1 << 20, N_ROWS):
+        for L in (1, 3, 6):
+            per = 30 // L
+            lo = torch.randint(0, 1 << 32, (L,), generator=gen, device=dev)
+            lo[0] = (1 << 32) - 3       # a window across the 2^32 wrap
+            span = torch.full((L,), (1 << per) - 1, device=dev)
+            shift = torch.arange(L - 1, -1, -1, device=dev) * per
+            cols_ = [(int(lo[j]) + torch.randint(
+                0, (1 << per) + 2, (n,), generator=gen, device=dev))
+                % (1 << 32) for j in range(L)]
+            active = torch.rand(n, generator=gen, device=dev) < 0.9
+            check_pack_lanes(torch, ck, cols_, lo, span, shift, active,
+                             "lanes of their own")
+            if n <= 1 << 20:
+                mat = torch.stack(cols_, dim=1)
+                check_pack_lanes(torch, ck, mat.unbind(1), lo, span,
+                                 shift + 9, None, "matrix columns, the top "
+                                 "lane shifted out")
+                del mat
+            del cols_, active
+    torch.cuda.empty_cache()
+
     # ---- path 1: arrow_tpu_torch.entry.entry ----------------------------
     t0 = time.time()
     cols = example_columns(N_ROWS, NUM_KEYS, args.seed)
@@ -682,20 +898,26 @@ def main() -> int:
     del out, cols
 
     # one more run, recording the arguments each kernel gets on the path
-    seen = {}
+    seen, seen_calls = {}, {}
 
     def recorded(mod, name, fn):
-        """Run fn with mod.name wrapped to record its arguments."""
+        """Run fn with mod.name wrapped to record its arguments: the last
+        call's in ``seen``, every call's in ``seen_calls``."""
         inner = getattr(mod, name)
 
         def rec(*a):
             seen[name] = a
+            seen_calls.setdefault(name, []).append(a)
             return inner(*a)
         setattr(mod, name, rec)
         try:
             return fn()
         finally:
             setattr(mod, name, inner)
+
+    def forget():
+        seen.clear()
+        seen_calls.clear()
 
     recorded(selection, "filter_compact_chunks", lambda: recorded(
         hash_aggregate, "dense_group_reduce", lambda: step(b)))
@@ -739,7 +961,7 @@ def main() -> int:
     inputs9, kinds9 = nine_kind_call(torch, gid, v, w)
     dg9 = measure_dg(gid, inputs9, kinds9, "path 1 shape, nine-kind call")
     del gid, v, w, inputs9
-    seen.clear()
+    forget()
     torch.cuda.empty_cache()
 
     # ---- path 2: arrow_tpu_torch.entry.entry_generic --------------------
@@ -794,41 +1016,21 @@ def main() -> int:
 
     # ---- path 2's kernels at its shape: error, times, bound -------------
     (sel,) = seen["tile_compact_local"]
-    tc_err = check_tile_compact(torch, ck, sel, "path 2 shape")
-    tc_ms = cuda_ms(torch, lambda: ck.tile_compact_local(sel), 10)
-    tc_plain = cuda_ms(torch, lambda: ck.tile_compact_local_plain(sel), 3)
-    # the library call gives the END result (both kernels), so the whole
-    # of get_take_indices is timed beside it too
-    tc_lib = cuda_ms(torch, lambda: torch.nonzero(sel), 3)
+    tc = measure_tile_compact(torch, ck, sel, "path 2 shape")
+    # torch.nonzero gives the END result (both kernels), so the whole of
+    # get_take_indices is timed beside it too
     mask = Array(datatype.bool_, sel[:N_ROWS])
     ti_ms = cuda_ms(torch, lambda: selection.get_take_indices(mask), 3)
+    print(f"get_take_indices path 2 shape: {ti_ms:.3f} ms")
     cap = sel.shape[0]
-    # selection read once, loc and counts written once
-    tc_bound = bound_ms(cap + 4 * cap + 4 * (cap // ck.TILE_ROWS))
-    print(f"tile_compact_local path 2 shape: {tc_ms:.3f} ms, bound "
-          f"{tc_bound:.3f} ms, plain {tc_plain:.3f} ms, torch.nonzero "
-          f"{tc_lib:.3f} ms; get_take_indices {ti_ms:.3f} ms")
     del sel, mask
     loc, counts, starts, out_cap = seen["tile_stitch"]
     check(out_cap == N_ROWS and loc.shape[0] == cap,
           f"path 2 stitched {loc.shape[0]} slots into {out_cap}")
-    got = ck.tile_stitch(loc, counts, starts, out_cap)
-    ts_err = float((got - ck.tile_stitch_plain(loc, counts, starts,
-                                               out_cap)).abs().max())
-    check(ts_err == 0, "tile_stitch path 2 shape: indices differ")
-    del got
-    ts_ms = cuda_ms(torch, lambda: ck.tile_stitch(loc, counts, starts,
-                                                  out_cap), 10)
-    ts_plain = cuda_ms(torch, lambda: ck.tile_stitch_plain(
-        loc, counts, starts, out_cap), 3)
-    # the live slots of loc, counts and starts read once; every index
-    # written once
-    ts_bound = bound_ms(4 * int(starts[-1]) + 4 * counts.shape[0] +
-                        4 * starts.shape[0] + 4 * out_cap)
-    print(f"tile_stitch path 2 shape: {ts_ms:.3f} ms, bound "
-          f"{ts_bound:.3f} ms, plain {ts_plain:.3f} ms")
+    ts = measure_tile_stitch(torch, ck, loc, counts, starts, out_cap,
+                             "path 2 shape")
     del loc, counts, starts
-    seen.clear()
+    forget()
     torch.cuda.empty_cache()
 
     # ---- path 3a: arrow_tpu_torch.entry.entry_distributed ---------------
@@ -896,7 +1098,7 @@ def main() -> int:
           f"path 3a: the exchange counts {dest.shape[0]} rows over {P}")
     ph = measure_partition_hist(torch, ck, dest, P, "path 3a shape")
     del dest
-    seen.clear()
+    forget()
     torch.cuda.empty_cache()
 
     # ---- path 3b: the raw-row exchange (shuffle_batch) ------------------
@@ -965,7 +1167,7 @@ def main() -> int:
     del sharded
     ph3b = measure_partition_hist(torch, ck, dest, P, "path 3b shape")
     del dest
-    seen.clear()
+    forget()
     torch.cuda.empty_cache()
 
     # ---- one shard's send side of the exchange over 8 shards ------------
@@ -999,7 +1201,224 @@ def main() -> int:
     torch.cuda.empty_cache()
     ph8 = measure_partition_hist(torch, ck, dest, P, "8-shard send shape")
     del dest
-    seen.clear()
+    forget()
+
+    # ---- path 4: arrow_tpu_torch.entry.entry_sort (BASELINE #3) ---------
+    from arrow_tpu_torch.entry import example_columns_join, \
+        example_columns_sort
+    from arrow_tpu_torch.ops import join as join_mod
+
+    def timed(fn, label, must_launch=()):
+        """Warm-up run, then the timed, counted run of one path:
+        (result, seconds, launches, peak bytes)."""
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = dict(ck.LAUNCHES)
+        for name in must_launch:
+            check(counts[name] > 0,
+                  f"{name} was not launched on {label}'s run")
+        return res, secs, counts, torch.cuda.max_memory_allocated()
+
+    t0 = time.time()
+    cols = example_columns_sort(N_ROWS, NUM_KEYS_SORT, args.seed)
+    step, (b,) = entry_mod.entry_sort(dev, N_ROWS, args.seed, NUM_KEYS_SORT)
+    torch.cuda.synchronize()
+    print(f"path 4 data: {N_ROWS} rows made and staged in "
+          f"{time.time() - t0:.1f} s")
+    # input 21 B a row; six int64 lanes and three sort words, the sort's
+    # keys and indices, the permutation, the taken batch
+    print(f"path 4 reckoned: input {N_ROWS * 21} B, lanes and sort words "
+          f"{N_ROWS * 8 * 9} B, sort buffers {N_ROWS * 8 * 4} B, output "
+          f"{N_ROWS * 29} B")
+    (idx, out), secs, launches4, peak = timed(lambda: step(b), "path 4")
+    t0 = time.time()
+    want = numpy_sort_oracle(cols)
+    perm = idx.values.view(torch.int64)
+    check(len(idx) == N_ROWS and perm.shape == (N_ROWS,),
+          "path 4: the permutation's length")
+    check(torch.equal(perm.cpu(), torch.from_numpy(want)),
+          "path 4: the permutation differs from numpy's stable sort")
+    check(torch.equal(out.column("v").values.cpu(),
+                      torch.from_numpy(cols["v"][want])) and
+          torch.equal(out.column("k1").values.cpu(),
+                      torch.from_numpy(cols["k1"][want])) and
+          torch.equal(out.column("k2").validity.cpu(),
+                      torch.from_numpy(cols["k2_valid"][want])),
+          "path 4: the taken batch")
+    print(f"path 4 (sort; second key int32, not a dictionary string): "
+          f"{N_ROWS} rows in {secs * 1e3:.3f} ms = {N_ROWS / secs:.6g} "
+          f"rows/s; the permutation equals numpy's stable sort index for "
+          f"index (oracle {time.time() - t0:.1f} s); peak device memory "
+          f"{peak} B; launches {launches4}")
+    del idx, out, perm, want, cols, b, step
+    torch.cuda.empty_cache()
+
+    # ---- paths 5a, 5b: arrow_tpu_torch.entry.entry_join (BASELINE #4) ---
+    launches5 = {}
+    for label, key_dist in (("path 5a", "uniform"), ("path 5b", "zipf")):
+        t0 = time.time()
+        bcols, pcols = example_columns_join(N_BUILD, N_ROWS, args.seed,
+                                            key_dist)
+        step, (bb, pb) = entry_mod.entry_join(dev, N_BUILD, N_ROWS,
+                                              args.seed, "inner", key_dist)
+        torch.cuda.synchronize()
+        print(f"{label} data: {N_BUILD} build and {N_ROWS} probe rows made "
+              f"and staged in {time.time() - t0:.1f} s")
+        # probe side: three key lanes, the packed key, the seg, take
+        # indices, the left plane matrix and its gathered copy, the
+        # payload gather, the output
+        print(f"{label} reckoned: probe input {N_ROWS * 12} B, work arrays "
+              f"{N_ROWS * (24 + 8 + 8 + 4 + 2 * 12 + 8)} B, output "
+              f"{N_ROWS * 20} B")
+        _, impl = entry_mod.join_routed(step.join, bb)
+        check(impl == "packed_u", f"{label} took route {impl!r}")
+        (out, tail), secs, counts, peak = timed(
+            lambda: step(bb, pb), label,
+            ("tile_compact_local", "tile_stitch"))
+        launches5[label] = counts
+        check(counts["pack_key_lanes"] == 3,
+              f"{label}: pack_key_lanes launches (build rows, build segs, "
+              f"probe rows): {counts['pack_key_lanes']}")
+        check(tail is None, f"{label}: an inner join has no finish output")
+        check(peak < 20e9, f"{label}: peak device memory {peak} B")
+        t0 = time.time()
+        n_out = check_join(torch, dev, label, (out,),
+                           numpy_join_oracle(bcols, pcols, "inner"))
+        print(f"{label} (inner join, {key_dist} probe keys, route {impl}): "
+              f"{N_BUILD} x {N_ROWS} rows in {secs * 1e3:.3f} ms = "
+              f"{N_ROWS / secs:.6g} probe rows/s; {n_out} output rows match "
+              f"the numpy oracle as a multiset (oracle and compare "
+              f"{time.time() - t0:.1f} s); peak device memory {peak} B; "
+              f"launches {counts}")
+        del out, bcols, pcols
+        if key_dist == "uniform":
+            # one more run, recording what the probe gives pack_key_lanes;
+            # then the kernel at those arguments: error, times, bound
+            recorded(join_mod, "pack_key_lanes", lambda: step(bb, pb))
+            lanes, lo, span, shift, active = seen["pack_key_lanes"]
+            check(len(lanes) == 3 and lanes[0].shape[0] == N_ROWS and
+                  active is not None,
+                  f"path 5a packed {len(lanes)} lanes of "
+                  f"{lanes[0].shape[0]} rows")
+            pk = {"max_abs_err": check_pack_lanes(
+                      torch, ck, lanes, lo, span, shift, active,
+                      "path 5a shape"),
+                  "ms": cuda_ms(torch, lambda: ck.pack_key_lanes(
+                      lanes, lo, span, shift, active), 10),
+                  "plain_ms": cuda_ms(torch, lambda: ck.pack_key_lanes_plain(
+                      lanes, lo, span, shift, active), 3),
+                  # every lane and the flag read once, the keys written once
+                  "bound_ms": bound_ms(N_ROWS * (8 * len(lanes) + 1 + 8)),
+                  "library_ms": None}
+            print(f"pack_key_lanes path 5a shape: {pk['ms']:.3f} ms, bound "
+                  f"{pk['bound_ms']:.3f} ms, plain {pk['plain_ms']:.3f} ms")
+            del lanes, active
+            forget()
+        del bb, pb, step
+        torch.cuda.empty_cache()
+
+    # ---- path 5c: the other routes, 10M probe rows ----------------------
+    wide_mul = 0x2545F4914F6CDD1D
+    cases = (
+        ("duplicate build keys", "inner", "packed",
+         dict(build_keys=BUILD_KEYS_DUP,
+              fanout_capacity=4 * N_PROBE_ROUTES), ()),
+        ("two wide keys", "inner", "sort", dict(wide=True), ()),
+        ("left semi", "left semi", "packed",
+         dict(build_keys=BUILD_KEYS_DUP), ("filter_compact_chunks",)),
+        ("left anti", "left anti", "packed",
+         dict(build_keys=BUILD_KEYS_DUP), ("filter_compact_chunks",)),
+        ("full outer + finish", "full outer", "packed",
+         dict(build_keys=BUILD_KEYS_DUP,
+              fanout_capacity=4 * N_PROBE_ROUTES),
+         ("filter_compact_chunks",)),
+        ("left anti, unique build keys", "left anti", "packed_u", {},
+         ("tile_compact_local", "tile_stitch")),
+    )
+    shapes5c = []   # (kernel, label, call, numbers at that call's arguments)
+    for name, join_type, want_impl, kw, must in cases:
+        label = f"path 5c {name}"
+        bcols, pcols = example_columns_join(
+            N_BUILD, N_PROBE_ROUTES, args.seed, "uniform",
+            kw.get("build_keys"), kw.get("wide", False))
+        step, (bb, pb) = entry_mod.entry_join(
+            dev, N_BUILD, N_PROBE_ROUTES, args.seed, join_type, **kw)
+        _, impl = entry_mod.join_routed(step.join, bb)
+        check(impl == want_impl, f"{label} took route {impl!r}")
+        outs, secs, counts, peak = timed(lambda: step(bb, pb), label, must)
+        launches5[label] = counts
+        n_out = check_join(torch, dev, label, outs,
+                           numpy_join_oracle(bcols, pcols, join_type),
+                           wide_mul if kw.get("wide") else None)
+        print(f"{label} ({join_type}, route {impl}): {N_BUILD} x "
+              f"{N_PROBE_ROUTES} rows in {secs * 1e3:.3f} ms = "
+              f"{N_PROBE_ROUTES / secs:.6g} probe rows/s; {n_out} output "
+              f"rows match the numpy oracle as a multiset; peak device "
+              f"memory {peak} B; launches {counts}")
+        del outs, bcols, pcols
+        # one more run, recording what this case gives each kernel it must
+        # launch; then every such call's kernel at those arguments: error,
+        # times, bound
+        def run(names=must):
+            if not names:
+                return step(bb, pb)
+            return recorded(selection, names[0], lambda: run(names[1:]))
+        run()
+        del bb, pb, step
+        for kname in must:
+            calls = seen_calls[kname]
+            check(len(calls) == counts[kname],
+                  f"{label}: {len(calls)} recorded calls of {kname}, "
+                  f"{counts[kname]} launches")
+            for i, a in enumerate(calls):
+                at = f"{label} shape" + (f", call {i + 1}" if i else "")
+                if kname == "filter_compact_chunks":
+                    m = measure_filter(torch, ck, *a, at)
+                    print(f"filter_compact_chunks {at}: planes "
+                          f"{tuple(a[1].shape)}, {m['ms']:.3f} ms, bound "
+                          f"{m['bound_ms']:.3f} ms, plain "
+                          f"{m['plain_ms']:.3f} ms, chunks[sel] "
+                          f"{m['library_ms']:.3f} ms")
+                elif kname == "tile_compact_local":
+                    m = measure_tile_compact(torch, ck, *a, at)
+                else:
+                    m = measure_tile_stitch(torch, ck, *a, at)
+                shapes5c.append((kname, label, i, m))
+            del calls, a
+        forget()
+        torch.cuda.empty_cache()
+
+    # ---- path 1b: path 1 on the sorted dense route ----------------------
+    t0 = time.time()
+    cols = example_columns(N_ROWS, NUM_KEYS_SORTED_DENSE, args.seed)
+    step, (b,) = entry_mod.entry(dev, N_ROWS, NUM_KEYS_SORTED_DENSE,
+                                 args.seed, MAX_GROUPS_SORTED_DENSE)
+    torch.cuda.synchronize()
+    print(f"path 1b data: {N_ROWS} rows made and staged in "
+          f"{time.time() - t0:.1f} s")
+    routes.clear()
+    hash_aggregate.HashAggregate.probe_route = route_rec
+    try:
+        out, secs, launches1b, peak = timed(
+            lambda: step(b), "path 1b", ("filter_compact_chunks",))
+    finally:
+        hash_aggregate.HashAggregate.probe_route = probe_route
+    check(all(r[0] == "dense" and r[1]["impl"] == "sorted" for r in routes)
+          and launches1b["dense_group_reduce"] == 0,
+          f"path 1b took route {routes[-1]!r}")
+    n_groups = check_slice(out, numpy_oracle(cols, NUM_KEYS_SORTED_DENSE))
+    print(f"path 1b (sorted dense route, G {routes[-1][1]['G']}): {N_ROWS} "
+          f"rows in {secs * 1e3:.3f} ms = {N_ROWS / secs:.6g} rows/s; "
+          f"{n_groups} groups match the numpy oracle; peak device memory "
+          f"{peak} B; launches {launches1b}")
+    del out, cols, b, step
+    torch.cuda.empty_cache()
 
     def row(name, source, replaces, n_launches, m):
         return {"name": name, "route": "cuda",
@@ -1024,15 +1443,13 @@ def main() -> int:
         row("dense_group_reduce", "dense_group.cu", "pallas_kernels.py:327",
             launches["dense_group_reduce"], dg),
         row("tile_compact_local", "tile_compact.cu", "pallas_kernels.py:392",
-            launches2["tile_compact_local"],
-            {"max_abs_err": tc_err, "ms": tc_ms, "plain_ms": tc_plain,
-             "bound_ms": tc_bound, "library_ms": tc_lib}),
+            launches2["tile_compact_local"], tc),
         row("tile_stitch", "tile_compact.cu", "selection.py:102",
-            launches2["tile_stitch"],
-            {"max_abs_err": ts_err, "ms": ts_ms, "plain_ms": ts_plain,
-             "bound_ms": ts_bound, "library_ms": None}),
+            launches2["tile_stitch"], ts),
         row("partition_histogram", "partition_hist.cu",
             "pallas_kernels.py:76", launches3["partition_histogram"], ph),
+        row("pack_key_lanes", "pack_lanes.cu", "join.py:157",
+            launches5["path 5a"]["pack_key_lanes"], pk),
     ]
     kernels[1]["bound_ms_all_rows"] = dg["bound_ms_all_rows"]
     also(kernels[1], "nine_kinds", dg9)
@@ -1041,6 +1458,20 @@ def main() -> int:
     also(kernels[0], "path_3a", fc3a, launches3["filter_compact_chunks"])
     also(kernels[4], "path_3b", ph3b, launches3b["partition_histogram"])
     also(kernels[4], "send_8_shards", ph8)
+    def suffix_of(label):
+        return label.replace(" ", "_").replace(",", "").replace("+", "and")
+
+    # path 5c's kernels at its calls' arguments
+    for kname, label, i, m in shapes5c:
+        kernel = next(k for k in kernels if k["name"] == kname)
+        also(kernel, suffix_of(label) + (f"_call_{i + 1}" if i else ""), m)
+    # the launches of the join paths' and path 1b's counted runs
+    for label, counts in list(launches5.items()) + [("path 1b", launches1b)]:
+        suffix = suffix_of(label)
+        for kernel in kernels:
+            if counts[kernel["name"]] and not (
+                    label == "path 5a" and kernel["name"] == "pack_key_lanes"):
+                kernel[f"launches_{suffix}"] = counts[kernel["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -574,3 +574,249 @@ def test_entry_generic_slice_on_card_matches_cpu(cuda_device):
             np.testing.assert_allclose(a, b, rtol=0, atol=1e-10)
         else:
             np.testing.assert_array_equal(a, b, err_msg=c)
+
+
+# ---- sort, planes, join and wide unsigned comparisons on the card ----------
+
+def _same_array(a, b):
+    """Two Arrays (one per device): length, value bits and validity
+    equal."""
+    from arrow_tpu_torch.ops.bits import as_signed_bits
+    n = int(a.length)
+    assert int(b.length) == n
+
+    def bits(x):            # NaNs compare by their bits
+        x = as_signed_bits(x)[:n].cpu()
+        ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        return x.view(ints[x.element_size()]) if x.dtype.is_floating_point \
+            else x
+    assert torch.equal(bits(a.values), bits(b.values))
+    assert (a.validity is None) == (b.validity is None)
+    if a.validity is not None:
+        assert torch.equal(a.validity[:n].cpu(), b.validity[:n].cpu())
+
+
+@pytest.mark.parametrize("fn", ["equal", "not_equal", "less", "less_equal",
+                                "greater", "greater_equal"])
+@pytest.mark.parametrize("t", [np.uint16, np.uint32, np.uint64],
+                         ids=["uint16", "uint32", "uint64"])
+def test_wide_unsigned_comparisons_on_card(cuda_device, fn, t):
+    """The six comparisons of uint16 / uint32 / uint64 columns (torch has
+    none for them on the card): against numpy, values past the signed
+    range included, column against column and against a scalar."""
+    from arrow_tpu_torch import array_from_numpy
+    from arrow_tpu_torch.compute import call_function
+    from arrow_tpu_torch.compute.scalar import scalar
+    rng = np.random.default_rng(7)
+    info = np.iinfo(t)
+    a = rng.integers(0, info.max, 5000, dtype=t, endpoint=True)
+    b = rng.integers(0, info.max, 5000, dtype=t, endpoint=True)
+    a[:4] = [0, info.max, info.max // 2, info.max // 2 + 1]
+    b[:4] = [info.max, info.max, info.max // 2 + 1, info.max // 2]
+    b[100:200] = a[100:200]
+    valid = rng.random(5000) < 0.9
+    op = getattr(np, fn)
+    got = call_function(fn, [
+        array_from_numpy(a, validity=valid, device=cuda_device),
+        array_from_numpy(b, device=cuda_device)])
+    assert torch.equal(got.values.cpu(), torch.from_numpy(op(a, b)))
+    assert torch.equal(got.validity.cpu(), torch.from_numpy(valid))
+    if t is not np.uint64:      # (an int scalar is int64: no uint64 pivot)
+        pivot = int(a[7])
+        got = call_function(fn, [array_from_numpy(a, device=cuda_device),
+                                 scalar(pivot)])
+        assert torch.equal(got.values.cpu(),
+                           torch.from_numpy(op(a.astype(np.int64), pivot)))
+
+
+@pytest.mark.parametrize("placement", ["at_start", "at_end"])
+def test_sort_and_rank_on_card_match_cpu(cuda_device, placement):
+    """Multi-key sort over every key width (wide unsigned too), rank with
+    its four tiebreakers and select_k: the card's results equal the
+    CPU's."""
+    from arrow_tpu_torch import array_from_numpy
+    from arrow_tpu_torch.compute import call_function
+    from arrow_tpu_torch.core.batch import batch
+    from arrow_tpu_torch.ops import sorting as ts
+    rng = np.random.default_rng(11)
+    n = 50_000
+    f = rng.standard_normal(n)
+    f[rng.random(n) < 0.05] = np.nan
+    f[rng.random(n) < 0.05] = -0.0
+    cols = {"a": (rng.integers(0, 50, n).astype(np.int64), None),
+            "b": (f, rng.random(n) < 0.9),
+            "c": (rng.integers(0, 1 << 16, n).astype(np.uint16), None),
+            "d": (rng.integers(0, 1 << 63, n).astype(np.uint64) * 2,
+                  rng.random(n) < 0.95),
+            "e": (rng.integers(-5, 5, n).astype(np.int32), None),
+            "g": (f.astype(np.float32), None)}
+
+    def make(dev):
+        return batch({k: array_from_numpy(v, validity=m, capacity=n + 1000,
+                                          device=dev)
+                      for k, (v, m) in cols.items()})
+    bc, bg = make("cpu"), make(cuda_device)
+    for keys in ([("a", "ascending"), ("b", "descending")],
+                 [("c", "descending"), ("d", "ascending"),
+                  ("e", "descending")],
+                 [("g", "ascending"), ("a", "descending")]):
+        opts = ts.SortOptions(keys, placement)
+        _same_array(ts.sort_indices_batch(bg, opts),
+                    ts.sort_indices_batch(bc, opts))
+    for tb in ("min", "max", "first", "dense"):
+        o = ts.RankOptions([("b", "descending")], placement, tb)
+        _same_array(call_function("rank", [bg], options=o),
+                    call_function("rank", [bc], options=o))
+    o = ts.SelectKOptions(100, [("b", "ascending"), ("e", "descending")])
+    _same_array(call_function("select_k_unstable", [bg], options=o),
+                call_function("select_k_unstable", [bc], options=o))
+    q = call_function("rank_normal", [bg["g"]], options=ts.RankOptions())
+    qc = call_function("rank_normal", [bc["g"]], options=ts.RankOptions())
+    torch.testing.assert_close(q.values[:n].cpu(), qc.values[:n], rtol=0,
+                               atol=1e-12)
+
+
+def test_planes_round_trip_on_card(cuda_device):
+    """Pack, row gather and unpack on the card: the matrix equals the CPU's
+    word for word, every storage bit comes back."""
+    from arrow_tpu_torch.core import datatype as dt
+    from arrow_tpu_torch.core.array import Array
+    from arrow_tpu_torch.ops import planes
+    rng = np.random.default_rng(13)
+    n = 10_000
+    types = [(dt.bool_, np.bool_), (dt.int8, np.int8), (dt.uint8, np.uint8),
+             (dt.int16, np.int16), (dt.uint16, np.uint16),
+             (dt.int32, np.int32), (dt.uint32, np.uint32),
+             (dt.int64, np.int64), (dt.uint64, np.uint64),
+             (dt.float16, np.float16), (dt.float32, np.float32),
+             (dt.float64, np.float64), (dt.date32, np.int32)] * 3
+    cpu_cols = []
+    for i, (t, np_t) in enumerate(types):
+        if np_t == np.bool_:
+            v = rng.random(n) < 0.5
+        else:
+            v = rng.integers(0, 256, (n, np.dtype(np_t).itemsize),
+                             dtype=np.uint8).view(np_t).reshape(n)
+        valid = torch.from_numpy(rng.random(n) < 0.7) if i % 5 else None
+        cpu_cols.append(Array(t, torch.from_numpy(v), valid))
+    gpu_cols = [a.to(cuda_device) for a in cpu_cols]
+    cmat, spec = planes.pack_columns(cpu_cols)
+    gmat, gspec = planes.pack_columns(gpu_cols)
+    assert gspec == spec and torch.equal(gmat.cpu(), cmat)
+    idx = torch.from_numpy(rng.integers(0, n, 20_000))
+    out = planes.unpack_columns(gmat[idx.to(cuda_device)], spec, 20_000)
+    for a, src in zip(out, cpu_cols):
+        _same_array(a, Array(src.type,
+                             planes.as_signed_bits(src.values)[idx]
+                             .view(src.values.dtype),
+                             None if src.validity is None
+                             else src.validity[idx]))
+
+
+@pytest.mark.parametrize("shape,impl", [("unique", "packed_u"),
+                                        ("duplicates", "packed"),
+                                        ("wide", "sort")])
+@pytest.mark.parametrize("join_type", ["inner", "left outer", "full outer",
+                                       "left semi", "left anti",
+                                       "right anti"])
+def test_join_routes_on_card_match_cpu(cuda_device, shape, impl, join_type):
+    """The three probe routes as ``join_routed`` picks them: the card's
+    rows equal the CPU's as a multiset (the row order of a join is free),
+    floats by their bits."""
+    from arrow_tpu_torch.entry import entry_join, join_routed
+    kw = {"unique": {}, "duplicates": {"build_keys": 1 << 10,
+                                       "fanout_capacity": 1 << 19},
+          "wide": {"wide": True}}[shape]
+
+    def rows(out, tail):
+        parts = []
+        for b in (out, tail):
+            if b is None:
+                continue
+            n = int(b.length)
+            cols = []
+            for c in b.column_names:
+                a = b.column(c)
+                v = a.values[:n]
+                if v.dtype.is_floating_point:
+                    v = v.view(torch.int32 if v.dtype == torch.float32
+                               else torch.int64)
+                v = v.to(torch.int64).cpu()
+                if a.validity is not None:
+                    ok = a.validity[:n].cpu()
+                    v = torch.where(ok, v, 0) * 2 + ok
+                cols.append(v)
+            parts.append(torch.stack(cols, dim=1))
+        m = torch.cat(parts).numpy()
+        return m[np.lexsort(m.T[::-1])]
+
+    res = []
+    for dev in ("cpu", cuda_device):
+        step, args = entry_join(dev, 1 << 12, 1 << 16, 5, join_type, **kw)
+        _, got_impl = join_routed(step.join, args[0])
+        want = impl
+        if impl == "packed_u" and not step.join.supports_unique_fast():
+            want = "packed"
+        assert got_impl == want
+        res.append(rows(*step(*args)))
+    a, b = res
+    assert a.shape == b.shape and (a == b).all()
+
+
+def test_sorted_dense_route_on_card_matches_cpu(cuda_device):
+    """``consume_routed`` on a key domain past the dense kernel's slots
+    (the sorted dense reduction): integers exact, f32 sums within
+    1e-5 * sum|v| + 1e-6."""
+    from arrow_tpu_torch.core.batch import batch_from_numpy
+    from arrow_tpu_torch.entry import AGGREGATES, consume_routed, \
+        example_columns
+    from arrow_tpu_torch.ops.hash_aggregate import HashAggregate
+    cols = example_columns(200_000, 50_000, 3)
+    outs = []
+    for dev in ("cpu", cuda_device):
+        b = batch_from_numpy(cols, device=dev)
+        ha = HashAggregate(b.schema, ["k"], AGGREGATES, max_groups=1 << 16)
+        vals = {k: v.cpu().numpy() for k, v in ha.probe_scalars(b).items()}
+        kind, cfg = ha.probe_route(b, vals)
+        assert kind == "dense" and cfg["impl"] == "sorted"
+        out = ha.finalize(consume_routed(ha, ha.init_state(dev), b))
+        n = int(out.length)
+        outs.append({c: out.column(c).values[:n].cpu()
+                     for c in out.column_names})
+    c, g = outs
+    for name in ("k", "v_min", "w_sum", "w_min", "count_all"):
+        assert torch.equal(c[name], g[name]), name
+    abs_sum = np.bincount(cols["k"], weights=np.abs(cols["v"]),
+                          minlength=50_000)[c["k"].numpy()]
+    d = (c["v_sum"].double() - g["v_sum"].double()).abs().numpy()
+    assert (d <= 1e-5 * abs_sum + 1e-6).all()
+
+
+@pytest.mark.parametrize("L", [1, 2, 3, 4, 5, 6, 16])
+@pytest.mark.parametrize("n", [1, 1000, (1 << 20) + 3])
+def test_pack_key_lanes_kernel_vs_plain(cuda_device, n, L):
+    """Kernel against plain version: lanes as the strided columns of a
+    matrix and as tensors of their own, windows across the 2^32 wrap, lanes
+    outside their window, shifts of 32 and more, with and without the
+    active flag."""
+    g = torch.Generator(device=cuda_device).manual_seed(n + L)
+    i64 = dict(generator=g, device=cuda_device, dtype=torch.int64)
+    per = max(34 // L, 1)
+    lo = torch.randint(0, 1 << 32, (L,), **i64)
+    lo[0] = (1 << 32) - 3
+    span = torch.full((L,), (1 << per) - 1, device=cuda_device,
+                      dtype=torch.int64)
+    shift = torch.arange(L - 1, -1, -1, device=cuda_device) * per
+    mat = (lo[None, :] + torch.randint(0, (1 << per) + 2, (n, L), **i64)) \
+        % (1 << 32)
+    active = torch.rand(n, generator=g, device=cuda_device) < 0.8
+    for lanes in (mat.unbind(1), [mat[:, j].contiguous() for j in range(L)]):
+        for act in (None, active):
+            before = ck.LAUNCHES["pack_key_lanes"]
+            got = ck.pack_key_lanes(lanes, lo, span, shift, act)
+            assert ck.LAUNCHES["pack_key_lanes"] == before + 1
+            want = ck.pack_key_lanes_plain(lanes, lo, span, shift, act)
+            assert torch.equal(got, want)
+    assert bool((want == ck.PACK_MISS).any()) or n == 1
+    with pytest.raises(ValueError, match="several devices"):
+        ck.pack_key_lanes(list(mat.unbind(1)), lo.cpu(), span, shift)

@@ -235,13 +235,38 @@ def test_hash_aggregate_carried_state_jax_to_port():
 
 
 def test_consume_routed_raises_for_routes_not_ported():
+    """What the port cannot group yet raises and gives no wrong answer:
+    decimal keys wait for the wider column types."""
+    from arrow_tpu_torch.core import datatype as tdt
+    from arrow_tpu_torch.core.array import Array
+    from arrow_tpu_torch.core.batch import Batch
+    from arrow_tpu_torch.core.schema import field as tfield, schema as tschema
+    dec = tdt.decimal128(10, 2)
+    tb = Batch(tschema([tfield("k", dec), tfield("v", tdt.float32)]),
+               [Array(dec, torch.zeros((8, 2), dtype=torch.int64)),
+                Array(tdt.float32, torch.ones(8))])
+    tha = HashAggregate(tb.schema, ["k"], [AggregateSpec("sum", "v")],
+                        max_groups=16)
+    with pytest.raises(NotImplementedError, match="decimal128"):
+        consume_routed(tha, tha.init_state("cpu"), tb)
+
+
+def test_consume_routed_sorted_dense_route_runs():
+    """A key domain past the dense kernel's slots takes the sorted dense
+    reduction; the sort-grouping routes run as well."""
     rb = pa.record_batch({"k": pa.array(np.arange(0, 50000, 7)),
                           "v": pa.array(np.ones(7143, np.float32))})
     tb = batch_from_pyarrow(rb, device="cpu")
     tha = HashAggregate(tb.schema, ["k"], [AggregateSpec("sum", "v")],
                         max_groups=1 << 16)
-    with pytest.raises(NotImplementedError, match="sorted"):
-        consume_routed(tha, tha.init_state("cpu"), tb)
+    kind, cfg = tha.probe_route(
+        tb, {k: v.numpy() for k, v in tha.probe_scalars(tb).items()})
+    assert kind == "dense" and cfg["impl"] == "sorted"
+    out = tha.finalize(consume_routed(tha, tha.init_state("cpu"), tb))
+    assert int(out.length) == 7143
+    np.testing.assert_array_equal(out["k"].values[:7143].numpy(),
+                                  np.arange(0, 50000, 7))
+    assert (out["v_sum"].values[:7143] == 1.0).all()
     # the sort-grouping routes run: 7143 distinct keys into 1024 slots
     # leave the deferred error flag set
     tha = HashAggregate(tb.schema, ["k"], [AggregateSpec("sum", "v")],

@@ -1,7 +1,8 @@
 """The port runs without JAX and without pyarrow: in a fresh process (this
 test process has imported jax through conftest), import arrow_tpu_torch,
 run the slices on the CPU (the distributed one on 8 logical shards, which
-loads ``parallel/*`` and ``ops/hashing``), and check which modules got
+loads ``parallel/*`` and ``ops/hashing``; sort and join, which load
+``ops/sorting``, ``ops/join``, ``ops/planes`` and ``acero/options``), and check which modules got
 loaded. And the default-device rule: an entry point given no device takes the card."""
 
 import subprocess
@@ -21,6 +22,19 @@ for make in (entry, entry_generic):
 step, args = entry_distributed("cpu", 8, 1024, 16, 64, 0)
 table = step(*args)
 assert 0 < table.num_rows <= 16, table
+from arrow_tpu_torch.entry import entry_join, entry_sort
+step, args = entry_sort("cpu", 1024, 0, 16)
+idx, out = step(*args)
+assert len(idx) == len(out) == 1024
+for kw in ({}, {"build_keys": 32, "fanout_capacity": 8192}, {"wide": True}):
+    step, args = entry_join("cpu", 128, 1024, 0, "full outer", **kw)
+    out, tail = step(*args)
+    assert len(out) >= 1024 and tail is not None
+import arrow_tpu_torch.acero, arrow_tpu_torch.ops.bloom
+import arrow_tpu_torch.ops.concat
+assert {"arrow_tpu_torch.ops.sorting", "arrow_tpu_torch.ops.join",
+        "arrow_tpu_torch.ops.planes", "arrow_tpu_torch.acero.options"} \
+    <= set(sys.modules)
 import arrow_tpu_torch.parallel.context, arrow_tpu_torch.parallel.dist_agg
 import arrow_tpu_torch.parallel.shuffle, arrow_tpu_torch.ops.hashing
 assert {"arrow_tpu_torch.parallel.shuffle", "arrow_tpu_torch.ops.hashing",
@@ -59,7 +73,8 @@ def test_no_device_means_the_card():
     assert array_mod.resolve_device(torch.device("cuda:0")) == \
         torch.device("cuda:0")
     for fn in (entry_mod.entry, entry_mod.entry_generic,
-               entry_mod.entry_distributed, batch_mod.empty_batch,
+               entry_mod.entry_distributed, entry_mod.entry_sort,
+               entry_mod.entry_join, batch_mod.empty_batch,
                batch_mod.batch_from_numpy, batch_mod.batch,
                interop.batch_from_pyarrow, interop.array_from_pyarrow,
                att.array, att.array_from_numpy, att.nulls, att.full):
@@ -78,7 +93,11 @@ def test_port_sources_name_neither_jax_nor_the_jax_package():
             "arrow_tpu_torch/parallel/context.py",
             "arrow_tpu_torch/parallel/dist_agg.py",
             "arrow_tpu_torch/parallel/shuffle.py",
-            "arrow_tpu_torch/ops/hashing.py"} <= names
+            "arrow_tpu_torch/ops/hashing.py",
+            "arrow_tpu_torch/ops/sorting.py", "arrow_tpu_torch/ops/concat.py",
+            "arrow_tpu_torch/ops/planes.py", "arrow_tpu_torch/ops/bloom.py",
+            "arrow_tpu_torch/ops/join.py",
+            "arrow_tpu_torch/acero/options.py"} <= names
     for f in files + [ROOT / "chip_smoke.py"]:
         assert not pat.search(f.read_text()), f
 

@@ -12,6 +12,12 @@ keys, counts, int64 sums and mins and f32 mins exact; f32 sums within
 on the same data: keys, their order, ``w_min`` and ``count_all`` exact; f64
 sums within |diff| <= 1e-12 * sum(|v|) + 1e-12 per group (the two packages
 add in another order).
+
+``entry_sort``'s step against the JAX package's ``sort_indices_batch`` +
+``take_batch`` on the same columns: the permutation and the sorted columns
+equal exactly. ``entry_join``'s step (``join_routed`` picks the route)
+against the JAX ``HashJoin`` driven with the same route: the same rows as
+a multiset, floats by their bits.
 """
 
 import jax
@@ -24,8 +30,9 @@ from arrow_tpu.compute.expressions import execute_scalar_expression, field
 from arrow_tpu.ops.hash_aggregate import AggregateSpec, HashAggregate
 from arrow_tpu.ops.selection import filter_batch
 import __graft_entry__ as graft
-from arrow_tpu_torch.entry import AGGREGATES, MAX_GROUPS, entry, \
-    entry_generic, example_columns, example_columns_generic
+from arrow_tpu_torch.entry import AGGREGATES, MAX_GROUPS, SORT_KEYS, entry, \
+    entry_generic, entry_join, entry_sort, example_columns, \
+    example_columns_generic, example_columns_join, example_columns_sort
 
 N_ROWS = 4096
 NUM_KEYS = 100
@@ -121,3 +128,106 @@ def test_entry_generic_step_matches_numpy(n_rows, num_keys, max_groups):
     v_abs = np.bincount(k, weights=np.abs(v), minlength=num_keys)[keys]
     d = np.abs(got["v_sum"].values[:n].numpy() - v_sum)
     assert (d <= 1e-12 * v_abs + 1e-12).all(), d.max()
+
+
+@pytest.mark.parametrize("n_rows,num_keys", [(3000, 40), (1024, 1000)])
+def test_entry_sort_step_matches_jax(n_rows, num_keys):
+    import pyarrow as pa
+    from arrow_tpu.ops.selection import take_batch
+    from arrow_tpu.ops.sorting import SortOptions, sort_indices_batch
+    cols = example_columns_sort(n_rows, num_keys, 3)
+    jb = at.Batch.from_pyarrow(pa.record_batch({
+        "k1": pa.array(cols["k1"]),
+        "k2": pa.array(cols["k2"], mask=~cols["k2_valid"]),
+        "v": pa.array(cols["v"])}))
+    jidx = sort_indices_batch(jb, SortOptions(SORT_KEYS, "at_end"))
+    want = take_batch(jb, jidx)
+    step, (tb,) = entry_sort("cpu", n_rows, 3, num_keys)
+    assert tb.column("k2").validity is not None and \
+        tb.column("k1").validity is None
+    idx, got = step(tb)
+    np.testing.assert_array_equal(
+        idx.values.view(torch.int64).numpy()[:n_rows],
+        np.asarray(jidx.values)[:n_rows].astype(np.int64))
+    valid = np.asarray(want.column("k2").validity)[:n_rows]
+    np.testing.assert_array_equal(
+        got.column("k2").validity.numpy()[:n_rows], valid)
+    for c in ("k1", "k2", "v"):
+        g = got.column(c).values.numpy()[:n_rows]
+        w = np.asarray(want.column(c).values)[:n_rows]
+        sel = valid if c == "k2" else slice(None)
+        np.testing.assert_array_equal(g[sel], w[sel], err_msg=c)
+    # the independent statement of the order: k1 up, k2 down, nulls last,
+    # ties in input order
+    order = np.lexsort((np.arange(n_rows),
+                        -cols["k2"].astype(np.int64) * cols["k2_valid"],
+                        ~cols["k2_valid"], cols["k1"]))
+    np.testing.assert_array_equal(
+        idx.values.view(torch.int64).numpy()[:n_rows], order)
+
+
+def _np_buf(x, n):
+    return (x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x))[:n]
+
+
+def _row_multiset(b):
+    """Sorted rows of either package's Batch: integers by value, floats by
+    their bits, nulls as None."""
+    n = int(b.length)
+    cols = []
+    for c in b.column_names:
+        a = b.column(c)
+        v = _np_buf(a.values, n)
+        if v.dtype.kind == "f":
+            v = v.view(np.int32 if v.dtype == np.float32 else np.int64)
+        ok = np.ones(n, bool) if a.validity is None else \
+            _np_buf(a.validity, n)
+        cols.append([int(x) if o else None for x, o in zip(v, ok)])
+    return sorted(zip(*cols), key=repr)
+
+
+@pytest.mark.parametrize("join_type", ["inner", "left outer", "full outer",
+                                       "left anti"])
+@pytest.mark.parametrize("shape", ["unique_uniform", "unique_zipf",
+                                   "duplicates", "wide"])
+def test_entry_join_step_matches_jax(join_type, shape):
+    from arrow_tpu.acero.options import HashJoinNodeOptions
+    from arrow_tpu.ops.join import HashJoin
+    kw = {"unique_uniform": {}, "unique_zipf": {"key_dist": "zipf"},
+          "duplicates": {"build_keys": 64, "fanout_capacity": 1 << 13},
+          "wide": {"wide": True}}[shape]
+    step, (tbb, tpb) = entry_join("cpu", 256, 1024, 7, join_type, **kw)
+    hj = step.join
+    from arrow_tpu_torch.entry import join_routed
+    _, impl = join_routed(hj, tbb)
+    want_impl = {"unique_uniform": "packed_u", "unique_zipf": "packed_u",
+                 "duplicates": "packed", "wide": "sort"}[shape]
+    if want_impl == "packed_u" and not hj.supports_unique_fast():
+        want_impl = "packed"
+    assert impl == want_impl
+    out, tail = step(tbb, tpb)
+
+    got = _row_multiset(out)
+    if tail is not None:
+        got = sorted(got + _row_multiset(tail), key=repr)
+    # the JAX package, the same route
+    bcols, pcols = example_columns_join(256, 1024, 7, kw.get("key_dist",
+                                                             "uniform"),
+                                        kw.get("build_keys"),
+                                        kw.get("wide", False))
+    jbb, jpb = at.batch(bcols), at.batch(pcols)
+    keys = ["k", "k2"] if shape == "wide" else ["k"]
+    jhj = HashJoin(jpb.schema, jbb.schema, HashJoinNodeOptions(
+        join_type, left_keys=keys, right_keys=keys,
+        left_output=keys + ["lv"], right_output=["rv"], max_build_rows=256,
+        fanout_capacity=kw.get("fanout_capacity")))
+    jout, jbs = jhj.probe(jhj.build(jbb), jpb, impl=impl)
+    assert int(jbs.error) == 0
+    want = _row_multiset(jout)
+    jtail = jhj.finish(jbs)
+    if jtail is not None:
+        want = sorted(want + _row_multiset(jtail), key=repr)
+    assert got == want
+    if join_type == "inner":
+        per_key = np.bincount(bcols["k"], minlength=4 * 256)
+        assert len(got) == int(per_key[pcols["k"]].sum())
