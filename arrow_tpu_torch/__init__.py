@@ -19,7 +19,7 @@ from .core.array import (  # noqa: F401
 )
 from .core.schema import Field, Schema, field, schema  # noqa: F401
 from .core.batch import (  # noqa: F401
-    Batch, Table, batch, batch_from_numpy, empty_batch,
+    Batch, Table, TableGroupBy, batch, batch_from_numpy, empty_batch, table,
 )
 from .compute.registry import ensure_kernels_loaded as _ekl
 

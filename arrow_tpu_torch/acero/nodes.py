@@ -1,0 +1,775 @@
+"""Exec nodes (reference: the node set in ``cpp/src/arrow/acero/`` —
+source_node.cc, filter_node.cc, project_node.cc, groupby_aggregate_node.cc,
+order_by_node.cc, fetch_node.cc, hash_join_node.cc, union_node.cc); the
+eager counterpart of the JAX package's ``acero/nodes.py``.
+
+Each node is a pull-based stage: ``batches()`` yields Batches of tensors
+on the plan's device, and the per-batch work runs eagerly as torch ops and
+the port's kernels. Pipeline breakers (join build, aggregate, order_by)
+read their input through ``materialized_stream``, which shrinks sparse
+batches to their capacity bucket after one host read (``maybe_compact``).
+Capacity errors (a full group table, a join's build or fanout capacity)
+come back in the same host reads as the lengths and recover by doubling,
+as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import copy
+import os
+from typing import Dict, Iterator, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..core import datatype as dt
+from ..core.array import Array, resolve_device
+from ..core.batch import Batch, Table, empty_batch
+from ..core.interop import pad_capacity
+from ..core.schema import Field, Schema
+from ..compute.expressions import execute_scalar_expression
+from ..compute.registry import call_function
+from ..compute.scalar import Scalar
+from ..ops.aggregates import make_grouped_aggregator
+from ..ops.bits import SIGNED_OF, as_signed_bits, unsigned_to_int64
+from ..ops.concat import concat_batches
+from ..ops.hash_aggregate import HashAggregate
+from ..ops.join import HashJoin
+from ..ops.kernel_utils import values_of
+from ..ops.selection import filter_batch, take_batch
+from ..ops.sorting import SortOptions, sort_indices_batch
+from . import options as opts
+
+__all__ = ["ExecNode", "FACTORIES", "register_node_factory", "empty_batch",
+           "maybe_compact", "materialized_stream", "consume_routed",
+           "build_and_route", "host_ints", "batch_device_bytes"]
+
+FACTORIES: Dict[str, type] = {}
+
+
+def register_node_factory(name: str):
+    def deco(cls):
+        FACTORIES[name] = cls
+        cls.factory_name = name
+        return cls
+    return deco
+
+
+# ---- host reads ---------------------------------------------------------------
+
+def host_ints(vals) -> List[int]:
+    """Python ints of ``vals`` (ints or 0-d integer tensors), the tensors
+    fetched in ONE device-to-host copy: every per-batch decision of the
+    engine costs at most one read."""
+    dev = [v for v in vals if isinstance(v, torch.Tensor)]
+    if not dev:
+        return [int(v) for v in vals]
+    fetched = iter(torch.stack([v.reshape(()).to(torch.int64)
+                                for v in dev]).cpu().tolist())
+    return [next(fetched) if isinstance(v, torch.Tensor) else int(v)
+            for v in vals]
+
+
+def _host_probe(vals: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """Fetch the aggregate's route probe scalars with ONE device-to-host
+    copy."""
+    names = list(vals)
+    # as int64: a wide unsigned key's range by its value (uint64: its bits,
+    # read back as uint64 on the host)
+    flat = torch.cat([
+        unsigned_to_int64(vals[k].reshape(-1)) if vals[k].dtype in SIGNED_OF
+        else vals[k].reshape(-1).to(torch.int64) for k in names])
+    host = flat.cpu().numpy()
+    out, pos = {}, 0
+    for k in names:
+        n = vals[k].numel()
+        piece = host[pos:pos + n]
+        if vals[k].dtype == torch.uint64:
+            piece = piece.view(np.uint64)
+        out[k] = piece.reshape(vals[k].shape)
+        pos += n
+    return out
+
+
+def batch_device_bytes(b: Batch) -> int:
+    """Bytes of a batch's buffers."""
+    total = 0
+    for a in b.arrays:
+        total += a.values.nbytes
+        if a.validity is not None:
+            total += a.validity.nbytes
+    return total
+
+
+def _spill_budget_bytes(options) -> Optional[int]:
+    """The device-byte budget an option's ``spill_bytes`` sets (None:
+    unbounded)."""
+    v = getattr(options, "spill_bytes", None)
+    return None if v is None else int(v)
+
+
+# ---- compaction ---------------------------------------------------------------
+
+def maybe_compact(b: Batch, vals: Optional[list] = None) -> Batch:
+    """Shrink a sparsely filled batch to its capacity bucket.
+
+    Pipeline-breaker outputs (join fanout, aggregate finalize) and filtered
+    batches keep their input capacity; when the length lands far below it,
+    every downstream sort and gather would still pay the full capacity. One
+    host read of the length (``vals[0]`` when the caller fetched it with
+    other scalars) and prefix slices rebase the batch: its live rows are
+    always a prefix, and every fixed-width column slices. Batches up to
+    ``ARROW_TPU_COMPACT_MIN`` rows (2^20) and ``ARROW_TPU_COMPACT_MIN_BYTES``
+    (16 MB) are left alone (the read costs more than it could save), and so
+    is a batch whose bucket is more than half its capacity; the decision is
+    kept on the batch (``_compacted``). Off: ``ARROW_TPU_NO_COMPACT=1``."""
+    if os.environ.get("ARROW_TPU_NO_COMPACT"):
+        return b
+    if b.capacity <= int(os.environ.get("ARROW_TPU_COMPACT_MIN",
+                                        str(1 << 20))):
+        if batch_device_bytes(b) <= int(os.environ.get(
+                "ARROW_TPU_COMPACT_MIN_BYTES", str(16 << 20))):
+            return b
+    if getattr(b, "_compacted", False):
+        return b
+    n = vals[0] if vals is not None else host_ints([b.length])[0]
+    target = min(pad_capacity(max(n, 1)), b.capacity)
+    if target * 2 > b.capacity:
+        out = b.with_length(n)
+    else:
+        out = Batch(b.schema, [
+            Array(a.type, a.values[:target],
+                  None if a.validity is None else a.validity[:target],
+                  length=n) for a in b.arrays], n, b.index)
+    out._compacted = True   # decision made; spare downstream the read
+    return out
+
+
+def materialized_stream(input_node: "ExecNode") -> Iterator[Batch]:
+    """The input's batches, each through ``maybe_compact``: what pipeline
+    breakers consume, since their cost scales with input capacity."""
+    for b in input_node.batches():
+        yield maybe_compact(b)
+
+
+def _full_column(s: Scalar, capacity: int, length, device) -> Array:
+    """A scalar broadcast to a column of ``capacity`` rows."""
+    v = values_of(s)
+    values = as_signed_bits(v).to(device).expand(capacity).clone() \
+        .view(v.dtype)
+    validity = None if s.is_valid else torch.zeros(
+        (capacity,), dtype=torch.bool, device=device)
+    return Array(s.type, values, validity, length=length)
+
+
+class ExecNode:
+    factory_name = "?"
+
+    def __init__(self, options, inputs: Sequence["ExecNode"]):
+        self.options = options
+        self.inputs = list(inputs)
+
+    def output_schema(self) -> Schema:
+        raise NotImplementedError
+
+    def device(self) -> torch.device:
+        """Where the node's batches live: its first input's device (a
+        source's own)."""
+        if self.inputs:
+            return self.inputs[0].device()
+        return resolve_device(None)
+
+    def batches(self) -> Iterator[Batch]:
+        raise NotImplementedError
+
+
+# ---- sources ------------------------------------------------------------------
+
+@register_node_factory("table_source")
+class TableSourceNode(ExecNode):
+    """``source_node.cc:303`` TableSourceNodeOptions: a port Table's
+    batches, or a pyarrow Table staged in batches of at most
+    ``max_batch_rows`` rows (``SliceAndDeliverMorsel``,
+    ``source_node.cc:122``)."""
+
+    def __init__(self, options: opts.TableSourceNodeOptions, inputs):
+        super().__init__(options, inputs)
+        table = options.table
+        if not isinstance(table, Table):        # a pyarrow Table
+            table = Table.from_pyarrow(
+                table, max_rows_per_batch=options.max_batch_rows)
+        self.table = table
+
+    def output_schema(self) -> Schema:
+        return self.table.schema
+
+    def device(self) -> torch.device:
+        return self.table.device
+
+    def batches(self) -> Iterator[Batch]:
+        for i, b in enumerate(self.table.batches):
+            yield b.with_index(i)
+
+
+@register_node_factory("source")
+class SourceNode(ExecNode):
+    """``source_node.cc:96``: the Batches of a generator."""
+
+    def output_schema(self) -> Schema:
+        return self.options.schema
+
+    def batches(self) -> Iterator[Batch]:
+        for i, b in enumerate(self.options.generator()):
+            yield b.with_index(i)
+
+
+@register_node_factory("record_batch_source")
+@register_node_factory("exec_batch_source")
+@register_node_factory("array_vector_source")
+class RecordBatchSourceNode(ExecNode):
+    """``source_node.cc:303`` RecordBatchSourceNode + the exec-batch /
+    array-vector variants (:372, :408): an iterable of batches with a known
+    schema; pyarrow batches are staged on the default device as they
+    stream."""
+
+    def __init__(self, options: opts.RecordBatchSourceNodeOptions, inputs):
+        super().__init__(options, inputs)
+        self._schema = options.schema if isinstance(
+            options.schema, Schema) else Schema.from_pyarrow(options.schema)
+
+    def output_schema(self) -> Schema:
+        return self._schema
+
+    def batches(self) -> Iterator[Batch]:
+        for i, rb in enumerate(self.options.batches):
+            if not isinstance(rb, Batch):       # a pyarrow RecordBatch
+                rb = Batch.from_pyarrow(rb)
+            yield rb.with_index(i)
+
+
+@register_node_factory("record_batch_reader_source")
+class RecordBatchReaderSourceNode(ExecNode):
+    """``source_node.cc:372`` RecordBatchReaderSourceNode: stream a
+    pyarrow.RecordBatchReader through the engine."""
+
+    def __init__(self, options: opts.RecordBatchReaderSourceNodeOptions,
+                 inputs):
+        super().__init__(options, inputs)
+        self._schema = Schema.from_pyarrow(options.reader.schema)
+
+    def output_schema(self) -> Schema:
+        return self._schema
+
+    def batches(self) -> Iterator[Batch]:
+        for i, rb in enumerate(self.options.reader):
+            yield Batch.from_pyarrow(rb).with_index(i)
+
+
+# ---- per-batch maps -----------------------------------------------------------
+
+@register_node_factory("filter")
+class FilterNode(ExecNode):
+    """``filter_node.cc:42``: expression -> bool mask -> ``filter_batch``
+    (one pass of the stream-compaction kernel on the card)."""
+
+    def output_schema(self) -> Schema:
+        return self.inputs[0].output_schema()
+
+    def batches(self) -> Iterator[Batch]:
+        expr = self.options.filter_expression
+        for b in self.inputs[0].batches():
+            mask = execute_scalar_expression(expr, b)
+            yield filter_batch(b, mask).with_index(b.index)
+
+
+@register_node_factory("project")
+class ProjectNode(ExecNode):
+    """``project_node.cc:43``: N expressions per batch; a scalar result
+    becomes a full column."""
+
+    def __init__(self, options: opts.ProjectNodeOptions, inputs):
+        super().__init__(options, inputs)
+        self.exprs = options.expressions
+        self.names = options.names or [repr(e) for e in self.exprs]
+        self._out_schema: Optional[Schema] = None
+
+    def _run(self, b: Batch) -> Batch:
+        arrays = []
+        for e in self.exprs:
+            v = execute_scalar_expression(e, b)
+            if isinstance(v, Scalar):
+                v = _full_column(v, b.capacity, b.length, b.device)
+            arrays.append(v)
+        fields = tuple(Field(n, a.type, True)
+                       for n, a in zip(self.names, arrays))
+        return Batch(Schema(fields), arrays, b.length, b.index)
+
+    def output_schema(self) -> Schema:
+        if self._out_schema is None:
+            # the types the expressions give, on a 16-row batch of no rows
+            probe = empty_batch(self.inputs[0].output_schema(), device="cpu")
+            self._out_schema = self._run(probe).schema
+        return self._out_schema
+
+    def batches(self) -> Iterator[Batch]:
+        for b in self.inputs[0].batches():
+            yield self._run(b)
+
+
+# ---- aggregate ----------------------------------------------------------------
+
+def consume_routed(ha: HashAggregate, state, b: Batch, first: bool = False):
+    """One batch through the route the JAX AggregateNode picks
+    (``_consume_any``): ONE host read of the key-lane range probe picks the
+    dense kernel, the sorted dense reduction past its slot count,
+    range-packed sort keys or the generic consume; ``first`` (the state is
+    empty) skips the table merge-insert of the two sort routes. Every route
+    folds through the same state, so mixed streams are safe."""
+    route = ("generic", None)
+    if ha.dense_static_ok() or b.capacity >= (1 << 20):
+        route = ha.probe_route(b, _host_probe(ha.probe_scalars(b)))
+    kind, params = route
+    if kind == "dense":
+        return ha.consume_dense(state, b, params["lo"], params["G"],
+                                params["impl"])
+    if kind == "packed":
+        lo, shift, outmap, K, fold = params
+        return ha.consume(state, b, (lo, shift, outmap), (K, fold), first)
+    return ha.consume(state, b, None, None, first)
+
+
+def _agg_name(spec) -> str:
+    return spec.function[5:] if spec.function.startswith("hash_") \
+        else spec.function
+
+
+@register_node_factory("aggregate")
+class AggregateNode(ExecNode):
+    """``groupby_aggregate_node.cc`` (keyed) / ``scalar_aggregate_node.cc``
+    (no keys). Keyed: ``consume_routed`` per batch, then finalize; a full
+    group table replays the stream at twice ``max_groups``."""
+
+    def __init__(self, options: opts.AggregateNodeOptions, inputs):
+        super().__init__(options, inputs)
+        if getattr(options, "dist", None) is not None:
+            raise NotImplementedError(
+                "AggregateNodeOptions.dist: the distributed aggregate node "
+                "is ROADMAP queue item A4")
+        self._in_schema = self.inputs[0].output_schema()
+        self.ha = None
+        if options.keys:
+            self._make_ha(options.max_groups)
+
+    def _make_ha(self, max_groups: int):
+        self.ha = HashAggregate(self._in_schema, self.options.keys,
+                                self.options.aggregates,
+                                max_groups=max_groups)
+        self._max_groups = max_groups
+
+    def output_schema(self) -> Schema:
+        if self.ha is not None:
+            return self.ha.out_schema
+        fields = []
+        for spec in self.options.aggregates:
+            ts = spec.targets
+            in_type = self._in_schema.field(ts[0]).type if ts else None
+            agg = make_grouped_aggregator(spec.function, in_type, 1,
+                                          spec.options)
+            fields.append(Field(spec.out_name, agg.out_type, True))
+        return Schema(tuple(fields))
+
+    def batches(self) -> Iterator[Batch]:
+        if self.ha is None:
+            yield from self._batches_scalar()
+            return
+        # replay buffer for group-table overflow: batches are kept (refs,
+        # no copies) up to a byte budget, so that an overflow re-runs at a
+        # doubled group capacity instead of raising
+        budget = int(os.environ.get("ARROW_TPU_AGG_REPLAY_BYTES",
+                                    str(2 << 30)))
+        kept: Optional[list] = []
+        kept_bytes = 0
+        state = self.ha.init_state(self.device())
+        first = True
+        for b in materialized_stream(self.inputs[0]):
+            state = consume_routed(self.ha, state, b, first)
+            first = False
+            if kept is not None:
+                kept.append(b)
+                kept_bytes += batch_device_bytes(b)
+                if kept_bytes > budget:
+                    kept = None   # too big to replay; raise on overflow
+        (err,) = host_ints([state[0].error])
+        while err and kept is not None and \
+                self._max_groups * 2 <= (1 << 26):
+            self._make_ha(self._max_groups * 2)
+            state = self.ha.init_state(self.device())
+            first = True
+            for b in kept:
+                state = consume_routed(self.ha, state, b, first)
+                first = False
+            (err,) = host_ints([state[0].error])
+        if err:
+            raise RuntimeError(
+                f"aggregate: group table overflow (error={err}); raise "
+                f"AggregateNodeOptions.max_groups (currently "
+                f"{self._max_groups})")
+        yield maybe_compact(self.ha.finalize(state).with_index(0))
+
+    def _batches_scalar(self) -> Iterator[Batch]:
+        """Keyless aggregation. Streaming: every spec with a grouped
+        counterpart consumes each batch into a one-group state (the
+        Consume / Merge protocol, ``scalar_aggregate_node.cc``), so the
+        input never accumulates. Other specs, non-default null options, or
+        an input of no rows (whose nulls and zeros are the scalar
+        functions') accumulate and reduce once."""
+        specs = list(self.options.aggregates)
+        aggs = []
+        for spec in specs:
+            # grouped aggregators skip nulls and give null for no values;
+            # other skip_nulls / min_count semantics are the scalar kernels'
+            o = spec.options
+            default_nulls = o is None or (
+                getattr(o, "skip_nulls", True) is True
+                and getattr(o, "min_count", 1) == 1)
+            if len(spec.targets) > 1 or not default_nulls:
+                aggs = None
+                break
+            in_type = self._in_schema.field(spec.targets[0]).type \
+                if spec.targets else None
+            try:
+                aggs.append(make_grouped_aggregator(_agg_name(spec), in_type,
+                                                    1, spec.options))
+            except KeyError:
+                aggs = None
+                break
+        if aggs is None:
+            yield from self._batches_scalar_accumulate(
+                list(self.inputs[0].batches()))
+            return
+        dev = self.device()
+        states = tuple(agg.init(dev) for agg in aggs)
+        lengths = []
+        for b in materialized_stream(self.inputs[0]):
+            gids = torch.where(b.row_mask(), 0, -1).to(torch.int32)
+            states = tuple(
+                agg.consume(st, b.column(spec.targets[0])
+                            if spec.targets else None, gids)
+                for agg, spec, st in zip(aggs, specs, states))
+            lengths.append(b.length)
+        if sum(host_ints(lengths)) == 0:
+            yield from self._batches_scalar_accumulate([])
+            return
+        arrays = [agg.finalize(st, 1) for agg, st in zip(aggs, states)]
+        yield Batch(self.output_schema(), arrays, 1, 0)
+
+    def _batches_scalar_accumulate(self, accumulated) -> Iterator[Batch]:
+        if not accumulated:
+            accumulated = [empty_batch(self._in_schema, device=self.device())]
+        big = concat_batches(accumulated)
+        arrays = []
+        for spec in self.options.aggregates:
+            fn = _agg_name(spec)
+            if fn == "count_all":
+                s = Scalar(len(big), dt.int64)
+            else:
+                s = call_function(fn, [big.column(spec.targets[0])],
+                                  options=spec.options)
+            arrays.append(_full_column(s, 16, 1, big.device))
+        yield Batch(self.output_schema(), arrays, 1, 0)
+
+
+# ---- order_by, fetch ----------------------------------------------------------
+
+@register_node_factory("order_by")
+class OrderByNode(ExecNode):
+    """``order_by_node.cc:45``: accumulate -> SortIndices -> take.
+
+    With a fused limit (a downstream ``fetch``, ``plan.fuse_topk``) the
+    node streams top-k instead: per batch, sort (running best ++ batch) and
+    keep the first ``limit`` rows, so memory stays at ``limit + batch``
+    rows (the reference's ``select_k_unstable``)."""
+
+    def __init__(self, options: opts.OrderByNodeOptions, inputs):
+        super().__init__(options, inputs)
+        self._limit = getattr(options, "_limit", None)
+        self._sort = SortOptions(options.sort_keys, options.null_placement)
+
+    def output_schema(self) -> Schema:
+        return self.inputs[0].output_schema()
+
+    def batches(self) -> Iterator[Batch]:
+        if self._limit is not None:
+            yield from self._batches_topk(self._limit)
+            return
+        budget = _spill_budget_bytes(self.options)
+        accumulated: list = []
+        acc_bytes = 0
+        for b in materialized_stream(self.inputs[0]):
+            accumulated.append(b)
+            acc_bytes += batch_device_bytes(b)
+            if budget is not None and acc_bytes > budget:
+                raise NotImplementedError(
+                    "order_by past its spill budget: the external sort is "
+                    "ROADMAP queue item A9")
+        if not accumulated:
+            return
+        big = concat_batches(accumulated)
+        yield take_batch(big, sort_indices_batch(big, self._sort)) \
+            .with_index(0)
+
+    def _topk(self, big: Batch, limit: int) -> Batch:
+        idx = sort_indices_batch(big, self._sort)
+        L = min(pad_capacity(limit), big.capacity)
+        n = min(big.length, limit) if big.has_static_length \
+            else torch.clamp(big.length, max=limit)
+        return take_batch(big, Array(idx.type, idx.values[:L], None,
+                                     length=n))
+
+    def _batches_topk(self, limit: int) -> Iterator[Batch]:
+        best = None
+        for b in materialized_stream(self.inputs[0]):
+            best = maybe_compact(self._topk(
+                b if best is None else concat_batches([best, b]), limit))
+        if best is not None:
+            yield best.with_index(0)
+
+
+@register_node_factory("fetch")
+class FetchNode(ExecNode):
+    """``fetch_node.cc:76``: limit / offset over the (sequenced) stream."""
+
+    def output_schema(self) -> Schema:
+        return self.inputs[0].output_schema()
+
+    def batches(self) -> Iterator[Batch]:
+        remaining_skip = self.options.offset
+        remaining_take = self.options.count
+        for b in self.inputs[0].batches():
+            if remaining_take <= 0:
+                break
+            n = len(b)  # a host read: fetch is a stream-control node
+            if remaining_skip >= n:
+                remaining_skip -= n
+                continue
+            start = remaining_skip
+            take_n = min(n - start, remaining_take)
+            remaining_skip = 0
+            remaining_take -= take_n
+            idx = torch.clamp(torch.arange(b.capacity, dtype=torch.int32,
+                                           device=b.device) + start,
+                              max=b.capacity - 1)
+            yield take_batch(b, Array(dt.int32, idx, None, length=take_n))
+
+
+# ---- joins --------------------------------------------------------------------
+
+def build_and_route(join: HashJoin, build_in: Batch):
+    """(BuildState, error flag, probe impl): build, then ONE host read of
+    (error, pack_bits, num_groups, num_active) picks the probe route as the
+    JAX package's ``HashJoinNode._build_recover`` does: "packed_u" for
+    unique build keys that pack into 30 bits (no pair slots at all),
+    "packed" for packable keys with duplicates, else "sort"."""
+    bs = join.build(build_in)
+    err, bits, ng, na = host_ints(
+        [bs.error, bs.pack_bits, bs.num_groups, bs.num_active])
+    if bits <= 30 and join.packed_eligible() and \
+            build_in.capacity < (1 << 26):
+        impl = "packed_u" if (ng == na and join.supports_unique_fast()) \
+            else "packed"
+    else:
+        impl = "sort"
+    return bs, err, impl
+
+
+@register_node_factory("hashjoin")
+class HashJoinNode(ExecNode):
+    """``hash_join_node.cc:700``: inputs[0] = probe (left), inputs[1] =
+    build (right). The build side accumulates and builds once; probe
+    batches stream through; right / full outer rows not matched come at the
+    end (``finish``)."""
+
+    def __init__(self, options: opts.HashJoinNodeOptions, inputs):
+        super().__init__(options, inputs)
+        if getattr(options, "dist", None) is not None:
+            raise NotImplementedError(
+                "HashJoinNodeOptions.dist: the distributed join node is "
+                "ROADMAP queue item A4")
+        # Bloom pushdown (``hash_join_node.cc:499``; options.h:682
+        # disable_bloom_filter): probe rows whose keys cannot be in the
+        # build side are dropped (or, for left anti, emitted directly)
+        # before the probe, and the compaction after it shrinks the probe's
+        # capacity. Outer-left joins skip it (negatives would still need
+        # null-extended emission).
+        jt = options.join_type
+        self._bloom_kind = None
+        if not getattr(options, "disable_bloom_filter", False):
+            if jt in ("inner", "left semi", "right semi", "right anti",
+                      "right outer"):
+                self._bloom_kind = "drop"
+            elif jt == "left anti":
+                self._bloom_kind = "split"
+        self.join = HashJoin(inputs[0].output_schema(),
+                             inputs[1].output_schema(), options)
+
+    def output_schema(self) -> Schema:
+        return self.join.out_schema
+
+    def _build_recover(self, build_in: Batch):
+        """(BuildState, probe impl): build; more distinct keys than
+        ``max_build_rows`` rebuilds at twice the capacity, up to 2^27."""
+        bs, err, impl = build_and_route(self.join, build_in)
+        while err:
+            g = self.join.options.max_build_rows * 2
+            if g > (1 << 27):
+                raise RuntimeError(
+                    "hashjoin build overflow beyond 2^27 distinct keys")
+            o2 = copy.copy(self.join.options)
+            o2.max_build_rows = g
+            self.join = HashJoin(self.join.left_schema,
+                                 self.join.right_schema, o2)
+            bs, err, impl = build_and_route(self.join, build_in)
+        return bs, impl
+
+    def _probe_retry(self, bs, b: Batch, fanout, impl: str):
+        """Probe one batch; a fanout overflow retries from the same
+        pre-probe state (the probe does not change it in place) at twice
+        the fanout, up to 2^27 pair slots. The overflow flag and the
+        output's length come back in ONE host read; the length rides into
+        ``maybe_compact``. Returns (output or None, state, [length])."""
+        out, bs2 = self.join.probe(bs, b, fanout, impl)
+        while True:
+            vals = host_ints([bs2.error] +
+                             ([out.length] if out is not None else []))
+            if not vals[0]:
+                return out, bs2, vals[1:]
+            fanout = 2 * (fanout or self.join.options.fanout_capacity
+                          or b.capacity)
+            if fanout > (1 << 27):
+                raise RuntimeError(
+                    "hashjoin fanout overflow beyond 2^27 pair slots in one "
+                    "batch; reduce max_batch_rows upstream")
+            out, bs2 = self.join.probe(bs, b, fanout, impl)
+
+    def _bloom_split(self, bits, b: Batch):
+        """(rows that may match, rows that cannot as output rows for a
+        left anti join, else None)."""
+        hit = self.join.bloom_mask(bits, b)
+        pos = filter_batch(b, hit)
+        if self._bloom_kind != "split":
+            return pos, None
+        neg = filter_batch(b, Array(dt.bool_, b.row_mask() & ~hit.values,
+                                    None, length=b.length))
+        return pos, self.join._rename(neg.select(self.join.left_out))
+
+    def batches(self) -> Iterator[Batch]:
+        budget = _spill_budget_bytes(self.join.options)
+        build_batches = []
+        build_bytes = 0
+        for b in materialized_stream(self.inputs[1]):
+            build_batches.append(b)
+            build_bytes += batch_device_bytes(b)
+            if budget is not None and build_bytes > budget:
+                raise NotImplementedError(
+                    "hashjoin build side past its spill budget: the grace "
+                    "join is ROADMAP queue item A9")
+        if not build_batches:
+            build_in = empty_batch(self.inputs[1].output_schema(),
+                                   device=self.device())
+        else:
+            build_in = concat_batches(build_batches)
+        del build_batches
+        bs, impl = self._build_recover(build_in)
+        # the Bloom mask pays only on the generic multi-lane probe: the
+        # packed find costs about what the mask does, and the mask adds a
+        # host read per probe batch
+        bits = self.join.bloom_build(bs) \
+            if self._bloom_kind is not None and \
+            not impl.startswith("packed") else None
+        seen = passed = 0
+        i = 0
+        for b in materialized_stream(self.inputs[0]):
+            fanout = None
+            if bits is not None:
+                pos, neg = self._bloom_split(bits, b)
+                if neg is not None:
+                    yield maybe_compact(neg.with_index(i))
+                    i += 1
+                n_in, n_pos = host_ints([b.length, pos.length])
+                seen += n_in
+                passed += n_pos
+                if seen >= (1 << 17) and passed * 10 > seen * 9:
+                    bits = None   # not selective enough to pay for itself
+                if n_pos == 0:
+                    continue      # nothing can match; no state to update
+                # the default fanout stays sized by the batch before the
+                # compaction: shrinking the probe must never shrink the
+                # output capacity the plan without the mask would have had
+                if self.join.options.fanout_capacity is None:
+                    fanout = b.capacity
+                b = maybe_compact(pos, vals=[n_pos])
+            out, bs, cvals = self._probe_retry(bs, b, fanout, impl)
+            if out is not None:
+                yield maybe_compact(out.with_index(i), vals=cvals)
+                i += 1
+        tail = self.join.finish(bs)
+        if tail is not None:
+            yield tail.with_index(i)
+
+
+@register_node_factory("cross_join")
+class CrossJoinNode(ExecNode):
+    """Cartesian product (Substrait CrossRel; the reference's Acero has no
+    cross node). inputs[0] streams; inputs[1] accumulates. Output pair slot
+    j is (left j // nr, right j % nr)."""
+
+    def __init__(self, options, inputs):
+        super().__init__(options, inputs)
+        lf = list(inputs[0].output_schema().fields)
+        rf = list(inputs[1].output_schema().fields)
+        dup = {f.name for f in lf} & {f.name for f in rf}
+        if dup:
+            raise ValueError(f"cross_join duplicate field(s) {sorted(dup)};"
+                             " rename before the join")
+        self._schema = Schema(tuple(lf + rf))
+
+    def output_schema(self) -> Schema:
+        return self._schema
+
+    def batches(self) -> Iterator[Batch]:
+        right_batches = list(materialized_stream(self.inputs[1]))
+        right = concat_batches(right_batches) if right_batches else \
+            empty_batch(self.inputs[1].output_schema(), device=self.device())
+        for i, lb in enumerate(materialized_stream(self.inputs[0])):
+            T = lb.capacity * right.capacity
+            if T > (1 << 26):
+                raise ValueError("cross_join pair capacity over 2^26; reduce "
+                                 "max_batch_rows upstream")
+            dev = lb.device
+            nl = torch.as_tensor(lb.length, device=dev)
+            nr = torch.as_tensor(right.length, device=dev)
+            j = torch.arange(T, dtype=torch.int64, device=dev)
+            d = torch.clamp(nr, min=1)
+            total = (nl * nr).to(torch.int32)
+            li = torch.clamp(j // d, 0, lb.capacity - 1)
+            ri = torch.clamp(j % d, 0, max(right.capacity - 1, 0))
+            lt = take_batch(lb, Array(dt.int64, li, None, length=total))
+            rt = take_batch(right, Array(dt.int64, ri, None, length=total))
+            out = Batch(self._schema, list(lt.arrays) + list(rt.arrays),
+                        total, i)
+            yield maybe_compact(out)
+
+
+@register_node_factory("union")
+class UnionNode(ExecNode):
+    """``union_node.cc:50``: concatenation of input streams."""
+
+    def output_schema(self) -> Schema:
+        return self.inputs[0].output_schema()
+
+    def batches(self) -> Iterator[Batch]:
+        i = 0
+        for inp in self.inputs:
+            for b in inp.batches():
+                yield b.with_index(i)
+                i += 1

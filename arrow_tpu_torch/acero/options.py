@@ -1,6 +1,6 @@
 """Per-node options (reference: ``cpp/src/arrow/acero/options.h``); the
-same classes as the JAX package's ``acero/options.py``. The nodes and the
-plan that read them come with the plan engine (ROADMAP queue item A7)."""
+same classes as the JAX package's ``acero/options.py``, read by the nodes
+of ``acero/nodes.py``."""
 
 from __future__ import annotations
 

@@ -1,0 +1,218 @@
+"""Declaration-based plan construction and its eager driver.
+
+Reference: ``acero/exec_plan.h:389`` (Declaration), ``exec_plan.cc:647``
+(DeclarationToTable), the node factory registry (``exec_plan.h:353``); the
+counterpart of the JAX package's ``acero/plan.py``. A Declaration builds
+into a tree of nodes (``acero/nodes.py``) whose ``batches()`` the driver
+pulls: the host drives a stream of device batches through each node, and
+pipeline breakers (aggregate, order_by, join build) hold their state on the
+device. Before the build the plan is rewritten: sources keep only the
+columns some ancestor reads (``prune_columns``) and a fetch over an
+order_by streams top-k (``fuse_topk``).
+"""
+
+from __future__ import annotations
+
+import copy
+import os
+from typing import Iterator, Optional, Sequence
+
+from ..core.batch import Batch, Table
+from . import nodes as _nodes
+from .options import (ExecNodeOptions, ProjectNodeOptions,
+                      TableSourceNodeOptions)
+
+__all__ = ["Declaration", "ExecNode", "register_node_factory",
+           "declaration_to_table", "fuse_topk", "prune_columns"]
+
+register_node_factory = _nodes.register_node_factory
+ExecNode = _nodes.ExecNode
+
+
+class Declaration:
+    """An unbuilt node graph (public plan API)."""
+
+    def __init__(self, factory_name: str,
+                 options: Optional[ExecNodeOptions] = None,
+                 inputs: Sequence["Declaration"] = ()):
+        self.factory_name = factory_name
+        self.options = options
+        self.inputs = list(inputs)
+
+    @staticmethod
+    def from_sequence(decls: Sequence["Declaration"]) -> "Declaration":
+        """Chain single-input declarations (Declaration::Sequence analog)."""
+        out = None
+        for d in decls:
+            if out is not None:
+                d = Declaration(d.factory_name, d.options, [out] + d.inputs)
+            out = d
+        return out
+
+    def _build(self) -> "_nodes.ExecNode":
+        decl = self
+        if not os.environ.get("ARROW_TPU_NO_PRUNE"):
+            decl = prune_columns(self)
+        return fuse_topk(decl)._build_raw()
+
+    def _build_raw(self) -> "_nodes.ExecNode":
+        try:
+            cls = _nodes.FACTORIES[self.factory_name]
+        except KeyError:
+            raise KeyError(
+                f"no exec node factory named '{self.factory_name}'; "
+                f"have {sorted(_nodes.FACTORIES)}") from None
+        return cls(self.options, [d._build_raw() for d in self.inputs])
+
+    # ---- materialization ----------------------------------------------------
+    def to_batches(self, stop_token=None) -> Iterator[Batch]:
+        node = self._build()
+        if stop_token is None:
+            return node.batches()
+
+        def gen():
+            for b in node.batches():
+                stop_token.raise_if_stopped()
+                yield b
+        return gen()
+
+    def to_table(self, stop_token=None) -> Table:
+        """Run the plan; its batches of no rows are dropped (one host read
+        of each batch's length)."""
+        node = self._build()
+        schema = node.output_schema()
+        batches = []
+        for b in node.batches():
+            if stop_token is not None:
+                stop_token.raise_if_stopped()
+            batches.append(b)
+        return Table(schema, [b for b in batches if len(b) > 0])
+
+    def to_string(self, indent: int = 0) -> str:
+        """Plan dump (ExecPlan::ToString analog)."""
+        pad = "  " * indent
+        opts = type(self.options).__name__ if self.options is not None \
+            else ""
+        lines = [f"{pad}{self.factory_name}" + (f" [{opts}]" if opts
+                                                else "")]
+        for i in self.inputs:
+            lines.append(i.to_string(indent + 1))
+        return "\n".join(lines)
+
+    def to_pyarrow(self):
+        return self.to_table().to_pyarrow()
+
+    def to_reader(self):
+        return self.to_batches()
+
+    def __repr__(self):
+        inner = f"{self.factory_name}"
+        if self.inputs:
+            inner += "(" + ", ".join(repr(i) for i in self.inputs) + ")"
+        return inner
+
+
+def declaration_to_table(decl: Declaration) -> Table:
+    return decl.to_table()
+
+
+def fuse_topk(decl: Declaration) -> Declaration:
+    """Rewrite ``fetch(offset, count)`` over ``order_by`` into an order_by
+    with an internal row limit (offset + count): the node then streams
+    top-k in bounded memory instead of accumulating the whole input
+    (acero's SelectK declaration is the same fusion by hand). The fetch
+    node stays (it applies the offset)."""
+    inputs = [fuse_topk(d) for d in decl.inputs]
+    d = decl if all(a is b for a, b in zip(inputs, decl.inputs)) \
+        else Declaration(decl.factory_name, decl.options, inputs)
+    if (d.factory_name == "fetch" and d.inputs
+            and d.inputs[0].factory_name == "order_by"
+            and getattr(d.options, "count", -1) >= 0
+            and getattr(d.options, "offset", 0) >= 0):
+        ob = d.inputs[0]
+        o2 = copy.copy(ob.options)
+        o2._limit = d.options.offset + d.options.count
+        d = Declaration(d.factory_name, d.options,
+                        [Declaration("order_by", o2, ob.inputs)]
+                        + d.inputs[1:])
+    return d
+
+
+# ---- projection pushdown ------------------------------------------------------
+#
+# Sources emit only the columns some ancestor reads: every column a plan
+# drags along costs a gather in each filter, take and join it passes.
+# ``needed=None`` means "everything" (an unknown consumer: the safe default).
+
+def _expr_fields(e) -> set:
+    return set(e.field_names()) if e is not None else set()
+
+
+def prune_columns(decl: Declaration,
+                  needed: Optional[frozenset] = None) -> Declaration:
+    f = decl.factory_name
+    o = decl.options
+
+    def rebuild(options, new_inputs):
+        if options is o and all(a is b for a, b in
+                                zip(new_inputs, decl.inputs)):
+            return decl
+        return Declaration(f, options, new_inputs)
+
+    if f == "table_source":
+        if needed is None:
+            return decl
+        table = o.table
+        names = [c for c in table.column_names if c in needed]
+        if len(names) == len(table.column_names):
+            return decl
+        return rebuild(TableSourceNodeOptions(
+            table.select(names), o.max_batch_rows), [])
+
+    if f == "filter":
+        child_needed = None if needed is None else \
+            frozenset(needed | _expr_fields(o.filter_expression))
+        return rebuild(o, [prune_columns(decl.inputs[0], child_needed)])
+
+    if f == "project":
+        opts2 = o
+        if needed is not None:
+            names = o.names or [repr(e) for e in o.expressions]
+            keep = [i for i, n in enumerate(names) if n in needed]
+            if len(keep) < len(names) and keep:
+                opts2 = ProjectNodeOptions(
+                    [o.expressions[i] for i in keep],
+                    [names[i] for i in keep])
+        child_needed = frozenset().union(
+            *[_expr_fields(e) for e in opts2.expressions]) \
+            if opts2.expressions else frozenset()
+        return rebuild(opts2,
+                       [prune_columns(decl.inputs[0],
+                                      frozenset(child_needed))])
+
+    if f == "aggregate":
+        child_needed = set(o.keys) | set(getattr(o, "segment_keys", ()))
+        for spec in o.aggregates:
+            child_needed |= set(spec.targets)
+        return rebuild(o, [prune_columns(decl.inputs[0],
+                                         frozenset(child_needed))])
+
+    if f == "hashjoin":
+        lneed = None if o.left_output is None else \
+            frozenset(set(o.left_keys) | set(o.left_output))
+        rneed = None if o.right_output is None else \
+            frozenset(set(o.right_keys) | set(o.right_output))
+        return rebuild(o, [prune_columns(decl.inputs[0], lneed),
+                           prune_columns(decl.inputs[1], rneed)])
+
+    if f == "order_by":
+        child_needed = None if needed is None else frozenset(
+            needed | {k.name for k in o.sort_keys})
+        return rebuild(o, [prune_columns(i, child_needed)
+                           for i in decl.inputs])
+
+    if f in ("fetch", "union"):
+        return rebuild(o, [prune_columns(i, needed) for i in decl.inputs])
+
+    # other nodes (sources, cross_join): children keep everything
+    return rebuild(o, [prune_columns(i, None) for i in decl.inputs])

@@ -87,7 +87,8 @@ def _apply_intersection_validity(out: Array, args: Sequence[Datum]) -> Array:
 
 
 # the ported kernel modules, imported for their registrations
-_KERNEL_MODULES = ["scalar_compare", "selection", "sorting"]
+_KERNEL_MODULES = ["scalar_arithmetic", "scalar_compare", "selection",
+                   "sorting", "aggregates"]
 _kernels_loaded = False
 
 

@@ -3,8 +3,9 @@
 Reference: ``cpp/src/arrow/record_batch.h:41`` and Acero's ExecBatch
 (``compute/exec.h:174``); the counterpart of the JAX package's
 ``core/batch.py``. ``Table`` holds a result's batches; its query methods
-(``group_by``, ``sort_by``, ``join``, ``filter``) and ``TableGroupBy`` come
-with the plan engine (ROADMAP queue item A7).
+(``group_by``, ``sort_by``, ``join``, ``filter``, ``slice``) and
+``TableGroupBy`` run through the plan engine (``arrow_tpu_torch.acero``), as
+pyarrow's do through Acero.
 """
 
 from __future__ import annotations
@@ -18,14 +19,17 @@ from .array import Array, array as make_array, array_from_numpy, \
     resolve_device, row_mask
 from .schema import Field, Schema
 
-__all__ = ["Batch", "Table", "batch", "batch_from_numpy", "empty_batch"]
+__all__ = ["Batch", "Table", "TableGroupBy", "batch", "batch_from_numpy",
+           "empty_batch", "table"]
 
 
 class Batch:
     """An ordered set of equal-capacity Arrays + shared length (a Python
     int, or a 0-d tensor on the batch's device)."""
 
-    __slots__ = ("schema", "arrays", "length", "index")
+    # ``_compacted``: host-side flag of the plan engine's compaction
+    # decision (``acero/nodes.maybe_compact``), unset until it is made
+    __slots__ = ("schema", "arrays", "length", "index", "_compacted")
 
     def __init__(self, schema: Schema, arrays: Sequence[Array], length=None,
                  index: int = -1):
@@ -100,6 +104,9 @@ class Batch:
     def with_length(self, length) -> "Batch":
         return Batch(self.schema, self.arrays, length, self.index)
 
+    def with_index(self, index: int) -> "Batch":
+        return Batch(self.schema, self.arrays, self.length, index)
+
     def to(self, device) -> "Batch":
         length = self.length if self.has_static_length \
             else self.length.to(device)
@@ -160,6 +167,156 @@ class Table:
     def to_pydict(self):
         return self.to_pyarrow().to_pydict()
 
+    @staticmethod
+    def from_pyarrow(pa_table, max_rows_per_batch: Optional[int] = None,
+                     capacity: Optional[int] = None, device=None) -> "Table":
+        from .interop import table_from_pyarrow
+        return table_from_pyarrow(pa_table, max_rows_per_batch, capacity,
+                                  device)
+
+    @property
+    def device(self) -> torch.device:
+        """The first batch's device (the default device without one)."""
+        return self.batches[0].device if self.batches and \
+            self.batches[0].arrays else resolve_device(None)
+
+    # ---- pyarrow.Table-parity query methods (through the plan engine, as
+    # pyarrow's Table.group_by / join / sort_by run through Acero) --------
+    def group_by(self, keys, aggregations=None, max_groups: int = 1 << 16,
+                 use_threads: bool = True):
+        """pyarrow parity (``table.pxi:6465``): ``group_by(keys)`` returns
+        a TableGroupBy for ``.aggregate([...])``; passing ``aggregations``
+        directly is the one-shot shorthand."""
+        if isinstance(keys, str):
+            keys = [keys]
+        if aggregations is None:
+            return TableGroupBy(self, list(keys), max_groups=max_groups)
+        from ..acero import group_by as _gb
+        aggs = [(a[1], a[0]) if isinstance(a, tuple) and len(a) == 2
+                and not callable(a[0]) else a for a in aggregations]
+        return _gb(self, keys, aggs, max_groups=max_groups)
+
+    def sort_by(self, sorting) -> "Table":
+        from ..acero import sort_by as _sb
+        if isinstance(sorting, str):
+            sorting = [(sorting, "ascending")]
+        return _sb(self, sorting)
+
+    def filter(self, expression) -> "Table":
+        from ..acero import filter_table as _ft
+        return _ft(self, expression)
+
+    def join(self, right: "Table", keys, right_keys=None,
+             join_type: str = "left outer",
+             left_suffix: str = "", right_suffix: str = "",
+             **kw) -> "Table":
+        from ..acero import (Declaration, HashJoinNodeOptions,
+                             TableSourceNodeOptions)
+        if isinstance(keys, str):
+            keys = [keys]
+        right_keys = right_keys or keys
+        if isinstance(right_keys, str):
+            right_keys = [right_keys]
+        decl = Declaration("hashjoin", HashJoinNodeOptions(
+            join_type, keys, right_keys,
+            output_suffix_for_left=left_suffix,
+            output_suffix_for_right=right_suffix, **kw), [
+            Declaration("table_source", TableSourceNodeOptions(self)),
+            Declaration("table_source", TableSourceNodeOptions(right)),
+        ])
+        return decl.to_table()
+
+    # ---- structural methods (pyarrow.Table parity) -------------------------
+    def select(self, names: Sequence[str]) -> "Table":
+        return Table(self.schema.select(names),
+                     [b.select(names) for b in self.batches])
+
+    def drop_columns(self, names) -> "Table":
+        if isinstance(names, str):
+            names = [names]
+        drop = set(names)
+        return self.select([n for n in self.schema.names if n not in drop])
+
+    def rename_columns(self, names: Sequence[str]) -> "Table":
+        if len(names) != len(self.schema):
+            raise ValueError("rename_columns: wrong name count")
+        schema = Schema(tuple(Field(n, f.type, f.nullable)
+                              for n, f in zip(names, self.schema.fields)))
+        return Table(schema, [Batch(schema, b.arrays, b.length, b.index)
+                              for b in self.batches])
+
+    def column(self, key):
+        """Host-side column accessor (the chunks as one pyarrow column)."""
+        return self.to_pyarrow().column(
+            key if isinstance(key, str) else self.schema.names[key])
+
+    def __getitem__(self, key):
+        return self.column(key)
+
+    def slice(self, offset: int = 0, length: Optional[int] = None
+              ) -> "Table":
+        from ..acero import Declaration, FetchNodeOptions, \
+            TableSourceNodeOptions
+        count = self.num_rows - offset if length is None else length
+        return Declaration.from_sequence([
+            Declaration("table_source", TableSourceNodeOptions(self)),
+            Declaration("fetch", FetchNodeOptions(offset, count)),
+        ]).to_table()
+
+    def _as_column(self, values, capacity: int) -> Array:
+        """Host data (numpy, list, pyarrow) or an Array as an Array of
+        ``capacity`` rows on the table's device."""
+        if isinstance(values, Array):
+            if values.capacity == capacity:
+                return values
+            n = len(values)
+            pad = capacity - n
+            valid = None if values.validity is None else torch.cat(
+                [values.validity[:n], values.validity.new_zeros(pad)])
+            return Array(values.type, torch.cat(
+                [values.values[:n], values.values.new_zeros(pad)]), valid,
+                length=n)
+        return make_array(values, capacity=capacity, device=self.device)
+
+    def take(self, indices) -> "Table":
+        """Row gather on the device through ``take_batch``; chunks combine
+        first (the ChunkResolver step)."""
+        from ..ops.selection import take_batch
+        b = self._one_batch()
+        idx = self._as_column(indices, max(len(indices), 1))
+        return Table(self.schema, [take_batch(b, idx)])
+
+    def append_column(self, name: str, values) -> "Table":
+        """pyarrow Table.append_column parity: the new column is staged on
+        the device, the existing ones stay where they are."""
+        b = self._one_batch()
+        col = self._as_column(values, max(b.capacity, 1))
+        schema = Schema(tuple(self.schema.fields) +
+                        (Field(name, col.type, True),))
+        return Table(schema, [Batch(schema, list(b.arrays) + [col],
+                                    b.length, b.index)])
+
+    def set_column(self, i: int, name: str, values) -> "Table":
+        """Replace column i (pyarrow Table.set_column parity)."""
+        b = self._one_batch()
+        col = self._as_column(values, max(b.capacity, 1))
+        fields = list(self.schema.fields)
+        fields[i] = Field(name, col.type, True)
+        schema = Schema(tuple(fields))
+        arrays = list(b.arrays)
+        arrays[i] = col
+        return Table(schema, [Batch(schema, arrays, b.length, b.index)])
+
+    def cast(self, target_schema) -> "Table":
+        raise NotImplementedError(
+            "Table.cast needs the cast kernels (ops/scalar_cast.py, ROADMAP "
+            "queue item A7)")
+
+    def drop_null(self) -> "Table":
+        from ..compute.registry import call_function
+        return Table(self.schema, [call_function("drop_null", [b])
+                                   for b in self.batches])
+
     def _one_batch(self) -> Batch:
         """All rows as ONE batch on the first batch's device (chunks are
         independent batches; cross-chunk operators combine first)."""
@@ -192,6 +349,35 @@ class Table:
     def __repr__(self) -> str:
         return (f"Table(rows={self.num_rows}, batches={len(self.batches)}, "
                 f"cols={list(self.schema.names)})")
+
+
+class TableGroupBy:
+    """pyarrow.TableGroupBy parity: holds (table, keys), ``aggregate``
+    runs the grouped aggregation (``table.pxi`` TableGroupBy.aggregate).
+    Aggregation entries are pyarrow-shaped: ``(column, "fn")``,
+    ``(column, "fn", options)`` or ``([], "count_all")``."""
+
+    def __init__(self, table: Table, keys, max_groups: int = 1 << 16):
+        self.table = table
+        self.keys = list(keys)
+        self.max_groups = max_groups
+
+    def aggregate(self, aggregations) -> Table:
+        from ..acero import group_by as _gb
+        from ..ops.hash_aggregate import AggregateSpec
+        specs = []
+        for a in aggregations:
+            if isinstance(a, AggregateSpec):
+                specs.append(a)
+                continue
+            target, fn = a[0], a[1]
+            options = a[2] if len(a) > 2 else None
+            if isinstance(target, list) and not target:
+                target = None
+            elif isinstance(target, (tuple, list)):
+                target = tuple(target)
+            specs.append(AggregateSpec(fn, target, options))
+        return _gb(self.table, self.keys, specs, max_groups=self.max_groups)
 
 
 def empty_batch(schema: Schema, capacity: int = 16, device=None) -> Batch:
@@ -233,3 +419,12 @@ def batch(data: Dict[str, object], schema_: Optional[Schema] = None,
     return _from_columns(names, [
         make_array(data[n], type=schema_.field(n).type if schema_ else None,
                    capacity=capacity, device=device) for n in names])
+
+
+def table(data, capacity: Optional[int] = None, device=None) -> Table:
+    """A single-batch Table from a dict of columns (see ``batch``), or a
+    Table of a pyarrow Table."""
+    if not isinstance(data, dict):
+        return Table.from_pyarrow(data, capacity=capacity, device=device)
+    b = batch(data, capacity=capacity, device=device)
+    return Table(b.schema, [b])

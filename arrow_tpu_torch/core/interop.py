@@ -20,11 +20,12 @@ import torch
 
 from . import datatype as dt
 from .array import Array, resolve_device
-from .batch import Batch
+from .batch import Batch, Table
 from .schema import Schema
 
 __all__ = ["array_from_pyarrow", "array_to_pyarrow",
-           "batch_from_pyarrow", "batch_to_pyarrow", "pad_capacity"]
+           "batch_from_pyarrow", "batch_to_pyarrow", "pad_capacity",
+           "table_from_pyarrow"]
 
 # Capacity bucketing: pad to one of these row counts (the JAX package's
 # recompilation buckets; kept so both packages stage the same capacity).
@@ -134,3 +135,21 @@ def batch_to_pyarrow(b: Batch):
     cols = [array_to_pyarrow(b.column(i).with_length(n))
             for i in range(b.num_columns)]
     return pa.RecordBatch.from_arrays(cols, schema=b.schema.to_pyarrow())
+
+
+def table_from_pyarrow(pa_table, max_rows_per_batch: Optional[int] = None,
+                       capacity: Optional[int] = None, device=None) -> Table:
+    """A pyarrow Table as batches of at most ``max_rows_per_batch`` rows
+    (default 2^15, ExecPlan::kMaxBatchSize's analog), each padded to
+    ``capacity`` or its bucket; a table of no rows keeps the empty record
+    batches pyarrow gives for it."""
+    if max_rows_per_batch is None:
+        max_rows_per_batch = 1 << 15
+    pa_table = pa_table.combine_chunks()
+    rbs = pa_table.to_batches(max_chunksize=max_rows_per_batch)
+    batches = [batch_from_pyarrow(rb, capacity=capacity, device=device)
+               for rb in rbs if rb.num_rows]
+    if not batches:
+        batches = [batch_from_pyarrow(rb, capacity=capacity, device=device)
+                   for rb in rbs]
+    return Table(Schema.from_pyarrow(pa_table.schema), batches)

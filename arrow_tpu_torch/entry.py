@@ -1,5 +1,5 @@
 """The engine's flagship steps: filter -> group-by on one device and
-distributed over a mesh, sort, and hash join.
+distributed over a mesh, sort, hash join, and the Q3-shaped plan.
 
 The entry points return ``(step, args)`` for ``step(*args)``. The one-device ``step``
 evaluates the predicate ``w > 0``, filters the batch, routes the grouped
@@ -34,6 +34,11 @@ finalizes.
     batch (``k``, ``rv``): ``join_routed`` builds and picks the probe
     ``impl`` from one host read, then probe and finish. Its step returns
     (probe output, finish output or None).
+  * ``entry_q3(device, n_lineitem, seed, max_groups, max_batch_rows)``:
+    the Q3-shaped Declaration of the JAX package's dry run (filter ->
+    hashjoin -> hashjoin -> project -> aggregate -> order_by -> fetch)
+    over multi-batch lineitem / orders / customer Tables, run by
+    ``Declaration.to_table``. Its step returns the Table of the top 10.
 
 With no ``device`` they place the batch on the card
 (``arrow_tpu_torch.default_device()``). Run one on the CPU at a small
@@ -48,24 +53,25 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import numpy as np
-import torch
 
 from .compute.expressions import execute_scalar_expression, field
+from .acero.nodes import (  # noqa: F401 (_host_probe: re-exported)
+    _host_probe, build_and_route, consume_routed)
 from .acero.options import HashJoinNodeOptions
 from .core.array import array_from_numpy, resolve_device
 from .core.batch import Batch, Table, batch, batch_from_numpy
-from .ops.bits import SIGNED_OF, unsigned_to_int64
 from .ops.hash_aggregate import AggregateSpec, HashAggregate
-from .ops.join import BuildState, HashJoin
+from .ops.join import HashJoin
 from .ops.selection import filter_batch, take_batch
 from .ops.sorting import SortOptions, sort_indices_batch
 from .parallel import DistContext
 
 __all__ = ["AGGREGATES", "AGGREGATES_GENERIC", "MAX_GROUPS", "SORT_KEYS",
            "consume_routed", "entry", "entry_distributed", "entry_generic",
-           "entry_join", "entry_sort", "example_columns",
+           "entry_join", "entry_q3", "entry_sort", "example_columns",
            "example_columns_generic", "example_columns_join",
-           "example_columns_sort", "join_routed"]
+           "example_columns_q3", "example_columns_sort", "join_routed",
+           "q3_declaration", "table_from_numpy"]
 
 AGGREGATES = (AggregateSpec("sum", "v"), AggregateSpec("min", "v"),
               AggregateSpec("sum", "w"), AggregateSpec("min", "w"),
@@ -93,46 +99,6 @@ def example_columns_generic(n_rows: int, num_keys: int, seed: int
     return {"k": rng.integers(0, num_keys, n_rows, dtype=np.int64),
             "v": rng.standard_normal(n_rows),
             "w": rng.integers(-100, 100, n_rows, dtype=np.int64)}
-
-
-def _host_probe(vals: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    """Fetch the probe scalars with ONE device-to-host copy."""
-    names = list(vals)
-    # as int64: a wide unsigned key's range by its value (uint64: its bits,
-    # read back as uint64 on the host)
-    flat = torch.cat([
-        unsigned_to_int64(vals[k].reshape(-1)) if vals[k].dtype in SIGNED_OF
-        else vals[k].reshape(-1).to(torch.int64) for k in names])
-    host = flat.cpu().numpy()
-    out, pos = {}, 0
-    for k in names:
-        n = vals[k].numel()
-        piece = host[pos:pos + n]
-        if vals[k].dtype == torch.uint64:
-            piece = piece.view(np.uint64)
-        out[k] = piece.reshape(vals[k].shape)
-        pos += n
-    return out
-
-
-def consume_routed(ha: HashAggregate, state, b: Batch,
-                   first: bool = False):
-    """One batch through the route the JAX AggregateNode picks
-    (``acero/nodes.py`` ``_consume_any``): the dense kernel, the sorted
-    dense reduction past its slot count, range-packed sort keys or the
-    generic consume; ``first`` (the state is empty) skips the table
-    merge-insert of the two sort routes."""
-    route = ("generic", None)
-    if ha.dense_static_ok() or b.capacity >= (1 << 20):
-        route = ha.probe_route(b, _host_probe(ha.probe_scalars(b)))
-    kind, params = route
-    if kind == "dense":
-        return ha.consume_dense(state, b, params["lo"], params["G"],
-                                params["impl"])
-    if kind == "packed":
-        lo, shift, outmap, K, fold = params
-        return ha.consume(state, b, (lo, shift, outmap), (K, fold), first)
-    return ha.consume(state, b, None, None, first)
 
 
 def _make_step(ha: HashAggregate, impl: str, first: bool):
@@ -232,26 +198,15 @@ def entry_sort(device=None, n_rows: int = 1024, seed: int = 0,
 # ---- join ------------------------------------------------------------------
 
 def join_routed(hj: HashJoin, build_batch: Batch):
-    """(BuildState, probe impl): build, then ONE host read of (error,
-    pack_bits, num_groups, num_active) picks the probe route as the JAX
-    package's ``HashJoinNode._build_recover`` does: "packed_u" for unique
-    build keys that pack into 30 bits, "packed" for packable keys with
-    duplicates, else "sort". A set error flag (more distinct keys than
-    ``max_build_rows``) raises: rebuilding at a doubled capacity is the
-    plan node's business (ROADMAP queue item A7)."""
-    bs: BuildState = hj.build(build_batch)
-    err, bits, ng, na = (int(x) for x in torch.stack(
-        [bs.error, bs.pack_bits, bs.num_groups, bs.num_active]).cpu())
+    """(BuildState, probe impl): ``acero.nodes.build_and_route``, the
+    plan node's build and route from one host read. A set error flag (more
+    distinct keys than ``max_build_rows``) raises here; the plan node
+    rebuilds at a doubled capacity instead."""
+    bs, err, impl = build_and_route(hj, build_batch)
     if err:
         raise RuntimeError(
             f"hash join build: more than max_build_rows="
             f"{hj.max_build_rows} distinct keys")
-    if bits <= 30 and hj.packed_eligible() and \
-            build_batch.capacity < (1 << 26):
-        impl = "packed_u" if (ng == na and hj.supports_unique_fast()) \
-            else "packed"
-    else:
-        impl = "sort"
     return bs, impl
 
 
@@ -319,3 +274,113 @@ def entry_join(device=None, n_build: int = 256, n_probe: int = 1024,
 
     step.join = hj
     return step, (bb, pb)
+
+
+# ---- the Q3-shaped plan ----------------------------------------------------
+
+def example_columns_q3(n_lineitem: int, seed: int):
+    """(lineitem, orders, customer) columns of ``entry_q3``, made with numpy
+    from ``seed`` in the shapes and distributions of the JAX package's Q3
+    dry run (``__graft_entry__.py``): no = n_lineitem / 4 orders and nc =
+    no / 10 customers (TPC-H's lineitem : orders : customer ratio).
+    lineitem: ``l_orderkey`` int64 uniform in [0, no), ``l_price`` float32
+    U * 100, ``l_disc`` float32 U * 0.1, ``l_ship`` int32 in [0, 100);
+    orders: ``o_orderkey`` = 0 .. no - 1, ``o_custkey`` int64 uniform in [0,
+    nc), ``o_date`` int32 in [0, 50); customer: ``c_custkey`` = 0 .. nc - 1,
+    ``c_seg`` int32 in [0, 3)."""
+    rng = np.random.default_rng(seed)
+    nl = n_lineitem
+    no = max(nl // 4, 1)
+    nc = max(no // 10, 1)
+    li = {"l_orderkey": rng.integers(0, no, nl, dtype=np.int64),
+          "l_price": rng.random(nl, dtype=np.float32) * np.float32(100),
+          "l_disc": rng.random(nl, dtype=np.float32) * np.float32(0.1),
+          "l_ship": rng.integers(0, 100, nl, dtype=np.int32)}
+    od = {"o_orderkey": np.arange(no, dtype=np.int64),
+          "o_custkey": rng.integers(0, nc, no, dtype=np.int64),
+          "o_date": rng.integers(0, 50, no, dtype=np.int32)}
+    cu = {"c_custkey": np.arange(nc, dtype=np.int64),
+          "c_seg": rng.integers(0, 3, nc, dtype=np.int32)}
+    return li, od, cu
+
+
+def table_from_numpy(cols: Dict[str, np.ndarray], max_batch_rows: int,
+                     device=None) -> Table:
+    """A Table of ``batch_from_numpy`` slices of at most ``max_batch_rows``
+    rows (no pyarrow)."""
+    n = len(next(iter(cols.values())))
+    batches = [batch_from_numpy({k: v[s:s + max_batch_rows]
+                                 for k, v in cols.items()}, device=device)
+               for s in range(0, max(n, 1), max_batch_rows)]
+    return Table(batches[0].schema, batches)
+
+
+def q3_declaration(li, od, cu, max_groups: int = 256):
+    """The Q3-shaped Declaration of the JAX package's dry run
+    (``__graft_entry__.py``, BASELINE config #5) over the tables ``li``,
+    ``od``, ``cu``, on one device: table_source -> filter (l_ship > 40) ->
+    hashjoin on l_orderkey against (orders with o_date < 25) hashjoin on
+    o_custkey (customers with c_seg == 1) -> project rev = l_price * (1.0 -
+    l_disc) -> aggregate sum(rev) by (l_orderkey, o_date) -> order_by
+    (revenue desc, l_orderkey asc) -> fetch 10. The joins' build capacities
+    are the orders' and customers' row counts (at least 16)."""
+    from .acero import (AggregateNodeOptions, Declaration, FetchNodeOptions,
+                        FilterNodeOptions, OrderByNodeOptions,
+                        ProjectNodeOptions, TableSourceNodeOptions)
+    from .compute.expressions import literal
+    no, nc = od.num_rows, cu.num_rows
+    co = Declaration("hashjoin", HashJoinNodeOptions(
+        "inner", left_keys=["o_custkey"], right_keys=["c_custkey"],
+        left_output=["o_orderkey", "o_date"], right_output=[],
+        max_build_rows=max(nc, 16)),
+        inputs=[
+            Declaration.from_sequence([
+                Declaration("table_source", TableSourceNodeOptions(od)),
+                Declaration("filter", FilterNodeOptions(
+                    field("o_date") < literal(25)))]),
+            Declaration.from_sequence([
+                Declaration("table_source", TableSourceNodeOptions(cu)),
+                Declaration("filter", FilterNodeOptions(
+                    field("c_seg") == literal(1)))]),
+        ])
+    return Declaration.from_sequence([
+        Declaration("hashjoin", HashJoinNodeOptions(
+            "inner", left_keys=["l_orderkey"], right_keys=["o_orderkey"],
+            left_output=["l_orderkey", "l_price", "l_disc"],
+            right_output=["o_date"], max_build_rows=max(no, 16)),
+            inputs=[
+                Declaration.from_sequence([
+                    Declaration("table_source", TableSourceNodeOptions(li)),
+                    Declaration("filter", FilterNodeOptions(
+                        field("l_ship") > literal(40)))]),
+                co]),
+        Declaration("project", ProjectNodeOptions(
+            [field("l_orderkey"),
+             field("l_price") * (literal(1.0) - field("l_disc")),
+             field("o_date")],
+            ["l_orderkey", "rev", "o_date"])),
+        Declaration("aggregate", AggregateNodeOptions(
+            [AggregateSpec("sum", "rev", name="revenue")],
+            keys=["l_orderkey", "o_date"], max_groups=max_groups)),
+        Declaration("order_by", OrderByNodeOptions(
+            [("revenue", "descending"), ("l_orderkey", "ascending")])),
+        Declaration("fetch", FetchNodeOptions(0, 10)),
+    ])
+
+
+def entry_q3(device=None, n_lineitem: int = 768, seed: int = 0,
+             max_groups: int = 256, max_batch_rows: int = 64):
+    """(step, (lineitem, orders, customer)): step(li, od, cu) -> the Table
+    of ``q3_declaration`` run by ``Declaration.to_table``: the 10 orders of
+    most revenue (``l_orderkey``, ``o_date``, ``revenue`` float64). The
+    inputs are Tables of ``max_batch_rows``-row batches of
+    ``example_columns_q3``; the defaults are the dry run's (96 x 8 lineitem
+    rows in 64-row batches, 256 groups, which the aggregate outgrows and
+    doubles)."""
+    li, od, cu = (table_from_numpy(c, max_batch_rows, device)
+                  for c in example_columns_q3(n_lineitem, seed))
+
+    def step(li_: Table, od_: Table, cu_: Table) -> Table:
+        return q3_declaration(li_, od_, cu_, max_groups).to_table()
+
+    return step, (li, od, cu)

@@ -1,4 +1,5 @@
-"""Grouped aggregators: the init / consume / merge / finalize protocol.
+"""Grouped aggregators (the init / consume / merge / finalize protocol) and
+the whole-array (scalar) aggregate functions of the same six names.
 
 Reference: the GroupedAggregator state protocol
 (``hash_aggregate_internal.h:39-58``: Resize/Consume(values, group_ids)/
@@ -21,7 +22,9 @@ import torch
 
 from ..core import datatype as dt
 from ..core.array import Array
-from .agg_options import CountOptions
+from ..compute.registry import Kind, NullHandling, register_function
+from ..compute.scalar import Scalar
+from .agg_options import CountOptions, ScalarAggregateOptions
 from .bits import SIGNED_OF, from_ordered_signed, gather_rows, \
     ordered_signed, unsigned_to_int64
 from .kernel_utils import torch_dtype
@@ -45,10 +48,12 @@ def _sum_output_type(t: dt.DataType) -> dt.DataType:
 def _fold(state: torch.Tensor, mapping: torch.Tensor, other: torch.Tensor,
           ident, reduce: Optional[str] = None) -> torch.Tensor:
     """state[mapping] (+)= other, by add or by ``reduce`` ("amin"/"amax"),
-    with mapping == len(state) dropped."""
+    with mapping >= len(state) dropped."""
     G = state.shape[0]
     ext = torch.cat([state, state.new_full((1,), ident)])
-    idx = mapping.long()
+    # past a full group table gids reach G and beyond: dropped, as JAX's
+    # mode="drop" drops every index out of range
+    idx = torch.clamp(mapping.long(), max=G)
     if reduce is None:
         ext.index_add_(0, idx, other.to(state.dtype))
     else:
@@ -394,3 +399,84 @@ def make_grouped_aggregator(name: str, in_type: Optional[dt.DataType],
     if key not in GROUPED_AGGREGATORS:
         raise KeyError(f"no grouped aggregator named {name!r}")
     return GROUPED_AGGREGATORS[key](in_type, max_groups, options)
+
+
+# ---- scalar (whole-array) aggregates ----------------------------------------
+
+def _scalar_reduce(name: str, a: Array, options) -> Scalar:
+    """One aggregate over the live rows of ``a``, read on the host as a
+    Scalar (the JAX package's ``_scalar_reduce`` for count, sum, mean, min
+    and max): null unless at least ``min_count`` values are valid, and with
+    ``skip_nulls=False`` null where any live row is."""
+    opts = options if isinstance(options, ScalarAggregateOptions) else None
+    skip_nulls = True if opts is None else opts.skip_nulls
+    min_count = 1 if opts is None else opts.min_count
+    live = a.row_mask()
+    present = a.present_mask()
+    v = a.values
+
+    def done(value, out_type, valid=True):
+        pyv = value.item() if isinstance(value, torch.Tensor) else value
+        return Scalar(out_type.storage_np.type(pyv) if valid else None,
+                      out_type, is_valid=bool(valid))
+
+    if name == "count":
+        mode = _count_mode(options)
+        if mode == "only_valid":
+            return done(present.sum(), dt.int64)
+        if mode == "only_null":
+            return done((live & ~a.validity).sum()
+                        if a.validity is not None else 0, dt.int64)
+        return done(live.sum(), dt.int64)
+    ok = int(present.sum()) >= max(min_count, 1)
+    if not skip_nulls and a.validity is not None and \
+            bool((live & ~a.validity).any()):
+        ok = False
+    if name in ("sum", "mean"):
+        t = _sum_output_type(a.type) if name == "sum" else dt.float64
+        if v.dtype in SIGNED_OF:
+            v = unsigned_to_int64(v)
+        acc_dtype = torch.int64 if torch_dtype(t) == torch.uint64 \
+            else torch_dtype(t)
+        total = torch.where(present, v.to(acc_dtype), 0).sum(dtype=acc_dtype)
+        if name == "mean":
+            return done(total / max(int(present.sum()), 1), t, ok)
+        if torch_dtype(t) == torch.uint64:
+            total = total.view(torch.uint64)
+        return done(total, t, ok)
+    if name in ("min", "max"):
+        d = torch_dtype(a.type)
+        if d in SIGNED_OF:
+            v = ordered_signed(v)
+        elif d == torch.bool:
+            v = v.to(torch.uint8)
+        ident = extreme_identity(v.dtype, name == "min")
+        acc = torch.where(present, v, ident)
+        r = acc.min() if name == "min" else acc.max()
+        if d in SIGNED_OF:
+            r = from_ordered_signed(r, d)
+        return done(r.to(torch.bool) if d == torch.bool else r, a.type, ok)
+    raise KeyError(name)
+
+
+def _register_scalar_aggs():
+    for name in ("sum", "mean", "min", "max", "count"):
+        def _exec(args, options, _name=name):
+            (a,) = args
+            return _scalar_reduce(_name, a, options)
+
+        register_function(name, Kind.SCALAR_AGGREGATE, 1,
+                          null_handling=NullHandling.COMPUTED,
+                          options_class=CountOptions if name == "count"
+                          else ScalarAggregateOptions)(_exec)
+
+
+_register_scalar_aggs()
+
+
+@register_function("count_all", Kind.SCALAR_AGGREGATE, 1,
+                   null_handling=NullHandling.COMPUTED)
+def _count_all(args, options):
+    """Row count including nulls (aggregate_basic.cc CountAll)."""
+    (a,) = args
+    return Scalar(len(a), dt.int64)

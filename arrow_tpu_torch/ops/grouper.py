@@ -274,11 +274,13 @@ class Grouper:
                         vals_src: torch.Tensor, valid_src: torch.Tensor
                         ) -> Array:
         """Key column ``i``'s unique buffer (max_groups rows) with
-        ``vals_src`` / ``valid_src`` written at ``pos``; position max_groups
-        is the dump slot."""
+        ``vals_src`` / ``valid_src`` written at ``pos``; positions from
+        max_groups up are dropped."""
         if k.type.is_varlen:
             raise NotImplementedError("unique buffers of varlen keys")
         G = self.max_groups
+        # gids past a full table (the error flag is set) are dropped
+        pos = torch.clamp(pos, max=G)
         if uniques is None:
             vals = torch.zeros((G,), dtype=k.values.dtype, device=k.device)
             valid = torch.zeros((G,), dtype=torch.bool, device=k.device)

@@ -23,7 +23,7 @@ from .bits import SIGNED_OF, unsigned_to_int64
 
 __all__ = [
     "common_numeric_type", "promote_args", "values_of", "output_like",
-    "capacity_of", "length_of", "device_of", "torch_dtype",
+    "capacity_of", "length_of", "device_of", "torch_dtype", "to_storage",
 ]
 
 
@@ -86,12 +86,31 @@ def values_of(a: Union[Array, Scalar],
         v = torch.from_numpy(np.asarray(a.storage_value()))
     if out_type is not None:
         want = torch_dtype(out_type)
-        if v.dtype != want and v.dtype in SIGNED_OF:
-            # the card converts no uint16 / uint32 / uint64: by value
-            # through int64 (uint64: its bits)
+        if v.dtype == want:
+            return v
+        # the card converts no uint16 / uint32 / uint64: by value through
+        # int64 (uint64: its bits, read as unsigned by a float target),
+        # into one by the low bits of the signed type of its width
+        if v.dtype in SIGNED_OF:
+            wide = v.dtype == torch.uint64
             v = unsigned_to_int64(v)
-        v = v.to(want)
+            if wide and want.is_floating_point:
+                # from 2^63 up: halve keeping the low bit sticky, convert,
+                # double (one rounding, as a direct conversion rounds)
+                half = ((v >> 1) & ((1 << 63) - 1)) | (v & 1)
+                return torch.where(v < 0, half.to(want) * 2, v.to(want))
+        return to_storage(v, out_type)
     return v
+
+
+def to_storage(v: torch.Tensor, t: dt.DataType) -> torch.Tensor:
+    """Integer or float values -> ``t``'s storage dtype (a uint16 / uint32 /
+    uint64 by the low bits of the signed type of its width: the card
+    converts into none of them)."""
+    d = torch_dtype(t)
+    if d in SIGNED_OF:
+        return v.to(SIGNED_OF[d]).view(d)
+    return v.to(d)
 
 
 def promote_args(args: Sequence[Union[Array, Scalar]]

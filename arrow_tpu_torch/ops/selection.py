@@ -38,6 +38,7 @@ from ..compute.registry import Kind, NullHandling, register_function
 from .cuda_kernels import TILE_ROWS, filter_compact_chunks, \
     tile_compact_local, tile_stitch
 from .bits import as_signed_bits, gather_rows
+from .kernel_utils import to_storage
 from .segment import _scatter, rows_of_positions
 
 __all__ = ["FilterOptions", "TakeOptions", "get_take_indices", "take_array",
@@ -299,3 +300,37 @@ def _array_filter(args, options):
 def _array_take(args, options):
     values, indices = args
     return take_array(values, indices)
+
+
+@register_function("drop_null", Kind.VECTOR, 1,
+                   null_handling=NullHandling.COMPUTED)
+def _drop_null(args, options):
+    """Remove null rows (vector_selection.cc DropNull)."""
+    a = args[0]
+    if isinstance(a, Batch):
+        ok = torch.ones((a.capacity,), dtype=torch.bool, device=a.device)
+        for i in range(a.num_columns):
+            c = a.column(i)
+            if c.validity is not None:
+                ok = ok & c.validity
+        return filter_batch(a, Array(dt.bool_, ok, None, length=a.length))
+    if a.validity is None:
+        return a
+    return filter_array(a, Array(dt.bool_, a.validity, None,
+                                 length=a.length))
+
+
+@register_function("inverse_permutation", Kind.VECTOR, 1,
+                   null_handling=NullHandling.COMPUTED)
+def _inverse_permutation(args, options):
+    """vector_swizzle.cc InversePermutation: out[perm[i]] = i; positions
+    not hit are null."""
+    a = args[0]
+    cap = a.capacity
+    idx = as_signed_bits(a.values).to(torch.int64)
+    pos = torch.where(a.present_mask(), idx.clamp(0, max(cap - 1, 0)), cap)
+    iota = torch.arange(cap, dtype=torch.int32, device=a.device)
+    out = _scatter(cap, 0, pos, iota)
+    hit = _scatter(cap, False, pos, torch.ones_like(iota, dtype=torch.bool))
+    out_t = a.type if a.type.is_integer else dt.int32
+    return Array(out_t, to_storage(out, out_t), hit, length=a.length)

@@ -1,10 +1,10 @@
 """Per-layer device times of one step of the port's slices, on one GPU.
 
     python -m arrow_tpu_torch.profile_step
-        [--path generic|dense|dist|exchange|sort|join] [--rows N]
+        [--path generic|dense|dist|exchange|sort|join|q3] [--rows N]
         [--keys N] [--max-groups N] [--shards N] [--steps N] [--seed N]
         [--build-rows N] [--build-keys N] [--key-dist uniform|zipf]
-        [--join-type T] [--wide]
+        [--join-type T] [--wide] [--batch-rows N]
 
 ``--path dist`` is the distributed group-by (``entry_distributed``) over
 ``--shards`` logical shards of the card (default 8), ``--path exchange``
@@ -18,7 +18,11 @@ lexicographic sort, take); ``--path join`` is ``entry_join`` with
 ``--build-rows`` build rows over ``--build-keys`` keys and ``--rows`` probe
 rows (layers: build, the route's host read, lane build, pack, find with its
 ``searchsorted``, take indices or pair expansion,
-materialize with pack / row gather / unpack, finish).
+materialize with pack / row gather / unpack, finish). ``--path q3`` is
+``entry_q3`` over ``--rows`` lineitem rows in ``--batch-rows`` batches
+(default 2^22) with ``--max-groups`` (default 2^22): per plan node its own
+device ms (each ``next()`` of its batch stream bracketed by events, its
+inputs' time subtracted) and its host reads per step, beside the layers.
 
 Wraps the functions that make up the step's layers so that each call is
 bracketed by two CUDA events on the current stream (no synchronisation
@@ -40,11 +44,113 @@ import time
 from collections import defaultdict
 
 
+def node_layers(torch, nodes, Batch, stack):
+    """Wrap every plan node class's ``batches()`` so that each ``next()`` of
+    a node's stream is bracketed by two CUDA events (it includes the work of
+    the node's inputs, pulled inside it), and count the host reads
+    (``host_ints``, the aggregate's route probe, a device length read by
+    ``len``) against the node being pulled ("driver" outside any).
+    Returns (spans: label -> [(start, end)], reads: label -> count,
+    children: label -> input labels, restore: a function that takes the
+    wrappers off); labels are ``factory#k`` in the order the nodes first
+    run (sources by their first column, filters by their expression, joins
+    by their probe keys), counted afresh for each plan built."""
+    spans, reads, children = defaultdict(list), defaultdict(int), {}
+    labels, current, undo = {}, [], []
+
+    def label_of(node):
+        if id(node) not in labels:
+            name = node.factory_name
+            if name == "table_source":
+                name += f"[{node.output_schema().names[0]}]"
+            elif name == "filter":
+                name += f"[{node.options.filter_expression!r}]"
+            elif name == "hashjoin":
+                name += f"[{','.join(node.options.left_keys)}]"
+            k = sum(lab.startswith(name + "#") for lab in labels.values())
+            labels[id(node)] = f"{name}#{k}"
+        return labels[id(node)]
+
+    def wrap_stream(cls):
+        inner = cls.batches
+        undo.append((cls, "batches", inner))
+
+        def batches(self):
+            lab = label_of(self)
+            children[lab] = [label_of(c) for c in self.inputs]
+            it = inner(self)
+            while True:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                current.append(lab)
+                try:
+                    b = next(it)
+                except StopIteration:
+                    return
+                finally:
+                    current.pop()
+                    end.record()
+                    spans[lab].append((start, end))
+                yield b
+        cls.batches = batches
+
+    for cls in set(nodes.FACTORIES.values()):
+        wrap_stream(cls)
+    build = nodes.ExecNode.__init__
+    undo.append((nodes.ExecNode, "__init__", build))
+
+    def init(self, *a, **kw):
+        if not current and not stack:
+            labels.clear()      # a new plan: label its nodes afresh
+        build(self, *a, **kw)
+    nodes.ExecNode.__init__ = init
+
+    def counted(owner, attr, device_read=None):
+        inner = getattr(owner, attr)
+        undo.append((owner, attr, inner))
+
+        def fn(*a, **kw):
+            if device_read is None or device_read(*a):
+                reads[current[-1] if current else "driver"] += 1
+            return inner(*a, **kw)
+        setattr(owner, attr, fn)
+
+    counted(nodes, "host_ints",
+            lambda vals: any(isinstance(v, torch.Tensor) for v in vals))
+    counted(nodes, "_host_probe")
+    counted(Batch, "__len__",
+            lambda self: not self.has_static_length)
+
+    def restore():
+        for owner, attr, inner in reversed(undo):
+            setattr(owner, attr, inner)
+    return spans, reads, children, restore
+
+
+def node_times(node_spans, node_reads, node_children, steps: int = 1):
+    """Per node label: inclusive and own device ms (its inputs' inclusive
+    time subtracted) and host reads, each per step."""
+    out = {}
+    for name, evs in node_spans.items():
+        out[name] = {"inclusive_ms": sum(s.elapsed_time(e)
+                                         for s, e in evs) / steps,
+                     "host_reads": node_reads.get(name, 0) / steps}
+    for name, m in out.items():
+        m["own_ms"] = m["inclusive_ms"] - sum(
+            out[c]["inclusive_ms"] for c in node_children[name] if c in out)
+    if "driver" in node_reads:
+        out["driver"] = {"inclusive_ms": 0.0, "own_ms": 0.0,
+                         "host_reads": node_reads["driver"] / steps}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", choices=("generic", "dense", "dist",
-                                       "exchange", "sort", "join"),
+                                       "exchange", "sort", "join", "q3"),
                     default="generic")
+    ap.add_argument("--batch-rows", type=int, default=1 << 22)
     ap.add_argument("--build-rows", type=int, default=1 << 20)
     ap.add_argument("--build-keys", type=int, default=None)
     ap.add_argument("--key-dist", choices=("uniform", "zipf"),
@@ -67,6 +173,8 @@ def main() -> int:
         print("profile_step: no CUDA device", file=sys.stderr)
         return 2
     from . import entry as entry_mod
+    from .acero import nodes
+    from .core.batch import Batch
     from .ops import aggregates, cuda_kernels, distinct, grouper, \
         hash_aggregate, join, selection, sorting
     from .parallel import context, dist_agg, shuffle
@@ -106,7 +214,7 @@ def main() -> int:
     layer(selection, "take_batch", "take_batch")
     layer(selection, "filter_compact_chunks", "B1_filter_compact_chunks")
     layer(HA, "probe_scalars", "probe")
-    layer(entry_mod, "_host_probe", "probe_host_read")
+    layer(nodes, "_host_probe", "probe_host_read")
     layer(HA, "consume", "consume")
     layer(HA, "consume_dense", "consume_dense")
     layer(hash_aggregate, "dense_group_reduce", "B3_dense_group_reduce")
@@ -170,6 +278,17 @@ def main() -> int:
     layer(join, "unpack_columns", "unpack_columns")
     layer(join, "filter_batch", "filter")
     layer(HJ, "finish", "finish")
+    # the plan engine's own layers (the Q3 plan)
+    layer(nodes, "execute_scalar_expression", "expression")
+    layer(nodes, "filter_batch", "filter")
+    layer(nodes, "maybe_compact", "maybe_compact")
+    layer(nodes, "consume_routed", "consume_routed")
+    layer(nodes, "build_and_route", "build_and_route")
+    layer(nodes, "concat_batches", "concat")
+    layer(nodes, "sort_indices_batch", "sort_indices")
+    layer(nodes, "take_batch", "take")
+    node_spans, node_reads, node_children, _ = node_layers(
+        torch, nodes, Batch, stack)
 
     if args.path == "generic":
         step, (b,) = entry_mod.entry_generic(
@@ -193,6 +312,14 @@ def main() -> int:
     elif args.path == "sort":
         step, (b,) = entry_mod.entry_sort(None, args.rows, args.seed,
                                           args.keys or 1_000_000)
+    elif args.path == "q3":
+        qstep, tables = entry_mod.entry_q3(
+            None, args.rows, args.seed, args.max_groups or 1 << 22,
+            args.batch_rows)
+        b = tables
+
+        def step(tables_):
+            return qstep(*tables_)
     elif args.path == "join":
         jstep, pair = entry_mod.entry_join(
             None, args.build_rows, args.rows, args.seed, args.join_type,
@@ -208,6 +335,8 @@ def main() -> int:
     step(b)
     torch.cuda.synchronize()
     spans.clear()
+    node_spans.clear()
+    node_reads.clear()
     host_ms = []
     for _ in range(args.steps):
         t0 = time.perf_counter()
@@ -220,7 +349,13 @@ def main() -> int:
               for name, evs in spans.items()}
     for name, ms in layers.items():
         print(f"  {name:58s} {ms:10.3f} ms")
-    print(json.dumps({"layers_ms": layers, "host_ms": host_ms}))
+    nodes_ms = node_times(node_spans, node_reads, node_children, args.steps)
+    for name, m in nodes_ms.items():
+        print(f"  node {name:24s} own {m['own_ms']:10.3f} ms, inclusive "
+              f"{m['inclusive_ms']:10.3f} ms, host reads "
+              f"{m['host_reads']:.1f} per step")
+    print(json.dumps({"layers_ms": layers, "host_ms": host_ms,
+                      "nodes": nodes_ms}))
 
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.reset_peak_memory_stats()

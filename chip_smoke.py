@@ -30,7 +30,18 @@ rows (BASELINE config #2) and checks each result against a numpy oracle:
   path 5c the other routes at 10M probe rows: duplicate build keys
           ("packed"), two wide keys ("sort"), and left semi / left anti /
           full outer + finish on the packed route;
-  path 1b path 1 with 100,000 distinct keys: the sorted dense reduction.
+  path 1b path 1 with 100,000 distinct keys: the sorted dense reduction;
+  path 6  ``arrow_tpu_torch.entry.entry_q3`` (BASELINE config #5): the
+          Q3-shaped Declaration (filter -> hashjoin -> hashjoin -> project
+          -> aggregate -> order_by -> fetch) through the plan engine over
+          100M lineitem, 25M orders and 2.5M customer rows in 2^22-row
+          batches, against a numpy oracle; per plan node its device ms and
+          host reads. Cut against config #5: 100M lineitem rows, not SF100's
+          600M; one card, no ``dist=``; dates and the segment are int32
+          codes, not dictionary strings;
+  path 6b a table_source -> filter -> hashjoin Declaration on two wide
+          int64 keys (2^20 build x 10M probe rows, the "sort" route), which
+          runs the Bloom pushdown.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -47,7 +58,8 @@ PyTorch call computing the same function (``library_ms``, null where there
 is none); a kernel that further paths launch carries the same numbers at
 their arguments under suffixed keys (``ms_path_3b``,
 ``ms_path_5c_left_semi`` ...: every call path 5c's semi, anti and outer
-joins make is held against the plain version too), and the dense group-by
+joins make is held against the plain version too, and every call of path
+6's four kernels), and the dense group-by
 kernel also those of the twelve-stream call the earlier slices made
 (``ms_nine_kinds`` ...). Last comes
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when there is no
@@ -96,6 +108,11 @@ BUILD_KEYS_DUP = 1 << 18        # path 5c: 2^20 build rows over 2^18 keys
 # path 1b
 NUM_KEYS_SORTED_DENSE = 100_000
 MAX_GROUPS_SORTED_DENSE = 1 << 17
+# path 6 (BASELINE #5 cut to 100M lineitem rows) and 6b
+N_LINEITEM = 100_000_000
+Q3_BATCH_ROWS = 1 << 22         # the JAX package's Q3 bench (bench.py)
+Q3_MAX_GROUPS = 1 << 22         # holds path 6's ~3.8M groups: no replay
+BLOOM_LV_MIN = -1.0             # path 6b's probe filter keeps 84 % of rows
 
 
 def check(cond, msg: str) -> None:
@@ -702,6 +719,61 @@ def check_join(torch, dev, label: str, outs, oracle, wide_mul=None) -> int:
     for x, y, name in zip(a, b, ("k", "lv", "rv")):
         check(torch.equal(x, y), f"{label}: column {name} of the sorted rows")
     return n_rows
+
+
+def numpy_q3_oracle(li, od, cu):
+    """Path 6's plan computed independently with numpy: the filters as
+    masks; the joins as lookups (``o_orderkey`` and ``c_custkey`` are
+    aranges, so a key is its row); ``rev`` in float64 as the engine types
+    ``l_price * (1.0 - l_disc)``, summed per order by ``np.bincount``
+    (``o_date`` is a function of the order); the top 10 by (revenue
+    descending, l_orderkey ascending). Returns the top rows and every
+    order's revenue (NaN for an order with no row) and date."""
+    ok_o = (od["o_date"] < 25) & (cu["c_seg"][od["o_custkey"]] == 1)
+    m = (li["l_ship"] > 40) & ok_o[li["l_orderkey"]]
+    k = li["l_orderkey"][m]
+    rev = li["l_price"][m].astype(np.float64) * \
+        (1.0 - li["l_disc"][m].astype(np.float64))
+    no = od["o_orderkey"].shape[0]
+    revenue = np.bincount(k, weights=rev, minlength=no)
+    present = np.bincount(k, minlength=no) > 0
+    keys = np.flatnonzero(present)
+    top = keys[np.lexsort((keys, -revenue[keys]))[:10]]
+    return dict(keys=top, revenue=revenue[top], all_o_date=od["o_date"],
+                all_revenue=np.where(present, revenue, np.nan),
+                n_groups=keys.shape[0])
+
+
+def check_q3(table, oracle) -> int:
+    """Path 6's Table against the numpy oracle: 10 rows; o_date exact;
+    revenue within 1e-12 * revenue + 1e-12 of the oracle's at each place
+    (a sum of positive terms: its sum of |rev| is itself); keys exact but
+    where a key's oracle revenue lies within that tolerance of the oracle's
+    revenue at the place (a tie the summation order may break either way).
+    Returns the oracle's group count."""
+    check(len(table.batches) == 1, "path 6: one result batch")
+    b = table.batches[0]
+    n = len(b)
+    got = {c: b.column(c).values[:n].cpu().numpy()
+           for c in ("l_orderkey", "o_date", "revenue")}
+    for c in got:
+        a = b.column(c)
+        check(a.validity is None or bool(a.validity[:n].all()),
+              f"path 6: nulls in {c}")
+    want = oracle["revenue"]
+    tol = 1e-12 * want + 1e-12
+    check(n == 10 and got["revenue"].dtype == np.float64,
+          f"path 6: {n} rows of {got['revenue'].dtype}")
+    check(bool((np.abs(got["revenue"] - want) <= tol).all()),
+          "path 6: revenue differs from the oracle's")
+    k = got["l_orderkey"]
+    tie = np.abs(oracle["all_revenue"][k] - want) <= tol
+    check(bool(((k == oracle["keys"]) | tie).all()),
+          f"path 6: keys {k.tolist()}, the oracle's "
+          f"{oracle['keys'].tolist()}")
+    check(np.array_equal(got["o_date"], oracle["all_o_date"][k]),
+          "path 6: o_date")
+    return oracle["n_groups"]
 
 
 def main() -> int:
@@ -1420,6 +1492,167 @@ def main() -> int:
     del out, cols, b, step
     torch.cuda.empty_cache()
 
+    # ---- path 6: the Q3-shaped plan (BASELINE #5), entry_q3 ---------------
+    from arrow_tpu_torch.acero import nodes as nodes_mod
+    from arrow_tpu_torch.core.batch import Batch
+    from arrow_tpu_torch.entry import example_columns_q3
+    from arrow_tpu_torch.profile_step import node_layers, node_times
+    t0 = time.time()
+    qcols = example_columns_q3(N_LINEITEM, args.seed)
+    step, tables = entry_mod.entry_q3(dev, N_LINEITEM, args.seed,
+                                      Q3_MAX_GROUPS, Q3_BATCH_ROWS)
+    torch.cuda.synchronize()
+    print(f"path 6 data: {N_LINEITEM} lineitem, "
+          f"{tables[1].num_rows} orders, {tables[2].num_rows} customer rows "
+          f"in {[len(t.batches) for t in tables]} batches, made and staged "
+          f"in {time.time() - t0:.1f} s; input on the card "
+          f"{sum(nodes_mod.batch_device_bytes(b) for t in tables for b in t.batches)} B")
+    q3_kernels = ("filter_compact_chunks", "tile_compact_local", "tile_stitch",
+                  "pack_key_lanes")
+    out, secs, launches6, peak = timed(lambda: step(*tables), "path 6",
+                                       q3_kernels)
+    t0 = time.time()
+    n_groups = check_q3(out, numpy_q3_oracle(*qcols))
+    print(f"path 6 (Q3-shaped plan, one card, no dist=): {N_LINEITEM} "
+          f"lineitem rows in {secs * 1e3:.3f} ms = {N_LINEITEM / secs:.6g} "
+          f"rows/s; the top 10 of {n_groups} groups match the numpy oracle "
+          f"(oracle {time.time() - t0:.1f} s); peak device memory {peak} B; "
+          f"launches {launches6}")
+    del out
+    # one more run with each plan node's stream bracketed by CUDA events
+    # and its host reads counted
+    spans_, reads_, children_, restore = node_layers(torch, nodes_mod, Batch,
+                                                     [])
+    try:
+        step(*tables)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    node_ms = node_times(spans_, reads_, children_)
+    for name, m in node_ms.items():
+        print(f"path 6 node {name:36s} own {m['own_ms']:10.3f} ms, "
+              f"inclusive {m['inclusive_ms']:10.3f} ms, host reads "
+              f"{m['host_reads']:.0f}")
+    print(json.dumps({"path_6_nodes": node_ms}))
+    # one more run, recording every call of the four kernels; each call
+    # against its plain version, one full 2^22-row call of each timed
+    forget()
+    recorded(selection, "filter_compact_chunks", lambda: recorded(
+        selection, "tile_compact_local", lambda: recorded(
+            selection, "tile_stitch", lambda: recorded(
+                join_mod, "pack_key_lanes", lambda: step(*tables)))))
+    for kname in q3_kernels:
+        check(len(seen_calls[kname]) == launches6[kname],
+              f"path 6: {len(seen_calls[kname])} recorded calls of {kname}, "
+              f"{launches6[kname]} launches")
+    for a in seen_calls["filter_compact_chunks"]:
+        check_filter(torch, ck, *a, "path 6 call")
+    for (sel,) in seen_calls["tile_compact_local"]:
+        check_tile_compact(torch, ck, sel, "path 6 call")
+    for a in seen_calls["tile_stitch"]:
+        check(torch.equal(ck.tile_stitch(*a), ck.tile_stitch_plain(*a)),
+              "path 6: a tile_stitch call differs from its plain version")
+    for a in seen_calls["pack_key_lanes"]:
+        check_pack_lanes(torch, ck, *a, "path 6 call")
+
+    def full(calls, rows_of):
+        """The last call whose rows are a whole 2^22-row batch."""
+        return [a for a in calls if rows_of(a) == Q3_BATCH_ROWS][-1]
+    sel, chunks = full(seen_calls["filter_compact_chunks"],
+                       lambda a: a[0].shape[0])
+    fc6 = measure_filter(torch, ck, sel, chunks, "path 6 shape")
+    print(f"filter_compact_chunks path 6 shape: planes {tuple(chunks.shape)}, "
+          f"{fc6['ms']:.3f} ms, bound {fc6['bound_ms']:.3f} ms, plain "
+          f"{fc6['plain_ms']:.3f} ms, chunks[sel] {fc6['library_ms']:.3f} ms")
+    (sel,) = full(seen_calls["tile_compact_local"], lambda a: a[0].shape[0])
+    tc6 = measure_tile_compact(torch, ck, sel, "path 6 shape")
+    ts6 = measure_tile_stitch(torch, ck, *full(
+        seen_calls["tile_stitch"], lambda a: a[0].shape[0]), "path 6 shape")
+    lanes, lo, span, shift, active = full(
+        [a for a in seen_calls["pack_key_lanes"] if a[4] is not None],
+        lambda a: a[0][0].shape[0])
+    pk6 = {"max_abs_err": check_pack_lanes(torch, ck, lanes, lo, span, shift,
+                                           active, "path 6 shape"),
+           "ms": cuda_ms(torch, lambda: ck.pack_key_lanes(
+               lanes, lo, span, shift, active), 10),
+           "plain_ms": cuda_ms(torch, lambda: ck.pack_key_lanes_plain(
+               lanes, lo, span, shift, active), 3),
+           "bound_ms": bound_ms(Q3_BATCH_ROWS * (8 * len(lanes) + 1 + 8)),
+           "library_ms": None}
+    print(f"pack_key_lanes path 6 shape: L={len(lanes)} {pk6['ms']:.3f} ms, "
+          f"bound {pk6['bound_ms']:.3f} ms, plain {pk6['plain_ms']:.3f} ms")
+    del sel, chunks, lanes, active, tables, step, qcols
+    forget()
+    torch.cuda.empty_cache()
+
+    # ---- path 6b: a Declaration whose join runs the Bloom pushdown -------
+    from arrow_tpu_torch.acero import (Declaration, FilterNodeOptions,
+                                       HashJoinNodeOptions,
+                                       TableSourceNodeOptions)
+    from arrow_tpu_torch.compute.expressions import field, literal
+    from arrow_tpu_torch.entry import table_from_numpy
+    bcols, pcols = example_columns_join(N_BUILD, N_PROBE_ROUTES, args.seed,
+                                        "uniform", None, True)
+    probe_t = table_from_numpy(pcols, Q3_BATCH_ROWS, dev)
+    build_t = table_from_numpy(bcols, Q3_BATCH_ROWS, dev)
+    keys = ["k", "k2"]
+
+    def join_6b():
+        return Declaration("hashjoin", HashJoinNodeOptions(
+            "inner", left_keys=keys, right_keys=keys,
+            left_output=keys + ["lv"], right_output=["rv"],
+            max_build_rows=N_BUILD), [
+                Declaration.from_sequence([
+                    Declaration("table_source",
+                                TableSourceNodeOptions(probe_t)),
+                    Declaration("filter", FilterNodeOptions(
+                        field("lv") > literal(BLOOM_LV_MIN)))]),
+                Declaration("table_source",
+                            TableSourceNodeOptions(build_t))]).to_table()
+
+    bloom_builds = []
+    bloom_build = join_mod.HashJoin.bloom_build
+
+    def counted_bloom(self, bs):
+        bloom_builds.append(1)
+        return bloom_build(self, bs)
+    join_mod.HashJoin.bloom_build = counted_bloom
+    try:
+        table6b, secs, launches6b, peak = timed(join_6b, "path 6b",
+                                                ("filter_compact_chunks",))
+    finally:
+        join_mod.HashJoin.bloom_build = bloom_build
+    n_batches = len(probe_t.batches)
+    check(len(bloom_builds) == 2, "path 6b: the Bloom bits were not built "
+          "on each run")
+    check(launches6b["filter_compact_chunks"] == 2 * n_batches,
+          f"path 6b: {launches6b['filter_compact_chunks']} compaction "
+          f"launches, not the filter's and the Bloom split's {n_batches} each")
+    keep = pcols["lv"] > BLOOM_LV_MIN
+    n_out = check_join(torch, dev, "path 6b", table6b.batches,
+                       numpy_join_oracle(bcols, {n: v[keep] for n, v in
+                                                 pcols.items()}, "inner"),
+                       wide_mul)
+    print(f"path 6b (filter -> hashjoin on two wide keys, route sort, Bloom "
+          f"pushdown): {N_BUILD} x {N_PROBE_ROUTES} rows in {n_batches} "
+          f"batches in {secs * 1e3:.3f} ms = {N_PROBE_ROUTES / secs:.6g} probe "
+          f"rows/s; {n_out} output rows match the numpy oracle as a "
+          f"multiset; peak device memory {peak} B; launches {launches6b}")
+    del table6b, bcols, pcols
+    recorded(selection, "filter_compact_chunks", join_6b)
+    calls = seen_calls["filter_compact_chunks"]
+    for a in calls:
+        check_filter(torch, ck, *a, "path 6b call")
+    # the calls alternate: a batch's filter, then its Bloom split
+    fc6b = measure_filter(torch, ck, *calls[1], "path 6b Bloom split shape")
+    print(f"filter_compact_chunks path 6b Bloom split shape: planes "
+          f"{tuple(calls[1][1].shape)}, {fc6b['ms']:.3f} ms, bound "
+          f"{fc6b['bound_ms']:.3f} ms, plain {fc6b['plain_ms']:.3f} ms, "
+          f"chunks[sel] {fc6b['library_ms']:.3f} ms")
+    del calls, probe_t, build_t
+    forget()
+    torch.cuda.empty_cache()
+
     def row(name, source, replaces, n_launches, m):
         return {"name": name, "route": "cuda",
                 "source": f"arrow_tpu_torch/csrc/{source}",
@@ -1465,8 +1698,15 @@ def main() -> int:
     for kname, label, i, m in shapes5c:
         kernel = next(k for k in kernels if k["name"] == kname)
         also(kernel, suffix_of(label) + (f"_call_{i + 1}" if i else ""), m)
-    # the launches of the join paths' and path 1b's counted runs
-    for label, counts in list(launches5.items()) + [("path 1b", launches1b)]:
+    # path 6's and 6b's kernels at their 2^22-row calls
+    for kernel, m in ((kernels[0], fc6), (kernels[2], tc6), (kernels[3], ts6),
+                      (kernels[5], pk6)):
+        also(kernel, "path_6", m)
+    also(kernels[0], "path_6b_bloom_split", fc6b)
+    # the launches of the join paths', path 1b's and path 6's counted runs
+    for label, counts in list(launches5.items()) + [
+            ("path 1b", launches1b), ("path 6", launches6),
+            ("path 6b", launches6b)]:
         suffix = suffix_of(label)
         for kernel in kernels:
             if counts[kernel["name"]] and not (

@@ -820,3 +820,105 @@ def test_pack_key_lanes_kernel_vs_plain(cuda_device, n, L):
     assert bool((want == ck.PACK_MISS).any()) or n == 1
     with pytest.raises(ValueError, match="several devices"):
         ck.pack_key_lanes(list(mat.unbind(1)), lo.cpu(), span, shift)
+
+
+def _table_rows(table, names):
+    """A Table's rows on the host as an int64 matrix (floats by their bits,
+    a null as 0 with a flag column), sorted: a multiset of rows."""
+    parts = []
+    for b in table.batches:
+        n = int(b.length)
+        cols = []
+        for c in names:
+            a = b.column(c)
+            v = a.values[:n]
+            if v.dtype.is_floating_point:
+                v = v.view(torch.int32 if v.dtype == torch.float32
+                           else torch.int64)
+            cols.append(v.to(torch.int64).cpu())
+            ok = torch.ones(n, dtype=torch.bool) if a.validity is None \
+                else a.validity[:n].cpu()
+            cols.append(ok.to(torch.int64))
+        parts.append(torch.stack(cols, dim=1))
+    m = torch.cat(parts).numpy() if parts else np.zeros((0, 2 * len(names)))
+    return m[np.lexsort(m.T[::-1])]
+
+
+def test_q3_plan_on_card_matches_cpu(cuda_device):
+    """``entry_q3``'s Declaration on the card and on the CPU, multi-batch,
+    with the group table doubling from 256: keys and order exact, float64
+    revenue within 1e-12 * revenue + 1e-12 (a sum of positive terms)."""
+    from arrow_tpu_torch.entry import entry_q3
+    outs = []
+    for dev in ("cpu", cuda_device):
+        step, args = entry_q3(dev, 1 << 16, 7, 256, 1 << 13)
+        t = step(*args)
+        assert [b.device.type for b in t.batches] == [torch.device(dev).type]
+        b = t.batches[0]
+        n = int(b.length)
+        outs.append({c: b.column(c).values[:n].cpu() for c in
+                     ("l_orderkey", "o_date", "revenue")})
+    c, g = outs
+    assert c["l_orderkey"].shape[0] == 10
+    assert torch.equal(c["l_orderkey"], g["l_orderkey"])
+    assert torch.equal(c["o_date"], g["o_date"])
+    d = (c["revenue"] - g["revenue"]).abs()
+    assert bool((d <= 1e-12 * c["revenue"].abs() + 1e-12).all())
+
+
+def test_bloom_join_plan_on_card_matches_cpu(cuda_device, monkeypatch):
+    """Path 6b of ``chip_smoke.py`` at a small size: table_source ->
+    filter -> hashjoin on two wide keys (the "sort" route), so the Bloom
+    pushdown runs; the card's rows equal the CPU's as a multiset and the
+    Bloom split launches the compaction kernel."""
+    from arrow_tpu_torch.acero import (Declaration, FilterNodeOptions,
+                                       HashJoinNodeOptions,
+                                       TableSourceNodeOptions)
+    from arrow_tpu_torch.compute.expressions import field, literal
+    from arrow_tpu_torch.entry import example_columns_join, \
+        table_from_numpy
+    from arrow_tpu_torch.ops import join as join_mod
+    built = []
+    inner = join_mod.HashJoin.bloom_build
+    monkeypatch.setattr(join_mod.HashJoin, "bloom_build",
+                        lambda self, bs: built.append(1) or inner(self, bs))
+    bcols, pcols = example_columns_join(1 << 12, 1 << 16, 2, wide=True)
+    res = []
+    for dev in ("cpu", cuda_device):
+        probe = table_from_numpy(pcols, 1 << 14, dev)
+        build = table_from_numpy(bcols, 1 << 14, dev)
+        decl = Declaration("hashjoin", HashJoinNodeOptions(
+            "inner", left_keys=["k", "k2"], right_keys=["k", "k2"],
+            left_output=["k", "k2", "lv"], right_output=["rv"],
+            max_build_rows=1 << 12), [
+                Declaration.from_sequence([
+                    Declaration("table_source",
+                                TableSourceNodeOptions(probe)),
+                    Declaration("filter", FilterNodeOptions(
+                        field("lv") > literal(-1.0)))]),
+                Declaration("table_source", TableSourceNodeOptions(build))])
+        before = ck.LAUNCHES["filter_compact_chunks"]
+        res.append(_table_rows(decl.to_table(), ["k", "k2", "lv", "rv"]))
+        launched = ck.LAUNCHES["filter_compact_chunks"] - before
+    assert len(built) == 2
+    # the filter's 4 batches and the Bloom split's 4
+    assert launched == 8
+    a, b = res
+    assert a.shape == b.shape and a.shape[0] > 0 and (a == b).all()
+
+
+def test_filter_node_batch_launches_the_compaction_kernel(cuda_device):
+    from arrow_tpu_torch.acero import (Declaration, FilterNodeOptions,
+                                       TableSourceNodeOptions)
+    from arrow_tpu_torch.compute.expressions import field, literal
+    from arrow_tpu_torch.entry import example_columns_q3, table_from_numpy
+    li, _, _ = example_columns_q3(5000, 1)
+    t = table_from_numpy(li, 5000, cuda_device)
+    decl = Declaration.from_sequence([
+        Declaration("table_source", TableSourceNodeOptions(t)),
+        Declaration("filter", FilterNodeOptions(
+            field("l_ship") > literal(40)))])
+    before = ck.LAUNCHES["filter_compact_chunks"]
+    out = decl.to_table()
+    assert ck.LAUNCHES["filter_compact_chunks"] == before + 1
+    assert out.num_rows == int((li["l_ship"] > 40).sum())

@@ -2,8 +2,10 @@
 test process has imported jax through conftest), import arrow_tpu_torch,
 run the slices on the CPU (the distributed one on 8 logical shards, which
 loads ``parallel/*`` and ``ops/hashing``; sort and join, which load
-``ops/sorting``, ``ops/join``, ``ops/planes`` and ``acero/options``), and check which modules got
-loaded. And the default-device rule: an entry point given no device takes the card."""
+``ops/sorting``, ``ops/join``, ``ops/planes`` and ``acero/options``; the
+Q3-shaped plan, which loads ``acero/plan`` and ``acero/nodes``), and check
+which modules got loaded. And the default-device rule: an entry point given
+no device takes the card."""
 
 import subprocess
 import sys
@@ -30,11 +32,17 @@ for kw in ({}, {"build_keys": 32, "fanout_capacity": 8192}, {"wide": True}):
     step, args = entry_join("cpu", 128, 1024, 0, "full outer", **kw)
     out, tail = step(*args)
     assert len(out) >= 1024 and tail is not None
+from arrow_tpu_torch.entry import entry_q3
+step, args = entry_q3("cpu")
+table = step(*args)
+assert table.num_rows == 10 and table.column_names == (
+    "l_orderkey", "o_date", "revenue"), table
 import arrow_tpu_torch.acero, arrow_tpu_torch.ops.bloom
 import arrow_tpu_torch.ops.concat
 assert {"arrow_tpu_torch.ops.sorting", "arrow_tpu_torch.ops.join",
-        "arrow_tpu_torch.ops.planes", "arrow_tpu_torch.acero.options"} \
-    <= set(sys.modules)
+        "arrow_tpu_torch.ops.planes", "arrow_tpu_torch.acero.options",
+        "arrow_tpu_torch.acero.plan", "arrow_tpu_torch.acero.nodes",
+        "arrow_tpu_torch.ops.scalar_arithmetic"} <= set(sys.modules)
 import arrow_tpu_torch.parallel.context, arrow_tpu_torch.parallel.dist_agg
 import arrow_tpu_torch.parallel.shuffle, arrow_tpu_torch.ops.hashing
 assert {"arrow_tpu_torch.parallel.shuffle", "arrow_tpu_torch.ops.hashing",
@@ -74,7 +82,9 @@ def test_no_device_means_the_card():
         torch.device("cuda:0")
     for fn in (entry_mod.entry, entry_mod.entry_generic,
                entry_mod.entry_distributed, entry_mod.entry_sort,
-               entry_mod.entry_join, batch_mod.empty_batch,
+               entry_mod.entry_join, entry_mod.entry_q3,
+               entry_mod.table_from_numpy, batch_mod.empty_batch,
+               batch_mod.table, batch_mod.Table.from_pyarrow,
                batch_mod.batch_from_numpy, batch_mod.batch,
                interop.batch_from_pyarrow, interop.array_from_pyarrow,
                att.array, att.array_from_numpy, att.nulls, att.full):
@@ -97,7 +107,9 @@ def test_port_sources_name_neither_jax_nor_the_jax_package():
             "arrow_tpu_torch/ops/sorting.py", "arrow_tpu_torch/ops/concat.py",
             "arrow_tpu_torch/ops/planes.py", "arrow_tpu_torch/ops/bloom.py",
             "arrow_tpu_torch/ops/join.py",
-            "arrow_tpu_torch/acero/options.py"} <= names
+            "arrow_tpu_torch/acero/options.py",
+            "arrow_tpu_torch/acero/nodes.py", "arrow_tpu_torch/acero/plan.py",
+            "arrow_tpu_torch/ops/scalar_arithmetic.py"} <= names
     for f in files + [ROOT / "chip_smoke.py"]:
         assert not pat.search(f.read_text()), f
 
