@@ -4,6 +4,7 @@ kernel and the merge's folds at the third slice's shapes.
 
     python -m arrow_tpu_torch.bench_reductions [--rows N] [--keys N]
                                                [--pack-lanes-only]
+                                               [--filter-only]
 
 Sorts ``--rows`` int64 keys (half of them inactive) into runs as the
 grouper does and times, with CUDA events after a warm-up: the per-run
@@ -28,7 +29,20 @@ hot slots on and off, and each kind alone at G = 1024. First of all the
 ``pack_key_lanes`` kernel over ``--rows`` rows for 1, 2, 3, 4, 6 and 12 lanes
 beside its byte bound (``--pack-lanes-only`` stops after it: two versions
 of the kernel's source are compared by two runs on one machine: the build
-is keyed by the sources' hash).
+is keyed by the sources' hash). ``--filter-only`` times nothing but the
+filter kernel B1 at the calls the paths of ``chip_smoke.py`` make (their
+row counts, column widths and selectivities), through ``measure_filter``,
+the function ``chip_smoke.py`` times B1 with: ``filter_compact_columns``
+compared once with its plain version, ``ms`` over ten back-to-back calls
+as the events see them, ``device_ms`` over ten calls queued behind a
+``torch.cuda._sleep`` (the card's time alone, whatever the host's),
+``host_ms`` the host's time to issue one call, the byte bound, the plain
+version, ``chunks[sel]`` and one ``c[sel]`` per column. Beside it the same
+columns as u8 planes side by side through ``filter_compact_chunks``, the
+one-matrix form (``chunks_ms``, ``chunks_device_ms``): the form the
+filter layer called before the column form existed, so this script, run on
+an earlier tree (copied into it), times that tree's kernel at the same
+calls; there, with no ``filter_compact_columns``, only this form is timed.
 One line per primitive, then one JSON object. Needs a CUDA device; the
 numbers in ``PERF.md`` that name this script come from it.
 """
@@ -39,6 +53,167 @@ import argparse
 import json
 import subprocess
 import sys
+import time
+
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
+
+
+def cuda_ms(torch, fn, reps: int, queued: bool = False) -> float:
+    """Mean device time of fn over reps runs, after one warm-up run.
+    ``queued``: the runs are queued behind a ``torch.cuda._sleep`` of some
+    0.1 s, so that the card runs them back to back whatever the host's
+    time to issue one: the card's time alone."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(200_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def host_ms(torch, fn, reps: int = 10) -> float:
+    """The host's time to issue one run of fn (the card not waited for)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return t
+
+
+def fc_widths(columns):
+    """Bytes a row of each column of a filter_compact_columns call."""
+    return [c.shape[1] if c.ndim == 2 else c.element_size() for c in columns]
+
+
+def fc_planes(torch, columns):
+    """The columns as u8 planes side by side: the one-matrix form's input."""
+    cap = columns[0].shape[0]
+    return torch.cat([c.contiguous().view(torch.uint8).reshape(cap, -1)
+                      for c in columns], dim=1)
+
+
+def check_filter(torch, ck, sel, columns, label: str) -> float:
+    """B1 (``filter_compact_columns``) vs its plain version: the same count
+    on the device, every column's first count rows equal byte for byte.
+    Returns the max abs difference over those bytes (0 when equal); raises
+    on any difference."""
+    outs, count = ck.filter_compact_columns(sel, columns)
+    want, want_count = ck.filter_compact_columns_plain(sel, columns)
+    n = int(want_count)
+    if count.dtype != torch.int32 or int(count) != n:
+        raise RuntimeError(f"check failed: filter_compact_columns {label}: "
+                           f"count {int(count)}, plain {n}")
+    err = 0.0
+    for got, w in zip(outs, want):
+        if got.dtype != w.dtype or got.shape != w.shape:
+            raise RuntimeError(f"check failed: filter_compact_columns "
+                               f"{label}: an output's type or shape")
+        a, b = got[:n].view(torch.uint8), w[:n].view(torch.uint8)
+        if not torch.equal(a, b):
+            err = max(err, float((a.int() - b.int()).abs().max()))
+    if err:
+        raise RuntimeError(f"check failed: filter_compact_columns {label}: "
+                           "rows differ")
+    print(f"filter_compact_columns {label}: cap={sel.shape[0]} widths="
+          f"{fc_widths(columns)} selected={n} equal")
+    return err
+
+
+def measure_filter(torch, ck, sel, columns, label: str) -> dict:
+    """B1 (``filter_compact_columns``) at the arguments a path gave it:
+    compared with its plain version, then timed: ``ms`` the wrapper as the
+    path runs it, ``device_ms`` the same calls queued behind a sleep (the
+    card's time alone); beside them the plain version, the bound,
+    ``chunks[sel]`` on the same columns packed as u8 planes side by side
+    (the JAX caller's form and the earlier slices' kernel input:
+    ``library_ms``) and one ``c[sel]`` per column (``columns_index_ms``).
+    ``host_ms`` is the host's time to issue one call: where it reaches
+    ``ms`` the events read the wrapper, not the kernel."""
+    cap = sel.shape[0]
+    widths = fc_widths(columns)
+    width = sum(widths)
+    n = int(sel.sum())
+
+    def call():
+        return ck.filter_compact_columns(sel, columns)
+    m = {"max_abs_err": check_filter(torch, ck, sel, columns, label),
+         "ms": cuda_ms(torch, call, 10),
+         "device_ms": cuda_ms(torch, call, 10, queued=True),
+         "plain_ms": cuda_ms(torch, lambda: ck.filter_compact_columns_plain(
+             sel, columns), 3),
+         # selection and columns read once, the selected rows written once
+         "bound_ms": (cap + cap * width + n * width) / HBM_BYTES_PER_S * 1e3}
+    chunks = fc_planes(torch, columns)
+    m["library_ms"] = cuda_ms(torch, lambda: chunks[sel], 3)
+    del chunks
+    # torch has no mask index for uint16 / uint32 / uint64 on the card
+    signed = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    flat = [c if c.ndim == 2 else c.view(signed[c.element_size()])
+            for c in columns]
+    m["columns_index_ms"] = cuda_ms(torch, lambda: [c[sel] for c in flat], 3)
+    m["host_ms"] = host_ms(torch, call)
+    m["widths"] = widths
+    print(f"filter_compact_columns {label}: cap={cap} widths={widths} "
+          f"selected={n}: {m['ms']:.4f} ms, the card alone "
+          f"{m['device_ms']:.4f} ms ({m['host_ms']:.4f} ms of host a call), "
+          f"bound {m['bound_ms']:.4f} ms, plain {m['plain_ms']:.3f} ms, "
+          f"chunks[sel] {m['library_ms']:.4f} ms, per-column c[sel] "
+          f"{m['columns_index_ms']:.4f} ms")
+    return m
+
+
+def bench_filter(torch, ck, dev, gen, results) -> None:
+    """B1 at the paths' calls; see the module's docstring."""
+    def column(cap, width):
+        dtype = {4: torch.float32, 8: torch.int64}[width]
+        return torch.randint(-(1 << 30), 1 << 30, (cap,), generator=gen,
+                             device=dev).to(dtype)
+
+    # (label, rows, column widths, selected share or count)
+    calls = [("path_1", 100_000_000, (8, 4, 8), 0.495),
+             ("path_3a", 12_500_000, (8, 8, 8), 0.495),
+             ("path_5c_left_semi", 10_000_000, (8, 4), 0.25),
+             ("path_5c_finish", 1 << 20, (8,), 123),
+             ("path_6", 1 << 22, (8, 4, 4, 4), 0.59),
+             ("path_6b_bloom_split", 1 << 22, (8, 8, 4), 0.23)]
+    for label, cap, widths, share in calls:
+        cols = [column(cap, w) for w in widths]
+        if share >= 1:
+            sel = torch.zeros(cap, dtype=torch.bool, device=dev)
+            sel[torch.randperm(cap, generator=gen, device=dev)[:share]] = 1
+        else:
+            sel = torch.rand(cap, generator=gen, device=dev) < share
+        r = {}
+        if hasattr(ck, "filter_compact_columns"):
+            r = measure_filter(torch, ck, sel, cols, label)
+            del r["widths"]
+        chunks = fc_planes(torch, cols)
+        n = int(sel.sum())
+        if not torch.equal(ck.filter_compact_chunks(sel, chunks)[:n],
+                           ck.filter_compact_chunks_plain(sel, chunks)[:n]):
+            raise RuntimeError(f"filter_compact_chunks differs at {label}")
+
+        def call():
+            return ck.filter_compact_chunks(sel, chunks)
+        r["chunks_ms"] = cuda_ms(torch, call, 10)
+        r["chunks_device_ms"] = cuda_ms(torch, call, 10, queued=True)
+        r["chunks_host_ms"] = host_ms(torch, call)
+        for k, v in r.items():
+            results[f"filter_{label}_{k}"] = v
+        print(f"filter {label:24s} one matrix of {chunks.shape[1]} B: "
+              f"{r['chunks_ms']:8.4f} ms, device "
+              f"{r['chunks_device_ms']:8.4f}, host "
+              f"{r['chunks_host_ms']:8.4f}")
+        del cols, sel, chunks
 
 
 def main() -> int:
@@ -47,6 +222,7 @@ def main() -> int:
     ap.add_argument("--keys", type=int, default=3_000_000)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--pack-lanes-only", action="store_true")
+    ap.add_argument("--filter-only", action="store_true")
     args = ap.parse_args()
 
     import torch
@@ -80,9 +256,14 @@ def main() -> int:
         print(f"{name:40s} {results[name]:10.3f} ms")
         return out
 
+    from .ops import cuda_kernels as ck
+    if args.filter_only:
+        bench_filter(torch, ck, dev, gen, results)
+        print(json.dumps(results))
+        return 0
+
     # the join's key packing by lane count: every lane and the flag read
     # once, the keys written once
-    from .ops import cuda_kernels as ck
     flag = torch.rand(n, generator=gen, device=dev) < 0.9
     lanes = []
     for L in (1, 2, 3, 4, 6, 12):

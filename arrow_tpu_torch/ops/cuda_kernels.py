@@ -4,8 +4,10 @@ The counterpart of the JAX package's ``ops/pallas_kernels.py`` for the
 kernels on the filter -> group-by paths, the exchange and the join; six
 kernels:
 
-  * ``filter_compact_chunks`` (csrc/filter_compact.cu): stream compaction
-    of (cap, C) u8 byte planes;
+  * ``filter_compact_columns`` (csrc/filter_compact.cu): stream compaction
+    of a batch's columns, each as it lies, in one launch;
+    ``filter_compact_chunks`` is its one-column form on (cap, C) u8 byte
+    planes, the TPU function's contract;
   * ``tile_compact_local`` (csrc/tile_compact.cu): per 1024-row tile, the
     local indices of the selected rows packed to the front, and their count
     (level 1 of the take-index filter);
@@ -38,10 +40,12 @@ of the sources and flags.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 from pathlib import Path
 from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
@@ -50,7 +54,8 @@ import torch
 
 from .segment import rows_of_positions
 
-__all__ = ["filter_compact_chunks", "filter_compact_chunks_plain",
+__all__ = ["filter_compact_columns", "filter_compact_columns_plain",
+           "filter_compact_chunks", "filter_compact_chunks_plain",
            "tile_compact_local", "tile_compact_local_plain",
            "tile_stitch", "tile_stitch_plain",
            "DenseKey", "dense_key_gid",
@@ -58,14 +63,16 @@ __all__ = ["filter_compact_chunks", "filter_compact_chunks_plain",
            "partition_histogram", "partition_histogram_plain",
            "pack_key_lanes", "pack_key_lanes_plain", "build",
            "LAUNCHES", "reset_launch_counts", "TILE_ROWS", "MAX_PARTITIONS",
-           "MAX_PACK_LANES", "PACK_MISS"]
+           "MAX_PACK_LANES", "PACK_MISS", "FC_MAX_COLUMNS", "FC_TILE_ROWS"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / ".kernels_build"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# kernel launches per wrapper (only where the wrapper launches its kernel)
+# kernel launches per wrapper (only where the wrapper launches its kernel);
+# "filter_compact_chunks" counts every launch of the filter kernel, from
+# filter_compact_columns and filter_compact_chunks alike
 LAUNCHES = {"filter_compact_chunks": 0, "tile_compact_local": 0,
             "tile_stitch": 0, "dense_group_reduce": 0,
             "partition_histogram": 0, "pack_key_lanes": 0}
@@ -143,8 +150,9 @@ def _lib():
         p_i64 = ctypes.POINTER(ctypes.c_int64)
         sigs = {
             "atp_fc_tile_rows": [],
-            "atp_fc_count": [vp, i64, vp, vp],
-            "atp_fc_scatter": [vp, vp, vp, i64, i32, vp, vp],
+            "atp_fc_max_columns": [],
+            "atp_filter_compact": [vp, i64, ctypes.c_char_p, i32, vp, vp,
+                                   i64, ctypes.c_uint64, i64, vp, vp],
             "atp_tc_tile_rows": [],
             "atp_tile_compact_local": [vp, i64, vp, vp, vp],
             "atp_tile_stitch": [vp, vp, vp, i64, i64, vp, vp],
@@ -167,6 +175,10 @@ def _lib():
         if lib.atp_pl_max_lanes() != MAX_PACK_LANES:
             raise RuntimeError(
                 "csrc/pack_lanes.cu and MAX_PACK_LANES disagree")
+        if (lib.atp_fc_tile_rows(), lib.atp_fc_max_columns()) != (
+                FC_TILE_ROWS, FC_MAX_COLUMNS):
+            raise RuntimeError("csrc/filter_compact.cu and FC_TILE_ROWS / "
+                               "FC_MAX_COLUMNS disagree")
         if lib.atp_tc_tile_rows() != TILE_ROWS:
             raise RuntimeError(
                 "csrc/tile_compact.cu and TILE_ROWS disagree")
@@ -199,51 +211,156 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
-# ---- filter_compact_chunks ---------------------------------------------------
+def _device_stream(dev: torch.device):
+    """(a context that makes ``dev`` the current device, a no-op where it
+    is already; ``dev``'s current stream as a pointer): less host time a
+    call than ``torch.cuda.current_stream(dev)`` inside
+    ``torch.cuda.device(dev)``."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    ctx = contextlib.nullcontext() if idx == torch.cuda.current_device() \
+        else torch.cuda.device(idx)
+    return ctx, torch._C._cuda_getCurrentRawStream(idx)
+
+
+# ---- filter_compact_columns / filter_compact_chunks --------------------------
+
+FC_MAX_COLUMNS = 32     # csrc/filter_compact.cu kMaxCols: columns a launch
+FC_TILE_ROWS = 8192     # csrc/filter_compact.cu kTile: rows a block
+_FC_EPOCHS = 1 << 30    # a status word's epoch has 30 bits
+# Per (device index, stream): [scratch of 1 + tiles int64 words (the ticket,
+# then one status word a tile), the last call's epoch, the tickets taken
+# since the last clear]. Calls on one stream run in order and share the
+# buffer: the epoch tells a call's status words from an earlier call's, so
+# the buffer is cleared only when it grows or the epoch wraps.
+_fc_scratch = {}
+_FC_MAX_ROW_BYTES = 1 << 16     # csrc/filter_compact.cu kMaxRowBytes
+_SIGNED = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def _fc_width(col: torch.Tensor, cap: int) -> int:
+    """Bytes a row of a column the kernel takes; raises on any other (the
+    messages are built only then: this runs per column and call)."""
+    if col.ndim == 1:
+        width = col.element_size()
+        if width not in _SIGNED:
+            raise ValueError(f"no filter kernel for {col.dtype} columns")
+    elif col.ndim == 2 and col.dtype == torch.uint8 and (
+            col.stride(1) == 1 or col.shape[1] <= 1):
+        width = col.shape[1]
+    else:
+        raise ValueError("a column must be (cap,) of 1, 2, 4 or 8-byte "
+                         "elements or (cap, C) uint8 with contiguous rows")
+    if col.shape[0] != cap:
+        raise ValueError(f"a column has {col.shape[0]} rows, the selection "
+                         f"{cap}")
+    if width > _FC_MAX_ROW_BYTES or \
+            col.stride(0) * col.element_size() > _FC_MAX_ROW_BYTES:
+        raise ValueError(f"a column's rows and row stride must be at most "
+                         f"{_FC_MAX_ROW_BYTES} bytes")
+    return width
+
+
+def filter_compact_columns_plain(sel: torch.Tensor, columns):
+    """Plain version: per column one scatter of the selected rows to their
+    ranks (the dump row ``cap`` takes the rest; rows past the count are
+    zero), through a signed view of the same width (the card has no
+    index_copy for uint16 / uint32 / uint64); the count is ``sel.sum()``."""
+    cap = sel.shape[0]
+    dst = torch.where(sel, torch.cumsum(sel, 0) - 1, cap)
+    outs = []
+    for col in columns:
+        flat = col if col.ndim == 2 else col.view(_SIGNED[col.element_size()])
+        out = flat.new_zeros((cap + 1,) + tuple(flat.shape[1:]))
+        out.index_copy_(0, dst, flat)
+        outs.append(out[:cap].view(col.dtype))
+    return outs, torch.sum(sel, dtype=torch.int32)
+
+
+def _fc_scratch_for(dev: torch.device, stream: int, tiles: int):
+    """(scratch, epoch, ticket base, bytes to clear first) for a call of
+    ``tiles`` tiles on ``stream``."""
+    key = (dev.index, stream)
+    s = _fc_scratch.get(key)
+    if s is None or s[0].shape[0] < tiles + 1:
+        size = tiles + 1 if s is None else max(tiles + 1, 2 * s[0].shape[0])
+        s = _fc_scratch[key] = [
+            torch.zeros((size,), dtype=torch.int64, device=dev), 0, 0]
+    s[1] += 1
+    reset = 0
+    if s[1] == _FC_EPOCHS:          # the epoch wraps: clear every word
+        s[1], s[2], reset = 1, 0, 8 * s[0].shape[0]
+    base = s[2]
+    s[2] += tiles
+    return s[0], s[1], base, reset
+
+
+def filter_compact_columns(sel: torch.Tensor, columns):
+    """(cap,) bool selection + columns -> (outputs, count): for each column
+    a new contiguous tensor of its shape and dtype whose first ``count``
+    rows are the selected rows in order (rows past the count unspecified),
+    and ``count`` the number of selected rows as a 0-d int32 on the device.
+
+    A column is a (cap,) tensor of 1, 2, 4 or 8-byte elements at any stride
+    (bool columns move as bytes) or a (cap, C) uint8 matrix whose rows are
+    contiguous; any cap works. One kernel launch compacts up to
+    ``FC_MAX_COLUMNS`` columns (wider batches take one more launch for each
+    further group), with no torch pass between launches and nothing read
+    on the host."""
+    columns = list(columns)
+    _require(sel.ndim == 1 and sel.dtype == torch.bool,
+             "sel must be (cap,) bool")
+    cap = sel.shape[0]
+    widths = [_fc_width(c, cap) for c in columns]
+    if _on_cpu([sel] + columns):
+        return filter_compact_columns_plain(sel, columns)
+    _require(sel.stride(0) == 1 or cap <= 1, "sel must be contiguous")
+    _require(cap < (1 << 31), "counts are int32: cap must be < 2^31")
+    dev = sel.device
+    outs = [torch.empty(c.shape, dtype=c.dtype, device=dev) for c in columns]
+    if cap == 0:
+        return outs, torch.zeros((), dtype=torch.int32, device=dev)
+    lib = _lib()
+    count = torch.empty((), dtype=torch.int32, device=dev)
+    tiles = -(-cap // FC_TILE_ROWS)
+    launches = max(1, -(-len(columns) // FC_MAX_COLUMNS))
+    starts = torch.empty((tiles,), dtype=torch.int32, device=dev) \
+        if launches > 1 else None
+    desc = struct.pack(f"<{4 * len(columns)}q", *[
+        v for c, o, w in zip(columns, outs, widths)
+        for v in (c.data_ptr(), o.data_ptr(), c.stride(0) * c.element_size(),
+                  w)])
+    ctx, stream = _device_stream(dev)
+    scratch, epoch, base, reset = _fc_scratch_for(dev, stream, tiles)
+    with ctx:
+        rc = lib.atp_filter_compact(
+            sel.data_ptr(), cap, desc, len(columns), count.data_ptr(),
+            scratch.data_ptr(), epoch, base, reset,
+            None if starts is None else starts.data_ptr(), stream)
+    if rc != 0:
+        _fc_scratch.pop((dev.index, stream), None)    # its state is unknown
+        _check_rc(rc, "filter_compact_columns")
+    LAUNCHES["filter_compact_chunks"] += launches
+    return outs, count
+
 
 def filter_compact_chunks_plain(sel: torch.Tensor,
                                 chunks: torch.Tensor) -> torch.Tensor:
-    """Plain version: one scatter of the selected rows to their ranks (the
-    dump row ``cap`` takes the rest). Rows past the count are zero."""
-    cap, C = chunks.shape
-    dst = torch.where(sel, torch.cumsum(sel, 0) - 1, cap)
-    out = chunks.new_zeros((cap + 1, C))
-    out.index_copy_(0, dst, chunks)
-    return out[:cap]
+    """Plain version of the one-matrix form (rows past the count zero)."""
+    return filter_compact_columns_plain(sel, [chunks])[0][0]
 
 
 def filter_compact_chunks(sel: torch.Tensor,
                           chunks: torch.Tensor) -> torch.Tensor:
     """(cap,) bool selection + (cap, C) u8 byte planes -> (cap, C) u8 with
     the selected rows packed to the front in order; rows past the count
-    are unspecified (callers track the count). Any cap works.
-
-    C is the byte width of all fixed-width columns side by side, so one
-    pass compacts every column at once."""
+    are unspecified (callers track the count). Any cap works. The TPU
+    function's form: ``filter_compact_columns`` with one column C bytes
+    wide."""
     _require(chunks.ndim == 2 and chunks.dtype == torch.uint8,
              "chunks must be (cap, C) uint8")
     _require(sel.shape == chunks.shape[:1] and sel.dtype == torch.bool,
              "sel must be (cap,) bool")
-    if _on_cpu((sel, chunks)):
-        return filter_compact_chunks_plain(sel, chunks)
-    _require(sel.is_contiguous() and chunks.is_contiguous(),
-             "filter_compact_chunks needs contiguous tensors")
-    lib = _lib()
-    cap, C = chunks.shape
-    dev = chunks.device
-    tile = lib.atp_fc_tile_rows()
-    counts = torch.empty((-(-cap // tile),), dtype=torch.int32, device=dev)
-    out = torch.empty_like(chunks)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _check_rc(lib.atp_fc_count(sel.data_ptr(), cap, counts.data_ptr(),
-                                   stream), "filter_compact_chunks count")
-        starts = torch.cumsum(counts, 0, dtype=torch.int64) - counts
-        _check_rc(lib.atp_fc_scatter(sel.data_ptr(), chunks.data_ptr(),
-                                     out.data_ptr(), cap, C,
-                                     starts.data_ptr(), stream),
-                  "filter_compact_chunks scatter")
-    LAUNCHES["filter_compact_chunks"] += 1
+    (out,), _ = filter_compact_columns(sel, [chunks])
     return out
 
 
@@ -295,8 +412,8 @@ def tile_compact_local(sel: torch.Tensor):
     dev = sel.device
     loc = torch.empty((cap,), dtype=torch.int32, device=dev)
     counts = torch.empty((cap // TILE_ROWS,), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    ctx, stream = _device_stream(dev)
+    with ctx:
         _check_rc(lib.atp_tile_compact_local(
             sel.data_ptr(), cap, loc.data_ptr(), counts.data_ptr(), stream),
             "tile_compact_local")
@@ -351,8 +468,8 @@ def tile_stitch(loc: torch.Tensor, counts: torch.Tensor,
     lib = _lib()
     dev = loc.device
     indices = torch.empty((out_cap,), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    ctx, stream = _device_stream(dev)
+    with ctx:
         _check_rc(lib.atp_tile_stitch(
             loc.data_ptr(), counts.data_ptr(), starts.data_ptr(), T, out_cap,
             indices.data_ptr(), stream), "tile_stitch")
@@ -596,8 +713,8 @@ def dense_group_reduce(gid, inputs, kinds: tuple, G: int, valid=None):
         outs_of.append([torch.empty((G,), dtype=_dg_dtype(k), device=dev)
                         for _ in range(no)])
         ij += ni
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    ctx, stream = _device_stream(dev)
+    with ctx:
         for gi, group in enumerate(_dg_launch_groups(kinds, G)):
             nk = len(group)
             codes = (ctypes.c_int * nk)(*[_DG_KINDS[kinds[i]] for i in group])
@@ -660,8 +777,8 @@ def partition_histogram(dest: torch.Tensor, P: int) -> torch.Tensor:
              "tensor")
     lib = _lib()
     out = torch.empty((P,), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    ctx, stream = _device_stream(dev)
+    with ctx:
         _check_rc(lib.atp_partition_histogram(
             dest.data_ptr(), n, P, out.data_ptr(), stream),
             "partition_histogram")
@@ -737,8 +854,8 @@ def pack_key_lanes(lanes, lo, span, shift, active=None):
     ptrs = (ctypes.c_int64 * L)(*[x.data_ptr() for x in lanes])
     strides = (ctypes.c_int64 * L)(*[x.stride(0) for x in lanes])
     lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    ctx, stream = _device_stream(dev)
+    with ctx:
         _check_rc(lib.atp_pack_key_lanes(
             ptrs, strides, L, lo.data_ptr(), span.data_ptr(),
             shift.data_ptr(), None if active is None else active.data_ptr(),

@@ -5,10 +5,10 @@ counterpart of the JAX package's ``ops/selection.py``, with its two kernel
 routes under their JAX names:
 
   * ``impl="dma"`` (``filter_batch``'s default): a fixed-width batch filters
-    in ONE pass of the stream-compaction kernel
-    (``cuda_kernels.filter_compact_chunks``): every column's bytes sit side
-    by side as (cap, C) u8 planes and compact together (the JAX package's
-    ``_filter_batch_dma`` path).
+    in ONE launch of the stream-compaction kernel
+    (``cuda_kernels.filter_compact_columns``), which takes every column
+    and validity as it lies and gives the selected count (the JAX
+    package's ``_filter_batch_dma`` path, without its byte planes).
   * ``impl="pallas"``: take indices, then ``take_batch``.
     ``get_take_indices`` compacts each 1024-row tile of the selection with
     ``cuda_kernels.tile_compact_local`` (level 1) and stitches the tiles
@@ -35,7 +35,7 @@ from ..core import datatype as dt
 from ..core.array import Array
 from ..core.batch import Batch
 from ..compute.registry import Kind, NullHandling, register_function
-from .cuda_kernels import TILE_ROWS, filter_compact_chunks, \
+from .cuda_kernels import TILE_ROWS, filter_compact_columns, \
     tile_compact_local, tile_stitch
 from .bits import as_signed_bits, gather_rows
 from .kernel_utils import to_storage
@@ -178,59 +178,36 @@ def filter_array(values: Array, mask: Array,
                       get_take_indices(mask, opts.null_selection_behavior))
 
 
-_TILE = 256  # the JAX kernel's tile: capacities pad to it, as there
-
-
-def _filter_batch_chunks(b: Batch, mask: Array,
-                         null_selection: str) -> Batch:
-    """Single-pass compaction (JAX ``_filter_batch_dma``): every column's
-    values (and validity, where there is one or nulls are emitted) become
-    u8 planes side by side, ONE kernel pass compacts them all, and the
-    planes view back as columns."""
-    cap = b.capacity
-    dev = b.device
-    sel, emit_valid, out_len = _selection_mask(mask, null_selection)
-    if cap == 0:
-        return b.with_length(out_len)
-    pad = (-cap) % _TILE
-    planes = []
-    layout = []  # (col, kind, n_bytes, dtype)
-    for i in range(b.num_columns):
-        a = b.column(i)
+def _filter_batch_columns(b: Batch, mask: Array,
+                          null_selection: str) -> Batch:
+    """Single-pass compaction (JAX ``_filter_batch_dma``): ONE kernel
+    launch compacts every column's values (bool as bytes) and validity
+    (where there is one or nulls are emitted) as they lie, and gives the
+    selected count; no byte planes are packed or unpacked."""
+    sel, emit_valid, _ = _selection_mask(mask, null_selection, count=False)
+    if b.capacity == 0:
+        return b.with_length(torch.zeros((), dtype=torch.int32,
+                                         device=sel.device))
+    columns, has_validity = [], []
+    for a in b.arrays:
         v = a.values
-        if v.dtype == torch.bool:
-            v = v.to(torch.uint8)
-        pl8 = v.contiguous().view(torch.uint8).reshape(cap, -1)
-        planes.append(pl8)
-        layout.append((i, "values", pl8.shape[1], a.values.dtype))
+        columns.append(v.view(torch.uint8) if v.dtype == torch.bool else v)
         validity = a.validity
-        if validity is not None or emit_valid is not None:
-            vv = validity if validity is not None else \
-                torch.ones((cap,), dtype=torch.bool, device=dev)
-            if emit_valid is not None:
-                vv = vv & emit_valid
-            planes.append(vv.to(torch.uint8)[:, None])
-            layout.append((i, "validity", 1, torch.bool))
-    chunks = torch.cat(planes, dim=1)
-    if pad:
-        # tile-align by padding unselected rows; outputs slice back
-        sel = torch.cat([sel, torch.zeros((pad,), dtype=torch.bool,
-                                          device=dev)])
-        chunks = torch.cat([chunks, chunks.new_zeros((pad, chunks.shape[1]))])
-    out = filter_compact_chunks(sel, chunks)[:cap]
-
-    pos = 0
-    results = {}
-    for (i, kind, w, dtype) in layout:
-        piece = out[:, pos:pos + w]
-        pos += w
-        if dtype == torch.bool:
-            results[(i, kind)] = piece[:, 0].to(torch.bool)
-        else:
-            results[(i, kind)] = piece.contiguous().view(dtype).reshape(cap)
-    arrays = [Array(b.column(i).type, results[(i, "values")],
-                    results.get((i, "validity")), length=out_len)
-              for i in range(b.num_columns)]
+        if emit_valid is not None:
+            validity = emit_valid if validity is None \
+                else validity & emit_valid
+        if validity is not None:
+            columns.append(validity.view(torch.uint8))
+        has_validity.append(validity is not None)
+    outs, out_len = filter_compact_columns(sel, columns)
+    outs = iter(outs)
+    arrays = []
+    for a, valid in zip(b.arrays, has_validity):
+        values = next(outs)
+        if a.values.dtype == torch.bool:
+            values = values.view(torch.bool)
+        validity = next(outs).view(torch.bool) if valid else None
+        arrays.append(Array(a.type, values, validity, length=out_len))
     return Batch(b.schema, arrays, out_len, b.index)
 
 
@@ -238,7 +215,7 @@ def filter_batch(b: Batch, mask: Array,
                  options: Optional[FilterOptions] = None,
                  impl: str = "dma") -> Batch:
     """Rows of ``b`` where ``mask`` selects. ``impl`` names the route as the
-    JAX package does: "dma" compacts the byte planes in one kernel pass,
+    JAX package does: "dma" compacts the columns in one kernel launch,
     "pallas" builds take indices and gathers every column."""
     opts = options or FilterOptions()
     if impl == "pallas":
@@ -252,7 +229,7 @@ def filter_batch(b: Batch, mask: Array,
                 t, (dt.DictionaryType, dt.FixedSizeBinaryType)) or \
                 (isinstance(t, dt.DecimalType) and t.wide):
             raise NotImplementedError(f"filter_batch of {t}")
-    return _filter_batch_chunks(b, mask, opts.null_selection_behavior)
+    return _filter_batch_columns(b, mask, opts.null_selection_behavior)
 
 
 # ---- registry entries ---------------------------------------------------------

@@ -212,7 +212,7 @@ def main() -> int:
     layer(selection, "_selection_mask", "selection_mask")
     layer(selection, "tile_stitch", "B2b_tile_stitch")
     layer(selection, "take_batch", "take_batch")
-    layer(selection, "filter_compact_chunks", "B1_filter_compact_chunks")
+    layer(selection, "filter_compact_columns", "B1_filter_compact_columns")
     layer(HA, "probe_scalars", "probe")
     layer(nodes, "_host_probe", "probe_host_read")
     layer(HA, "consume", "consume")

@@ -47,8 +47,17 @@ Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py [--seed N]
 
+The filter kernel B1 (``filter_compact_columns``: one launch compacts a
+batch's columns as they lie) is held against its plain version first on
+synthetic calls (every column width in one launch, caps that end mid
+tile, misaligned and strided views, 70 columns in three launches, the
+one-matrix form ``filter_compact_chunks`` up to 100M x 20 B), then at every
+call paths 1, 1b, 3a, 5c, 6 and 6b make to it.
+
 Prints the card's name and power limit, one line per check, a JSON line
-``{"kernels": [...]}`` (the four kernels that stand for the JAX package's
+``{"paths": {...}}`` (each path's counted step: ms and peak device bytes;
+path 1 also its filter layer's device ms, the expression excluded), a JSON
+line ``{"kernels": [...]}`` (the four kernels that stand for the JAX package's
 Pallas kernels, the tile stitch and the join's key packing, which stand for
 passes it leaves to XLA) with each kernel's launches on its path's counted
 run and, at the arguments that path gave it, its error against the plain
@@ -61,7 +70,13 @@ their arguments under suffixed keys (``ms_path_3b``,
 joins make is held against the plain version too, and every call of path
 6's four kernels), and the dense group-by
 kernel also those of the twelve-stream call the earlier slices made
-(``ms_nine_kinds`` ...). Last comes
+(``ms_nine_kinds`` ...). B1's entries also carry, at each call,
+``device_ms`` (the calls queued behind a sleep: the card's time alone;
+``arrow_tpu_torch.bench_reductions.measure_filter`` times them), ``host_ms``
+(the host's time to issue one call), ``columns_index_ms`` (one ``c[sel]``
+per column; its ``library_ms`` is ``chunks[sel]`` on the columns packed as
+u8 planes side by side, the JAX caller's form) and ``widths`` (the bytes a
+row of each column). Last comes
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when there is no
 CUDA device or any check fails.
 """
@@ -76,6 +91,13 @@ import time
 
 import numpy as np
 
+try:
+    from arrow_tpu_torch.bench_reductions import (
+        HBM_BYTES_PER_S, check_filter, cuda_ms, fc_widths, measure_filter)
+except ImportError as e:
+    sys.exit(f"chip_smoke: arrow_tpu_torch not importable ({e}); run from "
+             "the repository root")
+
 N_ROWS = 100_000_000
 NUM_KEYS = 1000
 # f32 sums: atomics and numpy's float64 bincount add in other orders
@@ -89,7 +111,6 @@ MAX_GROUPS_GENERIC = 1 << 22
 # bincount in input order
 SUM64_RTOL = 1e-12      # times the sum of |v| in the group
 SUM64_ATOL = 1e-12
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
 # path 3
 NUM_KEYS_DIST = 1_000_000
 N_SHARDS = 8
@@ -118,20 +139,6 @@ BLOOM_LV_MIN = -1.0             # path 6b's probe filter keeps 84 % of rows
 def check(cond, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {msg}")
-
-
-def cuda_ms(torch, fn, reps: int) -> float:
-    """Mean device time of fn over reps runs, after one warm-up run."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def bound_ms(n_bytes: int) -> float:
@@ -199,19 +206,15 @@ def check_take_indices(torch, selection, Array, bool_type, sel,
           "equal to torch.nonzero")
 
 
-def check_filter(torch, ck, sel, chunks, label: str) -> float:
-    """Kernel vs plain version: same count, same first rows. Returns the
-    max abs error over the compared rows (0 when equal)."""
-    got = ck.filter_compact_chunks(sel, chunks)
-    want = ck.filter_compact_chunks_plain(sel, chunks)
+def check_filter_chunks(torch, ck, sel, chunks, label: str) -> None:
+    """The one-matrix form (``filter_compact_chunks``) vs its plain
+    version: the same first count rows."""
     n = int(sel.sum())
-    err = 0.0
-    if n:
-        err = float((got[:n].int() - want[:n].int()).abs().max())
-    check(err == 0, f"filter_compact_chunks {label}: rows differ")
+    check(torch.equal(ck.filter_compact_chunks(sel, chunks)[:n],
+                      ck.filter_compact_chunks_plain(sel, chunks)[:n]),
+          f"filter_compact_chunks {label}: rows differ")
     print(f"filter_compact_chunks {label}: cap={sel.shape[0]} "
           f"C={chunks.shape[1]} selected={n} equal")
-    return err
 
 
 def check_partition_hist(torch, ck, dest, P: int, label: str) -> float:
@@ -245,20 +248,28 @@ def partition_hist_cases(torch, n: int, P: int, gen, dev):
     yield "zipf", torch.searchsorted(cdf, u).clamp(max=P - 1).to(torch.int32)
 
 
-def measure_filter(torch, ck, sel, chunks, label: str) -> dict:
-    """filter_compact_chunks at the arguments a path gave it: compared with
-    its plain version, then timed beside it, the library call and the
-    bound."""
-    cap, C = chunks.shape
-    return {
-        "max_abs_err": check_filter(torch, ck, sel, chunks, label),
-        "ms": cuda_ms(torch, lambda: ck.filter_compact_chunks(sel, chunks),
-                      10),
-        "plain_ms": cuda_ms(
-            torch, lambda: ck.filter_compact_chunks_plain(sel, chunks), 3),
-        # selection and planes read once, the selected rows written once
-        "bound_ms": bound_ms(cap + cap * C + int(sel.sum()) * C),
-        "library_ms": cuda_ms(torch, lambda: chunks[sel], 3)}
+def layer_ms(torch, mod, name, fn) -> float:
+    """Run fn with ``mod.name`` bracketed by CUDA events on the current
+    stream; the summed device ms between them over every call."""
+    inner = getattr(mod, name)
+    spans = []
+
+    def timed(*a, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        try:
+            return inner(*a, **kw)
+        finally:
+            end.record()
+            spans.append((start, end))
+    setattr(mod, name, timed)
+    try:
+        fn()
+    finally:
+        setattr(mod, name, inner)
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in spans)
 
 
 def measure_tile_compact(torch, ck, sel, label: str) -> dict:
@@ -815,25 +826,71 @@ def main() -> int:
         if "registers" in line or "smem" in line or "spill" in line:
             print("  ptxas:", line.strip())
 
-    # ---- filter_compact_chunks against its plain version ---------------
+    # ---- B1 against its plain version ----------------------------------
     gen = torch.Generator(device=dev).manual_seed(args.seed)
+
+    def sel_cases(cap):
+        yield "half", torch.rand(cap, generator=gen, device=dev) < 0.5
+        yield "none", torch.zeros(cap, dtype=torch.bool, device=dev)
+        yield "all", torch.ones(cap, dtype=torch.bool, device=dev)
+
+    def column(cap, dtype):
+        """(cap,) random bits of a dtype (bool as 0 / 1)."""
+        raw = torch.randint(-(1 << 62), 1 << 62, (cap,), generator=gen,
+                            device=dev, dtype=torch.int64)
+        if dtype == torch.bool:
+            return raw > 0
+        size = torch.empty((), dtype=dtype).element_size()
+        return raw.view(torch.uint8).view(cap, 8)[:, :size].contiguous() \
+            .view(dtype).reshape(cap)
+
+    # the one-matrix form, the TPU function's contract
     for cap in (1000, 256 * 4096):
         chunks = torch.randint(0, 256, (cap, 20), generator=gen, device=dev,
                                dtype=torch.uint8)
-        for name, sel in (
-                ("half", torch.rand(cap, generator=gen, device=dev) < 0.5),
-                ("none", torch.zeros(cap, dtype=torch.bool, device=dev)),
-                ("all", torch.ones(cap, dtype=torch.bool, device=dev))):
-            check_filter(torch, ck, sel, chunks, name)
+        for name, sel in sel_cases(cap):
+            check_filter_chunks(torch, ck, sel, chunks, name)
+    # the column form: every width in one launch, caps that end mid tile
+    fc_dtypes = (torch.int8, torch.uint8, torch.int16, torch.uint16,
+                 torch.float16, torch.int32, torch.uint32, torch.float32,
+                 torch.int64, torch.uint64, torch.float64, torch.bool)
+    for cap in (1, 4097, (1 << 20) + 3):
+        cols = [column(cap, t) for t in fc_dtypes] + [torch.randint(
+            0, 256, (cap, 20), generator=gen, device=dev,
+            dtype=torch.uint8)]
+        for name, sel in sel_cases(cap):
+            before = ck.LAUNCHES["filter_compact_chunks"]
+            check_filter(torch, ck, sel, cols, f"every width, {name}")
+            check(ck.LAUNCHES["filter_compact_chunks"] == before + 1,
+                  "filter_compact_columns: one launch for 13 columns")
+    # views off the 16-byte grid and strided; more columns than a launch
+    cap = (1 << 20) + 3
+    base = torch.rand(cap + 16, generator=gen, device=dev) < 0.5
+    mat = torch.randint(0, 256, (cap, 24), generator=gen, device=dev,
+                        dtype=torch.uint8)
+    wide = column(3 * cap + 16, torch.int64)
+    check_filter(torch, ck, base[3:3 + cap],
+                 [wide[3:3 + cap], wide[::3][:cap].view(torch.float64),
+                  column(2 * cap, torch.int32)[1::2], mat[:, 3:11],
+                  mat[:, 5], base[5:5 + cap]], "views")
+    before = ck.LAUNCHES["filter_compact_chunks"]
+    check_filter(torch, ck, base[:cap],
+                 [column(cap, fc_dtypes[i % 12]) for i in range(70)],
+                 "70 columns")
+    check(ck.LAUNCHES["filter_compact_chunks"] == before + 3,
+          "filter_compact_columns: 70 columns in 3 launches")
+    del cols, base, mat, wide
+    # the one-matrix form at 100M x 20 B
     cap = N_ROWS
     chunks = torch.randint(0, 256, (cap, 20), generator=gen, device=dev,
                            dtype=torch.uint8)
-    for name, sel in (("none", torch.zeros(cap, dtype=torch.bool,
-                                           device=dev)),
-                      ("all", torch.ones(cap, dtype=torch.bool,
-                                         device=dev))):
-        check_filter(torch, ck, sel, chunks, name)
+    for name, sel in sel_cases(cap):
+        check_filter_chunks(torch, ck, sel, chunks, name)
+        if name == "half":
+            fc_matrix = measure_filter(torch, ck, sel, [chunks],
+                                       "one matrix 100M x 20 B, half")
     del chunks, sel
+    torch.cuda.empty_cache()
 
     # ---- tile_compact_local and tile_stitch against their plain versions
     padded = N_ROWS + (-N_ROWS) % ck.TILE_ROWS
@@ -942,6 +999,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- path 1: arrow_tpu_torch.entry.entry ----------------------------
+    paths = {}      # each path's counted run: step ms and peak bytes
     t0 = time.time()
     cols = example_columns(N_ROWS, NUM_KEYS, args.seed)
     step, (b,) = entry_mod.entry(dev, N_ROWS, NUM_KEYS, args.seed)
@@ -967,6 +1025,7 @@ def main() -> int:
     print(f"path 1: {N_ROWS} rows in {secs * 1e3:.3f} ms = "
           f"{N_ROWS / secs:.6g} rows/s; {n_groups} groups match the numpy "
           f"oracle; peak device memory {peak} B; launches {launches}")
+    paths["path 1"] = {"ms": secs * 1e3, "peak_bytes": peak}
     del out, cols
 
     # one more run, recording the arguments each kernel gets on the path
@@ -991,14 +1050,26 @@ def main() -> int:
         seen.clear()
         seen_calls.clear()
 
-    recorded(selection, "filter_compact_chunks", lambda: recorded(
+    # the function in ``selection`` that launches each kernel, where its
+    # name is not the kernel's
+    wrapper = {"filter_compact_chunks": "filter_compact_columns"}
+
+    recorded(selection, "filter_compact_columns", lambda: recorded(
         hash_aggregate, "dense_group_reduce", lambda: step(b)))
+    # and one with the filter layer (expression excluded) between events
+    paths["path 1"]["filter_layer_ms"] = layer_ms(
+        torch, entry_mod, "filter_batch", lambda: step(b))
+    print(f"path 1 filter layer: {paths['path 1']['filter_layer_ms']:.3f} "
+          "ms")
     del b, step
 
     # ---- path 1's kernels at its shapes: error, times, bound ------------
-    sel, chunks = seen["filter_compact_chunks"]
-    fc = measure_filter(torch, ck, sel, chunks, "path 1 shape")
-    del sel, chunks
+    sel, columns = seen["filter_compact_columns"]
+    check(fc_widths(columns) == [8, 4, 8],
+          f"path 1 gave B1 columns of {fc_widths(columns)} bytes, not its "
+          "k, v and w as they are")
+    fc = measure_filter(torch, ck, sel, columns, "path 1 shape")
+    del sel, columns
     gid, inputs, kinds, G, valid = seen["dense_group_reduce"]
     check(isinstance(gid, ck.DenseKey) and
           kinds == ("first_row", "sum", "min", "sum64", "min64") and
@@ -1084,6 +1155,7 @@ def main() -> int:
           f"{N_ROWS / secs:.6g} rows/s; route {route}; {n_groups} groups "
           f"match the numpy oracle; peak device memory {peak} B; launches "
           f"{launches2}")
+    paths["path 2"] = {"ms": secs * 1e3, "peak_bytes": peak}
     del b, step
 
     # ---- path 2's kernels at its shape: error, times, bound -------------
@@ -1152,19 +1224,21 @@ def main() -> int:
           f"{secs * 1e3:.3f} ms = {N_ROWS / secs:.6g} rows/s; {n_groups} "
           f"groups match the numpy oracle, each on the one shard its hash "
           f"names; peak device memory {peak} B; launches {launches3}")
+    paths["path 3a"] = {"ms": secs * 1e3, "peak_bytes": peak}
     del table
 
     # one more run, recording what the last shard's kernels get; then both
     # kernels at those arguments: error, times, bound
-    recorded(selection, "filter_compact_chunks", lambda: recorded(
+    recorded(selection, "filter_compact_columns", lambda: recorded(
         shuffle, "partition_histogram", lambda: step(b)))
     del step
-    sel, chunks = seen["filter_compact_chunks"]
-    # the planes are padded to whole tiles of rows
-    check(chunks.shape[0] >= N_ROWS // N_SHARDS and chunks.shape[1] == 24,
-          f"path 3a: a shard's filter planes are {tuple(chunks.shape)}")
-    fc3a = measure_filter(torch, ck, sel, chunks, "path 3a shape")
-    del sel, chunks
+    sel, columns = seen["filter_compact_columns"]
+    check(sel.shape[0] >= N_ROWS // N_SHARDS and
+          sum(fc_widths(columns)) == 24,
+          f"path 3a: a shard's filter columns are {fc_widths(columns)} "
+          f"bytes over {sel.shape[0]} rows")
+    fc3a = measure_filter(torch, ck, sel, columns, "path 3a shape")
+    del sel, columns
     dest, P = seen["partition_histogram"]
     check(dest.shape[0] == MAX_GROUPS_PER_SHARD and P == N_SHARDS,
           f"path 3a: the exchange counts {dest.shape[0]} rows over {P}")
@@ -1228,6 +1302,7 @@ def main() -> int:
           f"count and column sums kept, every row on shard hash(k) % "
           f"{N_SHARDS_RAW}, no error flag; peak device memory {peak} B; "
           f"launches {launches3b}")
+    paths["path 3b"] = {"ms": secs * 1e3, "peak_bytes": peak}
     del out, rb, k, cols
     torch.cuda.empty_cache()
 
@@ -1295,7 +1370,9 @@ def main() -> int:
         for name in must_launch:
             check(counts[name] > 0,
                   f"{name} was not launched on {label}'s run")
-        return res, secs, counts, torch.cuda.max_memory_allocated()
+        peak = torch.cuda.max_memory_allocated()
+        paths[label] = {"ms": secs * 1e3, "peak_bytes": peak}
+        return res, secs, counts, peak
 
     t0 = time.time()
     cols = example_columns_sort(N_ROWS, NUM_KEYS_SORT, args.seed)
@@ -1440,11 +1517,12 @@ def main() -> int:
         def run(names=must):
             if not names:
                 return step(bb, pb)
-            return recorded(selection, names[0], lambda: run(names[1:]))
+            return recorded(selection, wrapper.get(names[0], names[0]),
+                            lambda: run(names[1:]))
         run()
         del bb, pb, step
         for kname in must:
-            calls = seen_calls[kname]
+            calls = seen_calls[wrapper.get(kname, kname)]
             check(len(calls) == counts[kname],
                   f"{label}: {len(calls)} recorded calls of {kname}, "
                   f"{counts[kname]} launches")
@@ -1452,11 +1530,6 @@ def main() -> int:
                 at = f"{label} shape" + (f", call {i + 1}" if i else "")
                 if kname == "filter_compact_chunks":
                     m = measure_filter(torch, ck, *a, at)
-                    print(f"filter_compact_chunks {at}: planes "
-                          f"{tuple(a[1].shape)}, {m['ms']:.3f} ms, bound "
-                          f"{m['bound_ms']:.3f} ms, plain "
-                          f"{m['plain_ms']:.3f} ms, chunks[sel] "
-                          f"{m['library_ms']:.3f} ms")
                 elif kname == "tile_compact_local":
                     m = measure_tile_compact(torch, ck, *a, at)
                 else:
@@ -1537,15 +1610,16 @@ def main() -> int:
     # one more run, recording every call of the four kernels; each call
     # against its plain version, one full 2^22-row call of each timed
     forget()
-    recorded(selection, "filter_compact_chunks", lambda: recorded(
+    recorded(selection, "filter_compact_columns", lambda: recorded(
         selection, "tile_compact_local", lambda: recorded(
             selection, "tile_stitch", lambda: recorded(
                 join_mod, "pack_key_lanes", lambda: step(*tables)))))
     for kname in q3_kernels:
-        check(len(seen_calls[kname]) == launches6[kname],
-              f"path 6: {len(seen_calls[kname])} recorded calls of {kname}, "
+        n_calls = len(seen_calls[wrapper.get(kname, kname)])
+        check(n_calls == launches6[kname],
+              f"path 6: {n_calls} recorded calls of {kname}, "
               f"{launches6[kname]} launches")
-    for a in seen_calls["filter_compact_chunks"]:
+    for a in seen_calls["filter_compact_columns"]:
         check_filter(torch, ck, *a, "path 6 call")
     for (sel,) in seen_calls["tile_compact_local"]:
         check_tile_compact(torch, ck, sel, "path 6 call")
@@ -1558,12 +1632,9 @@ def main() -> int:
     def full(calls, rows_of):
         """The last call whose rows are a whole 2^22-row batch."""
         return [a for a in calls if rows_of(a) == Q3_BATCH_ROWS][-1]
-    sel, chunks = full(seen_calls["filter_compact_chunks"],
-                       lambda a: a[0].shape[0])
-    fc6 = measure_filter(torch, ck, sel, chunks, "path 6 shape")
-    print(f"filter_compact_chunks path 6 shape: planes {tuple(chunks.shape)}, "
-          f"{fc6['ms']:.3f} ms, bound {fc6['bound_ms']:.3f} ms, plain "
-          f"{fc6['plain_ms']:.3f} ms, chunks[sel] {fc6['library_ms']:.3f} ms")
+    sel, columns = full(seen_calls["filter_compact_columns"],
+                        lambda a: a[0].shape[0])
+    fc6 = measure_filter(torch, ck, sel, columns, "path 6 shape")
     (sel,) = full(seen_calls["tile_compact_local"], lambda a: a[0].shape[0])
     tc6 = measure_tile_compact(torch, ck, sel, "path 6 shape")
     ts6 = measure_tile_stitch(torch, ck, *full(
@@ -1581,7 +1652,7 @@ def main() -> int:
            "library_ms": None}
     print(f"pack_key_lanes path 6 shape: L={len(lanes)} {pk6['ms']:.3f} ms, "
           f"bound {pk6['bound_ms']:.3f} ms, plain {pk6['plain_ms']:.3f} ms")
-    del sel, chunks, lanes, active, tables, step, qcols
+    del sel, columns, lanes, active, tables, step, qcols
     forget()
     torch.cuda.empty_cache()
 
@@ -1639,16 +1710,12 @@ def main() -> int:
           f"rows/s; {n_out} output rows match the numpy oracle as a "
           f"multiset; peak device memory {peak} B; launches {launches6b}")
     del table6b, bcols, pcols
-    recorded(selection, "filter_compact_chunks", join_6b)
-    calls = seen_calls["filter_compact_chunks"]
+    recorded(selection, "filter_compact_columns", join_6b)
+    calls = seen_calls["filter_compact_columns"]
     for a in calls:
         check_filter(torch, ck, *a, "path 6b call")
     # the calls alternate: a batch's filter, then its Bloom split
     fc6b = measure_filter(torch, ck, *calls[1], "path 6b Bloom split shape")
-    print(f"filter_compact_chunks path 6b Bloom split shape: planes "
-          f"{tuple(calls[1][1].shape)}, {fc6b['ms']:.3f} ms, bound "
-          f"{fc6b['bound_ms']:.3f} ms, plain {fc6b['plain_ms']:.3f} ms, "
-          f"chunks[sel] {fc6b['library_ms']:.3f} ms")
     del calls, probe_t, build_t
     forget()
     torch.cuda.empty_cache()
@@ -1689,6 +1756,8 @@ def main() -> int:
     kernels[2]["take_indices_ms"] = ti_ms
     kernels[4]["host_ms"] = ph["host_ms"]
     also(kernels[0], "path_3a", fc3a, launches3["filter_compact_chunks"])
+    also(kernels[0], "one_matrix_100M", fc_matrix)
+    kernels[0]["filter_layer_ms_path_1"] = paths["path 1"]["filter_layer_ms"]
     also(kernels[4], "path_3b", ph3b, launches3b["partition_histogram"])
     also(kernels[4], "send_8_shards", ph8)
     def suffix_of(label):
@@ -1712,6 +1781,7 @@ def main() -> int:
             if counts[kernel["name"]] and not (
                     label == "path 5a" and kernel["name"] == "pack_key_lanes"):
                 kernel[f"launches_{suffix}"] = counts[kernel["name"]]
+    print(json.dumps({"paths": paths}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -38,6 +38,196 @@ def test_filter_compact_chunks_kernel_vs_plain(cuda_device, cap, C, p):
     assert torch.equal(got[:n], want[:n])
 
 
+_FC_DTYPES = [torch.int8, torch.uint8, torch.int16, torch.uint16,
+              torch.float16, torch.int32, torch.uint32, torch.float32,
+              torch.int64, torch.uint64, torch.float64, torch.bool]
+
+
+def _fc_column(g, dev, cap, dtype):
+    """(cap,) random bits of a dtype (bool as 0 / 1)."""
+    raw = torch.randint(-(1 << 62), 1 << 62, (cap,), generator=g,
+                        device=dev, dtype=torch.int64)
+    if dtype == torch.bool:
+        return raw > 0
+    size = torch.empty((), dtype=dtype).element_size()
+    return raw.view(torch.uint8).view(cap, 8)[:, :size].contiguous() \
+        .view(dtype).reshape(cap)
+
+
+def _fc_check(sel, columns, launches=1):
+    """filter_compact_columns against its plain version: the count, and
+    every column's first count rows byte for byte; ``launches`` kernel
+    launches."""
+    before = ck.LAUNCHES["filter_compact_chunks"]
+    outs, count = ck.filter_compact_columns(sel, columns)
+    assert ck.LAUNCHES["filter_compact_chunks"] == before + launches
+    want, want_count = ck.filter_compact_columns_plain(sel, columns)
+    n = int(want_count)
+    assert count.dtype == torch.int32 and count.shape == () and \
+        count.device == sel.device
+    assert int(count) == n == int(sel.sum())
+    for got, w, c in zip(outs, want, columns):
+        assert got.dtype == c.dtype and got.shape == c.shape and \
+            got.is_contiguous()
+        assert torch.equal(got[:n].view(torch.uint8), w[:n].view(torch.uint8))
+    return outs, count
+
+
+@pytest.mark.parametrize("p", [0.0, 0.03, 0.5, 1.0])
+@pytest.mark.parametrize("cap", [1, 15, 17, 4095, 4097, 100_003, 1 << 20])
+def test_filter_compact_columns_every_width_in_one_launch(cuda_device, cap,
+                                                          p):
+    g = torch.Generator(device=cuda_device).manual_seed(cap)
+    sel = torch.rand(cap, generator=g, device=cuda_device) < p
+    columns = [_fc_column(g, cuda_device, cap, t) for t in _FC_DTYPES]
+    for C in (20, 7, 3, 16):        # the one-matrix form, any row width
+        columns.append(torch.randint(0, 256, (cap, C), generator=g,
+                                     dtype=torch.uint8, device=cuda_device))
+    _fc_check(sel, columns)
+
+
+def test_filter_compact_columns_wide_rows(cuda_device):
+    """Rows of up to 1025 copy units (more than a block has threads)."""
+    cap = 20_003
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    sel = torch.rand(cap, generator=g, device=cuda_device) < 0.5
+    columns = [torch.randint(0, 256, (cap, C), generator=g,
+                             dtype=torch.uint8, device=cuda_device)
+               for C in (600, 1025, 4100, 513)]
+    _fc_check(sel, columns)
+
+
+@pytest.mark.parametrize("n_cols", [33, 70])
+def test_filter_compact_columns_more_than_k_columns(cuda_device, n_cols):
+    cap = 100_003
+    g = torch.Generator(device=cuda_device).manual_seed(n_cols)
+    sel = torch.rand(cap, generator=g, device=cuda_device) < 0.4
+    columns = [_fc_column(g, cuda_device, cap,
+                          _FC_DTYPES[i % len(_FC_DTYPES)])
+               for i in range(n_cols)]
+    _fc_check(sel, columns, launches=-(-n_cols // ck.FC_MAX_COLUMNS))
+
+
+@pytest.mark.parametrize("off", [1, 4, 9])
+def test_filter_compact_columns_takes_misaligned_and_strided_views(
+        cuda_device, off):
+    cap = 100_003
+    g = torch.Generator(device=cuda_device).manual_seed(off)
+    sel = (torch.rand(cap + 16, generator=g, device=cuda_device) < 0.5)[
+        off:off + cap]
+    assert sel.data_ptr() % 16 != 0
+    i64 = _fc_column(g, cuda_device, cap + 16, torch.int64)
+    i32 = _fc_column(g, cuda_device, 3 * cap, torch.int32)
+    mat = torch.randint(0, 256, (cap, 24), generator=g, dtype=torch.uint8,
+                        device=cuda_device)
+    f64 = _fc_column(g, cuda_device, 2 * cap, torch.float64).view(cap, 2)
+    b = _fc_column(g, cuda_device, cap + 16, torch.bool)
+    columns = [i64[off:off + cap], i32[::3], mat[:, off:off + 8],
+               mat[:, off], f64[:, 1], b[off:off + cap],
+               mat[:, 3:3 + 5 + off]]
+    _fc_check(sel, columns)
+
+
+@pytest.mark.parametrize("pattern", ["all", "none", "alternating",
+                                     "last_tile"])
+def test_filter_compact_columns_past_30000_tiles(cuda_device, pattern):
+    cap = 1 << 28
+    rows = torch.arange(cap, device=cuda_device)
+    sel = {"all": rows >= 0, "none": rows < 0,
+           "alternating": rows % 2 == 1,
+           "last_tile": rows >= cap - 3000}[pattern]
+    assert cap // ck.FC_TILE_ROWS > 30_000
+    val = rows.to(torch.int32)
+    _fc_check(sel, [val, (rows % 3 == 0)])
+
+
+def test_filter_compact_columns_back_to_back_calls_reuse_the_scratch(
+        cuda_device):
+    """100 calls on one stream with no synchronisation between them, of
+    sizes that grow and shrink the scratch, then every result checked."""
+    g = torch.Generator(device=cuda_device).manual_seed(100)
+    ck._fc_scratch.clear()
+    calls = []
+    before = ck.LAUNCHES["filter_compact_chunks"]
+    for i in range(100):
+        cap = (1000, 1 << 20, 4097, 1 << 22, 77)[i % 5] + i
+        sel = torch.rand(cap, generator=g, device=cuda_device) < \
+            (i % 7) / 6
+        cols = [_fc_column(g, cuda_device, cap, torch.int64),
+                _fc_column(g, cuda_device, cap, torch.bool)]
+        calls.append((sel, cols, ck.filter_compact_columns(sel, cols)))
+    assert ck.LAUNCHES["filter_compact_chunks"] == before + 100
+    for sel, cols, (outs, count) in calls:
+        want, want_count = ck.filter_compact_columns_plain(sel, cols)
+        n = int(want_count)
+        assert int(count) == n
+        for got, w in zip(outs, want):
+            assert torch.equal(got[:n], w[:n])
+
+
+def test_filter_compact_columns_epoch_wrap(cuda_device):
+    """The scratch at the epoch's wrap: cleared, epoch 1 again, and the
+    calls after it still right."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    cap = 1 << 20
+
+    def call():
+        sel = torch.rand(cap, generator=g, device=cuda_device) < 0.3
+        _fc_check(sel, [_fc_column(g, cuda_device, cap, torch.float32)])
+    call()
+    key = (cuda_device.index or 0,
+           torch.cuda.current_stream(cuda_device).cuda_stream)
+    ck._fc_scratch[key][1] = ck._FC_EPOCHS - 3
+    for _ in range(5):
+        call()
+    assert ck._fc_scratch[key][1] == 3
+
+
+def test_filter_batch_on_card_matches_cpu(cuda_device):
+    """filter_batch over every fixed-width storage type, with and without
+    validity, under DROP and EMIT_NULL, on the card and on the CPU."""
+    from arrow_tpu_torch.core import datatype as dt
+    from arrow_tpu_torch.core.array import Array
+    from arrow_tpu_torch.core.batch import Batch
+    from arrow_tpu_torch.core.schema import Field, Schema
+    from arrow_tpu_torch.ops import selection
+    types = [dt.int8, dt.uint8, dt.int16, dt.uint16, dt.float16, dt.int32,
+             dt.uint32, dt.float32, dt.int64, dt.uint64, dt.float64,
+             dt.bool_, dt.date32, dt.timestamp("us")]
+    cap, n = 100_003, 99_000
+    rng = np.random.default_rng(0)
+    fields, cols = [], []
+    for i, t in enumerate(types):
+        raw = rng.integers(0, 256, (cap, t.storage_np.itemsize),
+                           dtype=np.uint8)
+        vals = raw.view(t.storage_np).reshape(cap) if t != dt.bool_ \
+            else rng.random(cap) < 0.5
+        ok = rng.random(cap) < 0.8 if i % 2 else None
+        fields.append(Field(f"c{i}", t))
+        cols.append((t, vals, ok))
+    mvals, mok = rng.random(cap) < 0.5, rng.random(cap) < 0.9
+    res = []
+    for dev in ("cpu", cuda_device):
+        arrays = [Array(t, torch.from_numpy(v).to(dev),
+                        None if ok is None else torch.from_numpy(ok).to(dev),
+                        length=n) for t, v, ok in cols]
+        b = Batch(Schema(tuple(fields)), arrays, n)
+        mask = Array(dt.bool_, torch.from_numpy(mvals).to(dev),
+                     torch.from_numpy(mok).to(dev), length=n)
+        for behavior in ("drop", "emit_null"):
+            res.append(_host_columns(selection.filter_batch(
+                b, mask, selection.FilterOptions(behavior))))
+    for got, want in zip(res[2:], res[:2]):
+        for name, (a, a_ok) in got.items():
+            b, b_ok = want[name]
+            assert a.dtype == b.dtype and a.shape == b.shape, name
+            assert (a_ok is None) == (b_ok is None), name
+            if b_ok is not None:
+                np.testing.assert_array_equal(a_ok, b_ok, err_msg=name)
+            np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8),
+                                          err_msg=name)
+
+
 @pytest.mark.parametrize("cap,p", [(1024, 0.5), (1024, 0.0), (1024, 1.0),
                                    (1 << 20, 0.5), (1 << 20, 0.001),
                                    (1 << 20, 0.999), (3 * 1024, 0.3)])
@@ -361,6 +551,9 @@ def test_wrappers_refuse_mixed_devices(cuda_device):
     chunks = torch.zeros((8, 4), dtype=torch.uint8, device=cuda_device)
     with pytest.raises(ValueError):
         ck.filter_compact_chunks(sel, chunks)
+    with pytest.raises(ValueError):
+        ck.filter_compact_columns(sel.to(cuda_device), [chunks, chunks[:, 0]
+                                                        .cpu()])
     loc = torch.zeros(1024, dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError):
         ck.tile_stitch(loc, torch.zeros(1, dtype=torch.int32),
