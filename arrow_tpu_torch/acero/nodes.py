@@ -38,11 +38,14 @@ from ..ops.join import HashJoin
 from ..ops.kernel_utils import values_of
 from ..ops.selection import filter_batch, take_batch
 from ..ops.sorting import SortOptions, sort_indices_batch
+from ..parallel.dist_agg import DistGroupBy
+from ..parallel.dist_join import DistHashJoin
 from . import options as opts
 
 __all__ = ["ExecNode", "FACTORIES", "register_node_factory", "empty_batch",
-           "maybe_compact", "materialized_stream", "consume_routed",
-           "build_and_route", "host_ints", "batch_device_bytes"]
+           "compact_to_bucket", "maybe_compact", "materialized_stream",
+           "consume_routed", "build_and_route", "host_ints",
+           "batch_device_bytes"]
 
 FACTORIES: Dict[str, type] = {}
 
@@ -132,7 +135,13 @@ def maybe_compact(b: Batch, vals: Optional[list] = None) -> Batch:
             return b
     if getattr(b, "_compacted", False):
         return b
-    n = vals[0] if vals is not None else host_ints([b.length])[0]
+    return compact_to_bucket(
+        b, vals[0] if vals is not None else host_ints([b.length])[0])
+
+
+def compact_to_bucket(b: Batch, n: int) -> Batch:
+    """``b`` with its host length ``n``, sliced to the capacity bucket of
+    ``n`` where that is at most half its capacity; marked compacted."""
     target = min(pad_capacity(max(n, 1)), b.capacity)
     if target * 2 > b.capacity:
         out = b.with_length(n)
@@ -347,14 +356,13 @@ def _agg_name(spec) -> str:
 class AggregateNode(ExecNode):
     """``groupby_aggregate_node.cc`` (keyed) / ``scalar_aggregate_node.cc``
     (no keys). Keyed: ``consume_routed`` per batch, then finalize; a full
-    group table replays the stream at twice ``max_groups``."""
+    group table replays the stream at twice ``max_groups``. Keyed with
+    ``dist``: over the context's mesh (``_batches_dist``), where
+    ``max_groups`` bounds each shard's groups and nothing replays."""
 
     def __init__(self, options: opts.AggregateNodeOptions, inputs):
         super().__init__(options, inputs)
-        if getattr(options, "dist", None) is not None:
-            raise NotImplementedError(
-                "AggregateNodeOptions.dist: the distributed aggregate node "
-                "is ROADMAP queue item A4")
+        self._dist = getattr(options, "dist", None)
         self._in_schema = self.inputs[0].output_schema()
         self.ha = None
         if options.keys:
@@ -381,6 +389,9 @@ class AggregateNode(ExecNode):
     def batches(self) -> Iterator[Batch]:
         if self.ha is None:
             yield from self._batches_scalar()
+            return
+        if self._dist is not None:
+            yield from self._batches_dist()
             return
         # replay buffer for group-table overflow: batches are kept (refs,
         # no copies) up to a byte budget, so that an overflow re-runs at a
@@ -415,6 +426,29 @@ class AggregateNode(ExecNode):
                 f"AggregateNodeOptions.max_groups (currently "
                 f"{self._max_groups})")
         yield maybe_compact(self.ha.finalize(state).with_index(0))
+
+    def _batches_dist(self) -> Iterator[Batch]:
+        """Over the mesh: each input batch is split over the shards and
+        pre-aggregated there (``DistGroupBy.consume``), then one state-row
+        exchange and merge; aggregators whose state is not one row per
+        group concatenate the input and take ``DistContext.group_by``'s
+        raw-row shuffle. One batch per shard with groups."""
+        o = self.options
+        if self.ha.supports_state_exchange:
+            dgb = DistGroupBy(self._dist, self._in_schema, o.keys,
+                              o.aggregates, max_groups_per_shard=o.max_groups)
+            state = dgb.init_state()
+            for b in materialized_stream(self.inputs[0]):
+                state = dgb.consume(state, b)
+            table = dgb.finalize_table(state)
+        else:
+            accumulated = list(materialized_stream(self.inputs[0])) or \
+                [empty_batch(self._in_schema, device=self.device())]
+            table = self._dist.group_by(concat_batches(accumulated), o.keys,
+                                        o.aggregates,
+                                        max_groups_per_shard=o.max_groups)
+        for i, b in enumerate(table.batches):
+            yield b.with_index(i)
 
     def _batches_scalar(self) -> Iterator[Batch]:
         """Keyless aggregation. Streaming: every spec with a grouped
@@ -587,14 +621,19 @@ class HashJoinNode(ExecNode):
     """``hash_join_node.cc:700``: inputs[0] = probe (left), inputs[1] =
     build (right). The build side accumulates and builds once; probe
     batches stream through; right / full outer rows not matched come at the
-    end (``finish``)."""
+    end (``finish``). With ``dist``: over the context's mesh
+    (``_batches_dist``), without the Bloom pushdown."""
 
     def __init__(self, options: opts.HashJoinNodeOptions, inputs):
         super().__init__(options, inputs)
-        if getattr(options, "dist", None) is not None:
-            raise NotImplementedError(
-                "HashJoinNodeOptions.dist: the distributed join node is "
-                "ROADMAP queue item A4")
+        self._dist = getattr(options, "dist", None)
+        if self._dist is not None:
+            self._dhj = DistHashJoin(
+                self._dist, inputs[0].output_schema(),
+                inputs[1].output_schema(), options,
+                fanout_per_shard=options.fanout_capacity)
+            self.join = self._dhj.hj
+            return
         # Bloom pushdown (``hash_join_node.cc:499``; options.h:682
         # disable_bloom_filter): probe rows whose keys cannot be in the
         # build side are dropped (or, for left anti, emitted directly)
@@ -663,6 +702,9 @@ class HashJoinNode(ExecNode):
         return pos, self.join._rename(neg.select(self.join.left_out))
 
     def batches(self) -> Iterator[Batch]:
+        if self._dist is not None:
+            yield from self._batches_dist()
+            return
         budget = _spill_budget_bytes(self.join.options)
         build_batches = []
         build_bytes = 0
@@ -715,6 +757,28 @@ class HashJoinNode(ExecNode):
         tail = self.join.finish(bs)
         if tail is not None:
             yield tail.with_index(i)
+
+    def _batches_dist(self) -> Iterator[Batch]:
+        """Over the mesh (``parallel/dist_join``): the build batches
+        shuffle and accumulate per shard, one build per shard, the probe
+        batches stream through the co-partitioning shuffle; each shard's
+        output is a batch of its own, sliced to its capacity bucket (its
+        length is on the host already), and the tails come last."""
+        dhj = self._dhj
+        acc = dhj.init_build()
+        for b in materialized_stream(self.inputs[1]):
+            acc = dhj.consume_build(acc, b)
+        ps = dhj.finish_build(acc)
+        del acc
+        i = 0
+        for b in materialized_stream(self.inputs[0]):
+            outs, ps = dhj.probe(ps, b)
+            for ob in outs:
+                yield compact_to_bucket(ob.with_index(i), int(ob.length))
+                i += 1
+        for ob in dhj.finish(ps):
+            yield ob.with_index(i)
+            i += 1
 
 
 @register_node_factory("cross_join")

@@ -5,6 +5,7 @@ kernel and the merge's folds at the third slice's shapes.
     python -m arrow_tpu_torch.bench_reductions [--rows N] [--keys N]
                                                [--pack-lanes-only]
                                                [--filter-only]
+                                               [--hist-only]
 
 Sorts ``--rows`` int64 keys (half of them inactive) into runs as the
 grouper does and times, with CUDA events after a warm-up: the per-run
@@ -43,7 +44,15 @@ one-matrix form (``chunks_ms``, ``chunks_device_ms``): the form the
 filter layer called before the column form existed, so this script, run on
 an earlier tree (copied into it), times that tree's kernel at the same
 calls; there, with no ``filter_compact_columns``, only this form is timed.
-One line per primitive, then one JSON object. Needs a CUDA device; the
+``--hist-only`` times nothing but the histogram kernel B4
+(``partition_histogram``) at the calls the distributed paths make, through
+``measure_hist`` (which ``chip_smoke.py`` times B4 with too): the state-row
+exchange of path 3a (2^21 rows), one 2^19-row shard of a lineitem batch
+and the state-row exchange of path 7b, one 3,125,000-row shard of paths
+7c and 7d, and 100M rows; each compared once with its plain version, then
+``ms`` over ten back-to-back calls, ``device_ms`` the same queued behind a
+sleep (the card's time alone), ``host_ms``, the byte bound, the plain
+version and ``torch.bincount``. One line per primitive, then one JSON object. Needs a CUDA device; the
 numbers in ``PERF.md`` that name this script come from it.
 """
 
@@ -171,6 +180,58 @@ def measure_filter(torch, ck, sel, columns, label: str) -> dict:
     return m
 
 
+def measure_hist(torch, ck, dest, P: int, label: str) -> dict:
+    """B4 (``partition_histogram``) at the arguments a path gave it: equal
+    to its plain version (raises if not), then timed as ``measure_filter``
+    times B1: ``ms`` back to back, ``device_ms`` the card alone,
+    ``host_ms`` the host's time to issue one call; beside them the plain
+    version, ``torch.bincount`` (``library_ms``) and the bound (``dest``
+    read once, the P counts written once)."""
+    got = ck.partition_histogram(dest, P)
+    want = ck.partition_histogram_plain(dest, P)
+    if got.dtype != want.dtype or not torch.equal(got, want):
+        raise RuntimeError(f"check failed: partition_histogram {label}: "
+                           f"{got.tolist()} against {want.tolist()}")
+
+    def call():
+        return ck.partition_histogram(dest, P)
+    m = {"max_abs_err": 0.0,
+         "ms": cuda_ms(torch, call, 10),
+         "device_ms": cuda_ms(torch, call, 10, queued=True),
+         "host_ms": host_ms(torch, call),
+         "plain_ms": cuda_ms(
+             torch, lambda: ck.partition_histogram_plain(dest, P), 3),
+         "bound_ms": (4 * dest.shape[0] + 4 * P) / HBM_BYTES_PER_S * 1e3,
+         # dest holds P for the rows to drop: no negative value for bincount
+         "library_ms": cuda_ms(
+             torch, lambda: torch.bincount(dest, minlength=P), 3)}
+    print(f"partition_histogram {label}, n={dest.shape[0]} P={P} counted="
+          f"{int(want.sum())} equal: {m['ms']:.4f} ms, the card alone "
+          f"{m['device_ms']:.4f} ms ({m['host_ms']:.4f} ms of host a call), "
+          f"bound {m['bound_ms']:.4f} ms, plain {m['plain_ms']:.3f} ms, "
+          f"torch.bincount {m['library_ms']:.3f} ms")
+    return m
+
+
+def bench_hist(torch, ck, dev, gen, results) -> None:
+    """B4 at the distributed paths' calls; see the module's docstring."""
+    # (label, rows, P, share of the rows with a destination)
+    calls = [("path_3a_state_rows", 1 << 21, 8, 0.48),
+             ("path_7b_probe_shard", 1 << 19, 8, 0.59),
+             ("path_7b_state_rows", 1 << 21, 8, 0.6),
+             ("path_7c_probe_shard", 3_125_000, 8, 1.0),
+             ("path_7d_sort_shard", 3_125_000, 8, 1.0),
+             ("rows_100M", 100_000_000, 8, 1.0)]
+    for label, n, P, share in calls:
+        dest = torch.randint(0, P, (n,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        dest = torch.where(torch.rand(n, generator=gen, device=dev) < share,
+                           dest, P)
+        for k, v in measure_hist(torch, ck, dest, P, label).items():
+            results[f"hist_{label}_{k}"] = v
+        del dest
+
+
 def bench_filter(torch, ck, dev, gen, results) -> None:
     """B1 at the paths' calls; see the module's docstring."""
     def column(cap, width):
@@ -223,6 +284,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--pack-lanes-only", action="store_true")
     ap.add_argument("--filter-only", action="store_true")
+    ap.add_argument("--hist-only", action="store_true")
     args = ap.parse_args()
 
     import torch
@@ -259,6 +321,10 @@ def main() -> int:
     from .ops import cuda_kernels as ck
     if args.filter_only:
         bench_filter(torch, ck, dev, gen, results)
+        print(json.dumps(results))
+        return 0
+    if args.hist_only:
+        bench_hist(torch, ck, dev, gen, results)
         print(json.dumps(results))
         return 0
 

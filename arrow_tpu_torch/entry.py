@@ -39,6 +39,20 @@ finalizes.
     hashjoin -> hashjoin -> project -> aggregate -> order_by -> fetch)
     over multi-batch lineitem / orders / customer Tables, run by
     ``Declaration.to_table``. Its step returns the Table of the top 10.
+  * ``entry_q3_dist(device, n_shards, n_lineitem, seed, max_groups,
+    max_batch_rows)``: the same Declaration with ``dist=`` a context of
+    ``n_shards`` logical shards of ``device`` on both joins and the
+    aggregate, as the JAX package's dry run writes it.
+  * ``entry_dist_join(device, n_shards, n_build, n_probe, seed,
+    join_type)``: ``DistContext.join`` of ``entry_join``'s columns; its
+    step returns the Table, one batch per shard.
+  * ``entry_dist_sort(device, n_shards, n_rows, seed, num_keys,
+    bucket_factor)``: ``DistContext.sort_by`` of ``entry_sort``'s batch by
+    ``SORT_KEYS``, nulls at the end; its step returns the Table, one
+    batch per shard in key-range order.
+  * ``dryrun_multichip(n_shards, device)``: the five checks of the JAX
+    package's ``dryrun_multichip`` (group-by, join, sort, one hot key, the
+    Q3 Declaration with ``dist=``) on ``n_shards`` logical shards.
 
 With no ``device`` they place the batch on the card
 (``arrow_tpu_torch.default_device()``). Run one on the CPU at a small
@@ -46,6 +60,11 @@ size::
 
     python -c "from arrow_tpu_torch.entry import entry_generic as e; \\
         step, args = e('cpu', n_rows=4096); print(step(*args).to_pydict())"
+
+and the multi-shard dry run on 8 logical CPU shards::
+
+    python -c "from arrow_tpu_torch.entry import dryrun_multichip as d; \\
+        d(8, 'cpu')"
 """
 
 from __future__ import annotations
@@ -68,7 +87,9 @@ from .parallel import DistContext
 
 __all__ = ["AGGREGATES", "AGGREGATES_GENERIC", "MAX_GROUPS", "SORT_KEYS",
            "consume_routed", "entry", "entry_distributed", "entry_generic",
-           "entry_join", "entry_q3", "entry_sort", "example_columns",
+           "dryrun_multichip", "entry_dist_join", "entry_dist_sort",
+           "entry_join", "entry_q3", "entry_q3_dist", "entry_sort",
+           "example_columns",
            "example_columns_generic", "example_columns_join",
            "example_columns_q3", "example_columns_sort", "join_routed",
            "q3_declaration", "table_from_numpy"]
@@ -315,10 +336,11 @@ def table_from_numpy(cols: Dict[str, np.ndarray], max_batch_rows: int,
     return Table(batches[0].schema, batches)
 
 
-def q3_declaration(li, od, cu, max_groups: int = 256):
+def q3_declaration(li, od, cu, max_groups: int = 256, dist=None):
     """The Q3-shaped Declaration of the JAX package's dry run
     (``__graft_entry__.py``, BASELINE config #5) over the tables ``li``,
-    ``od``, ``cu``, on one device: table_source -> filter (l_ship > 40) ->
+    ``od``, ``cu``, on one device, or with ``dist`` (a ``DistContext``) on
+    both joins and the aggregate over its mesh: table_source -> filter (l_ship > 40) ->
     hashjoin on l_orderkey against (orders with o_date < 25) hashjoin on
     o_custkey (customers with c_seg == 1) -> project rev = l_price * (1.0 -
     l_disc) -> aggregate sum(rev) by (l_orderkey, o_date) -> order_by
@@ -332,7 +354,7 @@ def q3_declaration(li, od, cu, max_groups: int = 256):
     co = Declaration("hashjoin", HashJoinNodeOptions(
         "inner", left_keys=["o_custkey"], right_keys=["c_custkey"],
         left_output=["o_orderkey", "o_date"], right_output=[],
-        max_build_rows=max(nc, 16)),
+        max_build_rows=max(nc, 16), dist=dist),
         inputs=[
             Declaration.from_sequence([
                 Declaration("table_source", TableSourceNodeOptions(od)),
@@ -347,7 +369,8 @@ def q3_declaration(li, od, cu, max_groups: int = 256):
         Declaration("hashjoin", HashJoinNodeOptions(
             "inner", left_keys=["l_orderkey"], right_keys=["o_orderkey"],
             left_output=["l_orderkey", "l_price", "l_disc"],
-            right_output=["o_date"], max_build_rows=max(no, 16)),
+            right_output=["o_date"], max_build_rows=max(no, 16),
+            dist=dist),
             inputs=[
                 Declaration.from_sequence([
                     Declaration("table_source", TableSourceNodeOptions(li)),
@@ -361,7 +384,8 @@ def q3_declaration(li, od, cu, max_groups: int = 256):
             ["l_orderkey", "rev", "o_date"])),
         Declaration("aggregate", AggregateNodeOptions(
             [AggregateSpec("sum", "rev", name="revenue")],
-            keys=["l_orderkey", "o_date"], max_groups=max_groups)),
+            keys=["l_orderkey", "o_date"], max_groups=max_groups,
+            dist=dist)),
         Declaration("order_by", OrderByNodeOptions(
             [("revenue", "descending"), ("l_orderkey", "ascending")])),
         Declaration("fetch", FetchNodeOptions(0, 10)),
@@ -384,3 +408,190 @@ def entry_q3(device=None, n_lineitem: int = 768, seed: int = 0,
         return q3_declaration(li_, od_, cu_, max_groups).to_table()
 
     return step, (li, od, cu)
+
+
+# ---- the distribution --------------------------------------------------------
+
+def entry_q3_dist(device=None, n_shards: int = 8, n_lineitem: int = 768,
+                  seed: int = 0, max_groups: int = 256,
+                  max_batch_rows: int = 64):
+    """(step, (lineitem, orders, customer)): ``entry_q3`` with ``dist=`` a
+    ``DistContext`` of ``n_shards`` logical shards of ``device`` on both
+    joins and the aggregate (``max_groups`` then bounds each shard's
+    groups, and nothing doubles it). ``step.ctx`` is the context."""
+    device = resolve_device(device)
+    li, od, cu = (table_from_numpy(c, max_batch_rows, device)
+                  for c in example_columns_q3(n_lineitem, seed))
+    ctx = DistContext(devices=[device] * n_shards)
+
+    def step(li_: Table, od_: Table, cu_: Table) -> Table:
+        return q3_declaration(li_, od_, cu_, max_groups, dist=ctx).to_table()
+
+    step.ctx = ctx
+    return step, (li, od, cu)
+
+
+def entry_dist_join(device=None, n_shards: int = 8, n_build: int = 256,
+                    n_probe: int = 1024, seed: int = 0,
+                    join_type: str = "inner"):
+    """(step, (build batch, probe batch)): step -> ``DistContext.join`` of
+    ``example_columns_join``'s uniform probe keys against its build
+    permutation over ``n_shards`` logical shards of ``device``: the Table
+    with one batch per shard, each row on the shard its key's hash names.
+    Output columns: the probe side's ``k`` and ``lv``, the build side's
+    ``rv``."""
+    device = resolve_device(device)
+    bcols, pcols = example_columns_join(n_build, n_probe, seed)
+    bb = batch_from_numpy(bcols, device=device)
+    pb = batch_from_numpy(pcols, device=device)
+    ctx = DistContext(devices=[device] * n_shards)
+    options = HashJoinNodeOptions(join_type, left_keys=["k"],
+                                  right_keys=["k"], right_output=["rv"],
+                                  max_build_rows=n_build)
+
+    def step(build_batch: Batch, probe_batch: Batch) -> Table:
+        return ctx.join(probe_batch, build_batch, options)
+
+    step.ctx = ctx
+    return step, (bb, pb)
+
+
+def entry_dist_sort(device=None, n_shards: int = 8, n_rows: int = 1024,
+                    seed: int = 0, num_keys: int = 64,
+                    bucket_factor: int = 3):
+    """(step, (batch,)): step -> ``DistContext.sort_by`` of
+    ``entry_sort``'s batch by ``SORT_KEYS`` (nulls at the end) over
+    ``n_shards`` logical shards of ``device``: the Table whose batches, in
+    order, are the sorted rows."""
+    device = resolve_device(device)
+    (b,) = entry_sort(device, n_rows, seed, num_keys)[1]
+    ctx = DistContext(devices=[device] * n_shards)
+
+    def step(batch_: Batch) -> Table:
+        return ctx.sort_by(batch_, SORT_KEYS, bucket_factor=bucket_factor)
+
+    step.ctx = ctx
+    return step, (b,)
+
+
+def _host_column(t: Table, name: str) -> np.ndarray:
+    """The values of a column of ``t`` in row order, on the host (every
+    check of the dry run reads tensors: the card's machine need not have
+    pyarrow for them)."""
+    parts = [b.column(name).values[:len(b)].cpu().numpy() for b in t.batches]
+    return np.concatenate(parts) if parts else np.zeros((0,))
+
+
+def dryrun_multichip(n_shards: int = 8, device=None) -> dict:
+    """The JAX package's ``dryrun_multichip`` (``__graft_entry__.py``) on
+    ``n_shards`` logical shards of ``device``, with its seeds, sizes and
+    oracles: the distributed group-by (filter -> state-row exchange ->
+    merge), the co-partitioned hash join, the range-partitioned sort, one
+    hot key, and BASELINE config #5's Q3 Declaration with ``dist=`` on both
+    joins and the aggregate against pyarrow's run of the same plan.
+    Raises AssertionError at the first check that fails; returns each
+    check's Table ("group_by", "join", "sort", "skew", "q3") and the Q3
+    plan's input columns ("q3_columns")."""
+    from .acero import (AggregateNodeOptions, Declaration, FetchNodeOptions,
+                        FilterNodeOptions, OrderByNodeOptions,
+                        ProjectNodeOptions, TableSourceNodeOptions)
+    from .compute.expressions import literal
+    device = resolve_device(device)
+    ctx = DistContext(devices=[device] * n_shards)
+
+    rng = np.random.default_rng(0)
+    n = 64 * n_shards
+    cols = {"k": rng.integers(0, 8, n).astype(np.int64),
+            "v": rng.standard_normal(n)}
+    b = batch_from_numpy(cols, device=device, capacity=n)
+    out = ctx.group_by(b, ["k"], [("sum", "v"), ("count_all",)],
+                       max_groups_per_shard=32,
+                       pre_filter=field("v") > -3.0)
+    assert out.num_rows == 8, out
+    totals = dict(zip(_host_column(out, "k").tolist(),
+                      _host_column(out, "count_all").tolist()))
+    keys, vals = cols["k"], cols["v"]
+    for k in range(8):
+        expect = int(((keys == k) & (vals > -3.0)).sum())
+        assert totals[k] == expect, (k, totals[k], expect)
+
+    # distributed hash join (co-partitioning shuffle + per-shard build/probe)
+    rk = rng.permutation(16)[:8].astype(np.int64)
+    right = batch_from_numpy({"k": rk, "rv": rng.standard_normal(8)},
+                             device=device, capacity=8 * n_shards)
+    jout = ctx.join(b, right, HashJoinNodeOptions(
+        "inner", ["k"], ["k"], right_output=["rv"], max_build_rows=64),
+        fanout_per_shard=4 * n)
+    expect_rows = int(np.isin(keys, rk).sum())
+    assert jout.num_rows == expect_rows, (jout.num_rows, expect_rows)
+
+    # distributed sort (sample range partition + per-shard sort)
+    sout = ctx.sort_by(b, [("v", "ascending")])
+    sv = _host_column(sout, "v")
+    assert bool((np.diff(sv) >= 0).all())
+    assert len(sv) == n
+
+    # skewed aggregation: every row one hot key; the state-row exchange
+    # moves one row per (shard, key), so no bucket can overflow
+    skew = batch_from_numpy({"k": np.zeros(n, np.int64),
+                             "v": rng.standard_normal(n)},
+                            device=device, capacity=n)
+    sk = ctx.group_by(skew, ["k"], [("count_all",)], max_groups_per_shard=8)
+    assert sk.num_rows == 1 and \
+        _host_column(sk, "count_all").tolist() == [n], sk
+
+    # BASELINE config #5's shape through the plan engine: scan -> filter ->
+    # [the exchange inside the dist nodes] -> join -> join -> project ->
+    # aggregate -> sort -> fetch, against pyarrow running the same plan
+    nl, no, nc = 96 * n_shards, 24 * n_shards, 8 * n_shards
+    li = {"l_orderkey": rng.integers(0, no, nl),
+          "l_price": rng.random(nl).astype(np.float32) * 100,
+          "l_disc": rng.random(nl).astype(np.float32) * 0.1,
+          "l_ship": rng.integers(0, 100, nl).astype(np.int32)}
+    od = {"o_orderkey": np.arange(no, dtype=np.int64),
+          "o_custkey": rng.integers(0, nc, no),
+          "o_date": rng.integers(0, 50, no).astype(np.int32)}
+    cu = {"c_custkey": np.arange(nc, dtype=np.int64),
+          "c_seg": rng.integers(0, 3, nc).astype(np.int32)}
+    li_t, od_t, cu_t = (table_from_numpy(c, 64, device) for c in (li, od, cu))
+    got = q3_declaration(li_t, od_t, cu_t, 256, dist=ctx).to_table()
+    exp = _q3_pyarrow(li, od, cu)
+    assert got.num_rows == exp.num_rows, (got.num_rows, exp.num_rows)
+    assert _host_column(got, "l_orderkey").tolist() == \
+        exp["l_orderkey"].to_pylist(), (got, exp.to_pydict())
+    gr = _host_column(got, "revenue").astype(np.float64)
+    er = np.array(exp["revenue"].to_pylist(), dtype=np.float64)
+    assert np.allclose(gr, er, rtol=1e-4, atol=1e-4), (gr, er)
+
+    print(f"dryrun_multichip({n_shards}): OK: {out.num_rows} groups, "
+          f"{jout.num_rows} join rows, {len(sv)} sorted rows, skew case, "
+          f"and the dist Q3 plan (scan>filter>shuffle>join>join>agg>sort>"
+          f"fetch, {got.num_rows} rows) across {n_shards} logical shards of "
+          f"{device}")
+    return {"group_by": out, "join": jout, "sort": sout, "skew": sk,
+            "q3": got, "q3_columns": (li, od, cu)}
+
+
+def _q3_pyarrow(li, od, cu):
+    """pyarrow's run of the Q3-shaped plan over the numpy columns: the
+    dry run's oracle, as the JAX package's writes it."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    li, od, cu = (pa.table(c) for c in (li, od, cu))
+    cu_f = cu.filter(pc.equal(cu["c_seg"], 1))
+    od_f = od.filter(pc.less(od["o_date"], 25))
+    li_f = li.filter(pc.greater(li["l_ship"], 40))
+    oc = od_f.join(cu_f.select(["c_custkey"]), keys="o_custkey",
+                   right_keys="c_custkey", join_type="inner")
+    j = li_f.join(oc.select(["o_orderkey", "o_date"]),
+                  keys="l_orderkey", right_keys="o_orderkey",
+                  join_type="inner")
+    rev = pc.multiply(j["l_price"],
+                      pc.subtract(pa.scalar(1.0, pa.float32()),
+                                  j["l_disc"]))
+    return j.append_column("rev", rev) \
+        .group_by(["l_orderkey", "o_date"]) \
+        .aggregate([("rev", "sum")]) \
+        .rename_columns(["l_orderkey", "o_date", "revenue"]) \
+        .sort_by([("revenue", "descending"),
+                  ("l_orderkey", "ascending")]).slice(0, 10)

@@ -1,7 +1,10 @@
 """Distributed execution over a single-controller mesh: the exchange, the
-distributed group-by and its streaming state-row form."""
+distributed group-by, join and sort, and the streaming forms of the
+group-by and the join that the plan nodes use."""
 
 from .context import DistContext, Mesh, ShardedBatch
 from .dist_agg import DistGroupBy
+from .dist_join import DistHashJoin
 
-__all__ = ["DistContext", "DistGroupBy", "Mesh", "ShardedBatch"]
+__all__ = ["DistContext", "DistGroupBy", "DistHashJoin", "Mesh",
+           "ShardedBatch"]

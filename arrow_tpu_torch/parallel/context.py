@@ -12,9 +12,11 @@ contiguous blocks of ``capacity / n`` rows, one local Batch per shard on
 its device; each shard's local length follows from the global length and
 its index.
 
-``join`` and ``sort_by``, the distributed forms of the join and sort
-operators (ROADMAP queue items A6 and A5, which are ported), come with queue
-item A8b.
+Operators: ``group_by`` (state-row exchange, ``parallel/dist_agg``; raw-row
+fallback), ``join`` (both sides shuffle by key hash with one seed, then a
+build, probe and finish on each shard; the streaming form is
+``parallel/dist_join.DistHashJoin``) and ``sort_by`` (a sampled range
+partition, then one local sort per shard).
 """
 
 from __future__ import annotations
@@ -28,8 +30,12 @@ from ..compute.expressions import Expression, execute_scalar_expression
 from ..core.array import Array
 from ..core.batch import Batch, Table, empty_batch
 from ..core.schema import Schema
+from ..ops.bits import ascending_lanes32, ordered_signed
+from ..ops.concat import concat_batches
 from ..ops.hash_aggregate import AggregateSpec, HashAggregate
-from ..ops.selection import filter_batch
+from ..ops.join import HashJoin
+from ..ops.selection import filter_batch, take_batch
+from ..ops.sorting import SortKey, SortOptions, sort_indices_batch
 from .shuffle import shuffle_batch
 
 __all__ = ["DistContext", "Mesh", "ShardedBatch"]
@@ -89,6 +95,34 @@ def _with_validity(b: Batch, length: int) -> Batch:
     """``b`` with every validity buffer present and a host length."""
     return Batch(b.schema, [Array(a.type, a.values, a.validity_or_true(),
                                   length=length) for a in b.arrays], length)
+
+
+def _range_key(local: Batch, key: SortKey, null_placement: str):
+    """(kv, null) of one shard for ``DistContext.sort_by``: the primary
+    key's order as one int64 per row, and where it is null (None when the
+    column has no validity). The key's first two ascending u32 lanes make
+    a u64 word, complemented for "descending", carried as
+    ``ordered_signed`` int64 so that the signed order is the word's
+    unsigned order (torch has no uint64 sort or search on the card).
+    Padding rows take the maximum, as in the JAX package; null rows the
+    maximum or minimum by ``null_placement``."""
+    a = local.column(key.name)
+    lanes = ascending_lanes32(a.values, a.type)
+    word = lanes[0] << 32
+    if len(lanes) > 1:
+        word = word | lanes[1]
+    if key.order == "descending":
+        word = ~word
+    kv = ordered_signed(word.view(torch.uint64))
+    live = local.row_mask()
+    top = torch.iinfo(torch.int64).max
+    kv = torch.where(live, kv, top)
+    null = None
+    if a.validity is not None:
+        null = live & ~a.validity
+        kv = torch.where(null, top if null_placement == "at_end"
+                         else torch.iinfo(torch.int64).min, kv)
+    return kv, null
 
 
 class DistContext:
@@ -238,15 +272,93 @@ class DistContext:
     # -------------------------------------------------------------------
     def join(self, left, right, options, bucket_factor: int = 2,
              fanout_per_shard: Optional[int] = None) -> Table:
-        raise NotImplementedError(
-            "DistContext.join, the distributed form of the hash join (queue "
-            "item A6), is not ported yet (ROADMAP queue item A8b)")
+        """Distributed hash join: both sides shuffle by their join keys
+        with one seed (co-partitioned: equal keys meet on one shard), then
+        each shard builds, probes and finishes locally. The results stay
+        partitioned: one batch per shard with rows, the probe output
+        followed by the right / full outer and right semi / anti tail,
+        which is complete on each shard because every build row lives on
+        exactly one.
+
+        This is the JAX package's one-shot join, not a one-batch run of
+        ``DistHashJoin``: each shard builds straight from the rows it
+        received, so ``max_build_rows`` caps its distinct build keys (the
+        streaming join's accumulation caps its rows), and no accumulation
+        buffer is filled."""
+        left, right = self._sharded(left), self._sharded(right)
+        hj = HashJoin(left.schema, right.schema, options)
+        lcap, rcap = left.local_capacity, right.local_capacity
+        fanout = fanout_per_shard or max(2 * lcap, 1 << 12)
+        lsh = shuffle_batch(left.shards, hj.left_keys, self.devices,
+                            bucket_capacity=bucket_factor * lcap)
+        rsh = shuffle_batch(right.shards, hj.right_keys, self.devices,
+                            bucket_capacity=bucket_factor * rcap)
+        outs, errs = [], []
+        for s in range(self.n):
+            (lb, lerr), (rb, rerr) = lsh[s], rsh[s]
+            lsh[s] = rsh[s] = None
+            bs = hj.build(rb)
+            out, bs = hj.probe(bs, lb, fanout_capacity=fanout)
+            tail = hj.finish(bs)
+            if out is None:
+                out = tail
+            elif tail is not None:
+                out = concat_batches([out, tail])
+            outs.append(out)
+            errs.append((lerr | rerr | bs.error).to(torch.int32))
+        return self._collect_shards(hj.out_schema, outs, self.fetch(errs),
+                                    "join")
 
     def sort_by(self, b, sort_keys, bucket_factor: int = 3,
-                samples_per_shard: int = 256) -> Table:
-        raise NotImplementedError(
-            "DistContext.sort_by, the distributed form of the sort (queue "
-            "item A5), is not ported yet (ROADMAP queue item A8b)")
+                samples_per_shard: int = 256,
+                null_placement: str = "at_end") -> Table:
+        """Distributed sort: a sampled range partition of the primary key
+        over the mesh, then one stable local sort per shard; shard s holds
+        the s-th key range, so the shards' outputs in order ARE the global
+        order. The received buckets arrive in source-shard order and the
+        local sort is stable, so ties keep their input order.
+
+        Each shard samples its range keys at a stride over its capacity;
+        the sorted samples of all shards give n - 1 bounds, and a row goes
+        to the number of bounds at or below its key. A row whose primary
+        key is null goes to the last shard (``null_placement`` "at_end")
+        or the first ("at_start"), where the local sort puts it at the
+        end or the start: the JAX package routes it by its storage value
+        instead, into the middle of the order (ROADMAP C18)."""
+        keys = [k if isinstance(k, SortKey) else SortKey(*k)
+                for k in sort_keys]
+        opts = SortOptions(keys, null_placement)
+        b = self._sharded(b)
+        n = self.n
+        local_cap = b.local_capacity
+        stride = max(local_cap // samples_per_shard, 1)
+        ranged = [_range_key(local, keys[0], null_placement)
+                  for local in b.shards]
+        dev0 = self.devices[0]
+        allsamp = torch.sort(torch.cat(
+            [torch.sort(kv[::stride]).values.to(dev0)
+             for kv, _ in ranged])).values
+        S = allsamp.shape[0]
+        bounds = allsamp[torch.arange(1, n, device=dev0) * (S // n)]
+        null_dest = n - 1 if null_placement == "at_end" else 0
+        dests = []
+        for (kv, null), dev in zip(ranged, self.devices):
+            dest = torch.searchsorted(bounds.to(dev), kv, right=True)
+            if null is not None:
+                dest = torch.where(null, null_dest, dest)
+            dests.append(dest.to(torch.int32))
+        del ranged
+        shuffled = shuffle_batch(b.shards, [], self.devices,
+                                 bucket_capacity=bucket_factor * local_cap,
+                                 dest=dests)
+        del dests
+        outs, errs = [], []
+        for s in range(n):
+            shuf, err = shuffled[s]
+            shuffled[s] = None
+            outs.append(take_batch(shuf, sort_indices_batch(shuf, opts)))
+            errs.append(err)
+        return self._collect_shards(b.schema, outs, self.fetch(errs), "sort")
 
     # -------------------------------------------------------------------
     def _collect_shards(self, schema: Schema, outs: Sequence[Batch],

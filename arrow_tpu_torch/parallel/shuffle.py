@@ -22,7 +22,7 @@ shard's LOCAL tensors, run for each shard in turn on its device, and
 ``shuffle_rows`` and ``shuffle_batch`` compose the three over per-shard
 lists. The per-shard steps see local tensors only, so a multi-process
 ``torch.distributed`` form of ``exchange`` can take this one's place
-without touching them (ROADMAP A8b).
+without touching them (ROADMAP A8).
 """
 
 from __future__ import annotations

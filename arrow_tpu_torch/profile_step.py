@@ -1,7 +1,7 @@
 """Per-layer device times of one step of the port's slices, on one GPU.
 
     python -m arrow_tpu_torch.profile_step
-        [--path generic|dense|dist|exchange|sort|join|q3] [--rows N]
+        [--path generic|dense|dist|exchange|sort|join|q3|q3dist] [--rows N]
         [--keys N] [--max-groups N] [--shards N] [--steps N] [--seed N]
         [--build-rows N] [--build-keys N] [--key-dist uniform|zipf]
         [--join-type T] [--wide] [--batch-rows N]
@@ -23,6 +23,11 @@ materialize with pack / row gather / unpack, finish). ``--path q3`` is
 (default 2^22) with ``--max-groups`` (default 2^22): per plan node its own
 device ms (each ``next()`` of its batch stream bracketed by events, its
 inputs' time subtracted) and its host reads per step, beside the layers.
+``--path q3dist`` is ``entry_q3_dist``: the same plan with ``dist=`` over
+``--shards`` logical shards (default 8) on both joins and the aggregate,
+``--max-groups`` per shard (default 2^22); its layers add the distributed
+join's build accumulation, build, probe and finish, the group-by's
+per-shard consume and its state-row exchange.
 
 Wraps the functions that make up the step's layers so that each call is
 bracketed by two CUDA events on the current stream (no synchronisation
@@ -49,7 +54,8 @@ def node_layers(torch, nodes, Batch, stack):
     a node's stream is bracketed by two CUDA events (it includes the work of
     the node's inputs, pulled inside it), and count the host reads
     (``host_ints``, the aggregate's route probe, a device length read by
-    ``len``) against the node being pulled ("driver" outside any).
+    ``len``, a ``DistContext.fetch`` of the shards' scalars) against the
+    node being pulled, or the top-level label outside any node.
     Returns (spans: label -> [(start, end)], reads: label -> count,
     children: label -> input labels, restore: a function that takes the
     wrappers off); labels are ``factory#k`` in the order the nodes first
@@ -116,9 +122,11 @@ def node_layers(torch, nodes, Batch, stack):
             return inner(*a, **kw)
         setattr(owner, attr, fn)
 
+    from .parallel.context import DistContext
     counted(nodes, "host_ints",
             lambda vals: any(isinstance(v, torch.Tensor) for v in vals))
     counted(nodes, "_host_probe")
+    counted(DistContext, "fetch")
     counted(Batch, "__len__",
             lambda self: not self.has_static_length)
 
@@ -148,7 +156,8 @@ def node_times(node_spans, node_reads, node_children, steps: int = 1):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", choices=("generic", "dense", "dist",
-                                       "exchange", "sort", "join", "q3"),
+                                       "exchange", "sort", "join", "q3",
+                                       "q3dist"),
                     default="generic")
     ap.add_argument("--batch-rows", type=int, default=1 << 22)
     ap.add_argument("--build-rows", type=int, default=1 << 20)
@@ -162,8 +171,8 @@ def main() -> int:
     ap.add_argument("--rows", type=int, default=100_000_000)
     ap.add_argument("--keys", type=int, default=None)
     ap.add_argument("--max-groups", type=int, default=None,
-                    help="state slots (per shard for --path dist); default "
-                    "2^22, 2^21 for dist")
+                    help="state slots (per shard for --path dist and "
+                    "q3dist); default 2^22, 2^21 for dist")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -177,7 +186,7 @@ def main() -> int:
     from .core.batch import Batch
     from .ops import aggregates, cuda_kernels, distinct, grouper, \
         hash_aggregate, join, selection, sorting
-    from .parallel import context, dist_agg, shuffle
+    from .parallel import context, dist_agg, dist_join, shuffle
 
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
@@ -247,6 +256,15 @@ def main() -> int:
     layer(grouper, "merge_insert", "merge_insert")
     layer(distinct, "segmented_carry_last", "carry_last")
     layer(context.DistContext, "_collect_shards", "collect")
+    # the distributed join and the plan's distributed group-by
+    DHJ = dist_join.DistHashJoin
+    layer(DHJ, "consume_build", "dist_consume_build")
+    layer(dist_join._BuildAccum, "append", "append")
+    layer(DHJ, "finish_build", "dist_build")
+    layer(DHJ, "probe", "dist_probe")
+    layer(DHJ, "finish", "dist_finish")
+    layer(dist_agg.DistGroupBy, "consume", "dist_consume")
+    layer(dist_agg.DistGroupBy, "finalize_table", "dist_finalize")
     # the sorted dense route, sort and join
     layer(hash_aggregate, "sorted_group_reduce", "sorted_group_reduce")
     if args.path in ("sort", "join") or (args.path == "dense" and
@@ -316,6 +334,14 @@ def main() -> int:
         qstep, tables = entry_mod.entry_q3(
             None, args.rows, args.seed, args.max_groups or 1 << 22,
             args.batch_rows)
+        b = tables
+
+        def step(tables_):
+            return qstep(*tables_)
+    elif args.path == "q3dist":
+        qstep, tables = entry_mod.entry_q3_dist(
+            None, args.shards or 8, args.rows, args.seed,
+            args.max_groups or 1 << 22, args.batch_rows)
         b = tables
 
         def step(tables_):

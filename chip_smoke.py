@@ -41,7 +41,18 @@ rows (BASELINE config #2) and checks each result against a numpy oracle:
           codes, not dictionary strings;
   path 6b a table_source -> filter -> hashjoin Declaration on two wide
           int64 keys (2^20 build x 10M probe rows, the "sort" route), which
-          runs the Bloom pushdown.
+          runs the Bloom pushdown;
+  path 7b path 6's Declaration on path 6's tables with ``dist=`` over 8
+          logical shards of the card: both joins ``DistHashJoin``, the
+          aggregate the state-row exchange, against path 6's oracle;
+  path 7a ``arrow_tpu_torch.entry.dryrun_multichip`` over 8 logical
+          shards: distributed group-by, join, sort, one hot key and the Q3
+          Declaration with ``dist=``, each against numpy or pyarrow;
+  path 7c ``arrow_tpu_torch.entry.entry_dist_join``: ``DistContext.join``
+          inner of 2^20 build rows and 25M probe rows (config #4's shape,
+          the probe cut from 100M: the raw-row exchange's buffers);
+  path 7d ``arrow_tpu_torch.entry.entry_dist_sort``: ``DistContext.sort_by``
+          of config #3's columns at 25M rows (cut from 100M as 7c is).
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -52,7 +63,10 @@ batch's columns as they lie) is held against its plain version first on
 synthetic calls (every column width in one launch, caps that end mid
 tile, misaligned and strided views, 70 columns in three launches, the
 one-matrix form ``filter_compact_chunks`` up to 100M x 20 B), then at every
-call paths 1, 1b, 3a, 5c, 6 and 6b make to it.
+call paths 1, 1b, 3a, 5c, 6, 6b and 7a-7d make to it. Paths 7a-7d hold
+every call they make to B1, the partition histogram B4 and the key
+packing against its plain version, and the launches those calls make
+against their counted runs'.
 
 Prints the card's name and power limit, one line per check, a JSON line
 ``{"paths": {...}}`` (each path's counted step: ms and peak device bytes;
@@ -93,7 +107,8 @@ import numpy as np
 
 try:
     from arrow_tpu_torch.bench_reductions import (
-        HBM_BYTES_PER_S, check_filter, cuda_ms, fc_widths, measure_filter)
+        HBM_BYTES_PER_S, check_filter, cuda_ms, fc_widths, measure_filter,
+        measure_hist)
 except ImportError as e:
     sys.exit(f"chip_smoke: arrow_tpu_torch not importable ({e}); run from "
              "the repository root")
@@ -134,6 +149,15 @@ N_LINEITEM = 100_000_000
 Q3_BATCH_ROWS = 1 << 22         # the JAX package's Q3 bench (bench.py)
 Q3_MAX_GROUPS = 1 << 22         # holds path 6's ~3.8M groups: no replay
 BLOOM_LV_MIN = -1.0             # path 6b's probe filter keeps 84 % of rows
+# paths 7c (BASELINE #4's join) and 7d (BASELINE #3's sort) over 8 logical
+# shards. The raw-row exchange holds, per side, (P, B) send buffers, their
+# stacked receive and its compaction: 2n x the local capacity rows each
+# (3n x for the sort's bucket factor 3), so 100M probe rows would need
+# about 66 GB and 100M sort rows 150 GB: both run 25M rows (ROADMAP P5,
+# buffers sized by the counts, would lift the cut)
+N_PROBE_DIST = 25_000_000
+N_SORT_DIST = 25_000_000
+SORT_BUCKET_FACTOR = 3
 
 
 def check(cond, msg: str) -> None:
@@ -319,35 +343,6 @@ def measure_tile_stitch(torch, ck, loc, counts, starts, out_cap: int,
     return m
 
 
-def measure_partition_hist(torch, ck, dest, P: int, label: str) -> dict:
-    """partition_histogram at the arguments a path gave it: compared with
-    its plain version, then timed beside it, torch.bincount and the bound.
-    ``host_ms`` is the host's time to issue one call (10 calls on the host
-    clock, the card not waited for): where it equals ``ms`` the events
-    read the wrapper, not the kernel."""
-    m = {
-        "max_abs_err": check_partition_hist(torch, ck, dest, P, label),
-        "ms": cuda_ms(torch, lambda: ck.partition_histogram(dest, P), 10),
-        "plain_ms": cuda_ms(
-            torch, lambda: ck.partition_histogram_plain(dest, P), 3),
-        # dest read once, the P counts written once
-        "bound_ms": bound_ms(4 * dest.shape[0] + 4 * P),
-        # dest holds P for the rows to drop: bincount sees no negative value
-        "library_ms": cuda_ms(
-            torch, lambda: torch.bincount(dest, minlength=P), 3)}
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(10):
-        ck.partition_histogram(dest, P)
-    m["host_ms"] = (time.perf_counter() - t0) * 1e2
-    torch.cuda.synchronize()
-    print(f"partition_histogram {label}, n={dest.shape[0]} P={P}: "
-          f"{m['ms']:.4f} ms ({m['host_ms']:.4f} ms of host a call), bound "
-          f"{m['bound_ms']:.4f} ms, plain "
-          f"{m['plain_ms']:.3f} ms, torch.bincount {m['library_ms']:.3f} ms")
-    return m
-
-
 def dg_compare(torch, ck, gid, inputs, kinds, G, label: str,
                valid=None) -> float:
     """Kernel vs plain version slot for slot: integers and f32 min/max
@@ -496,7 +491,7 @@ def nine_kind_call(torch, gid, v, w):
 
 
 def check_pack_lanes(torch, ck, lanes, lo, span, shift, active,
-                     label: str) -> float:
+                     label: str, quiet: bool = False) -> float:
     """pack_key_lanes against its plain version: equal word for word.
     Returns the max abs difference."""
     got = ck.pack_key_lanes(lanes, lo, span, shift, active)
@@ -504,9 +499,42 @@ def check_pack_lanes(torch, ck, lanes, lo, span, shift, active,
     err = float((got - want).abs().max()) if got.numel() else 0.0
     check(err == 0 and got.dtype == torch.int64 and got.shape == want.shape,
           f"pack_key_lanes {label}: packed keys differ")
-    print(f"pack_key_lanes {label}: n={got.shape[0]} L={len(lanes)} "
-          f"missed={int((got == ck.PACK_MISS).sum())} equal")
+    if not quiet:
+        print(f"pack_key_lanes {label}: n={got.shape[0]} L={len(lanes)} "
+              f"missed={int((got == ck.PACK_MISS).sum())} equal")
     return err
+
+
+def measure_pack_lanes(torch, ck, lanes, lo, span, shift, active,
+                       label: str) -> dict:
+    """pack_key_lanes at the arguments a path gave it: compared with its
+    plain version, then timed beside it and the bound (every lane, and the
+    active flags where given, read once; the keys written once)."""
+    n = lanes[0].shape[0]
+
+    def call(fn):
+        return lambda: fn(lanes, lo, span, shift, active)
+    m = {"max_abs_err": check_pack_lanes(torch, ck, lanes, lo, span, shift,
+                                         active, label),
+         "ms": cuda_ms(torch, call(ck.pack_key_lanes), 10),
+         "plain_ms": cuda_ms(torch, call(ck.pack_key_lanes_plain), 3),
+         "bound_ms": bound_ms(n * (8 * len(lanes) +
+                                   (active is not None) + 8)),
+         "library_ms": None}
+    print(f"pack_key_lanes {label}: n={n} L={len(lanes)} {m['ms']:.3f} ms, "
+          f"bound {m['bound_ms']:.3f} ms, plain {m['plain_ms']:.3f} ms")
+    return m
+
+
+def kernel_launches(ck, kname: str, args) -> int:
+    """The launches one call of a kernel's wrapper makes with ``args``:
+    none for no rows; B1 one for each ``FC_MAX_COLUMNS`` columns."""
+    if kname == "filter_compact_chunks":
+        sel, columns = args
+        return max(1, -(-len(columns) // ck.FC_MAX_COLUMNS)) \
+            if sel.shape[0] else 0
+    rows = args[0] if kname == "partition_histogram" else args[0][0]
+    return 1 if rows.shape[0] else 0
 
 
 def numpy_oracle(cols, num_keys: int = NUM_KEYS):
@@ -755,14 +783,14 @@ def numpy_q3_oracle(li, od, cu):
                 n_groups=keys.shape[0])
 
 
-def check_q3(table, oracle) -> int:
-    """Path 6's Table against the numpy oracle: 10 rows; o_date exact;
-    revenue within 1e-12 * revenue + 1e-12 of the oracle's at each place
+def check_q3(table, oracle, label: str = "path 6") -> int:
+    """Path 6's (or 7b's) Table against the numpy oracle: 10 rows; o_date
+    exact; revenue within 1e-12 * revenue + 1e-12 of the oracle's at each place
     (a sum of positive terms: its sum of |rev| is itself); keys exact but
     where a key's oracle revenue lies within that tolerance of the oracle's
     revenue at the place (a tie the summation order may break either way).
     Returns the oracle's group count."""
-    check(len(table.batches) == 1, "path 6: one result batch")
+    check(len(table.batches) == 1, f"{label}: one result batch")
     b = table.batches[0]
     n = len(b)
     got = {c: b.column(c).values[:n].cpu().numpy()
@@ -770,20 +798,20 @@ def check_q3(table, oracle) -> int:
     for c in got:
         a = b.column(c)
         check(a.validity is None or bool(a.validity[:n].all()),
-              f"path 6: nulls in {c}")
+              f"{label}: nulls in {c}")
     want = oracle["revenue"]
     tol = 1e-12 * want + 1e-12
     check(n == 10 and got["revenue"].dtype == np.float64,
-          f"path 6: {n} rows of {got['revenue'].dtype}")
+          f"{label}: {n} rows of {got['revenue'].dtype}")
     check(bool((np.abs(got["revenue"] - want) <= tol).all()),
-          "path 6: revenue differs from the oracle's")
+          f"{label}: revenue differs from the oracle's")
     k = got["l_orderkey"]
     tie = np.abs(oracle["all_revenue"][k] - want) <= tol
     check(bool(((k == oracle["keys"]) | tie).all()),
-          f"path 6: keys {k.tolist()}, the oracle's "
+          f"{label}: keys {k.tolist()}, the oracle's "
           f"{oracle['keys'].tolist()}")
     check(np.array_equal(got["o_date"], oracle["all_o_date"][k]),
-          "path 6: o_date")
+          f"{label}: o_date")
     return oracle["n_groups"]
 
 
@@ -1242,7 +1270,7 @@ def main() -> int:
     dest, P = seen["partition_histogram"]
     check(dest.shape[0] == MAX_GROUPS_PER_SHARD and P == N_SHARDS,
           f"path 3a: the exchange counts {dest.shape[0]} rows over {P}")
-    ph = measure_partition_hist(torch, ck, dest, P, "path 3a shape")
+    ph = measure_hist(torch, ck, dest, P, "path 3a shape")
     del dest
     forget()
     torch.cuda.empty_cache()
@@ -1312,7 +1340,7 @@ def main() -> int:
                  sharded.shards[0], ["k"], N_SHARDS_RAW, bucket))
     dest, P = seen["partition_histogram"]
     del sharded
-    ph3b = measure_partition_hist(torch, ck, dest, P, "path 3b shape")
+    ph3b = measure_hist(torch, ck, dest, P, "path 3b shape")
     del dest
     forget()
     torch.cuda.empty_cache()
@@ -1346,7 +1374,7 @@ def main() -> int:
           f"keys in row order; peak device memory {peak} B")
     del send, k_send, place, shard, b
     torch.cuda.empty_cache()
-    ph8 = measure_partition_hist(torch, ck, dest, P, "8-shard send shape")
+    ph8 = measure_hist(torch, ck, dest, P, "8-shard send shape")
     del dest
     forget()
 
@@ -1455,18 +1483,8 @@ def main() -> int:
                   active is not None,
                   f"path 5a packed {len(lanes)} lanes of "
                   f"{lanes[0].shape[0]} rows")
-            pk = {"max_abs_err": check_pack_lanes(
-                      torch, ck, lanes, lo, span, shift, active,
-                      "path 5a shape"),
-                  "ms": cuda_ms(torch, lambda: ck.pack_key_lanes(
-                      lanes, lo, span, shift, active), 10),
-                  "plain_ms": cuda_ms(torch, lambda: ck.pack_key_lanes_plain(
-                      lanes, lo, span, shift, active), 3),
-                  # every lane and the flag read once, the keys written once
-                  "bound_ms": bound_ms(N_ROWS * (8 * len(lanes) + 1 + 8)),
-                  "library_ms": None}
-            print(f"pack_key_lanes path 5a shape: {pk['ms']:.3f} ms, bound "
-                  f"{pk['bound_ms']:.3f} ms, plain {pk['plain_ms']:.3f} ms")
+            pk = measure_pack_lanes(torch, ck, lanes, lo, span, shift, active,
+                                    "path 5a shape")
             del lanes, active
             forget()
         del bb, pb, step
@@ -1585,7 +1603,8 @@ def main() -> int:
     out, secs, launches6, peak = timed(lambda: step(*tables), "path 6",
                                        q3_kernels)
     t0 = time.time()
-    n_groups = check_q3(out, numpy_q3_oracle(*qcols))
+    q3_oracle = numpy_q3_oracle(*qcols)
+    n_groups = check_q3(out, q3_oracle)
     print(f"path 6 (Q3-shaped plan, one card, no dist=): {N_LINEITEM} "
           f"lineitem rows in {secs * 1e3:.3f} ms = {N_LINEITEM / secs:.6g} "
           f"rows/s; the top 10 of {n_groups} groups match the numpy oracle "
@@ -1642,17 +1661,124 @@ def main() -> int:
     lanes, lo, span, shift, active = full(
         [a for a in seen_calls["pack_key_lanes"] if a[4] is not None],
         lambda a: a[0][0].shape[0])
-    pk6 = {"max_abs_err": check_pack_lanes(torch, ck, lanes, lo, span, shift,
-                                           active, "path 6 shape"),
-           "ms": cuda_ms(torch, lambda: ck.pack_key_lanes(
-               lanes, lo, span, shift, active), 10),
-           "plain_ms": cuda_ms(torch, lambda: ck.pack_key_lanes_plain(
-               lanes, lo, span, shift, active), 3),
-           "bound_ms": bound_ms(Q3_BATCH_ROWS * (8 * len(lanes) + 1 + 8)),
-           "library_ms": None}
-    print(f"pack_key_lanes path 6 shape: L={len(lanes)} {pk6['ms']:.3f} ms, "
-          f"bound {pk6['bound_ms']:.3f} ms, plain {pk6['plain_ms']:.3f} ms")
-    del sel, columns, lanes, active, tables, step, qcols
+    pk6 = measure_pack_lanes(torch, ck, lanes, lo, span, shift, active,
+                             "path 6 shape")
+    del sel, columns, lanes, active, step
+    forget()
+    torch.cuda.empty_cache()
+
+    # ---- path 7b: the Q3 Declaration with dist= on path 6's tables -------
+    from arrow_tpu_torch.parallel import DistContext
+    dist_kernels = ("filter_compact_chunks", "partition_histogram",
+                    "pack_key_lanes")
+
+    def record_kernels(fn):
+        """Run fn recording every call of the distributed paths' kernels
+        (B1, B4 and pack_key_lanes) in ``seen_calls``."""
+        return recorded(selection, "filter_compact_columns", lambda: recorded(
+            shuffle, "partition_histogram", lambda: recorded(
+                join_mod, "pack_key_lanes", fn)))
+
+    def check_calls(label, counts):
+        """Every recorded call of the distributed paths' kernels against
+        its plain version; the launches those calls make against the path's
+        counted run's."""
+        for kname in dist_kernels:
+            calls = seen_calls.get(wrapper.get(kname, kname), [])
+            n = sum(kernel_launches(ck, kname, a) for a in calls)
+            check(n == counts[kname], f"{label}: {len(calls)} recorded calls "
+                  f"of {kname} make {n} launches, the counted run "
+                  f"{counts[kname]}")
+            for a in calls:
+                if kname == "filter_compact_chunks":
+                    check_filter(torch, ck, *a, f"{label} call")
+                elif kname == "partition_histogram":
+                    check(torch.equal(ck.partition_histogram(*a),
+                                      ck.partition_histogram_plain(*a)),
+                          f"{label}: a partition_histogram call differs "
+                          "from its plain version")
+                else:
+                    check_pack_lanes(torch, ck, *a, f"{label} call", True)
+        print(f"{label}: " + ", ".join(
+            f"{len(seen_calls.get(wrapper.get(k, k), []))} {k}"
+            for k in dist_kernels) + " calls equal their plain versions")
+
+    # no shard's aggregate holds more groups than the whole table's (path
+    # 6's max_groups, twice them); the groups each shard held are checked
+    # after the run
+    ctx7 = DistContext(devices=[dev] * N_SHARDS)
+
+    def q3_dist():
+        return entry_mod.q3_declaration(*tables, Q3_MAX_GROUPS,
+                                        dist=ctx7).to_table()
+
+    out, secs, launches7b, peak = timed(
+        q3_dist, "path 7b", ("filter_compact_chunks", "partition_histogram"))
+    check_q3(out, q3_oracle, "path 7b")
+    print(f"path 7b (Q3-shaped plan, dist= over {N_SHARDS} logical shards "
+          f"of one card, path 6's tables): {N_LINEITEM} lineitem rows in "
+          f"{secs * 1e3:.3f} ms = {N_LINEITEM / secs:.6g} rows/s; the top 10 "
+          f"match path 6's numpy oracle; peak device memory {peak} B; "
+          f"launches {launches7b}")
+    del out
+    spans_, reads_, children_, restore = node_layers(torch, nodes_mod, Batch,
+                                                     [])
+    try:
+        q3_dist()
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    node_ms7 = node_times(spans_, reads_, children_)
+    for name, m in node_ms7.items():
+        print(f"path 7b node {name:36s} own {m['own_ms']:10.3f} ms, "
+              f"inclusive {m['inclusive_ms']:10.3f} ms, host reads "
+              f"{m['host_reads']:.0f}")
+    print(json.dumps({"path_7b_nodes": node_ms7}))
+    # one more run: every B1, B4 and pack_key_lanes call recorded and held
+    # against its plain version, and the groups each shard's aggregate held
+    forget()
+    finalize_table = dist_agg.DistGroupBy.finalize_table
+    held = []
+
+    def finalize_rec(self, state):
+        held.append([int(st[0].num_groups) for st in state])
+        return finalize_table(self, state)
+    dist_agg.DistGroupBy.finalize_table = finalize_rec
+    try:
+        record_kernels(q3_dist)
+    finally:
+        dist_agg.DistGroupBy.finalize_table = finalize_table
+    print(f"path 7b: groups a shard held {held[-1]}, max_groups "
+          f"{Q3_MAX_GROUPS} a shard")
+    check(max(held[-1]) * 2 <= Q3_MAX_GROUPS,
+          f"path 7b: a shard held {max(held[-1])} groups")
+    check_calls("path 7b", launches7b)
+    sel, columns = full(seen_calls["filter_compact_columns"],
+                        lambda a: a[0].shape[0])
+    fc7b = measure_filter(torch, ck, sel, columns, "path 7b shape")
+    hist_calls = seen_calls["partition_histogram"]
+
+    def fullest(calls):
+        """The call whose dest sends the most rows (a shard whose block
+        of a batch is padding sends none)."""
+        return max(calls, key=lambda a: int((a[0] < a[1]).sum()))
+    # a lineitem batch's shard: the probe shuffle's 2^19 rows; the
+    # state-row exchange: the last shuffle, one call a shard
+    ph7b = measure_hist(torch, ck, *fullest([
+        a for a in hist_calls if a[0].shape[0] == Q3_BATCH_ROWS // N_SHARDS]),
+        "path 7b lineitem shard")
+    state_calls = hist_calls[-N_SHARDS:]
+    check(all(a[0].shape[0] == Q3_MAX_GROUPS for a in state_calls),
+          "path 7b: the last shuffle is the state rows'")
+    ph7b_state = measure_hist(torch, ck, *fullest(state_calls),
+                              "path 7b state rows")
+    # one shard's build of the orders: its 25M-row accumulation's keys
+    n_orders = tables[1].num_rows
+    pk7b = measure_pack_lanes(torch, ck, *[
+        a for a in seen_calls["pack_key_lanes"]
+        if a[4] is None and a[0][0].shape[0] == n_orders][0],
+        "path 7b orders build")
+    del sel, columns, hist_calls, tables, qcols, ctx7
     forget()
     torch.cuda.empty_cache()
 
@@ -1720,6 +1846,117 @@ def main() -> int:
     forget()
     torch.cuda.empty_cache()
 
+    # ---- path 7a: entry.dryrun_multichip over 8 logical shards ----------
+    t0 = time.perf_counter()
+    ck.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    dry = entry_mod.dryrun_multichip(N_SHARDS, dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches7a = dict(ck.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    for name in ("filter_compact_chunks", "partition_histogram"):
+        check(launches7a[name] > 0, f"{name} was not launched on path 7a")
+    check(all(t.device.type == "cuda" for t in dry["q3"].batches),
+          "path 7a: the Q3 result is not on the card")
+    paths["path 7a"] = {"ms": secs * 1e3, "peak_bytes": peak}
+    print(f"path 7a (dryrun_multichip({N_SHARDS}) on logical shards of the "
+          f"card: group-by, join, sort, one hot key, Q3 with dist=): all five "
+          f"checks pass in {secs * 1e3:.3f} ms (the first run: no warm-up); "
+          f"peak device memory {peak} B; launches {launches7a}")
+    del dry
+    # one more run, every kernel call recorded and held against its plain
+    # version
+    record_kernels(lambda: entry_mod.dryrun_multichip(N_SHARDS, dev))
+    check_calls("path 7a", launches7a)
+    forget()
+
+    # ---- path 7c: DistContext.join, BASELINE #4's shape cut to 25M -------
+    t0 = time.time()
+    bcols, pcols = example_columns_join(N_BUILD, N_PROBE_DIST, args.seed)
+    step, (bb, pb) = entry_mod.entry_dist_join(dev, N_SHARDS, N_BUILD,
+                                               N_PROBE_DIST, args.seed)
+    torch.cuda.synchronize()
+    print(f"path 7c data: {N_BUILD} build and {N_PROBE_DIST} probe rows "
+          f"made and staged in {time.time() - t0:.1f} s")
+    # probe side: send, stacked receive and compaction, 16 x the local
+    # capacity rows a shard at 14 B (k, lv and their validity)
+    print(f"path 7c reckoned: probe exchange buffers 3 x {2 * N_PROBE_DIST} "
+          f"rows x 14 B = {3 * 2 * N_PROBE_DIST * 14} B (100M probe rows: "
+          f"{3 * 2 * 100_000_000 * 14} B, with the build's and the "
+          f"outputs more)")
+    table7c, secs, launches7c, peak = timed(
+        lambda: step(bb, pb), "path 7c", ("partition_histogram",))
+    check(launches7c["partition_histogram"] == 2 * N_SHARDS,
+          "path 7c: one partition_histogram launch per shard and side")
+    check(len(table7c.batches) == N_SHARDS, "path 7c: a shard has no rows")
+    place = shard_of(shuffle.EXCHANGE_SEED, N_SHARDS)
+    for p, rb in enumerate(table7c.batches):
+        check(bool((place(rb.column("k"))[:len(rb)] == p).all()),
+              f"path 7c: a row of shard {p} hashes elsewhere")
+    t0 = time.time()
+    n_out = check_join(torch, dev, "path 7c", table7c.batches,
+                       numpy_join_oracle(bcols, pcols, "inner"))
+    print(f"path 7c (DistContext.join inner over {N_SHARDS} logical shards, "
+          f"route sort; probe cut to {N_PROBE_DIST} rows): {N_BUILD} x "
+          f"{N_PROBE_DIST} rows in {secs * 1e3:.3f} ms = "
+          f"{N_PROBE_DIST / secs:.6g} probe rows/s; {n_out} output rows match "
+          f"the numpy oracle as a multiset (oracle {time.time() - t0:.1f} s), "
+          f"each on the shard its key's hash names; peak device memory "
+          f"{peak} B; launches {launches7c}")
+    del table7c, bcols, pcols
+    record_kernels(lambda: step(bb, pb))
+    check_calls("path 7c", launches7c)
+    forget()
+    del bb, pb, step
+    torch.cuda.empty_cache()
+
+    # ---- path 7d: DistContext.sort_by, BASELINE #3's columns cut to 25M --
+    t0 = time.time()
+    cols = example_columns_sort(N_SORT_DIST, NUM_KEYS_SORT, args.seed)
+    step, (b,) = entry_mod.entry_dist_sort(dev, N_SHARDS, N_SORT_DIST,
+                                           args.seed, NUM_KEYS_SORT,
+                                           SORT_BUCKET_FACTOR)
+    torch.cuda.synchronize()
+    print(f"path 7d data: {N_SORT_DIST} rows made and staged in "
+          f"{time.time() - t0:.1f} s")
+    print(f"path 7d reckoned: exchange buffers 3 x "
+          f"{SORT_BUCKET_FACTOR * N_SORT_DIST} rows x 21 B = "
+          f"{3 * SORT_BUCKET_FACTOR * N_SORT_DIST * 21} B (100M rows: "
+          f"{3 * SORT_BUCKET_FACTOR * 100_000_000 * 21} B)")
+    table7d, secs, launches7d, peak = timed(
+        lambda: step(b), "path 7d", ("partition_histogram",))
+    check(launches7d["partition_histogram"] == N_SHARDS,
+          "path 7d: one partition_histogram launch per shard")
+    t0 = time.time()
+    want = torch.from_numpy(numpy_sort_oracle(cols))
+    got = {c: torch.cat([x.column(c).values[:len(x)] for x in
+                         table7d.batches]).cpu() for c in ("k1", "k2", "v")}
+    got_valid = torch.cat([x.column("k2").validity[:len(x)]
+                           for x in table7d.batches]).cpu()
+    check(got["v"].shape[0] == N_SORT_DIST, "path 7d: the row count")
+    check(torch.equal(got["k1"], torch.from_numpy(cols["k1"])[want]) and
+          torch.equal(got["v"], torch.from_numpy(cols["v"])[want]) and
+          torch.equal(got_valid, torch.from_numpy(cols["k2_valid"])[want]),
+          "path 7d: the rows differ from numpy's stable sort's")
+    ok = got_valid
+    check(torch.equal(got["k2"][ok], torch.from_numpy(cols["k2"])[want][ok]),
+          "path 7d: k2")
+    lengths7d = [len(x) for x in table7d.batches]
+    print(f"path 7d (DistContext.sort_by over {N_SHARDS} logical shards, "
+          f"bucket factor {SORT_BUCKET_FACTOR}; cut to {N_SORT_DIST} rows): "
+          f"{N_SORT_DIST} rows in {secs * 1e3:.3f} ms = "
+          f"{N_SORT_DIST / secs:.6g} rows/s; the shards in order equal "
+          f"numpy's stable sort row for row (oracle {time.time() - t0:.1f} "
+          f"s); shard lengths {lengths7d}; peak device memory {peak} B; "
+          f"launches {launches7d}")
+    del table7d, got, got_valid, want, cols
+    record_kernels(lambda: step(b))
+    check_calls("path 7d", launches7d)
+    forget()
+    del b, step
+    torch.cuda.empty_cache()
+
     def row(name, source, replaces, n_launches, m):
         return {"name": name, "route": "cuda",
                 "source": f"arrow_tpu_torch/csrc/{source}",
@@ -1772,10 +2009,16 @@ def main() -> int:
                       (kernels[5], pk6)):
         also(kernel, "path_6", m)
     also(kernels[0], "path_6b_bloom_split", fc6b)
+    also(kernels[0], "path_7b", fc7b)
+    also(kernels[4], "path_7b", ph7b)
+    also(kernels[4], "path_7b_state_rows", ph7b_state)
+    also(kernels[5], "path_7b_orders_build", pk7b)
     # the launches of the join paths', path 1b's and path 6's counted runs
     for label, counts in list(launches5.items()) + [
             ("path 1b", launches1b), ("path 6", launches6),
-            ("path 6b", launches6b)]:
+            ("path 6b", launches6b), ("path 7a", launches7a),
+            ("path 7b", launches7b), ("path 7c", launches7c),
+            ("path 7d", launches7d)]:
         suffix = suffix_of(label)
         for kernel in kernels:
             if counts[kernel["name"]] and not (

@@ -464,7 +464,11 @@ def test_source_nodes_and_plan_surface():
     assert tacero.declaration_to_table(decl).num_rows == want.num_rows
     with pytest.raises(KeyError, match="no exec node factory"):
         tacero.Declaration("no_such_node").to_table()
-    with pytest.raises(NotImplementedError, match="A4"):
-        tacero.Declaration("aggregate", tacero.AggregateNodeOptions(
-            [("sum", "v")], keys=["k"], dist=object()),
-            [_source(PORT, tt)]).to_table()
+    # dist= runs over a context's logical shards (test_torch_acero_dist.py
+    # holds it against the JAX package)
+    from arrow_tpu_torch.parallel import DistContext
+    got, exp = (tacero.Declaration("aggregate", tacero.AggregateNodeOptions(
+        [("min", "w"), ("count_all",)], keys=["k"], dist=d),
+        [_source(PORT, tt)]).to_pyarrow().sort_by("k")
+        for d in (DistContext(devices=["cpu"] * 2), None))
+    assert got.to_pydict() == exp.to_pydict()

@@ -1115,3 +1115,84 @@ def test_filter_node_batch_launches_the_compaction_kernel(cuda_device):
     out = decl.to_table()
     assert ck.LAUNCHES["filter_compact_chunks"] == before + 1
     assert out.num_rows == int((li["l_ship"] > 40).sum())
+
+
+@pytest.mark.parametrize("null_placement", ["at_end", "at_start"])
+def test_dist_sort_null_primary_on_card_matches_cpu(cuda_device,
+                                                   null_placement):
+    """``DistContext.sort_by`` over 4 logical shards of the card, a
+    primary key with 20 % nulls (ROADMAP C18): the same rows on the same
+    shards as on the CPU, the null rows all on the last shard (at the end)
+    or the first (at the start), and the order numpy's stable lexsort
+    gives."""
+    from arrow_tpu_torch.core.array import array_from_numpy
+    from arrow_tpu_torch.core.batch import batch
+    from arrow_tpu_torch.parallel import DistContext
+    rng = np.random.default_rng(5)
+    n = 50_000
+    a = rng.integers(-1000, 1000, n)
+    ok = rng.random(n) >= 0.2
+    b = rng.standard_normal(n)
+    tables = []
+    for dev in (cuda_device, torch.device("cpu")):
+        ctx = DistContext(devices=[dev] * 4)
+        tb = batch({"a": array_from_numpy(a, validity=ok, device=dev),
+                    "b": array_from_numpy(b, device=dev)})
+        tables.append(ctx.sort_by(tb, [("a", "ascending"),
+                                       ("b", "descending")],
+                                  null_placement=null_placement))
+    got, want = tables
+    assert [len(x) for x in got.batches] == [len(x) for x in want.batches]
+    for gb, wb in zip(got.batches, want.batches):
+        _assert_same_columns(_host_columns(gb), _host_columns(wb))
+    nulls = [int((~x.column("a").validity[:len(x)]).sum())
+             for x in got.batches]
+    held = nulls[-1] if null_placement == "at_end" else nulls[0]
+    assert held == int((~ok).sum()) == sum(nulls)
+    last = (~ok) if null_placement == "at_end" else ok
+    perm = np.lexsort((-b, np.where(ok, a, 0), last))
+    rows = np.concatenate([_host_columns(x)["b"][0] for x in got.batches])
+    np.testing.assert_array_equal(rows, b[perm])
+
+
+def test_dist_join_two_shards_on_card_matches_cpu(cuda_device):
+    """``DistContext.join`` (full outer, duplicate build keys) and the
+    streaming ``DistHashJoin`` (inner) over 2 logical shards of the card:
+    the same rows on the same shards as on the CPU; every shuffle launches
+    the partition-histogram kernel on the card."""
+    from arrow_tpu_torch.acero.options import HashJoinNodeOptions
+    from arrow_tpu_torch.core.batch import Table, batch_from_numpy
+    from arrow_tpu_torch.parallel import DistContext, DistHashJoin
+    rng = np.random.default_rng(9)
+    left = {"k": rng.integers(0, 3000, 20_000), "lv": rng.random(20_000)}
+    right = {"k": rng.integers(0, 3000, 4000),
+             "rv": rng.integers(0, 1 << 40, 4000)}
+    names = ["k", "lv", "k_r", "rv"]
+    opts = HashJoinNodeOptions("full outer", ["k"], ["k"],
+                               max_build_rows=1 << 12,
+                               output_suffix_for_right="_r")
+    res, launched = [], []
+    for dev in (cuda_device, torch.device("cpu")):
+        ctx = DistContext(devices=[dev] * 2)
+        lb = batch_from_numpy(left, device=dev)
+        rb = batch_from_numpy(right, device=dev)
+        before = ck.LAUNCHES["partition_histogram"]
+        one_shot = ctx.join(lb, rb, opts, fanout_per_shard=1 << 16)
+        dhj = DistHashJoin(ctx, lb.schema, rb.schema, HashJoinNodeOptions(
+            "inner", ["k"], ["k"], max_build_rows=1 << 12,
+            output_suffix_for_right="_r"), fanout_per_shard=1 << 16)
+        ps = dhj.finish_build(dhj.consume_build(dhj.init_build(), rb))
+        outs, ps = dhj.probe(ps, lb)
+        outs += dhj.finish(ps)
+        launched.append(ck.LAUNCHES["partition_histogram"] - before)
+        res.append([[_table_rows(Table(one_shot.schema, [x]), names)
+                     for x in one_shot.batches],
+                    [_table_rows(Table(outs[0].schema, [x]), names)
+                     for x in outs]])
+    (g1, g2), (w1, w2) = res
+    # four shuffles over two shards on the card; none on the CPU
+    assert launched == [8, 0]
+    for got, want in ((g1, w1), (g2, w2)):
+        assert len(got) == len(want) == 2
+        for a, b in zip(got, want):
+            assert a.shape == b.shape and a.shape[0] > 0 and (a == b).all()

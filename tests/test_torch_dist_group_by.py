@@ -401,10 +401,20 @@ def test_no_rows_gives_an_empty_table(ctx):
 
 
 def test_join_and_sort_by_name_their_queue_items(ctx):
-    with pytest.raises(NotImplementedError, match="A6"):
-        ctx.join(None, None, None)
-    with pytest.raises(NotImplementedError, match="A5"):
-        ctx.sort_by(None, [])
+    """``join`` and ``sort_by`` once raised, naming the queue items that
+    would port them; they run now (``test_torch_dist_join.py`` and
+    ``test_torch_dist_sort.py`` hold them against the JAX package)."""
+    from arrow_tpu_torch.acero.options import HashJoinNodeOptions
+    k = np.arange(40) % 7
+    b = batch_from_numpy({"k": k, "v": np.arange(40.0)}, device="cpu")
+    r = batch_from_numpy({"k": np.arange(3), "w": np.arange(3.0)},
+                         device="cpu")
+    j = ctx.join(b, r, HashJoinNodeOptions(
+        "inner", ["k"], ["k"], right_output=["w"], max_build_rows=8))
+    assert j.num_rows == int((k < 3).sum())
+    assert sorted(j.to_pydict()["v"]) == np.arange(40.0)[k < 3].tolist()
+    s = ctx.sort_by(b, [("k", "descending"), ("v", "ascending")])
+    assert s.to_pydict()["k"] == sorted(k.tolist(), reverse=True)
 
 
 def test_table_core():
