@@ -44,15 +44,20 @@ one-matrix form (``chunks_ms``, ``chunks_device_ms``): the form the
 filter layer called before the column form existed, so this script, run on
 an earlier tree (copied into it), times that tree's kernel at the same
 calls; there, with no ``filter_compact_columns``, only this form is timed.
-``--hist-only`` times nothing but the histogram kernel B4
-(``partition_histogram``) at the calls the distributed paths make, through
-``measure_hist`` (which ``chip_smoke.py`` times B4 with too): the state-row
-exchange of path 3a (2^21 rows), one 2^19-row shard of a lineitem batch
-and the state-row exchange of path 7b, one 3,125,000-row shard of paths
-7c and 7d, and 100M rows; each compared once with its plain version, then
-``ms`` over ten back-to-back calls, ``device_ms`` the same queued behind a
-sleep (the card's time alone), ``host_ms``, the byte bound, the plain
-version and ``torch.bincount``. One line per primitive, then one JSON object. Needs a CUDA device; the
+``--hist-only`` times nothing but the exchange's kernels, B4
+(``partition_histogram_segments``) and ``partition_positions``, at the
+calls the distributed paths make, one call a shuffle over all its shards
+on the card, through ``measure_hist`` and ``measure_positions`` (which
+``chip_smoke.py`` times them with too): the state-row exchange of path 3a
+(8 x 2^21 rows), path 3b's shuffle (4 x 25M rows, P 4), a lineitem
+batch's shuffle (8 x 2^19 rows) and the state-row exchange (8 x 2^22) of
+path 7b, the shuffles of paths 7c and 7d (8 x 3,125,000 rows), and B4 at
+100M rows; B4 also at one shard of each; each compared once with its
+plain version, then ``ms`` over ten back-to-back calls, ``device_ms`` the
+same queued behind a sleep (the card's time alone), ``host_ms``, the byte
+bound, the plain version and one library call over all the shards' rows:
+``torch.bincount`` for B4, a stable ``torch.sort`` (what the exchange ran
+before the positions kernel) for ``partition_positions``. One line per primitive, then one JSON object. Needs a CUDA device; the
 numbers in ``PERF.md`` that name this script come from it.
 """
 
@@ -180,56 +185,124 @@ def measure_filter(torch, ck, sel, columns, label: str) -> dict:
     return m
 
 
-def measure_hist(torch, ck, dest, P: int, label: str) -> dict:
-    """B4 (``partition_histogram``) at the arguments a path gave it: equal
-    to its plain version (raises if not), then timed as ``measure_filter``
-    times B1: ``ms`` back to back, ``device_ms`` the card alone,
-    ``host_ms`` the host's time to issue one call; beside them the plain
-    version, ``torch.bincount`` (``library_ms``) and the bound (``dest``
-    read once, the P counts written once)."""
-    got = ck.partition_histogram(dest, P)
-    want = ck.partition_histogram_plain(dest, P)
-    if got.dtype != want.dtype or not torch.equal(got, want):
+def _segment_keys(torch, dests, P: int):
+    """The segments' dests as one int32 vector with the segment folded into
+    the value (s * (P + 1) + dest, dest outside [0, P) as P): the input of
+    one library call over all of them, made outside its timing."""
+    return torch.cat([
+        s * (P + 1) + torch.where((d >= 0) & (d < P), d, P)
+        for s, d in enumerate(dests)]).to(torch.int32)
+
+
+def measure_hist(torch, ck, dests, P: int, label: str) -> dict:
+    """B4 (``partition_histogram_segments``) at the arguments a path gave
+    it, one dest vector a shard of the call: equal to its plain version
+    (counts and tile offsets; raises if not), then timed as
+    ``measure_filter`` times B1: ``ms`` back to back, ``device_ms`` the
+    card alone, ``host_ms`` the host's time to issue one call; beside them
+    the plain version, one ``torch.bincount`` over all the shards' rows
+    with the shard folded into the bin (``library_ms``) and the bound (the
+    dests read once, the counts and tile offsets written once)."""
+    dests = list(dests)
+    got = ck.partition_histogram_segments(dests, P)
+    want = ck.partition_histogram_segments_plain(dests, P)
+    if any(g.dtype != w.dtype or not torch.equal(g, w)
+           for g, w in zip(got, want)):
         raise RuntimeError(f"check failed: partition_histogram {label}: "
-                           f"{got.tolist()} against {want.tolist()}")
+                           f"{got[0].tolist()} against {want[0].tolist()}")
+    n = sum(d.shape[0] for d in dests)
+    keys = _segment_keys(torch, dests, P)
 
     def call():
-        return ck.partition_histogram(dest, P)
+        return ck.partition_histogram_segments(dests, P)
     m = {"max_abs_err": 0.0,
          "ms": cuda_ms(torch, call, 10),
          "device_ms": cuda_ms(torch, call, 10, queued=True),
          "host_ms": host_ms(torch, call),
          "plain_ms": cuda_ms(
-             torch, lambda: ck.partition_histogram_plain(dest, P), 3),
-         "bound_ms": (4 * dest.shape[0] + 4 * P) / HBM_BYTES_PER_S * 1e3,
-         # dest holds P for the rows to drop: no negative value for bincount
+             torch, lambda: ck.partition_histogram_segments_plain(dests, P),
+             3),
+         "bound_ms": (4 * n + 4 * got[0].numel() + 4 * got[1].numel()) /
+         HBM_BYTES_PER_S * 1e3,
          "library_ms": cuda_ms(
-             torch, lambda: torch.bincount(dest, minlength=P), 3)}
-    print(f"partition_histogram {label}, n={dest.shape[0]} P={P} counted="
-          f"{int(want.sum())} equal: {m['ms']:.4f} ms, the card alone "
-          f"{m['device_ms']:.4f} ms ({m['host_ms']:.4f} ms of host a call), "
-          f"bound {m['bound_ms']:.4f} ms, plain {m['plain_ms']:.3f} ms, "
+             torch, lambda: torch.bincount(keys, minlength=len(dests) *
+                                           (P + 1)), 3),
+         "rows": n, "segments": len(dests)}
+    print(f"partition_histogram {label}, {len(dests)} x "
+          f"{dests[0].shape[0]} rows, P={P} counted={int(want[0].sum())} "
+          f"equal: {m['ms']:.4f} ms, the card alone {m['device_ms']:.4f} ms "
+          f"({m['host_ms']:.4f} ms of host a call), bound "
+          f"{m['bound_ms']:.4f} ms, plain {m['plain_ms']:.3f} ms, "
           f"torch.bincount {m['library_ms']:.3f} ms")
     return m
 
 
+def measure_positions(torch, ck, dests, P: int, B: int, label: str) -> dict:
+    """``partition_positions`` at the arguments a path gave it: equal to
+    its plain version (raises if not), then timed as ``measure_hist``;
+    beside it the plain version, one stable ``torch.sort`` of all the
+    shards' rows with the shard folded into the value (``library_ms``: the
+    sort the exchange ran before this kernel) and the bound (the dests and
+    the tile offsets read once, the int64 slots written once)."""
+    dests = list(dests)
+    _, tiles = ck.partition_histogram_segments(dests, P)
+    got = ck.partition_positions(dests, P, B, tiles)
+    want = ck.partition_positions_plain(dests, P, B)
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise RuntimeError(f"check failed: partition_positions {label}")
+    n = sum(d.shape[0] for d in dests)
+    keys = _segment_keys(torch, dests, P)
+
+    def call():
+        return ck.partition_positions(dests, P, B, tiles)
+    m = {"max_abs_err": 0.0,
+         "ms": cuda_ms(torch, call, 10),
+         "device_ms": cuda_ms(torch, call, 10, queued=True),
+         "host_ms": host_ms(torch, call),
+         "plain_ms": cuda_ms(
+             torch, lambda: ck.partition_positions_plain(dests, P, B), 3),
+         "bound_ms": (4 * n + 4 * tiles.numel() + 8 * n) /
+         HBM_BYTES_PER_S * 1e3,
+         "library_ms": cuda_ms(
+             torch, lambda: torch.sort(keys, stable=True), 3),
+         "rows": n, "segments": len(dests)}
+    print(f"partition_positions {label}, {len(dests)} x {dests[0].shape[0]} "
+          f"rows, P={P} B={B} equal: {m['ms']:.4f} ms, the card alone "
+          f"{m['device_ms']:.4f} ms ({m['host_ms']:.4f} ms of host a call), "
+          f"bound {m['bound_ms']:.4f} ms, plain {m['plain_ms']:.3f} ms, "
+          f"torch.sort {m['library_ms']:.3f} ms")
+    return m
+
+
 def bench_hist(torch, ck, dev, gen, results) -> None:
-    """B4 at the distributed paths' calls; see the module's docstring."""
-    # (label, rows, P, share of the rows with a destination)
-    calls = [("path_3a_state_rows", 1 << 21, 8, 0.48),
-             ("path_7b_probe_shard", 1 << 19, 8, 0.59),
-             ("path_7b_state_rows", 1 << 21, 8, 0.6),
-             ("path_7c_probe_shard", 3_125_000, 8, 1.0),
-             ("path_7d_sort_shard", 3_125_000, 8, 1.0),
-             ("rows_100M", 100_000_000, 8, 1.0)]
-    for label, n, P, share in calls:
-        dest = torch.randint(0, P, (n,), generator=gen, device=dev,
-                             dtype=torch.int32)
-        dest = torch.where(torch.rand(n, generator=gen, device=dev) < share,
-                           dest, P)
-        for k, v in measure_hist(torch, ck, dest, P, label).items():
+    """B4 and ``partition_positions`` at the distributed paths' calls; see
+    the module's docstring."""
+    # (label, shards, rows a shard, P, share of the rows with a destination)
+    calls = [("path_3a_state_rows", 8, 1 << 21, 8, 0.48),
+             ("path_3b_shuffle", 4, 25_000_000, 4, 1.0),
+             ("path_7b_probe_shuffle", 8, 1 << 19, 8, 0.59),
+             ("path_7b_state_rows", 8, 1 << 22, 8, 0.3),
+             ("path_7c_probe_shuffle", 8, 3_125_000, 8, 1.0),
+             ("path_7d_sort_shuffle", 8, 3_125_000, 8, 1.0),
+             ("rows_100M", 1, 100_000_000, 8, 1.0)]
+    for label, S, n, P, share in calls:
+        dests = []
+        for _ in range(S):
+            d = torch.randint(0, P, (n,), generator=gen, device=dev,
+                              dtype=torch.int32)
+            dests.append(torch.where(
+                torch.rand(n, generator=gen, device=dev) < share, d, P))
+        for k, v in measure_hist(torch, ck, dests, P, label).items():
             results[f"hist_{label}_{k}"] = v
-        del dest
+        for k, v in measure_hist(torch, ck, dests[:1], P,
+                                 label + "_one_shard").items():
+            results[f"hist_{label}_one_shard_{k}"] = v
+        if label != "rows_100M":
+            # the bucket capacity of a shuffle of raw rows: the local rows
+            for k, v in measure_positions(torch, ck, dests, P, n,
+                                          label).items():
+                results[f"positions_{label}_{k}"] = v
+        del dests
 
 
 def bench_filter(torch, ck, dev, gen, results) -> None:

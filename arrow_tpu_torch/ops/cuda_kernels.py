@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels for Hopper, their wrappers and plain versions.
 
 The counterpart of the JAX package's ``ops/pallas_kernels.py`` for the
-kernels on the filter -> group-by paths, the exchange and the join; six
+kernels on the filter -> group-by paths, the exchange and the join; seven
 kernels:
 
   * ``filter_compact_columns`` (csrc/filter_compact.cu): stream compaction
@@ -21,8 +21,13 @@ kernels:
     stream, "first_row", a validity stream per kind); the slot of a row
     is given (a gid) or formed in the kernel from the key column
     (``DenseKey``);
-  * ``partition_histogram`` (csrc/partition_hist.cu): rows per destination
-    of an exchange;
+  * ``partition_histogram_segments`` (csrc/partition_hist.cu): rows per
+    destination of an exchange, for every shard of a device in one launch
+    (``partition_histogram`` is its one-shard form, the TPU function), and
+    each tile's offsets per destination;
+  * ``partition_positions`` (csrc/partition_hist.cu): from those offsets,
+    every row's slot in its destination's bucket (the stable sort by
+    destination of the JAX package's exchange, and its position passes);
   * ``pack_key_lanes`` (csrc/pack_lanes.cu): the hash join's key lanes
     range-packed into one 32-bit word per row (the JAX package leaves these
     elementwise passes to XLA's fusion; torch runs each as a launch).
@@ -61,8 +66,12 @@ __all__ = ["filter_compact_columns", "filter_compact_columns_plain",
            "DenseKey", "dense_key_gid",
            "dense_group_reduce", "dense_group_reduce_plain",
            "partition_histogram", "partition_histogram_plain",
+           "partition_histogram_segments",
+           "partition_histogram_segments_plain",
+           "partition_positions", "partition_positions_plain",
            "pack_key_lanes", "pack_key_lanes_plain", "build",
            "LAUNCHES", "reset_launch_counts", "TILE_ROWS", "MAX_PARTITIONS",
+           "MAX_SEGMENTS", "PH_TILE_ROWS",
            "MAX_PACK_LANES", "PACK_MISS", "FC_MAX_COLUMNS", "FC_TILE_ROWS"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -75,7 +84,8 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # filter_compact_columns and filter_compact_chunks alike
 LAUNCHES = {"filter_compact_chunks": 0, "tile_compact_local": 0,
             "tile_stitch": 0, "dense_group_reduce": 0,
-            "partition_histogram": 0, "pack_key_lanes": 0}
+            "partition_histogram": 0, "partition_positions": 0,
+            "pack_key_lanes": 0}
 
 
 def reset_launch_counts() -> None:
@@ -160,7 +170,12 @@ def _lib():
                                        p_i64, p_i64, p_i64, p_i64, vp, i32,
                                        vp, i64, vp, i64, vp, vp, i64, vp],
             "atp_ph_max_partitions": [],
-            "atp_partition_histogram": [vp, i64, i32, vp, vp],
+            "atp_ph_max_segments": [],
+            "atp_ph_tile_rows": [],
+            "atp_partition_histogram": [ctypes.c_char_p, i32, i32, vp, vp,
+                                        vp, vp],
+            "atp_partition_positions": [ctypes.c_char_p, i32, i32, i64, vp,
+                                        vp, vp],
             "atp_pl_max_lanes": [],
             "atp_pack_key_lanes": [p_i64, p_i64, i32, vp, vp, vp, vp, i64,
                                    vp, vp],
@@ -169,9 +184,11 @@ def _lib():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        if lib.atp_ph_max_partitions() != MAX_PARTITIONS:
-            raise RuntimeError(
-                "csrc/partition_hist.cu and MAX_PARTITIONS disagree")
+        if (lib.atp_ph_max_partitions(), lib.atp_ph_max_segments(),
+                lib.atp_ph_tile_rows()) != (MAX_PARTITIONS, MAX_SEGMENTS,
+                                            PH_TILE_ROWS):
+            raise RuntimeError("csrc/partition_hist.cu and MAX_PARTITIONS / "
+                               "MAX_SEGMENTS / PH_TILE_ROWS disagree")
         if lib.atp_pl_max_lanes() != MAX_PACK_LANES:
             raise RuntimeError(
                 "csrc/pack_lanes.cu and MAX_PACK_LANES disagree")
@@ -740,9 +757,15 @@ def dense_group_reduce(gid, inputs, kinds: tuple, G: int, valid=None):
     return rows, [o for os_ in outs_of for o in os_]
 
 
-# ---- partition_histogram -----------------------------------------------------
+# ---- partition_histogram / partition_positions -------------------------------
 
 MAX_PARTITIONS = 128    # csrc/partition_hist.cu kMaxP: four bins per lane
+MAX_SEGMENTS = 128      # csrc/partition_hist.cu kMaxSeg: segments a launch
+PH_TILE_ROWS = 8192     # csrc/partition_hist.cu kTile: rows a block
+# Per (device index, stream): the histogram's tickets, one int32 word a
+# segment that is 0 between calls (the kernel's last block of the segment
+# resets it). Calls on one stream run in order and share them.
+_ph_tickets = {}
 
 
 def _check_ph(dest: torch.Tensor, P: int) -> None:
@@ -751,6 +774,32 @@ def _check_ph(dest: torch.Tensor, P: int) -> None:
     _require(1 <= P <= MAX_PARTITIONS,
              f"P must be in [1, {MAX_PARTITIONS}]: {P}")
     _require(dest.shape[0] < (1 << 31), "counts are int32: n must be < 2^31")
+
+
+def _check_segments(dests: Sequence[torch.Tensor], P: int) -> List[int]:
+    """Checks the segments of a call; returns their lengths."""
+    _require(1 <= len(dests) <= MAX_SEGMENTS,
+             f"1 to {MAX_SEGMENTS} segments a call: {len(dests)}")
+    for d in dests:
+        _check_ph(d, P)
+    sizes = [d.shape[0] for d in dests]
+    _require(sum(sizes) < (1 << 31), "counts are int32: the rows of all "
+             "segments must be < 2^31")
+    return sizes
+
+
+def _ph_tiles(sizes: Sequence[int]) -> int:
+    """Tiles of a call: each segment cut into PH_TILE_ROWS-row tiles."""
+    return sum(-(-n // PH_TILE_ROWS) for n in sizes)
+
+
+def _ph_cuda_call(dests, sizes):
+    """(device, the segments' descriptor: (address, rows) int64 pairs)."""
+    _require(all(d.is_contiguous() for d in dests),
+             "the exchange's kernels need contiguous dest tensors")
+    desc = struct.pack(f"<{2 * len(dests)}q", *[
+        v for d, n in zip(dests, sizes) for v in (d.data_ptr(), n)])
+    return dests[0].device, desc
 
 
 def partition_histogram_plain(dest: torch.Tensor, P: int) -> torch.Tensor:
@@ -762,28 +811,128 @@ def partition_histogram_plain(dest: torch.Tensor, P: int) -> torch.Tensor:
     return torch.bincount(slot, minlength=P + 1)[:P].to(torch.int32)
 
 
+def partition_histogram_segments_plain(dests, P: int):
+    """Plain version: ``partition_histogram_plain`` once per segment; the
+    tile offsets from one bincount over (tile, bin) a segment and a cumsum
+    along its tiles."""
+    dests = list(dests)
+    sizes = _check_segments(dests, P)
+    counts = torch.stack([partition_histogram_plain(d, P) for d in dests])
+    offsets = []
+    for d, n in zip(dests, sizes):
+        d = d.long()
+        slot = torch.where((d >= 0) & (d < P), d, P)
+        tile = torch.arange(n, device=d.device) // PH_TILE_ROWS
+        per = torch.bincount(tile * (P + 1) + slot,
+                             minlength=-(-n // PH_TILE_ROWS) * (P + 1))
+        per = per.view(-1, P + 1)[:, :P]
+        offsets.append((torch.cumsum(per, 0) - per).T)
+    return counts, torch.cat(offsets, 1).to(torch.int32)
+
+
+def partition_histogram_segments(dests, P: int):
+    """S (n_s,) int32 destination vectors (one a shard) -> (counts (S, P)
+    int32, tile_offsets (P, T) int32), one kernel launch for all of them.
+
+    ``counts[s]`` is ``partition_histogram(dests[s], P)``. The rows are cut
+    into tiles of ``PH_TILE_ROWS`` rows, segment after segment (a segment's
+    last tile may be short; T tiles in all), and ``tile_offsets[p, t]`` is
+    the number of rows of tile t's segment before tile t whose dest is p:
+    ``partition_positions`` starts from them. S is at most
+    ``MAX_SEGMENTS``; no rows at all give zeros and launch nothing."""
+    dests = list(dests)
+    sizes = _check_segments(dests, P)
+    if _on_cpu(dests):
+        return partition_histogram_segments_plain(dests, P)
+    dev, desc = _ph_cuda_call(dests, sizes)
+    S, T = len(dests), _ph_tiles(sizes)
+    if T == 0:
+        return (torch.zeros((S, P), dtype=torch.int32, device=dev),
+                torch.empty((P, 0), dtype=torch.int32, device=dev))
+    lib = _lib()
+    counts = torch.empty((S, P), dtype=torch.int32, device=dev)
+    tiles = torch.empty((P, T), dtype=torch.int32, device=dev)
+    ctx, stream = _device_stream(dev)
+    key = (dev.index, stream)
+    ticket = _ph_tickets.get(key)
+    if ticket is None:
+        ticket = _ph_tickets[key] = torch.zeros(
+            (MAX_SEGMENTS,), dtype=torch.int32, device=dev)
+    with ctx:
+        rc = lib.atp_partition_histogram(desc, S, P, tiles.data_ptr(),
+                                         counts.data_ptr(), ticket.data_ptr(),
+                                         stream)
+    if rc != 0:
+        _ph_tickets.pop(key, None)      # its state is unknown
+        _check_rc(rc, "partition_histogram")
+    LAUNCHES["partition_histogram"] += 1
+    return counts, tiles
+
+
 def partition_histogram(dest: torch.Tensor, P: int) -> torch.Tensor:
     """(n,) int32 destinations -> (P,) int32 counts of dest == p for p in
     [0, P); values outside [0, P) are ignored (padding rows carry P or
-    -1). P is at most ``MAX_PARTITIONS``; n = 0 gives zeros."""
+    -1). P is at most ``MAX_PARTITIONS``; n = 0 gives zeros. The one-segment
+    call of ``partition_histogram_segments``."""
     _check_ph(dest, P)
     if _on_cpu((dest,)):
         return partition_histogram_plain(dest, P)
-    n = dest.shape[0]
-    dev = dest.device
-    if n == 0:
-        return torch.zeros((P,), dtype=torch.int32, device=dev)
-    _require(dest.is_contiguous(), "partition_histogram needs a contiguous "
-             "tensor")
-    lib = _lib()
-    out = torch.empty((P,), dtype=torch.int32, device=dev)
-    ctx, stream = _device_stream(dev)
-    with ctx:
-        _check_rc(lib.atp_partition_histogram(
-            dest.data_ptr(), n, P, out.data_ptr(), stream),
-            "partition_histogram")
-    LAUNCHES["partition_histogram"] += 1
-    return out
+    return partition_histogram_segments([dest], P)[0][0]
+
+
+def partition_positions_plain(dests, P: int, B: int) -> List[torch.Tensor]:
+    """Plain version, the exchange's arithmetic before this kernel: per
+    segment a stable sort by dest, each sorted row's place in its run and
+    its slot, put back in row order through the sort's permutation."""
+    dests = list(dests)
+    _check_segments(dests, P)
+    _require(0 <= B < (1 << 31), f"B must be in [0, 2^31): {B}")
+    outs = []
+    for d in dests:
+        d = torch.where((d >= 0) & (d < P), d, P)
+        sd, perm = torch.sort(d, stable=True)
+        sd = sd.long()
+        counts = torch.bincount(sd, minlength=P + 1)
+        pos_in_run = torch.arange(d.shape[0], device=d.device) - \
+            (torch.cumsum(counts, 0) - counts)[sd]
+        flat = torch.where((sd < P) & (pos_in_run < B), sd * B + pos_in_run,
+                           P * B)
+        outs.append(torch.empty_like(flat).index_copy_(0, perm, flat))
+    return outs
+
+
+def partition_positions(dests, P: int, B: int,
+                        tile_offsets: torch.Tensor) -> List[torch.Tensor]:
+    """Each row's slot in its segment's (P, B) send buffer, in row order:
+    ``dest * B + rank`` where dest is in [0, P) and the row's stable rank
+    among its segment's rows with the same dest is below B, else ``P * B``
+    (the dump slot). ``tile_offsets`` is ``partition_histogram_segments``'
+    second result for the same dests: the kernel starts from it (the plain
+    version, which CPU tensors take, needs only the dests). Returns one
+    (n_s,) int64 tensor a segment, views of one buffer; one kernel launch
+    for all of them, none without rows."""
+    dests = list(dests)
+    sizes = _check_segments(dests, P)
+    _require(0 <= B < (1 << 31), f"B must be in [0, 2^31): {B}")
+    if _on_cpu(dests + [tile_offsets]):
+        return partition_positions_plain(dests, P, B)
+    dev, desc = _ph_cuda_call(dests, sizes)
+    T = _ph_tiles(sizes)
+    _require(tile_offsets.shape == (P, T) and
+             tile_offsets.dtype == torch.int32 and
+             tile_offsets.is_contiguous(),
+             f"tile_offsets must be ({P}, {T}) contiguous int32: "
+             "partition_histogram_segments' of the same dests")
+    out = torch.empty((sum(sizes),), dtype=torch.int64, device=dev)
+    if T:
+        lib = _lib()
+        ctx, stream = _device_stream(dev)
+        with ctx:
+            _check_rc(lib.atp_partition_positions(
+                desc, len(dests), P, B, tile_offsets.data_ptr(),
+                out.data_ptr(), stream), "partition_positions")
+        LAUNCHES["partition_positions"] += 1
+    return list(out.split(sizes))
 
 
 # ---- pack_key_lanes ---------------------------------------------------------

@@ -9,11 +9,17 @@ shard's LOCAL tensors, run for each shard in turn on its device, and
 ``exchange`` is the one collective between them:
 
   1. ``partition_for_exchange`` / ``shuffle_rows_send`` (per shard): hash
-     keys -> dest shard = h mod P; a stable sort by dest and the
-     ``partition_histogram`` kernel's counts place the rows in a fixed,
-     zero-filled (P, B) send buffer per leaf (B = per-destination capacity).
-     A bucket with more than B rows raises the deferred error flag, a
-     device scalar that only the caller of the whole exchange fetches.
+     keys -> dest shard = h mod P; every row's slot in its destination's
+     bucket, in row order, places it in a fixed, zero-filled (P, B) send
+     buffer per leaf (B = per-destination capacity). The slots come from
+     two kernels, ``partition_histogram_segments`` (the counts, and each
+     tile's offsets) and ``partition_positions`` (each row's stable rank
+     in its bucket), each launched ONCE per device for all the shards that
+     lie there (``_over_mesh``: every shard's destinations first, then the
+     two launches, then each shard's scatter); called alone, a shard makes
+     its own pair of launches. A bucket with more than B rows raises the
+     deferred error flag, a device scalar that only the caller of the
+     whole exchange fetches.
   2. ``exchange`` (all shards): bucket p of shard s goes to shard p,
      ``recv[p][s] = send[s][p]``, copied between devices where they differ.
   3. ``flatten_received`` / ``shuffle_rows_receive`` (per shard): the
@@ -34,8 +40,9 @@ import torch
 from ..core.array import Array, row_mask
 from ..core.batch import Batch
 from ..core.schema import Schema
-from ..ops.bits import as_signed_bits, gather_rows
-from ..ops.cuda_kernels import partition_histogram
+from ..ops.bits import as_signed_bits
+from ..ops.cuda_kernels import partition_histogram_segments, \
+    partition_positions
 from ..ops.hashing import hash32
 
 __all__ = ["partition_for_exchange", "exchange", "flatten_received",
@@ -60,27 +67,33 @@ def _exclusive_starts(counts: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(counts, 0) - counts
 
 
+def _bucket_positions(dests: Sequence[torch.Tensor], P: int, B: int):
+    """Counts (S, P) int32 and every row's send-buffer slot (S (n_s,) int64
+    tensors) of the shards whose int32 ``dests`` lie on one device: one
+    histogram launch and one positions launch for all of them."""
+    counts, tiles = partition_histogram_segments(dests, P)
+    return counts, partition_positions(dests, P, B, tiles)
+
+
 def _bucket_rows(leaves: Sequence[Optional[torch.Tensor]],
-                 dest: torch.Tensor, P: int, B: int):
-    """Rows whose ``dest`` (int32, already P for the rows to drop) is below
-    P, bucket-sorted into one (P, B) send buffer per leaf. Returns (send,
-    counts (P,) int32, error 0-d int32: some bucket got more than B)."""
-    cap = dest.shape[0]
-    sorted_dest, perm = torch.sort(dest, stable=True)
-    counts = partition_histogram(dest, P)
-    starts = _exclusive_starts(counts.long())
-    iota = torch.arange(cap, device=dest.device)
-    sd = sorted_dest.long()
-    pos_in_run = iota - starts[sd.clamp(max=P - 1)]
+                 dest: torch.Tensor, P: int, B: int,
+                 counts: Optional[torch.Tensor] = None,
+                 positions: Optional[torch.Tensor] = None):
+    """Rows whose ``dest`` (int32; any value outside [0, P) drops the row)
+    is below P, bucketed in row order into one (P, B) send buffer per leaf
+    at their ``positions`` (``_bucket_positions``'; computed here from
+    ``dest`` when not given). Returns (send, counts (P,) int32, error 0-d
+    int32: some bucket got more than B)."""
+    if positions is None:
+        c, (positions,) = _bucket_positions([dest], P, B)
+        counts = c[0]
     error = (counts > B).any().to(torch.int32)
-    flat_pos = torch.where((sd < P) & (pos_in_run < B), sd * B + pos_in_run,
-                           P * B)
     send = []
     for leaf in leaves:
         if leaf is None:
             send.append(None)
             continue
-        buf = _scatter_rows(P * B, flat_pos, gather_rows(leaf, perm))
+        buf = _scatter_rows(P * B, positions, leaf)
         send.append(buf.reshape((P, B) + tuple(leaf.shape[1:])))
     return send, counts, error
 
@@ -89,16 +102,20 @@ def _bucket_rows(leaves: Sequence[Optional[torch.Tensor]],
 
 def shuffle_rows_send(leaves: Sequence[Optional[torch.Tensor]],
                       dest: torch.Tensor, num_partitions: int,
-                      bucket_capacity: int):
+                      bucket_capacity: int,
+                      counts: Optional[torch.Tensor] = None,
+                      positions: Optional[torch.Tensor] = None):
     """Per shard: bucket arbitrary per-row leaves by explicit destination.
     Rows whose ``dest`` lies in [0, P) go to bucket ``dest``; any other
-    value drops the row (padding). Returns (send: (P, B, ...) buffers, None
-    passing through; counts (P,) int32, capped at B; error 0-d int32)."""
-    P, B = num_partitions, bucket_capacity
-    d = dest.to(torch.int32)
-    d = torch.where((d >= 0) & (d < P), d, P)
-    send, counts, error = _bucket_rows(leaves, d, P, B)
-    return send, counts.clamp(max=B), error
+    value drops the row (padding). ``counts`` / ``positions``: the shard's
+    row of ``_bucket_positions`` over ``dest.to(torch.int32)``, where the
+    caller computed them for several shards at once. Returns (send: (P, B,
+    ...) buffers, None passing through; counts (P,) int32, capped at B;
+    error 0-d int32)."""
+    send, counts, error = _bucket_rows(
+        leaves, None if positions is not None else dest.to(torch.int32),
+        num_partitions, bucket_capacity, counts, positions)
+    return send, counts.clamp(max=bucket_capacity), error
 
 
 def _column_leaves(b: Batch) -> List[Optional[torch.Tensor]]:
@@ -122,23 +139,35 @@ def _rebuild_batch(schema: Schema, leaves, length) -> Batch:
     return Batch(schema, arrays, length)
 
 
+def _batch_dest(b: Batch, key_names: Sequence[str], P: int, seed: int,
+                dest: Optional[torch.Tensor]) -> torch.Tensor:
+    """A local batch's int32 destinations: the hash of the key columns mod
+    P, or ``dest``; P for the rows past the batch's length."""
+    if dest is None:
+        h = hash32([b.column(k) for k in key_names], seed=seed)
+        dest = h % P                    # h is non-negative: the u32 remainder
+    return torch.where(row_mask(b.capacity, b.length, b.device),
+                       dest.to(torch.int32), P)
+
+
 def partition_for_exchange(b: Batch, key_names: Sequence[str],
                            num_partitions: int, bucket_capacity: int,
                            seed: int = EXCHANGE_SEED,
-                           dest: Optional[torch.Tensor] = None):
+                           dest: Optional[torch.Tensor] = None,
+                           counts: Optional[torch.Tensor] = None,
+                           positions: Optional[torch.Tensor] = None):
     """Per shard: bucket a local batch's rows by destination (the hash of
     the key columns by default; pass ``dest`` for range partitioning).
+    ``counts`` / ``positions``: the shard's row of ``_bucket_positions``
+    over ``_batch_dest``, where the caller computed them for several shards
+    at once (key_names, seed and dest are then not read).
 
     Returns (send buffers: (P, B) tensors in ``_column_leaves`` order,
     counts (P,) int32 — NOT capped at B, error 0-d int32)."""
     P, B = num_partitions, bucket_capacity
-    active = row_mask(b.capacity, b.length, b.device)
-    if dest is None:
-        h = hash32([b.column(k) for k in key_names], seed=seed)
-        dest = h % P                    # h is non-negative: the u32 remainder
-    d = dest.to(torch.int32)
-    d = torch.where(active & (d >= 0) & (d < P), d, P)
-    return _bucket_rows(_column_leaves(b), d, P, B)
+    d = None if positions is not None else \
+        _batch_dest(b, key_names, P, seed, dest)
+    return _bucket_rows(_column_leaves(b), d, P, B, counts, positions)
 
 
 # ---- all shards: the collective ----------------------------------------------
@@ -205,13 +234,28 @@ def flatten_received(schema: Schema, recv_buffers,
 
 # ---- the three composed over the mesh ----------------------------------------
 
-def _over_mesh(send_step, receive_step, devices):
-    """``send_step(s)`` -> (send, counts, error) for every shard, the
-    exchange, then ``receive_step(p, recv, recv_counts)`` for every shard;
-    each shard's buffers are dropped as soon as the next step has them.
-    Returns per shard (what receive_step gave, error)."""
+def _over_mesh(dest_step, send_step, receive_step, devices, B: int):
+    """``dest_step(s)`` -> shard s's int32 destinations for every shard;
+    per device ONE ``_bucket_positions`` call over the shards whose
+    destinations lie there; ``send_step(s, counts, positions)`` -> (send,
+    counts, error) for every shard; the exchange; then
+    ``receive_step(p, recv, recv_counts)`` for every shard. Each shard's
+    buffers are dropped as soon as the next step has them. Returns per
+    shard (what receive_step gave, error)."""
     n = len(devices)
-    sends, counts, errors = map(list, zip(*[send_step(s) for s in range(n)]))
+    dests = [dest_step(s) for s in range(n)]
+    by_device = {}
+    for s, d in enumerate(dests):
+        by_device.setdefault(d.device, []).append(s)
+    counts, positions = [None] * n, [None] * n
+    for shards in by_device.values():
+        c, pos = _bucket_positions([dests[s] for s in shards], n, B)
+        for i, s in enumerate(shards):
+            counts[s], positions[s] = c[i], pos[i]
+    del dests
+    sends, counts, errors = map(list, zip(*[
+        send_step(s, counts[s], positions[s]) for s in range(n)]))
+    del positions
     recv, recv_counts = exchange(sends, counts, devices)
     del sends
     out = []
@@ -231,10 +275,13 @@ def shuffle_rows(leaves, dest, bucket_capacity: int,
     Returns per shard (recv_leaves of P*B rows, total 0-d int32, error 0-d
     int32: one of this shard's SEND buckets overflowed)."""
     n = len(devices)
+    B = bucket_capacity
     out = _over_mesh(
-        lambda s: shuffle_rows_send(leaves[s], dest[s], n, bucket_capacity),
+        lambda s: dest[s].to(torch.int32),
+        lambda s, counts, pos: shuffle_rows_send(
+            leaves[s], dest[s], n, B, counts=counts, positions=pos),
         lambda p, recv, recv_counts: shuffle_rows_receive(recv, recv_counts),
-        devices)
+        devices, B)
     return [(recv_leaves, total, err) for (recv_leaves, total), err in out]
 
 
@@ -249,9 +296,10 @@ def shuffle_batch(batches: Sequence[Batch], key_names: Sequence[str],
     n = len(devices)
     B = bucket_capacity or batches[0].capacity
     return _over_mesh(
-        lambda s: partition_for_exchange(
-            batches[s], key_names, n, B, seed=seed,
-            dest=None if dest is None else dest[s]),
+        lambda s: _batch_dest(batches[s], key_names, n, seed,
+                              None if dest is None else dest[s]),
+        lambda s, counts, pos: partition_for_exchange(
+            batches[s], key_names, n, B, counts=counts, positions=pos),
         lambda p, recv, recv_counts: flatten_received(
             batches[p].schema, recv, recv_counts),
-        devices)
+        devices, B)

@@ -10,8 +10,9 @@
 ``--shards`` logical shards of the card (default 8), ``--path exchange``
 the raw-row exchange (``shuffle_batch`` by the hash of ``k``, buckets of
 twice the local capacity) of the same batch (default 4 shards); their
-layers are called once per shard and step, and a layer's time is the sum
-over the shards. ``--path dense`` with ``--keys`` past 4096 (and
+layers are called once per shard and step (the exchange's
+``bucket_positions``, its two kernels, once per step and card), and a
+layer's time is the sum over the calls. ``--path dense`` with ``--keys`` past 4096 (and
 ``--max-groups`` to hold them) is the sorted dense route. ``--path sort`` is
 ``entry_sort`` (layers: lane build, each ``torch.argsort`` pass of the
 lexicographic sort, take); ``--path join`` is ``entry_join`` with
@@ -241,11 +242,14 @@ def main() -> int:
     layer(dist_agg, "execute_scalar_expression", "expression")
     layer(dist_agg, "filter_batch", "filter")
     layer(dist_agg.DistGroupBy, "_state_rows", "hash_and_dest")
-    layer(shuffle, "partition_for_exchange", "partition_for_exchange")
+    layer(shuffle, "_batch_dest", "dest")
     layer(shuffle, "hash32", "hash")
-    layer(shuffle, "_bucket_rows", "sort_by_dest_and_send_scatter")
+    layer(shuffle, "_bucket_positions", "bucket_positions")
+    layer(shuffle, "partition_histogram_segments", "B4_partition_histogram")
+    layer(shuffle, "partition_positions", "partition_positions")
+    layer(shuffle, "partition_for_exchange", "partition_for_exchange")
+    layer(shuffle, "_bucket_rows", "send_scatter")
     layer(shuffle, "flatten_received", "flatten_received")
-    layer(shuffle, "partition_histogram", "B4_partition_histogram")
     layer(shuffle, "exchange", "exchange")
     layer(shuffle, "shuffle_rows_receive", "receive_compaction")
     layer(grouper.Grouper, "consume", "grouper_consume")

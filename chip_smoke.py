@@ -63,17 +63,25 @@ batch's columns as they lie) is held against its plain version first on
 synthetic calls (every column width in one launch, caps that end mid
 tile, misaligned and strided views, 70 columns in three launches, the
 one-matrix form ``filter_compact_chunks`` up to 100M x 20 B), then at every
-call paths 1, 1b, 3a, 5c, 6, 6b and 7a-7d make to it. Paths 7a-7d hold
-every call they make to B1, the partition histogram B4 and the key
-packing against its plain version, and the launches those calls make
-against their counted runs'.
+call paths 1, 1b, 3a, 5c, 6, 6b and 7a-7d make to it. The exchange's
+two kernels, the partition histogram B4 (``partition_histogram_segments``:
+counts and tile offsets) and ``partition_positions`` (every row's slot in
+its bucket), are held against their plain versions on synthetic calls
+(one segment and eight of unequal lengths, misaligned views, buckets
+that hold all, some and none of the rows), then at every call paths 3a,
+3b and 7a-7d make to them: ONE launch of each a shuffle over all the
+shards of the card, and no ``torch.sort`` inside the exchange's
+``_bucket_rows``. Paths 7a-7d hold every call they make to B1, the two
+exchange kernels and the key packing against its plain version, and the
+launches those calls make against their counted runs'.
 
 Prints the card's name and power limit, one line per check, a JSON line
 ``{"paths": {...}}`` (each path's counted step: ms and peak device bytes;
 path 1 also its filter layer's device ms, the expression excluded), a JSON
 line ``{"kernels": [...]}`` (the four kernels that stand for the JAX package's
 Pallas kernels, the tile stitch and the join's key packing, which stand for
-passes it leaves to XLA) with each kernel's launches on its path's counted
+passes it leaves to XLA, and the bucket positions, which stand for its
+exchange's stable sort by destination) with each kernel's launches on its path's counted
 run and, at the arguments that path gave it, its error against the plain
 version, its time, the plain version's, the least time the card could take
 (``bound_ms``: bytes moved over the memory rate) and the time of one
@@ -90,7 +98,9 @@ kernel also those of the twelve-stream call the earlier slices made
 (the host's time to issue one call), ``columns_index_ms`` (one ``c[sel]``
 per column; its ``library_ms`` is ``chunks[sel]`` on the columns packed as
 u8 planes side by side, the JAX caller's form) and ``widths`` (the bytes a
-row of each column). Last comes
+row of each column); B4's and ``partition_positions``' the same
+``device_ms`` and ``host_ms``, and ``rows`` and ``segments`` (the call's
+shards). Last comes
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when there is no
 CUDA device or any check fails.
 """
@@ -108,7 +118,7 @@ import numpy as np
 try:
     from arrow_tpu_torch.bench_reductions import (
         HBM_BYTES_PER_S, check_filter, cuda_ms, fc_widths, measure_filter,
-        measure_hist)
+        measure_hist, measure_positions)
 except ImportError as e:
     sys.exit(f"chip_smoke: arrow_tpu_torch not importable ({e}); run from "
              "the repository root")
@@ -270,6 +280,52 @@ def partition_hist_cases(torch, n: int, P: int, gen, dev):
     cdf = torch.cumsum(w / w.sum(), 0)
     u = torch.rand(n, generator=gen, device=dev, dtype=torch.float64)
     yield "zipf", torch.searchsorted(cdf, u).clamp(max=P - 1).to(torch.int32)
+
+
+def check_partition_segments(torch, ck, dests, P: int, B: int,
+                             label: str) -> None:
+    """Both exchange kernels over S segments against their plain versions:
+    the counts, the tile offsets and every row's slot; one launch each
+    (none without rows)."""
+    before = dict(ck.LAUNCHES)
+    counts, tiles = ck.partition_histogram_segments(dests, P)
+    got = ck.partition_positions(dests, P, B, tiles)
+    rows = sum(d.shape[0] for d in dests)
+    for kname in ("partition_histogram", "partition_positions"):
+        check(ck.LAUNCHES[kname] - before[kname] == (1 if rows else 0),
+              f"{kname} {label}: launch count")
+    want_counts, want_tiles = ck.partition_histogram_segments_plain(dests, P)
+    check(torch.equal(counts, want_counts) and torch.equal(tiles, want_tiles),
+          f"partition_histogram {label}: counts or tile offsets differ")
+    want = ck.partition_positions_plain(dests, P, B)
+    check(all(a.dtype == torch.int64 and torch.equal(a, b)
+              for a, b in zip(got, want)),
+          f"partition_positions {label}: slots differ")
+    print(f"partition_histogram + partition_positions {label}: "
+          f"{len(dests)} segments, {rows} rows, P={P} B={B} equal")
+
+
+def bucket_sorts(torch, shuffle, fn):
+    """Run fn counting the ``torch.sort`` calls made inside the exchange's
+    ``_bucket_rows``. Returns (fn's result, that count)."""
+    inner_bucket, inner_sort = shuffle._bucket_rows, torch.sort
+    depth, n = [0], [0]
+
+    def bucket(*a, **kw):
+        depth[0] += 1
+        try:
+            return inner_bucket(*a, **kw)
+        finally:
+            depth[0] -= 1
+
+    def sort(*a, **kw):
+        n[0] += depth[0] > 0
+        return inner_sort(*a, **kw)
+    shuffle._bucket_rows, torch.sort = bucket, sort
+    try:
+        return fn(), n[0]
+    finally:
+        shuffle._bucket_rows, torch.sort = inner_bucket, inner_sort
 
 
 def layer_ms(torch, mod, name, fn) -> float:
@@ -528,13 +584,15 @@ def measure_pack_lanes(torch, ck, lanes, lo, span, shift, active,
 
 def kernel_launches(ck, kname: str, args) -> int:
     """The launches one call of a kernel's wrapper makes with ``args``:
-    none for no rows; B1 one for each ``FC_MAX_COLUMNS`` columns."""
+    none for no rows; B1 one for each ``FC_MAX_COLUMNS`` columns; the
+    exchange's kernels one for all their segments."""
     if kname == "filter_compact_chunks":
         sel, columns = args
         return max(1, -(-len(columns) // ck.FC_MAX_COLUMNS)) \
             if sel.shape[0] else 0
-    rows = args[0] if kname == "partition_histogram" else args[0][0]
-    return 1 if rows.shape[0] else 0
+    if kname in ("partition_histogram", "partition_positions"):
+        return 1 if sum(d.shape[0] for d in args[0]) else 0
+    return 1 if args[0][0].shape[0] else 0
 
 
 def numpy_oracle(cols, num_keys: int = NUM_KEYS):
@@ -1002,6 +1060,23 @@ def main() -> int:
             for name, dest in partition_hist_cases(torch, n, P, gen, dev):
                 check_partition_hist(torch, ck, dest, P, name)
     del dest
+    # ... and both exchange kernels over segments of unequal lengths (every
+    # other one a view off a 16-byte boundary), buckets that hold all, some
+    # and none of the rows
+    sizes = [0, 1, 8191, 8193, 1 << 19, (1 << 20) + 5, 3_125_000, 0]
+    for P in (1, 8, 128):
+        cases = {}
+        for n in sizes:
+            for name, dest in partition_hist_cases(torch, n + 1, P, gen, dev):
+                cases.setdefault(name, []).append(
+                    dest[1:] if len(cases.get(name, [])) % 2 else dest[:n])
+        for name, dests in cases.items():
+            for B in (max(sizes), 3_125_000 // (2 * P), 0):
+                check_partition_segments(torch, ck, dests, P, B,
+                                         f"{name}, 8 segments")
+            check_partition_segments(torch, ck, dests[5:6], P, 1000,
+                                     f"{name}, 1 segment")
+    del cases, dests
 
     # ---- pack_key_lanes against its plain version ----------------------
     for n in (1, 1000, 1 << 20, N_ROWS):
@@ -1236,9 +1311,10 @@ def main() -> int:
     secs = time.perf_counter() - t0
     launches3 = dict(ck.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    check(launches3["partition_histogram"] == N_SHARDS,
-          f"path 3a launched partition_histogram "
-          f"{launches3['partition_histogram']} times, not once per shard")
+    for kname in ("partition_histogram", "partition_positions"):
+        check(launches3[kname] == 1,
+              f"path 3a launched {kname} {launches3[kname]} times, not once "
+              "for its one exchange on one card")
     check(launches3["filter_compact_chunks"] == N_SHARDS,
           "path 3a: one pre-filter kernel pass per shard")
 
@@ -1255,10 +1331,14 @@ def main() -> int:
     paths["path 3a"] = {"ms": secs * 1e3, "peak_bytes": peak}
     del table
 
-    # one more run, recording what the last shard's kernels get; then both
-    # kernels at those arguments: error, times, bound
-    recorded(selection, "filter_compact_columns", lambda: recorded(
-        shuffle, "partition_histogram", lambda: step(b)))
+    # one more run, recording what the kernels get (the last shard's
+    # filter, the exchange's one call over all shards); then the kernels at
+    # those arguments: error, times, bound
+    _, sorts = bucket_sorts(torch, shuffle, lambda: recorded(
+        selection, "filter_compact_columns", lambda: recorded(
+            shuffle, "partition_histogram_segments", lambda: recorded(
+                shuffle, "partition_positions", lambda: step(b)))))
+    check(sorts == 0, f"path 3a: {sorts} torch.sort calls in _bucket_rows")
     del step
     sel, columns = seen["filter_compact_columns"]
     check(sel.shape[0] >= N_ROWS // N_SHARDS and
@@ -1267,11 +1347,14 @@ def main() -> int:
           f"bytes over {sel.shape[0]} rows")
     fc3a = measure_filter(torch, ck, sel, columns, "path 3a shape")
     del sel, columns
-    dest, P = seen["partition_histogram"]
-    check(dest.shape[0] == MAX_GROUPS_PER_SHARD and P == N_SHARDS,
-          f"path 3a: the exchange counts {dest.shape[0]} rows over {P}")
-    ph = measure_hist(torch, ck, dest, P, "path 3a shape")
-    del dest
+    dests, P = seen["partition_histogram_segments"]
+    check(len(dests) == N_SHARDS and P == N_SHARDS and
+          all(d.shape[0] == MAX_GROUPS_PER_SHARD for d in dests),
+          f"path 3a: the exchange counts {len(dests)} segments over {P}")
+    _, _, B, _ = seen["partition_positions"]
+    ph = measure_hist(torch, ck, dests, P, "path 3a shape")
+    pp = measure_positions(torch, ck, dests, P, B, "path 3a shape")
+    del dests
     forget()
     torch.cuda.empty_cache()
 
@@ -1302,8 +1385,9 @@ def main() -> int:
     secs = time.perf_counter() - t0
     launches3b = dict(ck.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    check(launches3b["partition_histogram"] == N_SHARDS_RAW,
-          "path 3b: one partition_histogram launch per shard")
+    for kname in ("partition_histogram", "partition_positions"):
+        check(launches3b[kname] == 1,
+              f"path 3b: {launches3b[kname]} {kname} launches, not one")
     check(not any(bool(err) for _, err in out), "path 3b: error flag set")
     place = shard_of(shuffle.EXCHANGE_SEED, N_SHARDS_RAW)
     rows, k_sum, w_sum, v_sum = 0, 0, 0, 0.0
@@ -1334,14 +1418,20 @@ def main() -> int:
     del out, rb, k, cols
     torch.cuda.empty_cache()
 
-    # ---- B4 at path 3b's call (one shard of 4) --------------------------
-    recorded(shuffle, "partition_histogram",
-             lambda: shuffle.partition_for_exchange(
-                 sharded.shards[0], ["k"], N_SHARDS_RAW, bucket))
-    dest, P = seen["partition_histogram"]
-    del sharded
-    ph3b = measure_hist(torch, ck, dest, P, "path 3b shape")
-    del dest
+    # ---- the exchange's kernels at path 3b's call (4 shards) ------------
+    out, sorts = bucket_sorts(torch, shuffle, lambda: recorded(
+        shuffle, "partition_histogram_segments", lambda: recorded(
+            shuffle, "partition_positions", raw_exchange)))
+    check(sorts == 0, f"path 3b: {sorts} torch.sort calls in _bucket_rows")
+    del out, sharded
+    torch.cuda.empty_cache()
+    (dests, P), (_, _, B, _) = (seen["partition_histogram_segments"],
+                                seen["partition_positions"])
+    check(len(dests) == N_SHARDS_RAW and P == N_SHARDS_RAW,
+          f"path 3b: the exchange counts {len(dests)} segments over {P}")
+    ph3b = measure_hist(torch, ck, dests, P, "path 3b shape")
+    pp3b = measure_positions(torch, ck, dests, P, B, "path 3b shape")
+    del dests
     forget()
     torch.cuda.empty_cache()
 
@@ -1350,12 +1440,16 @@ def main() -> int:
     # (8, B) send buffers of one 12.5M-row shard, B = 2 x its capacity
     shard = DistContext(devices=[dev] * N_SHARDS).shard_batch(b).shards[0]
     torch.cuda.reset_peak_memory_stats()
+    before = dict(ck.LAUNCHES)
     send, counts, error = recorded(
-        shuffle, "partition_histogram",
+        shuffle, "partition_histogram_segments",
         lambda: shuffle.partition_for_exchange(
             shard, ["k"], N_SHARDS, 2 * shard.capacity))
     peak = torch.cuda.max_memory_allocated()
-    dest, P = seen["partition_histogram"]
+    for kname in ("partition_histogram", "partition_positions"):
+        check(ck.LAUNCHES[kname] - before[kname] == 1,
+              f"8-shard send: one shard alone launches {kname} once")
+    (dest,), P = seen["partition_histogram_segments"]
     check(dest.shape[0] == N_ROWS // N_SHARDS and P == N_SHARDS,
           f"8-shard send: counted {dest.shape[0]} rows over {P}")
     check(int(counts.sum()) == len(shard) and not bool(error),
@@ -1374,7 +1468,7 @@ def main() -> int:
           f"keys in row order; peak device memory {peak} B")
     del send, k_send, place, shard, b
     torch.cuda.empty_cache()
-    ph8 = measure_hist(torch, ck, dest, P, "8-shard send shape")
+    ph8 = measure_hist(torch, ck, [dest], P, "8-shard send shape")
     del dest
     forget()
 
@@ -1670,14 +1764,20 @@ def main() -> int:
     # ---- path 7b: the Q3 Declaration with dist= on path 6's tables -------
     from arrow_tpu_torch.parallel import DistContext
     dist_kernels = ("filter_compact_chunks", "partition_histogram",
-                    "pack_key_lanes")
+                    "partition_positions", "pack_key_lanes")
+    wrapper["partition_histogram"] = "partition_histogram_segments"
 
-    def record_kernels(fn):
+    def record_kernels(label, fn):
         """Run fn recording every call of the distributed paths' kernels
-        (B1, B4 and pack_key_lanes) in ``seen_calls``."""
-        return recorded(selection, "filter_compact_columns", lambda: recorded(
-            shuffle, "partition_histogram", lambda: recorded(
-                join_mod, "pack_key_lanes", fn)))
+        (B1, B4, partition_positions and pack_key_lanes) in ``seen_calls``;
+        checks that the exchange ran no torch.sort by destination."""
+        _, sorts = bucket_sorts(torch, shuffle, lambda: recorded(
+            selection, "filter_compact_columns", lambda: recorded(
+                shuffle, "partition_histogram_segments", lambda: recorded(
+                    shuffle, "partition_positions", lambda: recorded(
+                        join_mod, "pack_key_lanes", fn)))))
+        check(sorts == 0, f"{label}: {sorts} torch.sort calls in "
+              "_bucket_rows")
 
     def check_calls(label, counts):
         """Every recorded call of the distributed paths' kernels against
@@ -1693,9 +1793,20 @@ def main() -> int:
                 if kname == "filter_compact_chunks":
                     check_filter(torch, ck, *a, f"{label} call")
                 elif kname == "partition_histogram":
-                    check(torch.equal(ck.partition_histogram(*a),
-                                      ck.partition_histogram_plain(*a)),
+                    got = ck.partition_histogram_segments(*a)
+                    want = ck.partition_histogram_segments_plain(*a)
+                    check(all(torch.equal(g, w) for g, w in zip(got, want)),
                           f"{label}: a partition_histogram call differs "
+                          "from its plain version")
+                    # one launch a shuffle over all the shards of the card
+                    check(len(a[0]) == N_SHARDS, f"{label}: a "
+                          f"partition_histogram call over {len(a[0])} shards")
+                elif kname == "partition_positions":
+                    dests, P, B, _ = a
+                    check(all(torch.equal(g, w) for g, w in zip(
+                        ck.partition_positions(*a),
+                        ck.partition_positions_plain(dests, P, B))),
+                          f"{label}: a partition_positions call differs "
                           "from its plain version")
                 else:
                     check_pack_lanes(torch, ck, *a, f"{label} call", True)
@@ -1713,7 +1824,8 @@ def main() -> int:
                                         dist=ctx7).to_table()
 
     out, secs, launches7b, peak = timed(
-        q3_dist, "path 7b", ("filter_compact_chunks", "partition_histogram"))
+        q3_dist, "path 7b", ("filter_compact_chunks", "partition_histogram",
+                             "partition_positions"))
     check_q3(out, q3_oracle, "path 7b")
     print(f"path 7b (Q3-shaped plan, dist= over {N_SHARDS} logical shards "
           f"of one card, path 6's tables): {N_LINEITEM} lineitem rows in "
@@ -1745,7 +1857,7 @@ def main() -> int:
         return finalize_table(self, state)
     dist_agg.DistGroupBy.finalize_table = finalize_rec
     try:
-        record_kernels(q3_dist)
+        record_kernels("path 7b", q3_dist)
     finally:
         dist_agg.DistGroupBy.finalize_table = finalize_table
     print(f"path 7b: groups a shard held {held[-1]}, max_groups "
@@ -1756,29 +1868,41 @@ def main() -> int:
     sel, columns = full(seen_calls["filter_compact_columns"],
                         lambda a: a[0].shape[0])
     fc7b = measure_filter(torch, ck, sel, columns, "path 7b shape")
-    hist_calls = seen_calls["partition_histogram"]
+    hist_calls = seen_calls["partition_histogram_segments"]
+    pos_calls = seen_calls["partition_positions"]
+    check(len(hist_calls) == len(pos_calls) and all(
+        h[0] is p[0] for h, p in zip(hist_calls, pos_calls)),
+        "path 7b: each shuffle's positions call takes its histogram's dests")
 
-    def fullest(calls):
-        """The call whose dest sends the most rows (a shard whose block
-        of a batch is padding sends none)."""
-        return max(calls, key=lambda a: int((a[0] < a[1]).sum()))
-    # a lineitem batch's shard: the probe shuffle's 2^19 rows; the
-    # state-row exchange: the last shuffle, one call a shard
-    ph7b = measure_hist(torch, ck, *fullest([
-        a for a in hist_calls if a[0].shape[0] == Q3_BATCH_ROWS // N_SHARDS]),
-        "path 7b lineitem shard")
-    state_calls = hist_calls[-N_SHARDS:]
-    check(all(a[0].shape[0] == Q3_MAX_GROUPS for a in state_calls),
-          "path 7b: the last shuffle is the state rows'")
-    ph7b_state = measure_hist(torch, ck, *fullest(state_calls),
-                              "path 7b state rows")
+    def fullest(i):
+        """Of the shuffles whose shards hold ``rows`` rows each, the call
+        whose dests send the most rows (a shard whose block of a batch is
+        padding sends none)."""
+        return max(i, key=lambda j: sum(int((d < hist_calls[j][1]).sum())
+                                        for d in hist_calls[j][0]))
+    # a lineitem batch's probe shuffle: 8 x 2^19 rows; the state-row
+    # exchange: the last shuffle, 8 x 2^22 rows
+    shape7b = {}
+    for label, rows, idx in (
+            ("path 7b lineitem shuffle", Q3_BATCH_ROWS // N_SHARDS,
+             [j for j, a in enumerate(hist_calls)
+              if a[0][0].shape[0] == Q3_BATCH_ROWS // N_SHARDS]),
+            ("path 7b state rows", Q3_MAX_GROUPS, [len(hist_calls) - 1])):
+        j = fullest(idx)
+        dests, P = hist_calls[j]
+        check(all(d.shape[0] == rows for d in dests),
+              f"{label}: shards of {[d.shape[0] for d in dests]} rows")
+        shape7b[label] = (measure_hist(torch, ck, dests, P, label),
+                          measure_positions(torch, ck, dests, P,
+                                            pos_calls[j][2], label))
+    (ph7b, pp7b), (ph7b_state, pp7b_state) = shape7b.values()
     # one shard's build of the orders: its 25M-row accumulation's keys
     n_orders = tables[1].num_rows
     pk7b = measure_pack_lanes(torch, ck, *[
         a for a in seen_calls["pack_key_lanes"]
         if a[4] is None and a[0][0].shape[0] == n_orders][0],
         "path 7b orders build")
-    del sel, columns, hist_calls, tables, qcols, ctx7
+    del sel, columns, hist_calls, pos_calls, dests, tables, qcols, ctx7
     forget()
     torch.cuda.empty_cache()
 
@@ -1855,7 +1979,8 @@ def main() -> int:
     secs = time.perf_counter() - t0
     launches7a = dict(ck.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    for name in ("filter_compact_chunks", "partition_histogram"):
+    for name in ("filter_compact_chunks", "partition_histogram",
+                 "partition_positions"):
         check(launches7a[name] > 0, f"{name} was not launched on path 7a")
     check(all(t.device.type == "cuda" for t in dry["q3"].batches),
           "path 7a: the Q3 result is not on the card")
@@ -1867,7 +1992,8 @@ def main() -> int:
     del dry
     # one more run, every kernel call recorded and held against its plain
     # version
-    record_kernels(lambda: entry_mod.dryrun_multichip(N_SHARDS, dev))
+    record_kernels("path 7a",
+                   lambda: entry_mod.dryrun_multichip(N_SHARDS, dev))
     check_calls("path 7a", launches7a)
     forget()
 
@@ -1886,9 +2012,12 @@ def main() -> int:
           f"{3 * 2 * 100_000_000 * 14} B, with the build's and the "
           f"outputs more)")
     table7c, secs, launches7c, peak = timed(
-        lambda: step(bb, pb), "path 7c", ("partition_histogram",))
-    check(launches7c["partition_histogram"] == 2 * N_SHARDS,
-          "path 7c: one partition_histogram launch per shard and side")
+        lambda: step(bb, pb), "path 7c", ("partition_histogram",
+                                          "partition_positions"))
+    for kname in ("partition_histogram", "partition_positions"):
+        check(launches7c[kname] == 2,
+              f"path 7c: {launches7c[kname]} {kname} launches, not one a "
+              "side")
     check(len(table7c.batches) == N_SHARDS, "path 7c: a shard has no rows")
     place = shard_of(shuffle.EXCHANGE_SEED, N_SHARDS)
     for p, rb in enumerate(table7c.batches):
@@ -1905,8 +2034,18 @@ def main() -> int:
           f"each on the shard its key's hash names; peak device memory "
           f"{peak} B; launches {launches7c}")
     del table7c, bcols, pcols
-    record_kernels(lambda: step(bb, pb))
+    record_kernels("path 7c", lambda: step(bb, pb))
     check_calls("path 7c", launches7c)
+    # the probe side's shuffle, the larger: 8 shards of 3,125,000 rows
+    j = max(range(len(seen_calls["partition_positions"])),
+            key=lambda i: seen_calls["partition_positions"][i][0][0].shape[0])
+    dests, P, B, _ = seen_calls["partition_positions"][j]
+    check(dests[0].shape[0] >= N_PROBE_DIST // N_SHARDS,
+          f"path 7c: the probe shuffle's shards hold {dests[0].shape[0]} "
+          "rows")
+    ph7c = measure_hist(torch, ck, dests, P, "path 7c probe shuffle")
+    pp7c = measure_positions(torch, ck, dests, P, B, "path 7c probe shuffle")
+    del dests
     forget()
     del bb, pb, step
     torch.cuda.empty_cache()
@@ -1925,9 +2064,11 @@ def main() -> int:
           f"{3 * SORT_BUCKET_FACTOR * N_SORT_DIST * 21} B (100M rows: "
           f"{3 * SORT_BUCKET_FACTOR * 100_000_000 * 21} B)")
     table7d, secs, launches7d, peak = timed(
-        lambda: step(b), "path 7d", ("partition_histogram",))
-    check(launches7d["partition_histogram"] == N_SHARDS,
-          "path 7d: one partition_histogram launch per shard")
+        lambda: step(b), "path 7d", ("partition_histogram",
+                                     "partition_positions"))
+    for kname in ("partition_histogram", "partition_positions"):
+        check(launches7d[kname] == 1,
+              f"path 7d: {launches7d[kname]} {kname} launches, not one")
     t0 = time.time()
     want = torch.from_numpy(numpy_sort_oracle(cols))
     got = {c: torch.cat([x.column(c).values[:len(x)] for x in
@@ -1951,8 +2092,13 @@ def main() -> int:
           f"s); shard lengths {lengths7d}; peak device memory {peak} B; "
           f"launches {launches7d}")
     del table7d, got, got_valid, want, cols
-    record_kernels(lambda: step(b))
+    record_kernels("path 7d", lambda: step(b))
     check_calls("path 7d", launches7d)
+    (dests, P), (_, _, B, _) = (seen["partition_histogram_segments"],
+                                seen["partition_positions"])
+    ph7d = measure_hist(torch, ck, dests, P, "path 7d sort shuffle")
+    pp7d = measure_positions(torch, ck, dests, P, B, "path 7d sort shuffle")
+    del dests
     forget()
     del b, step
     torch.cuda.empty_cache()
@@ -1960,7 +2106,7 @@ def main() -> int:
     def row(name, source, replaces, n_launches, m):
         return {"name": name, "route": "cuda",
                 "source": f"arrow_tpu_torch/csrc/{source}",
-                "replaces": f"arrow_tpu/ops/{replaces}",
+                "replaces": f"arrow_tpu/{replaces}",
                 "launches": n_launches, "max_abs_err": m["max_abs_err"],
                 "ms": m["ms"], "plain_ms": m["plain_ms"],
                 "bound_ms": m["bound_ms"], "bound_by": "bytes",
@@ -1976,17 +2122,21 @@ def main() -> int:
 
     kernels = [
         row("filter_compact_chunks", "filter_compact.cu",
-            "pallas_kernels.py:492", launches["filter_compact_chunks"], fc),
-        row("dense_group_reduce", "dense_group.cu", "pallas_kernels.py:327",
-            launches["dense_group_reduce"], dg),
-        row("tile_compact_local", "tile_compact.cu", "pallas_kernels.py:392",
-            launches2["tile_compact_local"], tc),
-        row("tile_stitch", "tile_compact.cu", "selection.py:102",
+            "ops/pallas_kernels.py:492", launches["filter_compact_chunks"],
+            fc),
+        row("dense_group_reduce", "dense_group.cu",
+            "ops/pallas_kernels.py:327", launches["dense_group_reduce"], dg),
+        row("tile_compact_local", "tile_compact.cu",
+            "ops/pallas_kernels.py:392", launches2["tile_compact_local"], tc),
+        row("tile_stitch", "tile_compact.cu", "ops/selection.py:102",
             launches2["tile_stitch"], ts),
         row("partition_histogram", "partition_hist.cu",
-            "pallas_kernels.py:76", launches3["partition_histogram"], ph),
-        row("pack_key_lanes", "pack_lanes.cu", "join.py:157",
+            "ops/pallas_kernels.py:76", launches3["partition_histogram"], ph),
+        row("pack_key_lanes", "pack_lanes.cu", "ops/join.py:157",
             launches5["path 5a"]["pack_key_lanes"], pk),
+        # the stable sort by destination of the JAX exchange's send side
+        row("partition_positions", "partition_hist.cu",
+            "parallel/shuffle.py:155", launches3["partition_positions"], pp),
     ]
     kernels[1]["bound_ms_all_rows"] = dg["bound_ms_all_rows"]
     also(kernels[1], "nine_kinds", dg9)
@@ -1997,6 +2147,8 @@ def main() -> int:
     kernels[0]["filter_layer_ms_path_1"] = paths["path 1"]["filter_layer_ms"]
     also(kernels[4], "path_3b", ph3b, launches3b["partition_histogram"])
     also(kernels[4], "send_8_shards", ph8)
+    kernels[6]["host_ms"] = pp["host_ms"]
+    also(kernels[6], "path_3b", pp3b, launches3b["partition_positions"])
     def suffix_of(label):
         return label.replace(" ", "_").replace(",", "").replace("+", "and")
 
@@ -2010,8 +2162,13 @@ def main() -> int:
         also(kernel, "path_6", m)
     also(kernels[0], "path_6b_bloom_split", fc6b)
     also(kernels[0], "path_7b", fc7b)
-    also(kernels[4], "path_7b", ph7b)
-    also(kernels[4], "path_7b_state_rows", ph7b_state)
+    for kernel, suffix, m in (
+            (kernels[4], "path_7b", ph7b), (kernels[6], "path_7b", pp7b),
+            (kernels[4], "path_7b_state_rows", ph7b_state),
+            (kernels[6], "path_7b_state_rows", pp7b_state),
+            (kernels[4], "path_7c", ph7c), (kernels[6], "path_7c", pp7c),
+            (kernels[4], "path_7d", ph7d), (kernels[6], "path_7d", pp7d)):
+        also(kernel, suffix, m)
     also(kernels[5], "path_7b_orders_build", pk7b)
     # the launches of the join paths', path 1b's and path 6's counted runs
     for label, counts in list(launches5.items()) + [

@@ -502,6 +502,86 @@ def test_partition_histogram_on_card_edges(cuda_device):
         ck.partition_histogram(d[::2], 4)                   # not contiguous
 
 
+def _ph_segments(g, dev, sizes, P, kind):
+    """int32 dest segments of the given lengths: uniform over [-1, P + 2)
+    (values -1, P, P + 1 and 2^30 dropped), Zipf(1.5) over [0, P), or one
+    value; every other segment a view that does not start on a 16-byte
+    boundary."""
+    segs = []
+    for i, n in enumerate(sizes):
+        if kind == "uniform":
+            x = torch.randint(-1, P + 2, (n + 1,), generator=g,
+                              dtype=torch.int32, device=dev)
+            x[::97] = 1 << 30
+        elif kind == "zipf":
+            w = 1.0 / torch.arange(1, P + 1, dtype=torch.float64,
+                                   device=dev) ** 1.5
+            u = torch.rand(n + 1, generator=g, device=dev,
+                           dtype=torch.float64)
+            x = torch.searchsorted(torch.cumsum(w / w.sum(), 0), u) \
+                .clamp(max=P - 1).to(torch.int32)
+        else:
+            x = torch.full((n + 1,), P - 1, dtype=torch.int32, device=dev)
+        segs.append(x[1:] if i % 2 else x[:n])
+    return segs
+
+
+@pytest.mark.parametrize("kind", ["uniform", "zipf", "one_value"])
+@pytest.mark.parametrize("P", [1, 8, 128])
+@pytest.mark.parametrize("sizes", [
+    [1], [(1 << 20) + 7], [0, 5, 8192, 8193, 0, 100_000, 1 << 19, 3],
+    [1 << 19] * 8], ids=["S1_one_row", "S1_1M", "S8_unequal", "S8_2^19"])
+def test_partition_segments_kernels_vs_plain(cuda_device, sizes, P, kind):
+    """Both exchange kernels against their plain versions over S segments:
+    the counts, the tile offsets and every row's slot, with buckets that
+    hold all the rows, some of them and none (B = 0); one launch each."""
+    g = torch.Generator(device=cuda_device).manual_seed(sum(sizes) + P)
+    segs = _ph_segments(g, cuda_device, sizes, P, kind)
+    before = dict(ck.LAUNCHES)
+    counts, tiles = ck.partition_histogram_segments(segs, P)
+    assert ck.LAUNCHES["partition_histogram"] == \
+        before["partition_histogram"] + 1
+    want_counts, want_tiles = ck.partition_histogram_segments_plain(segs, P)
+    assert counts.dtype == tiles.dtype == torch.int32
+    assert torch.equal(counts, want_counts)
+    assert torch.equal(tiles, want_tiles)
+    for B in (max(sizes), max(1, max(sizes) // (2 * P)), 0):
+        got = ck.partition_positions(segs, P, B, tiles)
+        want = ck.partition_positions_plain(segs, P, B)
+        assert [x.shape[0] for x in got] == sizes
+        for a, b in zip(got, want):
+            assert a.dtype == torch.int64 and torch.equal(a, b)
+    assert ck.LAUNCHES["partition_positions"] == \
+        before["partition_positions"] + 3
+
+
+def test_partition_segments_kernels_edges(cuda_device):
+    """No rows at all: zeros, no launch; the most segments a call takes,
+    most of them empty; more raise; tile offsets of other segments
+    raise."""
+    empty = [torch.zeros((0,), dtype=torch.int32, device=cuda_device)] * 3
+    before = dict(ck.LAUNCHES)
+    counts, tiles = ck.partition_histogram_segments(empty, 8)
+    assert counts.tolist() == [[0] * 8] * 3 and tiles.shape == (8, 0)
+    assert [x.shape[0] for x in ck.partition_positions(empty, 8, 4, tiles)] \
+        == [0, 0, 0]
+    assert dict(ck.LAUNCHES) == before
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    segs = [torch.randint(-1, 9, (i % 7 * 1000,), generator=g,
+                          dtype=torch.int32, device=cuda_device)
+            for i in range(ck.MAX_SEGMENTS)]
+    counts, tiles = ck.partition_histogram_segments(segs, 8)
+    assert torch.equal(counts,
+                       ck.partition_histogram_segments_plain(segs, 8)[0])
+    for a, b in zip(ck.partition_positions(segs, 8, 300, tiles),
+                    ck.partition_positions_plain(segs, 8, 300)):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError):
+        ck.partition_histogram_segments(segs + segs[:1], 8)
+    with pytest.raises(ValueError):
+        ck.partition_positions(segs[:2], 8, 300, tiles)
+
+
 def test_entry_distributed_on_card_matches_cpu(cuda_device):
     """The distributed group-by over 8 logical shards of the card, with no
     device named, against the same on the CPU: per shard, in row order."""
@@ -510,7 +590,9 @@ def test_entry_distributed_on_card_matches_cpu(cuda_device):
     step, args = entry_distributed(None, 8, 400_000, 30_000, 1 << 16, 3)
     assert args[0].device.type == "cuda"
     got = step(*args)
-    assert ck.LAUNCHES["partition_histogram"] == 8
+    # one exchange on one card: one launch of each exchange kernel
+    assert ck.LAUNCHES["partition_histogram"] == 1
+    assert ck.LAUNCHES["partition_positions"] == 1
     assert ck.LAUNCHES["filter_compact_chunks"] == 8
     cstep, cargs = entry_distributed("cpu", 8, 400_000, 30_000, 1 << 16, 3)
     want = cstep(*cargs)
@@ -1159,7 +1241,7 @@ def test_dist_join_two_shards_on_card_matches_cpu(cuda_device):
     """``DistContext.join`` (full outer, duplicate build keys) and the
     streaming ``DistHashJoin`` (inner) over 2 logical shards of the card:
     the same rows on the same shards as on the CPU; every shuffle launches
-    the partition-histogram kernel on the card."""
+    the partition-histogram kernel once on the card."""
     from arrow_tpu_torch.acero.options import HashJoinNodeOptions
     from arrow_tpu_torch.core.batch import Table, batch_from_numpy
     from arrow_tpu_torch.parallel import DistContext, DistHashJoin
@@ -1190,8 +1272,9 @@ def test_dist_join_two_shards_on_card_matches_cpu(cuda_device):
                     [_table_rows(Table(outs[0].schema, [x]), names)
                      for x in outs]])
     (g1, g2), (w1, w2) = res
-    # four shuffles over two shards on the card; none on the CPU
-    assert launched == [8, 0]
+    # four shuffles over two shards of one card, one launch each; none on
+    # the CPU
+    assert launched == [4, 0]
     for got, want in ((g1, w1), (g2, w2)):
         assert len(got) == len(want) == 2
         for a, b in zip(got, want):

@@ -201,6 +201,100 @@ def test_shuffle_rows_vs_jax(B):
     assert any(int(e) for _, _, e in out) == (B == 3)
 
 
+def _port_local(cols, s, n):
+    """Shard s's block of ``cols`` as a local batch of LOCAL_CAP rows, the
+    first ``n`` of them real; the rows past them hold what the JAX side
+    holds there."""
+    blk = {k: v[s * LOCAL_CAP:(s + 1) * LOCAL_CAP] for k, v in cols.items()}
+    arrays = {
+        "k": array_from_numpy(blk["k"][:n], capacity=LOCAL_CAP, device="cpu"),
+        "v": array_from_numpy(blk["v"][:n], validity=blk["vvalid"][:n],
+                              capacity=LOCAL_CAP, device="cpu"),
+        "u": array_from_numpy(blk["u"][:n], capacity=LOCAL_CAP,
+                              device="cpu")}
+    arrays["k"].values[n:] = torch.from_numpy(blk["k"][n:])
+    arrays["v"].values[n:] = torch.from_numpy(blk["v"][n:])
+    arrays["v"].validity[n:] = torch.from_numpy(blk["vvalid"][n:])
+    arrays["u"].values.view(torch.int32)[n:] = torch.from_numpy(
+        blk["u"][n:].view(np.int32))
+    schema = Schema(tuple(Field(k, a.type) for k, a in arrays.items()))
+    return Batch(schema, list(arrays.values()), n)
+
+
+_UNEQUAL = np.array([64, 10, 0, 64, 33, 1, 57, 5], np.int32)
+
+
+@pytest.mark.parametrize("B", [LOCAL_CAP, 4], ids=["fits", "bucket_too_small"])
+def test_batched_send_of_unequal_shards_vs_jax(B):
+    """The send side as ``shuffle_batch`` runs it over shards of unequal
+    lengths (one of them empty): every shard's destinations, ONE
+    histogram and ONE positions call over all of them, then each shard's
+    scatter. Send buffers slot for slot, counts and error flags equal the
+    JAX package's ``partition_for_exchange`` on each shard."""
+    cols = _columns(11 + B, CAP)
+
+    def jstep(k, v, vvalid, u, lens):
+        lb = _local_batch(_JSCHEMA, [None] * 3, [k, None, v, vvalid, u, None],
+                          lens[0])
+        send, counts, err = jshuffle.partition_for_exchange(lb, ["k"], N, B)
+        return tuple(x for x in send if x is not None) + \
+            (counts, err.reshape((1,)))
+
+    want = _jax_sharded(jstep, [cols["k"], cols["v"], cols["vvalid"],
+                                cols["u"], _UNEQUAL], 6)
+    locals_ = [_port_local(cols, s, int(n)) for s, n in enumerate(_UNEQUAL)]
+    dests = [shuffle._batch_dest(b, ["k"], N, shuffle.EXCHANGE_SEED, None)
+             for b in locals_]
+    counts, positions = shuffle._bucket_positions(dests, N, B)
+    assert counts.shape == (N, N)
+    for s, local in enumerate(locals_):
+        send, c, err = shuffle.partition_for_exchange(
+            local, ["k"], N, B, counts=counts[s], positions=positions[s])
+        assert send[1] is None and send[5] is None
+        for got, w in zip([send[0], send[2], send[3], send[4]], want[:4]):
+            np.testing.assert_array_equal(got.numpy(), _per_shard(w)[s])
+        np.testing.assert_array_equal(c.numpy(), _per_shard(want[4])[s])
+        assert int(err) == int(want[5][s])
+        # the shard alone (its own pair of kernel calls) gives the same
+        alone = shuffle.partition_for_exchange(local, ["k"], N, B)
+        for a, b in zip(alone[0], send):
+            assert (a is None and b is None) or torch.equal(a, b)
+        assert torch.equal(alone[1], c) and int(alone[2]) == int(err)
+    assert any(int(e) for e in want[5]) == (B == 4)
+
+
+@pytest.mark.parametrize("B", [2 * LOCAL_CAP, 5], ids=["fits",
+                                                    "bucket_too_small"])
+def test_shuffle_batch_of_unequal_shards_vs_jax(B):
+    """The whole raw-row shuffle of shards of unequal lengths: received
+    batches, lengths and error flags equal the JAX package's."""
+    cols = _columns(23 + B, CAP)
+
+    def jstep(k, v, vvalid, u, lens):
+        lb = _local_batch(_JSCHEMA, [None] * 3, [k, None, v, vvalid, u, None],
+                          lens[0])
+        out, err = jshuffle.shuffle_batch(lb, ["k"], "d", N,
+                                          bucket_capacity=B)
+        return (out.column("k").values, out.column("v").values,
+                out.column("v").validity, out.column("u").values,
+                jnp.asarray(out.length, jnp.int32).reshape((1,)),
+                err.reshape((1,)))
+
+    want = _jax_sharded(jstep, [cols["k"], cols["v"], cols["vvalid"],
+                                cols["u"], _UNEQUAL], 6)
+    locals_ = [_port_local(cols, s, int(n)) for s, n in enumerate(_UNEQUAL)]
+    out = shuffle.shuffle_batch(locals_, ["k"], [torch.device("cpu")] * N,
+                                bucket_capacity=B)
+    for s, (rb, err) in enumerate(out):
+        for got, w in zip([rb.column("k").values, rb.column("v").values,
+                           rb.column("v").validity, rb.column("u").values],
+                          want[:4]):
+            np.testing.assert_array_equal(got.numpy(), _per_shard(w)[s])
+        assert int(rb.length) == int(want[4][s])
+        assert int(err) == int(want[5][s])
+    assert any(int(e) for _, e in out) == (B == 5)
+
+
 def test_exchange_is_the_transpose_of_the_buckets():
     """recv[p][s] = send[s][p] for buffers and counts; None passes."""
     devs = [torch.device("cpu")] * 3
