@@ -33,6 +33,7 @@ from ..compute.scalar import Scalar
 from ..ops.aggregates import make_grouped_aggregator
 from ..ops.bits import SIGNED_OF, as_signed_bits, unsigned_to_int64
 from ..ops.concat import concat_batches
+from ..ops.grouper import group_key_lanes
 from ..ops.hash_aggregate import HashAggregate
 from ..ops.join import HashJoin
 from ..ops.kernel_utils import values_of
@@ -101,6 +102,8 @@ def batch_device_bytes(b: Batch) -> int:
         total += a.values.nbytes
         if a.validity is not None:
             total += a.validity.nbytes
+        if a.offsets is not None:
+            total += a.offsets.nbytes
     return total
 
 
@@ -113,19 +116,29 @@ def _spill_budget_bytes(options) -> Optional[int]:
 
 # ---- compaction ---------------------------------------------------------------
 
+def compact_scalars(b: Batch) -> list:
+    """The device scalars ``maybe_compact`` reads: the length, then the
+    used bytes of each varlen column. The hash join fetches them with its
+    own scalars in one read."""
+    return [b.length] + [a.offsets[b.length] for a in b.arrays
+                         if a.offsets is not None]
+
+
 def maybe_compact(b: Batch, vals: Optional[list] = None) -> Batch:
     """Shrink a sparsely filled batch to its capacity bucket.
 
     Pipeline-breaker outputs (join fanout, aggregate finalize) and filtered
     batches keep their input capacity; when the length lands far below it,
     every downstream sort and gather would still pay the full capacity. One
-    host read of the length (``vals[0]`` when the caller fetched it with
-    other scalars) and prefix slices rebase the batch: its live rows are
-    always a prefix, and every fixed-width column slices. Batches up to
+    host read of the length and of each varlen column's used bytes
+    (``compact_scalars``; ``vals`` when the caller fetched them with other
+    scalars) and prefix slices rebase the batch: its live rows are always a
+    prefix, and so are a varlen column's used bytes. Batches up to
     ``ARROW_TPU_COMPACT_MIN`` rows (2^20) and ``ARROW_TPU_COMPACT_MIN_BYTES``
     (16 MB) are left alone (the read costs more than it could save), and so
-    is a batch whose bucket is more than half its capacity; the decision is
-    kept on the batch (``_compacted``). Off: ``ARROW_TPU_NO_COMPACT=1``."""
+    is a batch whose buckets are all more than half its capacities; the
+    decision is kept on the batch (``_compacted``). Off:
+    ``ARROW_TPU_NO_COMPACT=1``."""
     if os.environ.get("ARROW_TPU_NO_COMPACT"):
         return b
     if b.capacity <= int(os.environ.get("ARROW_TPU_COMPACT_MIN",
@@ -135,21 +148,34 @@ def maybe_compact(b: Batch, vals: Optional[list] = None) -> Batch:
             return b
     if getattr(b, "_compacted", False):
         return b
-    return compact_to_bucket(
-        b, vals[0] if vals is not None else host_ints([b.length])[0])
+    if vals is None:
+        vals = host_ints(compact_scalars(b))
+    return compact_to_bucket(b, vals[0], vals[1:])
 
 
-def compact_to_bucket(b: Batch, n: int) -> Batch:
+def compact_to_bucket(b: Batch, n: int, used_bytes=None) -> Batch:
     """``b`` with its host length ``n``, sliced to the capacity bucket of
-    ``n`` where that is at most half its capacity; marked compacted."""
+    ``n`` (each varlen pool to the bucket of its ``used_bytes``, in column
+    order) where a bucket is at most half its capacity; marked
+    compacted."""
     target = min(pad_capacity(max(n, 1)), b.capacity)
-    if target * 2 > b.capacity:
+    used = iter(used_bytes or ())
+    # a pool whose used bytes the caller did not read stays whole
+    pools = [min(pad_capacity(max(next(used, a.values.shape[0]), 1)),
+                 a.values.shape[0])
+             if a.offsets is not None else None for a in b.arrays]
+    shrink = target * 2 <= b.capacity or any(
+        p is not None and p * 2 <= a.values.shape[0]
+        for p, a in zip(pools, b.arrays))
+    if not shrink:
         out = b.with_length(n)
     else:
         out = Batch(b.schema, [
-            Array(a.type, a.values[:target],
+            Array(a.type, a.values[:target] if p is None else a.values[:p],
                   None if a.validity is None else a.validity[:target],
-                  length=n) for a in b.arrays], n, b.index)
+                  length=n, dictionary=a.dictionary,
+                  offsets=None if p is None else a.offsets[:target + 1])
+            for a, p in zip(b.arrays, pools)], n, b.index)
     out._compacted = True   # decision made; spare downstream the read
     return out
 
@@ -335,16 +361,23 @@ def consume_routed(ha: HashAggregate, state, b: Batch, first: bool = False):
     empty) skips the table merge-insert of the two sort routes. Every route
     folds through the same state, so mixed streams are safe."""
     route = ("generic", None)
+    lanes = None
     if ha.dense_static_ok() or b.capacity >= (1 << 20):
-        route = ha.probe_route(b, _host_probe(ha.probe_scalars(b)))
+        # the key lanes serve the probe and the consume (a string key's
+        # content lanes are worth building once)
+        lanes = group_key_lanes([b.column(k) for k in ha.keys],
+                                ha.grouper.key_nullable)
+        route = ha.probe_route(b, _host_probe(ha.probe_scalars(b, lanes)))
     kind, params = route
     if kind == "dense":
+        del lanes       # the dense routes read the key itself
         return ha.consume_dense(state, b, params["lo"], params["G"],
                                 params["impl"])
     if kind == "packed":
         lo, shift, outmap, K, fold = params
-        return ha.consume(state, b, (lo, shift, outmap), (K, fold), first)
-    return ha.consume(state, b, None, None, first)
+        return ha.consume(state, b, (lo, shift, outmap), (K, fold), first,
+                          lanes)
+    return ha.consume(state, b, None, None, first, lanes)
 
 
 def _agg_name(spec) -> str:
@@ -425,6 +458,8 @@ class AggregateNode(ExecNode):
                 f"aggregate: group table overflow (error={err}); raise "
                 f"AggregateNodeOptions.max_groups (currently "
                 f"{self._max_groups})")
+        for agg, flag in self.ha.aggregator_errors(state):
+            raise RuntimeError(f"aggregate: {agg.error_message(flag)}")
         yield maybe_compact(self.ha.finalize(state).with_index(0))
 
     def _batches_dist(self) -> Iterator[Batch]:
@@ -515,6 +550,35 @@ class AggregateNode(ExecNode):
 
 # ---- order_by, fetch ----------------------------------------------------------
 
+def _varlen_key_cols(schema: Schema, sort_keys) -> List[str]:
+    """Sort keys whose order depends on string content: varlen keys and
+    dictionary-of-varlen keys."""
+    out = []
+    for k in sort_keys:
+        t = schema.field(k.name).type
+        if t.is_varlen or (isinstance(t, dt.DictionaryType)
+                           and t.value_type.is_varlen):
+            out.append(k.name)
+    return out
+
+
+def probe_varlen_sort_words(b: Batch, sort_keys) -> Optional[int]:
+    """u32 prefix words that sort ``b``'s string keys exactly (the longest
+    key's bytes / 4, at least the default), from ONE host read of the
+    longest row of each; None when no key orders by string content."""
+    from ..ops.sorting import _varlen_words_default
+    longest = []
+    for name in _varlen_key_cols(b.schema, sort_keys):
+        c = b.column(name)
+        src = c.dictionary if isinstance(c.type, dt.DictionaryType) else c
+        if src.offsets.shape[0] > 1:
+            longest.append((src.offsets[1:] - src.offsets[:-1]).max())
+    if not longest and not _varlen_key_cols(b.schema, sort_keys):
+        return None
+    maxlen = max(host_ints(longest)) if longest else 0
+    return max(_varlen_words_default(), (maxlen + 3) // 4)
+
+
 @register_node_factory("order_by")
 class OrderByNode(ExecNode):
     """``order_by_node.cc:45``: accumulate -> SortIndices -> take.
@@ -549,11 +613,15 @@ class OrderByNode(ExecNode):
         if not accumulated:
             return
         big = concat_batches(accumulated)
-        yield take_batch(big, sort_indices_batch(big, self._sort)) \
-            .with_index(0)
+        yield take_batch(big, self._sort_indices(big)).with_index(0)
+
+    def _sort_indices(self, big: Batch) -> Array:
+        return sort_indices_batch(
+            big, self._sort,
+            probe_varlen_sort_words(big, self._sort.sort_keys))
 
     def _topk(self, big: Batch, limit: int) -> Batch:
-        idx = sort_indices_batch(big, self._sort)
+        idx = self._sort_indices(big)
         L = min(pad_capacity(limit), big.capacity)
         n = min(big.length, limit) if big.has_static_length \
             else torch.clamp(big.length, max=limit)
@@ -674,12 +742,14 @@ class HashJoinNode(ExecNode):
         """Probe one batch; a fanout overflow retries from the same
         pre-probe state (the probe does not change it in place) at twice
         the fanout, up to 2^27 pair slots. The overflow flag and the
-        output's length come back in ONE host read; the length rides into
-        ``maybe_compact``. Returns (output or None, state, [length])."""
+        output's ``compact_scalars`` come back in ONE host read; they ride
+        into ``maybe_compact``. Returns (output or None, state, those
+        scalars)."""
         out, bs2 = self.join.probe(bs, b, fanout, impl)
         while True:
             vals = host_ints([bs2.error] +
-                             ([out.length] if out is not None else []))
+                             (compact_scalars(out) if out is not None
+                              else []))
             if not vals[0]:
                 return out, bs2, vals[1:]
             fanout = 2 * (fanout or self.join.options.fanout_capacity
@@ -737,7 +807,8 @@ class HashJoinNode(ExecNode):
                 if neg is not None:
                     yield maybe_compact(neg.with_index(i))
                     i += 1
-                n_in, n_pos = host_ints([b.length, pos.length])
+                n_in, *pos_vals = host_ints([b.length] + compact_scalars(pos))
+                n_pos = pos_vals[0]
                 seen += n_in
                 passed += n_pos
                 if seen >= (1 << 17) and passed * 10 > seen * 9:
@@ -749,7 +820,7 @@ class HashJoinNode(ExecNode):
                 # output capacity the plan without the mask would have had
                 if self.join.options.fanout_capacity is None:
                     fanout = b.capacity
-                b = maybe_compact(pos, vals=[n_pos])
+                b = maybe_compact(pos, vals=pos_vals)
             out, bs, cvals = self._probe_retry(bs, b, fanout, impl)
             if out is not None:
                 yield maybe_compact(out.with_index(i), vals=cvals)

@@ -14,11 +14,15 @@ offset, buffers[], child_data[]). The same model as the JAX package's
   * **validity is a bool bytemask**, not Arrow's packed bitmap. ``None``
     means all-valid. Packing happens only at the pyarrow boundary
     (``core/interop.py``).
+  * varlen (string / binary) arrays carry ``offsets`` (int32, capacity +
+    1) into a uint8 byte pool in ``values``, whose own length is the byte
+    capacity; bytes past ``offsets[length]`` are unspecified.
+  * dictionary arrays hold their indices in ``values`` and the dictionary
+    as a child Array (``dictionary``).
   * constructors place their buffers on ``device``; with none given they
     take ``default_device()``, the card. ``Array.to(device)`` moves one.
 
-Fixed-width columns only in this package so far: varlen, dictionary and
-nested layouts come with the kernels that need them.
+Nested layouts (list, struct, union) come with the kernels that need them.
 """
 
 from __future__ import annotations
@@ -30,8 +34,9 @@ import torch
 
 from . import datatype as dt
 
-__all__ = ["Array", "array", "array_from_numpy", "nulls", "full",
-           "row_mask", "default_device", "resolve_device"]
+__all__ = ["Array", "array", "array_from_numpy", "varlen_from_numpy",
+           "dictionary_from_numpy", "nulls", "full", "row_mask",
+           "default_device", "resolve_device"]
 
 
 def default_device() -> torch.device:
@@ -54,21 +59,34 @@ def _is_static_len(length) -> bool:
 class Array:
     """One typed column with capacity+length discipline."""
 
-    __slots__ = ("type", "values", "validity", "length")
+    __slots__ = ("type", "values", "validity", "offsets", "dictionary",
+                 "length")
 
     def __init__(self, type: dt.DataType, values: torch.Tensor,
-                 validity: Optional[torch.Tensor] = None, length=None):
+                 validity: Optional[torch.Tensor] = None, length=None,
+                 offsets: Optional[torch.Tensor] = None,
+                 dictionary: Optional["Array"] = None):
         self.type = type
         self.values = values
         self.validity = validity
+        self.offsets = offsets
+        self.dictionary = dictionary
         if length is None:
-            length = values.shape[0]
+            length = values.shape[0] if offsets is None \
+                else offsets.shape[0] - 1
         self.length = length
 
     # ---- shape / capacity -------------------------------------------------
     @property
     def capacity(self) -> int:
+        if self.offsets is not None:
+            return self.offsets.shape[0] - 1
         return self.values.shape[0]
+
+    @property
+    def byte_capacity(self) -> Optional[int]:
+        """The byte pool's size of a varlen array, else None."""
+        return self.values.shape[0] if self.offsets is not None else None
 
     @property
     def device(self) -> torch.device:
@@ -107,17 +125,23 @@ class Array:
 
     # ---- convenience ------------------------------------------------------
     def with_validity(self, validity: Optional[torch.Tensor]) -> "Array":
-        return Array(self.type, self.values, validity, self.length)
+        return Array(self.type, self.values, validity, self.length,
+                     self.offsets, self.dictionary)
 
     def with_length(self, length) -> "Array":
-        return Array(self.type, self.values, self.validity, length)
+        return Array(self.type, self.values, self.validity, length,
+                     self.offsets, self.dictionary)
 
     def to(self, device) -> "Array":
         length = self.length if self.has_static_length \
             else self.length.to(device)
         return Array(self.type, self.values.to(device),
                      None if self.validity is None
-                     else self.validity.to(device), length)
+                     else self.validity.to(device), length,
+                     None if self.offsets is None
+                     else self.offsets.to(device),
+                     None if self.dictionary is None
+                     else self.dictionary.to(device))
 
     def __repr__(self) -> str:
         ln = self.length if self.has_static_length else "<device>"
@@ -158,32 +182,120 @@ def _infer_type(npv: np.ndarray) -> dt.DataType:
     raise TypeError(f"cannot infer arrow_tpu_torch type for numpy {npv.dtype}")
 
 
+def _padded(values: np.ndarray, cap: int, dtype) -> np.ndarray:
+    buf = np.zeros((cap,) + values.shape[1:], dtype=dtype)
+    buf[:values.shape[0]] = values
+    return buf
+
+
+def _validity_tensor(validity, n: int, cap: int, device):
+    if validity is None:
+        return None
+    return torch.from_numpy(_padded(np.asarray(validity, dtype=np.bool_),
+                                    cap, np.bool_)).to(device)
+
+
+def varlen_from_numpy(values=None, offsets=None, pool=None,
+                      type: Optional[dt.DataType] = None, validity=None,
+                      capacity: Optional[int] = None,
+                      byte_capacity: Optional[int] = None,
+                      device=None) -> Array:
+    """A string (or binary) Array with no pyarrow: from a numpy ``bytes_``
+    / ``str_`` array (``values``; utf-8 for ``str_``, trailing NUL bytes
+    are not part of a ``bytes_`` element, as numpy has it), or from int32
+    ``offsets`` (n + 1, from 0) and a uint8 ``pool``. Offsets past the
+    length repeat the last one; the pool pads with zeros to
+    ``byte_capacity`` (default: the used bytes, at least 1)."""
+    device = resolve_device(device)
+    if values is not None:
+        values = np.asarray(values)
+        if values.dtype.kind == "U":
+            t = type or dt.string
+            values = np.char.encode(values, "utf-8")
+        else:
+            t = type or dt.binary
+        n = values.shape[0]
+        width = values.dtype.itemsize
+        mat = values.view(np.uint8).reshape(n, width)
+        lens = np.char.str_len(values).astype(np.int64)
+        offsets = np.zeros((n + 1,), np.int64)
+        np.cumsum(lens, out=offsets[1:])
+        pool = mat[np.arange(width)[None, :] < lens[:, None]]
+    else:
+        t = type or dt.string
+        offsets = np.asarray(offsets, dtype=np.int64)
+        pool = np.asarray(pool, dtype=np.uint8)
+        n = offsets.shape[0] - 1
+    if offsets[-1] >= (1 << 31):
+        raise ValueError(f"a varlen column's pool of {offsets[-1]} bytes "
+                         "does not fit int32 offsets: split the rows")
+    cap = n if capacity is None else capacity
+    if cap < n:
+        raise ValueError(f"capacity {cap} < length {n}")
+    nbytes = int(offsets[-1])
+    bcap = max(nbytes, 1) if byte_capacity is None else byte_capacity
+    if bcap < nbytes:
+        raise ValueError(f"byte capacity {bcap} < {nbytes} bytes")
+    off = np.full((cap + 1,), nbytes, np.int32)
+    off[:n + 1] = offsets
+    return Array(t, torch.from_numpy(_padded(pool[:nbytes], bcap,
+                                             np.uint8)).to(device),
+                 _validity_tensor(validity, n, cap, device), length=n,
+                 offsets=torch.from_numpy(off).to(device))
+
+
+def dictionary_from_numpy(indices, dictionary, validity=None,
+                          capacity: Optional[int] = None,
+                          index_type: dt.DataType = dt.int32,
+                          device=None) -> Array:
+    """A dictionary Array with no pyarrow: integer ``indices`` into
+    ``dictionary`` (an Array, or numpy values that ``array_from_numpy``
+    takes: a ``bytes_`` / ``str_`` array for a dictionary of strings).
+    Null rows' indices are zeroed so that every index stays in range."""
+    device = resolve_device(device)
+    if not isinstance(dictionary, Array):
+        dictionary = array_from_numpy(dictionary, device=device)
+    idx = np.asarray(indices).astype(index_type.storage_np)
+    if validity is not None:
+        idx = np.where(np.asarray(validity, dtype=np.bool_), idx, 0)
+    n = idx.shape[0]
+    cap = n if capacity is None else capacity
+    if cap < n:
+        raise ValueError(f"capacity {cap} < length {n}")
+    t = dt.DictionaryType(index_type, dictionary.type)
+    return Array(t, torch.from_numpy(_padded(idx, cap, idx.dtype)).to(device),
+                 _validity_tensor(validity, n, cap, device), length=n,
+                 dictionary=dictionary)
+
+
 def array_from_numpy(values, type: Optional[dt.DataType] = None,
                      validity=None, capacity: Optional[int] = None,
                      device=None) -> Array:
-    """Build a fixed-width Array from a numpy array (no pyarrow).
+    """Build an Array from a numpy array (no pyarrow): fixed-width values,
+    or a ``bytes_`` / ``str_`` array for a string column
+    (``varlen_from_numpy``; dictionary columns: ``dictionary_from_numpy``).
 
     ``validity`` is an optional bool mask (False = null); ``capacity`` pads
     the buffers to a fixed size >= length; ``device`` places them."""
     device = resolve_device(device)
     values = np.asarray(values)
+    if values.dtype.kind in "SU" or (type is not None and type.is_varlen):
+        return varlen_from_numpy(values, type=type, validity=validity,
+                                 capacity=capacity, device=device)
     t = type or _infer_type(values)
-    if not t.is_primitive or isinstance(t, (dt.DictionaryType,
-                                            dt.FixedSizeBinaryType)) \
+    if isinstance(t, dt.DictionaryType):
+        raise TypeError("a dictionary column needs its dictionary: "
+                        "dictionary_from_numpy(indices, values)")
+    if not t.is_primitive or isinstance(t, dt.FixedSizeBinaryType) \
             or (isinstance(t, dt.DecimalType) and t.wide):
         raise NotImplementedError(f"array_from_numpy for {t}")
     n = values.shape[0]
     cap = n if capacity is None else capacity
     if cap < n:
         raise ValueError(f"capacity {cap} < length {n}")
-    buf = np.zeros((cap,), dtype=t.storage_np)
-    buf[:n] = values.astype(t.storage_np, copy=False)
-    valid = None
-    if validity is not None:
-        vb = np.zeros((cap,), dtype=np.bool_)
-        vb[:n] = np.asarray(validity, dtype=np.bool_)
-        valid = torch.from_numpy(vb).to(device)
-    return Array(t, torch.from_numpy(buf).to(device), valid, length=n)
+    buf = _padded(values.astype(t.storage_np, copy=False), cap, t.storage_np)
+    return Array(t, torch.from_numpy(buf).to(device),
+                 _validity_tensor(validity, n, cap, device), length=n)
 
 
 def array(values, type: Optional[dt.DataType] = None, validity=None,
@@ -203,17 +315,35 @@ def nulls(n: int, type: dt.DataType, capacity: Optional[int] = None,
           device=None) -> Array:
     device = resolve_device(device)
     cap = capacity or max(n, 1)
+    valid = torch.zeros((cap,), dtype=torch.bool, device=device)
+    if type.is_varlen:
+        return Array(type, torch.zeros((1,), dtype=torch.uint8,
+                                       device=device), valid, length=n,
+                     offsets=torch.zeros((cap + 1,), dtype=torch.int32,
+                                         device=device))
     buf = torch.from_numpy(np.zeros((cap,), dtype=type.storage_np))
-    return Array(type, buf.to(device),
-                 torch.zeros((cap,), dtype=torch.bool, device=device),
-                 length=n)
+    dictionary = nulls(0, type.value_type, device=device) \
+        if isinstance(type, dt.DictionaryType) else None
+    return Array(type, buf.to(device), valid, length=n,
+                 dictionary=dictionary)
 
 
 def full(n: int, value, type: dt.DataType, capacity: Optional[int] = None,
          device=None) -> Array:
+    """``n`` rows of ``value``: a fixed-width value, or a str / bytes for
+    a string or binary type."""
     device = resolve_device(device)
     cap = capacity or max(n, 1)
-    if not type.is_primitive:
-        raise NotImplementedError("full() supports primitive types only")
+    if type.is_varlen:
+        one = value.encode("utf-8") if isinstance(value, str) else \
+            bytes(value)
+        w = len(one)
+        pool = np.tile(np.frombuffer(one, np.uint8), cap) if w else \
+            np.zeros((0,), np.uint8)
+        off = np.minimum(np.arange(cap + 1, dtype=np.int64), n) * w
+        return varlen_from_numpy(offsets=off, pool=pool[:n * w], type=type,
+                                 capacity=cap, device=device).with_length(n)
+    if not type.is_primitive or isinstance(type, dt.DictionaryType):
+        raise NotImplementedError(f"full() of {type}")
     buf = torch.from_numpy(np.full((cap,), value, dtype=type.storage_np))
     return Array(type, buf.to(device), None, length=n)

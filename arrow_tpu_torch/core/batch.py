@@ -15,7 +15,8 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from .array import Array, array as make_array, array_from_numpy, \
+from . import datatype as dt
+from .array import Array, array as make_array, array_from_numpy, nulls, \
     resolve_device, row_mask
 from .schema import Field, Schema
 
@@ -269,13 +270,17 @@ class Table:
         if isinstance(values, Array):
             if values.capacity == capacity:
                 return values
+            if values.offsets is not None or \
+                    values.capacity < capacity:
+                from ..ops.concat import concat_arrays
+                return concat_arrays([values], total_capacity=capacity)
             n = len(values)
             pad = capacity - n
             valid = None if values.validity is None else torch.cat(
                 [values.validity[:n], values.validity.new_zeros(pad)])
             return Array(values.type, torch.cat(
                 [values.values[:n], values.values.new_zeros(pad)]), valid,
-                length=n)
+                length=n, dictionary=values.dictionary)
         return make_array(values, capacity=capacity, device=self.device)
 
     def take(self, indices) -> "Table":
@@ -324,17 +329,9 @@ class Table:
             return Batch(self.schema, [], 0)
         if len(self.batches) == 1:
             return self.batches[0]
+        from ..ops.concat import concat_batches
         dev = self.batches[0].device
-        arrays = []
-        for i, f in enumerate(self.schema.fields):
-            cols = [b.column(i) for b in self.batches]
-            values = torch.cat([c.values[:len(c)].to(dev) for c in cols])
-            validity = None
-            if any(c.validity is not None for c in cols):
-                validity = torch.cat([c.validity_or_true()[:len(c)].to(dev)
-                                      for c in cols])
-            arrays.append(Array(f.type, values, validity))
-        return Batch(self.schema, arrays, self.num_rows)
+        return concat_batches([_trimmed(b.to(dev)) for b in self.batches])
 
     def combine_chunks(self) -> "Table":
         """One batch holding all rows (Table.combine_chunks parity)."""
@@ -381,18 +378,39 @@ class TableGroupBy:
 
 
 def empty_batch(schema: Schema, capacity: int = 16, device=None) -> Batch:
-    """A batch of no rows with ``schema``'s fixed-width columns."""
+    """A batch of no rows with ``schema``'s columns (a varlen column with
+    a 16-byte pool, a dictionary column with an empty dictionary)."""
     device = resolve_device(device)
     arrays = []
     for f in schema.fields:
-        if f.type.is_varlen:
-            raise NotImplementedError(f"empty_batch of {f.type} columns")
-        values = torch.from_numpy(
-            np.zeros((capacity,), dtype=f.type.storage_np)).to(device)
+        t = f.type
         validity = torch.zeros((capacity,), dtype=torch.bool, device=device) \
             if f.nullable else None
-        arrays.append(Array(f.type, values, validity, length=0))
+        if t.is_varlen:
+            arrays.append(Array(
+                t, torch.zeros((16,), dtype=torch.uint8, device=device),
+                validity, length=0,
+                offsets=torch.zeros((capacity + 1,), dtype=torch.int32,
+                                    device=device)))
+            continue
+        values = torch.from_numpy(
+            np.zeros((capacity,), dtype=t.storage_np)).to(device)
+        dictionary = nulls(0, t.value_type, device=device) \
+            if isinstance(t, dt.DictionaryType) else None
+        arrays.append(Array(t, values, validity, length=0,
+                            dictionary=dictionary))
     return Batch(schema, arrays, 0)
+
+
+def _trimmed(b: Batch) -> Batch:
+    """``b`` sliced to its rows (a host read of a device length): a varlen
+    column keeps its pool whole."""
+    n = len(b)
+    return Batch(b.schema, [
+        Array(a.type, a.values if a.offsets is not None else a.values[:n],
+              None if a.validity is None else a.validity[:n], n,
+              None if a.offsets is None else a.offsets[:n + 1], a.dictionary)
+        for a in b.arrays], n, b.index)
 
 
 def _from_columns(names, arrays) -> Batch:
@@ -404,11 +422,15 @@ def _from_columns(names, arrays) -> Batch:
 def batch_from_numpy(data: Dict[str, np.ndarray], device=None,
                      capacity: Optional[int] = None) -> Batch:
     """Batch from a dict of numpy columns, placed on ``device`` (no
-    pyarrow): the same columns the JAX package's ``batch`` takes."""
+    pyarrow): the same columns the JAX package's ``batch`` takes. A
+    ``bytes_`` / ``str_`` column becomes a string column; a column may
+    also be an Array already built (``varlen_from_numpy``,
+    ``dictionary_from_numpy``), taken as it is."""
     names = list(data)
-    return _from_columns(names, [array_from_numpy(data[n], capacity=capacity,
-                                                  device=device)
-                                 for n in names])
+    return _from_columns(names, [
+        data[n] if isinstance(data[n], Array) else
+        array_from_numpy(data[n], capacity=capacity, device=device)
+        for n in names])
 
 
 def batch(data: Dict[str, object], schema_: Optional[Schema] = None,

@@ -1,4 +1,5 @@
-"""pyarrow <-> device-array interop for fixed-width columns.
+"""pyarrow <-> device-array interop for fixed-width, string, binary and
+dictionary columns.
 
 The engine's boundary layer, as in the JAX package's ``core/interop.py``:
 host Arrow buffers are staged into padded device buffers, and device
@@ -7,29 +8,59 @@ bit-for-bit. Packed validity bitmaps (Arrow) <-> bool bytemasks (device)
 conversion lives here and only here.
 
 pyarrow is imported inside the functions that need it, never at module
-level: the package runs without it. Primitive and bool columns only;
-strings, dictionary ingest and nested types come later.
+level: the package runs without it. Large string / binary columns arrive
+with int32 offsets: ``table_from_pyarrow`` splits a record batch so that
+every varlen pool fits them (``_split_for_pools``). Low-cardinality string
+columns of big sources are dictionary-encoded on the host at staging time
+(transparent dictionary ingest, as in the JAX package). Nested layouts come
+later.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+import os
+import weakref
+from typing import List, Optional
 
 import numpy as np
 import torch
 
 from . import datatype as dt
-from .array import Array, resolve_device
+from .array import Array, _validity_tensor, resolve_device
 from .batch import Batch, Table
 from .schema import Schema
 
 __all__ = ["array_from_pyarrow", "array_to_pyarrow",
            "batch_from_pyarrow", "batch_to_pyarrow", "pad_capacity",
-           "table_from_pyarrow"]
+           "table_from_pyarrow", "host_dictionary"]
 
 # Capacity bucketing: pad to one of these row counts (the JAX package's
 # recompilation buckets; kept so both packages stage the same capacity).
 _BUCKETS = [1 << k for k in range(4, 31)]
+
+# id of a device dictionary's values buffer -> (a weak reference to the
+# buffer, the pyarrow dictionary it was staged from): host-side consumers
+# read it back without a copy from the device; the entry goes with the
+# buffer
+_HOST_DICTS: dict = {}
+
+
+def _remember_host_dictionary(values: torch.Tensor, pa_dict) -> None:
+    key = id(values)
+    _HOST_DICTS[key] = (weakref.ref(values,
+                                    lambda _: _HOST_DICTS.pop(key, None)),
+                        pa_dict)
+
+
+def host_dictionary(dict_array: Optional[Array]):
+    """The pyarrow array a dictionary Array was staged from, or None (then
+    callers fetch it with ``array_to_pyarrow``)."""
+    if dict_array is None:
+        return None
+    ref, pa_dict = _HOST_DICTS.get(id(dict_array.values), (None, None))
+    return pa_dict if ref is not None and ref() is dict_array.values \
+        else None
 
 
 def pad_capacity(n: int, capacity: Optional[int] = None) -> int:
@@ -62,28 +93,81 @@ def _pack_validity(mask: np.ndarray):
     return pa.py_buffer(np.packbits(mask, bitorder="little").tobytes())
 
 
-def _check_fixed_width(t: dt.DataType):
+def _check_supported(t: dt.DataType):
+    if isinstance(t, dt.DictionaryType):
+        return _check_supported(t.value_type)
+    if t.is_varlen:
+        return
     if not t.is_primitive or isinstance(
-            t, (dt.DictionaryType, dt.FixedSizeBinaryType, dt.DecimalType)):
+            t, (dt.FixedSizeBinaryType, dt.DecimalType)):
         raise NotImplementedError(f"interop for {t}")
 
 
+def _is_varlen_pa(t) -> bool:
+    import pyarrow as pa
+    return pa.types.is_string(t) or pa.types.is_binary(t) or \
+        pa.types.is_large_string(t) or pa.types.is_large_binary(t)
+
+
 def array_from_pyarrow(pa_arr, capacity: Optional[int] = None,
-                       device=None) -> Array:
+                       device=None, byte_capacity: Optional[int] = None
+                       ) -> Array:
+    """A pyarrow array staged on ``device``: ``capacity`` rows (default:
+    the row count's bucket); a varlen pool of ``byte_capacity`` bytes
+    (default: the used bytes' bucket). String and binary views arrive as
+    plain string and binary; large types with int32 offsets (their pool
+    must fit them)."""
     import pyarrow as pa
     device = resolve_device(device)
     if isinstance(pa_arr, pa.ChunkedArray):
         pa_arr = pa_arr.combine_chunks()
+    if pa.types.is_string_view(pa_arr.type):
+        pa_arr = pa_arr.cast(pa.string())
+    elif pa.types.is_binary_view(pa_arr.type):
+        pa_arr = pa_arr.cast(pa.binary())
     n = len(pa_arr)
     cap = pad_capacity(n, capacity)
     t = dt.from_pyarrow_type(pa_arr.type)
-    _check_fixed_width(t)
-    validity = None
+    _check_supported(t)
     validity_np = _unpack_validity(pa_arr, n)
-    if validity_np is not None:
-        v = np.zeros((cap,), dtype=np.bool_)
-        v[:n] = validity_np
-        validity = torch.from_numpy(v).to(device)
+    validity = _validity_tensor(validity_np, n, cap, device)
+
+    if isinstance(t, dt.DictionaryType):
+        dict_arr = array_from_pyarrow(pa_arr.dictionary, device=device)
+        _remember_host_dictionary(dict_arr.values, pa_arr.dictionary)
+        indices = pa_arr.indices
+        raw = np.frombuffer(indices.buffers()[1],
+                            dtype=t.index_type.storage_np)
+        idx = raw[indices.offset:indices.offset + n]
+        # null slots may hold anything in pyarrow's indices: zero them so
+        # that every index stays in range for gathers
+        if validity_np is not None:
+            idx = np.where(validity_np, idx, 0)
+        buf = np.zeros((cap,), dtype=t.index_type.storage_np)
+        buf[:n] = idx
+        return Array(t, torch.from_numpy(buf).to(device), validity,
+                     length=n, dictionary=dict_arr)
+
+    if t.is_varlen:
+        if pa.types.is_large_string(pa_arr.type) or \
+                pa.types.is_large_binary(pa_arr.type):
+            pa_arr = pa_arr.cast(pa.string() if pa.types.is_large_string(
+                pa_arr.type) else pa.binary())
+        raw_off = np.frombuffer(pa_arr.buffers()[1], dtype=np.int32)
+        off = raw_off[pa_arr.offset:pa_arr.offset + n + 1].astype(np.int32)
+        base = int(off[0])
+        off = off - base
+        nbytes = int(off[-1])
+        bcap = pad_capacity(max(nbytes, 1), byte_capacity)
+        data = np.zeros((bcap,), dtype=np.uint8)
+        if pa_arr.buffers()[2] is not None and nbytes:
+            data[:nbytes] = np.frombuffer(pa_arr.buffers()[2],
+                                          dtype=np.uint8)[base:base + nbytes]
+        offsets = np.full((cap + 1,), nbytes, dtype=np.int32)
+        offsets[:n + 1] = off
+        return Array(t, torch.from_numpy(data).to(device), validity,
+                     length=n, offsets=torch.from_numpy(offsets).to(device))
+
     buf = np.zeros((cap,), dtype=t.storage_np)
     if isinstance(t, dt.BoolType):
         buf[:n] = _unpack_bits(pa_arr.buffers()[1], pa_arr.offset, n)
@@ -97,7 +181,7 @@ def array_to_pyarrow(arr: Array):
     import pyarrow as pa
     n = len(arr)
     t = arr.type
-    _check_fixed_width(t)
+    _check_supported(t)
     validity_buf = None
     null_count = 0
     if arr.validity is not None:
@@ -105,6 +189,30 @@ def array_to_pyarrow(arr: Array):
         null_count = int((~v).sum())
         if null_count:
             validity_buf = _pack_validity(v)
+    if isinstance(t, dt.DictionaryType):
+        idx = arr.values[:n].cpu().numpy()
+        indices = pa.Array.from_buffers(
+            dt.to_pyarrow_type(t.index_type), n,
+            [validity_buf, pa.py_buffer(np.ascontiguousarray(idx).tobytes())],
+            null_count=null_count)
+        out = pa.DictionaryArray.from_arrays(
+            indices, array_to_pyarrow(arr.dictionary), ordered=t.ordered)
+        # ingest-encoded columns decode back to their logical plain type
+        return out.dictionary_decode() if t.transparent else out
+    if t.is_varlen:
+        off = arr.offsets[:n + 1].cpu().numpy().astype(np.int32)
+        nbytes = int(off[-1])
+        if nbytes > arr.values.shape[0]:
+            raise ValueError(
+                f"varlen byte-pool overflow: rows span {nbytes} bytes but "
+                f"the pool holds {arr.values.shape[0]}: a take or join "
+                "fanout repeated long rows past the pool; run again with a "
+                "larger fanout or byte capacity")
+        data = arr.values[:nbytes].cpu().numpy()
+        return pa.Array.from_buffers(
+            dt.to_pyarrow_type(t), n,
+            [validity_buf, pa.py_buffer(off.tobytes()),
+             pa.py_buffer(data.tobytes())], null_count=null_count)
     vals = arr.values[:n].cpu().numpy()
     if isinstance(t, dt.BoolType):
         data = np.packbits(vals.astype(np.bool_), bitorder="little")
@@ -115,18 +223,88 @@ def array_to_pyarrow(arr: Array):
         [validity_buf, pa.py_buffer(data.tobytes())], null_count=null_count)
 
 
+# Transparent dictionary ingest (the JAX package's): plain string / binary
+# columns of at least ARROW_TPU_DICT_INGEST_MIN rows whose distinct values
+# number at most min(rows / 8, 2^16) are dictionary-encoded on the host at
+# staging time, once per source, so every batch of the column shares one
+# dictionary. Their logical type stays the plain one
+# (``DictionaryType.transparent``): export decodes them. Off:
+# ARROW_TPU_INGEST_DICT=0.
+def _dict_ingest_min() -> int:
+    return int(os.environ.get("ARROW_TPU_DICT_INGEST_MIN", str(1 << 16)))
+
+
+def _dict_ingest_encode(tbl):
+    """(tbl with its qualifying plain varlen columns dictionary-encoded,
+    frozenset of their names)."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    n = tbl.num_rows
+    if os.environ.get("ARROW_TPU_INGEST_DICT", "1") != "1" or \
+            n < _dict_ingest_min():
+        return tbl, frozenset()
+    names = set()
+    cols = [tbl.column(i) for i in range(tbl.num_columns)]
+    fields = list(tbl.schema)
+    for i, f in enumerate(fields):
+        if not _is_varlen_pa(f.type):
+            continue
+        col = cols[i]
+        if isinstance(col, pa.ChunkedArray):
+            col = col.combine_chunks()
+        enc = pc.dictionary_encode(col)
+        if isinstance(enc, pa.ChunkedArray):
+            enc = enc.combine_chunks()
+        nd = len(enc.dictionary)
+        if nd == 0 or nd > min(n // 8, 1 << 16):
+            continue
+        cols[i] = enc
+        fields[i] = pa.field(f.name, enc.type, f.nullable)
+        names.add(f.name)
+    if not names:
+        return tbl, frozenset()
+    sch = pa.schema(fields)
+    out = pa.table(cols, schema=sch) if isinstance(tbl, pa.Table) else \
+        pa.record_batch(cols, schema=sch)
+    return out, frozenset(names)
+
+
+def _as_transparent(t: dt.DataType) -> dt.DataType:
+    return dataclasses.replace(t, transparent=True)
+
+
+def _mark_transparent_schema(schema: Schema, names) -> Schema:
+    if not names:
+        return schema
+    from .schema import Field
+    return Schema(tuple(
+        Field(f.name, _as_transparent(f.type), f.nullable)
+        if f.name in names and isinstance(f.type, dt.DictionaryType) else f
+        for f in schema.fields))
+
+
 def batch_from_pyarrow(rb, capacity: Optional[int] = None,
-                       device=None) -> Batch:
+                       device=None, _transparent=frozenset()) -> Batch:
     import pyarrow as pa
     if isinstance(rb, pa.Table):
         rb = rb.combine_chunks().to_batches()
         if len(rb) != 1:
             raise ValueError("batch_from_pyarrow takes one record batch")
         rb = rb[0]
+    if not _transparent:
+        rb, _transparent = _dict_ingest_encode(rb)
     cap = pad_capacity(rb.num_rows, capacity)
-    arrays = [array_from_pyarrow(rb.column(i), capacity=cap, device=device)
-              for i in range(rb.num_columns)]
-    return Batch(Schema.from_pyarrow(rb.schema), arrays, rb.num_rows)
+    arrays = []
+    for i in range(rb.num_columns):
+        a = array_from_pyarrow(rb.column(i), capacity=cap, device=device)
+        if rb.schema.field(i).name in _transparent and \
+                isinstance(a.type, dt.DictionaryType):
+            a = Array(_as_transparent(a.type), a.values, a.validity, a.length,
+                      dictionary=a.dictionary)
+        arrays.append(a)
+    schema = _mark_transparent_schema(Schema.from_pyarrow(rb.schema),
+                                      _transparent)
+    return Batch(schema, arrays, rb.num_rows)
 
 
 def batch_to_pyarrow(b: Batch):
@@ -137,19 +315,76 @@ def batch_to_pyarrow(b: Batch):
     return pa.RecordBatch.from_arrays(cols, schema=b.schema.to_pyarrow())
 
 
+# a batch's varlen byte pool must fit int32 offsets: ``table_from_pyarrow``
+# cuts record batches whose pools are larger (the JAX package's limit;
+# ARROW_TPU_MAX_POOL_BYTES lowers it for tests)
+def _max_pool_bytes() -> int:
+    return int(os.environ.get("ARROW_TPU_MAX_POOL_BYTES",
+                              str((1 << 31) - (1 << 20))))
+
+
+def _split_for_pools(rb, limit: int):
+    """``rb`` cut into slices whose every varlen column's pool fits
+    ``limit`` bytes: prefix sums of the row byte lengths, then greedy cuts
+    at the last row that keeps every column under the limit (a single row
+    over it stays alone; staging it raises)."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    n = rb.num_rows
+    cums = []
+    for col in rb.columns:
+        if _is_varlen_pa(col.type):
+            lens = pc.binary_length(col).cast(pa.int64()).fill_null(0)
+            cums.append(np.concatenate(
+                [[0], np.cumsum(lens.to_numpy(zero_copy_only=False))]))
+    if not cums or all(c[-1] <= limit for c in cums):
+        return [rb]
+    out = []
+    start = 0
+    while start < n:
+        end = n
+        for c in cums:
+            end = min(end, int(np.searchsorted(c, c[start] + limit,
+                                               side="right")) - 1)
+        end = max(end, start + 1)
+        out.append(rb.slice(start, end - start))
+        start = end
+    return out
+
+
 def table_from_pyarrow(pa_table, max_rows_per_batch: Optional[int] = None,
                        capacity: Optional[int] = None, device=None) -> Table:
     """A pyarrow Table as batches of at most ``max_rows_per_batch`` rows
     (default 2^15, ExecPlan::kMaxBatchSize's analog), each padded to
-    ``capacity`` or its bucket; a table of no rows keeps the empty record
-    batches pyarrow gives for it."""
+    ``capacity`` or its bucket, each cut further where a varlen pool would
+    not fit int32 offsets; a table of no rows keeps the empty record
+    batches pyarrow gives for it. Transparent dictionary ingest runs once
+    for the whole table, so every batch of a column shares one
+    dictionary."""
+    import pyarrow as pa
     if max_rows_per_batch is None:
         max_rows_per_batch = 1 << 15
     pa_table = pa_table.combine_chunks()
+    pa_table, transparent = _dict_ingest_encode(pa_table)
+    has_varlen = any(_is_varlen_pa(f.type) for f in pa_table.schema)
     rbs = pa_table.to_batches(max_chunksize=max_rows_per_batch)
-    batches = [batch_from_pyarrow(rb, capacity=capacity, device=device)
-               for rb in rbs if rb.num_rows]
+    batches: List[Batch] = []
+    for rb in rbs:
+        pieces = _split_for_pools(rb, _max_pool_bytes()) if has_varlen \
+            else [rb]
+        for piece in pieces:
+            if piece.num_rows == 0:
+                continue
+            if len(pieces) > 1:     # rebase the slice's offsets to 0
+                piece = pa.record_batch(
+                    [pa.concat_arrays([c]) for c in piece.columns],
+                    schema=piece.schema)
+            batches.append(batch_from_pyarrow(
+                piece, capacity=capacity, device=device,
+                _transparent=transparent))
     if not batches:
-        batches = [batch_from_pyarrow(rb, capacity=capacity, device=device)
+        batches = [batch_from_pyarrow(rb, capacity=capacity, device=device,
+                                      _transparent=transparent)
                    for rb in rbs]
-    return Table(Schema.from_pyarrow(pa_table.schema), batches)
+    return Table(_mark_transparent_schema(
+        Schema.from_pyarrow(pa_table.schema), transparent), batches)

@@ -54,6 +54,22 @@ finalizes.
     package's ``dryrun_multichip`` (group-by, join, sort, one hot key, the
     Q3 Declaration with ``dist=``) on ``n_shards`` logical shards.
 
+String and dictionary columns:
+
+  * ``entry_sort_dict(device, n_rows, seed, num_values)``: BASELINE #3's
+    sort (the JAX package's ``bench.py`` config 3): int64 ``i``, a
+    dictionary<int32, utf8> ``s`` over the values ``cat%04d`` with 5 %
+    null rows, float64 ``v``, sorted by ``s`` ascending then ``i``
+    descending, nulls at the end. Its step returns (indices, sorted
+    batch).
+  * ``entry_q3s(device, n_lineitem, seed, max_groups, max_batch_rows)``:
+    ``entry_q3`` with customer's segment as TPC-H's ``c_mktsegment``, a
+    dictionary of the five segment names, filtered by ``== "BUILDING"``.
+  * ``entry_strings(device, n_rows, num_keys, seed, max_groups)``: the
+    filter -> group-by step of ``entry_generic`` keyed by a raw string
+    column ``name`` of TPC-H's ``C_NAME`` form ``Customer#%09d`` (18
+    bytes) over ``num_keys`` customer keys.
+
 With no ``device`` they place the batch on the card
 (``arrow_tpu_torch.default_device()``). Run one on the CPU at a small
 size::
@@ -77,7 +93,8 @@ from .compute.expressions import execute_scalar_expression, field
 from .acero.nodes import (  # noqa: F401 (_host_probe: re-exported)
     _host_probe, build_and_route, consume_routed)
 from .acero.options import HashJoinNodeOptions
-from .core.array import array_from_numpy, resolve_device
+from .core.array import array_from_numpy, dictionary_from_numpy, \
+    resolve_device, varlen_from_numpy
 from .core.batch import Batch, Table, batch, batch_from_numpy
 from .ops.hash_aggregate import AggregateSpec, HashAggregate
 from .ops.join import HashJoin
@@ -85,13 +102,15 @@ from .ops.selection import filter_batch, take_batch
 from .ops.sorting import SortOptions, sort_indices_batch
 from .parallel import DistContext
 
-__all__ = ["AGGREGATES", "AGGREGATES_GENERIC", "MAX_GROUPS", "SORT_KEYS",
-           "consume_routed", "entry", "entry_distributed", "entry_generic",
-           "dryrun_multichip", "entry_dist_join", "entry_dist_sort",
-           "entry_join", "entry_q3", "entry_q3_dist", "entry_sort",
-           "example_columns",
-           "example_columns_generic", "example_columns_join",
-           "example_columns_q3", "example_columns_sort", "join_routed",
+__all__ = ["AGGREGATES", "AGGREGATES_GENERIC", "MAX_GROUPS", "SEGMENTS",
+           "SORT_KEYS", "SORT_KEYS_DICT", "consume_routed", "entry",
+           "entry_distributed", "entry_generic", "dryrun_multichip",
+           "entry_dist_join", "entry_dist_sort", "entry_join", "entry_q3",
+           "entry_q3_dist", "entry_q3s", "entry_sort", "entry_sort_dict",
+           "entry_strings", "example_columns", "example_columns_generic",
+           "example_columns_join", "example_columns_q3",
+           "example_columns_sort", "example_columns_sort_dict",
+           "example_columns_strings", "join_routed", "numbered_strings",
            "q3_declaration", "table_from_numpy"]
 
 AGGREGATES = (AggregateSpec("sum", "v"), AggregateSpec("min", "v"),
@@ -100,6 +119,23 @@ AGGREGATES = (AggregateSpec("sum", "v"), AggregateSpec("min", "v"),
 MAX_GROUPS = 2048
 AGGREGATES_GENERIC = (AggregateSpec("sum", "v"), AggregateSpec("min", "w"),
                       AggregateSpec("count_all"))
+
+
+def numbered_strings(prefix: bytes, keys: np.ndarray, digits: int):
+    """(offsets, pool) of the strings ``prefix + "%0{digits}d" % key`` for
+    each non-negative key, built with digit arithmetic on an (n, width)
+    uint8 matrix (no per-row Python strings): TPC-H's ``C_NAME`` is
+    ``numbered_strings(b"Customer#", custkey, 9)``."""
+    keys = np.asarray(keys, dtype=np.int64)
+    n = keys.shape[0]
+    width = len(prefix) + digits
+    mat = np.empty((n, width), dtype=np.uint8)
+    mat[:, :len(prefix)] = np.frombuffer(prefix, dtype=np.uint8)
+    rest = keys.copy()
+    for j in range(width - 1, len(prefix) - 1, -1):
+        mat[:, j] = 48 + rest % 10
+        rest //= 10
+    return np.arange(n + 1, dtype=np.int64) * width, mat.reshape(-1)
 
 
 def example_columns(n_rows: int, num_keys: int, seed: int
@@ -208,6 +244,46 @@ def entry_sort(device=None, n_rows: int = 1024, seed: int = 0,
                                       device=device),
                "v": array_from_numpy(cols["v"], device=device)})
     options = SortOptions(SORT_KEYS, "at_end")
+
+    def step(batch_: Batch):
+        indices = sort_indices_batch(batch_, options)
+        return indices, take_batch(batch_, indices)
+
+    return step, (b,)
+
+
+SORT_KEYS_DICT = (("s", "ascending"), ("i", "descending"))
+
+
+def example_columns_sort_dict(n_rows: int, seed: int,
+                              num_values: int = 1000
+                              ) -> Dict[str, np.ndarray]:
+    """``entry_sort_dict``'s columns, made with numpy from ``seed``: int64
+    ``i`` uniform in [-2^40, 2^40); ``s_idx`` int32 uniform in [0,
+    num_values) with ``s_valid`` False for 5 % of the rows (indices into
+    the values ``cat%04d``, in their order); float64 standard normal
+    ``v``."""
+    rng = np.random.default_rng(seed)
+    return {"i": rng.integers(-(1 << 40), 1 << 40, n_rows, dtype=np.int64),
+            "s_idx": rng.integers(0, num_values, n_rows, dtype=np.int32),
+            "s_valid": rng.random(n_rows) >= 0.05,
+            "v": rng.standard_normal(n_rows)}
+
+
+def entry_sort_dict(device=None, n_rows: int = 1024, seed: int = 0,
+                    num_values: int = 1000):
+    """(step, (batch,)): step(batch) -> (indices, sorted batch) by
+    ``SORT_KEYS_DICT`` with nulls at the end: BASELINE #3's sort on its
+    (dictionary-encoded string, int64) keys."""
+    cols = example_columns_sort_dict(n_rows, seed, num_values)
+    off, pool = numbered_strings(b"cat", np.arange(num_values), 4)
+    vocab = varlen_from_numpy(offsets=off, pool=pool, device=device)
+    b = batch({"i": array_from_numpy(cols["i"], device=device),
+               "s": dictionary_from_numpy(cols["s_idx"], vocab,
+                                          validity=cols["s_valid"],
+                                          device=device),
+               "v": array_from_numpy(cols["v"], device=device)})
+    options = SortOptions(SORT_KEYS_DICT, "at_end")
 
     def step(batch_: Batch):
         indices = sort_indices_batch(batch_, options)
@@ -326,17 +402,27 @@ def example_columns_q3(n_lineitem: int, seed: int):
 
 
 def table_from_numpy(cols: Dict[str, np.ndarray], max_batch_rows: int,
-                     device=None) -> Table:
+                     device=None, dictionaries=None) -> Table:
     """A Table of ``batch_from_numpy`` slices of at most ``max_batch_rows``
-    rows (no pyarrow)."""
+    rows (no pyarrow). ``dictionaries`` maps a column name to the numpy
+    values of a dictionary: that column holds indices into it, and every
+    batch shares the one dictionary."""
     n = len(next(iter(cols.values())))
-    batches = [batch_from_numpy({k: v[s:s + max_batch_rows]
+    dicts = {k: array_from_numpy(np.asarray(v), device=device)
+             for k, v in (dictionaries or {}).items()}
+
+    def column(k, v):
+        if k in dicts:
+            return dictionary_from_numpy(v, dicts[k], device=device)
+        return v
+    batches = [batch_from_numpy({k: column(k, v[s:s + max_batch_rows])
                                  for k, v in cols.items()}, device=device)
                for s in range(0, max(n, 1), max_batch_rows)]
     return Table(batches[0].schema, batches)
 
 
-def q3_declaration(li, od, cu, max_groups: int = 256, dist=None):
+def q3_declaration(li, od, cu, max_groups: int = 256, dist=None,
+                   segment=None):
     """The Q3-shaped Declaration of the JAX package's dry run
     (``__graft_entry__.py``, BASELINE config #5) over the tables ``li``,
     ``od``, ``cu``, on one device, or with ``dist`` (a ``DistContext``) on
@@ -345,7 +431,10 @@ def q3_declaration(li, od, cu, max_groups: int = 256, dist=None):
     o_custkey (customers with c_seg == 1) -> project rev = l_price * (1.0 -
     l_disc) -> aggregate sum(rev) by (l_orderkey, o_date) -> order_by
     (revenue desc, l_orderkey asc) -> fetch 10. The joins' build capacities
-    are the orders' and customers' row counts (at least 16)."""
+    are the orders' and customers' row counts (at least 16). With
+    ``segment`` (a string, as ``entry_q3s`` passes), the customers are
+    filtered by TPC-H's ``c_mktsegment == segment`` instead of
+    ``c_seg == 1``."""
     from .acero import (AggregateNodeOptions, Declaration, FetchNodeOptions,
                         FilterNodeOptions, OrderByNodeOptions,
                         ProjectNodeOptions, TableSourceNodeOptions)
@@ -363,7 +452,8 @@ def q3_declaration(li, od, cu, max_groups: int = 256, dist=None):
             Declaration.from_sequence([
                 Declaration("table_source", TableSourceNodeOptions(cu)),
                 Declaration("filter", FilterNodeOptions(
-                    field("c_seg") == literal(1)))]),
+                    field("c_seg") == literal(1) if segment is None
+                    else field("c_mktsegment") == segment))]),
         ])
     return Declaration.from_sequence([
         Declaration("hashjoin", HashJoinNodeOptions(
@@ -408,6 +498,58 @@ def entry_q3(device=None, n_lineitem: int = 768, seed: int = 0,
         return q3_declaration(li_, od_, cu_, max_groups).to_table()
 
     return step, (li, od, cu)
+
+
+# TPC-H's market segments in the JAX package's order (``utils/tpch.py``)
+SEGMENTS = ("AUTOMOBILE", "BUILDING", "FURNITURE", "MACHINERY", "HOUSEHOLD")
+
+
+def entry_q3s(device=None, n_lineitem: int = 768, seed: int = 0,
+              max_groups: int = 256, max_batch_rows: int = 64):
+    """``entry_q3`` with the customer segment as TPC-H has it:
+    ``c_mktsegment``, a dictionary<int32, utf8> over ``SEGMENTS`` whose
+    indices are ``entry_q3``'s ``c_seg`` codes (``BUILDING`` is index 1),
+    filtered by ``c_mktsegment == "BUILDING"``: the same rows as
+    ``entry_q3``'s ``c_seg == 1``, so the same answer."""
+    li, od, cu = example_columns_q3(n_lineitem, seed)
+    cu = {"c_custkey": cu["c_custkey"], "c_mktsegment": cu["c_seg"]}
+    tables = (table_from_numpy(li, max_batch_rows, device),
+              table_from_numpy(od, max_batch_rows, device),
+              table_from_numpy(cu, max_batch_rows, device, {
+                  "c_mktsegment": np.array(SEGMENTS)}))
+
+    def step(li_: Table, od_: Table, cu_: Table) -> Table:
+        return q3_declaration(li_, od_, cu_, max_groups,
+                              segment="BUILDING").to_table()
+
+    return step, tables
+
+
+def example_columns_strings(n_rows: int, num_keys: int, seed: int
+                            ) -> Dict[str, np.ndarray]:
+    """``entry_strings``'s columns, made with numpy from ``seed``: int64
+    ``custkey`` uniform in [1, num_keys] (the key the names encode),
+    float64 standard normal ``v``, int64 ``w`` uniform in [-100, 100)."""
+    rng = np.random.default_rng(seed)
+    return {"custkey": rng.integers(1, num_keys + 1, n_rows, dtype=np.int64),
+            "v": rng.standard_normal(n_rows),
+            "w": rng.integers(-100, 100, n_rows, dtype=np.int64)}
+
+
+def entry_strings(device=None, n_rows: int = 1024, num_keys: int = 100,
+                  seed: int = 0, max_groups: int = 1 << 21):
+    """(step, (batch,)): ``entry_generic``'s step (``w > 0``, one-launch
+    filter, sum(v), min(w), count_all) grouped by ``name``, the raw string
+    ``Customer#%09d`` of each row's custkey (TPC-H's C_NAME, 18 bytes: the
+    fingerprint form of the content lanes)."""
+    cols = example_columns_strings(n_rows, num_keys, seed)
+    off, pool = numbered_strings(b"Customer#", cols["custkey"], 9)
+    b = batch({"name": varlen_from_numpy(offsets=off, pool=pool,
+                                         device=device),
+               "v": array_from_numpy(cols["v"], device=device),
+               "w": array_from_numpy(cols["w"], device=device)})
+    ha = HashAggregate(b.schema, ["name"], AGGREGATES_GENERIC, max_groups)
+    return _make_step(ha, "dma", True), (b,)
 
 
 # ---- the distribution --------------------------------------------------------

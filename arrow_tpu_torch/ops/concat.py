@@ -2,9 +2,12 @@
 
 Used by order_by / aggregate / join build sides to fuse a stream of batches
 into one device batch; the counterpart of the JAX package's
-``ops/concat.py`` for fixed-width columns. Sequential writes: batch i + 1's
-region overwrites batch i's trailing padding, so only the final tail is
-padding.
+``ops/concat.py``. Sequential writes: batch i + 1's region overwrites batch
+i's trailing padding, so only the final tail is padding. A varlen column
+writes its rebased offsets and its pool the same way (the pools' used
+bytes end to end); dictionary columns share one dictionary, the first
+real one (dictionary unification across sources is ROADMAP queue item
+A5b).
 
 Lengths may be host ints or 0-d tensors on the arrays' device. With host
 ints every write is a slice assignment and the result's length is a host
@@ -37,17 +40,64 @@ def _write_values(dst: torch.Tensor, src: torch.Tensor, offset) -> None:
         dst[offset:offset + src.shape[0]] = src
 
 
+def _advance(off, n, dev):
+    """``off + n``: a host int while both are, else a 0-d int32 tensor."""
+    if isinstance(n, torch.Tensor) or isinstance(off, torch.Tensor):
+        return (off + torch.as_tensor(n, device=dev)).to(torch.int32)
+    return off + int(n)
+
+
+def _concat_varlen(arrays: Sequence[Array], cap: int, any_valid: bool
+                   ) -> Array:
+    dev = arrays[0].device
+    bcap = sum(a.values.shape[0] for a in arrays)
+    out_off = torch.zeros((cap + 1,), dtype=torch.int32, device=dev)
+    out_bytes = torch.zeros((bcap,), dtype=torch.uint8, device=dev)
+    out_valid = torch.zeros((cap,), dtype=torch.bool, device=dev) \
+        if any_valid else None
+    row_off, byte_off = 0, 0
+    for a in arrays:
+        n = a.length
+        nbytes = a.offsets[n]
+        # rebased offsets of this chunk (its padding rows: its end)
+        _write_values(out_off, torch.minimum(a.offsets, nbytes) + byte_off,
+                      row_off)
+        _write_values(out_bytes, a.values, byte_off)
+        if any_valid:
+            _write_values(out_valid, a.validity_or_true(), row_off)
+        row_off = _advance(row_off, n, dev)
+        byte_off = (nbytes + byte_off).to(torch.int32)
+    # offsets past the last row: the total byte length
+    idx = torch.arange(cap + 1, device=dev)
+    out_off = torch.where(idx > row_off, byte_off, out_off)
+    return Array(arrays[0].type, out_bytes, out_valid, length=row_off,
+                 offsets=out_off)
+
+
+def _first_dictionary(arrays: Sequence[Array]) -> Optional[Array]:
+    """The first real dictionary (a placeholder batch holds an empty
+    one)."""
+    for a in arrays:
+        d = a.dictionary
+        if d is None or d.capacity == 0 or \
+                (d.has_static_length and len(d) == 0):
+            continue
+        return d
+    return arrays[0].dictionary
+
+
 def concat_arrays(arrays: Sequence[Array],
                   total_capacity: Optional[int] = None) -> Array:
     assert arrays, "concat of zero arrays"
     t = arrays[0].type
-    if t.is_varlen or isinstance(t, dt.DictionaryType):
+    if t.is_nested:
         raise NotImplementedError(
-            f"concat of {t} columns (ROADMAP queue item A3: varlen and "
-            "dictionary columns)")
+            f"concat of {t} columns (nested layouts: ROADMAP queue item A7)")
     any_valid = any(a.validity is not None for a in arrays)
     dev = arrays[0].device
     cap = total_capacity or sum(a.capacity for a in arrays)
+    if t.is_varlen:
+        return _concat_varlen(arrays, cap, any_valid)
     first = arrays[0].values
     out_vals = torch.zeros((cap,) + tuple(first.shape[1:]),
                            dtype=first.dtype, device=dev)
@@ -58,12 +108,10 @@ def concat_arrays(arrays: Sequence[Array],
         _write_values(out_vals, a.values, off)
         if any_valid:
             _write_values(out_valid, a.validity_or_true(), off)
-        n = a.length
-        if isinstance(n, torch.Tensor) or isinstance(off, torch.Tensor):
-            off = (off + torch.as_tensor(n, device=dev)).to(torch.int32)
-        else:
-            off = off + int(n)
-    return Array(t, out_vals, out_valid, length=off)
+        off = _advance(off, a.length, dev)
+    dictionary = _first_dictionary(arrays) \
+        if isinstance(t, dt.DictionaryType) else None
+    return Array(t, out_vals, out_valid, length=off, dictionary=dictionary)
 
 
 def concat_batches(batches: List[Batch]) -> Batch:

@@ -3,7 +3,7 @@
 Reference contract: ``cpp/src/arrow/compute/row/grouper.h:105`` — Consume
 (keys) -> dense group ids in ORDER OF FIRST APPEARANCE, persisting across
 calls; GetUniques() returns the unique key rows in group-id order. The
-counterpart of the JAX package's ``ops/grouper.py`` for fixed-width keys:
+counterpart of the JAX package's ``ops/grouper.py``:
 
   1. Keys normalize to u32 lanes (raw bits + a validity lane per nullable
      column), held as int64 (``ops/bits.py``). Group equality is Arrow's
@@ -21,6 +21,10 @@ scatters each run's head row into the rep table, because a TPU gather is
 slow; here the R rep rows are gathered through ``perm`` at the run heads
 (R x L elements instead of cap x L), which gives the same rows.
 
+String keys (varlen, or dictionary by its values' content) key by
+``ops/hashing``'s content lanes: 5 lanes a column. Their unique values
+live in fixed byte slots (``SlotStrings``) until finalize.
+
 Overflow (more groups than capacity) sets ``state.error`` (a deferred
 error, checked at the host boundary).
 """
@@ -37,13 +41,93 @@ from ..core.array import Array, resolve_device, row_mask
 from .bits import U32, as_signed_bits, gather_rows, value_lanes32
 from .distinct import _FOLD_SENTINEL, merge_insert, sort_group
 
-__all__ = ["Grouper", "GrouperState", "group_key_lanes",
+__all__ = ["Grouper", "GrouperState", "SlotStrings", "group_key_lanes",
            "group_key_lane_list"]
 
 
+@dataclass
+class SlotStrings:
+    """Per-group varlen key uniques in fixed byte slots: the analog of the
+    reference row table's varbinary region (``row_internal.h:33``). Each
+    group's key bytes live in a ``(G, W)`` slot, true lengths apart;
+    ``to_array`` compacts them to a varlen Array at finalize. A string
+    longer than W sets the deferred ``error`` (2); the recovery is a run
+    with a larger ``varlen_slot_bytes``."""
+
+    slots: torch.Tensor     # (G, W) uint8
+    lens: torch.Tensor      # (G,) int32 true byte length
+    valid: torch.Tensor     # (G,) bool
+    error: torch.Tensor     # 0-d int32, nonzero = slot overflow
+
+    @classmethod
+    def init(cls, num_groups: int, slot_bytes: int, device) -> "SlotStrings":
+        return cls(torch.zeros((num_groups, slot_bytes), dtype=torch.uint8,
+                               device=device),
+                   torch.zeros((num_groups,), dtype=torch.int32,
+                               device=device),
+                   torch.zeros((num_groups,), dtype=torch.bool,
+                               device=device),
+                   torch.zeros((), dtype=torch.int32, device=device))
+
+    def scatter_from(self, src: Array, rows: torch.Tensor,
+                     pos: torch.Tensor) -> "SlotStrings":
+        """Write src row ``rows[i]``'s bytes into slot ``pos[i]`` (pos >= G
+        is dropped)."""
+        G, W = self.slots.shape
+        dev = self.slots.device
+        cap = src.capacity
+        rows = rows.clamp(0, max(cap - 1, 0)).long()
+        starts = src.offsets[rows]
+        lens = src.offsets[rows + 1] - starts
+        bcap = src.values.shape[0]
+        col = torch.arange(W, dtype=torch.int32, device=dev)
+        if bcap == 0:
+            block = torch.zeros((rows.shape[0], W), dtype=torch.uint8,
+                                device=dev)
+        else:
+            idx = (starts[:, None] + col[None, :]).clamp_(0, bcap - 1)
+            block = src.values.index_select(0, idx.reshape(-1)) \
+                .reshape(-1, W).masked_fill_(col[None, :] >= lens[:, None],
+                                             0)
+        pos = pos.clamp(max=G).long()
+        written = pos < G
+        valid_src = src.validity_or_true()[rows]
+
+        def put(buf, x):
+            return torch.cat([buf, buf[:1]]).index_copy_(0, pos, x)[:G]
+
+        error = self.error | torch.where(
+            (written & (lens > W)).any(), 2, 0).to(torch.int32)
+        return SlotStrings(put(self.slots, block),
+                           put(self.lens, lens.to(torch.int32)),
+                           put(self.valid, valid_src), error)
+
+    def to_array(self, type: dt.DataType, length=None) -> Array:
+        """The slots as a varlen Array (pool capacity G * W)."""
+        from .selection import _gather_bytes
+        G, W = self.slots.shape
+        dev = self.slots.device
+        lens = torch.clamp(self.lens, max=W)
+        offsets = torch.cat([lens.new_zeros((1,)),
+                             torch.cumsum(lens, 0, dtype=torch.int32)])
+        starts = torch.arange(G, dtype=torch.int32, device=dev) * W
+        pool = _gather_bytes(self.slots.reshape(-1), starts, offsets,
+                             max(G * W, 1))
+        return Array(type, pool, self.valid, length=length, offsets=offsets)
+
+
 def _raw_lanes(a: Array) -> List[torch.Tensor]:
-    if a.type.is_varlen or isinstance(a.type, dt.DictionaryType) or \
-            isinstance(a.type, dt.DecimalType):
+    """Key column -> u32 lanes (int64) of bit equality. A varlen key: its
+    length and 4 content lanes (``hashing.varlen_content_lanes``); a
+    dictionary key: the content lanes of its values, not its codes, which
+    are only comparable under one dictionary."""
+    if a.type.is_varlen:
+        from .hashing import varlen_content_lanes
+        return varlen_content_lanes(a)
+    if isinstance(a.type, dt.DictionaryType):
+        from .hashing import dict_content_lanes
+        return dict_content_lanes(a)
+    if isinstance(a.type, dt.DecimalType):
         raise NotImplementedError(f"group keys of type {a.type}")
     return value_lanes32(a.values, a.type)
 
@@ -104,14 +188,23 @@ class Grouper:
 
     def __init__(self, key_types: Sequence[dt.DataType],
                  key_nullable: Sequence[bool],
-                 max_groups: int = 1 << 16):
+                 max_groups: int = 1 << 16, varlen_slot_bytes: int = 64):
         self.key_types = tuple(key_types)
         self.key_nullable = tuple(key_nullable)
         self.max_groups = max_groups
+        # byte-slot width of varlen key uniques; longer keys set a
+        # deferred error
+        self.varlen_slot_bytes = varlen_slot_bytes
         self.table_size = max_groups
         self.num_lanes = 0
         for t, nb in zip(self.key_types, self.key_nullable):
-            width = 2 if t.is_primitive and t.bit_width == 64 else 1
+            if t.is_varlen:
+                width = 5
+            elif isinstance(t, dt.DictionaryType):
+                from .hashing import dict_value_lane_width
+                width = dict_value_lane_width(t)
+            else:
+                width = 2 if t.is_primitive and t.bit_width == 64 else 1
             self.num_lanes += width + (1 if nb else 0)
 
     def init_state(self, device=None) -> GrouperState:
@@ -125,11 +218,13 @@ class Grouper:
             error=torch.zeros((), dtype=torch.int32, device=device),
         )
 
-    def _lanes_and_active(self, keys: Sequence[Array], length, active):
+    def _lanes_and_active(self, keys: Sequence[Array], length, active,
+                          lanes=None):
         cap = keys[0].capacity
         if length is None:
             length = keys[0].length
-        lanes = group_key_lanes(keys, self.key_nullable)
+        if lanes is None:
+            lanes = group_key_lanes(keys, self.key_nullable)
         in_range = row_mask(cap, length, lanes.device)
         if active is not None:
             in_range = in_range & active
@@ -152,7 +247,7 @@ class Grouper:
     def consume_with_group(self, state: GrouperState,
                            keys: Sequence[Array], length=None, active=None,
                            payloads=(), pack=None, first: bool = False,
-                           need_codes: bool = True):
+                           need_codes: bool = True, lanes=None):
         """Like consume, but returns (new_state, rep_gids, SortGroup,
         sorted_payloads) so callers can run segment-reduction aggregation
         over the sorted batch (ops/segment) instead of row scatters.
@@ -168,8 +263,9 @@ class Grouper:
         ``first``: the state is known empty, so the batch-local
         first-appearance ids ARE the persistent gids and the (S + R)-row
         merge-insert sort is skipped: the lane-sorted table builds directly
-        from this batch's sort."""
-        lanes, in_range = self._lanes_and_active(keys, length, active)
+        from this batch's sort. ``lanes``: the keys' ``group_key_lanes``
+        when the caller has them already."""
+        lanes, in_range = self._lanes_and_active(keys, length, active, lanes)
         return self.consume_lanes_grouped(state, lanes, in_range,
                                           payloads=payloads, pack=pack,
                                           first=first, need_codes=need_codes)
@@ -265,19 +361,29 @@ class Grouper:
         rep_active = ridx < torch.clamp(g.num_unique, max=R)
         pos = torch.where(rep_active & (rep_gids >= 0), rep_gids,
                           self.max_groups).long()
-        return [self._scatter_unique(k, uniques, i, pos,
-                                     gather_rows(k.values, rep_rows),
-                                     k.validity_or_true()[rep_rows])
-                for i, k in enumerate(keys)]
+        out = []
+        for i, k in enumerate(keys):
+            if k.type.is_varlen:
+                out.append(self._slots(uniques, i, k.device)
+                           .scatter_from(k, rep_rows, pos))
+                continue
+            out.append(self._scatter_unique(
+                k, uniques, i, pos, gather_rows(k.values, rep_rows),
+                k.validity_or_true()[rep_rows]))
+        return out
+
+    def _slots(self, uniques, i: int, device) -> SlotStrings:
+        return uniques[i] if uniques is not None else \
+            SlotStrings.init(self.max_groups, self.varlen_slot_bytes, device)
 
     def _scatter_unique(self, k: Array, uniques, i: int, pos: torch.Tensor,
                         vals_src: torch.Tensor, valid_src: torch.Tensor
                         ) -> Array:
         """Key column ``i``'s unique buffer (max_groups rows) with
         ``vals_src`` / ``valid_src`` written at ``pos``; positions from
-        max_groups up are dropped."""
-        if k.type.is_varlen:
-            raise NotImplementedError("unique buffers of varlen keys")
+        max_groups up are dropped. A dictionary key's buffer holds indices
+        into this batch's dictionary (dictionaries are not unified across
+        batches: ROADMAP queue item A5b)."""
         G = self.max_groups
         # gids past a full table (the error flag is set) are dropped
         pos = torch.clamp(pos, max=G)
@@ -293,7 +399,7 @@ class Grouper:
             .view(vals.dtype)
         valid = torch.cat([valid, valid[:1]]).index_copy_(
             0, pos, valid_src)[:G]
-        return Array(k.type, vals, valid)
+        return Array(k.type, vals, valid, dictionary=k.dictionary)
 
     def uniques_scatter(self, keys: Sequence[Array],
                         group_ids: torch.Tensor,
@@ -303,6 +409,9 @@ class Grouper:
         (GetUniques building block); capacity = max_groups. Rows with a
         negative group id go to the dump slot."""
         pos = torch.where(group_ids >= 0, group_ids, self.max_groups).long()
-        return [self._scatter_unique(k, uniques, i, pos, k.values,
+        rows = torch.arange(group_ids.shape[0], device=group_ids.device)
+        return [self._slots(uniques, i, k.device).scatter_from(k, rows, pos)
+                if k.type.is_varlen else
+                self._scatter_unique(k, uniques, i, pos, k.values,
                                      k.validity_or_true())
                 for i, k in enumerate(keys)]

@@ -18,6 +18,11 @@ the route (``probe_route``):
 Past the kernel's slot count (``DENSE_CAP``) and up to
 ``SORTED_DENSE_CAP`` slots ``consume_dense`` takes ``sorted_group_reduce``
 instead: the same interface, one stable sort by slot.
+
+String keys, plain or dictionary-encoded, take the sort routes on their
+content lanes (``ops/grouper``); a varlen key's uniques live in byte slots
+(``SlotStrings``) until ``finalize`` makes them a varlen Array, and a key
+longer than the slot is reported by ``aggregator_errors``.
 """
 
 from __future__ import annotations
@@ -28,7 +33,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..core.array import Array, resolve_device, row_mask
+from ..core import datatype as dt
+from ..core.array import Array, nulls, resolve_device, row_mask
 from ..core.batch import Batch
 from ..core.schema import Field, Schema
 from .aggregates import GroupedAggregator, make_grouped_aggregator
@@ -36,7 +42,7 @@ from .bits import SIGNED_OF, from_ordered_signed, lane_windows, \
     ordered_signed, unsigned_to_int64
 from .cuda_kernels import _DG_ARITY, _DG_IDENT, DenseKey, dense_group_reduce, \
     dense_key_gid
-from .grouper import Grouper, GrouperState, group_key_lanes
+from .grouper import Grouper, GrouperState, SlotStrings, group_key_lanes
 from .segment import make_segment_context
 
 __all__ = ["AggregateSpec", "HashAggregate", "sorted_group_reduce"]
@@ -116,6 +122,20 @@ def sorted_group_reduce(gid, inputs, kinds: tuple, G: int, valid=None):
                 "streams of the 32-bit kernel interface have native 64-bit "
                 "kinds here")
     return rows, outs
+
+
+class _SlotOverflow:
+    """Error carrier of a varlen key longer than its unique slot (reported
+    like an aggregator's error)."""
+
+    def __init__(self, key: str, slot_bytes: int):
+        self.name = f"key '{key}'"
+        self._slot_bytes = slot_bytes
+
+    def error_message(self, flag: int) -> str:
+        return (f"group key string in {self.name} exceeds the "
+                f"{self._slot_bytes}-byte unique slot; raise "
+                f"varlen_slot_bytes (or dictionary-encode the key)")
 
 
 @dataclass(frozen=True)
@@ -235,7 +255,7 @@ class HashAggregate:
                 us)
 
     def consume(self, state, batch: Batch, pack_arrays=None,
-                pack_static=None, first: bool = False):
+                pack_static=None, first: bool = False, lanes=None):
         """One pass: sort-group the batch by key (one sort), run the
         grouper table over the unique reps, then segment-reduce every
         aggregate (ops/segment): the only row-granular ops are the sort,
@@ -245,7 +265,8 @@ class HashAggregate:
         ``pack_arrays`` ((lo, shift, outmap) tensors) + ``pack_static``
         ((K, fold)): per-batch sort-key range packing; ``first``: the
         empty-state path (skips the merge-insert table sort). Both come
-        from the host routing of ``probe_route``."""
+        from the host routing of ``probe_route``; ``lanes`` the key lanes
+        when the probe built them already."""
         pack = None
         if pack_arrays is not None:
             pack = (pack_arrays[0], pack_arrays[1], pack_arrays[2],
@@ -261,8 +282,8 @@ class HashAggregate:
                 continue
             col = batch.column(spec.targets[0])
             key = id(col.values)
-            if any(key == k for k, _ in payload_plan):
-                continue
+            if col.type.is_varlen or any(key == k for k, _ in payload_plan):
+                continue        # a byte pool does not follow a row order
             payload_plan.append((key, col.validity is not None))
             payloads.append(col.values)
             if col.validity is not None:
@@ -276,7 +297,7 @@ class HashAggregate:
             self.grouper.consume_with_group(
                 grouper_state, key_cols, length=batch.length,
                 payloads=tuple(payloads), pack=pack, first=first,
-                need_codes=need_codes)
+                need_codes=need_codes, lanes=lanes)
         sorted_cols = {}
         it = iter(s_payloads)
         for key, has_valid in payload_plan:
@@ -318,13 +339,14 @@ class HashAggregate:
                 return False
         return True
 
-    def probe_scalars(self, batch: Batch):
+    def probe_scalars(self, batch: Batch, lanes=None):
         """Device scalars for the host routing decision (the caller fetches
         them in one host read): per-lane (lo, span) windows of the key
         lanes (the tighter of the unsigned/signed window) + the dense key
         domain when the dense kernel is statically eligible."""
         key_cols = [batch.column(k) for k in self.keys]
-        lanes = group_key_lanes(key_cols, self.grouper.key_nullable)
+        if lanes is None:
+            lanes = group_key_lanes(key_cols, self.grouper.key_nullable)
         lo, span = lane_windows(
             lanes, row_mask(batch.capacity, batch.length, lanes.device))
         out = {"lo": lo, "span": span}
@@ -514,7 +536,11 @@ class HashAggregate:
         o_grouper_state, o_agg_states, o_uniques = other_state
         if o_uniques is None:           # the other state consumed nothing
             return state
-        return self.merge_rows(state, list(o_uniques), o_agg_states,
+        # slot-form string uniques become varlen Arrays first, so that the
+        # grouper keys their content bytes
+        o_keys = [u.to_array(f.type) if isinstance(u, SlotStrings) else u
+                  for u, f in zip(o_uniques, self.key_fields)]
+        return self.merge_rows(state, o_keys, o_agg_states,
                                o_grouper_state.num_groups)
 
     @property
@@ -548,10 +574,31 @@ class HashAggregate:
         n = grouper_state.num_groups
         dev = grouper_state.table_gid.device
         if uniques is None:
-            uniques = [Array(f.type, torch.from_numpy(np.zeros(
-                (self.max_groups,), f.type.storage_np)).to(dev))
+            uniques = [
+                SlotStrings.init(self.max_groups,
+                                 self.grouper.varlen_slot_bytes, dev)
+                if f.type.is_varlen else
+                Array(f.type, torch.from_numpy(np.zeros(
+                    (self.max_groups,), f.type.storage_np)).to(dev),
+                    dictionary=nulls(0, f.type.value_type, device=dev)
+                    if isinstance(f.type, dt.DictionaryType) else None)
                 for f in self.key_fields]
-        arrays = [u.with_length(n) for u in uniques]
+        arrays = [u.to_array(f.type, length=n)
+                  if isinstance(u, SlotStrings) else u.with_length(n)
+                  for u, f in zip(uniques, self.key_fields)]
         for agg, st in zip(self._aggregators, agg_states):
             arrays.append(agg.finalize(st, n))
         return Batch(self.out_schema, arrays, n)
+
+    def aggregator_errors(self, state):
+        """Host-side deferred errors beyond the group table's:
+        [(carrier, nonzero flag)]; a varlen key longer than its slot is
+        one. One host read."""
+        _, _, uniques = state
+        slots = [(f, u) for u, f in zip(uniques or (), self.key_fields)
+                 if isinstance(u, SlotStrings)]
+        if not slots:
+            return []
+        flags = torch.stack([u.error for _, u in slots]).cpu().tolist()
+        return [(_SlotOverflow(f.name, self.grouper.varlen_slot_bytes), flag)
+                for (f, _), flag in zip(slots, flags) if flag]

@@ -41,16 +41,18 @@ materialize / finish, and the three probe ``impl``s.
     gives every probe row its first pair slot; ``rows_of_positions`` maps
     slots back to rows.
 
-  * Materialize: all output columns of a side pack into ONE (rows, W)
-    plane matrix and gather by ROW, then unpack.
+  * Materialize: the fixed-width output columns of a side (dictionary
+    columns as their indices) pack into ONE (rows, W) plane matrix and
+    gather by ROW, then unpack; varlen columns gather through
+    ``take_array``, their pools sized by the fanout.
 
   * Outer joins: matched bits are kept in sorted-payload space (per pair)
     plus per-seg group hits; ``finish`` rebases them to original rows.
 
 The output size is bounded by a static ``fanout_capacity`` with a deferred
 error flag (``BuildState.error``); running again at a larger capacity is
-the caller's recovery. Output row ORDER is unspecified. Varlen and
-dictionary columns raise ``NotImplementedError`` (ROADMAP queue item A3).
+the caller's recovery. Output row ORDER is unspecified. String and
+dictionary keys match by content (``group_key_lanes``).
 """
 
 from __future__ import annotations
@@ -62,14 +64,13 @@ import numpy as np
 import torch
 
 from ..core import datatype as dt
-from ..core.array import Array, resolve_device, row_mask
+from ..core.array import Array, nulls, resolve_device, row_mask
 from ..core.batch import Batch
 from ..core.schema import Field, Schema
 from .bits import lane_windows
 from .cuda_kernels import PACK_MISS, pack_key_lanes
 from .distinct import merge_find, sort_group
 from .grouper import Grouper, group_key_lane_list, group_key_lanes
-from .kernel_utils import torch_dtype
 from .planes import pack_columns, pack_spec, plane_width, unpack_columns
 from .segment import rows_of_positions
 from .selection import filter_batch, get_take_indices, take_array
@@ -250,15 +251,12 @@ class HashJoin:
             fields.append(Field(name, f.type, f.nullable or right_nullable))
         self.out_schema = Schema(tuple(fields))
 
-        # every output column gathers through its side's plane matrix
-        for schema, names in ((left_schema, self.left_out),
-                              (right_schema, self.right_out)):
-            for n in names:
-                if plane_width(schema.field(n).type) is None:
-                    raise NotImplementedError(
-                        f"join output column {n!r} of type "
-                        f"{schema.field(n).type} (ROADMAP queue item A3: "
-                        "varlen and dictionary columns)")
+        # the plane-packable output columns of each side gather through
+        # its plane matrix; the varlen ones through take_array
+        self._rpack = [n for n in self.right_out
+                       if plane_width(right_schema.field(n).type) is not None]
+        self._lpack = [n for n in self.left_out
+                       if plane_width(left_schema.field(n).type) is not None]
 
     # ------------------------------------------------------------------
     def build(self, right: Batch) -> BuildState:
@@ -319,9 +317,8 @@ class HashJoin:
         packed_seg = torch.where(sidx < g.num_unique, packed_seg, _MISS_B)
 
         payload_mat = None
-        if self.right_out:
-            rp_mat, _ = pack_columns(
-                [right.column(n) for n in self.right_out])
+        if self._rpack:
+            rp_mat, _ = pack_columns([right.column(n) for n in self._rpack])
             payload_mat = rp_mat[g.perm]
 
         bsegs = torch.where(
@@ -645,23 +642,46 @@ class HashJoin:
     # ------------------------------------------------------------------
     def _materialize(self, bs: BuildState, left: Batch, r, brow_sorted,
                      bvalid, total) -> Batch:
-        """Gather the output columns: ONE packed row gather per side.
-        ``r``: probe row per output row; ``brow_sorted``: build row in
-        sorted payload space; ``bvalid``: the output row has a build row
-        (else its right columns are null)."""
+        """Gather the output columns: ONE packed row gather per side for
+        the plane-packable columns, a ``take_array`` for each varlen one
+        (its pool ``ceil(T / cap)`` times its input's). ``r``: probe row
+        per output row; ``brow_sorted``: build row in sorted payload space;
+        ``bvalid``: the output row has a build row (else its right columns
+        are null)."""
+        T = r.shape[0]
         cols = {}
-        if self.left_out:
-            lmat, lspec = pack_columns(
-                [left.column(n) for n in self.left_out])
-            for n, a in zip(self.left_out, unpack_columns(
-                    lmat[r], lspec, total)):       # (T, WL) row gather
+        if self._lpack:
+            lmat, lspec = pack_columns([left.column(n) for n in self._lpack])
+            for n, a in zip(self._lpack, unpack_columns(
+                    lmat[r], lspec, total,     # (T, WL) row gather
+                    dictionaries=[left.column(n).dictionary
+                                  for n in self._lpack])):
                 cols[("l", n)] = a
-        if self.right_out:
-            rspec = pack_spec([bs.batch.column(n) for n in self.right_out])
-            for n, a in zip(self.right_out, unpack_columns(
-                    bs.payload_mat[brow_sorted], rspec, total,
-                    extra_valid=bvalid)):          # (T, WR) row gather
+        if self._rpack:
+            rcols = [bs.batch.column(n) for n in self._rpack]
+            for n, a in zip(self._rpack, unpack_columns(
+                    bs.payload_mat[brow_sorted], pack_spec(rcols), total,
+                    extra_valid=bvalid,        # (T, WR) row gather
+                    dictionaries=[c.dictionary for c in rcols])):
                 cols[("r", n)] = a
+        left_idx = Array(dt.int64, r, None, length=total)
+        for n in self.left_out:
+            if ("l", n) not in cols:
+                cols[("l", n)] = take_array(
+                    left.column(n), left_idx,
+                    grow=-(-T // max(left.capacity, 1)))
+        if any(("r", n) not in cols for n in self.right_out):
+            bcap = bs.batch.capacity
+            brow = bs.perm[brow_sorted.clamp(0, max(bcap - 1, 0))]
+            right_idx = Array(dt.int64, brow, None, length=total)
+            for n in self.right_out:
+                if ("r", n) in cols:
+                    continue
+                a = take_array(bs.batch.column(n), right_idx,
+                               grow=-(-T // max(bcap, 1)))
+                v = a.validity
+                cols[("r", n)] = a.with_validity(
+                    bvalid if v is None else (v & bvalid))
         arrays = [cols[("l", n)] for n in self.left_out] + \
             [cols[("r", n)] for n in self.right_out]
         return Batch(self.out_schema, arrays, total)
@@ -724,10 +744,8 @@ class HashJoin:
         arrays = []
         for n in self.left_out:
             t = self.left_schema.field(n).type
-            arrays.append(Array(
-                t, torch.zeros((cap,), dtype=torch_dtype(t), device=dev),
-                torch.zeros((cap,), dtype=torch.bool, device=dev),
-                length=n_out))
+            arrays.append(nulls(0, t, capacity=cap, device=dev)
+                          .with_length(n_out))
         for n in self.right_out:
             arrays.append(picked.column(n))
         return Batch(self.out_schema, arrays, n_out)

@@ -12,7 +12,9 @@ int32 tensor (torch has no shifts or gathers for uint32 on the card); view
 it as uint32 to compare. The packing is exactly invertible (unlike
 ``ops/bits.value_lanes32``, which canonicalizes NaNs for key equality):
 every storage bit round-trips, float64 through its int64 bits. Validity
-bitmaps pack as bit planes, 32 columns per extra word.
+bitmaps pack as bit planes, 32 columns per extra word. A dictionary column
+packs as its indices; ``unpack_columns`` gives it its dictionary back.
+Varlen columns do not pack: they gather through ``take_array``.
 """
 
 from __future__ import annotations
@@ -41,12 +43,13 @@ def _words_hi_first(v: torch.Tensor) -> List[torch.Tensor]:
 
 def _storage_lanes(a: Array) -> Optional[List[torch.Tensor]]:
     """Bijective 32-bit lanes (int32) of a column's storage, or None if the
-    type does not plane-pack (varlen / nested / dictionary, ROADMAP queue
-    item A3)."""
+    type does not plane-pack (varlen / nested)."""
     t = a.type
     v = a.values
     if plane_width(t) is None:
         return None
+    if isinstance(t, dt.DictionaryType):
+        return [v.to(torch.int32)]
     if isinstance(t, dt.BoolType):
         return [v.to(torch.int32)]
     if t.is_floating:
@@ -73,6 +76,8 @@ def _storage_from_lanes(lanes: List[torch.Tensor], t: dt.DataType
     dtype = torch_dtype(t)
     if isinstance(t, dt.BoolType):
         return lanes[0] != 0
+    if isinstance(t, dt.DictionaryType):
+        return lanes[0].to(dtype).contiguous()
     wide = isinstance(t, dt.DecimalType) and t.wide
     if wide or t.bit_width == 64:
         # back to little-endian word order, then to 64-bit elements
@@ -91,9 +96,9 @@ def _storage_from_lanes(lanes: List[torch.Tensor], t: dt.DataType
 def plane_width(t: dt.DataType) -> Optional[int]:
     """Number of 32-bit lanes a column of type t packs into (None:
     cannot)."""
-    if isinstance(t, dt.DictionaryType) or t.is_varlen or t.is_nested:
+    if t.is_varlen or t.is_nested:
         return None
-    if isinstance(t, dt.BoolType):
+    if isinstance(t, (dt.BoolType, dt.DictionaryType)):
         return 1
     if t.is_floating:
         return 2 if t.bits == 64 else 1
@@ -142,17 +147,18 @@ def pack_columns(cols: Sequence[Array]) -> Tuple[torch.Tensor, tuple]:
 
 
 def unpack_columns(mat: torch.Tensor, spec: tuple, length,
-                   extra_valid: Optional[torch.Tensor] = None
-                   ) -> List[Array]:
+                   extra_valid: Optional[torch.Tensor] = None,
+                   dictionaries: Optional[Sequence] = None) -> List[Array]:
     """Inverse of ``pack_columns`` over a (rows, W) gathered matrix.
     ``extra_valid`` ANDs into every column's validity (join null
     extension); columns without a packed validity get it as their
-    validity when provided."""
+    validity when provided. ``dictionaries``: each column's dictionary
+    (None for the others)."""
     out: List[Array] = []
     j = 0
     vstart = sum(w for (_, w, _) in spec)
     bit = 0
-    for (t, w, has_valid) in spec:
+    for i, (t, w, has_valid) in enumerate(spec):
         vals = _storage_from_lanes([mat[:, j + k] for k in range(w)], t)
         j += w
         validity = None
@@ -162,5 +168,7 @@ def unpack_columns(mat: torch.Tensor, spec: tuple, length,
         if extra_valid is not None:
             validity = extra_valid if validity is None else \
                 (validity & extra_valid)
-        out.append(Array(t, vals, validity, length=length))
+        out.append(Array(t, vals, validity, length=length,
+                         dictionary=None if dictionaries is None
+                         else dictionaries[i]))
     return out

@@ -3,7 +3,9 @@
 Reference: ``scalar_compare.cc``, ``scalar_boolean.cc``,
 ``scalar_validity.cc``, ``scalar_if_else.cc`` (if_else / case_when /
 coalesce / choose); the counterpart of the JAX package's
-``ops/scalar_compare.py`` for numeric, bool and temporal inputs.
+``ops/scalar_compare.py`` for numeric, bool, temporal, string and
+dictionary-of-string inputs (the last two through ``ops/strings``'s exact
+byte comparison).
 """
 
 from __future__ import annotations
@@ -49,9 +51,20 @@ def _comparable_values(args):
     raise TypeError(f"cannot compare {types}")
 
 
+def _is_stringy(a) -> bool:
+    t = a.type
+    if isinstance(t, dt.DictionaryType):
+        t = t.value_type
+    return t.is_varlen
+
+
 def _compare(name, op):
     @register_function(name, Kind.SCALAR, 2)
-    def _fn(args, options, _op=op):
+    def _fn(args, options, _op=op, _name=name):
+        if any(_is_stringy(a) for a in args):
+            from .strings import compare_varlen
+            return output_like(compare_varlen(_name, args[0], args[1]),
+                               dt.bool_, args)
         va, vb = _comparable_values(args)
         return output_like(_op(va, vb), dt.bool_, args)
     return _fn

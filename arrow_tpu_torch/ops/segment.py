@@ -81,7 +81,7 @@ def rows_of_positions(new_off: torch.Tensor, out_cap: int) -> torch.Tensor:
     before = torch.where(rank >= 2, ids[(rank - 2).clamp_(0)], -1)
     pos = torch.where(nonempty, starts, out_cap).long()  # empty rows: dropped
     steps = _scatter(out_cap, 0, pos, ridx - before)
-    return torch.cumsum(steps, 0, dtype=torch.int32) - 1
+    return torch.cumsum(steps, 0, dtype=torch.int32).sub_(1)
 
 
 class SegmentContext(NamedTuple):

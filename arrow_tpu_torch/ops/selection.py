@@ -21,6 +21,21 @@ routes under their JAX names:
 
 All paths give the same rows in the same order.
 
+Dictionary columns move their int32 indices like any column and keep their
+dictionary. Varlen (string / binary) columns move their row lengths like
+any column; their byte pools are the new part:
+
+  * a take (``_take_varlen``) gathers every output byte from its source:
+    new offsets from the gathered lengths, each output byte's row by
+    ``rows_of_positions`` over them;
+  * the one-launch filter compacts each pool by a second launch of the
+    same kernel over the pool as a u8 column, under a per-byte selection
+    built from the row selection with one scatter at the row heads and a
+    running sum (``_byte_selection``; the JAX package left-packs the pool
+    with a stable 1-bit sort instead). On an NVIDIA H100 80GB HBM3 (700 W)
+    this took 19.7 ms for a 1.8e9-byte pool against 81.1 ms for the
+    take's gather from the compacted row starts (``PERF.md``).
+
 Outputs keep the input capacity; ``length`` is the number of selected rows
 (a 0-d tensor on the device). Padding rows are unspecified.
 """
@@ -32,7 +47,7 @@ from typing import Optional
 import torch
 
 from ..core import datatype as dt
-from ..core.array import Array
+from ..core.array import Array, row_mask
 from ..core.batch import Batch
 from ..compute.registry import Kind, NullHandling, register_function
 from .cuda_kernels import TILE_ROWS, filter_compact_columns, \
@@ -151,19 +166,99 @@ def _gather_validity(values: Array, idx: torch.Tensor,
 
 
 def take_array(values: Array, indices: Array, grow: int = 1) -> Array:
-    """Gather rows of a fixed-width `values` at `indices` (Arrow `take`).
-    Indices (any integer type; uint64 as ``sort_indices`` gives them) must
-    be in [0, values.capacity), padding rows included. ``grow`` sizes the
-    byte pool of a varlen result in the JAX package; a fixed-width take
-    does not read it."""
-    if values.type.is_varlen or values.type.is_nested or \
-            isinstance(values.type, dt.DictionaryType):
+    """Gather rows of ``values`` at ``indices`` (Arrow ``take``). Indices
+    (any integer type; uint64 as ``sort_indices`` gives them) must be in
+    [0, values.capacity), padding rows included.
+
+    ``grow`` scales the byte pool of a varlen result: a take whose indices
+    repeat rows (join fanout) can need more bytes than the input pool
+    holds. The pool is at most 2^31 - 1 bytes (int32 offsets); a take past
+    it keeps its true offsets, and export reports the overflow."""
+    t = values.type
+    if t.is_nested:
         raise NotImplementedError(
-            f"take of {values.type} (ROADMAP queue item A3)")
+            f"take of {t} (nested layouts: ROADMAP queue item A7)")
     idx = as_signed_bits(indices.values).long()
-    return Array(values.type, gather_rows(values.values, idx),
+    if t.is_varlen:
+        return _take_varlen(values, idx, indices, grow)
+    return Array(t, gather_rows(values.values, idx),
                  _gather_validity(values, idx, indices.validity),
-                 length=indices.length)
+                 length=indices.length, dictionary=values.dictionary)
+
+
+_MAX_POOL = (1 << 31) - 1
+
+
+def _take_varlen(values: Array, idx: torch.Tensor, indices: Array,
+                 grow: int = 1) -> Array:
+    """Varlen gather in two phases (the JAX package's): the gathered row
+    lengths' prefix sum is the new offsets, then every output byte maps to
+    its row (``rows_of_positions``) and from there to its source byte.
+    Null and padding index rows take no bytes."""
+    ocap = idx.shape[0]
+    off = values.offsets
+    dev = off.device
+    ok = row_mask(ocap, indices.length, dev)
+    if indices.validity is not None:
+        ok = ok & indices.validity
+    starts = off[idx]
+    lens = torch.where(ok, off[idx + 1] - starts, 0)
+    new_off = torch.cat([lens.new_zeros((1,)),
+                         torch.cumsum(lens, 0, dtype=torch.int32)])
+    in_bcap = max(values.values.shape[0], 1)
+    bcap = min(in_bcap * max(int(grow), 1), _MAX_POOL)
+    pool = _gather_bytes(values.values, starts, new_off, bcap)
+    return Array(values.type, pool,
+                 _gather_validity(values, idx, indices.validity),
+                 length=indices.length, offsets=new_off)
+
+
+def _gather_bytes(pool: torch.Tensor, starts: torch.Tensor,
+                  new_off: torch.Tensor, bcap: int) -> torch.Tensor:
+    """(bcap,) u8: output byte p of row r (``new_off[r] <= p <
+    new_off[r + 1]``) is ``pool[starts[r] + p - new_off[r]]``; bytes past
+    ``new_off[-1]`` are 0. Every per-byte intermediate is int32."""
+    n = starts.shape[0]
+    if pool.shape[0] == 0 or n == 0:
+        return torch.zeros((bcap,), dtype=torch.uint8, device=pool.device)
+    r = rows_of_positions(new_off, bcap).clamp_(0, n - 1)
+    delta = (starts.to(torch.int32) - new_off[:-1])   # per row, int32
+    src = torch.arange(bcap, dtype=torch.int32, device=pool.device)
+    live = src < new_off[-1]
+    src += delta.index_select(0, r)
+    del r
+    src.clamp_(0, pool.shape[0] - 1)
+    out = pool.index_select(0, src)
+    del src
+    return out.masked_fill_(~live, 0)
+
+
+def _byte_selection(offsets: torch.Tensor, sel: torch.Tensor,
+                    bcap: int) -> torch.Tensor:
+    """(bcap,) bool: byte p is selected iff its row is (bytes past the
+    last row are not). Each non-empty row writes at its first byte the
+    change from the previous non-empty row's selection; a running sum of
+    the int8 changes is the byte's selection. The per-byte work arrays are
+    int8: no per-byte row ids."""
+    cap = sel.shape[0]
+    dev = sel.device
+    starts = offsets[:-1]
+    nonempty = offsets[1:] > starts
+    s8 = (sel & nonempty).to(torch.int8)
+    # the selection of the non-empty row before each row: compact the
+    # non-empty rows' selections by rank, read rank - 2 (0 where none)
+    rank = torch.cumsum(nonempty, 0)
+    compact = _scatter(cap, 0, torch.where(nonempty, rank - 1, cap), s8)
+    before = torch.where(rank >= 2, compact[(rank - 2).clamp_(0)], 0)
+    last = compact[(rank[-1] - 1).clamp(0)] if cap else s8.new_zeros(())
+    steps = torch.zeros((bcap + 1,), dtype=torch.int8, device=dev)
+    steps.index_copy_(0, torch.where(nonempty, starts, bcap).long(),
+                      (s8 - before).to(torch.int8))
+    # bytes from the end of the rows on are dropped
+    end = offsets[cap].long().clamp(max=bcap)
+    steps.index_put_((end.reshape(1),), -last.reshape(1).to(torch.int8),
+                     accumulate=True)
+    return torch.cumsum(steps[:bcap], 0, dtype=torch.int8).view(torch.bool)
 
 
 def take_batch(b: Batch, indices: Array) -> Batch:
@@ -181,17 +276,27 @@ def filter_array(values: Array, mask: Array,
 def _filter_batch_columns(b: Batch, mask: Array,
                           null_selection: str) -> Batch:
     """Single-pass compaction (JAX ``_filter_batch_dma``): ONE kernel
-    launch compacts every column's values (bool as bytes) and validity
-    (where there is one or nulls are emitted) as they lie, and gives the
-    selected count; no byte planes are packed or unpacked."""
+    launch compacts every column's values (bool as bytes; a dictionary
+    column's indices; a varlen column's row lengths) and validity (where there is one or nulls are emitted) as they lie, and
+    gives the selected count; no byte planes are packed or unpacked. Each
+    varlen column's pool then compacts through ``_filter_pool``."""
     sel, emit_valid, _ = _selection_mask(mask, null_selection, count=False)
     if b.capacity == 0:
         return b.with_length(torch.zeros((), dtype=torch.int32,
                                          device=sel.device))
     columns, has_validity = [], []
+    # rows emitted as nulls take no bytes (as the take's null indices)
+    keep = sel if emit_valid is None else sel & emit_valid
     for a in b.arrays:
-        v = a.values
-        columns.append(v.view(torch.uint8) if v.dtype == torch.bool else v)
+        if a.offsets is not None:
+            lens = a.offsets[1:] - a.offsets[:-1]
+            if emit_valid is not None:
+                lens = torch.where(emit_valid, lens, 0)
+            columns.append(lens)
+        else:
+            v = a.values
+            columns.append(v.view(torch.uint8) if v.dtype == torch.bool
+                           else v)
         validity = a.validity
         if emit_valid is not None:
             validity = emit_valid if validity is None \
@@ -203,12 +308,36 @@ def _filter_batch_columns(b: Batch, mask: Array,
     outs = iter(outs)
     arrays = []
     for a, valid in zip(b.arrays, has_validity):
+        if a.offsets is not None:
+            lens = next(outs)
+            validity = next(outs).view(torch.bool) if valid else None
+            arrays.append(_filter_pool(a, keep, lens, out_len, validity))
+            continue
         values = next(outs)
         if a.values.dtype == torch.bool:
             values = values.view(torch.bool)
         validity = next(outs).view(torch.bool) if valid else None
-        arrays.append(Array(a.type, values, validity, length=out_len))
+        arrays.append(Array(a.type, values, validity, length=out_len,
+                            dictionary=a.dictionary))
     return Batch(b.schema, arrays, out_len, b.index)
+
+
+def _filter_pool(a: Array, sel: torch.Tensor, lens: torch.Tensor,
+                 out_len, validity) -> Array:
+    """A varlen column after the row compaction: its new offsets from the
+    compacted lengths (rows past the count take none), its pool compacted
+    by one more launch of the compaction kernel under the per-byte
+    selection of the rows ``sel`` keeps bytes of."""
+    cap = sel.shape[0]
+    live = torch.arange(cap, dtype=torch.int32, device=sel.device) < out_len
+    lens = torch.where(live, lens, 0)
+    new_off = torch.cat([lens.new_zeros((1,)),
+                         torch.cumsum(lens, 0, dtype=torch.int32)])
+    pool = a.values
+    if pool.shape[0]:
+        byte_sel = _byte_selection(a.offsets, sel, pool.shape[0])
+        (pool,), _ = filter_compact_columns(byte_sel, [pool])
+    return Array(a.type, pool, validity, length=out_len, offsets=new_off)
 
 
 def filter_batch(b: Batch, mask: Array,
@@ -225,8 +354,7 @@ def filter_batch(b: Batch, mask: Array,
         raise ValueError(f"filter_batch impl {impl!r}: 'dma' or 'pallas'")
     for i in range(b.num_columns):
         t = b.column(i).type
-        if t.is_varlen or t.is_nested or isinstance(
-                t, (dt.DictionaryType, dt.FixedSizeBinaryType)) or \
+        if t.is_nested or isinstance(t, dt.FixedSizeBinaryType) or \
                 (isinstance(t, dt.DecimalType) and t.wide):
             raise NotImplementedError(f"filter_batch of {t}")
     return _filter_batch_columns(b, mask, opts.null_selection_behavior)

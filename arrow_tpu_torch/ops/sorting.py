@@ -4,7 +4,7 @@ Reference: ``vector_sort.cc:911`` (SortIndicesMetaFunction),
 ``vector_array_sort.cc`` (single-array sorters), the multi-key
 ``RadixRecordBatchSorter`` (``vector_sort.cc:391``), null partitioning
 (``vector_sort_internal.h:173-233``). The counterpart of the JAX package's
-``ops/sorting.py`` for fixed-width keys.
+``ops/sorting.py``.
 
 Arrow's radix sorter normalizes keys to a byte-comparable encoding; so does
 this module, in whole words: every key column becomes u32 lanes whose
@@ -24,14 +24,19 @@ Semantics matched to Arrow:
     canonicalized to one bit pattern
   * null_placement at_start / at_end applies per batch, independent of
     ascending / descending
-Varlen (string / binary) and dictionary keys are not sorted yet (ROADMAP
-queue item A3).
+  * varlen (string / binary) keys sort by unsigned bytes: big-endian u32
+    prefix words, then the length. The order is exact up to the prefix
+    (``varlen_words`` words, default 32 bytes); the plan's order_by reads
+    the longest key once on the host and widens the prefix to it
+  * dictionary keys sort by the rank of their value in the sorted
+    dictionary (``vector_array_sort.cc:179``)
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Sequence, Tuple
+import os
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -96,23 +101,98 @@ class PartitionNthOptions:
 
 # ---- key normalization -----------------------------------------------------
 
-def sortable_lanes(a: Array) -> List[torch.Tensor]:
+def _varlen_words_default() -> int:
+    """u32 prefix words of a varlen sort key (ARROW_TPU_SORT_PREFIX_BYTES,
+    default 32 bytes = 8 words)."""
+    return max(1, int(os.environ.get("ARROW_TPU_SORT_PREFIX_BYTES",
+                                     "32")) // 4)
+
+
+def sortable_lanes(a: Array, varlen_words: Optional[int] = None,
+                   cross_batch: bool = False) -> List[torch.Tensor]:
     """u32 lanes (int64 tensors) whose lexicographic unsigned order is the
-    column's ascending sort order. Null handling is SEPARATE (null lane)."""
+    column's ascending sort order. Null handling is SEPARATE (null lane).
+
+    Varlen: ``_string_sort_lanes``. Dictionary: the rank of the row's
+    value in this dictionary's sorted order (one lane), or with
+    ``cross_batch`` the lanes of the value itself, which compare across
+    batches with different dictionaries."""
     t = a.type
-    if t.is_varlen or isinstance(t, dt.DictionaryType):
-        raise NotImplementedError(
-            f"sort keys of type {t} (ROADMAP queue item A3: string prefix "
-            "lanes and dictionary ranks)")
+    if isinstance(t, dt.DictionaryType):
+        d = a.dictionary
+        idx = a.values.long().clamp(0, max(d.capacity, 1) - 1)
+        if cross_batch:
+            return [l[idx] for l in sortable_lanes(d, varlen_words)]
+        return [_dictionary_rank(d, varlen_words)[idx]]
+    if t.is_varlen:
+        return _string_sort_lanes(a, varlen_words or _varlen_words_default())
     return ascending_lanes32(a.values, t)
 
 
+def _string_sort_lanes(a: Array, nwords: int) -> List[torch.Tensor]:
+    """Big-endian u32 words of the first 4 * nwords bytes (zero past the
+    row's end), then the length: unsigned lane order is byte-lexicographic
+    order up to the prefix (the length breaks prefix-of ties; longer
+    strings equal over the prefix tie).
+
+    The words come from 4-byte windows of the pool (``_pool_windows``):
+    one int32 word per pool position, built once, then one gather per word
+    and row (not four byte gathers), widened to int64 per row, and a mask
+    of the bytes past the row's end."""
+    off = a.offsets
+    lens = (off[1:] - off[:-1]).to(torch.int64)
+    starts = off[:-1].to(torch.int64)
+    windows = _pool_windows(a.values)
+    lanes = []
+    for w in range(nwords):
+        word = windows[(starts + 4 * w).clamp_(0, windows.shape[0] - 1)]
+        have = (lens - 4 * w).clamp(0, 4)          # bytes of the row here
+        keep = (U32 << (8 * (4 - have))) & U32     # their high bits
+        lanes.append(word.to(torch.int64) & keep)
+    lanes.append(lens)
+    return lanes
+
+
+_WINDOW_STEP = 1 << 26
+
+
+def _pool_windows(pool: torch.Tensor) -> torch.Tensor:
+    """(max(B, 1),) int32: the big-endian 4-byte window at each position of
+    the u8 pool (bytes past its end are 0; the bits of a u32). Built in
+    steps of 2^26 positions, so the only array of the pool's length is the
+    result (4 bytes a pool byte)."""
+    bcap = pool.shape[0]
+    out = torch.zeros((max(bcap, 1),), dtype=torch.int32, device=pool.device)
+    for s in range(0, bcap, _WINDOW_STEP):
+        m = min(_WINDOW_STEP, bcap - s)
+        chunk = torch.zeros((m + 3,), dtype=torch.int32, device=pool.device)
+        tail = min(m + 3, bcap - s)
+        chunk[:tail] = pool[s:s + tail]
+        w = out[s:s + m]
+        for k in range(4):
+            w |= chunk[k:k + m] << (8 * (3 - k))
+    return out
+
+
+def _dictionary_rank(dictionary: Array,
+                     varlen_words: Optional[int] = None) -> torch.Tensor:
+    """rank[i] = position of dictionary value i in sorted order (a stable
+    sort of the values' lanes), int64."""
+    lanes = sortable_lanes(dictionary, varlen_words)
+    n = lanes[0].shape[0]
+    perm = _lexsort_perm([(l, 32) for l in lanes])
+    rank = torch.empty((n,), dtype=torch.int64, device=perm.device)
+    rank[perm] = torch.arange(n, dtype=torch.int64, device=perm.device)
+    return rank
+
+
 def _key_lanes(a: Array, order: str, null_placement: str,
-               capacity: int) -> List[torch.Tensor]:
+               capacity: int, cross_batch: bool = False,
+               varlen_words: Optional[int] = None) -> List[torch.Tensor]:
     """[null_lane, value_lanes...] for one sort key. The null lane holds 0
     or 1; a descending key's value lanes are the ascending ones with all 32
     bits flipped; value lanes of null rows are 0."""
-    lanes = sortable_lanes(a)
+    lanes = sortable_lanes(a, varlen_words, cross_batch)
     if order == "descending":
         lanes = [l ^ U32 for l in lanes]
     if a.validity is not None:
@@ -130,8 +210,9 @@ def _lane_bits(lanes: Sequence[torch.Tensor]
 
 
 def _composite_sort_perm(columns: Sequence[Array], orders: Sequence[str],
-                         null_placement: str, capacity: int,
-                         length) -> torch.Tensor:
+                         null_placement: str, capacity: int, length,
+                         varlen_words: Optional[int] = None
+                         ) -> torch.Tensor:
     """Stable multi-key sort permutation, int64 (padding rows pushed to the
     end, in input order)."""
     dev = columns[0].device
@@ -139,13 +220,15 @@ def _composite_sort_perm(columns: Sequence[Array], orders: Sequence[str],
     keys = [(pad_lane, 1)]
     for col, order in zip(columns, orders):
         keys.extend(_lane_bits(_key_lanes(col, order, null_placement,
-                                          capacity)))
+                                          capacity,
+                                          varlen_words=varlen_words)))
     return _lexsort_perm(keys)
 
 
 def batch_key_lanes(b: Batch, sort_keys, null_placement: str):
     """Flat per-row lane list for a batch's sort keys: the total order used
-    by sort / merge within ONE batch."""
+    by sort / merge within ONE batch (dictionary keys: batch-local
+    ranks)."""
     lanes = []
     for sk in sort_keys:
         lanes.extend(_key_lanes(b.column(sk.name), sk.order,
@@ -153,11 +236,19 @@ def batch_key_lanes(b: Batch, sort_keys, null_placement: str):
     return lanes
 
 
-def merge_key_lanes(b: Batch, sort_keys, null_placement: str):
+def merge_key_lanes(b: Batch, sort_keys, null_placement: str,
+                    varlen_words: Optional[int] = None):
     """The lane list that compares ACROSS batches (the streaming
-    sorted_merge's bound test). For fixed-width keys it is the batch's own
-    lane list: only dictionary and varlen keys differ (queue item A3)."""
-    return batch_key_lanes(b, sort_keys, null_placement)
+    sorted_merge's bound test): dictionary keys decode to their values'
+    lanes, varlen keys take prefix-word lanes, so one key spec gives lanes
+    of one shape for every batch."""
+    lanes = []
+    for sk in sort_keys:
+        lanes.extend(_key_lanes(b.column(sk.name), sk.order,
+                                null_placement, b.capacity,
+                                cross_batch=True,
+                                varlen_words=varlen_words))
+    return lanes
 
 
 def lex_leq(lanes, bound):
@@ -176,17 +267,21 @@ def _index_array(perm: torch.Tensor, length) -> Array:
 
 
 def sort_indices_array(a: Array, order: str = "ascending",
-                       null_placement: str = "at_end") -> Array:
+                       null_placement: str = "at_end",
+                       varlen_words: Optional[int] = None) -> Array:
     perm = _composite_sort_perm([a], [order], null_placement,
-                                a.capacity, a.length)
+                                a.capacity, a.length, varlen_words)
     return _index_array(perm, a.length)
 
 
-def sort_indices_batch(b: Batch, options: SortOptions) -> Array:
+def sort_indices_batch(b: Batch, options: SortOptions,
+                       varlen_words: Optional[int] = None) -> Array:
+    """``varlen_words``: u32 prefix words of varlen keys (default 8; the
+    plan's order_by passes what the longest key needs)."""
     cols = [b.column(k.name) for k in options.sort_keys]
     orders = [k.order for k in options.sort_keys]
     perm = _composite_sort_perm(cols, orders, options.null_placement,
-                                b.capacity, b.length)
+                                b.capacity, b.length, varlen_words)
     return _index_array(perm, b.length)
 
 

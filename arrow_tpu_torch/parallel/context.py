@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..compute.expressions import Expression, execute_scalar_expression
+from ..core import datatype as dt
 from ..core.array import Array
 from ..core.batch import Batch, Table, empty_batch
 from ..core.schema import Schema
@@ -173,9 +174,10 @@ class DistContext:
             arrays = []
             for i in range(b.num_columns):
                 a = b.column(i)
-                if a.type.is_varlen:
+                if a.type.is_varlen or isinstance(a.type, dt.DictionaryType):
                     raise NotImplementedError(
-                        "distributed varlen columns: dictionary-encode first")
+                        f"distributed {a.type} columns (ROADMAP queue item "
+                        "A5b)")
                 arrays.append(Array(
                     a.type, _slice_rows(a.values, lo, hi, dev),
                     None if a.validity is None

@@ -16,7 +16,7 @@ of the JAX package's ``parallel/dist_agg.py``.
 Requires every aggregator's state to be one row per group
 (``GroupedAggregator.dist_rows``); ``DistContext.group_by`` falls back to
 the raw-row shuffle for the rest. Varlen and dictionary keys are not
-exchanged yet (ROADMAP queue item A3).
+exchanged yet (ROADMAP queue item A5b).
 
 The state is a list with one HashAggregate state per shard, each on its
 shard's device. ``state_from_numpy`` / ``state_to_numpy`` carry it from and
@@ -79,7 +79,7 @@ class DistGroupBy:
             if f.type.is_varlen or isinstance(f.type, dt.DictionaryType):
                 raise NotImplementedError(
                     f"distributed group-by over {f.type} keys (ROADMAP "
-                    "queue item A3)")
+                    "queue item A5b)")
         self.G = max_groups_per_shard
         # the aggregator states' structure (a tuple of tensors or one
         # tensor each), on zero-row tensors

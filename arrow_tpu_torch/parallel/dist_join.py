@@ -27,6 +27,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core import datatype as dt
 from ..core.array import Array
 from ..core.batch import Batch
 from ..core.schema import Schema
@@ -106,10 +107,10 @@ class DistHashJoin:
         self.build_cap = options.max_build_rows
         self.fanout = fanout_per_shard
         for f in right_schema.fields:
-            if f.type.is_varlen:
+            if f.type.is_varlen or isinstance(f.type, dt.DictionaryType):
                 raise NotImplementedError(
-                    "distributed varlen build columns: dictionary-encode "
-                    "first (DistContext.shard_batch restriction)")
+                    f"distributed {f.type} build columns (ROADMAP queue "
+                    "item A5b)")
 
     # ------------------------------------------------------------------
     def init_build(self) -> List[_BuildAccum]:

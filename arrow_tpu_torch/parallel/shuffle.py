@@ -37,6 +37,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from ..core import datatype as dt
 from ..core.array import Array, row_mask
 from ..core.batch import Batch
 from ..core.schema import Schema
@@ -124,9 +125,10 @@ def _column_leaves(b: Batch) -> List[Optional[torch.Tensor]]:
     leaves = []
     for i in range(b.num_columns):
         a = b.column(i)
-        if a.type.is_varlen:
+        if a.type.is_varlen or isinstance(a.type, dt.DictionaryType):
             raise NotImplementedError(
-                "shuffle of raw string columns: dictionary-encode first")
+                f"shuffle of {a.type} columns (ROADMAP queue item A5b: "
+                "string and dictionary columns across the exchange)")
         leaves.append(a.values)
         leaves.append(a.validity)
     return leaves
@@ -165,9 +167,10 @@ def partition_for_exchange(b: Batch, key_names: Sequence[str],
     Returns (send buffers: (P, B) tensors in ``_column_leaves`` order,
     counts (P,) int32 — NOT capped at B, error 0-d int32)."""
     P, B = num_partitions, bucket_capacity
+    leaves = _column_leaves(b)
     d = None if positions is not None else \
         _batch_dest(b, key_names, P, seed, dest)
-    return _bucket_rows(_column_leaves(b), d, P, B, counts, positions)
+    return _bucket_rows(leaves, d, P, B, counts, positions)
 
 
 # ---- all shards: the collective ----------------------------------------------

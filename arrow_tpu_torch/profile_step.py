@@ -1,7 +1,8 @@
 """Per-layer device times of one step of the port's slices, on one GPU.
 
     python -m arrow_tpu_torch.profile_step
-        [--path generic|dense|dist|exchange|sort|join|q3|q3dist] [--rows N]
+        [--path generic|dense|dist|exchange|sort|join|q3|q3dist|sortdict|
+                q3s|strings] [--rows N]
         [--keys N] [--max-groups N] [--shards N] [--steps N] [--seed N]
         [--build-rows N] [--build-keys N] [--key-dist uniform|zipf]
         [--join-type T] [--wide] [--batch-rows N]
@@ -28,7 +29,13 @@ inputs' time subtracted) and its host reads per step, beside the layers.
 ``--shards`` logical shards (default 8) on both joins and the aggregate,
 ``--max-groups`` per shard (default 2^22); its layers add the distributed
 join's build accumulation, build, probe and finish, the group-by's
-per-shard consume and its state-row exchange.
+per-shard consume and its state-row exchange. ``--path sortdict`` is
+``entry_sort_dict`` (BASELINE #3's dictionary-string sort: the dictionary
+rank among the lane build), ``--path q3s`` ``entry_q3s`` (``q3`` with the
+segment a dictionary string), ``--path strings`` ``entry_strings`` (the
+generic step keyed by a raw 18-byte string, ``--keys`` customer keys,
+default 1,000,000; layers add the pool compaction, its per-byte
+selection, the content lanes and their fingerprints, the unique slots).
 
 Wraps the functions that make up the step's layers so that each call is
 bracketed by two CUDA events on the current stream (no synchronisation
@@ -158,7 +165,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", choices=("generic", "dense", "dist",
                                        "exchange", "sort", "join", "q3",
-                                       "q3dist"),
+                                       "q3dist", "sortdict", "q3s",
+                                       "strings"),
                     default="generic")
     ap.add_argument("--batch-rows", type=int, default=1 << 22)
     ap.add_argument("--build-rows", type=int, default=1 << 20)
@@ -186,7 +194,7 @@ def main() -> int:
     from .acero import nodes
     from .core.batch import Batch
     from .ops import aggregates, cuda_kernels, distinct, grouper, \
-        hash_aggregate, join, selection, sorting
+        hash_aggregate, hashing, join, selection, sorting
     from .parallel import context, dist_agg, dist_join, shuffle
 
     print(subprocess.run(
@@ -238,6 +246,18 @@ def main() -> int:
                 aggregates._GroupedExtremum):
         layer(cls, "consume_grouped", f"agg_{cls.name or 'min_max'}")
     layer(HA, "finalize", "finalize")
+    # string and dictionary columns
+    layer(selection, "_filter_pool", "pool_compaction")
+    layer(selection, "_byte_selection", "byte_selection")
+    layer(selection, "_gather_bytes", "gather_bytes")
+    layer(hashing, "varlen_content_lanes", "content_lanes")
+    layer(hashing, "_short_lanes", "short_lanes")
+    layer(hashing, "string_fingerprint_exact", "fingerprint")
+    layer(hashing, "dict_content_lanes", "dict_content_lanes")
+    layer(grouper.SlotStrings, "scatter_from", "slot_scatter")
+    layer(grouper.SlotStrings, "to_array", "slots_to_array")
+    layer(sorting, "_string_sort_lanes", "string_sort_lanes")
+    layer(sorting, "_dictionary_rank", "dictionary_rank")
     # the distributed group-by: per-shard steps, the exchange between them
     layer(dist_agg, "execute_scalar_expression", "expression")
     layer(dist_agg, "filter_batch", "filter")
@@ -271,8 +291,8 @@ def main() -> int:
     layer(dist_agg.DistGroupBy, "finalize_table", "dist_finalize")
     # the sorted dense route, sort and join
     layer(hash_aggregate, "sorted_group_reduce", "sorted_group_reduce")
-    if args.path in ("sort", "join") or (args.path == "dense" and
-                                         (args.keys or 0) > 4096):
+    if args.path in ("sort", "join", "sortdict", "strings") or (
+            args.path == "dense" and (args.keys or 0) > 4096):
         layer(torch, "argsort", "torch_argsort")
         layer(torch, "sort", "torch_sort")
         layer(torch, "searchsorted", "torch_searchsorted")
@@ -334,6 +354,21 @@ def main() -> int:
     elif args.path == "sort":
         step, (b,) = entry_mod.entry_sort(None, args.rows, args.seed,
                                           args.keys or 1_000_000)
+    elif args.path == "sortdict":
+        step, (b,) = entry_mod.entry_sort_dict(None, args.rows, args.seed,
+                                               args.keys or 1000)
+    elif args.path == "strings":
+        step, (b,) = entry_mod.entry_strings(
+            None, args.rows, args.keys or 1_000_000, args.seed,
+            args.max_groups or 1 << 21)
+    elif args.path == "q3s":
+        qstep, tables = entry_mod.entry_q3s(
+            None, args.rows, args.seed, args.max_groups or 1 << 22,
+            args.batch_rows)
+        b = tables
+
+        def step(tables_):
+            return qstep(*tables_)
     elif args.path == "q3":
         qstep, tables = entry_mod.entry_q3(
             None, args.rows, args.seed, args.max_groups or 1 << 22,

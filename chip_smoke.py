@@ -17,12 +17,15 @@ rows (BASELINE config #2) and checks each result against a numpy oracle:
   path 3b ``arrow_tpu_torch.parallel.shuffle.shuffle_batch``: the raw-row
           exchange of the same batch by key hash over 4 logical shards,
           and one shard's send side of the same exchange over 8;
-  path 4  ``arrow_tpu_torch.entry.entry_sort`` (BASELINE config #3): a
-          two-key stable sort of 100M rows (int64 ascending, int32 with 5 %
-          nulls descending, nulls last) and the take through it. Cut
-          against config #3: the second key is an int32, not a
-          dictionary-encoded string (varlen and dictionary columns are not
-          ported yet);
+  path 4  ``arrow_tpu_torch.entry.entry_sort``: a two-key stable sort of
+          100M rows (int64 ascending, int32 with 5 % nulls descending,
+          nulls last) and the take through it: path 4d with an int32 in
+          the string key's place;
+  path 4d ``arrow_tpu_torch.entry.entry_sort_dict`` (BASELINE config #3
+          without path 4's cut): 100M rows sorted by a dictionary<int32,
+          utf8> key over 1,000 values ``cat%04d`` (5 % null) ascending,
+          then int64 ``i`` descending, nulls last, against numpy's stable
+          sort of the dictionary ranks;
   path 5a ``arrow_tpu_torch.entry.entry_join`` (BASELINE config #4): inner
           join of a 100M-row probe side against 2^20 unique build keys, a
           quarter of the probe rows matching (route "packed_u");
@@ -39,6 +42,10 @@ rows (BASELINE config #2) and checks each result against a numpy oracle:
           host reads. Cut against config #5: 100M lineitem rows, not SF100's
           600M; one card, no ``dist=``; dates and the segment are int32
           codes, not dictionary strings;
+  path 6s path 6's Declaration and tables with customer's segment as
+          TPC-H's ``c_mktsegment``, a dictionary<int32, utf8> of the five
+          segment names, filtered by ``== "BUILDING"``, against path 6's
+          oracle; every call of its four kernels against its plain version;
   path 6b a table_source -> filter -> hashjoin Declaration on two wide
           int64 keys (2^20 build x 10M probe rows, the "sort" route), which
           runs the Bloom pushdown;
@@ -52,7 +59,19 @@ rows (BASELINE config #2) and checks each result against a numpy oracle:
           inner of 2^20 build rows and 25M probe rows (config #4's shape,
           the probe cut from 100M: the raw-row exchange's buffers);
   path 7d ``arrow_tpu_torch.entry.entry_dist_sort``: ``DistContext.sort_by``
-          of config #3's columns at 25M rows (cut from 100M as 7c is).
+          of config #3's columns at 25M rows (cut from 100M as 7c is);
+  path 8  ``arrow_tpu_torch.entry.entry_strings``: config #2's filter ->
+          group-by of 100M rows keyed by a raw string column, TPC-H's
+          ``C_NAME`` form ``Customer#%09d`` (18 bytes, a 1.8 GB pool) of
+          1,000,000 customer keys: the one-launch filter compacts the
+          columns and the row lengths, a second launch the byte pool; the
+          group-by keys the strings' fingerprint content lanes; against a
+          numpy oracle grouped by the customer key, each B1 call against
+          its plain version, the filter and its pool compaction timed;
+          then the name column sorted (``sort_indices_batch``) and
+          compared row by row with itself in that order
+          (``compare_varlen``, Array vs Array), each against the
+          customer keys' order, with its peak under 40 GB.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -168,6 +187,11 @@ BLOOM_LV_MIN = -1.0             # path 6b's probe filter keeps 84 % of rows
 N_PROBE_DIST = 25_000_000
 N_SORT_DIST = 25_000_000
 SORT_BUCKET_FACTOR = 3
+# path 4d: BASELINE #3's dictionary of "cat%04d" values
+NUM_VALUES_DICT = 1000
+# path 8: C_NAME strings of 1M customer keys, a 2^21-slot state
+NUM_KEYS_STRINGS = 1_000_000
+MAX_GROUPS_STRINGS = 1 << 21
 
 
 def check(cond, msg: str) -> None:
@@ -660,25 +684,64 @@ def numpy_oracle_generic(cols, num_keys: int):
                 w_min=w_min)
 
 
-def check_slice_generic(out, oracle) -> int:
+def check_slice_generic(out, oracle, label: str = "path 2",
+                        keys=None) -> int:
+    """``keys``: the groups' int64 keys, where the key column is not the
+    int64 ``k`` (path 8 decodes them from its strings)."""
     n = len(out)
     col = {name: out.column(name).values[:n].cpu().numpy()
-           for name in out.column_names}
-    keys = col["k"]
+           for name in ("count_all", "w_min", "v_sum")}
+    if keys is None:
+        keys = out.column("k").values[:n].cpu().numpy()
     check(np.array_equal(keys, oracle["keys"]),
-          "path 2: keys or their first-appearance order")
+          f"{label}: keys or their first-appearance order")
     check(np.array_equal(col["count_all"], oracle["count"][keys]),
-          "path 2: count_all")
+          f"{label}: count_all")
     check(np.array_equal(col["w_min"], oracle["w_min"][keys]),
-          "path 2: w_min")
+          f"{label}: w_min")
     d = np.abs(col["v_sum"] - oracle["v_sum"][keys])
     check(bool((d <= SUM64_RTOL * oracle["v_abs"][keys] + SUM64_ATOL).all()),
-          f"path 2: v_sum off by up to {d.max():.3g}")
+          f"{label}: v_sum off by up to {d.max():.3g}")
     for name in out.column_names:
         validity = out.column(name).validity
         check(validity is None or bool(validity[:n].all()),
-              f"path 2: nulls in {name}")
+              f"{label}: nulls in {name}")
     return n
+
+
+def decode_names(torch, names, prefix: bytes, digits: int) -> np.ndarray:
+    """The int64 keys a column of ``prefix + "%0{digits}d"`` strings
+    encodes; checks every row is exactly such a string."""
+    n = len(names)
+    width = len(prefix) + digits
+    off = names.offsets[:n + 1].cpu().numpy().astype(np.int64)
+    check(np.array_equal(off, np.arange(n + 1) * width),
+          f"the {prefix!r} strings' offsets")
+    mat = names.values[:n * width].cpu().numpy().reshape(n, width)
+    check(bool((mat[:, :len(prefix)] ==
+                np.frombuffer(prefix, np.uint8)).all()) and
+          bool(((mat[:, len(prefix):] >= 48) &
+                (mat[:, len(prefix):] <= 57)).all()),
+          f"the {prefix!r} strings' bytes")
+    keys = np.zeros(n, np.int64)
+    for j in range(len(prefix), width):
+        keys = keys * 10 + (mat[:, j] - 48)
+    return keys
+
+
+def numpy_sort_dict_oracle(cols):
+    """Path 4d's stable sort permutation computed independently with numpy:
+    ONE composite uint64 key per row (the null flag of ``s`` in the top
+    bit, then its rank, which is its index: the values ``cat%04d`` lie in
+    order, 0 where null, then ``i`` descending: 2^41 - 1 minus its biased
+    value), sorted with numpy's stable sort."""
+    valid = cols["s_valid"]
+    rank = np.where(valid, cols["s_idx"], 0).astype(np.uint64)
+    desc = np.uint64((1 << 41) - 1) - \
+        (cols["i"] + (1 << 40)).astype(np.uint64)
+    key = ((~valid).astype(np.uint64) << np.uint64(63)) | \
+        (rank << np.uint64(41)) | desc
+    return np.argsort(key, kind="stable")
 
 
 def check_dist_group_by(np_, table, oracle, n_shards: int, shard_of) -> int:
@@ -1530,6 +1593,43 @@ def main() -> int:
     del idx, out, perm, want, cols, b, step
     torch.cuda.empty_cache()
 
+    # ---- path 4d: BASELINE #3 with its dictionary-encoded string key ------
+    from arrow_tpu_torch.entry import example_columns_sort_dict
+    t0 = time.time()
+    cols = example_columns_sort_dict(N_ROWS, args.seed, NUM_VALUES_DICT)
+    step, (b,) = entry_mod.entry_sort_dict(dev, N_ROWS, args.seed,
+                                           NUM_VALUES_DICT)
+    torch.cuda.synchronize()
+    print(f"path 4d data: {N_ROWS} rows made and staged in "
+          f"{time.time() - t0:.1f} s")
+    (idx, out), secs, launches4d, peak = timed(lambda: step(b), "path 4d")
+    t0 = time.time()
+    want = torch.from_numpy(numpy_sort_dict_oracle(cols))
+    perm = idx.values.view(torch.int64)
+    check(len(idx) == N_ROWS and perm.shape == (N_ROWS,),
+          "path 4d: the permutation's length")
+    check(torch.equal(perm.cpu(), want),
+          "path 4d: the permutation differs from numpy's stable sort")
+    s_out = out.column("s")
+    check(torch.equal(out.column("i").values.cpu(),
+                      torch.from_numpy(cols["i"])[want]) and
+          torch.equal(out.column("v").values.cpu(),
+                      torch.from_numpy(cols["v"])[want]) and
+          torch.equal(s_out.validity.cpu(),
+                      torch.from_numpy(cols["s_valid"])[want]) and
+          torch.equal(s_out.values.cpu(), torch.from_numpy(np.where(
+              cols["s_valid"], cols["s_idx"], 0))[want]) and
+          s_out.dictionary is b.column("s").dictionary,
+          "path 4d: the taken batch")
+    print(f"path 4d (sort on a dictionary<int32, utf8> key and an int64): "
+          f"{N_ROWS} rows in {secs * 1e3:.3f} ms = {N_ROWS / secs:.6g} "
+          f"rows/s; the permutation equals numpy's stable sort of the "
+          f"dictionary ranks index for index (oracle "
+          f"{time.time() - t0:.1f} s); peak device memory {peak} B; "
+          f"launches {launches4d}")
+    del idx, out, perm, want, cols, b, step, s_out
+    torch.cuda.empty_cache()
+
     # ---- paths 5a, 5b: arrow_tpu_torch.entry.entry_join (BASELINE #4) ---
     launches5 = {}
     for label, key_dist in (("path 5a", "uniform"), ("path 5b", "zipf")):
@@ -1681,6 +1781,8 @@ def main() -> int:
     from arrow_tpu_torch.acero import nodes as nodes_mod
     from arrow_tpu_torch.core.batch import Batch
     from arrow_tpu_torch.entry import example_columns_q3
+    from arrow_tpu_torch.entry import table_from_numpy as \
+        table_from_numpy_dict
     from arrow_tpu_torch.profile_step import node_layers, node_times
     t0 = time.time()
     qcols = example_columns_q3(N_LINEITEM, args.seed)
@@ -1758,6 +1860,61 @@ def main() -> int:
     pk6 = measure_pack_lanes(torch, ck, lanes, lo, span, shift, active,
                              "path 6 shape")
     del sel, columns, lanes, active, step
+    forget()
+    torch.cuda.empty_cache()
+
+    # ---- path 6s: path 6 with TPC-H's c_mktsegment, a dictionary string --
+    # the step of entry_q3s (made at a small size: its tables are not the
+    # ones run) on path 6's lineitem and orders and a customer table whose
+    # c_mktsegment indices are path 6's c_seg codes
+    step, _ = entry_mod.entry_q3s(dev, 768, args.seed, Q3_MAX_GROUPS,
+                                  Q3_BATCH_ROWS)
+    cu6s = table_from_numpy_dict(
+        {"c_custkey": qcols[2]["c_custkey"],
+         "c_mktsegment": qcols[2]["c_seg"]}, Q3_BATCH_ROWS, dev,
+        {"c_mktsegment": np.array(entry_mod.SEGMENTS)})
+    check(cu6s.schema.field("c_mktsegment").type.id ==
+          "dictionary<values=string, indices=int32>",
+          f"path 6s: c_mktsegment is {cu6s.schema.field('c_mktsegment').type}")
+    tables6s = (tables[0], tables[1], cu6s)
+    out, secs, launches6s, peak = timed(lambda: step(*tables6s), "path 6s",
+                                        q3_kernels)
+    check_q3(out, q3_oracle, "path 6s")
+    print(f"path 6s (path 6 with c_mktsegment == 'BUILDING' on a dictionary "
+          f"string): {N_LINEITEM} lineitem rows in {secs * 1e3:.3f} ms = "
+          f"{N_LINEITEM / secs:.6g} rows/s; the top 10 match path 6's numpy "
+          f"oracle; peak device memory {peak} B; launches {launches6s}")
+    del out
+    forget()
+    recorded(selection, "filter_compact_columns", lambda: recorded(
+        selection, "tile_compact_local", lambda: recorded(
+            selection, "tile_stitch", lambda: recorded(
+                join_mod, "pack_key_lanes", lambda: step(*tables6s)))))
+    for kname in q3_kernels:
+        n_calls = len(seen_calls[wrapper.get(kname, kname)])
+        check(n_calls == launches6s[kname],
+              f"path 6s: {n_calls} recorded calls of {kname}, "
+              f"{launches6s[kname]} launches")
+    for a in seen_calls["filter_compact_columns"]:
+        check_filter(torch, ck, *a, "path 6s call")
+    for (sel,) in seen_calls["tile_compact_local"]:
+        check_tile_compact(torch, ck, sel, "path 6s call")
+    for a in seen_calls["tile_stitch"]:
+        check(torch.equal(ck.tile_stitch(*a), ck.tile_stitch_plain(*a)),
+              "path 6s: a tile_stitch call differs from its plain version")
+    for a in seen_calls["pack_key_lanes"]:
+        check_pack_lanes(torch, ck, *a, "path 6s call")
+    # the customer filter: its batch holds c_mktsegment's int32 indices
+    # where the plan keeps the column
+    n_cust = cu6s.num_rows
+    cust = [a for a in seen_calls["filter_compact_columns"]
+            if a[0].shape[0] == n_cust]
+    check(len(cust) == 1, f"path 6s: {len(cust)} B1 calls of the customer "
+          "filter's shape")
+    fc6s = measure_filter(torch, ck, *cust[0], "path 6s customer filter")
+    print(f"path 6s customer filter: B1 columns of widths "
+          f"{fc_widths(cust[0][1])} B")
+    del step, tables6s, cu6s, cust
     forget()
     torch.cuda.empty_cache()
 
@@ -2103,6 +2260,83 @@ def main() -> int:
     del b, step
     torch.cuda.empty_cache()
 
+    # ---- path 8: filter -> group-by on a raw string key ----------------
+    from arrow_tpu_torch.entry import example_columns_strings
+    t0 = time.time()
+    cols = example_columns_strings(N_ROWS, NUM_KEYS_STRINGS, args.seed)
+    step, (b,) = entry_mod.entry_strings(dev, N_ROWS, NUM_KEYS_STRINGS,
+                                         args.seed, MAX_GROUPS_STRINGS)
+    torch.cuda.synchronize()
+    pool_bytes = b.column("name").values.shape[0]
+    print(f"path 8 data: {N_ROWS} rows, a {pool_bytes}-byte string pool, "
+          f"made and staged in {time.time() - t0:.1f} s")
+    out, secs, launches8, peak = timed(lambda: step(b), "path 8",
+                                       ("filter_compact_chunks",))
+    check(launches8["filter_compact_chunks"] == 2,
+          f"path 8: {launches8['filter_compact_chunks']} B1 launches, not "
+          "the rows' and the pool's")
+    check(peak < 40e9, f"path 8: peak device memory {peak} B")
+    t0 = time.time()
+    oracle8 = numpy_oracle_generic(
+        {"k": cols["custkey"], "v": cols["v"], "w": cols["w"]},
+        NUM_KEYS_STRINGS + 1)
+    keys8 = decode_names(torch, out.column("name"), b"Customer#", 9)
+    n_groups = check_slice_generic(out, oracle8, "path 8", keys8)
+    print(f"path 8 (filter -> group-by on a raw 18-byte string key): "
+          f"{N_ROWS} rows in {secs * 1e3:.3f} ms = {N_ROWS / secs:.6g} "
+          f"rows/s; {n_groups} groups match the numpy oracle by customer "
+          f"key (oracle {time.time() - t0:.1f} s); peak device memory "
+          f"{peak} B; launches {launches8}")
+    del out, oracle8, keys8
+    # the filter layer, and in it the pool compaction (the per-byte
+    # selection and the second B1 launch)
+    paths["path 8"]["filter_layer_ms"] = layer_ms(
+        torch, entry_mod, "filter_batch", lambda: step(b))
+    paths["path 8"]["pool_ms"] = layer_ms(torch, selection, "_filter_pool",
+                                          lambda: step(b))
+    print(f"path 8 filter layer {paths['path 8']['filter_layer_ms']:.3f} ms,"
+          f" of it the pool compaction {paths['path 8']['pool_ms']:.3f} ms")
+    forget()
+    recorded(selection, "filter_compact_columns", lambda: step(b))
+    calls8 = seen_calls["filter_compact_columns"]
+    check(len(calls8) == 2 and calls8[1][0].shape[0] == pool_bytes,
+          f"path 8: {len(calls8)} recorded B1 calls")
+    fc8 = [measure_filter(torch, ck, *a, f"path 8 {what}")
+           for a, what in zip(calls8, ("rows", "pool"))]
+    del calls8
+    # path 8's name column sorted, and compared row by row with itself in
+    # that order: the peaks of the prefix-word lanes (4-byte windows of the
+    # pool) and of the Array-vs-Array walk at a 1.8e9-byte pool. Names
+    # order as their custkeys do, ties in row order.
+    from arrow_tpu_torch.ops.selection import take_array
+    from arrow_tpu_torch.ops.sorting import (SortKey, SortOptions,
+                                             sort_indices_batch)
+    from arrow_tpu_torch.ops.strings import compare_varlen
+    keys_dev = torch.from_numpy(cols["custkey"]).to(dev)
+    del cols
+    perm8, secs, _, peak = timed(lambda: sort_indices_batch(
+        b, SortOptions([SortKey("name", "ascending")])), "path 8 sort")
+    perm = perm8.values.view(torch.int64)[:N_ROWS]
+    check(torch.equal(perm, torch.sort(keys_dev, stable=True).indices),
+          "path 8 sort: the permutation is not the custkeys' stable order")
+    check(peak < 40e9, f"path 8 sort: peak device memory {peak} B")
+    print(f"path 8 sort on the name column: {N_ROWS} rows in "
+          f"{secs * 1e3:.3f} ms; the custkeys' stable order; peak device "
+          f"memory {peak} B")
+    name = b.column("name")
+    name_sorted = take_array(name, perm8)
+    less, secs, _, peak = timed(lambda: compare_varlen(
+        "less", name, name_sorted), "path 8 compare")
+    check(torch.equal(less[:N_ROWS], keys_dev < keys_dev[perm]),
+          "path 8 compare: name < name[perm] differs from the custkeys'")
+    check(peak < 40e9, f"path 8 compare: peak device memory {peak} B")
+    print(f"path 8 compare name < name[perm] (Array vs Array): {N_ROWS} "
+          f"rows in {secs * 1e3:.3f} ms; equal to the custkeys'; peak "
+          f"device memory {peak} B")
+    del perm8, perm, name, name_sorted, less, keys_dev, b, step
+    forget()
+    torch.cuda.empty_cache()
+
     def row(name, source, replaces, n_launches, m):
         return {"name": name, "route": "cuda",
                 "source": f"arrow_tpu_torch/csrc/{source}",
@@ -2161,6 +2395,9 @@ def main() -> int:
                       (kernels[5], pk6)):
         also(kernel, "path_6", m)
     also(kernels[0], "path_6b_bloom_split", fc6b)
+    also(kernels[0], "path_6s_customer_filter", fc6s)
+    also(kernels[0], "path_8_rows", fc8[0])
+    also(kernels[0], "path_8_pool", fc8[1])
     also(kernels[0], "path_7b", fc7b)
     for kernel, suffix, m in (
             (kernels[4], "path_7b", ph7b), (kernels[6], "path_7b", pp7b),
@@ -2173,6 +2410,7 @@ def main() -> int:
     # the launches of the join paths', path 1b's and path 6's counted runs
     for label, counts in list(launches5.items()) + [
             ("path 1b", launches1b), ("path 6", launches6),
+            ("path 6s", launches6s), ("path 8", launches8),
             ("path 6b", launches6b), ("path 7a", launches7a),
             ("path 7b", launches7b), ("path 7c", launches7c),
             ("path 7d", launches7d)]:

@@ -8,8 +8,6 @@ import torch
 
 import arrow_tpu as at
 from arrow_tpu.ops import concat as jconcat
-from arrow_tpu_torch.core import datatype as tdt
-from arrow_tpu_torch.core.array import Array as TArray
 from arrow_tpu_torch.core.interop import array_from_pyarrow, \
     batch_from_pyarrow
 from arrow_tpu_torch.ops import concat as tconcat
@@ -80,6 +78,8 @@ def test_concat_total_capacity_and_varlen():
     out = tconcat.concat_arrays([a, a], total_capacity=16)
     assert out.capacity == 16 and int(out.length) == 6
     assert out.values[:6].tolist() == [1, 2, 3, 1, 2, 3]
-    fake = TArray(tdt.string, torch.zeros(4, dtype=torch.uint8))
-    with pytest.raises(NotImplementedError, match="A3"):
-        tconcat.concat_arrays([fake])
+    s = array_from_pyarrow(pa.array(["ab", None, "", "cde"]), capacity=5,
+                           device="cpu")
+    out = tconcat.concat_arrays([s, s], total_capacity=16)
+    assert out.capacity == 16 and int(out.length) == 8
+    assert out.to_pylist() == ["ab", None, "", "cde"] * 2

@@ -212,7 +212,15 @@ def test_hash_helpers_vs_jax(rng):
 
 
 def test_hash_of_varlen_and_dictionary_keys_is_not_ported():
-    for t in (tdt.string, tdt.DictionaryType(tdt.int32, tdt.string)):
-        a = Array(t, torch.zeros((4,), dtype=torch.int32))
-        with pytest.raises(NotImplementedError, match="A3"):
-            hashing.hash32([a])
+    """String and dictionary keys hash now (they were not ported before):
+    a string column through its sampled fingerprint, a dictionary column
+    through its values' content lanes, both as the JAX package does."""
+    import pyarrow as pa
+    from arrow_tpu.core.interop import array_from_pyarrow as jfrom
+    from arrow_tpu.ops import hashing as jhashing
+    from arrow_tpu_torch.core.interop import array_from_pyarrow as tfrom
+    s = pa.array(["", "a", None, "x" * 17, "é"] * 5)
+    for arr in (s, s.dictionary_encode()):
+        got = hashing.hash32([tfrom(arr, device="cpu")]).numpy()
+        want = np.asarray(jhashing.hash32([jfrom(arr)])).astype(np.int64)
+        np.testing.assert_array_equal(got, want)

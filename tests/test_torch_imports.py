@@ -3,8 +3,9 @@ test process has imported jax through conftest), import arrow_tpu_torch,
 run the slices on the CPU (the distributed one on 8 logical shards, which
 loads ``parallel/*`` and ``ops/hashing``; sort and join, which load
 ``ops/sorting``, ``ops/join``, ``ops/planes`` and ``acero/options``; the
-Q3-shaped plan, which loads ``acero/plan`` and ``acero/nodes``), and check
-which modules got loaded. And the default-device rule: an entry point given
+Q3-shaped plan, which loads ``acero/plan`` and ``acero/nodes``; the string
+slice's three, which load ``ops/strings`` and the string paths of the
+rest), and check which modules got loaded. And the default-device rule: an entry point given
 no device takes the card."""
 
 import subprocess
@@ -37,12 +38,22 @@ step, args = entry_q3("cpu")
 table = step(*args)
 assert table.num_rows == 10 and table.column_names == (
     "l_orderkey", "o_date", "revenue"), table
+from arrow_tpu_torch.entry import entry_q3s, entry_sort_dict, entry_strings
+step, args = entry_sort_dict("cpu", 1024, 0, 50)
+idx, out = step(*args)
+assert len(idx) == len(out) == 1024
+step, args = entry_q3s("cpu")
+assert step(*args).num_rows == 10
+step, args = entry_strings("cpu", 1024, 30, 0, 64)
+out = step(*args)
+assert 0 < len(out) <= 30 and out.column("name").offsets is not None
 import arrow_tpu_torch.acero, arrow_tpu_torch.ops.bloom
 import arrow_tpu_torch.ops.concat
 assert {"arrow_tpu_torch.ops.sorting", "arrow_tpu_torch.ops.join",
         "arrow_tpu_torch.ops.planes", "arrow_tpu_torch.acero.options",
         "arrow_tpu_torch.acero.plan", "arrow_tpu_torch.acero.nodes",
-        "arrow_tpu_torch.ops.scalar_arithmetic"} <= set(sys.modules)
+        "arrow_tpu_torch.ops.scalar_arithmetic",
+        "arrow_tpu_torch.ops.strings"} <= set(sys.modules)
 import arrow_tpu_torch.parallel.context, arrow_tpu_torch.parallel.dist_agg
 import arrow_tpu_torch.parallel.shuffle, arrow_tpu_torch.ops.hashing
 assert {"arrow_tpu_torch.parallel.shuffle", "arrow_tpu_torch.ops.hashing",
@@ -83,6 +94,9 @@ def test_no_device_means_the_card():
     for fn in (entry_mod.entry, entry_mod.entry_generic,
                entry_mod.entry_distributed, entry_mod.entry_sort,
                entry_mod.entry_join, entry_mod.entry_q3,
+               entry_mod.entry_sort_dict, entry_mod.entry_q3s,
+               entry_mod.entry_strings, array_mod.varlen_from_numpy,
+               array_mod.dictionary_from_numpy,
                entry_mod.table_from_numpy, batch_mod.empty_batch,
                batch_mod.table, batch_mod.Table.from_pyarrow,
                batch_mod.batch_from_numpy, batch_mod.batch,
@@ -109,7 +123,8 @@ def test_port_sources_name_neither_jax_nor_the_jax_package():
             "arrow_tpu_torch/ops/join.py",
             "arrow_tpu_torch/acero/options.py",
             "arrow_tpu_torch/acero/nodes.py", "arrow_tpu_torch/acero/plan.py",
-            "arrow_tpu_torch/ops/scalar_arithmetic.py"} <= names
+            "arrow_tpu_torch/ops/scalar_arithmetic.py",
+            "arrow_tpu_torch/ops/strings.py"} <= names
     for f in files + [ROOT / "chip_smoke.py"]:
         assert not pat.search(f.read_text()), f
 

@@ -465,8 +465,10 @@ def test_varlen_output_columns_name_their_queue_item():
     from arrow_tpu_torch.core.schema import Field, Schema
     ls = Schema((Field("k", dt.int64, True), Field("s", dt.string, True)))
     rs = Schema((Field("k", dt.int64, True),))
-    with pytest.raises(NotImplementedError, match="A3"):
-        THashJoin(ls, rs, TOptions("inner", ["k"], ["k"]))
+    # varlen output columns are ported: they gather through take_array,
+    # the fixed-width ones through the plane matrix
+    hj = THashJoin(ls, rs, TOptions("inner", ["k"], ["k"]))
+    assert hj._lpack == ["k"] and hj.left_out == ["k", "s"]
     THashJoin(ls, rs, TOptions("inner", ["k"], ["k"], left_output=["k"]))
 
 

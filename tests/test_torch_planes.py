@@ -119,5 +119,6 @@ def test_varlen_and_dictionary_do_not_pack():
     assert tplanes.plane_width(tdt.string) is None
     assert not tplanes.can_pack([tdt.int32, tdt.string])
     assert tplanes.can_pack([tdt.int32, tdt.float64, tdt.bool_])
+    # a dictionary column packs as its int32 indices
     assert tplanes.plane_width(tdt.DictionaryType(tdt.int32, tdt.string)) \
-        is None
+        == 1

@@ -256,6 +256,13 @@ def test_sort_then_take_uint64_indices():
 def test_varlen_and_dictionary_keys_name_their_queue_item():
     from arrow_tpu_torch.core import datatype as dt
     from arrow_tpu_torch.core.array import Array
-    fake = Array(dt.string, torch.zeros(4, dtype=torch.uint8))
-    with pytest.raises(NotImplementedError, match="A3"):
-        tsort.sortable_lanes(fake)
+    from arrow_tpu_torch.core.array import dictionary_from_numpy, \
+        varlen_from_numpy
+    # ported: 8 prefix words and the length, or a dictionary's rank
+    s = varlen_from_numpy(np.array([b"b", b"", b"ab"]), device="cpu")
+    lanes = tsort.sortable_lanes(s)
+    assert len(lanes) == 9 and lanes[8].tolist() == [1, 0, 2]
+    assert lanes[0].tolist() == [0x62000000, 0, 0x61620000]
+    d = dictionary_from_numpy(np.array([0, 1, 2]), s, device="cpu")
+    assert [x.tolist() for x in tsort.sortable_lanes(d)] == [[2, 0, 1]]
+    assert Array is not None and dt.string.is_varlen

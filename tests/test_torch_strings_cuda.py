@@ -1,0 +1,119 @@
+"""String columns on the card against the same calls on the CPU (where the
+kernel wrappers take their plain versions): path 8's filter (the row
+compaction and the pool's second launch), the varlen take, the per-byte
+selection, and the fingerprints' mod-2^64 running sum.
+
+Marked ``cuda``; every test takes the ``cuda_device`` fixture, which skips
+it where there is no CUDA device. Run on a machine with a card:
+
+    python -m pytest tests/test_torch_strings_cuda.py -m cuda -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from arrow_tpu_torch.core import datatype as dt
+from arrow_tpu_torch.core.array import Array, array_from_numpy, \
+    varlen_from_numpy
+from arrow_tpu_torch.core.batch import batch
+from arrow_tpu_torch.entry import numbered_strings
+from arrow_tpu_torch.ops import cuda_kernels as ck
+from arrow_tpu_torch.ops import hashing, selection
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernels run only on the card")
+    return torch.device("cuda:0")
+
+
+def _names(n, seed, device, ragged=False):
+    """Path 8's ``Customer#%09d`` strings (or, ``ragged``, the same with
+    0-7 bytes cut off each), float64 ``v``, int64 ``w``."""
+    rng = np.random.default_rng(seed)
+    off, pool = numbered_strings(b"Customer#", rng.integers(1, 10**6, n), 9)
+    if ragged:
+        lens = 18 - rng.integers(0, 8, n)
+        pool = pool.reshape(n, 18)[np.arange(18)[None, :] < lens[:, None]]
+        off = np.concatenate([[0], np.cumsum(lens)])
+    return batch({"name": varlen_from_numpy(offsets=off, pool=pool,
+                                            device=device),
+                  "v": array_from_numpy(rng.standard_normal(n),
+                                        device=device),
+                  "w": array_from_numpy(rng.integers(-100, 100, n),
+                                        device=device)})
+
+
+def _assert_same(got, want):
+    n = int(want.length)
+    assert int(got.length) == n
+    off = want.offsets[:n + 1].cpu()
+    assert torch.equal(got.offsets[:n + 1].cpu(), off)
+    assert torch.equal(got.values[:int(off[-1])].cpu(),
+                       want.values[:int(off[-1])].cpu())
+
+
+@pytest.mark.parametrize("ragged", [False, True], ids=["c_name", "ragged"])
+def test_varlen_filter_on_card_vs_plain(cuda_device, ragged):
+    """``w > 0`` over path 8's columns: two B1 launches on the card (the
+    rows, the pool); the same rows and bytes as the plain versions on the
+    CPU."""
+    n = 1 << 20
+    b = _names(n, 1, cuda_device, ragged)
+    mask = Array(dt.bool_, b.column("w").values > 0, None, length=n)
+    before = ck.LAUNCHES["filter_compact_chunks"]
+    got = selection.filter_batch(b, mask)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES["filter_compact_chunks"] - before == 2
+    want = selection.filter_batch(b.to("cpu"), mask.to("cpu"))
+    _assert_same(got.column("name"), want.column("name"))
+    for c in ("v", "w"):
+        k = int(want.length)
+        assert torch.equal(got.column(c).values[:k].cpu(),
+                           want.column(c).values[:k])
+
+
+def test_varlen_take_on_card_vs_plain(cuda_device):
+    """The varlen take (its gather from ``rows_of_positions``) with
+    repeated and null indices, a grown pool."""
+    n = 1 << 20
+    b = _names(n, 2, cuda_device, ragged=True)
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    idx = torch.randint(0, n, (2 * n,), generator=g, device=cuda_device)
+    valid = torch.rand(2 * n, generator=g, device=cuda_device) > 0.1
+    indices = Array(dt.int64, idx, valid, length=2 * n - 5)
+    got = selection.take_array(b.column("name"), indices, grow=2)
+    want = selection.take_array(b.column("name").to("cpu"),
+                                indices.to("cpu"), grow=2)
+    _assert_same(got, want)
+
+
+def test_byte_selection_on_card_vs_cpu(cuda_device):
+    n = 1 << 20
+    b = _names(n, 3, cuda_device, ragged=True)
+    a = b.column("name")
+    sel = b.column("w").values > 0
+    bcap = a.values.shape[0] + 100
+    got = selection._byte_selection(a.offsets, sel, bcap)
+    want = selection._byte_selection(a.offsets.cpu(), sel.cpu(), bcap)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_fingerprints_on_card_vs_cpu(cuda_device, monkeypatch):
+    """The exact fingerprints' int64 running sum wraps mod 2^64 alike on
+    the card (in several steps) and on the CPU; the content lanes too."""
+    monkeypatch.setattr(hashing, "_FP_CHUNK", 1 << 16)
+    monkeypatch.setattr(hashing, "_CHUNK_POWERS", {})
+    b = _names(1 << 18, 4, cuda_device, ragged=True)
+    a = b.column("name")
+    for mult in (0x9E3779B185EBCA87, 0xC2B2AE3D27D4EB4F):
+        got = hashing.string_fingerprint_exact(a, mult)
+        want = hashing.string_fingerprint_exact(a.to("cpu"), mult)
+        assert torch.equal(got.cpu(), want)
+    for g, w in zip(hashing.varlen_content_lanes(a),
+                    hashing.varlen_content_lanes(a.to("cpu"))):
+        assert torch.equal(g.cpu(), w)
