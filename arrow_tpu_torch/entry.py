@@ -69,6 +69,14 @@ String and dictionary columns:
     filter -> group-by step of ``entry_generic`` keyed by a raw string
     column ``name`` of TPC-H's ``C_NAME`` form ``Customer#%09d`` (18
     bytes) over ``num_keys`` customer keys.
+  * ``entry_q3_dist(..., segment="BUILDING")``: ``entry_q3s``'s
+    tables and filter with ``dist=`` over the mesh.
+  * ``entry_dist_dict(device, n_shards, n_rows, num_keys,
+    max_groups_per_shard, seed)``: ``entry_distributed`` keyed by
+    ``name``, a dictionary<int32, utf8> of TPC-H ``C_NAME`` values.
+  * ``entry_dist_sort_dict(device, n_shards, n_rows, seed, num_keys,
+    num_values, bucket_factor)``: ``entry_dist_sort`` with the dictionary
+    string ``s`` (``cat%04d``, 5 % nulls) descending in ``k2``'s place.
 
 With no ``device`` they place the batch on the card
 (``arrow_tpu_torch.default_device()``). Run one on the CPU at a small
@@ -103,13 +111,15 @@ from .ops.sorting import SortOptions, sort_indices_batch
 from .parallel import DistContext
 
 __all__ = ["AGGREGATES", "AGGREGATES_GENERIC", "MAX_GROUPS", "SEGMENTS",
-           "SORT_KEYS", "SORT_KEYS_DICT", "consume_routed", "entry",
-           "entry_distributed", "entry_generic", "dryrun_multichip",
-           "entry_dist_join", "entry_dist_sort", "entry_join", "entry_q3",
-           "entry_q3_dist", "entry_q3s", "entry_sort", "entry_sort_dict",
-           "entry_strings", "example_columns", "example_columns_generic",
-           "example_columns_join", "example_columns_q3",
-           "example_columns_sort", "example_columns_sort_dict",
+           "SORT_KEYS", "SORT_KEYS_DICT", "SORT_KEYS_DIST_DICT",
+           "consume_routed", "entry", "entry_distributed", "entry_generic",
+           "dryrun_multichip", "entry_dist_dict", "entry_dist_join",
+           "entry_dist_sort", "entry_dist_sort_dict", "entry_join",
+           "entry_q3", "entry_q3_dist", "entry_q3s", "entry_sort",
+           "entry_sort_dict", "entry_strings", "example_columns",
+           "example_columns_generic", "example_columns_join",
+           "example_columns_q3", "example_columns_sort",
+           "example_columns_sort_dict", "example_columns_sort_dist_dict",
            "example_columns_strings", "join_routed", "numbered_strings",
            "q3_declaration", "table_from_numpy"]
 
@@ -270,18 +280,23 @@ def example_columns_sort_dict(n_rows: int, seed: int,
             "v": rng.standard_normal(n_rows)}
 
 
+def _cat_column(cols, num_values: int, device):
+    """The dictionary<int32, utf8> column of ``cols["s_idx"]`` (validity
+    ``cols["s_valid"]``) into the values ``cat%04d`` in their order."""
+    off, pool = numbered_strings(b"cat", np.arange(num_values), 4)
+    vocab = varlen_from_numpy(offsets=off, pool=pool, device=device)
+    return dictionary_from_numpy(cols["s_idx"], vocab,
+                                 validity=cols["s_valid"], device=device)
+
+
 def entry_sort_dict(device=None, n_rows: int = 1024, seed: int = 0,
                     num_values: int = 1000):
     """(step, (batch,)): step(batch) -> (indices, sorted batch) by
     ``SORT_KEYS_DICT`` with nulls at the end: BASELINE #3's sort on its
     (dictionary-encoded string, int64) keys."""
     cols = example_columns_sort_dict(n_rows, seed, num_values)
-    off, pool = numbered_strings(b"cat", np.arange(num_values), 4)
-    vocab = varlen_from_numpy(offsets=off, pool=pool, device=device)
     b = batch({"i": array_from_numpy(cols["i"], device=device),
-               "s": dictionary_from_numpy(cols["s_idx"], vocab,
-                                          validity=cols["s_valid"],
-                                          device=device),
+               "s": _cat_column(cols, num_values, device),
                "v": array_from_numpy(cols["v"], device=device)})
     options = SortOptions(SORT_KEYS_DICT, "at_end")
 
@@ -482,6 +497,22 @@ def q3_declaration(li, od, cu, max_groups: int = 256, dist=None,
     ])
 
 
+def _q3_tables(device=None, n_lineitem: int = 768, seed: int = 0,
+              max_batch_rows: int = 64, segment: bool = False):
+    """The Tables (lineitem, orders, customer) of ``max_batch_rows``-row
+    batches of ``example_columns_q3``; with ``segment``, customer's
+    ``c_seg`` codes become ``c_mktsegment``, a dictionary<int32, utf8>
+    over ``SEGMENTS`` whose indices they are (``BUILDING`` is index 1)."""
+    li, od, cu = example_columns_q3(n_lineitem, seed)
+    dicts = None
+    if segment:
+        cu = {"c_custkey": cu["c_custkey"], "c_mktsegment": cu["c_seg"]}
+        dicts = {"c_mktsegment": np.array(SEGMENTS)}
+    return (table_from_numpy(li, max_batch_rows, device),
+            table_from_numpy(od, max_batch_rows, device),
+            table_from_numpy(cu, max_batch_rows, device, dicts))
+
+
 def entry_q3(device=None, n_lineitem: int = 768, seed: int = 0,
              max_groups: int = 256, max_batch_rows: int = 64):
     """(step, (lineitem, orders, customer)): step(li, od, cu) -> the Table
@@ -491,13 +522,12 @@ def entry_q3(device=None, n_lineitem: int = 768, seed: int = 0,
     ``example_columns_q3``; the defaults are the dry run's (96 x 8 lineitem
     rows in 64-row batches, 256 groups, which the aggregate outgrows and
     doubles)."""
-    li, od, cu = (table_from_numpy(c, max_batch_rows, device)
-                  for c in example_columns_q3(n_lineitem, seed))
+    tables = _q3_tables(device, n_lineitem, seed, max_batch_rows)
 
     def step(li_: Table, od_: Table, cu_: Table) -> Table:
         return q3_declaration(li_, od_, cu_, max_groups).to_table()
 
-    return step, (li, od, cu)
+    return step, tables
 
 
 # TPC-H's market segments in the JAX package's order (``utils/tpch.py``)
@@ -511,12 +541,7 @@ def entry_q3s(device=None, n_lineitem: int = 768, seed: int = 0,
     indices are ``entry_q3``'s ``c_seg`` codes (``BUILDING`` is index 1),
     filtered by ``c_mktsegment == "BUILDING"``: the same rows as
     ``entry_q3``'s ``c_seg == 1``, so the same answer."""
-    li, od, cu = example_columns_q3(n_lineitem, seed)
-    cu = {"c_custkey": cu["c_custkey"], "c_mktsegment": cu["c_seg"]}
-    tables = (table_from_numpy(li, max_batch_rows, device),
-              table_from_numpy(od, max_batch_rows, device),
-              table_from_numpy(cu, max_batch_rows, device, {
-                  "c_mktsegment": np.array(SEGMENTS)}))
+    tables = _q3_tables(device, n_lineitem, seed, max_batch_rows, True)
 
     def step(li_: Table, od_: Table, cu_: Table) -> Table:
         return q3_declaration(li_, od_, cu_, max_groups,
@@ -556,21 +581,24 @@ def entry_strings(device=None, n_rows: int = 1024, num_keys: int = 100,
 
 def entry_q3_dist(device=None, n_shards: int = 8, n_lineitem: int = 768,
                   seed: int = 0, max_groups: int = 256,
-                  max_batch_rows: int = 64):
+                  max_batch_rows: int = 64, segment: Optional[str] = None):
     """(step, (lineitem, orders, customer)): ``entry_q3`` with ``dist=`` a
     ``DistContext`` of ``n_shards`` logical shards of ``device`` on both
     joins and the aggregate (``max_groups`` then bounds each shard's
-    groups, and nothing doubles it). ``step.ctx`` is the context."""
+    groups, and nothing doubles it); with ``segment`` (``"BUILDING"``:
+    the same answer), ``entry_q3s``'s tables and filter on the dictionary
+    ``c_mktsegment``. ``step.ctx`` is the context."""
     device = resolve_device(device)
-    li, od, cu = (table_from_numpy(c, max_batch_rows, device)
-                  for c in example_columns_q3(n_lineitem, seed))
+    tables = _q3_tables(device, n_lineitem, seed, max_batch_rows,
+                       segment is not None)
     ctx = DistContext(devices=[device] * n_shards)
 
     def step(li_: Table, od_: Table, cu_: Table) -> Table:
-        return q3_declaration(li_, od_, cu_, max_groups, dist=ctx).to_table()
+        return q3_declaration(li_, od_, cu_, max_groups, dist=ctx,
+                              segment=segment).to_table()
 
     step.ctx = ctx
-    return step, (li, od, cu)
+    return step, tables
 
 
 def entry_dist_join(device=None, n_shards: int = 8, n_build: int = 256,
@@ -611,6 +639,75 @@ def entry_dist_sort(device=None, n_shards: int = 8, n_rows: int = 1024,
 
     def step(batch_: Batch) -> Table:
         return ctx.sort_by(batch_, SORT_KEYS, bucket_factor=bucket_factor)
+
+    step.ctx = ctx
+    return step, (b,)
+
+
+def entry_dist_dict(device=None, n_shards: int = 8, n_rows: int = 1024,
+                    num_keys: int = 16, max_groups_per_shard: int = 64,
+                    seed: int = 0):
+    """(step, (batch,)): ``entry_distributed`` keyed by a string: ``name``,
+    a dictionary<int32, utf8> over the ``num_keys`` TPC-H ``C_NAME``
+    values ``Customer#%09d`` of custkeys 1 .. num_keys, whose indices are
+    ``example_columns_generic``'s ``k``. The state-row exchange hashes and
+    merges the codes by the names they stand for."""
+    device = resolve_device(device)
+    cols = example_columns_generic(n_rows, num_keys, seed)
+    off, pool = numbered_strings(b"Customer#", np.arange(1, num_keys + 1), 9)
+    names = varlen_from_numpy(offsets=off, pool=pool, device=device)
+    b = batch({"name": dictionary_from_numpy(cols["k"].astype(np.int32),
+                                             names, device=device),
+               "v": array_from_numpy(cols["v"], device=device),
+               "w": array_from_numpy(cols["w"], device=device)})
+    ctx = DistContext(devices=[device] * n_shards)
+    predicate = field("w") > 0
+
+    def step(batch_: Batch) -> Table:
+        return ctx.group_by(batch_, ["name"], AGGREGATES_GENERIC,
+                            max_groups_per_shard=max_groups_per_shard,
+                            pre_filter=predicate)
+
+    step.ctx = ctx
+    return step, (b,)
+
+
+SORT_KEYS_DIST_DICT = (("k1", "ascending"), ("s", "descending"))
+
+
+def example_columns_sort_dist_dict(n_rows: int, num_keys: int, seed: int,
+                                   num_values: int = 1000
+                                   ) -> Dict[str, np.ndarray]:
+    """``entry_dist_sort_dict``'s columns, made with numpy from ``seed``:
+    int64 ``k1`` uniform in [0, num_keys); ``s_idx`` int32 uniform in [0,
+    num_values) with ``s_valid`` False for 5 % of the rows (indices into
+    the values ``cat%04d``); float64 standard normal ``v``."""
+    rng = np.random.default_rng(seed)
+    return {"k1": rng.integers(0, num_keys, n_rows, dtype=np.int64),
+            "s_idx": rng.integers(0, num_values, n_rows, dtype=np.int32),
+            "s_valid": rng.random(n_rows) >= 0.05,
+            "v": rng.standard_normal(n_rows)}
+
+
+def entry_dist_sort_dict(device=None, n_shards: int = 8, n_rows: int = 1024,
+                         seed: int = 0, num_keys: int = 64,
+                         num_values: int = 1000, bucket_factor: int = 3):
+    """(step, (batch,)): ``entry_dist_sort`` with BASELINE #3's string key
+    in ``k2``'s place: ``DistContext.sort_by`` by ``SORT_KEYS_DIST_DICT``
+    (``k1`` ascending, then ``s``, a dictionary<int32, utf8> over
+    ``cat%04d`` with 5 % nulls, descending), nulls at the end, over
+    ``n_shards`` logical shards of ``device``. Its step returns the
+    Table, one batch per shard in key-range order."""
+    device = resolve_device(device)
+    cols = example_columns_sort_dist_dict(n_rows, num_keys, seed, num_values)
+    b = batch({"k1": array_from_numpy(cols["k1"], device=device),
+               "s": _cat_column(cols, num_values, device),
+               "v": array_from_numpy(cols["v"], device=device)})
+    ctx = DistContext(devices=[device] * n_shards)
+
+    def step(batch_: Batch) -> Table:
+        return ctx.sort_by(batch_, SORT_KEYS_DIST_DICT,
+                           bucket_factor=bucket_factor)
 
     step.ctx = ctx
     return step, (b,)

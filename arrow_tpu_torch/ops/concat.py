@@ -6,8 +6,8 @@ into one device batch; the counterpart of the JAX package's
 i's trailing padding, so only the final tail is padding. A varlen column
 writes its rebased offsets and its pool the same way (the pools' used
 bytes end to end); dictionary columns share one dictionary, the first
-real one (dictionary unification across sources is ROADMAP queue item
-A5b).
+real one (neither package unifies dictionaries across sources or
+batches: ROADMAP C24).
 
 Lengths may be host ints or 0-d tensors on the arrays' device. With host
 ints every write is a slice assignment and the result's length is a host

@@ -382,8 +382,8 @@ class Grouper:
         """Key column ``i``'s unique buffer (max_groups rows) with
         ``vals_src`` / ``valid_src`` written at ``pos``; positions from
         max_groups up are dropped. A dictionary key's buffer holds indices
-        into this batch's dictionary (dictionaries are not unified across
-        batches: ROADMAP queue item A5b)."""
+        into this batch's dictionary (neither package unifies dictionaries
+        across batches: ROADMAP C24)."""
         G = self.max_groups
         # gids past a full table (the error flag is set) are dropped
         pos = torch.clamp(pos, max=G)

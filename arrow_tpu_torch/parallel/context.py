@@ -37,7 +37,7 @@ from ..ops.hash_aggregate import AggregateSpec, HashAggregate
 from ..ops.join import HashJoin
 from ..ops.selection import filter_batch, take_batch
 from ..ops.sorting import SortKey, SortOptions, sort_indices_batch
-from .shuffle import shuffle_batch
+from .shuffle import dictionaries_on, shuffle_batch
 
 __all__ = ["DistContext", "Mesh", "ShardedBatch"]
 
@@ -92,10 +92,36 @@ def _slice_rows(t: torch.Tensor, lo: int, hi: int, device) -> torch.Tensor:
     return part.to(device)
 
 
-def _with_validity(b: Batch, length: int) -> Batch:
-    """``b`` with every validity buffer present and a host length."""
-    return Batch(b.schema, [Array(a.type, a.values, a.validity_or_true(),
-                                  length=length) for a in b.arrays], length)
+def _with_validity(b: Batch, length: int, dicts=None) -> Batch:
+    """``b`` with every validity buffer present and a host length; its
+    offsets and dictionaries kept, but where ``dicts[i]`` is given: it
+    replaces column i's dictionary."""
+    return Batch(b.schema, [
+        Array(a.type, a.values, a.validity_or_true(), length=length,
+              offsets=a.offsets,
+              dictionary=a.dictionary if dicts is None or dicts[i] is None
+              else dicts[i])
+        for i, a in enumerate(b.arrays)], length)
+
+
+def capture_dictionaries(by_name: dict, b: Batch) -> dict:
+    """``by_name`` with the dictionaries of ``b``'s dictionary columns
+    added under their names, where a name has none yet (the first seen
+    stays, as in the JAX package)."""
+    for f, a in zip(b.schema.fields, b.arrays):
+        if isinstance(f.type, dt.DictionaryType) and a.dictionary is not None:
+            by_name.setdefault(f.name, a.dictionary)
+    return by_name
+
+
+def join_dictionaries(hj: HashJoin, left: dict, right: dict) -> list:
+    """Per output field of ``hj``: the dictionary of its source column,
+    from ``left`` (by name) for the probe side's columns and ``right`` for
+    the build side's; None for the rest. (The JAX package attaches them by
+    the OUTPUT name, which gives a renamed column none, and a probe column
+    that shares a build column's name the other side's.)"""
+    return [left.get(n) for n in hj.left_out] + \
+        [right.get(n) for n in hj.right_out]
 
 
 def _range_key(local: Batch, key: SortKey, null_placement: str):
@@ -160,10 +186,19 @@ class DistContext:
     def shard_batch(self, b: Batch) -> ShardedBatch:
         """Pad the capacity to a multiple of n and split the row buffers
         into contiguous blocks, block s on shard s's device (a view where
-        that is the batch's own device and no padding is needed)."""
+        that is the batch's own device and no padding is needed). A
+        dictionary column's codes split; its dictionary is replicated, one
+        copy per distinct device. A raw varlen column raises, as in the
+        JAX package."""
         n = self.n
         cap = b.capacity
         local_cap = (cap + (-cap) % n) // n
+        for i in range(b.num_columns):
+            if b.column(i).type.is_varlen:
+                raise NotImplementedError(
+                    "distributed varlen columns: dictionary-encode first")
+        dicts = dictionaries_on([[a.dictionary for a in b.arrays]] * n,
+                                self.devices)
         shards = []
         for s, dev in enumerate(self.devices):
             lo, hi = s * local_cap, (s + 1) * local_cap
@@ -171,18 +206,12 @@ class DistContext:
                 local_len = min(max(int(b.length) - lo, 0), local_cap)
             else:
                 local_len = torch.clamp(b.length.to(dev) - lo, 0, local_cap)
-            arrays = []
-            for i in range(b.num_columns):
-                a = b.column(i)
-                if a.type.is_varlen or isinstance(a.type, dt.DictionaryType):
-                    raise NotImplementedError(
-                        f"distributed {a.type} columns (ROADMAP queue item "
-                        "A5b)")
-                arrays.append(Array(
-                    a.type, _slice_rows(a.values, lo, hi, dev),
-                    None if a.validity is None
-                    else _slice_rows(a.validity, lo, hi, dev),
-                    length=local_len))
+            arrays = [Array(
+                a.type, _slice_rows(a.values, lo, hi, dev),
+                None if a.validity is None
+                else _slice_rows(a.validity, lo, hi, dev),
+                length=local_len, dictionary=dicts[s][i])
+                for i, a in enumerate(b.arrays)]
             shards.append(Batch(b.schema, arrays, local_len))
         return ShardedBatch(self.mesh, b.schema, shards, b.length)
 
@@ -286,7 +315,9 @@ class DistContext:
         ``DistHashJoin``: each shard builds straight from the rows it
         received, so ``max_build_rows`` caps its distinct build keys (the
         streaming join's accumulation caps its rows), and no accumulation
-        buffer is filled."""
+        buffer is filled. Dictionary keys hash and match by the content
+        their codes name, so two sides with different dictionaries
+        co-partition and join by value."""
         left, right = self._sharded(left), self._sharded(right)
         hj = HashJoin(left.schema, right.schema, options)
         lcap, rcap = left.local_capacity, right.local_capacity
@@ -308,8 +339,13 @@ class DistContext:
                 out = concat_batches([out, tail])
             outs.append(out)
             errs.append((lerr | rerr | bs.error).to(torch.int32))
+        # the dictionary columns take their sources' dictionaries (a finish
+        # tail's null probe columns too)
+        dicts = [join_dictionaries(hj, capture_dictionaries({}, ls),
+                                   capture_dictionaries({}, rs))
+                 for ls, rs in zip(left.shards, right.shards)]
         return self._collect_shards(hj.out_schema, outs, self.fetch(errs),
-                                    "join")
+                                    "join", dicts=dicts)
 
     def sort_by(self, b, sort_keys, bucket_factor: int = 3,
                 samples_per_shard: int = 256,
@@ -326,7 +362,10 @@ class DistContext:
         key is null goes to the last shard (``null_placement`` "at_end")
         or the first ("at_start"), where the local sort puts it at the
         end or the start: the JAX package routes it by its storage value
-        instead, into the middle of the order (ROADMAP C18)."""
+        instead, into the middle of the order (ROADMAP C18). A dictionary
+        primary key raises, as in the JAX package (no ascending lanes for
+        it: ROADMAP C22); a dictionary key after it sorts by its values
+        through the shard's dictionary."""
         keys = [k if isinstance(k, SortKey) else SortKey(*k)
                 for k in sort_keys]
         opts = SortOptions(keys, null_placement)
@@ -366,17 +405,20 @@ class DistContext:
     def _collect_shards(self, schema: Schema, outs: Sequence[Batch],
                         errs_host: np.ndarray, what: str,
                         hint: str = "raise bucket_factor/capacities or "
-                        "repartition skewed keys") -> Table:
+                        "repartition skewed keys", dicts=None) -> Table:
         """The shards' result batches as one Table: one batch per shard
-        that has rows, in shard order, each left on its device."""
+        that has rows, in shard order, each left on its device; ``dicts``
+        (per shard, per field: a dictionary or None) replace the
+        dictionaries the batches carry."""
         if errs_host.any():
             raise RuntimeError(
                 f"distributed {what} overflow (per-shard errors="
                 f"{errs_host.tolist()}): {hint}")
         lengths = [torch.as_tensor(o.length, device=o.device) for o in outs]
         lengths_host = self.fetch(lengths)
-        batches = [_with_validity(o, int(ln))
-                   for o, ln in zip(outs, lengths_host) if int(ln)]
+        dicts = dicts or [None] * len(outs)
+        batches = [_with_validity(o, int(ln), d)
+                   for o, ln, d in zip(outs, lengths_host, dicts) if int(ln)]
         if not batches:
             batches = [empty_batch(schema, device=self.devices[0])]
         return Table(schema, batches)

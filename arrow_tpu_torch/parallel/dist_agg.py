@@ -15,8 +15,12 @@ of the JAX package's ``parallel/dist_agg.py``.
 
 Requires every aggregator's state to be one row per group
 (``GroupedAggregator.dist_rows``); ``DistContext.group_by`` falls back to
-the raw-row shuffle for the rest. Varlen and dictionary keys are not
-exchanged yet (ROADMAP queue item A5b).
+the raw-row shuffle for the rest. A dictionary key's state rows carry its
+codes: ``consume`` captures the key's dictionary (the last batch's, as the
+JAX package does), and the exchange hashes, and the receiving shard
+merges, the codes with it attached, so by the content they name. A raw
+varlen key raises where the JAX package's does: at ``consume``'s
+``shard_batch``.
 
 The state is a list with one HashAggregate state per shard, each on its
 shard's device. ``state_from_numpy`` / ``state_to_numpy`` carry it from and
@@ -39,7 +43,7 @@ from ..core.schema import Schema
 from ..ops.hash_aggregate import AggregateSpec, HashAggregate
 from ..ops.hashing import hash32
 from ..ops.selection import filter_batch
-from .shuffle import shuffle_rows
+from .shuffle import dictionaries_on, shuffle_rows
 
 __all__ = ["DistGroupBy", "state_from_numpy", "state_to_numpy"]
 
@@ -75,17 +79,15 @@ class DistGroupBy:
                 "DistGroupBy needs row-shaped aggregator states "
                 "(GroupedAggregator.dist_rows); use DistContext.group_by "
                 "which falls back to the raw-row shuffle")
-        for f in self.ha.key_fields:
-            if f.type.is_varlen or isinstance(f.type, dt.DictionaryType):
-                raise NotImplementedError(
-                    f"distributed group-by over {f.type} keys (ROADMAP "
-                    "queue item A5b)")
         self.G = max_groups_per_shard
         # the aggregator states' structure (a tuple of tensors or one
         # tensor each), on zero-row tensors
         self._agg_template = tuple(
             type(a)(a.in_type, 0, a.options).init("cpu")
             for a in self.ha._aggregators)
+        # per dictionary key column (by name), its dictionary on each
+        # shard, captured at consume: the state rows carry the codes
+        self._key_dicts = {}
 
     # ------------------------------------------------------------------
     def _init_full_state(self, device):
@@ -108,8 +110,13 @@ class DistGroupBy:
     def consume(self, state: list, b) -> list:
         """Consume one batch (split over the mesh if it is not yet) into
         the per-shard local states. Pure local compute: every shard
-        filters its block and folds it into its own state."""
+        filters its block and folds it into its own state. Captures the
+        batch's dictionary of each dictionary key (each shard's copy)."""
         b = self.ctx._sharded(b)
+        for f in self.ha.key_fields:
+            if isinstance(f.type, dt.DictionaryType):
+                self._key_dicts[f.name] = [local.column(f.name).dictionary
+                                           for local in b.shards]
         return [self._consume_local(st, local)
                 for st, local in zip(state, b.shards)]
 
@@ -120,13 +127,24 @@ class DistGroupBy:
         return self.ha.consume(st, local)
 
     # ------------------------------------------------------------------
-    def _state_rows(self, st):
+    def _key_arrays(self, s: int, pairs) -> List[Array]:
+        """Shard s's key columns of state rows from their (values,
+        validity): a dictionary key's codes with the dictionary captured on
+        shard s attached."""
+        return [Array(f.type, v, m, dictionary=self._key_dicts[f.name][s]
+                      if f.name in self._key_dicts else None)
+                for f, (v, m) in zip(self.ha.key_fields, pairs)]
+
+    def _state_rows(self, s: int, st):
         """Per shard, before the exchange: (leaves, dest, local error). The
         rows to exchange are the unique keys' (values, validity) and every
         aggregator state leaf, G rows each; row g goes to shard
-        hash(key g) mod n, rows past the shard's group count nowhere."""
+        hash(key g) mod n (a dictionary key hashed by its content), rows
+        past the shard's group count nowhere."""
         grouper_state, agg_states, uniques = st
-        h = hash32(list(uniques), seed=_STATE_EXCHANGE_SEED)
+        h = hash32(self._key_arrays(s, [(u.values, u.validity)
+                                        for u in uniques]),
+                   seed=_STATE_EXCHANGE_SEED)
         gidx = torch.arange(self.G, device=h.device)
         dest = torch.where(gidx < grouper_state.num_groups, h % self.n,
                            self.n)
@@ -137,19 +155,20 @@ class DistGroupBy:
             leaves += list(agg_st) if isinstance(agg_st, tuple) else [agg_st]
         return leaves, dest, grouper_state.error
 
-    def _merge_received(self, device, recv, total):
+    def _merge_received(self, s: int, recv, total):
         """Per shard, after the exchange: fold the received state rows into
         a fresh state and finalize. Returns (result Batch, merge error)."""
         ha = self.ha
         it = iter(recv)
-        o_keys = [Array(f.type, next(it), next(it)) for f in ha.key_fields]
+        o_keys = self._key_arrays(s, [(next(it), next(it))
+                                      for _ in ha.key_fields])
         o_agg_states = []
         for agg_st in self._agg_template:
             o_agg_states.append(
                 tuple(next(it) for _ in agg_st) if isinstance(agg_st, tuple)
                 else next(it))
-        merged = ha.merge_rows(self._init_full_state(device), o_keys,
-                               tuple(o_agg_states), total)
+        merged = ha.merge_rows(self._init_full_state(self.ctx.devices[s]),
+                               o_keys, tuple(o_agg_states), total)
         return ha.finalize(merged), merged[0].error
 
     def finalize_table(self, state: list) -> Table:
@@ -161,18 +180,18 @@ class DistGroupBy:
         raise the error (in the consume before, or in the merge)."""
         ctx = self.ctx
         leaves, dests, local_errs = [], [], []
-        for st in state:
-            lv, dest, err = self._state_rows(st)
+        for s, st in enumerate(state):
+            lv, dest, err = self._state_rows(s, st)
             leaves.append(lv)
             dests.append(dest)
             local_errs.append(err)
         received = shuffle_rows(leaves, dests, self.G, ctx.devices)
         del leaves, dests
         outs, errs = [], []
-        for s, dev in enumerate(ctx.devices):
+        for s in range(self.n):
             recv, total, x_err = received[s]
             received[s] = None
-            out, m_err = self._merge_received(dev, recv, total)
+            out, m_err = self._merge_received(s, recv, total)
             outs.append(out)
             errs.append((local_errs[s] | x_err | m_err).to(torch.int32))
         return ctx._collect_shards(self.ha.out_schema, outs,
@@ -188,11 +207,16 @@ class DistGroupBy:
 # num_groups, error; every aggregator state leaf; per key column the unique
 # buffer's values, validity and length.
 
-def state_from_numpy(dgb: DistGroupBy, leaves) -> List:
+def state_from_numpy(dgb: DistGroupBy, leaves, dictionaries=None) -> List:
     """The port's per-shard states from the JAX ``DistGroupBy`` state whose
     leaves were fetched as numpy; shard s's state lands on shard s's
-    device."""
+    device. The state holds a dictionary key's codes; ``dictionaries``
+    maps such a key's name to its dictionary (a port Array), which ``dgb``
+    captures as its ``consume`` would."""
     n = dgb.n
+    for name, d in (dictionaries or {}).items():
+        dgb._key_dicts[name] = [
+            ds[0] for ds in dictionaries_on([[d]] * n, dgb.ctx.devices)]
     per_shard = [np.split(np.asarray(leaf), n) for leaf in leaves]
     out = []
     for s, dev in enumerate(dgb.ctx.devices):

@@ -18,6 +18,16 @@ partitioned. The shape follows the one-device plan node:
 The state is a list with one entry per shard, each on its shard's device;
 nothing is compiled. A probe batch costs one host read (the shards' output
 lengths), ``finish`` one (errors and tail lengths together).
+
+Dictionary columns: the accumulation holds a build column's codes, and
+each side's dictionaries are captured by name, the first seen, as in the
+JAX package (which keeps one map for both sides:
+``context.join_dictionaries`` says where the two differ). Unlike the JAX
+package, whose shard-local batches carry no dictionary (so that its keys
+match by code: ROADMAP C21), every shard's build and probe batch keeps
+its dictionary, so the co-partitioning hash and the per-shard join key by
+the content the codes name, and two sides with different dictionaries
+join by value. The outputs carry the dictionaries.
 """
 
 from __future__ import annotations
@@ -27,14 +37,14 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core import datatype as dt
 from ..core.array import Array
 from ..core.batch import Batch
 from ..core.schema import Schema
 from ..ops.bits import as_signed_bits
 from ..ops.join import BuildState, HashJoin
 from ..ops.kernel_utils import torch_dtype
-from .context import _with_validity
+from .context import _with_validity, capture_dictionaries, \
+    join_dictionaries
 from .shuffle import shuffle_batch
 
 __all__ = ["DistHashJoin"]
@@ -47,6 +57,11 @@ class _BuildAccum:
     and the error flag (0-d int32)."""
 
     def __init__(self, schema: Schema, cap: int, device):
+        for f in schema.fields:
+            if f.type.is_varlen:
+                raise NotImplementedError(
+                    "distributed varlen build columns: dictionary-encode "
+                    "first (DistContext.shard_batch restriction)")
         self.cap = cap
         self.values = [torch.zeros((cap + 1,), dtype=torch_dtype(f.type),
                                    device=device) for f in schema.fields]
@@ -71,11 +86,13 @@ class _BuildAccum:
             (new_len > self.cap).to(torch.int32)
         self.length = torch.clamp(new_len, max=self.cap).to(torch.int32)
 
-    def batch(self, schema: Schema) -> Batch:
+    def batch(self, schema: Schema, dicts) -> Batch:
+        """The rows held, column i's codes read through ``dicts[i]``."""
         return Batch(schema, [
-            Array(f.type, v[:self.cap], m[:self.cap], length=self.length)
-            for f, v, m in zip(schema.fields, self.values, self.validity)],
-            self.length)
+            Array(f.type, v[:self.cap], m[:self.cap], length=self.length,
+                  dictionary=d)
+            for f, v, m, d in zip(schema.fields, self.values, self.validity,
+                                  dicts)], self.length)
 
 
 class DistHashJoin:
@@ -106,11 +123,15 @@ class DistHashJoin:
         # per-shard accumulation capacity of the shuffled build side
         self.build_cap = options.max_build_rows
         self.fanout = fanout_per_shard
-        for f in right_schema.fields:
-            if f.type.is_varlen or isinstance(f.type, dt.DictionaryType):
-                raise NotImplementedError(
-                    f"distributed {f.type} build columns (ROADMAP queue "
-                    "item A5b)")
+        # per shard, the dictionaries of the build and of the probe
+        # batches' dictionary columns by name, the first seen
+        self._build_dicts = [{} for _ in range(self.n)]
+        self._probe_dicts = [{} for _ in range(self.n)]
+
+    @staticmethod
+    def _capture_dicts(dicts, b) -> None:
+        for by_name, local in zip(dicts, b.shards):
+            capture_dictionaries(by_name, local)
 
     # ------------------------------------------------------------------
     def init_build(self) -> List[_BuildAccum]:
@@ -124,6 +145,7 @@ class DistHashJoin:
         ``bucket_factor`` x the local capacity) and append on each shard.
         No host read."""
         b = self.ctx._sharded(b)
+        self._capture_dicts(self._build_dicts, b)
         shuffled = shuffle_batch(
             b.shards, self.hj.right_keys, self.ctx.devices,
             bucket_capacity=self.bucket_factor * b.local_capacity)
@@ -136,8 +158,10 @@ class DistHashJoin:
     def finish_build(self, state: List[_BuildAccum]) -> List[BuildState]:
         """One build per shard over the accumulated co-partitioned rows,
         with the accumulation's error folded in."""
-        return [self.hj.build(acc.batch(self.right_schema))
-                ._with_error(acc.error) for acc in state]
+        return [self.hj.build(acc.batch(self.right_schema, [
+            d.get(f.name) for f in self.right_schema.fields]))
+            ._with_error(acc.error)
+            for acc, d in zip(state, self._build_dicts)]
 
     # ------------------------------------------------------------------
     def probe(self, pstate: List[BuildState], b
@@ -148,6 +172,7 @@ class DistHashJoin:
         right semi / anti joins) and the new states. A shuffle bucket or
         fanout overflow sets the shard's error, which ``finish`` raises."""
         b = self.ctx._sharded(b)
+        self._capture_dicts(self._probe_dicts, b)
         local_cap = b.local_capacity
         fanout = self.fanout or max(2 * local_cap, 1 << 12)
         shuffled = shuffle_batch(
@@ -188,6 +213,8 @@ class DistHashJoin:
 
     def _collect(self, outs: List[Batch], lengths: np.ndarray) -> List[Batch]:
         """The shards' batches that hold rows, in shard order, each left on
-        its device with its host length and every validity present."""
-        return [_with_validity(o, int(ln))
-                for o, ln in zip(outs, lengths) if int(ln)]
+        its device with its host length, every validity present and the
+        captured dictionaries attached."""
+        return [_with_validity(o, int(ln), join_dictionaries(self.hj, pd, bd))
+                for o, ln, pd, bd in zip(outs, lengths, self._probe_dicts,
+                                         self._build_dicts) if int(ln)]

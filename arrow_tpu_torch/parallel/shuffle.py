@@ -37,7 +37,6 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from ..core import datatype as dt
 from ..core.array import Array, row_mask
 from ..core.batch import Batch
 from ..core.schema import Schema
@@ -47,8 +46,8 @@ from ..ops.cuda_kernels import partition_histogram_segments, \
 from ..ops.hashing import hash32
 
 __all__ = ["partition_for_exchange", "exchange", "flatten_received",
-           "shuffle_batch", "shuffle_rows", "shuffle_rows_send",
-           "shuffle_rows_receive", "EXCHANGE_SEED"]
+           "shuffle_batch", "shuffle_rows", "dictionaries_on",
+           "shuffle_rows_send", "shuffle_rows_receive", "EXCHANGE_SEED"]
 
 # decorrelated from the grouper's hash: a shared hash would funnel every
 # key of one local grouper slot to one shard
@@ -121,24 +120,44 @@ def shuffle_rows_send(leaves: Sequence[Optional[torch.Tensor]],
 
 def _column_leaves(b: Batch) -> List[Optional[torch.Tensor]]:
     """Flat list of a batch's per-row buffers: values, then validity (or
-    None), per column."""
+    None), per column. A dictionary column's values are its codes; its
+    dictionary does not travel (``shuffle_batch`` hands it on)."""
     leaves = []
     for i in range(b.num_columns):
         a = b.column(i)
-        if a.type.is_varlen or isinstance(a.type, dt.DictionaryType):
+        if a.type.is_varlen:
             raise NotImplementedError(
-                f"shuffle of {a.type} columns (ROADMAP queue item A5b: "
-                "string and dictionary columns across the exchange)")
+                "shuffle of raw string columns: dictionary-encode first")
         leaves.append(a.values)
         leaves.append(a.validity)
     return leaves
 
 
-def _rebuild_batch(schema: Schema, leaves, length) -> Batch:
+def _rebuild_batch(schema: Schema, dictionaries, leaves, length) -> Batch:
     it = iter(leaves)
-    arrays = [Array(f.type, next(it), next(it), length=length)
-              for f in schema.fields]
+    arrays = [Array(f.type, next(it), next(it), length=length,
+                    dictionary=dic)
+              for f, dic in zip(schema.fields, dictionaries)]
     return Batch(schema, arrays, length)
+
+
+def dictionaries_on(dicts: Sequence[Sequence[Optional[Array]]],
+                    devices: Sequence[torch.device]) -> List[list]:
+    """``dicts[s]`` (a list of dictionaries, None where a column has none)
+    on ``devices[s]``: a dictionary that lies elsewhere is moved once per
+    device, so the logical shards of one card share one copy."""
+    moved = {}
+    out = []
+    for ds, dev in zip(dicts, devices):
+        here = []
+        for d in ds:
+            if d is not None and d.device != dev:
+                if (id(d), dev) not in moved:
+                    moved[(id(d), dev)] = d.to(dev)
+                d = moved[(id(d), dev)]
+            here.append(d)
+        out.append(here)
+    return out
 
 
 def _batch_dest(b: Batch, key_names: Sequence[str], P: int, seed: int,
@@ -226,13 +245,13 @@ def shuffle_rows_receive(recv_buffers, recv_counts: torch.Tensor):
     return leaves, total
 
 
-def flatten_received(schema: Schema, recv_buffers,
+def flatten_received(schema: Schema, dictionaries, recv_buffers,
                      recv_counts: torch.Tensor) -> Batch:
     """Per shard: the received (P, B) buckets as one local batch of
     capacity P*B whose length, the sum of the counts, stays on the
-    device."""
+    device; ``dictionaries[i]`` (or None) goes with column i's codes."""
     leaves, total = shuffle_rows_receive(recv_buffers, recv_counts)
-    return _rebuild_batch(schema, leaves, total)
+    return _rebuild_batch(schema, dictionaries, leaves, total)
 
 
 # ---- the three composed over the mesh ----------------------------------------
@@ -295,14 +314,20 @@ def shuffle_batch(batches: Sequence[Batch], key_names: Sequence[str],
                   dest=None) -> List[Tuple[Batch, torch.Tensor]]:
     """Full shuffle of the shards' local batches by key hash (or explicit
     per-shard ``dest``). Returns per shard (re-partitioned local batch of
-    capacity P * bucket_capacity, error flag)."""
+    capacity P * bucket_capacity, error flag). A dictionary column moves
+    its codes, which the received batch of shard p reads through shard
+    p's own dictionary of that column, as the JAX package's does: the
+    shards of one batch share its dictionary (``DistContext.shard_batch``
+    replicates it), and a key hashes by the content its code names."""
     n = len(devices)
     B = bucket_capacity or batches[0].capacity
+    dicts = dictionaries_on([[a.dictionary for a in b.arrays]
+                             for b in batches], devices)
     return _over_mesh(
         lambda s: _batch_dest(batches[s], key_names, n, seed,
                               None if dest is None else dest[s]),
         lambda s, counts, pos: partition_for_exchange(
             batches[s], key_names, n, B, counts=counts, positions=pos),
         lambda p, recv, recv_counts: flatten_received(
-            batches[p].schema, recv, recv_counts),
+            batches[p].schema, dicts[p], recv, recv_counts),
         devices, B)

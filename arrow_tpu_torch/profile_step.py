@@ -1,8 +1,8 @@
 """Per-layer device times of one step of the port's slices, on one GPU.
 
     python -m arrow_tpu_torch.profile_step
-        [--path generic|dense|dist|exchange|sort|join|q3|q3dist|sortdict|
-                q3s|strings] [--rows N]
+        [--path generic|dense|dist|distdict|exchange|sort|join|q3|q3dist|
+                sortdict|q3s|q3sdist|strings] [--rows N]
         [--keys N] [--max-groups N] [--shards N] [--steps N] [--seed N]
         [--build-rows N] [--build-keys N] [--key-dist uniform|zipf]
         [--join-type T] [--wide] [--batch-rows N]
@@ -36,6 +36,11 @@ segment a dictionary string), ``--path strings`` ``entry_strings`` (the
 generic step keyed by a raw 18-byte string, ``--keys`` customer keys,
 default 1,000,000; layers add the pool compaction, its per-byte
 selection, the content lanes and their fingerprints, the unique slots).
+``--path q3sdist`` is ``entry_q3_dist`` with ``segment="BUILDING"``
+(``q3dist`` on ``q3s``'s tables), ``--path distdict`` ``entry_dist_dict``
+(``dist`` keyed by a dictionary of ``--keys`` TPC-H ``C_NAME`` values,
+default 1,000,000: the exchange hashes, and the merge keys, the codes by
+their content lanes).
 
 Wraps the functions that make up the step's layers so that each call is
 bracketed by two CUDA events on the current stream (no synchronisation
@@ -164,9 +169,9 @@ def node_times(node_spans, node_reads, node_children, steps: int = 1):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", choices=("generic", "dense", "dist",
-                                       "exchange", "sort", "join", "q3",
-                                       "q3dist", "sortdict", "q3s",
-                                       "strings"),
+                                       "distdict", "exchange", "sort",
+                                       "join", "q3", "q3dist", "sortdict",
+                                       "q3s", "q3sdist", "strings"),
                     default="generic")
     ap.add_argument("--batch-rows", type=int, default=1 << 22)
     ap.add_argument("--build-rows", type=int, default=1 << 20)
@@ -180,8 +185,9 @@ def main() -> int:
     ap.add_argument("--rows", type=int, default=100_000_000)
     ap.add_argument("--keys", type=int, default=None)
     ap.add_argument("--max-groups", type=int, default=None,
-                    help="state slots (per shard for --path dist and "
-                    "q3dist); default 2^22, 2^21 for dist")
+                    help="state slots (per shard for --path dist, distdict,"
+                    " q3dist and q3sdist); default 2^22, 2^21 for dist and "
+                    "distdict")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -340,6 +346,10 @@ def main() -> int:
         step, (b,) = entry_mod.entry_distributed(
             None, args.shards or 8, args.rows, args.keys or 1_000_000,
             args.max_groups or 1 << 21, args.seed)
+    elif args.path == "distdict":
+        step, (b,) = entry_mod.entry_dist_dict(
+            None, args.shards or 8, args.rows, args.keys or 1_000_000,
+            args.max_groups or 1 << 21, args.seed)
     elif args.path == "exchange":
         from .core.batch import batch_from_numpy
         b = batch_from_numpy(entry_mod.example_columns_generic(
@@ -377,10 +387,11 @@ def main() -> int:
 
         def step(tables_):
             return qstep(*tables_)
-    elif args.path == "q3dist":
+    elif args.path in ("q3dist", "q3sdist"):
         qstep, tables = entry_mod.entry_q3_dist(
             None, args.shards or 8, args.rows, args.seed,
-            args.max_groups or 1 << 22, args.batch_rows)
+            args.max_groups or 1 << 22, args.batch_rows,
+            "BUILDING" if args.path == "q3sdist" else None)
         b = tables
 
         def step(tables_):

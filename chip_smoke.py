@@ -60,6 +60,20 @@ rows (BASELINE config #2) and checks each result against a numpy oracle:
           the probe cut from 100M: the raw-row exchange's buffers);
   path 7d ``arrow_tpu_torch.entry.entry_dist_sort``: ``DistContext.sort_by``
           of config #3's columns at 25M rows (cut from 100M as 7c is);
+  path 7s path 7b with path 6s's segment: ``entry_q3_dist(...,
+          segment="BUILDING")``'s step on path 6's lineitem and orders and
+          path 6s's customer table, ``c_mktsegment`` a dictionary<int32,
+          utf8> whose codes cross the exchange; against path 6's oracle;
+  path 7e ``arrow_tpu_torch.entry.entry_dist_sort_dict``: path 7d with path
+          4d's dictionary string in ``k2``'s place (BASELINE config #3
+          across shards, 25M rows): ``k1`` ascending, then ``s`` over
+          ``cat%04d`` (5 % null) descending, nulls last, against numpy's
+          stable sort of the ranks, index for index;
+  path 3s ``arrow_tpu_torch.entry.entry_dist_dict``: path 3a keyed by
+          ``name``, a dictionary<int32, utf8> over 1,000,000 TPC-H
+          ``C_NAME`` values: the state-row exchange hashes, and the merge
+          keys, the codes by their content lanes; against path 3a's numpy
+          oracle by index;
   path 8  ``arrow_tpu_torch.entry.entry_strings``: config #2's filter ->
           group-by of 100M rows keyed by a raw string column, TPC-H's
           ``C_NAME`` form ``Customer#%09d`` (18 bytes, a 1.8 GB pool) of
@@ -82,17 +96,18 @@ batch's columns as they lie) is held against its plain version first on
 synthetic calls (every column width in one launch, caps that end mid
 tile, misaligned and strided views, 70 columns in three launches, the
 one-matrix form ``filter_compact_chunks`` up to 100M x 20 B), then at every
-call paths 1, 1b, 3a, 5c, 6, 6b and 7a-7d make to it. The exchange's
-two kernels, the partition histogram B4 (``partition_histogram_segments``:
-counts and tile offsets) and ``partition_positions`` (every row's slot in
-its bucket), are held against their plain versions on synthetic calls
-(one segment and eight of unequal lengths, misaligned views, buckets
-that hold all, some and none of the rows), then at every call paths 3a,
-3b and 7a-7d make to them: ONE launch of each a shuffle over all the
-shards of the card, and no ``torch.sort`` inside the exchange's
-``_bucket_rows``. Paths 7a-7d hold every call they make to B1, the two
-exchange kernels and the key packing against its plain version, and the
-launches those calls make against their counted runs'.
+call paths 1, 1b, 3a, 3s, 5c, 6, 6b, 7a-7e and 7s make to it. The
+exchange's two kernels, the partition histogram B4
+(``partition_histogram_segments``: counts and tile offsets) and
+``partition_positions`` (every row's slot in its bucket), are held
+against their plain versions on synthetic calls (one segment and eight
+of unequal lengths, misaligned views, buckets that hold all, some and
+none of the rows), then at every call paths 3a,
+3b, 3s, 7a-7e and 7s make to them: ONE launch of each a shuffle over all
+the shards of the card, and no ``torch.sort`` inside the exchange's
+``_bucket_rows``. Paths 3s, 7a-7e and 7s hold every call they make to B1,
+the two exchange kernels and the key packing against its plain version,
+and the launches those calls make against their counted runs'.
 
 Prints the card's name and power limit, one line per check, a JSON line
 ``{"paths": {...}}`` (each path's counted step: ms and peak device bytes;
@@ -744,35 +759,51 @@ def numpy_sort_dict_oracle(cols):
     return np.argsort(key, kind="stable")
 
 
-def check_dist_group_by(np_, table, oracle, n_shards: int, shard_of) -> int:
+def check_dist_group_by(np_, table, oracle, n_shards: int, shard_of,
+                        key: str = "k", label: str = "path 3a") -> int:
     """Path 3a's Table against the numpy oracle: the groups as a set, every
     key once (so on exactly one shard) and on the shard its hash names,
-    integers exact, f64 sums within tolerance."""
-    check(len(table.batches) == n_shards, "path 3a: a shard has no groups")
+    integers exact, f64 sums within tolerance. A dictionary ``key``
+    column's codes are the oracle's keys."""
+    check(len(table.batches) == n_shards, f"{label}: a shard has no groups")
     col = {name: [] for name in table.column_names}
     for s, b in enumerate(table.batches):
         n = len(b)
         for name in table.column_names:
             a = b.column(name)
             check(a.validity is None or bool(a.validity[:n].all()),
-                  f"path 3a: nulls in {name}")
+                  f"{label}: nulls in {name}")
             col[name].append(a.values[:n].cpu().numpy())
-        check(bool((shard_of(b.column("k"))[:n] == s).all()),
-              f"path 3a: a group of shard {s} hashes elsewhere")
+        check(bool((shard_of(b.column(key))[:n] == s).all()),
+              f"{label}: a group of shard {s} hashes elsewhere")
     col = {name: np_.concatenate(v) for name, v in col.items()}
-    keys = col["k"]
+    keys = col[key].astype(np_.int64)
     check(np_.unique(keys).shape[0] == keys.shape[0],
-          "path 3a: a group lies on more than one shard")
+          f"{label}: a group lies on more than one shard")
     check(np_.array_equal(np_.sort(keys), np_.sort(oracle["keys"])),
-          "path 3a: the set of groups")
+          f"{label}: the set of groups")
     check(np_.array_equal(col["count_all"], oracle["count"][keys]),
-          "path 3a: count_all")
+          f"{label}: count_all")
     check(np_.array_equal(col["w_min"], oracle["w_min"][keys]),
-          "path 3a: w_min")
+          f"{label}: w_min")
     d = np_.abs(col["v_sum"] - oracle["v_sum"][keys])
     check(bool((d <= SUM64_RTOL * oracle["v_abs"][keys] + SUM64_ATOL).all()),
-          f"path 3a: v_sum off by up to {d.max():.3g}")
+          f"{label}: v_sum off by up to {d.max():.3g}")
     return keys.shape[0]
+
+
+def numpy_dist_sort_dict_oracle(cols, num_values: int):
+    """Path 7e's stable sort permutation computed independently with numpy:
+    ONE composite uint64 key per row (``k1`` in the top bits, then the null
+    flag of ``s``, then its descending rank: num_values - 1 minus its
+    index, the values ``cat%04d`` lying in order, 0 where null), sorted
+    with numpy's stable sort."""
+    valid = cols["s_valid"]
+    desc = np.where(valid, num_values - 1 - cols["s_idx"].astype(np.int64),
+                    0).astype(np.uint64)
+    key = (cols["k1"].astype(np.uint64) << np.uint64(32)) | \
+        ((~valid).astype(np.uint64) << np.uint64(31)) | desc
+    return np.argsort(key, kind="stable")
 
 
 def numpy_sort_oracle(cols):
@@ -1540,11 +1571,13 @@ def main() -> int:
         example_columns_sort
     from arrow_tpu_torch.ops import join as join_mod
 
-    def timed(fn, label, must_launch=()):
-        """Warm-up run, then the timed, counted run of one path:
-        (result, seconds, launches, peak bytes)."""
-        fn()
-        torch.cuda.synchronize()
+    def timed(fn, label, must_launch=(), warm=True):
+        """Warm-up run (unless ``warm`` is False: an earlier path ran the
+        same plan), then the timed, counted run of one path: (result,
+        seconds, launches, peak bytes)."""
+        if warm:
+            fn()
+            torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ck.reset_launch_counts()
         t0 = time.perf_counter()
@@ -2059,7 +2092,41 @@ def main() -> int:
         a for a in seen_calls["pack_key_lanes"]
         if a[4] is None and a[0][0].shape[0] == n_orders][0],
         "path 7b orders build")
-    del sel, columns, hist_calls, pos_calls, dests, tables, qcols, ctx7
+    del sel, columns, hist_calls, pos_calls, dests
+    forget()
+
+    # ---- path 7s: path 7b with path 6s's string segment ------------------
+    # the step of entry_q3_dist with segment= (made at a small size: its
+    # tables are not the ones run) on path 6's lineitem and orders and path
+    # 6s's customer table; no warm-up: path 7b's runs were the same plan's
+    step, _ = entry_mod.entry_q3_dist(dev, N_SHARDS, 768, args.seed,
+                                      Q3_MAX_GROUPS, Q3_BATCH_ROWS,
+                                      "BUILDING")
+    cu7s = table_from_numpy_dict(
+        {"c_custkey": qcols[2]["c_custkey"],
+         "c_mktsegment": qcols[2]["c_seg"]}, Q3_BATCH_ROWS, dev,
+        {"c_mktsegment": np.array(entry_mod.SEGMENTS)})
+    tables7s = (tables[0], tables[1], cu7s)
+    del tables, qcols, ctx7
+    out, secs, launches7s, peak = timed(
+        lambda: step(*tables7s), "path 7s",
+        ("filter_compact_chunks", "partition_histogram",
+         "partition_positions", "pack_key_lanes"), warm=False)
+    check_q3(out, q3_oracle, "path 7s")
+    for kname in dist_kernels:
+        check(launches7s[kname] == launches7b[kname],
+              f"path 7s: {launches7s[kname]} {kname} launches, path 7b's "
+              f"{launches7b[kname]}")
+    print(f"path 7s (path 7b with c_mktsegment == 'BUILDING' on a "
+          f"dictionary string): {N_LINEITEM} lineitem rows in "
+          f"{secs * 1e3:.3f} ms = {N_LINEITEM / secs:.6g} rows/s; the top 10 "
+          f"match path 6's numpy oracle; peak device memory {peak} B; "
+          f"launches {launches7s}")
+    del out
+    forget()
+    record_kernels("path 7s", lambda: step(*tables7s))
+    check_calls("path 7s", launches7s)
+    del step, tables7s, cu7s
     forget()
     torch.cuda.empty_cache()
 
@@ -2260,6 +2327,100 @@ def main() -> int:
     del b, step
     torch.cuda.empty_cache()
 
+    # ---- path 7e: path 7d with path 4d's dictionary string key -----------
+    from arrow_tpu_torch.entry import example_columns_sort_dist_dict
+    t0 = time.time()
+    cols = example_columns_sort_dist_dict(N_SORT_DIST, NUM_KEYS_SORT,
+                                          args.seed, NUM_VALUES_DICT)
+    step, (b,) = entry_mod.entry_dist_sort_dict(
+        dev, N_SHARDS, N_SORT_DIST, args.seed, NUM_KEYS_SORT,
+        NUM_VALUES_DICT, SORT_BUCKET_FACTOR)
+    torch.cuda.synchronize()
+    print(f"path 7e data: {N_SORT_DIST} rows made and staged in "
+          f"{time.time() - t0:.1f} s")
+    table7e, secs, launches7e, peak = timed(
+        lambda: step(b), "path 7e", ("partition_histogram",
+                                     "partition_positions"))
+    for kname in ("partition_histogram", "partition_positions"):
+        check(launches7e[kname] == 1,
+              f"path 7e: {launches7e[kname]} {kname} launches, not one")
+    t0 = time.time()
+    want = torch.from_numpy(numpy_dist_sort_dict_oracle(cols,
+                                                        NUM_VALUES_DICT))
+    vocab = b.column("s").dictionary
+    check(all(x.column("s").dictionary is vocab for x in table7e.batches),
+          "path 7e: a shard's s does not carry the input's dictionary")
+    got = {c: torch.cat([x.column(c).values[:len(x)] for x in
+                         table7e.batches]).cpu() for c in ("k1", "s", "v")}
+    got_valid = torch.cat([x.column("s").validity[:len(x)]
+                           for x in table7e.batches]).cpu()
+    check(got["v"].shape[0] == N_SORT_DIST, "path 7e: the row count")
+    check(torch.equal(got["k1"], torch.from_numpy(cols["k1"])[want]) and
+          torch.equal(got["v"], torch.from_numpy(cols["v"])[want]) and
+          torch.equal(got_valid, torch.from_numpy(cols["s_valid"])[want]),
+          "path 7e: the rows differ from numpy's stable sort's")
+    check(torch.equal(got["s"][got_valid],
+                      torch.from_numpy(cols["s_idx"])[want][got_valid]),
+          "path 7e: s")
+    lengths7e = [len(x) for x in table7e.batches]
+    print(f"path 7e (DistContext.sort_by on k1, then a dictionary<int32, "
+          f"utf8> key descending, over {N_SHARDS} logical shards, bucket "
+          f"factor {SORT_BUCKET_FACTOR}; cut to {N_SORT_DIST} rows): "
+          f"{N_SORT_DIST} rows in {secs * 1e3:.3f} ms = "
+          f"{N_SORT_DIST / secs:.6g} rows/s; the shards in order equal "
+          f"numpy's stable sort row for row (oracle {time.time() - t0:.1f} "
+          f"s); shard lengths {lengths7e}; peak device memory {peak} B; "
+          f"launches {launches7e}")
+    del table7e, got, got_valid, want, cols, vocab
+    record_kernels("path 7e", lambda: step(b))
+    check_calls("path 7e", launches7e)
+    forget()
+    del b, step
+    torch.cuda.empty_cache()
+
+    # ---- path 3s: path 3a keyed by a dictionary of C_NAME strings --------
+    t0 = time.time()
+    cols = example_columns_generic(N_ROWS, NUM_KEYS_DIST, args.seed)
+    step, (b,) = entry_mod.entry_dist_dict(
+        dev, N_SHARDS, N_ROWS, NUM_KEYS_DIST, MAX_GROUPS_PER_SHARD,
+        args.seed)
+    torch.cuda.synchronize()
+    print(f"path 3s data: {N_ROWS} rows over a dictionary of "
+          f"{NUM_KEYS_DIST} names made and staged in "
+          f"{time.time() - t0:.1f} s")
+    table3s, secs, launches3s, peak = timed(
+        lambda: step(b), "path 3s", ("filter_compact_chunks",
+                                     "partition_histogram",
+                                     "partition_positions"))
+    for kname in ("partition_histogram", "partition_positions"):
+        check(launches3s[kname] == 1,
+              f"path 3s launched {kname} {launches3s[kname]} times, not "
+              "once for its one exchange on one card")
+    check(launches3s["filter_compact_chunks"] == N_SHARDS,
+          "path 3s: one pre-filter kernel pass per shard")
+    names = b.column("name").dictionary
+    check(all(x.column("name").dictionary is names
+              for x in table3s.batches),
+          "path 3s: a shard's groups do not carry the input's dictionary")
+    t0 = time.time()
+    n_groups = check_dist_group_by(
+        np, table3s, numpy_oracle_generic(cols, NUM_KEYS_DIST), N_SHARDS,
+        shard_of(dist_agg._STATE_EXCHANGE_SEED, N_SHARDS), "name",
+        "path 3s")
+    print(f"path 3s (path 3a keyed by a dictionary<int32, utf8> of "
+          f"{NUM_KEYS_DIST} C_NAME strings): {N_ROWS} rows over {N_SHARDS} "
+          f"logical shards in {secs * 1e3:.3f} ms = {N_ROWS / secs:.6g} "
+          f"rows/s; {n_groups} groups match the numpy oracle by index "
+          f"(oracle {time.time() - t0:.1f} s), each on the one shard its "
+          f"content hash names; peak device memory {peak} B; launches "
+          f"{launches3s}")
+    del table3s, cols, names
+    record_kernels("path 3s", lambda: step(b))
+    check_calls("path 3s", launches3s)
+    forget()
+    del b, step
+    torch.cuda.empty_cache()
+
     # ---- path 8: filter -> group-by on a raw string key ----------------
     from arrow_tpu_torch.entry import example_columns_strings
     t0 = time.time()
@@ -2413,7 +2574,8 @@ def main() -> int:
             ("path 6s", launches6s), ("path 8", launches8),
             ("path 6b", launches6b), ("path 7a", launches7a),
             ("path 7b", launches7b), ("path 7c", launches7c),
-            ("path 7d", launches7d)]:
+            ("path 7d", launches7d), ("path 7s", launches7s),
+            ("path 7e", launches7e), ("path 3s", launches3s)]:
         suffix = suffix_of(label)
         for kernel in kernels:
             if counts[kernel["name"]] and not (
