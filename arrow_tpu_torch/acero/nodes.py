@@ -526,9 +526,15 @@ class AggregateNode(ExecNode):
                             if spec.targets else None, gids)
                 for agg, spec, st in zip(aggs, specs, states))
             lengths.append(b.length)
-        if sum(host_ints(lengths)) == 0:
+        flagged = [(agg, agg.error_flag(st)) for agg, st in zip(aggs, states)
+                   if hasattr(agg, "error_flag")]
+        counts = host_ints(lengths + [f for _, f in flagged])
+        if sum(counts[:len(lengths)]) == 0:
             yield from self._batches_scalar_accumulate([])
             return
+        for (agg, _), flag in zip(flagged, counts[len(lengths):]):
+            if flag:
+                raise RuntimeError(f"aggregate: {agg.error_message(flag)}")
         arrays = [agg.finalize(st, 1) for agg, st in zip(aggs, states)]
         yield Batch(self.output_schema(), arrays, 1, 0)
 

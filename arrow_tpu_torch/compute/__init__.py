@@ -17,3 +17,25 @@ from .expressions import (  # noqa: F401
 
 def list_functions():
     return registry.list_functions()
+
+# option classes of the aggregate kernels, under the JAX package's names;
+# resolved on first access, as its ``compute`` resolves them
+_LAZY = {
+    "ModeOptions": "arrow_tpu_torch.ops.aggregates_order",
+    "QuantileOptions": "arrow_tpu_torch.ops.aggregates_order",
+    "TDigestOptions": "arrow_tpu_torch.ops.aggregates_order",
+    "IndexOptions": "arrow_tpu_torch.ops.aggregates_order",
+    "SkewOptions": "arrow_tpu_torch.ops.aggregates_order",
+    "WinsorizeOptions": "arrow_tpu_torch.ops.aggregates_order",
+    "ScalarAggregateOptions": "arrow_tpu_torch.ops.agg_options",
+    "CountOptions": "arrow_tpu_torch.ops.agg_options",
+    "VarianceOptions": "arrow_tpu_torch.ops.agg_options",
+}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+        return getattr(importlib.import_module(_LAZY[name]), name)
+    raise AttributeError(
+        f"module 'arrow_tpu_torch.compute' has no attribute {name!r}")

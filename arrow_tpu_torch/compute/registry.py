@@ -88,7 +88,7 @@ def _apply_intersection_validity(out: Array, args: Sequence[Datum]) -> Array:
 
 # the ported kernel modules, imported for their registrations
 _KERNEL_MODULES = ["scalar_arithmetic", "scalar_compare", "selection",
-                   "sorting", "aggregates"]
+                   "sorting", "aggregates", "vector_hash", "aggregates_order"]
 _kernels_loaded = False
 
 

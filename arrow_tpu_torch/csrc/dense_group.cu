@@ -16,9 +16,11 @@
 // function keep its contract (32-bit streams: "sumc" limbs, "imin64" /
 // "imax64" (hi, biased lo) pairs). Beside them stand the kinds this card
 // can do natively: "sum64" / "min64" / "max64" over one int64 stream and
-// "first_row" (the least row index of the slot, no stream). A kind may
-// carry a validity stream (bool bytes); a row whose byte is 0 is skipped
-// for that kind alone.
+// "first_row" (the least row index of the slot, no stream), and the bool
+// kinds "any8" / "all8": the OR / AND of a bool column's bytes (nonzero =
+// true), read as the column lies, one byte a row, into a 32-bit
+// accumulator (identity 0 / 1). A kind may carry a validity stream (bool
+// bytes); a row whose byte is 0 is skipped for that kind alone.
 //
 // What of the TPU's shape was dropped: Mosaic has no 64-bit arithmetic, so
 // the TPU caller splits an int64 sum into four 16-bit limb streams, an
@@ -59,6 +61,13 @@
 //     128 rows up it reduces those rows with shuffles and makes one
 //     atomic per kind for them, the other rows their own. Uniform keys
 //     never take that branch; a hot key no longer serialises;
+//   * any8 / all8 read 4 rows' bytes as one 32-bit word; only a row that
+//     can change the accumulator (a true byte for any, a false one for all)
+//     makes an atomic (atomicOr / atomicAnd), and not even that once the
+//     accumulator holds the answer, which a block reaches after its first
+//     rows. The TPU caller instead widens each bool column to an int32
+//     stream pre-masked with the identity and reduces it as imax / imin:
+//     two elementwise passes and 4 bytes a row more;
 //   * f32 min / max use an order-preserving int32 key with NaN mapped to
 //     the winning extreme, so NaN propagates as jnp.min / jnp.max do;
 //   * shared memory is (1 + 4-byte outputs + 2 per 8-byte output) * G * 4
@@ -75,7 +84,8 @@ namespace {
 enum Kind : int {
   kSum = 0, kMin = 1, kMax = 2, kIMin = 3, kIMax = 4, kCount = 5,
   kSumC = 6, kIMin64 = 7, kIMax64 = 8,
-  kSum64 = 9, kMin64 = 10, kMax64 = 11, kFirstRow = 12,
+  kSum64 = 9, kMin64 = 10, kMax64 = 11, kFirstRow = 12, kAny8 = 13,
+  kAll8 = 14,
 };
 
 constexpr int kMaxKinds = 16;
@@ -128,12 +138,13 @@ __device__ inline unsigned long long ident_bits(int k) {
     case kMax: return kKeyNegInf;
     case kIMin:
     case kFirstRow: return static_cast<unsigned>(kI32Max);
+    case kAll8: return 1u;
     case kIMax: return static_cast<unsigned>(kI32Min);
     case kIMin64:
     case kMin64: return static_cast<unsigned long long>(kI64Max);
     case kIMax64:
     case kMax64: return static_cast<unsigned long long>(kI64Min);
-    default: return 0;  // sum (0.0f), count, sumc, sum64
+    default: return 0;  // sum (0.0f), count, sumc, sum64, any8
   }
 }
 
@@ -234,6 +245,13 @@ __device__ inline void s_min_i64(long long* p, long long v) {
 __device__ inline void s_max_i64(long long* p, long long v) {
   if (v > *reinterpret_cast<volatile long long*>(p)) atomicMax(p, v);
 }
+// any / all: only a row that can change the word makes the atomic
+__device__ inline void s_or_i32(int* p, int v) {
+  if (v != 0 && *reinterpret_cast<volatile int*>(p) == 0) atomicOr(p, 1);
+}
+__device__ inline void s_and_i32(int* p, int v) {
+  if (v == 0 && *reinterpret_cast<volatile int*>(p) != 0) atomicAnd(p, 0);
+}
 
 template <typename T, typename Comb>
 __device__ inline T warp_all_reduce(T v, Comb comb) {
@@ -309,6 +327,14 @@ __device__ inline void merge(char* gbase, const char* sbase, int kd, int G,
     case kCount:
       atomicAdd(reinterpret_cast<int*>(gbase) + slot,
                 reinterpret_cast<const int*>(sbase)[slot]);
+      break;
+    case kAny8:
+      if (reinterpret_cast<const int*>(sbase)[slot] != 0)
+        atomicOr(reinterpret_cast<int*>(gbase) + slot, 1);
+      break;
+    case kAll8:
+      if (reinterpret_cast<const int*>(sbase)[slot] == 0)
+        atomicAnd(reinterpret_cast<int*>(gbase) + slot, 0);
       break;
     case kSumC:
     case kSum64: {
@@ -569,6 +595,27 @@ dg_reduce_kernel(const int* __restrict__ gid, int64_t n, DGArgs a, int G,
           }
           break;
         }
+        case kAny8:
+        case kAll8: {
+          // the bool bytes as they lie: 1 where nonzero
+          bool b[4];
+          load4_valid(static_cast<const uint8_t*>(a.in0[k]), i, n, vec, b);
+          const int x[4] = {b[0], b[1], b[2], b[3]};
+          if (kd == kAny8) {
+            fold4(hot_mode, lane, g0, g, okk, hot, x, 0,
+                  [](int p, int q) { return p | q; },
+                  [&](int s, int v) {
+                    s_or_i32(reinterpret_cast<int*>(acc) + s, v);
+                  });
+          } else {
+            fold4(hot_mode, lane, g0, g, okk, hot, x, 1,
+                  [](int p, int q) { return p & q; },
+                  [&](int s, int v) {
+                    s_and_i32(reinterpret_cast<int*>(acc) + s, v);
+                  });
+          }
+          break;
+        }
         case kFirstRow: {
           // n < 2^31 (checked on the host), so the row index fits
           const int row[4] = {static_cast<int>(i), static_cast<int>(i) + 1,
@@ -624,7 +671,7 @@ __global__ void dg_finish_kernel(const char* __restrict__ ws, DGArgs a,
     } else if (kd == kSum64 || kd == kMin64 || kd == kMax64) {
       reinterpret_cast<long long*>(o0)[s] =
           reinterpret_cast<const long long*>(p)[s];
-    } else {  // sum (f32 bits), imin, imax, count, first_row
+    } else {  // sum (f32 bits), imin, imax, count, first_row, any8, all8
       o0[s] = reinterpret_cast<const int*>(p)[s];
     }
   }
@@ -692,7 +739,7 @@ int atp_dense_group_reduce(const void* gid, int64_t n, int G, int nk,
   int64_t off = static_cast<int64_t>(G) * 4;
   bool vec = aligned(gid, 16) && aligned(key, 16) && aligned(key_valid, 4);
   for (int k = 0; k < nk; ++k) {
-    if (kinds[k] < kSum || kinds[k] > kFirstRow) return cudaErrorInvalidValue;
+    if (kinds[k] < kSum || kinds[k] > kAll8) return cudaErrorInvalidValue;
     a.kind[k] = kinds[k];
     a.off[k] = static_cast<int>(off);
     a.in0[k] = reinterpret_cast<const void*>(in0[k]);
@@ -700,8 +747,10 @@ int atp_dense_group_reduce(const void* gid, int64_t n, int G, int nk,
     a.valid[k] = reinterpret_cast<const uint8_t*>(valid[k]);
     a.out0[k] = reinterpret_cast<void*>(out0[k]);
     a.out1[k] = reinterpret_cast<void*>(out1[k]);
-    vec = vec && aligned(a.in0[k], 16) && aligned(a.in1[k], 16) &&
-          aligned(a.valid[k], 4);
+    // a bool stream is read 4 bytes a step
+    const bool bytes = kinds[k] == kAny8 || kinds[k] == kAll8;
+    vec = vec && aligned(a.in0[k], bytes ? 4 : 16) &&
+          aligned(a.in1[k], bytes ? 4 : 16) && aligned(a.valid[k], 4);
     off += static_cast<int64_t>(G) * (wide(kinds[k]) ? 8 : 4);
   }
   if (off != ws_bytes) return cudaErrorInvalidValue;

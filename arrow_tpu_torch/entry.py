@@ -78,6 +78,21 @@ String and dictionary columns:
     num_values, bucket_factor)``: ``entry_dist_sort`` with the dictionary
     string ``s`` (``cat%04d``, 5 % nulls) descending in ``k2``'s place.
 
+The other aggregators:
+
+  * ``entry_any_all(device, n_rows, num_keys, seed, max_groups)``:
+    ``entry``'s step with count_all, sum(v), min(w), any(f) and all(f)
+    over a bool ``f`` with 5 % nulls (False for keys = 1 mod 4, True for
+    keys = 0 mod 4): the dense kernel's ``any8`` / ``all8`` kinds.
+  * ``entry_groupby_q6(device, n_rows, seed, k)``: db-benchmark's groupby
+    q6 ("median v3 sd v3 by id4 id5") on its nine-column table
+    ``G1_<n_rows>_<k>_0_0`` through ``Table.group_by``; the step returns
+    the Table of k^2 groups.
+  * ``entry_dist_groupby_q6(device, n_shards, n_rows, seed, k,
+    bucket_factor)``: q6 over ``n_shards`` logical shards through
+    ``DistContext.group_by`` (the raw-row shuffle: the median's state is
+    not row-shaped).
+
 With no ``device`` they place the batch on the card
 (``arrow_tpu_torch.default_device()``). Run one on the CPU at a small
 size::
@@ -110,9 +125,12 @@ from .ops.selection import filter_batch, take_batch
 from .ops.sorting import SortOptions, sort_indices_batch
 from .parallel import DistContext
 
-__all__ = ["AGGREGATES", "AGGREGATES_GENERIC", "MAX_GROUPS", "SEGMENTS",
+__all__ = ["AGGREGATES", "AGGREGATES_ANY_ALL", "AGGREGATES_GENERIC",
+           "MAX_GROUPS", "Q6_KEYS", "SEGMENTS",
            "SORT_KEYS", "SORT_KEYS_DICT", "SORT_KEYS_DIST_DICT",
-           "consume_routed", "entry", "entry_distributed", "entry_generic",
+           "consume_routed", "entry", "entry_any_all", "entry_distributed",
+           "entry_dist_groupby_q6", "entry_generic", "entry_groupby_q6",
+           "example_columns_any_all", "example_columns_q6", "q6_aggregates",
            "dryrun_multichip", "entry_dist_dict", "entry_dist_join",
            "entry_dist_sort", "entry_dist_sort_dict", "entry_join",
            "entry_q3", "entry_q3_dist", "entry_q3s", "entry_sort",
@@ -708,6 +726,145 @@ def entry_dist_sort_dict(device=None, n_shards: int = 8, n_rows: int = 1024,
     def step(batch_: Batch) -> Table:
         return ctx.sort_by(batch_, SORT_KEYS_DIST_DICT,
                            bucket_factor=bucket_factor)
+
+    step.ctx = ctx
+    return step, (b,)
+
+
+# ---- the other aggregators ---------------------------------------------------
+
+AGGREGATES_ANY_ALL = (AggregateSpec("count_all"), AggregateSpec("sum", "v"),
+                      AggregateSpec("min", "w"), AggregateSpec("any", "f"),
+                      AggregateSpec("all", "f"))
+
+
+def example_columns_any_all(n_rows: int, num_keys: int, seed: int
+                            ) -> Dict[str, np.ndarray]:
+    """``entry_any_all``'s columns, made with numpy from ``seed``:
+    ``example_columns``' ``k``, ``v`` and ``w``, and a bool ``f`` that is
+    False for every key = 1 (mod 4), True for every key = 0 (mod 4) and
+    uniform for the other keys, with ``f_valid`` False for 5 % of the
+    rows."""
+    cols = example_columns(n_rows, num_keys, seed)
+    rng = np.random.default_rng(seed + 1)
+    k4 = cols["k"] % 4
+    cols["f"] = np.where(k4 == 0, True, np.where(
+        k4 == 1, False, rng.random(n_rows) < 0.5))
+    cols["f_valid"] = rng.random(n_rows) >= 0.05
+    return cols
+
+
+def entry_any_all(device=None, n_rows: int = 1024, num_keys: int = 16,
+                  seed: int = 0, max_groups: int = MAX_GROUPS):
+    """(step, (batch,)): ``entry``'s step (``w > 0``, the compaction-kernel
+    filter, the dense route) with ``AGGREGATES_ANY_ALL``: count_all,
+    sum(v), min(w), any(f) and all(f), the two bool aggregates as the dense
+    kernel's ``any8`` / ``all8`` kinds over the bool column as it lies (a
+    key domain past 4096 slots takes the sorted dense reduction)."""
+    cols = example_columns_any_all(n_rows, num_keys, seed)
+    b = batch({"k": array_from_numpy(cols["k"], device=device),
+               "v": array_from_numpy(cols["v"], device=device),
+               "w": array_from_numpy(cols["w"], device=device),
+               "f": array_from_numpy(cols["f"], validity=cols["f_valid"],
+                                     device=device)})
+    ha = HashAggregate(b.schema, ["k"], AGGREGATES_ANY_ALL,
+                       max_groups=max_groups)
+    return _make_step(ha, "dma", False), (b,)
+
+
+Q6_KEYS = ("id4", "id5")
+
+
+def example_columns_q6(n_rows: int, seed: int, k: int = 100
+                       ) -> Dict[str, np.ndarray]:
+    """db-benchmark's groupby table ``G1_<n_rows>_<k>_0_0`` as its
+    generator (``_data/groupby-datagen.R``) defines it, made with numpy from
+    ``seed``: ``id1`` / ``id2`` codes of ``id%03d`` over k values and
+    ``id3`` codes of ``id%010d`` over n_rows / k values (0-based indices
+    into those strings), ``id4`` / ``id5`` int32 in [1, k], ``id6`` int32
+    in [1, n_rows / k], ``v1`` int32 in [1, 5], ``v2`` int32 in [1, 15],
+    ``v3`` float64 uniform in [0, 100) rounded to 6 digits; no nulls,
+    unsorted."""
+    rng = np.random.default_rng(seed)
+    nk = max(n_rows // k, 1)
+
+    def ints(lo, hi, dtype=np.int32):
+        return rng.integers(lo, hi + 1, n_rows, dtype=dtype)
+    return {"id1": ints(0, k - 1), "id2": ints(0, k - 1),
+            "id3": ints(0, nk - 1), "id4": ints(1, k), "id5": ints(1, k),
+            "id6": ints(1, nk), "v1": ints(1, 5), "v2": ints(1, 15),
+            "v3": np.round(rng.random(n_rows) * 100.0, 6)}
+
+
+def q6_aggregates(buffer_rows: int):
+    """db-benchmark groupby q6, "median v3 sd v3 by id4 id5": the exact
+    median (``approximate_median``'s buffer covering ``buffer_rows``) and
+    the sample standard deviation (ddof 1)."""
+    from .ops.agg_options import VarianceOptions
+    from .ops.aggregates_order import TDigestOptions
+    return (AggregateSpec("approximate_median", "v3",
+                          TDigestOptions(buffer_rows=buffer_rows),
+                          name="median_v3"),
+            AggregateSpec("stddev", "v3", VarianceOptions(ddof=1),
+                          name="sd_v3"))
+
+
+def entry_groupby_q6(device=None, n_rows: int = 1000, seed: int = 0,
+                     k: int = 100):
+    """(step, (table,)): db-benchmark's groupby question q6 on one device:
+    ``Table.group_by(["id4", "id5"])`` of the nine-column table of
+    ``example_columns_q6`` (``id1`` / ``id2`` / ``id3`` dictionary<int32,
+    utf8> columns) with the median and sample sd of ``v3``; k^2 groups.
+    The table is one batch, and the median's buffer covers it."""
+    cols = example_columns_q6(n_rows, seed, k)
+    nk = max(n_rows // k, 1)
+    dicts = {}
+    for name, prefix, n_values, digits in (("id1", b"id", k, 3),
+                                           ("id2", b"id", k, 3),
+                                           ("id3", b"id", nk, 10)):
+        if n_values not in dicts:
+            off, pool = numbered_strings(prefix, np.arange(1, n_values + 1),
+                                         digits)
+            dicts[n_values] = varlen_from_numpy(offsets=off, pool=pool,
+                                                device=device)
+    arrays = {}
+    for name, v in cols.items():
+        if name in ("id1", "id2", "id3"):
+            arrays[name] = dictionary_from_numpy(
+                v, dicts[nk if name == "id3" else k], device=device)
+        else:
+            arrays[name] = array_from_numpy(v, device=device)
+    b = batch(arrays)
+    aggs = q6_aggregates(b.capacity)
+
+    def step(table_: Table) -> Table:
+        return table_.group_by(list(Q6_KEYS), max_groups=max(
+            1 << 16, 2 * k * k)).aggregate(list(aggs))
+
+    return step, (Table(b.schema, [b]),)
+
+
+def entry_dist_groupby_q6(device=None, n_shards: int = 4, n_rows: int = 1000,
+                          seed: int = 0, k: int = 100,
+                          bucket_factor: int = 2):
+    """(step, (batch,)): q6 over ``n_shards`` logical shards of ``device``
+    through ``DistContext.group_by``: the batch holds ``id4``, ``id5`` and
+    ``v3`` (what a plan's projection leaves). The median's state is not
+    row-shaped, so the rows shuffle by key (``group_by_raw_rows``, buckets
+    of ``bucket_factor`` x the local capacity) and each shard aggregates
+    what it received; the median's buffer covers a shard's received
+    capacity. Its step returns the Table, one batch per shard."""
+    device = resolve_device(device)
+    cols = example_columns_q6(n_rows, seed, k)
+    b = batch_from_numpy({n: cols[n] for n in Q6_KEYS + ("v3",)},
+                         device=device)
+    ctx = DistContext(devices=[device] * n_shards)
+    local_cap = -(-b.capacity // n_shards)
+    aggs = q6_aggregates(n_shards * bucket_factor * local_cap)
+
+    def step(batch_: Batch) -> Table:
+        return ctx.group_by(batch_, list(Q6_KEYS), aggs,
+                            bucket_factor=bucket_factor)
 
     step.ctx = ctx
     return step, (b,)

@@ -18,7 +18,8 @@ kernels:
   * ``dense_group_reduce`` (csrc/dense_group.cu): per-slot reductions over a
     dense group id: the TPU kernel's nine kinds over 32-bit streams, and
     the card's native ones ("sum64", "min64", "max64" over an int64
-    stream, "first_row", a validity stream per kind); the slot of a row
+    stream, "first_row", "any8" / "all8" over a bool column's bytes, a
+    validity stream per kind); the slot of a row
     is given (a gid) or formed in the kernel from the key column
     (``DenseKey``);
   * ``partition_histogram_segments`` (csrc/partition_hist.cu): rows per
@@ -498,28 +499,32 @@ def tile_stitch(loc: torch.Tensor, counts: torch.Tensor,
 
 # kind -> (#inputs, #outputs) and the identity an empty slot keeps. The
 # first nine are the TPU kernel's (pallas_kernels.py _DG_IDENT / _DG_ARITY),
-# over 32-bit streams; the last four are this card's native kinds: one int64
-# stream for "sum64" / "min64" / "max64", none for "first_row".
+# over 32-bit streams; the last six are this card's native kinds: one int64
+# stream for "sum64" / "min64" / "max64", none for "first_row", one bool
+# stream (a byte a row) for "any8" / "all8", whose outputs are int32 0 / 1.
 _I64MAX = (1 << 63) - 1
 _I64MIN = -(1 << 63)
 _DG_IDENT = {
     "sum": 0.0, "min": float("inf"), "max": float("-inf"),
     "imin": (1 << 31) - 1, "imax": -(1 << 31), "count": 0, "sumc": 0,
     "sum64": 0, "min64": _I64MAX, "max64": _I64MIN,
-    "first_row": (1 << 31) - 1,
+    "first_row": (1 << 31) - 1, "any8": 0, "all8": 1,
 }
 _DG_ARITY = {
     "sum": (1, 1), "min": (1, 1), "max": (1, 1), "imin": (1, 1),
     "imax": (1, 1), "count": (1, 1), "sumc": (1, 2),
     "imin64": (2, 2), "imax64": (2, 2),
     "sum64": (1, 1), "min64": (1, 1), "max64": (1, 1), "first_row": (0, 1),
+    "any8": (1, 1), "all8": (1, 1),
 }
 # kind codes of csrc/dense_group.cu
 _DG_KINDS = {"sum": 0, "min": 1, "max": 2, "imin": 3, "imax": 4,
              "count": 5, "sumc": 6, "imin64": 7, "imax64": 8,
-             "sum64": 9, "min64": 10, "max64": 11, "first_row": 12}
+             "sum64": 9, "min64": 10, "max64": 11, "first_row": 12,
+             "any8": 13, "all8": 14}
 _DG_F32 = ("sum", "min", "max")
 _DG_I64 = ("sum64", "min64", "max64")
+_DG_BOOL = ("any8", "all8")
 # kinds whose accumulator takes 8 bytes a slot (csrc/dense_group.cu wide())
 _DG_WIDE = ("sumc", "imin64", "imax64") + _DG_I64
 _BIAS32 = 0x80000000
@@ -559,10 +564,29 @@ def dense_key_gid(key: DenseKey, G: int) -> torch.Tensor:
 
 
 def _dg_dtype(kind: str) -> torch.dtype:
-    """dtype of a kind's input streams and outputs."""
+    """dtype of a kind's outputs, and of its input streams but for the
+    bool kinds' (``_dg_in_dtype``)."""
     if kind in _DG_F32:
         return torch.float32
     return torch.int64 if kind in _DG_I64 else torch.int32
+
+
+def _dg_in_dtypes(kind: str) -> tuple:
+    """dtypes a kind's input streams may have: a bool kind's stream is a
+    bool column, or an int32 stream whose nonzero entries are True."""
+    return (torch.bool, torch.int32) if kind in _DG_BOOL \
+        else (_dg_dtype(kind),)
+
+
+def _bool_streams(inputs: tuple, kinds: tuple) -> tuple:
+    """``inputs`` with each bool kind's int32 stream made a bool one (the
+    kernel reads a byte a row; a bool column needs no pass)."""
+    out, ij = list(inputs), 0
+    for k in kinds:
+        if k in _DG_BOOL and out[ij].dtype != torch.bool:
+            out[ij] = out[ij] != 0
+        ij += _DG_ARITY[k][0]
+    return tuple(out)
 
 
 def _dg_acc_bytes(kind: str, G: int) -> int:
@@ -613,9 +637,9 @@ def _check_dg(gid, inputs, kinds, G, valid):
     ij = 0
     for k, v in zip(kinds, valid):
         for x in inputs[ij:ij + _DG_ARITY[k][0]]:
-            _require(x.shape == gid.shape and x.dtype == _dg_dtype(k),
+            _require(x.shape == gid.shape and x.dtype in _dg_in_dtypes(k),
                      f"input of kind {k!r} must be ({gid.shape[0]},) "
-                     f"{_dg_dtype(k)}")
+                     f"{' or '.join(map(str, _dg_in_dtypes(k)))}")
         _require(v is None or (v.shape == gid.shape and
                                v.dtype == torch.bool),
                  f"validity of kind {k!r} must be ({gid.shape[0]},) bool")
@@ -651,6 +675,9 @@ def dense_group_reduce_plain(gid, inputs, kinds: tuple, G: int, valid=None):
             # jnp.min / jnp.max do
             outs.append(acc(x, _DG_IDENT[kind],
                             "amin" if "min" in kind else "amax", at=at))
+        elif kind in _DG_BOOL:
+            outs.append(acc((x != 0).to(torch.int32), _DG_IDENT[kind],
+                            "amax" if kind == "any8" else "amin", at=at))
         elif kind == "first_row":
             outs.append(acc(torch.arange(gid.shape[0], dtype=torch.int32,
                                          device=dev),
@@ -683,7 +710,10 @@ def dense_group_reduce(gid, inputs, kinds: tuple, G: int, valid=None):
       carry)), "imin64"/"imax64" ((hi, biased lo) int32 pair -> their
       lexicographic min/max pair): the TPU kernel's contract;
       "sum64" (one int64 stream, the sum mod 2^64), "min64"|"max64" (one
-      int64 stream), "first_row" (no stream: the slot's least row index).
+      int64 stream), "first_row" (no stream: the slot's least row index),
+      "any8"|"all8" (one bool stream, or an int32 one whose nonzero
+      entries are true -> int32 1 / 0: whether any / every valid row of
+      the slot is true; 0 / 1 in a slot without one).
     valid: None, or per kind None or a (n,) bool stream: where it is False
       the row is skipped for that kind (it still counts in ``rows``). Two
       kinds may share a stream: the kernel reads it once a row.
@@ -696,6 +726,7 @@ def dense_group_reduce(gid, inputs, kinds: tuple, G: int, valid=None):
     inputs = tuple(inputs)
     valid = (None,) * len(kinds) if valid is None else tuple(valid)
     _check_dg(gid, inputs, kinds, G, valid)
+    inputs = _bool_streams(inputs, kinds)
     key = gid if isinstance(gid, DenseKey) else None
     tensors = inputs + tuple(v for v in valid if v is not None)
     if key is None:

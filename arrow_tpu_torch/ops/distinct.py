@@ -30,7 +30,8 @@ import torch
 from .bits import gather_rows
 from .segment import _scatter, segmented_carry_last
 
-__all__ = ["SortGroup", "sort_group", "merge_find", "merge_insert"]
+__all__ = ["SortGroup", "sort_group", "sort_distinct", "merge_find",
+           "merge_insert"]
 
 _I32MAX = (1 << 31) - 1
 # lane 0 of an inactive row when the caller folds the inactive flag into
@@ -166,6 +167,14 @@ def sort_group(lanes: torch.Tensor, active: torch.Tensor,
                   order.to(torch.int32), unique_rows, head_pos,
                   head_pos_of_seg, n_active, num_unique)
     return g, s_payloads
+
+
+def sort_distinct(lanes: torch.Tensor, active: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(codes, unique_rows, num_unique): the compact interface of
+    unique / value_counts / dictionary_encode (``ops/vector_hash``)."""
+    g, _ = sort_group(lanes, active)
+    return g.codes, g.unique_rows, g.num_unique
 
 
 def _merge_sorted(table_lanes, table_gid, lanes, active, pay):

@@ -236,13 +236,7 @@ class Grouper:
         """Insert key rows; return (new_state, group_ids int32 (capacity,)).
         Padding / inactive rows get group id -1."""
         lanes, in_range = self._lanes_and_active(keys, length, active)
-        state, rep_gids, g, _ = self.consume_lanes_grouped(state, lanes,
-                                                           in_range)
-        R = rep_gids.shape[0]
-        row_gids = torch.where(
-            g.codes >= 0, rep_gids[g.codes.clamp(0, max(R - 1, 0)).long()],
-            -1)
-        return state, row_gids.to(torch.int32)
+        return self._consume_lanes(state, lanes, in_range)
 
     def consume_with_group(self, state: GrouperState,
                            keys: Sequence[Array], length=None, active=None,
@@ -334,6 +328,20 @@ class Grouper:
                                  new_state.num_groups,
                                  new_state.error | overflow)
         return new_state, rep_gids, g, s_payloads
+
+    def _consume_lanes(self, state: GrouperState, lanes: torch.Tensor,
+                       active: torch.Tensor
+                       ) -> Tuple[GrouperState, torch.Tensor]:
+        """``consume`` of ready key lanes ((cap, L) int64 u32 lanes):
+        (new_state, group id per row, -1 where inactive). The count-distinct
+        merge replays another pair table's rows through it."""
+        state, rep_gids, g, _ = self.consume_lanes_grouped(state, lanes,
+                                                           active)
+        R = rep_gids.shape[0]
+        row_gids = torch.where(
+            g.codes >= 0, rep_gids[g.codes.clamp(0, max(R - 1, 0)).long()],
+            -1)
+        return state, row_gids.to(torch.int32)
 
     def _consume_lanes_table(self, state: GrouperState, lanes: torch.Tensor,
                              active: torch.Tensor):

@@ -56,8 +56,9 @@ def sorted_group_reduce(gid, inputs, kinds: tuple, G: int, valid=None):
     """Dense-domain grouped reduction for LARGE G: the sorted complement of
     ``cuda_kernels.dense_group_reduce``, with its interface (a gid or a
     ``DenseKey``, a validity stream per kind) for the kinds ``consume_dense``
-    passes: "first_row", "count", "sum" / "min" / "max" over float32 and
-    "sum64" / "min64" / "max64" over int64. Returns (rows (G,) int32, outs).
+    passes: "first_row", "count", "sum" / "min" / "max" over float32,
+    "sum64" / "min64" / "max64" over int64 and "any8" / "all8" over bool.
+    Returns (rows (G,) int32, outs).
 
     ONE stable sort by slot groups the rows; the slot of an output IS
     ``key - lo``, so there is no group table and no unique-key extraction.
@@ -107,15 +108,18 @@ def sorted_group_reduce(gid, inputs, kinds: tuple, G: int, valid=None):
             xs = (x if v is None else torch.where(v, x, 0.0))[perm]
             outs.append(torch.segment_reduce(xs, "sum", offsets=offsets,
                                              unsafe=True))
-        elif kind in ("min", "max", "min64", "max64"):
+        elif kind in ("min", "max", "min64", "max64", "any8", "all8"):
             if slot64 is None:
                 dump = G + (torch.arange(n, device=dev) & (_DUMP_SLOTS - 1))
                 slot64 = torch.where(slot < G, slot, dump)
             at = slot64 if v is None else torch.where(v, slot64, dump)
+            if kind in ("any8", "all8"):
+                x = (x != 0).to(torch.int32)
             buf = torch.full((G + _DUMP_SLOTS,), _DG_IDENT[kind],
                              dtype=x.dtype, device=dev)
             outs.append(buf.scatter_reduce_(
-                0, at, x, "amin" if "min" in kind else "amax")[:G])
+                0, at, x, "amin" if kind in ("min", "min64", "all8")
+                else "amax")[:G])
         else:
             raise NotImplementedError(
                 f"sorted_group_reduce kind {kind!r}: the limb and pair "
@@ -190,7 +194,8 @@ class HashAggregate:
     # both packages route a batch alike
     DENSE_CAP = 4096
     SORTED_DENSE_CAP = 1 << 20
-    _DENSE_FNS = {"count", "count_all", "sum", "mean", "min", "max"}
+    _DENSE_FNS = {"count", "count_all", "sum", "mean", "min", "max",
+                  "any", "all"}
 
     def __init__(self, in_schema: Schema, keys: Sequence[str],
                  aggs: Sequence[AggregateSpec], max_groups: int = 1 << 16):
@@ -238,20 +243,14 @@ class HashAggregate:
             t(np.asarray(gs.table_lanes).astype(np.int64)), t(gs.table_gid),
             t(gs.num_groups), t(gs.error))
 
-        def conv(agg, st):
-            # the accumulator leaf in the port's representation (unsigned
-            # sums as int64 bits, unsigned min / max as ordered signed)
-            if isinstance(st, tuple):
-                return (t(agg.acc_from_numpy(np.asarray(st[0]))),) + \
-                    tuple(t(x) for x in st[1:])
-            return t(st)
         us = None
         if uniques is not None:
             us = tuple(Array(f.type, t(u.values),
                              None if u.validity is None else t(u.validity))
                        for u, f in zip(uniques, self.key_fields))
         return (grouper_state,
-                tuple(conv(a, st) for a, st in zip(self._aggregators, aggs)),
+                tuple(a.state_from_numpy(st, t)
+                      for a, st in zip(self._aggregators, aggs)),
                 us)
 
     def consume(self, state, batch: Batch, pack_arrays=None,
@@ -337,6 +336,9 @@ class HashAggregate:
                 return False
             if agg.name in ("sum", "min", "max") and not (f32 or i64):
                 return False
+            if agg.name in ("any", "all") and not isinstance(
+                    it, dt.BoolType):
+                return False
         return True
 
     def probe_scalars(self, batch: Batch, lanes=None):
@@ -421,12 +423,14 @@ class HashAggregate:
         The kernel reads the columns as they are: the key for the slot (a
         ``DenseKey``: no gid is built), "first_row" for the
         group order, "sum" / "min" / "max" over a float32 column, "sum64" /
-        "min64" / "max64" over an int64 column, the column's validity as
+        "min64" / "max64" over an int64 column, "any8" / "all8" over a bool
+        column, the column's validity as
         the kind's validity stream, two kinds over one column sharing its
         stream. A "count" stream is built only for a column that has nulls
         (else the kernel's row count is the count). The JAX package feeds
         its kernel limb, pair and identity-masked 32-bit streams instead
-        (the TPU has no 64-bit arithmetic); the results are the same."""
+        (the TPU has no 64-bit arithmetic; any / all as int32 streams
+        reduced by imax / imin); the results are the same."""
         if impl not in ("pallas", "sorted"):
             raise ValueError(f"dense impl {impl!r}: 'pallas' or 'sorted'")
         key = batch.column(self.keys[0])
@@ -472,7 +476,10 @@ class HashAggregate:
                 add((tgt, "countv"), "count", col.validity.to(torch.int32))
             if agg.name == "count":
                 continue
-            if is_i64(agg):
+            if agg.name in ("any", "all"):
+                add((tgt, agg.name), agg.name + "8", col.values,
+                    col.validity)
+            elif is_i64(agg):
                 add((tgt, agg.name), agg.name + "64", col.values,
                     col.validity)
             else:
@@ -524,6 +531,8 @@ class HashAggregate:
             if agg.name in ("sum", "mean") and not is_i64(agg):
                 o_states.append((out_for((tgt, "sum")).to(agg._acc_dtype),
                                  cnt))
+            elif agg.name in ("any", "all"):
+                o_states.append((out_for((tgt, agg.name)) != 0, cnt))
             else:       # int64 sum / min / max, f32 min / max: as they are
                 o_states.append((out_for((tgt, agg.name)), cnt))
         return self.merge_rows(state, [o_key], tuple(o_states), o_count)
@@ -590,15 +599,27 @@ class HashAggregate:
             arrays.append(agg.finalize(st, n))
         return Batch(self.out_schema, arrays, n)
 
+    def error_flags(self, state) -> list:
+        """[(carrier, 0-d int32 flag on the device)] of the deferred errors
+        beyond the group table's: each aggregator with an ``error_flag``
+        (a full tdigest buffer, a full count_distinct pair table) and each
+        varlen key's unique slots (a key longer than its slot). A carrier
+        has ``error_message(flag)``."""
+        _, agg_states, uniques = state
+        out = [(agg, agg.error_flag(st).reshape(()).to(torch.int32))
+               for agg, st in zip(self._aggregators, agg_states)
+               if hasattr(agg, "error_flag")]
+        out += [(_SlotOverflow(f.name, self.grouper.varlen_slot_bytes),
+                 u.error.reshape(()).to(torch.int32))
+                for u, f in zip(uniques or (), self.key_fields)
+                if isinstance(u, SlotStrings)]
+        return out
+
     def aggregator_errors(self, state):
         """Host-side deferred errors beyond the group table's:
-        [(carrier, nonzero flag)]; a varlen key longer than its slot is
-        one. One host read."""
-        _, _, uniques = state
-        slots = [(f, u) for u, f in zip(uniques or (), self.key_fields)
-                 if isinstance(u, SlotStrings)]
-        if not slots:
+        [(carrier, nonzero flag)] (``error_flags``). One host read."""
+        carriers = self.error_flags(state)
+        if not carriers:
             return []
-        flags = torch.stack([u.error for _, u in slots]).cpu().tolist()
-        return [(_SlotOverflow(f.name, self.grouper.varlen_slot_bytes), flag)
-                for (f, _), flag in zip(slots, flags) if flag]
+        flags = torch.stack([f for _, f in carriers]).cpu().tolist()
+        return [(c, flag) for (c, _), flag in zip(carriers, flags) if flag]

@@ -40,7 +40,8 @@ from .bits import SIGNED_OF, as_signed_bits, from_ordered_signed, \
 __all__ = ["SegmentContext", "make_segment_context", "rows_of_positions",
            "segmented_scan", "last_marked",
            "segmented_carry_last", "running_scan", "seg_sum",
-           "seg_reduce_min", "seg_reduce_max"]
+           "seg_reduce_min", "seg_reduce_max", "seg_prod", "seg_any",
+           "seg_all", "seg_first_row", "seg_last_row"]
 
 _U32 = 0xFFFFFFFF
 _BIAS32 = 0x80000000
@@ -341,3 +342,42 @@ def seg_reduce_max(ctx: SegmentContext, x_sorted: torch.Tensor
                           extreme_identity(x_sorted.dtype, False), "amax")
     return _asc_dec32(_seg_extreme_packed(ctx, enc, True), kind,
                       x_sorted.dtype)
+
+
+def seg_prod(ctx: SegmentContext, x_sorted: torch.Tensor) -> torch.Tensor:
+    """(R,) product per run (rows outside a run hold the caller's 1).
+    Floats: one ``segment_reduce`` pass over the run offsets; integers (which
+    ``segment_reduce`` does not take on the card): the JAX package's
+    doubling segmented scan, read at each run's last position (products
+    wrap mod 2^64 as its do)."""
+    if x_sorted.dtype.is_floating_point:
+        return torch.segment_reduce(x_sorted, "prod", offsets=ctx.offsets,
+                                    unsafe=True)
+    v = segmented_scan(x_sorted, ctx.head, torch.mul)
+    last = (ctx.ends - 1).clamp(0, max(x_sorted.shape[0] - 1, 0)).long()
+    return torch.where(ctx.ends > ctx.starts, v[last], 1)
+
+
+def seg_any(ctx: SegmentContext, flags_sorted: torch.Tensor) -> torch.Tensor:
+    """(R,) bool: any flag set in the run."""
+    return seg_reduce_max(ctx, flags_sorted.to(torch.uint8)) != 0
+
+
+def seg_all(ctx: SegmentContext, flags_sorted: torch.Tensor) -> torch.Tensor:
+    """(R,) bool: every flag of the run set."""
+    return seg_reduce_min(ctx, flags_sorted.to(torch.uint8)) != 0
+
+
+def seg_first_row(ctx: SegmentContext, valid_sorted: torch.Tensor
+                  ) -> torch.Tensor:
+    """(R,) ORIGINAL row id of the first valid row of each run (cap if
+    none): the least of ``ctx.perm`` over the run's valid rows."""
+    cap = valid_sorted.shape[0]
+    return seg_reduce_min(ctx, torch.where(valid_sorted, ctx.perm, cap))
+
+
+def seg_last_row(ctx: SegmentContext, valid_sorted: torch.Tensor
+                 ) -> torch.Tensor:
+    """(R,) ORIGINAL row id of the last valid row of each run (-1 if
+    none)."""
+    return seg_reduce_max(ctx, torch.where(valid_sorted, ctx.perm, -1))

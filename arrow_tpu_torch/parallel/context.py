@@ -21,6 +21,8 @@ partition, then one local sort per shard).
 
 from __future__ import annotations
 
+import copy
+from types import SimpleNamespace
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -32,6 +34,7 @@ from ..core.array import Array
 from ..core.batch import Batch, Table, empty_batch
 from ..core.schema import Schema
 from ..ops.bits import ascending_lanes32, ordered_signed
+from ..ops.aggregates import GroupedCountDistinct, GroupedTDigest
 from ..ops.concat import concat_batches
 from ..ops.hash_aggregate import AggregateSpec, HashAggregate
 from ..ops.join import HashJoin
@@ -40,6 +43,9 @@ from ..ops.sorting import SortKey, SortOptions, sort_indices_batch
 from .shuffle import dictionaries_on, shuffle_batch
 
 __all__ = ["DistContext", "Mesh", "ShardedBatch"]
+
+# the most rows the raw-row group-by's retry lets a tdigest buffer hold
+_MAX_BUFFER_ROWS = 1 << 31
 
 
 class Mesh:
@@ -152,6 +158,24 @@ def _range_key(local: Batch, key: SortKey, null_placement: str):
     return kv, null
 
 
+def _grown(spec: AggregateSpec, agg, rows: int):
+    """``spec`` with the option its aggregator ran out of grown, or None
+    where it cannot grow: a tdigest's ``buffer_rows`` to ``rows`` (what one
+    consume of a received shard appends) or twice its size, a
+    count_distinct's ``max_pairs`` doubled up to ``rows`` (a shard holds
+    no more pairs than rows)."""
+    opts = copy.copy(spec.options) if spec.options is not None \
+        else SimpleNamespace()
+    if isinstance(agg, GroupedCountDistinct) and agg.max_pairs < rows:
+        opts.max_pairs = min(agg.max_pairs * 2, rows)
+    elif isinstance(agg, GroupedTDigest) and \
+            max(agg.rows * 2, rows) <= _MAX_BUFFER_ROWS:
+        opts.buffer_rows = max(agg.rows * 2, rows)
+    else:
+        return None
+    return AggregateSpec(spec.function, spec.target, opts, spec.name)
+
+
 class DistContext:
     """Single-controller loop over a 1-D data mesh."""
 
@@ -255,10 +279,14 @@ class DistContext:
                           pre_filter: Optional[Expression] = None,
                           bucket_factor: int = 2) -> Table:
         """The fallback of ``group_by`` for aggregator states that are not
-        row-shaped: every shard filters its block, the raw rows shuffle by
-        key hash (buckets of ``bucket_factor`` x the local capacity), and
-        each shard aggregates what it received. A bucket or group table
-        that overflows retries at doubled capacities."""
+        row-shaped (``count_distinct``, ``tdigest``, ``approximate_median``):
+        every shard filters its block, the raw rows shuffle by key hash
+        (buckets of ``bucket_factor`` x the local capacity), and each shard
+        aggregates what it received. A bucket or group table that overflows
+        retries at doubled capacities; an aggregator's full buffer retries
+        with its option grown (``_grown``: ``buffer_rows`` to the rows a
+        shard receives, ``max_pairs`` doubled), or raises naming the option
+        (the JAX package returns the wrong numbers: ROADMAP C25, C26)."""
         b = self._sharded(b)
         aggs = [a if isinstance(a, AggregateSpec) else AggregateSpec(*a)
                 for a in aggregates]
@@ -274,26 +302,45 @@ class DistContext:
         shuffled = shuffle_batch(locals_, keys, self.devices,
                                  bucket_capacity=bucket_factor * local_cap)
         del locals_
-        outs, errs = [], []
+        received_rows = shuffled[0][0].capacity
+        outs, flags, carriers = [], [], []
         for s, dev in enumerate(self.devices):
             received, err = shuffled[s]
             shuffled[s] = None
             state = ha.consume(ha.init_state(dev), received)
             outs.append(ha.finalize(state))
-            errs.append(err | state[0].error)
-
-        errs_host = self.fetch(errs)
-        if errs_host.any():
-            # the sharded input is still at hand, so an overflow (shuffle
-            # bucket or group table) retries at doubled capacities
-            nb = bucket_factor * 2 if bucket_factor * 2 <= 4 * self.n \
-                else bucket_factor
-            ng = max_groups_per_shard * 2 \
-                if max_groups_per_shard * 2 <= (1 << 24) \
-                else max_groups_per_shard
-            if (nb, ng) != (bucket_factor, max_groups_per_shard):
+            carriers = ha.error_flags(state)
+            # per shard: the exchange / group table error, then each
+            # carrier's flag
+            flags.append(torch.stack([(err | state[0].error).reshape(())
+                                      .to(torch.int32)] +
+                                     [f for _, f in carriers]))
+            del state
+        flags_host = self.fetch(flags)
+        errs_host, agg_host = flags_host[:, :1], flags_host[:, 1:].max(0)
+        if errs_host.any() or agg_host.any():
+            # the sharded input is still at hand: retry at doubled
+            # capacities and with the full aggregators' options grown
+            nb, ng = bucket_factor, max_groups_per_shard
+            if errs_host.any():
+                nb = nb * 2 if nb * 2 <= 4 * self.n else nb
+                ng = ng * 2 if ng * 2 <= (1 << 24) else ng
+            new_aggs = list(aggs)
+            for (carrier, _), flag in zip(carriers, agg_host):
+                if not flag:
+                    continue
+                i = next((i for i, agg in enumerate(ha._aggregators)
+                          if agg is carrier), None)
+                spec = None if i is None else _grown(
+                    aggs[i], carrier, received_rows * nb // bucket_factor)
+                if spec is None:
+                    raise RuntimeError(f"distributed group_by: "
+                                       f"{carrier.error_message(int(flag))}")
+                new_aggs[i] = spec
+            if (nb, ng) != (bucket_factor, max_groups_per_shard) or \
+                    agg_host.any():
                 return self.group_by_raw_rows(
-                    b, keys, aggs, max_groups_per_shard=ng,
+                    b, keys, new_aggs, max_groups_per_shard=ng,
                     pre_filter=pre_filter, bucket_factor=nb)
         return self._collect_shards(
             ha.out_schema, outs, errs_host, "group_by",

@@ -14,8 +14,11 @@ of the JAX package's ``parallel/dist_agg.py``.
      ``HashAggregate.merge_rows``.
 
 Requires every aggregator's state to be one row per group
-(``GroupedAggregator.dist_rows``); ``DistContext.group_by`` falls back to
-the raw-row shuffle for the rest. A dictionary key's state rows carry its
+(``GroupedAggregator.dist_rows``): counts, sums, products, means, min /
+max, any / all, variance / stddev / skew / kurtosis as (mean, M2[, M3,
+M4], count), first / last / one as (row, value) and the decimal sum's
+limbs; a state's 0-d leaves (first / last's row base) stay on their shard.
+``DistContext.group_by`` falls back to the raw-row shuffle for the rest. A dictionary key's state rows carry its
 codes: ``consume`` captures the key's dictionary (the last batch's, as the
 JAX package does), and the exchange hashes, and the receiving shard
 merges, the codes with it attached, so by the content they name. A raw
@@ -152,7 +155,7 @@ class DistGroupBy:
         for u in uniques:
             leaves += [u.values, u.validity_or_true()]
         for agg_st in agg_states:
-            leaves += list(agg_st) if isinstance(agg_st, tuple) else [agg_st]
+            leaves += [x for x in _leaves(agg_st) if x.ndim]
         return leaves, dest, grouper_state.error
 
     def _merge_received(self, s: int, recv, total):
@@ -162,13 +165,15 @@ class DistGroupBy:
         it = iter(recv)
         o_keys = self._key_arrays(s, [(next(it), next(it))
                                       for _ in ha.key_fields])
+        fresh = self._init_full_state(self.ctx.devices[s])
         o_agg_states = []
-        for agg_st in self._agg_template:
-            o_agg_states.append(
-                tuple(next(it) for _ in agg_st) if isinstance(agg_st, tuple)
-                else next(it))
-        merged = ha.merge_rows(self._init_full_state(self.ctx.devices[s]),
-                               o_keys, tuple(o_agg_states), total)
+        for agg_st, init_st in zip(self._agg_template, fresh[1]):
+            # row leaves from the exchange, 0-d ones from a fresh state
+            got = [next(it) if x.ndim else y
+                   for x, y in zip(_leaves(agg_st), _leaves(init_st))]
+            o_agg_states.append(tuple(got) if isinstance(agg_st, tuple)
+                                else got[0])
+        merged = ha.merge_rows(fresh, o_keys, tuple(o_agg_states), total)
         return ha.finalize(merged), merged[0].error
 
     def finalize_table(self, state: list) -> Table:
@@ -206,6 +211,10 @@ class DistGroupBy:
 # shard), in tree_leaves order: the grouper's table_lanes (u32), table_gid,
 # num_groups, error; every aggregator state leaf; per key column the unique
 # buffer's values, validity and length.
+
+def _leaves(st) -> tuple:
+    return st if isinstance(st, tuple) else (st,)
+
 
 def state_from_numpy(dgb: DistGroupBy, leaves, dictionaries=None) -> List:
     """The port's per-shard states from the JAX ``DistGroupBy`` state whose
@@ -247,11 +256,7 @@ def state_to_numpy(dgb: DistGroupBy, state: List) -> tuple:
         leaves = [host(gs.table_lanes).astype(np.uint32), host(gs.table_gid),
                   host(gs.num_groups), host(gs.error)]
         for agg, agg_st in zip(dgb.ha._aggregators, agg_states):
-            sts = [host(x) for x in
-                   (agg_st if isinstance(agg_st, tuple) else (agg_st,))]
-            if isinstance(agg_st, tuple):
-                sts[0] = agg.acc_to_numpy(sts[0])
-            leaves += sts
+            leaves += [np.atleast_1d(x) for x in agg.state_to_numpy(agg_st)]
         for u in uniques:
             leaves += [host(u.values), host(u.validity_or_true()),
                        np.array([u.capacity], np.int32)]

@@ -2,7 +2,7 @@
 
     python -m arrow_tpu_torch.profile_step
         [--path generic|dense|dist|distdict|exchange|sort|join|q3|q3dist|
-                sortdict|q3s|q3sdist|strings] [--rows N]
+                sortdict|q3s|q3sdist|strings|anyall|q6|q6dist] [--rows N]
         [--keys N] [--max-groups N] [--shards N] [--steps N] [--seed N]
         [--build-rows N] [--build-keys N] [--key-dist uniform|zipf]
         [--join-type T] [--wide] [--batch-rows N]
@@ -40,7 +40,14 @@ selection, the content lanes and their fingerprints, the unique slots).
 (``q3dist`` on ``q3s``'s tables), ``--path distdict`` ``entry_dist_dict``
 (``dist`` keyed by a dictionary of ``--keys`` TPC-H ``C_NAME`` values,
 default 1,000,000: the exchange hashes, and the merge keys, the codes by
-their content lanes).
+their content lanes). ``--path anyall`` is ``entry_any_all`` (``dense``
+with any / all of a bool column on the dense kernel's ``any8`` / ``all8``
+kinds), ``--path q6`` ``entry_groupby_q6`` (db-benchmark's groupby q6,
+median and sd of ``v3`` by ``id4``, ``id5``, through ``Table.group_by``:
+layers add the median's and the sd's consume and the median's finalize
+sort), ``--path q6dist`` ``entry_dist_groupby_q6`` (q6 over ``--shards``
+logical shards, default 4: the raw-row exchange, then each shard's
+consume and finalize).
 
 Wraps the functions that make up the step's layers so that each call is
 bracketed by two CUDA events on the current stream (no synchronisation
@@ -171,7 +178,8 @@ def main() -> int:
     ap.add_argument("--path", choices=("generic", "dense", "dist",
                                        "distdict", "exchange", "sort",
                                        "join", "q3", "q3dist", "sortdict",
-                                       "q3s", "q3sdist", "strings"),
+                                       "q3s", "q3sdist", "strings",
+                                       "anyall", "q6", "q6dist"),
                     default="generic")
     ap.add_argument("--batch-rows", type=int, default=1 << 22)
     ap.add_argument("--build-rows", type=int, default=1 << 20)
@@ -252,6 +260,11 @@ def main() -> int:
                 aggregates._GroupedExtremum):
         layer(cls, "consume_grouped", f"agg_{cls.name or 'min_max'}")
     layer(HA, "finalize", "finalize")
+    # the other aggregators (q6: the median's buffer and its finalize sort)
+    layer(aggregates.GroupedTDigest, "consume_grouped", "agg_tdigest")
+    layer(aggregates.GroupedTDigest, "finalize", "tdigest_finalize")
+    layer(aggregates._GroupedMoments, "consume_grouped", "agg_moments")
+    layer(aggregates._GroupedBoolean, "merge", "agg_merge_any_all")
     # string and dictionary columns
     layer(selection, "_filter_pool", "pool_compaction")
     layer(selection, "_byte_selection", "byte_selection")
@@ -404,6 +417,16 @@ def main() -> int:
 
         def step(batches):
             return jstep(*batches)
+    elif args.path == "anyall":
+        step, (b,) = entry_mod.entry_any_all(
+            None, args.rows, args.keys or 1000, args.seed,
+            args.max_groups or entry_mod.MAX_GROUPS)
+    elif args.path == "q6":
+        step, (b,) = entry_mod.entry_groupby_q6(None, args.rows, args.seed,
+                                                args.keys or 100)
+    elif args.path == "q6dist":
+        step, (b,) = entry_mod.entry_dist_groupby_q6(
+            None, args.shards or 4, args.rows, args.seed, args.keys or 100)
     else:
         step, (b,) = entry_mod.entry(
             None, args.rows, args.keys or 1000, args.seed,

@@ -85,7 +85,28 @@ rows (BASELINE config #2) and checks each result against a numpy oracle:
           then the name column sorted (``sort_indices_batch``) and
           compared row by row with itself in that order
           (``compare_varlen``, Array vs Array), each against the
-          customer keys' order, with its peak under 40 GB.
+          customer keys' order, with its peak under 40 GB;
+  path 1c ``arrow_tpu_torch.entry.entry_any_all``: path 1's filter ->
+          dense group-by with count_all, sum(v), min(w) and any / all of a
+          bool column ``f`` (5 % null; False for keys = 1 mod 4, True for
+          keys = 0 mod 4): one B1 and one B3 launch, the bool aggregates
+          as B3's ``any8`` / ``all8`` kinds; against a numpy oracle, any /
+          all and their nulls exactly; B3's call held against its plain
+          version, timed, and its two bool kinds alone beside a PyTorch
+          ``scatter_reduce_`` "amax" over an int32 copy;
+  path 9  ``arrow_tpu_torch.entry.entry_groupby_q6``: db-benchmark's groupby
+          q6 ("median v3 sd v3 by id4 id5") on its table G1_1e8_1e2_0_0
+          (nine columns, 10^8 rows, made from the seed) through
+          ``Table.group_by``: the exact median and the sample sd of 10,000
+          groups against numpy's (1e-12 and 1e-9 relative), with the
+          device ms of its layers (route probe, sort, the sd's and the
+          median's consume, the median's finalize);
+  path 3q ``arrow_tpu_torch.entry.entry_dist_groupby_q6``: q6 over 4 logical
+          shards through ``DistContext.group_by`` (the median's state is not
+          row-shaped: the raw-row exchange, one B4 and one
+          ``partition_positions`` launch), against path 9's oracle with the
+          groups as a set; both exchange kernels at its call held against
+          their plain versions and timed.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -207,6 +228,11 @@ NUM_VALUES_DICT = 1000
 # path 8: C_NAME strings of 1M customer keys, a 2^21-slot state
 NUM_KEYS_STRINGS = 1_000_000
 MAX_GROUPS_STRINGS = 1 << 21
+# paths 9 and 3q: db-benchmark groupby G1_1e8_1e2_0_0, question q6
+Q6_K = 100
+Q6_MEDIAN_RTOL = 1e-12  # the interpolation's last ulp
+Q6_SD_RTOL = 1e-9
+N_SHARDS_Q6 = 4
 
 
 def check(cond, msg: str) -> None:
@@ -967,6 +993,126 @@ def check_q3(table, oracle, label: str = "path 6") -> int:
     return oracle["n_groups"]
 
 
+def synthetic_bool_dg_inputs(torch, n: int, G: int, gen, dev, gid=None):
+    """The bool kinds over one bool column, with its validity and without,
+    beside first_row and a count: slots 0 and 1 all True and all False,
+    the rest random. Returns (gid, inputs, kinds, valid)."""
+    if gid is None:
+        gid = torch.randint(-1, G + 8, (n,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    f = torch.rand(n, generator=gen, device=dev) < 0.5
+    f = torch.where(gid == 0, True, torch.where(gid == 1, False, f))
+    ok = torch.rand(n, generator=gen, device=dev) < 0.9
+    kinds = ("first_row", "any8", "all8", "count", "any8", "all8")
+    inputs = (f, f, ok.to(torch.int32), f, f)
+    valid = (None, ok, ok, None, None, None)
+    return gid, inputs, kinds, valid
+
+
+def numpy_any_all_oracle(cols, num_keys: int = NUM_KEYS):
+    """Path 1c's group-by computed independently with numpy: per key of
+    the rows with w > 0, the row count, the float64 sum and the sum of |v|
+    of v, the min of w, and of f over its valid rows the count, the count
+    of True and of False (any = some True, all = no False, both null where
+    the count is 0)."""
+    sel = cols["w"] > 0
+    k, v, w = cols["k"][sel], cols["v"][sel], cols["w"][sel]
+    f, fv = cols["f"][sel], cols["f_valid"][sel]
+    # one stable sort of the keys as int16 (numpy's radix sort): the run
+    # starts give the present keys, their first rows and the mins
+    order = np.argsort(k.astype(np.int16) if num_keys <= 1 << 15 else k,
+                       kind="stable")
+    ks = k[order]
+    starts = np.flatnonzero(np.r_[True, ks[1:] != ks[:-1]])
+    keys = ks[starts][np.argsort(order[starts], kind="stable")]
+    w_min = np.zeros(num_keys, np.int64)
+    w_min[ks[starts]] = np.minimum.reduceat(w[order], starts)
+
+    def count(x):
+        return np.bincount(k, weights=x, minlength=num_keys).astype(np.int64)
+    return dict(keys=keys, count=np.bincount(k, minlength=num_keys),
+                v_sum=np.bincount(k, weights=v.astype(np.float64),
+                                  minlength=num_keys),
+                v_abs=np.bincount(k, weights=np.abs(v).astype(np.float64),
+                                  minlength=num_keys),
+                w_min=w_min, f_valid=count(fv), f_true=count(f & fv),
+                f_false=count(~f & fv))
+
+
+def check_any_all(out, oracle) -> int:
+    """Path 1c's result against its oracle: keys in first-appearance
+    order, count_all, w_min, f_any, f_all and their nulls exact, v_sum
+    within the stated tolerance."""
+    n = len(out)
+
+    def col(name):
+        return out.column(name).values[:n].cpu().numpy()
+    keys = col("k")
+    check(np.array_equal(keys, oracle["keys"]),
+          "path 1c: keys or their first-appearance order")
+    check(np.array_equal(col("count_all"), oracle["count"][keys]),
+          "path 1c: count_all")
+    check(np.array_equal(col("w_min"), oracle["w_min"][keys]),
+          "path 1c: w_min")
+    d = np.abs(col("v_sum").astype(np.float64) - oracle["v_sum"][keys])
+    check(bool((d <= SUM_RTOL * oracle["v_abs"][keys] + SUM_ATOL_SLICE)
+               .all()), f"path 1c: v_sum off by up to {d.max():.3g}")
+    has = oracle["f_valid"][keys] > 0
+    for name, want in (("f_any", oracle["f_true"][keys] > 0),
+                       ("f_all", oracle["f_false"][keys] == 0)):
+        a = out.column(name)
+        valid = a.validity[:n].cpu().numpy()
+        check(np.array_equal(valid, has), f"path 1c: {name} nulls")
+        check(np.array_equal(col(name)[has], want[has]), f"path 1c: {name}")
+    check(bool(col("f_any")[np.isin(keys, np.arange(0, NUM_KEYS, 4))].all())
+          and not bool(col("f_all")[np.isin(keys, np.arange(
+              1, NUM_KEYS, 4))].any()) and not col("f_all").all()
+          and col("f_any").any(), "path 1c: any / all do not vary by group")
+    return n
+
+
+def numpy_q6_oracle(cols, k: int = Q6_K):
+    """db-benchmark q6 computed independently with numpy: one stable
+    argsort by the group code (id4, id5), then ``np.median`` and
+    ``np.std(ddof=1)`` over each group's slice."""
+    code = (cols["id4"].astype(np.int64) - 1) * k + (cols["id5"] - 1)
+    # k^2 codes fit int16 at K = 100: numpy's stable sort is a radix sort
+    order = np.argsort(code.astype(np.int16) if k * k <= 1 << 15 else code,
+                       kind="stable")
+    cs = code[order]
+    v = cols["v3"][order]
+    starts = np.flatnonzero(np.r_[True, cs[1:] != cs[:-1]])
+    ends = np.r_[starts[1:], len(cs)]
+    med = np.array([np.median(v[s:e]) for s, e in zip(starts, ends)])
+    sd = np.array([np.std(v[s:e], ddof=1) for s, e in zip(starts, ends)])
+    return dict(code=cs[starts], median=med, sd=sd)
+
+
+def check_q6(table, oracle, label: str, k: int = Q6_K) -> int:
+    """A q6 result Table (one batch, or one per shard) against the numpy
+    oracle, groups as a set: the median within Q6_MEDIAN_RTOL, the sd
+    within Q6_SD_RTOL, relative; no nulls."""
+    parts = {name: [] for name in ("id4", "id5", "median_v3", "sd_v3")}
+    for b in table.batches:
+        n = len(b)
+        for name in parts:
+            a = b.column(name)
+            check(a.validity is None or bool(a.validity[:n].all()),
+                  f"{label}: nulls in {name}")
+            parts[name].append(a.values[:n].cpu().numpy())
+    got = {name: np.concatenate(v) for name, v in parts.items()}
+    code = (got["id4"].astype(np.int64) - 1) * k + (got["id5"] - 1)
+    order = np.argsort(code)
+    check(np.array_equal(code[order], oracle["code"]),
+          f"{label}: the groups differ from the oracle's")
+    for name, want, rtol in (("median_v3", oracle["median"], Q6_MEDIAN_RTOL),
+                             ("sd_v3", oracle["sd"], Q6_SD_RTOL)):
+        rel = np.abs(got[name][order] - want) / np.abs(want)
+        check(bool((rel <= rtol).all()),
+              f"{label}: {name} off by up to {rel.max():.3g} relative")
+    return len(code)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1146,7 +1292,29 @@ def main() -> int:
                 torch, n, G, gen, dev, g)
             dg_compare(torch, ck, g, inputs, kinds, G,
                        f"native kinds, {name}, G={G}", valid)
-    del gid, inputs, valid, one, hot, g, key
+        # the bool kinds: with and without validity, a view off the 4-byte
+        # grid, every row in one slot, bytes other than 0 / 1
+        gid, inputs, kinds, valid = synthetic_bool_dg_inputs(
+            torch, n, G, gen, dev)
+        dg_compare(torch, ck, gid, inputs, kinds, G, f"bool kinds G={G}",
+                   valid)
+        dg_compare(torch, ck, gid[1:], tuple(x[1:] for x in inputs), kinds,
+                   G, f"bool kinds, views off the 4-byte grid, G={G}",
+                   tuple(x if x is None else x[1:] for x in valid))
+        dg_compare(torch, ck, one, *synthetic_bool_dg_inputs(
+            torch, n, G, gen, dev, one)[1:3], G,
+            f"bool kinds, every row in one slot, G={G}")
+        raw = torch.randint(0, 4, (n,), generator=gen, device=dev,
+                            dtype=torch.uint8) * 85     # 0, 85, 170, 255
+        got = ck.dense_group_reduce(gid, (raw.view(torch.bool),) * 2,
+                                    ("any8", "all8"), G)
+        want = ck.dense_group_reduce_plain(gid, (raw != 0,) * 2,
+                                           ("any8", "all8"), G)
+        check(all(torch.equal(x, y) for x, y in zip(
+            [got[0]] + got[1], [want[0]] + want[1])),
+            f"dense_group_reduce any8 / all8: a nonzero byte other than 1 "
+            f"is not True, G={G}")
+    del gid, inputs, valid, one, hot, g, key, raw, got, want
 
     # ---- partition_histogram against its plain version -----------------
     for n in (0, 1, 1000, 1 << 20, N_ROWS):
@@ -2498,6 +2666,172 @@ def main() -> int:
     forget()
     torch.cuda.empty_cache()
 
+    # ---- path 1c: any / all on the dense kernel --------------------------
+    from arrow_tpu_torch.entry import example_columns_any_all, \
+        example_columns_q6
+    t0 = time.time()
+    cols = example_columns_any_all(N_ROWS, NUM_KEYS, args.seed)
+    step, (b,) = entry_mod.entry_any_all(dev, N_ROWS, NUM_KEYS, args.seed)
+    torch.cuda.synchronize()
+    print(f"path 1c data: {N_ROWS} rows made and staged in "
+          f"{time.time() - t0:.1f} s; input {N_ROWS * 23} B (k, v, w, f "
+          "and its validity)")
+    out, secs, launches1c, peak = timed(lambda: step(b), "path 1c", (
+        "filter_compact_chunks", "dense_group_reduce"))
+    check(launches1c["filter_compact_chunks"] == 1 and
+          launches1c["dense_group_reduce"] == 1,
+          f"path 1c: launches {launches1c}, not B1 once and B3 once")
+    t0 = time.time()
+    n_groups = check_any_all(out, numpy_any_all_oracle(cols))
+    print(f"path 1c (any / all on the dense kernel): {N_ROWS} rows in "
+          f"{secs * 1e3:.3f} ms = {N_ROWS / secs:.6g} rows/s; {n_groups} "
+          f"groups match the numpy oracle, any / all and their nulls "
+          f"exactly (oracle {time.time() - t0:.1f} s); peak device memory "
+          f"{peak} B; launches {launches1c}")
+    del out, cols
+    forget()
+    recorded(hash_aggregate, "dense_group_reduce", lambda: step(b))
+    del b, step
+    gid, inputs, kinds, G1c, valid = seen["dense_group_reduce"]
+    check(isinstance(gid, ck.DenseKey) and G1c == 1024 and
+          {"any8", "all8"} <= set(kinds),
+          f"path 1c gave dense_group_reduce kinds {kinds} at G={G1c}")
+    ia = kinds.index("any8")
+    f_col = inputs[sum(ck._DG_ARITY[kd][0] for kd in kinds[:ia])]
+    f_ok = valid[ia]
+    check(f_col.dtype == torch.bool and f_ok is not None,
+          "path 1c: the bool kinds do not read the bool column and its "
+          "validity as they lie")
+
+    def measure_b3(kinds_, inputs_, valid_, label):
+        out_bytes = 4 * G1c + sum(ck._dg_acc_bytes(k, G1c) for k in kinds_)
+        m = {"max_abs_err": dg_compare(torch, ck, gid, inputs_, kinds_, G1c,
+                                       label, valid_),
+             "ms": cuda_ms(torch, lambda: ck.dense_group_reduce(
+                 gid, inputs_, kinds_, G1c, valid_), 10),
+             "plain_ms": cuda_ms(torch, lambda: ck.dense_group_reduce_plain(
+                 gid, inputs_, kinds_, G1c, valid_), 3),
+             "bound_ms": dg_bounds(torch, ck, gid, inputs_, G1c, out_bytes,
+                                   valid_)[0]}
+        print(f"dense_group_reduce {label}: {m['ms']:.3f} ms, bound "
+              f"{m['bound_ms']:.3f} ms, plain {m['plain_ms']:.3f} ms")
+        return m
+
+    dg1c = measure_b3(kinds, inputs, valid, "path 1c shape")
+    # the two bool kinds alone, and the PyTorch call for one of them: a
+    # scatter_reduce_ "amax" of an int32 copy of the column (nulls as 0)
+    # into the slots, the copy timed beside it
+    dg1c_aa = measure_b3(("any8", "all8"), (f_col, f_col), (f_ok, f_ok),
+                         "path 1c shape, any8 + all8 alone")
+    slot = ck.dense_key_gid(gid, G1c).long().clamp_(-1, G1c)
+    slot = torch.where(slot < 0, G1c, slot)
+    x32 = torch.where(f_ok, f_col, False).to(torch.int32)
+    dg1c_aa["library_copy_ms"] = cuda_ms(
+        torch, lambda: torch.where(f_ok, f_col, False).to(torch.int32), 10)
+    dg1c_aa["library_ms"] = cuda_ms(torch, lambda: torch.zeros(
+        G1c + 1, dtype=torch.int32, device=dev).scatter_reduce_(
+        0, slot, x32, "amax"), 10)
+    rows, outs = ck.dense_group_reduce(gid, (f_col,), ("any8",), G1c,
+                                       (f_ok,))
+    lib = torch.zeros(G1c + 1, dtype=torch.int32, device=dev) \
+        .scatter_reduce_(0, slot, x32, "amax")[:G1c]
+    check(torch.equal(outs[0], lib), "path 1c: any8 differs from the "
+          "scatter_reduce_ amax of the int32 copy")
+    print(f"path 1c any8 + all8 alone: {dg1c_aa['ms']:.3f} ms; torch "
+          f"scatter_reduce_ amax of an int32 copy (any alone) "
+          f"{dg1c_aa['library_ms']:.3f} ms after a "
+          f"{dg1c_aa['library_copy_ms']:.3f} ms copy")
+    dg1c["library_ms"] = None
+    del gid, inputs, valid, f_col, f_ok, slot, x32, rows, outs, lib
+    forget()
+    torch.cuda.empty_cache()
+
+    # ---- path 9: db-benchmark groupby q6 on one card ---------------------
+    from arrow_tpu_torch.acero import nodes as nodes_mod
+    from arrow_tpu_torch.ops import aggregates, distinct
+    t0 = time.time()
+    cols = example_columns_q6(N_ROWS, args.seed, Q6_K)
+    step, (t9,) = entry_mod.entry_groupby_q6(dev, N_ROWS, args.seed, Q6_K)
+    torch.cuda.synchronize()
+    staged = sum(nodes_mod.batch_device_bytes(x) for x in t9.batches)
+    print(f"path 9 data: db-benchmark G1_1e8_1e2_0_0, {N_ROWS} rows x 9 "
+          f"columns ({staged} B on the card) made and staged in "
+          f"{time.time() - t0:.1f} s")
+    # the sort route's buffers: key lanes and their packed word (8 B each
+    # a row), the sort's indices, v3 in sorted order (8 B), the median's
+    # buffer (12 B a row)
+    print(f"path 9 reckoned: input {staged} B, grouping {N_ROWS * 8 * 4} B, "
+          f"median buffer {N_ROWS * 12} B")
+    out9, secs, launches9, peak = timed(lambda: step(t9), "path 9")
+    t0 = time.time()
+    oracle9 = numpy_q6_oracle(cols)
+    n_groups = check_q6(out9, oracle9, "path 9")
+    print(f"path 9 (db-benchmark groupby q6, median and sd of v3 by id4, "
+          f"id5, through Table.group_by): {N_ROWS} rows in "
+          f"{secs * 1e3:.3f} ms = {N_ROWS / secs:.6g} rows/s; {n_groups} "
+          f"groups match numpy's median and std(ddof=1) (oracle "
+          f"{time.time() - t0:.1f} s); peak device memory {peak} B; "
+          f"launches {launches9}")
+    del out9, cols
+    layers9 = {}
+    for mod, name, label in (
+            (hash_aggregate.HashAggregate, "probe_scalars", "route_probe"),
+            (distinct, "_lexsort_perm", "sort"),
+            (aggregates._GroupedMoments, "consume_grouped", "sd_consume"),
+            (aggregates.GroupedTDigest, "consume_grouped", "median_consume"),
+            (aggregates.GroupedTDigest, "finalize", "median_finalize")):
+        layers9[label] = layer_ms(torch, mod, name, lambda: step(t9))
+    paths["path 9"]["layers_ms"] = layers9
+    print("path 9 layers (device ms): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in layers9.items()))
+    del t9, step
+    torch.cuda.empty_cache()
+
+    # ---- path 3q: q6 over 4 logical shards (the raw-row exchange) --------
+    t0 = time.time()
+    step, (b,) = entry_mod.entry_dist_groupby_q6(dev, N_SHARDS_Q6, N_ROWS,
+                                                 args.seed, Q6_K)
+    torch.cuda.synchronize()
+    recv = N_SHARDS_Q6 * 2 * (N_ROWS // N_SHARDS_Q6)
+    print(f"path 3q data: {N_ROWS} rows of id4, id5, v3 staged in "
+          f"{time.time() - t0:.1f} s; reckoned: exchange send and receive "
+          f"buffers {N_SHARDS_Q6} shards x 2 x {recv} rows x 19 B = "
+          f"{N_SHARDS_Q6 * 2 * recv * 19} B, median buffers "
+          f"{N_SHARDS_Q6} x {recv} rows x 12 B = "
+          f"{N_SHARDS_Q6 * recv * 12} B, one shard's grouping sort "
+          f"{recv * 8 * 4} B")
+    out3q, secs, launches3q, peak = timed(lambda: step(b), "path 3q", (
+        "partition_histogram", "partition_positions"))
+    for kname in ("partition_histogram", "partition_positions"):
+        check(launches3q[kname] == 1, f"path 3q launched {kname} "
+              f"{launches3q[kname]} times, not once for its one exchange")
+    check(peak < 72e9, f"path 3q: peak device memory {peak} B")
+    t0 = time.time()
+    n_groups = check_q6(out3q, oracle9, "path 3q")
+    print(f"path 3q (q6 over {N_SHARDS_Q6} logical shards, "
+          f"DistContext.group_by's raw-row exchange): {N_ROWS} rows in "
+          f"{secs * 1e3:.3f} ms = {N_ROWS / secs:.6g} rows/s; {n_groups} "
+          f"groups match path 9's oracle as a set (check "
+          f"{time.time() - t0:.1f} s); peak device memory {peak} B; "
+          f"launches {launches3q}")
+    del out3q, oracle9
+    forget()
+    out3q, sorts = bucket_sorts(torch, shuffle, lambda: recorded(
+        shuffle, "partition_histogram_segments", lambda: recorded(
+            shuffle, "partition_positions", lambda: step(b))))
+    check(sorts == 0, f"path 3q: {sorts} torch.sort calls in _bucket_rows")
+    del out3q, b, step
+    torch.cuda.empty_cache()
+    (dests, P), (_, _, B, _) = (seen["partition_histogram_segments"],
+                                seen["partition_positions"])
+    check(len(dests) == N_SHARDS_Q6 and P == N_SHARDS_Q6,
+          f"path 3q: the exchange counts {len(dests)} segments over {P}")
+    ph3q = measure_hist(torch, ck, dests, P, "path 3q shape")
+    pp3q = measure_positions(torch, ck, dests, P, B, "path 3q shape")
+    del dests
+    forget()
+    torch.cuda.empty_cache()
+
     def row(name, source, replaces, n_launches, m):
         return {"name": name, "route": "cuda",
                 "source": f"arrow_tpu_torch/csrc/{source}",
@@ -2568,6 +2902,10 @@ def main() -> int:
             (kernels[4], "path_7d", ph7d), (kernels[6], "path_7d", pp7d)):
         also(kernel, suffix, m)
     also(kernels[5], "path_7b_orders_build", pk7b)
+    also(kernels[1], "path_1c", dg1c, launches1c["dense_group_reduce"])
+    also(kernels[1], "path_1c_any_all_alone", dg1c_aa)
+    also(kernels[4], "path_3q", ph3q, launches3q["partition_histogram"])
+    also(kernels[6], "path_3q", pp3q, launches3q["partition_positions"])
     # the launches of the join paths', path 1b's and path 6's counted runs
     for label, counts in list(launches5.items()) + [
             ("path 1b", launches1b), ("path 6", launches6),
@@ -2575,7 +2913,8 @@ def main() -> int:
             ("path 6b", launches6b), ("path 7a", launches7a),
             ("path 7b", launches7b), ("path 7c", launches7c),
             ("path 7d", launches7d), ("path 7s", launches7s),
-            ("path 7e", launches7e), ("path 3s", launches3s)]:
+            ("path 7e", launches7e), ("path 3s", launches3s),
+            ("path 9", launches9)]:
         suffix = suffix_of(label)
         for kernel in kernels:
             if counts[kernel["name"]] and not (
