@@ -88,7 +88,8 @@ def _apply_intersection_validity(out: Array, args: Sequence[Datum]) -> Array:
 
 # the ported kernel modules, imported for their registrations
 _KERNEL_MODULES = ["scalar_arithmetic", "scalar_compare", "selection",
-                   "sorting", "aggregates", "vector_hash", "aggregates_order"]
+                   "sorting", "aggregates", "vector_hash", "aggregates_order",
+                   "strings", "strings_regex"]
 _kernels_loaded = False
 
 

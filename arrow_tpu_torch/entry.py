@@ -93,6 +93,25 @@ The other aggregators:
     ``DistContext.group_by`` (the raw-row shuffle: the median's state is
     not row-shaped).
 
+The string family:
+
+  * ``entry_q13(device, scale_factor, seed, max_groups, max_batch_rows,
+    source)``: TPC-H Q13 (``q13_declaration``) over the port's TPC-H
+    tables (``utils/tpch.py``), the orders filtered by the regex
+    ``special.*requests`` at the host hop; its step returns the Table
+    (c_count, custdist), ``q13_pyarrow`` its oracle.
+  * ``entry_q22(device, scale_factor, seed, max_batch_rows, source)``:
+    TPC-H Q22 (``q22_declarations``: a scalar average read once, then a
+    left anti join and a group-by on the 2-byte country code made by
+    ``utf8_slice_codeunits`` on the device); ``q22_pyarrow`` its oracle.
+  * ``entry_host_boundary(device, n_rows, seed, staging)``: bench.py's
+    host_boundary step (``match_substring_regex`` then ``filter_batch``)
+    with ``s`` a dictionary or a plain string column;
+    ``host_boundary_numpy`` its oracle.
+  * ``STRING_SWEEP``, ``sweep_column``, ``sweep_call``: the family's 71
+    functions with their unit tests' options, over a column of strings
+    with non-ASCII rows.
+
 With no ``device`` they place the batch on the card
 (``arrow_tpu_torch.default_device()``). Run one on the CPU at a small
 size::
@@ -139,7 +158,12 @@ __all__ = ["AGGREGATES", "AGGREGATES_ANY_ALL", "AGGREGATES_GENERIC",
            "example_columns_q3", "example_columns_sort",
            "example_columns_sort_dict", "example_columns_sort_dist_dict",
            "example_columns_strings", "join_routed", "numbered_strings",
-           "q3_declaration", "table_from_numpy"]
+           "q3_declaration", "table_from_numpy", "HB_PATTERN", "HB_WORDS",
+           "Q13_PATTERN", "Q22_CODES", "entry_host_boundary", "entry_q13",
+           "entry_q22", "example_columns_host_boundary", "host_boundary_numpy",
+           "q13_declaration", "q13_pyarrow", "q22_declarations",
+           "q22_pyarrow", "tpch_tables", "STRING_SWEEP", "SWEEP_NON_ASCII",
+           "sweep_call", "sweep_column"]
 
 AGGREGATES = (AggregateSpec("sum", "v"), AggregateSpec("min", "v"),
               AggregateSpec("sum", "w"), AggregateSpec("min", "w"),
@@ -595,6 +619,295 @@ def entry_strings(device=None, n_rows: int = 1024, num_keys: int = 100,
     return _make_step(ha, "dma", True), (b,)
 
 
+# ---- the string functions: TPC-H Q13 and Q22, bench.py's host_boundary ------
+
+Q13_PATTERN = "special.*requests"
+Q22_CODES = ("13", "31", "23", "29", "30", "18", "17")
+HB_PATTERN = r"7x[12]?[0-9]$"
+
+
+def tpch_tables(scale_factor: float, seed: int, columns: Dict[str, list],
+                max_batch_rows: int = 1 << 22, device=None, source=None):
+    """TPC-H tables of the port's generator (``utils/tpch.py``, pyarrow
+    imported there), or of ``source`` (pyarrow tables by name), each with
+    only the ``columns`` a query reads, as a scan's projection stages
+    them: (the pyarrow tables, the same staged on ``device`` in batches of
+    ``max_batch_rows`` rows)."""
+    from .utils.tpch import tpch_table
+    source = {name: (source[name] if source else
+                     tpch_table(name, scale_factor, seed)).select(cols)
+              for name, cols in columns.items()}
+    return source, {name: Table.from_pyarrow(
+        t, max_rows_per_batch=max_batch_rows, device=device)
+        for name, t in source.items()}
+
+
+Q13_COLUMNS = {"customer": ["c_custkey"],
+               "orders": ["o_orderkey", "o_custkey", "o_comment"]}
+Q22_COLUMNS = {"customer": ["c_custkey", "c_phone", "c_acctbal"],
+               "orders": ["o_custkey"]}
+
+
+def q13_declaration(customer: Table, orders: Table,
+                    max_groups: int = 1 << 21):
+    """TPC-H Q13 (clause 2.4.13) as a Declaration: orders filtered by
+    ``o_comment NOT LIKE '%special%requests%'`` (the regex
+    ``special.*requests`` through the host hop) -> customer left outer
+    join orders on c_custkey = o_custkey -> count(o_orderkey) by
+    c_custkey as c_count -> count_all by c_count as custdist -> order by
+    custdist desc, c_count desc."""
+    from .acero import (AggregateNodeOptions, Declaration,
+                        FilterNodeOptions, OrderByNodeOptions,
+                        TableSourceNodeOptions)
+    from .compute.expressions import call
+    from .ops.strings import MatchSubstringOptions
+    special = call("match_substring_regex", [field("o_comment")],
+                   MatchSubstringOptions(Q13_PATTERN))
+    return Declaration.from_sequence([
+        Declaration("hashjoin", HashJoinNodeOptions(
+            "left outer", left_keys=["c_custkey"], right_keys=["o_custkey"],
+            left_output=["c_custkey"], right_output=["o_orderkey"],
+            max_build_rows=max(orders.num_rows, 16)),
+            inputs=[
+                Declaration("table_source", TableSourceNodeOptions(customer)),
+                Declaration.from_sequence([
+                    Declaration("table_source",
+                                TableSourceNodeOptions(orders)),
+                    Declaration("filter", FilterNodeOptions(~special))])]),
+        Declaration("aggregate", AggregateNodeOptions(
+            [AggregateSpec("count", "o_orderkey", name="c_count")],
+            keys=["c_custkey"], max_groups=max_groups)),
+        Declaration("aggregate", AggregateNodeOptions(
+            [AggregateSpec("count_all", name="custdist")],
+            keys=["c_count"], max_groups=256)),
+        Declaration("order_by", OrderByNodeOptions(
+            [("custdist", "descending"), ("c_count", "descending")])),
+    ])
+
+
+def _q22_customers(customer: Table, balance):
+    """Q22's customers: cntrycode = the first two codepoints of c_phone
+    (on the device), kept where c_acctbal > ``balance`` and the code is in
+    ``Q22_CODES`` (an or of string equals)."""
+    from .acero import (Declaration, FilterNodeOptions, ProjectNodeOptions,
+                        TableSourceNodeOptions)
+    from .compute.expressions import call, literal
+    from .ops.strings import SliceOptions
+    code = field("cntrycode")
+    in_set = code == Q22_CODES[0]
+    for c in Q22_CODES[1:]:
+        in_set = in_set | (code == c)
+    return Declaration.from_sequence([
+        Declaration("table_source", TableSourceNodeOptions(customer)),
+        Declaration("project", ProjectNodeOptions(
+            [field("c_custkey"),
+             call("utf8_slice_codeunits", [field("c_phone")],
+                  SliceOptions(0, 2)),
+             field("c_acctbal")],
+            ["c_custkey", "cntrycode", "c_acctbal"])),
+        Declaration("filter", FilterNodeOptions(
+            (field("c_acctbal") > literal(balance)) & in_set)),
+    ])
+
+
+def q22_declarations(customer: Table, orders: Table):
+    """TPC-H Q22 (clause 2.4.22) as two Declarations: ``avg(customer)``,
+    the scalar aggregate avg(c_acctbal) over the customers with
+    c_acctbal > 0.00 and a code in the set, and ``rest(avg)``: the
+    customers with c_acctbal > avg and a code in the set, left anti join
+    orders on c_custkey = o_custkey (``not exists``), count_all as
+    numcust and sum(c_acctbal) as totacctbal by cntrycode, ordered by
+    cntrycode."""
+    from .acero import (AggregateNodeOptions, Declaration,
+                        OrderByNodeOptions, TableSourceNodeOptions)
+
+    def avg_declaration():
+        return Declaration.from_sequence([
+            _q22_customers(customer, 0.0),
+            Declaration("aggregate", AggregateNodeOptions(
+                [AggregateSpec("mean", "c_acctbal", name="avg_acctbal")]))])
+
+    def rest_declaration(avg: float):
+        return Declaration.from_sequence([
+            Declaration("hashjoin", HashJoinNodeOptions(
+                "left anti", left_keys=["c_custkey"],
+                right_keys=["o_custkey"],
+                left_output=["cntrycode", "c_acctbal"], right_output=[],
+                max_build_rows=max(orders.num_rows, 16)),
+                inputs=[_q22_customers(customer, avg),
+                        Declaration("table_source",
+                                    TableSourceNodeOptions(orders))]),
+            Declaration("aggregate", AggregateNodeOptions(
+                [AggregateSpec("count_all", name="numcust"),
+                 AggregateSpec("sum", "c_acctbal", name="totacctbal")],
+                keys=["cntrycode"], max_groups=256)),
+            Declaration("order_by", OrderByNodeOptions(
+                [("cntrycode", "ascending")])),
+        ])
+
+    return avg_declaration, rest_declaration
+
+
+def entry_q13(device=None, scale_factor: float = 0.01, seed: int = 42,
+              max_groups: int = 1 << 21, max_batch_rows: int = 1 << 22,
+              source=None):
+    """(step, (customer, orders)): step(customer, orders) -> the Table of
+    ``q13_declaration`` (c_count, custdist) run by
+    ``Declaration.to_table``, over the port's TPC-H tables at
+    ``scale_factor`` (customer's c_custkey; orders' o_orderkey,
+    o_custkey, o_comment), or over ``source`` (pyarrow tables by name,
+    generated once for several queries). ``step.source`` holds the
+    pyarrow tables (``q13_pyarrow``'s input)."""
+    source, t = tpch_tables(scale_factor, seed, Q13_COLUMNS, max_batch_rows,
+                            device, source)
+
+    def step(customer: Table, orders: Table) -> Table:
+        return q13_declaration(customer, orders, max_groups).to_table()
+
+    step.source = source
+    return step, (t["customer"], t["orders"])
+
+
+def entry_q22(device=None, scale_factor: float = 0.01, seed: int = 42,
+              max_batch_rows: int = 1 << 22, source=None):
+    """(step, (customer, orders)): step(customer, orders) -> the Table of
+    Q22 (cntrycode, numcust, totacctbal): ``q22_declarations``' scalar
+    aggregate, ONE host read of its average, then the rest; over the
+    generated tables or ``source``, as ``entry_q13``. ``step.source``
+    holds the pyarrow tables (``q22_pyarrow``'s input)."""
+    source, t = tpch_tables(scale_factor, seed, Q22_COLUMNS, max_batch_rows,
+                            device, source)
+
+    def step(customer: Table, orders: Table) -> Table:
+        avg_decl, rest_decl = q22_declarations(customer, orders)
+        avg = float(_host_column(avg_decl().to_table(), "avg_acctbal")[0])
+        return rest_decl(avg).to_table()
+
+    step.source = source
+    return step, (t["customer"], t["orders"])
+
+
+HB_WORDS = np.array([f"id{i % 977:03d}x{i % 31}" for i in range(4096)])
+
+
+def example_columns_host_boundary(n_rows: int, seed: int):
+    """bench.py's host_boundary columns, made with numpy from ``seed``:
+    (int32 codes of ``s`` into ``HB_WORDS``, the 4,096 words
+    ``id%03dx%d``, uniform; int64 ``v`` uniform in [0, 2^30))."""
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, len(HB_WORDS), n_rows).astype(np.int32),
+            rng.integers(0, 1 << 30, n_rows))
+
+
+def entry_host_boundary(device=None, n_rows: int = 1 << 17, seed: int = 7,
+                        staging: str = "dictionary"):
+    """(step, (batch,)): bench.py's host_boundary step,
+    ``match_substring_regex(s, HB_PATTERN)`` then ``filter_batch``, over
+    ``example_columns_host_boundary``'s ``s`` and ``v``. ``staging``
+    "dictionary" stages ``s`` as a dictionary of its 4,096 words (as
+    ingest encodes it: the regex's dictionary branch), "plain" as a varlen
+    column (the regex's device pushdown)."""
+    from .compute import call_function
+    from .ops.strings import MatchSubstringOptions
+    codes, v = example_columns_host_boundary(n_rows, seed)
+    if staging == "dictionary":
+        s = dictionary_from_numpy(codes, HB_WORDS, device=device)
+    elif staging == "plain":
+        words = np.char.encode(HB_WORDS, "ascii")
+        lens = np.char.str_len(words)
+        mat = words.view(np.uint8).reshape(len(words), -1)
+        row_lens = lens[codes]
+        off = np.zeros((n_rows + 1,), np.int64)
+        np.cumsum(row_lens, out=off[1:])
+        pool = mat[codes][np.arange(mat.shape[1])[None, :]
+                          < row_lens[:, None]]
+        s = varlen_from_numpy(offsets=off, pool=pool, device=device)
+    else:
+        raise ValueError(f"staging {staging!r}: 'dictionary' or 'plain'")
+    b = batch({"s": s, "v": array_from_numpy(v, device=device)})
+    opts = MatchSubstringOptions(HB_PATTERN)
+
+    def step(batch_: Batch) -> Batch:
+        m = call_function("match_substring_regex", [batch_.column("s")],
+                          opts)
+        return filter_batch(batch_, m)
+
+    return step, (b,)
+
+
+# one row in 16 of the string sweep: a non-ASCII string of the unit tests'
+SWEEP_NON_ASCII = ("ß", "İstanbul", "ǆungla hello", "aΣb σc ΤΕΛΟΣ", "ﬃ",
+                   "ǅenan ǄUNGLA", "𐐀𐐨 deseret", "ÉÀ-éà", "ẞß", "数字123",
+                   "٣٤٥", "Ⅷ ⅷ", "héllo", "  éa  ", "　hi ", "añb")
+
+# the 71 functions of the string family with their unit tests' options, as
+# (function, further arguments, options)
+STRING_SWEEP = tuple(
+    [(f, (), {}) for f in (
+        "binary_length", "utf8_length", "ascii_upper", "ascii_lower",
+        "ascii_swapcase", "ascii_capitalize", "ascii_title",
+        "ascii_reverse", "binary_reverse", "utf8_upper", "utf8_lower",
+        "utf8_swapcase", "utf8_capitalize", "utf8_title", "utf8_reverse",
+        "ascii_is_alnum", "ascii_is_alpha", "ascii_is_decimal",
+        "ascii_is_space", "ascii_is_printable", "string_is_ascii",
+        "utf8_is_alnum", "utf8_is_alpha", "utf8_is_decimal",
+        "utf8_is_digit", "utf8_is_numeric", "utf8_is_space",
+        "utf8_is_printable", "ascii_is_lower", "ascii_is_upper",
+        "utf8_is_lower", "utf8_is_upper", "ascii_is_title",
+        "utf8_is_title", "utf8_trim_whitespace", "utf8_ltrim_whitespace",
+        "utf8_rtrim_whitespace", "ascii_trim_whitespace",
+        "ascii_ltrim_whitespace", "ascii_rtrim_whitespace")]
+    + [("match_substring", (), {"pattern": "ab"}),
+       ("find_substring", (), {"pattern": "ab"}),
+       ("count_substring", (), {"pattern": "ab"}),
+       ("starts_with", (), {"pattern": "ab"}),
+       ("ends_with", (), {"pattern": "b"}),
+       ("match_like", (), {"pattern": "%foo%"}),
+       ("binary_slice", (), {"start": 1, "stop": 100, "step": 2}),
+       ("utf8_slice_codeunits", (), {"start": 1, "stop": 100, "step": 2})]
+    + [(f, (), {"characters": " x"}) for f in (
+        "utf8_trim", "utf8_ltrim", "utf8_rtrim", "ascii_trim",
+        "ascii_ltrim", "ascii_rtrim")]
+    + [(f, (), {"width": 7 if f.endswith("center") else 6,
+                 "padding": "*"}) for f in (
+        "utf8_lpad", "utf8_rpad", "utf8_center", "ascii_lpad",
+        "ascii_rpad", "ascii_center")]
+    + [("binary_repeat", (3,), {}),
+       ("binary_join_element_wise", ("-",), {}),
+       ("replace_substring", (), {"pattern": "ab", "replacement": "XYZ"}),
+       ("match_substring_regex", (), {"pattern": "^h.*d$"}),
+       ("count_substring_regex", (), {"pattern": "[lo]"}),
+       ("find_substring_regex", (), {"pattern": "o"}),
+       ("replace_substring_regex", (), {"pattern": "[aeiou]",
+                                        "replacement": "_"}),
+       ("binary_replace_slice", (), {"start": 1, "stop": 3,
+                                     "replacement": "XY"}),
+       ("utf8_replace_slice", (), {"start": 0, "stop": 1,
+                                   "replacement": "é"}),
+       ("utf8_zero_fill", (), {"width": 5}),
+       ("utf8_normalize", (), {"form": "NFD"})])
+
+
+def sweep_column(values, device=None, every: int = 16, null_every: int = 97):
+    """The string sweep's input: ``values`` (str) with every ``every``-th
+    row replaced by a string of ``SWEEP_NON_ASCII`` and every
+    ``null_every``-th (others) null."""
+    vals = list(values)
+    for i in range(0, len(vals), every):
+        vals[i] = SWEEP_NON_ASCII[(i // every) % len(SWEEP_NON_ASCII)]
+    valid = (np.arange(len(vals)) % null_every != 1)
+    return varlen_from_numpy(np.array(vals), validity=valid, device=device)
+
+
+def sweep_call(name: str, extra: tuple, kw: dict, col):
+    """One function of ``STRING_SWEEP`` on the column ``col`` (the join
+    joins the column with itself)."""
+    from .compute import call_function
+    args = [col, col, *extra] if name == "binary_join_element_wise" \
+        else [col, *extra]
+    return call_function(name, args, **kw)
+
+
 # ---- the distribution --------------------------------------------------------
 
 def entry_q3_dist(device=None, n_shards: int = 8, n_lineitem: int = 768,
@@ -991,3 +1304,50 @@ def _q3_pyarrow(li, od, cu):
         .rename_columns(["l_orderkey", "o_date", "revenue"]) \
         .sort_by([("revenue", "descending"),
                   ("l_orderkey", "ascending")]).slice(0, 10)
+
+
+def q13_pyarrow(source):
+    """pyarrow's run of Q13 over ``entry_q13``'s ``step.source``: the
+    oracle of the port's."""
+    import pyarrow.compute as pc
+    cu, od = source["customer"], source["orders"]
+    od = od.filter(pc.invert(pc.match_substring_regex(od["o_comment"],
+                                                      Q13_PATTERN)))
+    j = cu.join(od.select(["o_custkey", "o_orderkey"]), keys="c_custkey",
+                right_keys="o_custkey", join_type="left outer")
+    cc = j.group_by("c_custkey").aggregate([("o_orderkey", "count")])
+    cd = cc.group_by("o_orderkey_count").aggregate([([], "count_all")])
+    return cd.select(["o_orderkey_count", "count_all"]) \
+        .rename_columns(["c_count", "custdist"]) \
+        .sort_by([("custdist", "descending"), ("c_count", "descending")])
+
+
+def q22_pyarrow(source):
+    """pyarrow's run of Q22 over ``entry_q22``'s ``step.source``
+    (``is_in`` for the code set): the oracle of the port's."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    cu, od = source["customer"], source["orders"]
+    cu = cu.append_column("cntrycode",
+                          pc.utf8_slice_codeunits(cu["c_phone"], 0, 2))
+    in_set = pc.is_in(cu["cntrycode"], pa.array(Q22_CODES))
+    bal = cu["c_acctbal"]
+    avg = pc.mean(bal.filter(pc.and_(pc.greater(bal, 0.0), in_set))).as_py()
+    sel = cu.filter(pc.and_(pc.greater(bal, avg), in_set))
+    anti = sel.join(od, keys="c_custkey", right_keys="o_custkey",
+                    join_type="left anti")
+    g = anti.group_by("cntrycode").aggregate([([], "count_all"),
+                                              ("c_acctbal", "sum")])
+    return g.select(["cntrycode", "count_all", "c_acctbal_sum"]) \
+        .rename_columns(["cntrycode", "numcust", "totacctbal"]) \
+        .sort_by([("cntrycode", "ascending")])
+
+
+def host_boundary_numpy(n_rows: int, seed: int):
+    """The oracle of ``entry_host_boundary``: Python ``re`` over the 4,096
+    words, indexed by the rows' codes: (the kept rows' mask, their v)."""
+    import re
+    codes, v = example_columns_host_boundary(n_rows, seed)
+    rx = re.compile(HB_PATTERN)
+    keep = np.array([rx.search(w) is not None for w in HB_WORDS])[codes]
+    return keep, v[keep]

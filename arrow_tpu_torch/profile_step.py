@@ -2,10 +2,11 @@
 
     python -m arrow_tpu_torch.profile_step
         [--path generic|dense|dist|distdict|exchange|sort|join|q3|q3dist|
-                sortdict|q3s|q3sdist|strings|anyall|q6|q6dist] [--rows N]
-        [--keys N] [--max-groups N] [--shards N] [--steps N] [--seed N]
-        [--build-rows N] [--build-keys N] [--key-dist uniform|zipf]
-        [--join-type T] [--wide] [--batch-rows N]
+                sortdict|q3s|q3sdist|strings|anyall|q6|q6dist|q13|q22|hb]
+        [--rows N] [--keys N] [--max-groups N] [--shards N] [--steps N]
+        [--seed N] [--build-rows N] [--build-keys N]
+        [--key-dist uniform|zipf] [--join-type T] [--wide] [--batch-rows N]
+        [--staging dictionary|plain]
 
 ``--path dist`` is the distributed group-by (``entry_distributed``) over
 ``--shards`` logical shards of the card (default 8), ``--path exchange``
@@ -47,7 +48,14 @@ median and sd of ``v3`` by ``id4``, ``id5``, through ``Table.group_by``:
 layers add the median's and the sd's consume and the median's finalize
 sort), ``--path q6dist`` ``entry_dist_groupby_q6`` (q6 over ``--shards``
 logical shards, default 4: the raw-row exchange, then each shard's
-consume and finalize).
+consume and finalize). ``--path q13`` and ``--path q22`` are ``entry_q13``
+and ``entry_q22`` (TPC-H Q13, Q22) at scale factor 10 (``TPCH_SF``, as in
+``chip_smoke.py``) in ``--batch-rows`` batches: per plan node, and per layer, among them the
+regex's host hop (the pushdown's device distinct, the column to the host,
+RE2, the result back) and the string functions' calls. ``--path hb`` is
+``entry_host_boundary`` (bench.py's host_boundary regex filter) over
+``--rows`` rows, ``s`` staged as ``--staging`` (default plain: the
+pushdown; dictionary: the dictionary branch).
 
 Wraps the functions that make up the step's layers so that each call is
 bracketed by two CUDA events on the current stream (no synchronisation
@@ -67,6 +75,9 @@ import subprocess
 import sys
 import time
 from collections import defaultdict
+
+# TPC-H scale factor of ``--path q13|q22``: chip_smoke.py's paths 10 and 11
+TPCH_SF = 10
 
 
 def node_layers(torch, nodes, Batch, stack):
@@ -179,8 +190,11 @@ def main() -> int:
                                        "distdict", "exchange", "sort",
                                        "join", "q3", "q3dist", "sortdict",
                                        "q3s", "q3sdist", "strings",
-                                       "anyall", "q6", "q6dist"),
+                                       "anyall", "q6", "q6dist", "q13",
+                                       "q22", "hb"),
                     default="generic")
+    ap.add_argument("--staging", choices=("dictionary", "plain"),
+                    default="plain")
     ap.add_argument("--batch-rows", type=int, default=1 << 22)
     ap.add_argument("--build-rows", type=int, default=1 << 20)
     ap.add_argument("--build-keys", type=int, default=None)
@@ -207,8 +221,10 @@ def main() -> int:
     from . import entry as entry_mod
     from .acero import nodes
     from .core.batch import Batch
+    from .compute.registry import registry
+    from .core import interop
     from .ops import aggregates, cuda_kernels, distinct, grouper, \
-        hash_aggregate, hashing, join, selection, sorting
+        hash_aggregate, hashing, join, selection, sorting, strings_regex
     from .parallel import context, dist_agg, dist_join, shuffle
 
     print(subprocess.run(
@@ -348,6 +364,15 @@ def main() -> int:
     layer(nodes, "concat_batches", "concat")
     layer(nodes, "sort_indices_batch", "sort_indices")
     layer(nodes, "take_batch", "take")
+    # the string functions and the regex family's host hop
+    for fname in ("match_substring_regex", "utf8_slice_codeunits",
+                  "equal", "invert"):
+        layer(registry.get(fname), "exec", fname)
+    layer(strings_regex, "_via_pc", "host_hop")
+    layer(strings_regex, "_pushdown_encode", "pushdown_encode")
+    layer(strings_regex, "_host_regex", "host_regex")
+    layer(interop, "array_to_pyarrow", "to_host")
+    layer(interop, "array_from_pyarrow", "from_host")
     node_spans, node_reads, node_children, _ = node_layers(
         torch, nodes, Batch, stack)
 
@@ -427,6 +452,17 @@ def main() -> int:
     elif args.path == "q6dist":
         step, (b,) = entry_mod.entry_dist_groupby_q6(
             None, args.shards or 4, args.rows, args.seed, args.keys or 100)
+    elif args.path in ("q13", "q22"):
+        make = entry_mod.entry_q13 if args.path == "q13" \
+            else entry_mod.entry_q22
+        qstep, b = make(None, TPCH_SF, args.seed,
+                        max_batch_rows=args.batch_rows)
+
+        def step(tables_):
+            return qstep(*tables_)
+    elif args.path == "hb":
+        step, (b,) = entry_mod.entry_host_boundary(
+            None, args.rows, args.seed, args.staging)
     else:
         step, (b,) = entry_mod.entry(
             None, args.rows, args.keys or 1000, args.seed,
@@ -436,14 +472,18 @@ def main() -> int:
     spans.clear()
     node_spans.clear()
     node_reads.clear()
+    strings_regex.reset_host_hops()
     host_ms = []
     for _ in range(args.steps):
         t0 = time.perf_counter()
         step(b)
         torch.cuda.synchronize()
         host_ms.append((time.perf_counter() - t0) * 1e3)
-    print(f"path {args.path}: {args.rows} rows; host-clock ms per step "
-          f"{[round(t, 3) for t in host_ms]}")
+    size = f"SF {TPCH_SF}" if args.path in ("q13", "q22") \
+        else f"{args.rows} rows"
+    hops = {k: v / args.steps for k, v in strings_regex.HOST_HOPS.items()}
+    print(f"path {args.path}: {size}; host-clock ms per step "
+          f"{[round(t, 3) for t in host_ms]}; host hops per step {hops}")
     layers = {name: sum(s.elapsed_time(e) for s, e in evs) / args.steps
               for name, evs in spans.items()}
     for name, ms in layers.items():

@@ -106,7 +106,36 @@ rows (BASELINE config #2) and checks each result against a numpy oracle:
           row-shaped: the raw-row exchange, one B4 and one
           ``partition_positions`` launch), against path 9's oracle with the
           groups as a set; both exchange kernels at its call held against
-          their plain versions and timed.
+          their plain versions and timed;
+  path 10 ``arrow_tpu_torch.entry.entry_q13``: TPC-H Q13 at SF 10 (1.5M
+          customer, 15M orders rows of the port's generator; cut from SF
+          100: the host generator and the host regex) through the plan
+          engine: orders filtered by ``o_comment`` not matching
+          ``special.*requests`` (the regex's host hop: the pushdown's
+          device distinct finds too many uniques, then the direct hop, one
+          an orders batch), customer left outer join orders, count by
+          customer, count_all by count, ordered; against pyarrow's run of
+          the same query, exactly;
+  path 11 ``arrow_tpu_torch.entry.entry_q22``: TPC-H Q22 on path 10's
+          tables: the country code ``utf8_slice_codeunits(c_phone, 0, 2)``
+          on the card, a scalar average read once, a left anti join
+          against orders, count and sum by the 2-byte code; against
+          pyarrow (counts exact, sums within 1e-12 relative);
+  path 12d bench.py's host_boundary (``entry_host_boundary``) at 100M rows:
+          ``match_substring_regex(s, "7x[12]?[0-9]$")`` then the filter,
+          ``s`` a dictionary of its 4,096 words (the regex over the
+          dictionary, one take by code); path 12p the same with ``s`` a
+          plain varlen column (the pushdown: a distinct of 100M strings on
+          the card, RE2 over the 4,096 unique slots on the host, one take
+          by code); both against Python ``re`` over the words, indexed by
+          the rows' codes;
+  the string sweep: the string family's 71 functions
+          (``entry.STRING_SWEEP``, the unit tests' options) once each on
+          the card over the first 2^20 rows of path 10's ``o_comment``
+          (one in 16 a non-ASCII string of the unit tests', one in 97
+          null), each byte for byte against the port's CPU result on the
+          same rows (the CPU's run once each card call is timed, after
+          every path); its device ms and the peak above the input.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -130,8 +159,10 @@ the shards of the card, and no ``torch.sort`` inside the exchange's
 the two exchange kernels and the key packing against its plain version,
 and the launches those calls make against their counted runs'.
 
-Prints the card's name and power limit, one line per check, a JSON line
-``{"paths": {...}}`` (each path's counted step: ms and peak device bytes;
+Paths 10-12 hold every call they make to B1, B2, the stitch,
+``pack_key_lanes`` and B3 against its plain version. Prints the card's
+name and power limit, one line per check, a JSON line ``{"sweep": {...}}``
+(each sweep function's ms and peak), a JSON line ``{"paths": {...}}`` (each path's counted step: ms and peak device bytes;
 path 1 also its filter layer's device ms, the expression excluded), a JSON
 line ``{"kernels": [...]}`` (the four kernels that stand for the JAX package's
 Pallas kernels, the tile stitch and the join's key packing, which stand for
@@ -233,6 +264,14 @@ Q6_K = 100
 Q6_MEDIAN_RTOL = 1e-12  # the interpolation's last ulp
 Q6_SD_RTOL = 1e-9
 N_SHARDS_Q6 = 4
+# paths 10 and 11: TPC-H Q13 and Q22 at SF 10 (cut from SF 100: the host
+# generator and Q13's host regex); path 12: bench.py's host_boundary at
+# 100M rows (its own cut there is 2M); the string sweep over 2^20 rows
+TPCH_SF = 10
+TPCH_SEED = 42
+HB_SEED = 7
+N_SWEEP = 1 << 20
+SWEEP_PEAK_BYTES = 24e9
 
 
 def check(cond, msg: str) -> None:
@@ -1113,6 +1152,25 @@ def check_q6(table, oracle, label: str, k: int = Q6_K) -> int:
     return len(code)
 
 
+def result_parts(a) -> list:
+    """An Array as the sweep compares it, as bytes on the host: length,
+    capacities, validity, and a varlen column's offsets and used bytes, or
+    a fixed-width column's type and valid rows' values."""
+    n = int(a.length)
+    varlen = a.offsets is not None
+    ok = a.validity_or_true()[:n].cpu()
+    parts = [np.array([n, a.capacity, a.values.shape[0] if varlen else -1],
+                      np.int64).tobytes(), ok.numpy().tobytes()]
+    if varlen:
+        off = a.offsets[:n + 1].cpu()
+        parts += [off.numpy().tobytes(),
+                  a.values[:int(off[-1])].cpu().numpy().tobytes()]
+    else:
+        parts += [str(a.type).encode(),
+                  a.values[:n].cpu()[ok].numpy().tobytes()]
+    return parts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1739,13 +1797,16 @@ def main() -> int:
         example_columns_sort
     from arrow_tpu_torch.ops import join as join_mod
 
-    def timed(fn, label, must_launch=(), warm=True):
+    def timed(fn, label, must_launch=(), warm=True, before=None):
         """Warm-up run (unless ``warm`` is False: an earlier path ran the
         same plan), then the timed, counted run of one path: (result,
-        seconds, launches, peak bytes)."""
+        seconds, launches, peak bytes). ``before`` runs just before the
+        counted run."""
         if warm:
             fn()
             torch.cuda.synchronize()
+        if before is not None:
+            before()
         torch.cuda.reset_peak_memory_stats()
         ck.reset_launch_counts()
         t0 = time.perf_counter()
@@ -2832,6 +2893,219 @@ def main() -> int:
     forget()
     torch.cuda.empty_cache()
 
+    # ---- paths 10-12 and the sweep: the string family --------------------
+    from arrow_tpu_torch.ops import strings_regex
+    from arrow_tpu_torch.utils.tpch import tpch_table
+    string_kernels = ("filter_compact_chunks", "tile_compact_local",
+                      "tile_stitch", "pack_key_lanes", "dense_group_reduce")
+
+    def check_string_calls(label, fn, counts):
+        """One more run of fn recording every call of the kernels the
+        string paths reach; each against its plain version, the calls'
+        launches against the counted run's."""
+        forget()
+        out_ = recorded(selection, "filter_compact_columns", lambda: recorded(
+            selection, "tile_compact_local", lambda: recorded(
+                selection, "tile_stitch", lambda: recorded(
+                    join_mod, "pack_key_lanes", lambda: recorded(
+                        hash_aggregate, "dense_group_reduce", fn)))))
+        del out_
+        for kname in string_kernels:
+            calls = seen_calls.get(wrapper.get(kname, kname), [])
+            n = sum(kernel_launches(ck, kname, a) for a in calls) \
+                if kname in ("filter_compact_chunks", "pack_key_lanes") \
+                else len(calls)
+            check(n == counts[kname], f"{label}: {len(calls)} recorded "
+                  f"calls of {kname} make {n} launches, the counted run "
+                  f"{counts[kname]}")
+            for a in calls:
+                if kname == "filter_compact_chunks":
+                    check_filter(torch, ck, *a, f"{label} call")
+                elif kname == "tile_compact_local":
+                    check_tile_compact(torch, ck, a[0], f"{label} call")
+                elif kname == "tile_stitch":
+                    check(torch.equal(ck.tile_stitch(*a),
+                                      ck.tile_stitch_plain(*a)),
+                          f"{label}: a tile_stitch call differs")
+                elif kname == "pack_key_lanes":
+                    check_pack_lanes(torch, ck, *a, f"{label} call", True)
+                else:
+                    gid, inputs, kinds, G, valid = a
+                    dg_compare(torch, ck, gid, inputs, kinds, G,
+                               f"{label} call", valid)
+        print(f"{label}: " + ", ".join(
+            f"{len(seen_calls.get(wrapper.get(k, k), []))} {k}"
+            for k in string_kernels) + " calls equal their plain versions")
+
+    t0 = time.time()
+    source = {name: tpch_table(name, TPCH_SF, TPCH_SEED)
+              for name in ("customer", "orders")}
+    n_cust, n_orders = source["customer"].num_rows, source["orders"].num_rows
+    comment_bytes = source["orders"]["o_comment"].nbytes
+    print(f"TPC-H SF {TPCH_SF}: customer {n_cust} rows, orders {n_orders} "
+          f"rows (o_comment {comment_bytes} B with offsets), generated in "
+          f"{time.time() - t0:.1f} s")
+
+    # ---- path 10: TPC-H Q13, its regex filter at the host hop -------------
+    t0 = time.time()
+    step, tables = entry_mod.entry_q13(dev, TPCH_SF, TPCH_SEED,
+                                       source=source)
+    torch.cuda.synchronize()
+    print(f"path 10 data: customer and orders staged in "
+          f"{time.time() - t0:.1f} s in {len(tables[1].batches)} orders "
+          "batches")
+    out, secs, launches10, peak = timed(
+        lambda: step(*tables), "path 10", ("filter_compact_chunks",),
+        before=strings_regex.reset_host_hops)
+    hops10 = dict(strings_regex.HOST_HOPS)
+    check(hops10 == {"direct": len(tables[1].batches)},
+          f"path 10: host hops {hops10}, not one direct hop an orders batch")
+    t0 = time.time()
+    want = entry_mod.q13_pyarrow(step.source).to_pydict()
+    got = out.to_pydict()
+    check(got == want, f"path 10: Q13 differs from pyarrow's: {got} {want}")
+    print(f"path 10 (TPC-H Q13 at SF {TPCH_SF}): {n_orders} orders rows in "
+          f"{secs * 1e3:.3f} ms = {n_orders / secs:.6g} rows/s; "
+          f"{len(got['c_count'])} c_count groups equal pyarrow's (oracle "
+          f"{time.time() - t0:.1f} s); peak device memory {peak} B; host "
+          f"hops {hops10}; launches {launches10}")
+    paths["path 10"]["host_hops"] = hops10
+    del out
+    check_string_calls("path 10", lambda: step(*tables), launches10)
+    del step, tables
+    forget()
+    torch.cuda.empty_cache()
+
+    # ---- path 11: TPC-H Q22, its substring on the device ------------------
+    t0 = time.time()
+    step, tables = entry_mod.entry_q22(dev, TPCH_SF, TPCH_SEED,
+                                       source=source)
+    torch.cuda.synchronize()
+    print(f"path 11 data: staged in {time.time() - t0:.1f} s")
+    out, secs, launches11, peak = timed(
+        lambda: step(*tables), "path 11", ("filter_compact_chunks",),
+        before=strings_regex.reset_host_hops)
+    check(not strings_regex.HOST_HOPS,
+          f"path 11: host hops {dict(strings_regex.HOST_HOPS)}")
+    got = out.to_pydict()
+    want = entry_mod.q22_pyarrow(step.source).to_pydict()
+    check(got["cntrycode"] == want["cntrycode"]
+          and got["numcust"] == want["numcust"],
+          f"path 11: Q22 differs from pyarrow's: {got} {want}")
+    g, w = np.array(got["totacctbal"]), np.array(want["totacctbal"])
+    check(bool(np.all(np.abs(g - w) <= 1e-12 * np.abs(w) + 1e-12)),
+          f"path 11: totacctbal {g} against pyarrow's {w}")
+    print(f"path 11 (TPC-H Q22 at SF {TPCH_SF}): {n_cust} customer rows in "
+          f"{secs * 1e3:.3f} ms = {n_cust / secs:.6g} rows/s; "
+          f"{len(got['cntrycode'])} country codes equal pyarrow's, "
+          f"totacctbal max |diff| {float(np.abs(g - w).max()):.3g}; peak "
+          f"device memory {peak} B; launches {launches11}")
+    del out
+    check_string_calls("path 11", lambda: step(*tables), launches11)
+    del step, tables
+    forget()
+    torch.cuda.empty_cache()
+
+    # ---- path 12: bench.py's host_boundary regex filter at 100M rows ------
+    keep12, v_kept = entry_mod.host_boundary_numpy(N_ROWS, HB_SEED)
+    codes12, _ = entry_mod.example_columns_host_boundary(N_ROWS, HB_SEED)
+    fc12 = {}
+    launches12 = {}
+    for label, staging, branch in (("path 12d", "dictionary", "dictionary"),
+                                   ("path 12p", "plain", "pushdown")):
+        t0 = time.time()
+        step, (b,) = entry_mod.entry_host_boundary(dev, N_ROWS, HB_SEED,
+                                                   staging)
+        torch.cuda.synchronize()
+        print(f"{label} data: {N_ROWS} rows, s staged as {staging} "
+              f"({b.column('s').values.shape[0]} B), made in "
+              f"{time.time() - t0:.1f} s")
+        out, secs, launches12[label], peak = timed(
+            lambda: step(b), label, ("filter_compact_chunks",),
+            before=strings_regex.reset_host_hops)
+        hops = dict(strings_regex.HOST_HOPS)
+        check(hops == {branch: 1}, f"{label}: host hops {hops}")
+        n = len(out)
+        check(n == int(keep12.sum()), f"{label}: kept {n} rows, the oracle "
+              f"{int(keep12.sum())}")
+        check(np.array_equal(out.column("v").values[:n].cpu().numpy(),
+                             v_kept), f"{label}: the kept v differ")
+        s = out.column("s")
+        if staging == "dictionary":
+            check(np.array_equal(s.values[:n].cpu().numpy(), codes12[keep12]),
+                  f"{label}: the kept codes differ")
+        else:
+            kept = entry_mod.HB_WORDS[codes12[keep12]]
+            lens = np.char.str_len(kept)
+            off = np.concatenate([[0], np.cumsum(lens)])
+            check(np.array_equal(s.offsets[:n + 1].cpu().numpy(), off) and
+                  s.values[:off[-1]].cpu().numpy().tobytes() ==
+                  "".join(kept.tolist()).encode(),
+                  f"{label}: the kept strings differ")
+        print(f"{label} (bench.py's host_boundary, s {staging}): {N_ROWS} "
+              f"rows in {secs * 1e3:.3f} ms = {N_ROWS / secs:.6g} rows/s; "
+              f"{n} kept rows equal the oracle's; peak device memory {peak} "
+              f"B; host hops {hops}; launches {launches12[label]}")
+        paths[label]["host_hops"] = hops
+        del out, s
+        check_string_calls(label, lambda: step(b), launches12[label])
+        calls = seen_calls["filter_compact_columns"]
+        fc12[label] = [measure_filter(torch, ck, *a, f"{label} {what}")
+                       for a, what in zip(calls, ("rows", "pool"))]
+        del calls, step, b
+        forget()
+        torch.cuda.empty_cache()
+    del keep12, v_kept, codes12
+
+    # ---- the string sweep: the family's 71 functions over 2^20 comments ---
+    t0 = time.time()
+    comments = source["orders"]["o_comment"].slice(0, N_SWEEP).to_pylist()
+    col = entry_mod.sweep_column(comments, device=dev)
+    col_cpu = entry_mod.sweep_column(comments, device="cpu")
+    del source, comments
+    check(result_parts(col) == result_parts(col_cpu),
+          "sweep: the CPU's input rows differ from the card's")
+    print(f"string sweep: {N_SWEEP} rows of path 10's o_comment, one in 16 "
+          f"non-ASCII, one in 97 null ({col.values.shape[0]} B), made in "
+          f"{time.time() - t0:.1f} s")
+    host_fns = {"match_substring_regex", "count_substring_regex",
+                "find_substring_regex", "replace_substring_regex",
+                "binary_replace_slice", "utf8_replace_slice",
+                "utf8_zero_fill", "utf8_normalize"}
+    sweep = {}
+    cpu_s = 0.0
+    for name, extra, kw in entry_mod.STRING_SWEEP:
+        if name not in host_fns:
+            entry_mod.sweep_call(name, extra, kw, col)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        got = entry_mod.sweep_call(name, extra, kw, col)
+        end.record()
+        torch.cuda.synchronize()
+        sweep[name] = {"ms": start.elapsed_time(end),
+                       "peak_bytes": torch.cuda.max_memory_allocated() - base}
+        check(sweep[name]["peak_bytes"] < SWEEP_PEAK_BYTES,
+              f"sweep {name}: peak {sweep[name]['peak_bytes']} B")
+        # the CPU's result, once the card's call is timed
+        t0 = time.time()
+        want = entry_mod.sweep_call(name, extra, kw, col_cpu)
+        cpu_s += time.time() - t0
+        check(result_parts(got) == result_parts(want),
+              f"sweep {name}: the card's result differs from the CPU's")
+        del got, want
+        print(f"sweep {name:26s} {sweep[name]['ms']:10.3f} ms, peak above "
+              f"the input {sweep[name]['peak_bytes']} B; equal to the CPU's")
+    print(json.dumps({"sweep": sweep}))
+    print(f"string sweep: {len(sweep)} functions equal the CPU's byte for "
+          f"byte; card {sum(m['ms'] for m in sweep.values()):.1f} ms in "
+          f"all, the CPU {cpu_s:.1f} s")
+    del col, col_cpu
+    torch.cuda.empty_cache()
+
     def row(name, source, replaces, n_launches, m):
         return {"name": name, "route": "cuda",
                 "source": f"arrow_tpu_torch/csrc/{source}",
@@ -2906,6 +3180,9 @@ def main() -> int:
     also(kernels[1], "path_1c_any_all_alone", dg1c_aa)
     also(kernels[4], "path_3q", ph3q, launches3q["partition_histogram"])
     also(kernels[6], "path_3q", pp3q, launches3q["partition_positions"])
+    also(kernels[0], "path_12d", fc12["path 12d"][0])
+    also(kernels[0], "path_12p_rows", fc12["path 12p"][0])
+    also(kernels[0], "path_12p_pool", fc12["path 12p"][1])
     # the launches of the join paths', path 1b's and path 6's counted runs
     for label, counts in list(launches5.items()) + [
             ("path 1b", launches1b), ("path 6", launches6),
@@ -2914,7 +3191,8 @@ def main() -> int:
             ("path 7b", launches7b), ("path 7c", launches7c),
             ("path 7d", launches7d), ("path 7s", launches7s),
             ("path 7e", launches7e), ("path 3s", launches3s),
-            ("path 9", launches9)]:
+            ("path 9", launches9), ("path 10", launches10),
+            ("path 11", launches11)] + list(launches12.items()):
         suffix = suffix_of(label)
         for kernel in kernels:
             if counts[kernel["name"]] and not (

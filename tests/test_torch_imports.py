@@ -5,7 +5,9 @@ loads ``parallel/*`` and ``ops/hashing``; sort and join, which load
 ``ops/sorting``, ``ops/join``, ``ops/planes`` and ``acero/options``; the
 Q3-shaped plan, which loads ``acero/plan`` and ``acero/nodes``; the string
 slice's three, which load ``ops/strings`` and the string paths of the
-rest), and check which modules got loaded. And the default-device rule: an entry point given
+rest; a Unicode case map, which loads ``ops/unicode_text`` and its tables;
+and ``ops/strings_regex`` and ``utils/tpch``, which import pyarrow only
+when they run), and check which modules got loaded. And the default-device rule: an entry point given
 no device takes the card."""
 
 import subprocess
@@ -49,6 +51,16 @@ out = step(*args)
 assert 0 < len(out) <= 30 and out.column("name").offsets is not None
 import arrow_tpu_torch.acero, arrow_tpu_torch.ops.bloom
 import arrow_tpu_torch.ops.concat
+import arrow_tpu_torch.ops.strings_regex, arrow_tpu_torch.ops.unicode_text
+import arrow_tpu_torch.utils.tpch
+import numpy as np
+from arrow_tpu_torch.compute import call_function
+from arrow_tpu_torch.core.array import varlen_from_numpy
+up = call_function("utf8_upper", [varlen_from_numpy(np.array(["ßé", "x"]),
+                                                    device="cpu")])
+assert bytes(up.values[:int(up.offsets[2])].tolist()).decode() == "ẞÉX"
+assert {"arrow_tpu_torch.ops.strings_regex", "arrow_tpu_torch.ops.unicode_text",
+        "arrow_tpu_torch.utils.tpch"} <= set(sys.modules)
 assert {"arrow_tpu_torch.ops.sorting", "arrow_tpu_torch.ops.join",
         "arrow_tpu_torch.ops.planes", "arrow_tpu_torch.acero.options",
         "arrow_tpu_torch.acero.plan", "arrow_tpu_torch.acero.nodes",
@@ -95,7 +107,9 @@ def test_no_device_means_the_card():
                entry_mod.entry_distributed, entry_mod.entry_sort,
                entry_mod.entry_join, entry_mod.entry_q3,
                entry_mod.entry_sort_dict, entry_mod.entry_q3s,
-               entry_mod.entry_strings, array_mod.varlen_from_numpy,
+               entry_mod.entry_strings, entry_mod.entry_q13,
+               entry_mod.entry_q22, entry_mod.entry_host_boundary,
+               array_mod.varlen_from_numpy,
                array_mod.dictionary_from_numpy,
                entry_mod.table_from_numpy, batch_mod.empty_batch,
                batch_mod.table, batch_mod.Table.from_pyarrow,
@@ -124,7 +138,10 @@ def test_port_sources_name_neither_jax_nor_the_jax_package():
             "arrow_tpu_torch/acero/options.py",
             "arrow_tpu_torch/acero/nodes.py", "arrow_tpu_torch/acero/plan.py",
             "arrow_tpu_torch/ops/scalar_arithmetic.py",
-            "arrow_tpu_torch/ops/strings.py"} <= names
+            "arrow_tpu_torch/ops/strings.py",
+            "arrow_tpu_torch/ops/strings_regex.py",
+            "arrow_tpu_torch/ops/unicode_text.py",
+            "arrow_tpu_torch/utils/tpch.py"} <= names
     for f in files + [ROOT / "chip_smoke.py"]:
         assert not pat.search(f.read_text()), f
 

@@ -1,7 +1,9 @@
 """String columns on the card against the same calls on the CPU (where the
 kernel wrappers take their plain versions): path 8's filter (the row
 compaction and the pool's second launch), the varlen take, the per-byte
-selection, and the fingerprints' mod-2^64 running sum.
+selection, the fingerprints' mod-2^64 running sum, and the string sweep:
+each of the string family's 71 functions (``entry.STRING_SWEEP``) at a
+small size, its result on the card byte for byte its result on the CPU.
 
 Marked ``cuda``; every test takes the ``cuda_device`` fixture, which skips
 it where there is no CUDA device. Run on a machine with a card:
@@ -17,7 +19,8 @@ from arrow_tpu_torch.core import datatype as dt
 from arrow_tpu_torch.core.array import Array, array_from_numpy, \
     varlen_from_numpy
 from arrow_tpu_torch.core.batch import batch
-from arrow_tpu_torch.entry import numbered_strings
+from arrow_tpu_torch.entry import STRING_SWEEP, numbered_strings, \
+    sweep_call, sweep_column
 from arrow_tpu_torch.ops import cuda_kernels as ck
 from arrow_tpu_torch.ops import hashing, selection
 
@@ -117,3 +120,38 @@ def test_fingerprints_on_card_vs_cpu(cuda_device, monkeypatch):
     for g, w in zip(hashing.varlen_content_lanes(a),
                     hashing.varlen_content_lanes(a.to("cpu"))):
         assert torch.equal(g.cpu(), w)
+
+
+def _text(n, seed):
+    """n rows of 0-9 words of TPC-H pseudotext and Q13's, space-joined."""
+    rng = np.random.default_rng(seed)
+    words = np.array(["special", "requests", "about", "blithely", "foxes",
+                      "x", "hello", "world", "ab", "", "dolphins", "Xx"])
+    k = rng.integers(0, 10, n)
+    return [" ".join(words[rng.integers(0, len(words), j)]) for j in k]
+
+
+def _assert_array_same(got, want):
+    """Any Array: length, capacities, validity, the offsets and used bytes
+    of a varlen column, the valid rows' values of a fixed-width one."""
+    n = int(want.length)
+    assert int(got.length) == n and got.capacity == want.capacity
+    ok = torch.ones(n, dtype=torch.bool) if want.validity is None \
+        else want.validity[:n]
+    gv = torch.ones(n, dtype=torch.bool) if got.validity is None \
+        else got.validity[:n].cpu()
+    assert torch.equal(gv, ok)
+    if want.offsets is not None:
+        assert got.values.shape[0] == want.values.shape[0]
+        _assert_same(got, want)
+    else:
+        assert torch.equal(got.values[:n].cpu()[ok], want.values[:n][ok])
+
+
+@pytest.mark.parametrize("name,extra,kw", STRING_SWEEP,
+                         ids=[f for f, _, _ in STRING_SWEEP])
+def test_string_sweep_on_card_vs_cpu(cuda_device, name, extra, kw):
+    col = sweep_column(_text(4096, 5), device=cuda_device)
+    got = sweep_call(name, extra, kw, col)
+    torch.cuda.synchronize()
+    _assert_array_same(got, sweep_call(name, extra, kw, col.to("cpu")))
