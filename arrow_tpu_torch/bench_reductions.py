@@ -6,6 +6,7 @@ kernel and the merge's folds at the third slice's shapes.
                                                [--pack-lanes-only]
                                                [--filter-only]
                                                [--hist-only]
+                                               [--code-set-only]
 
 Sorts ``--rows`` int64 keys (half of them inactive) into runs as the
 grouper does and times, with CUDA events after a warm-up: the per-run
@@ -57,7 +58,13 @@ plain version, then ``ms`` over ten back-to-back calls, ``device_ms`` the
 same queued behind a sleep (the card's time alone), ``host_ms``, the byte
 bound, the plain version and one library call over all the shards' rows:
 ``torch.bincount`` for B4, a stable ``torch.sort`` (what the exchange ran
-before the positions kernel) for ``partition_positions``. One line per primitive, then one JSON object. Needs a CUDA device; the
+before the positions kernel) for ``partition_positions``.
+``--code-set-only`` times nothing but TPC-H Q22's code-set predicate on
+the country codes of the SF 10 customer table (1.5M two-byte strings cut
+from ``c_phone`` on the card): one ``is_in`` of the seven codes, as path
+11 runs it, against the or of seven string equals it ran before, each
+over ten calls, in turns (is_in, equals, equals, is_in), their results
+compared. One line per primitive, then one JSON object. Needs a CUDA device; the
 numbers in ``PERF.md`` that name this script come from it.
 """
 
@@ -350,6 +357,46 @@ def bench_filter(torch, ck, dev, gen, results) -> None:
         del cols, sel, chunks
 
 
+def bench_code_set(torch, dev, results: dict) -> None:
+    """Q22's code set on the SF 10 customer table's country codes: one
+    ``is_in`` against the or of seven string equals, in turns."""
+    from .compute import call_function
+    from .compute.expressions import execute_scalar_expression, field
+    from .core.batch import Table, batch
+    from .entry import Q22_CODES
+    from .ops.strings import SliceOptions
+    from .utils.tpch import tpch_table
+    phones = Table.from_pyarrow(tpch_table(
+        "customer", 10, 42, columns=["c_phone"]),
+        max_rows_per_batch=1 << 22, device=dev)._one_batch()
+    b = batch({"cntrycode": call_function(
+        "utf8_slice_codeunits", [phones.column("c_phone")],
+        SliceOptions(0, 2))})
+    ors = field("cntrycode") == Q22_CODES[0]
+    for c in Q22_CODES[1:]:
+        ors = ors | (field("cntrycode") == c)
+    forms = {"is_in": field("cntrycode").isin(Q22_CODES), "equals": ors}
+    outs = {k: execute_scalar_expression(e, b) for k, e in forms.items()}
+    n = len(b)
+    if not torch.equal(outs["is_in"].values[:n],
+                       outs["equals"].values[:n]):
+        raise RuntimeError("is_in and the equals differ")
+    results["code_set_rows"] = n
+    for k in ("is_in", "equals", "equals", "is_in"):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            execute_scalar_expression(forms[k], b)
+        end.record()
+        end.synchronize()
+        results.setdefault(f"code_set_{k}_ms", []).append(
+            start.elapsed_time(end) / 10)
+        print(f"code set by {k:8s} {results[f'code_set_{k}_ms'][-1]:10.3f} "
+              f"ms over {n} rows")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=100_000_000)
@@ -358,6 +405,7 @@ def main() -> int:
     ap.add_argument("--pack-lanes-only", action="store_true")
     ap.add_argument("--filter-only", action="store_true")
     ap.add_argument("--hist-only", action="store_true")
+    ap.add_argument("--code-set-only", action="store_true")
     args = ap.parse_args()
 
     import torch
@@ -398,6 +446,10 @@ def main() -> int:
         return 0
     if args.hist_only:
         bench_hist(torch, ck, dev, gen, results)
+        print(json.dumps(results))
+        return 0
+    if args.code_set_only:
+        bench_code_set(torch, dev, results)
         print(json.dumps(results))
         return 0
 

@@ -18,8 +18,14 @@ from .expressions import (  # noqa: F401
 def list_functions():
     return registry.list_functions()
 
-# option classes of the aggregate kernels, under the JAX package's names;
-# resolved on first access, as its ``compute`` resolves them
+
+def cast(arr, target_type, **kwargs):
+    from ..ops.scalar_cast import CastOptions
+    return call_function("cast", [arr],
+                         options=CastOptions(target_type, **kwargs))
+
+# option classes of the kernels, under the JAX package's names; resolved on
+# first access, as its ``compute`` resolves them
 _LAZY = {
     "ModeOptions": "arrow_tpu_torch.ops.aggregates_order",
     "QuantileOptions": "arrow_tpu_torch.ops.aggregates_order",
@@ -30,6 +36,16 @@ _LAZY = {
     "ScalarAggregateOptions": "arrow_tpu_torch.ops.agg_options",
     "CountOptions": "arrow_tpu_torch.ops.agg_options",
     "VarianceOptions": "arrow_tpu_torch.ops.agg_options",
+    "CastOptions": "arrow_tpu_torch.ops.scalar_cast",
+    "CumulativeOptions": "arrow_tpu_torch.ops.vector_misc",
+    "PairwiseOptions": "arrow_tpu_torch.ops.vector_misc",
+    "SetLookupOptions": "arrow_tpu_torch.ops.set_lookup",
+    "DayOfWeekOptions": "arrow_tpu_torch.ops.temporal",
+    "WeekOptions": "arrow_tpu_torch.ops.temporal",
+    "RoundTemporalOptions": "arrow_tpu_torch.ops.temporal",
+    "StrftimeOptions": "arrow_tpu_torch.ops.temporal",
+    "StrptimeOptions": "arrow_tpu_torch.ops.temporal",
+    "AssumeTimezoneOptions": "arrow_tpu_torch.ops.temporal",
 }
 
 

@@ -71,6 +71,16 @@ class Expression:
     def is_null(self): return call("is_null", [self])
     def is_valid(self): return call("is_valid", [self])
 
+    def cast(self, target_type):
+        from ..ops.scalar_cast import CastOptions
+        return call("cast", [self], options=CastOptions(target_type))
+
+    def isin(self, values):
+        from ..ops.set_lookup import SetLookupOptions
+        if not isinstance(values, SetLookupOptions):
+            values = SetLookupOptions(value_set=values)
+        return call("is_in", [self], options=values)
+
     # ---- introspection --------------------------------------------------------
     def field_names(self) -> List[str]:
         if self.kind == self.KIND_FIELD:

@@ -87,9 +87,10 @@ def _apply_intersection_validity(out: Array, args: Sequence[Datum]) -> Array:
 
 
 # the ported kernel modules, imported for their registrations
-_KERNEL_MODULES = ["scalar_arithmetic", "scalar_compare", "selection",
-                   "sorting", "aggregates", "vector_hash", "aggregates_order",
-                   "strings", "strings_regex"]
+_KERNEL_MODULES = ["scalar_arithmetic", "scalar_compare", "scalar_cast",
+                   "selection", "sorting", "aggregates", "vector_hash",
+                   "set_lookup", "aggregates_order", "vector_misc",
+                   "strings", "temporal", "strings_regex", "scalar_checked"]
 _kernels_loaded = False
 
 

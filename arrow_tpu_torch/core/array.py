@@ -19,10 +19,14 @@ offset, buffers[], child_data[]). The same model as the JAX package's
     capacity; bytes past ``offsets[length]`` are unspecified.
   * dictionary arrays hold their indices in ``values`` and the dictionary
     as a child Array (``dictionary``).
+  * the two struct-layout interval types (day_time, month_day_nano) hold
+    their components as same-length ``children`` Arrays, as the JAX
+    package's do.
   * constructors place their buffers on ``device``; with none given they
     take ``default_device()``, the card. ``Array.to(device)`` moves one.
 
-Nested layouts (list, struct, union) come with the kernels that need them.
+The other nested layouts (list, struct, union) come with the kernels that
+need them.
 """
 
 from __future__ import annotations
@@ -60,17 +64,19 @@ class Array:
     """One typed column with capacity+length discipline."""
 
     __slots__ = ("type", "values", "validity", "offsets", "dictionary",
-                 "length")
+                 "length", "children")
 
     def __init__(self, type: dt.DataType, values: torch.Tensor,
                  validity: Optional[torch.Tensor] = None, length=None,
                  offsets: Optional[torch.Tensor] = None,
-                 dictionary: Optional["Array"] = None):
+                 dictionary: Optional["Array"] = None,
+                 children: Optional[tuple] = None):
         self.type = type
         self.values = values
         self.validity = validity
         self.offsets = offsets
         self.dictionary = dictionary
+        self.children = children
         if length is None:
             length = values.shape[0] if offsets is None \
                 else offsets.shape[0] - 1
@@ -126,11 +132,11 @@ class Array:
     # ---- convenience ------------------------------------------------------
     def with_validity(self, validity: Optional[torch.Tensor]) -> "Array":
         return Array(self.type, self.values, validity, self.length,
-                     self.offsets, self.dictionary)
+                     self.offsets, self.dictionary, self.children)
 
     def with_length(self, length) -> "Array":
         return Array(self.type, self.values, self.validity, length,
-                     self.offsets, self.dictionary)
+                     self.offsets, self.dictionary, self.children)
 
     def to(self, device) -> "Array":
         length = self.length if self.has_static_length \
@@ -141,7 +147,9 @@ class Array:
                      None if self.offsets is None
                      else self.offsets.to(device),
                      None if self.dictionary is None
-                     else self.dictionary.to(device))
+                     else self.dictionary.to(device),
+                     None if self.children is None
+                     else tuple(c.to(device) for c in self.children))
 
     def __repr__(self) -> str:
         ln = self.length if self.has_static_length else "<device>"

@@ -313,9 +313,21 @@ class Table:
         return Table(schema, [Batch(schema, arrays, b.length, b.index)])
 
     def cast(self, target_schema) -> "Table":
-        raise NotImplementedError(
-            "Table.cast needs the cast kernels (ops/scalar_cast.py, ROADMAP "
-            "queue item A7)")
+        """Column-wise cast through the registry's cast kernel; a pyarrow
+        schema casts on the host through pyarrow, as in the JAX package."""
+        from ..compute.registry import call_function
+        from ..ops.scalar_cast import CastOptions
+        if not isinstance(target_schema, Schema):
+            dev = self.batches[0].device if self.batches else None
+            return Table.from_pyarrow(self.to_pyarrow().cast(target_schema),
+                                      device=dev)
+        batches = []
+        for b in self.batches:
+            arrays = [call_function("cast", [b.column(i)],
+                                    CastOptions(f.type))
+                      for i, f in enumerate(target_schema.fields)]
+            batches.append(Batch(target_schema, arrays, b.length, b.index))
+        return Table(target_schema, batches)
 
     def drop_null(self) -> "Table":
         from ..compute.registry import call_function

@@ -1,5 +1,5 @@
 """pyarrow <-> device-array interop for fixed-width, string, binary and
-dictionary columns.
+dictionary columns, and export of the struct-layout intervals.
 
 The engine's boundary layer, as in the JAX package's ``core/interop.py``:
 host Arrow buffers are staged into padded device buffers, and device
@@ -181,7 +181,10 @@ def array_to_pyarrow(arr: Array):
     import pyarrow as pa
     n = len(arr)
     t = arr.type
-    _check_supported(t)
+    interval = isinstance(t, (dt.DayTimeIntervalType,
+                              dt.MonthDayNanoIntervalType))
+    if not interval:
+        _check_supported(t)
     validity_buf = None
     null_count = 0
     if arr.validity is not None:
@@ -189,6 +192,8 @@ def array_to_pyarrow(arr: Array):
         null_count = int((~v).sum())
         if null_count:
             validity_buf = _pack_validity(v)
+    if interval:
+        return _interval_to_pyarrow(arr, validity_buf, null_count)
     if isinstance(t, dt.DictionaryType):
         idx = arr.values[:n].cpu().numpy()
         indices = pa.Array.from_buffers(
@@ -221,6 +226,29 @@ def array_to_pyarrow(arr: Array):
     return pa.Array.from_buffers(
         dt.to_pyarrow_type(t), n,
         [validity_buf, pa.py_buffer(data.tobytes())], null_count=null_count)
+
+
+def _interval_to_pyarrow(arr: Array, validity_buf, null_count: int):
+    """The struct-layout intervals (the JAX package's interval branch):
+    the components' children packed into Arrow's interval records, or a
+    struct of them where pyarrow has no Python type for the interval
+    (``datatype.to_pyarrow_type``)."""
+    import pyarrow as pa
+    n = len(arr)
+    t = arr.type
+    pa_type = dt.to_pyarrow_type(t)
+    nulls = null_count if validity_buf else 0
+    if pa.types.is_interval(pa_type):
+        rec = np.zeros(n, dtype=np.dtype([(nm, ft.storage_np)
+                                           for nm, ft in t.fields]))
+        for (nm, _ft), c in zip(t.fields, arr.children):
+            rec[nm] = c.values[:n].cpu().numpy()
+        return pa.Array.from_buffers(
+            pa_type, n, [validity_buf, pa.py_buffer(rec.tobytes())],
+            null_count=nulls)
+    return pa.Array.from_buffers(
+        pa_type, n, [validity_buf], null_count=nulls,
+        children=[array_to_pyarrow(c.with_length(n)) for c in arr.children])
 
 
 # Transparent dictionary ingest (the JAX package's): plain string / binary

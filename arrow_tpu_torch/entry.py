@@ -112,6 +112,20 @@ The string family:
     functions with their unit tests' options, over a column of strings
     with non-ASCII rows.
 
+Casts, temporal functions, checked arithmetic, vector_misc and set lookup:
+
+  * ``entry_q12(device, scale_factor, seed, max_batch_rows, source)``:
+    TPC-H Q12 (``q12_declaration``: ``is_in`` on the ship-mode
+    dictionary, date32 ranges, the join to orders, its CASE as a cast of
+    ``is_in``); ``q12_pyarrow`` its oracle.
+  * ``entry_q7(device, scale_factor, seed, max_batch_rows, source)``:
+    TPC-H Q7 (``q7_declaration``: ``is_in`` on each nation side, five
+    joins, ``year(l_shipdate)`` on the device); ``q7_pyarrow`` its
+    oracle.
+  * ``A7B_SWEEP``, ``a7b_sweep_columns``, ``a7b_sweep_call``: the 83
+    functions of those five modules, and every pair of types ``cast``
+    dispatches, over columns made from a seed.
+
 With no ``device`` they place the batch on the card
 (``arrow_tpu_torch.default_device()``). Run one on the CPU at a small
 size::
@@ -163,7 +177,11 @@ __all__ = ["AGGREGATES", "AGGREGATES_ANY_ALL", "AGGREGATES_GENERIC",
            "entry_q22", "example_columns_host_boundary", "host_boundary_numpy",
            "q13_declaration", "q13_pyarrow", "q22_declarations",
            "q22_pyarrow", "tpch_tables", "STRING_SWEEP", "SWEEP_NON_ASCII",
-           "sweep_call", "sweep_column"]
+           "sweep_call", "sweep_column", "Q12_COLUMNS", "Q7_COLUMNS",
+           "Q12_MODES", "Q12_PRIORITIES", "Q7_NATIONS", "entry_q12",
+           "entry_q7", "q12_declaration", "q7_declaration", "q12_pyarrow",
+           "q7_pyarrow", "A7B_SWEEP", "A7B_NUMERIC", "A7B_TEMPORAL",
+           "A7B_ZONES", "a7b_sweep_call", "a7b_sweep_columns"]
 
 AGGREGATES = (AggregateSpec("sum", "v"), AggregateSpec("min", "v"),
               AggregateSpec("sum", "w"), AggregateSpec("min", "w"),
@@ -634,8 +652,8 @@ def tpch_tables(scale_factor: float, seed: int, columns: Dict[str, list],
     them: (the pyarrow tables, the same staged on ``device`` in batches of
     ``max_batch_rows`` rows)."""
     from .utils.tpch import tpch_table
-    source = {name: (source[name] if source else
-                     tpch_table(name, scale_factor, seed)).select(cols)
+    source = {name: (source[name].select(cols) if source else
+                     tpch_table(name, scale_factor, seed, columns=cols))
               for name, cols in columns.items()}
     return source, {name: Table.from_pyarrow(
         t, max_rows_per_batch=max_batch_rows, device=device)
@@ -688,15 +706,12 @@ def q13_declaration(customer: Table, orders: Table,
 def _q22_customers(customer: Table, balance):
     """Q22's customers: cntrycode = the first two codepoints of c_phone
     (on the device), kept where c_acctbal > ``balance`` and the code is in
-    ``Q22_CODES`` (an or of string equals)."""
+    ``Q22_CODES`` (one ``is_in``, as TPC-H writes it)."""
     from .acero import (Declaration, FilterNodeOptions, ProjectNodeOptions,
                         TableSourceNodeOptions)
     from .compute.expressions import call, literal
     from .ops.strings import SliceOptions
-    code = field("cntrycode")
-    in_set = code == Q22_CODES[0]
-    for c in Q22_CODES[1:]:
-        in_set = in_set | (code == c)
+    in_set = field("cntrycode").isin(Q22_CODES)
     return Declaration.from_sequence([
         Declaration("table_source", TableSourceNodeOptions(customer)),
         Declaration("project", ProjectNodeOptions(
@@ -785,6 +800,177 @@ def entry_q22(device=None, scale_factor: float = 0.01, seed: int = 42,
 
     step.source = source
     return step, (t["customer"], t["orders"])
+
+
+# ---- casts, temporal fields and set lookup: TPC-H Q12 and Q7 -------------
+
+Q12_MODES = ("MAIL", "SHIP")
+Q12_PRIORITIES = ("1-URGENT", "2-HIGH")
+Q12_YEAR = 1994
+Q7_NATIONS = ("FRANCE", "GERMANY")
+Q12_COLUMNS = {"lineitem": ["l_orderkey", "l_shipdate", "l_commitdate",
+                            "l_receiptdate", "l_shipmode"],
+               "orders": ["o_orderkey", "o_orderpriority"]}
+Q7_COLUMNS = {"supplier": ["s_suppkey", "s_nationkey"],
+              "lineitem": ["l_orderkey", "l_suppkey", "l_shipdate",
+                           "l_extendedprice", "l_discount"],
+              "orders": ["o_orderkey", "o_custkey"],
+              "customer": ["c_custkey", "c_nationkey"],
+              "nation": ["n_nationkey", "n_name"]}
+
+
+def q12_declaration(lineitem: Table, orders: Table):
+    """TPC-H Q12 (clause 2.4.12) as a Declaration: lineitem filtered by
+    ``l_shipmode IN ('MAIL', 'SHIP')`` (``is_in`` on the dictionary),
+    ``l_commitdate < l_receiptdate``, ``l_shipdate < l_commitdate`` and
+    l_receiptdate in [1994-01-01, 1995-01-01) (date32 scalars) -> join
+    orders on o_orderkey = l_orderkey -> high_line_count =
+    sum(cast(is_in(o_orderpriority, ('1-URGENT', '2-HIGH')), int64)) and
+    low_line_count the same of its inverse (TPC-H's CASE as a cast) by
+    l_shipmode, ordered by l_shipmode."""
+    import datetime as _dtm
+    from .acero import (AggregateNodeOptions, Declaration,
+                        FilterNodeOptions, OrderByNodeOptions,
+                        ProjectNodeOptions, TableSourceNodeOptions)
+    from .compute.expressions import literal
+    from .core import datatype as dt
+    lo = literal(_dtm.date(Q12_YEAR, 1, 1))
+    hi = literal(_dtm.date(Q12_YEAR + 1, 1, 1))
+    keep = field("l_shipmode").isin(Q12_MODES) & \
+        (field("l_commitdate") < field("l_receiptdate")) & \
+        (field("l_shipdate") < field("l_commitdate")) & \
+        (field("l_receiptdate") >= lo) & (field("l_receiptdate") < hi)
+    urgent = field("o_orderpriority").isin(Q12_PRIORITIES)
+    return Declaration.from_sequence([
+        Declaration("hashjoin", HashJoinNodeOptions(
+            "inner", left_keys=["l_orderkey"], right_keys=["o_orderkey"],
+            left_output=["l_shipmode"], right_output=["o_orderpriority"],
+            max_build_rows=max(orders.num_rows, 16)),
+            inputs=[
+                Declaration.from_sequence([
+                    Declaration("table_source",
+                                TableSourceNodeOptions(lineitem)),
+                    Declaration("filter", FilterNodeOptions(keep))]),
+                Declaration("table_source", TableSourceNodeOptions(orders))]),
+        Declaration("project", ProjectNodeOptions(
+            [field("l_shipmode"), urgent.cast(dt.int64),
+             (~urgent).cast(dt.int64)],
+            ["l_shipmode", "high", "low"])),
+        Declaration("aggregate", AggregateNodeOptions(
+            [AggregateSpec("sum", "high", name="high_line_count"),
+             AggregateSpec("sum", "low", name="low_line_count")],
+            keys=["l_shipmode"], max_groups=16)),
+        Declaration("order_by", OrderByNodeOptions(
+            [("l_shipmode", "ascending")])),
+    ])
+
+
+def q7_declaration(supplier: Table, lineitem: Table, orders: Table,
+                   customer: Table, nation: Table):
+    """TPC-H Q7 (clause 2.4.7) as a Declaration: each nation side is
+    ``n_name IN ('FRANCE', 'GERMANY')``; supplier joins its nation
+    (supp_nation), customer its nation (cust_nation), orders its customer;
+    lineitem with l_shipdate between 1995-01-01 and 1996-12-31 joins its
+    supplier, then its order; the pair predicate keeps (FRANCE, GERMANY)
+    and (GERMANY, FRANCE); l_year = year(l_shipdate) (the temporal field
+    on the device), volume = l_extendedprice * (1 - l_discount);
+    sum(volume) as revenue by (supp_nation, cust_nation, l_year),
+    ordered."""
+    import datetime as _dtm
+    from .acero import (AggregateNodeOptions, Declaration,
+                        FilterNodeOptions, OrderByNodeOptions,
+                        ProjectNodeOptions, TableSourceNodeOptions)
+    from .compute.expressions import call, literal
+
+    def source(t):
+        return Declaration("table_source", TableSourceNodeOptions(t))
+
+    def nation_side(key, name):
+        return Declaration.from_sequence([
+            source(nation),
+            Declaration("filter", FilterNodeOptions(
+                field("n_name").isin(Q7_NATIONS))),
+            Declaration("project", ProjectNodeOptions(
+                [field("n_nationkey"), field("n_name")], [key, name]))])
+
+    def join(left, right, lk, rk, lout, rout, build_rows):
+        return Declaration("hashjoin", HashJoinNodeOptions(
+            "inner", left_keys=[lk], right_keys=[rk], left_output=lout,
+            right_output=rout, max_build_rows=max(build_rows, 16)),
+            inputs=[left, right])
+
+    supp = join(source(supplier), nation_side("s_nk", "supp_nation"),
+                "s_nationkey", "s_nk", ["s_suppkey"], ["supp_nation"], 25)
+    cust = join(source(customer), nation_side("c_nk", "cust_nation"),
+                "c_nationkey", "c_nk", ["c_custkey"], ["cust_nation"], 25)
+    ords = join(source(orders), cust, "o_custkey", "c_custkey",
+                ["o_orderkey"], ["cust_nation"], customer.num_rows)
+    shipped = Declaration.from_sequence([
+        source(lineitem),
+        Declaration("filter", FilterNodeOptions(
+            (field("l_shipdate") >= literal(_dtm.date(1995, 1, 1))) &
+            (field("l_shipdate") <= literal(_dtm.date(1996, 12, 31)))))])
+    li = join(shipped, supp, "l_suppkey", "s_suppkey",
+              ["l_orderkey", "l_shipdate", "l_extendedprice", "l_discount"],
+              ["supp_nation"], supplier.num_rows)
+    full = join(li, ords, "l_orderkey", "o_orderkey",
+                ["supp_nation", "l_shipdate", "l_extendedprice",
+                 "l_discount"], ["cust_nation"], orders.num_rows)
+    a, b = Q7_NATIONS
+    pair = ((field("supp_nation") == a) & (field("cust_nation") == b)) | \
+        ((field("supp_nation") == b) & (field("cust_nation") == a))
+    return Declaration.from_sequence([
+        full,
+        Declaration("filter", FilterNodeOptions(pair)),
+        Declaration("project", ProjectNodeOptions(
+            [field("supp_nation"), field("cust_nation"),
+             call("year", [field("l_shipdate")]),
+             field("l_extendedprice") * (1.0 - field("l_discount"))],
+            ["supp_nation", "cust_nation", "l_year", "volume"])),
+        Declaration("aggregate", AggregateNodeOptions(
+            [AggregateSpec("sum", "volume", name="revenue")],
+            keys=["supp_nation", "cust_nation", "l_year"], max_groups=64)),
+        Declaration("order_by", OrderByNodeOptions(
+            [("supp_nation", "ascending"), ("cust_nation", "ascending"),
+             ("l_year", "ascending")])),
+    ])
+
+
+def entry_q12(device=None, scale_factor: float = 0.01, seed: int = 42,
+              max_batch_rows: int = 1 << 22, source=None):
+    """(step, (lineitem, orders)): step(lineitem, orders) -> the Table of
+    ``q12_declaration`` (l_shipmode, high_line_count, low_line_count) run
+    by ``Declaration.to_table``, over the port's TPC-H tables at
+    ``scale_factor`` (only ``Q12_COLUMNS``) or over ``source``, as
+    ``entry_q13``. ``step.source`` holds the pyarrow tables
+    (``q12_pyarrow``'s input)."""
+    source, t = tpch_tables(scale_factor, seed, Q12_COLUMNS, max_batch_rows,
+                            device, source)
+
+    def step(lineitem: Table, orders: Table) -> Table:
+        return q12_declaration(lineitem, orders).to_table()
+
+    step.source = source
+    return step, (t["lineitem"], t["orders"])
+
+
+def entry_q7(device=None, scale_factor: float = 0.01, seed: int = 42,
+             max_batch_rows: int = 1 << 22, source=None):
+    """(step, (supplier, lineitem, orders, customer, nation)): step(...) ->
+    the Table of ``q7_declaration`` (supp_nation, cust_nation, l_year,
+    revenue), over the port's TPC-H tables at ``scale_factor`` (only
+    ``Q7_COLUMNS``) or over ``source``, as ``entry_q13``."""
+    source, t = tpch_tables(scale_factor, seed, Q7_COLUMNS, max_batch_rows,
+                            device, source)
+
+    def step(supplier: Table, lineitem: Table, orders: Table,
+             customer: Table, nation: Table) -> Table:
+        return q7_declaration(supplier, lineitem, orders, customer,
+                              nation).to_table()
+
+    step.source = source
+    return step, tuple(t[n] for n in ("supplier", "lineitem", "orders",
+                                       "customer", "nation"))
 
 
 HB_WORDS = np.array([f"id{i % 977:03d}x{i % 31}" for i in range(4096)])
@@ -906,6 +1092,269 @@ def sweep_call(name: str, extra: tuple, kw: dict, col):
     args = [col, col, *extra] if name == "binary_join_element_wise" \
         else [col, *extra]
     return call_function(name, args, **kw)
+
+
+# ---- the A7b sweep: casts, temporal, checked, vector_misc, set lookup ---
+
+# the temporal types of the cast sweep: (column, type name, unit)
+A7B_TEMPORAL = (("ts_s", "timestamp", "s"), ("ts_ms", "timestamp", "ms"),
+                ("ts_us", "timestamp", "us"), ("ts_ns", "timestamp", "ns"),
+                ("date32", "date32", None), ("date64", "date64", None),
+                ("t32_s", "time32", "s"), ("t32_ms", "time32", "ms"),
+                ("t64_us", "time64", "us"), ("t64_ns", "time64", "ns"),
+                ("dur_s", "duration", "s"), ("dur_ms", "duration", "ms"),
+                ("dur_us", "duration", "us"), ("dur_ns", "duration", "ns"))
+A7B_NUMERIC = (("i8", "int8"), ("i16", "int16"), ("i32", "int32"),
+               ("i64", "int64"), ("u8", "uint8"), ("u16", "uint16"),
+               ("u32", "uint32"), ("u64", "uint64"), ("f16", "float16"),
+               ("f32", "float32"), ("f64", "float64"), ("b", "bool_"))
+A7B_ZONES = ("America/New_York", "Europe/Paris")
+_A7B_FIELDS = ("year", "month", "day", "quarter", "day_of_year", "hour",
+               "minute", "second", "millisecond", "microsecond",
+               "nanosecond", "subsecond", "is_leap_year", "iso_year",
+               "iso_week", "us_year", "us_week")
+_A7B_FLOAT_CHECKED = (("sqrt_checked", "pos"), ("ln_checked", "pos"),
+                      ("log2_checked", "pos"), ("log10_checked", "pos"),
+                      ("log1p_checked", "pos"), ("sin_checked", "unit"),
+                      ("cos_checked", "unit"), ("tan_checked", "unit"),
+                      ("asin_checked", "unit"), ("acos_checked", "unit"),
+                      ("atanh_checked", "unit"), ("acosh_checked", "ge1"))
+
+
+def _temporal_type(kind: str, unit):
+    from .core import datatype as dt
+    t = getattr(dt, kind)
+    return t(unit) if unit else t
+
+
+def _a7b_entries():
+    """(label, function, argument columns, options, tolerance) of the
+    sweep. The tolerance is None (byte for byte), ("ulps", k) or ("sum",
+    rtol): |diff| <= rtol * the running sum of |x| of the first
+    argument."""
+    from .core import datatype as dt
+    e = []
+    numeric = {c: getattr(dt, n) for c, n in A7B_NUMERIC}
+    temporal = {c: _temporal_type(k, u) for c, k, u in A7B_TEMPORAL}
+    for src in numeric:                       # numeric and bool pairs
+        for dst, n in A7B_NUMERIC:
+            e.append((f"cast:{src}->{dst}", "cast", (src,),
+                      {"target_type": numeric[dst]}, None))
+    for src in temporal:                      # temporal pairs
+        for dst, t in temporal.items():
+            e.append((f"cast:{src}->{dst}", "cast", (src,),
+                      {"target_type": t}, None))
+    for c, t in temporal.items():             # temporal <-> int64
+        e.append((f"cast:{c}->i64", "cast", (c,),
+                  {"target_type": dt.int64}, None))
+        e.append((f"cast:i64->{c}", "cast", ("i64",),
+                  {"target_type": t}, None))
+    for src in list(numeric) + ["ts_s", "ts_ms", "ts_us", "ts_ns", "date32",
+                                "date64"]:  # to string
+        e.append((f"cast:{src}->string", "cast", (src,),
+                  {"target_type": dt.string}, None))
+    for dst, n in A7B_NUMERIC[:8]:            # from string
+        e.append((f"cast:s_int->{dst}", "cast", ("s_int",),
+                  {"target_type": numeric[dst]}, None))
+    for dst in ("f32", "f64"):
+        e.append((f"cast:s_float->{dst}", "cast", ("s_float",),
+                  {"target_type": numeric[dst]}, ("ulps", 2)))
+    e.append(("cast:s_bool->b", "cast", ("s_bool",),
+              {"target_type": dt.bool_}, None))
+    for dst in ("ts_s", "ts_ms", "ts_us", "ts_ns", "date32", "date64"):
+        e.append((f"cast:s_date->{dst}", "cast", ("s_date",),
+                  {"target_type": temporal[dst]}, None))
+    e.append(("cast:d_mode->string", "cast", ("d_mode",),
+              {"target_type": dt.string}, None))
+    e.append(("cast:s_bool->dictionary", "cast", ("s_bool",),
+              {"target_type": dt.dictionary(dt.int32, dt.string)}, None))
+    # temporal: fields of the naive and the zoned ns timestamps
+    for col in ("ts_ns", "ts_ny", "ts_paris"):
+        for f in _A7B_FIELDS + ("day_of_week", "week"):
+            e.append((f"{f}:{col}", f, (col,), {}, None))
+    e += [("year_month_day", "year_month_day", ("date32",), {}, None),
+          ("iso_calendar", "iso_calendar", ("date32",), {}, None)]
+    for m in ("floor", "ceil", "round"):
+        e.append((f"{m}_temporal", f"{m}_temporal", ("ts_ns",),
+                  {"multiple": 15, "unit": "minute"}, None))
+    e += [("strftime", "strftime", ("ts_s",),
+           {"format": "%Y-%m-%d %H:%M:%S"}, None),
+          ("strptime", "strptime", ("s_ts",),
+           {"format": "%Y-%m-%d %H:%M:%S", "unit": "s"}, None)]
+    for u in ("years", "quarters", "weeks", "days", "hours", "minutes",
+              "seconds", "milliseconds", "microseconds", "nanoseconds"):
+        e.append((f"{u}_between", f"{u}_between", ("ts_ns", "ts_ns2"), {},
+                  None))
+    for f in ("month_interval_between", "day_time_interval_between",
+              "month_day_nano_interval_between"):
+        e.append((f, f, ("ts_ns", "ts_ns2"), {}, None))
+    e += [("assume_timezone", "assume_timezone", ("ts_ns",),
+           {"timezone": "America/New_York"}, None),
+          ("local_timestamp", "local_timestamp", ("ts_paris",), {}, None),
+          ("is_dst", "is_dst", ("ts_ny",), {}, None)]
+    # checked arithmetic, on inputs that do not wrap
+    for f in ("add_checked", "subtract_checked", "multiply_checked",
+              "divide_checked"):
+        e.append((f, f, ("c_a", "c_b"), {}, None))
+    e += [("shift_left_checked", "shift_left_checked", ("c_a", "c_sh"), {},
+           None),
+          ("shift_right_checked", "shift_right_checked", ("c_a", "c_sh"),
+           {}, None),
+          ("power_checked", "power_checked", ("c_base", "c_exp"), {}, None),
+          ("negate_checked", "negate_checked", ("c_a",), {}, None),
+          ("abs_checked", "abs_checked", ("c_a",), {}, None),
+          ("logb_checked", "logb_checked", ("pos", "ge1"), {},
+           ("ulps", 4))]
+    for f, col in _A7B_FLOAT_CHECKED:
+        e.append((f, f, (col,), {}, ("ulps", 2)))
+    e += [("cumulative_sum_checked", "cumulative_sum_checked", ("c_a",), {},
+           None),
+          ("cumulative_prod_checked", "cumulative_prod_checked", ("ones",),
+           {}, None),
+          ("pairwise_diff_checked", "pairwise_diff_checked", ("c_a",),
+           {"period": 3}, None)]
+    # vector_misc
+    e += [("cumulative_sum", "cumulative_sum", ("f64n",),
+           {"skip_nulls": True}, ("sum", 1e-12)),
+          ("cumulative_sum:f32", "cumulative_sum", ("f32n",),
+           {"skip_nulls": True}, ("sum", 1e-5)),
+          ("cumulative_prod", "cumulative_prod", ("ones",), {}, None),
+          ("cumulative_min", "cumulative_min", ("f64n",), {}, None),
+          ("cumulative_max", "cumulative_max", ("i64",),
+           {"skip_nulls": True}, None),
+          ("cumulative_mean", "cumulative_mean", ("f64n",),
+           {"skip_nulls": True}, ("sum", 1e-12)),
+          ("pairwise_diff", "pairwise_diff", ("i32",), {"period": 2}, None),
+          ("replace_with_mask", "replace_with_mask", ("f64", "b", "f64n"),
+           {}, None),
+          ("fill_null_forward", "fill_null_forward", ("i64",), {}, None),
+          ("fill_null_backward", "fill_null_backward", ("f32",), {}, None),
+          ("indices_nonzero", "indices_nonzero", ("i8",), {}, None),
+          ("scatter", "scatter", ("f64", "perm"), {}, None)]
+    # set lookup
+    e += [("is_in", "is_in", ("d_mode",), {"value_set": list(Q12_MODES)},
+           None),
+          ("index_in", "index_in", ("i16",), {"value_set": [3, -7, 11, 0]},
+           None),
+          ("is_in:string", "is_in", ("s_int",),
+           {"value_set": ["13", "-7", "0"]}, None),
+          ("is_in_meta_binary", "is_in_meta_binary", ("i64", "vset"), {},
+           None),
+          ("index_in_meta_binary", "index_in_meta_binary", ("i64", "vset"),
+           {}, None)]
+    return tuple(e)
+
+
+def a7b_sweep_columns(n_rows: int, seed: int, shipdate: np.ndarray,
+                      shipmode_codes: np.ndarray, device=None) -> dict:
+    """The sweep's input columns, made with numpy from ``seed`` (the same
+    on every device): every integer and float width (one row in 97 null;
+    the floats with NaN, infinities and values past every integer range),
+    a bool, Q7's ``l_shipdate`` (``shipdate``, days) as date32 and
+    date64, ``l_shipmode`` as a dictionary of its seven names, an
+    instant over 1900-2100 with its nanosecond digits at every unit, naive
+    and in ``A7B_ZONES``, times of day, durations, strings of integers,
+    floats, dates, timestamps and bools, and the checked functions'
+    inputs, which do not wrap."""
+    from .core import datatype as dt
+    rng = np.random.default_rng(seed)
+    n = n_rows
+    valid = np.arange(n) % 97 != 5
+
+    def col(values, t, nullable=True):
+        return array_from_numpy(values, type=t, device=device,
+                                validity=valid if nullable else None)
+
+    out = {}
+    for c, name in A7B_NUMERIC:
+        t = getattr(dt, name)
+        if name == "bool_":
+            v = rng.random(n) < 0.5
+        elif name.startswith("float"):
+            v = rng.standard_normal(n) * 10.0 ** rng.integers(-3, 12, n)
+            v[::101] = np.array([np.nan, np.inf, -np.inf, 3e10, -2.9, 1e19,
+                                 2.0 ** 64, -0.5])[np.arange(
+                                     len(v[::101])) % 8]
+            with np.errstate(over="ignore"):
+                v = v.astype(t.storage_np)
+        else:
+            info = np.iinfo(t.storage_np)
+            v = rng.integers(info.min, info.max, n, dtype=t.storage_np,
+                             endpoint=True)
+        out[c] = col(v, t)
+    per = {"s": 1, "ms": 10**3, "us": 10**6, "ns": 10**9}
+    secs = rng.integers(-2_208_988_800, 4_102_444_800, n)
+    nanos = rng.integers(0, 10**9, n)
+    for u, p in per.items():
+        out[f"ts_{u}"] = col(secs * p + nanos // (10**9 // p),
+                             dt.timestamp(u))
+    out["ts_ns2"] = col(rng.integers(-2_208_988_800, 4_102_444_800, n)
+                        * 10**9 + rng.integers(0, 10**9, n),
+                        dt.timestamp("ns"))
+    ns = secs * 10**9 + nanos
+    out["ts_ny"] = col(ns, dt.timestamp("ns", A7B_ZONES[0]))
+    out["ts_paris"] = col(ns, dt.timestamp("ns", A7B_ZONES[1]))
+    days = np.asarray(shipdate[:n], dtype=np.int32)
+    out["date32"] = col(days, dt.date32)
+    out["date64"] = col(days.astype(np.int64) * 86_400_000, dt.date64)
+    tod = rng.integers(0, 86_400 * 10**9, n)
+    for c, k, u in A7B_TEMPORAL[6:10]:
+        out[c] = col(tod // (10**9 // per[u]), _temporal_type(k, u))
+    for u, p in per.items():
+        out[f"dur_{u}"] = col(rng.integers(-10**6, 10**6, n) * p,
+                              dt.duration(u))
+    out["d_mode"] = dictionary_from_numpy(
+        np.asarray(shipmode_codes[:n], dtype=np.int32),
+        np.array(["REG AIR", "AIR", "RAIL", "SHIP", "TRUCK", "MAIL", "FOB"]),
+        validity=valid, device=device)
+    ints = rng.integers(-10**6, 10**6, n)
+    ints[::13] = rng.integers(-2**62, 2**62, len(ints[::13]))
+    text = ints.astype(str)
+    text[::17] = "12a"
+    out["s_int"] = varlen_from_numpy(text, validity=valid, device=device)
+    out["s_float"] = varlen_from_numpy(
+        (rng.standard_normal(n) * 10.0 ** rng.integers(-5, 9, n)).astype(str),
+        validity=valid, device=device)
+    iso = (np.datetime64("1970-01-01") + days.astype("timedelta64[D]"))
+    out["s_date"] = varlen_from_numpy(iso.astype(str), validity=valid,
+                                      device=device)
+    stamps = (np.datetime64("1970-01-01T00:00:00") +
+              (secs % (200 * 365 * 86_400)).astype("timedelta64[s]"))
+    out["s_ts"] = varlen_from_numpy(
+        np.char.replace(stamps.astype(str), "T", " "), validity=valid,
+        device=device)
+    out["s_bool"] = varlen_from_numpy(
+        np.array(["true", "False", "1", "0", "yes"])[rng.integers(0, 5, n)],
+        validity=valid, device=device)
+    out["c_a"] = col(rng.integers(-10**6, 10**6, n), dt.int64)
+    out["c_b"] = col(rng.integers(1, 1000, n) * rng.choice([-1, 1], n),
+                     dt.int64)
+    out["c_sh"] = col(rng.integers(0, 20, n), dt.int64)
+    out["c_base"] = col(rng.integers(-3, 4, n), dt.int64)
+    out["c_exp"] = col(rng.integers(0, 11, n), dt.int64)
+    out["ones"] = col(rng.choice([1, -1], n), dt.int64)
+    out["pos"] = col(rng.uniform(0.1, 10.0, n), dt.float64)
+    out["unit"] = col(rng.uniform(-0.99, 0.99, n), dt.float64)
+    out["ge1"] = col(rng.uniform(1.5, 10.0, n), dt.float64)
+    out["f64n"] = col(rng.standard_normal(n), dt.float64)
+    out["f32n"] = col(rng.standard_normal(n).astype(np.float32), dt.float32)
+    out["perm"] = col(rng.permutation(n).astype(np.int32), dt.int32,
+                      nullable=False)
+    vset = np.zeros(n, np.int64)
+    vset[:4] = out["i64"].values[:4].cpu().numpy()
+    out["vset"] = array_from_numpy(vset[:4], capacity=n, device=device)
+    return out
+
+
+A7B_SWEEP = _a7b_entries()
+
+
+def a7b_sweep_call(entry, cols: dict):
+    """One entry of ``A7B_SWEEP`` on the columns of
+    ``a7b_sweep_columns``."""
+    from .compute import call_function
+    _, fn, names, kw, _ = entry
+    return call_function(fn, [cols[c] for c in names], **kw)
 
 
 # ---- the distribution --------------------------------------------------------
@@ -1341,6 +1790,81 @@ def q22_pyarrow(source):
     return g.select(["cntrycode", "count_all", "c_acctbal_sum"]) \
         .rename_columns(["cntrycode", "numcust", "totacctbal"]) \
         .sort_by([("cntrycode", "ascending")])
+
+
+def q12_pyarrow(source):
+    """pyarrow's run of Q12 over ``entry_q12``'s ``step.source``: the
+    oracle of the port's. The CASE columns are made on orders before the
+    join, and the ship mode decoded after the filter: pyarrow's join
+    carries dictionary columns slowly."""
+    import datetime as _dtm
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    li, od = source["lineitem"], source["orders"]
+    keep = pc.and_(pc.and_(
+        pc.is_in(li["l_shipmode"], pa.array(Q12_MODES)),
+        pc.less(li["l_commitdate"], li["l_receiptdate"])), pc.and_(
+        pc.less(li["l_shipdate"], li["l_commitdate"]), pc.and_(
+            pc.greater_equal(li["l_receiptdate"],
+                             pa.scalar(_dtm.date(Q12_YEAR, 1, 1))),
+            pc.less(li["l_receiptdate"],
+                    pa.scalar(_dtm.date(Q12_YEAR + 1, 1, 1))))))
+    li = li.filter(keep)
+    li = pa.table({"l_orderkey": li["l_orderkey"],
+                   "l_shipmode": pc.cast(li["l_shipmode"], pa.string())})
+    urgent = pc.is_in(od["o_orderpriority"], pa.array(Q12_PRIORITIES))
+    od = pa.table({"o_orderkey": od["o_orderkey"],
+                   "high": pc.cast(urgent, pa.int64()),
+                   "low": pc.cast(pc.invert(urgent), pa.int64())})
+    g = li.join(od, keys="l_orderkey", right_keys="o_orderkey",
+                join_type="inner") \
+        .group_by("l_shipmode").aggregate([("high", "sum"), ("low", "sum")])
+    return g.select(["l_shipmode", "high_sum", "low_sum"]) \
+        .rename_columns(["l_shipmode", "high_line_count",
+                         "low_line_count"]) \
+        .sort_by([("l_shipmode", "ascending")])
+
+
+def q7_pyarrow(source):
+    """pyarrow's run of Q7 over ``entry_q7``'s ``step.source``: the oracle
+    of the port's."""
+    import datetime as _dtm
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    na = source["nation"]
+    na = na.filter(pc.is_in(na["n_name"], pa.array(Q7_NATIONS)))
+    supp = source["supplier"].join(
+        na.rename_columns(["s_nk", "supp_nation"]), keys="s_nationkey",
+        right_keys="s_nk").select(["s_suppkey", "supp_nation"])
+    cust = source["customer"].join(
+        na.rename_columns(["c_nk", "cust_nation"]), keys="c_nationkey",
+        right_keys="c_nk").select(["c_custkey", "cust_nation"])
+    ords = source["orders"].join(cust, keys="o_custkey",
+                                 right_keys="c_custkey") \
+        .select(["o_orderkey", "cust_nation"])
+    li = source["lineitem"]
+    d = li["l_shipdate"]
+    li = li.filter(pc.and_(
+        pc.greater_equal(d, pa.scalar(_dtm.date(1995, 1, 1))),
+        pc.less_equal(d, pa.scalar(_dtm.date(1996, 12, 31)))))
+    j = li.join(supp, keys="l_suppkey", right_keys="s_suppkey") \
+        .join(ords, keys="l_orderkey", right_keys="o_orderkey")
+    a, b = Q7_NATIONS
+    sn, cn = j["supp_nation"], j["cust_nation"]
+    pair = pc.or_(pc.and_(pc.equal(sn, a), pc.equal(cn, b)),
+                  pc.and_(pc.equal(sn, b), pc.equal(cn, a)))
+    j = j.filter(pair)
+    vol = pc.multiply(j["l_extendedprice"],
+                      pc.subtract(1.0, j["l_discount"]))
+    t = pa.table({"supp_nation": j["supp_nation"],
+                  "cust_nation": j["cust_nation"],
+                  "l_year": pc.year(j["l_shipdate"]), "volume": vol})
+    g = t.group_by(["supp_nation", "cust_nation", "l_year"]) \
+        .aggregate([("volume", "sum")])
+    return g.rename_columns(["supp_nation", "cust_nation", "l_year",
+                             "revenue"]) \
+        .sort_by([("supp_nation", "ascending"),
+                  ("cust_nation", "ascending"), ("l_year", "ascending")])
 
 
 def host_boundary_numpy(n_rows: int, seed: int):

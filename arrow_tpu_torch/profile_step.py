@@ -2,7 +2,8 @@
 
     python -m arrow_tpu_torch.profile_step
         [--path generic|dense|dist|distdict|exchange|sort|join|q3|q3dist|
-                sortdict|q3s|q3sdist|strings|anyall|q6|q6dist|q13|q22|hb]
+                sortdict|q3s|q3sdist|strings|anyall|q6|q6dist|q13|q22|hb|
+                q12|q7]
         [--rows N] [--keys N] [--max-groups N] [--shards N] [--steps N]
         [--seed N] [--build-rows N] [--build-keys N]
         [--key-dist uniform|zipf] [--join-type T] [--wide] [--batch-rows N]
@@ -55,7 +56,10 @@ regex's host hop (the pushdown's device distinct, the column to the host,
 RE2, the result back) and the string functions' calls. ``--path hb`` is
 ``entry_host_boundary`` (bench.py's host_boundary regex filter) over
 ``--rows`` rows, ``s`` staged as ``--staging`` (default plain: the
-pushdown; dictionary: the dictionary branch).
+pushdown; dictionary: the dictionary branch). ``--path q12`` and ``--path
+q7`` are ``entry_q12`` and ``entry_q7`` (TPC-H Q12, Q7) at ``TPCH_SF``:
+per plan node, and per layer, among them the casts, ``is_in`` and the
+temporal fields.
 
 Wraps the functions that make up the step's layers so that each call is
 bracketed by two CUDA events on the current stream (no synchronisation
@@ -76,7 +80,8 @@ import sys
 import time
 from collections import defaultdict
 
-# TPC-H scale factor of ``--path q13|q22``: chip_smoke.py's paths 10 and 11
+# TPC-H scale factor of ``--path q13|q22|q12|q7``: chip_smoke.py's paths 10,
+# 11, 13 and 14
 TPCH_SF = 10
 
 
@@ -191,7 +196,7 @@ def main() -> int:
                                        "join", "q3", "q3dist", "sortdict",
                                        "q3s", "q3sdist", "strings",
                                        "anyall", "q6", "q6dist", "q13",
-                                       "q22", "hb"),
+                                       "q22", "hb", "q12", "q7"),
                     default="generic")
     ap.add_argument("--staging", choices=("dictionary", "plain"),
                     default="plain")
@@ -364,9 +369,11 @@ def main() -> int:
     layer(nodes, "concat_batches", "concat")
     layer(nodes, "sort_indices_batch", "sort_indices")
     layer(nodes, "take_batch", "take")
-    # the string functions and the regex family's host hop
+    # the string functions and the regex family's host hop; Q12 / Q7's
+    # casts, set lookups, date compares and temporal field
     for fname in ("match_substring_regex", "utf8_slice_codeunits",
-                  "equal", "invert"):
+                  "equal", "invert", "is_in", "cast", "year", "less",
+                  "less_equal", "greater_equal", "and_kleene", "multiply"):
         layer(registry.get(fname), "exec", fname)
     layer(strings_regex, "_via_pc", "host_hop")
     layer(strings_regex, "_pushdown_encode", "pushdown_encode")
@@ -452,9 +459,10 @@ def main() -> int:
     elif args.path == "q6dist":
         step, (b,) = entry_mod.entry_dist_groupby_q6(
             None, args.shards or 4, args.rows, args.seed, args.keys or 100)
-    elif args.path in ("q13", "q22"):
-        make = entry_mod.entry_q13 if args.path == "q13" \
-            else entry_mod.entry_q22
+    elif args.path in ("q13", "q22", "q12", "q7"):
+        make = {"q13": entry_mod.entry_q13, "q22": entry_mod.entry_q22,
+                "q12": entry_mod.entry_q12, "q7": entry_mod.entry_q7}[
+            args.path]
         qstep, b = make(None, TPCH_SF, args.seed,
                         max_batch_rows=args.batch_rows)
 
@@ -479,7 +487,7 @@ def main() -> int:
         step(b)
         torch.cuda.synchronize()
         host_ms.append((time.perf_counter() - t0) * 1e3)
-    size = f"SF {TPCH_SF}" if args.path in ("q13", "q22") \
+    size = f"SF {TPCH_SF}" if args.path in ("q13", "q22", "q12", "q7") \
         else f"{args.rows} rows"
     hops = {k: v / args.steps for k, v in strings_regex.HOST_HOPS.items()}
     print(f"path {args.path}: {size}; host-clock ms per step "

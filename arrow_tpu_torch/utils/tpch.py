@@ -381,9 +381,22 @@ def _lineitem_parts(rng, sf, n, l_odate):
             commitdate, receiptdate)
 
 
+def _finish(cols: dict, comment: str, make_comment, columns):
+    """The table of ``cols`` and, drawn last, its comment column, with
+    only ``columns`` (all if None). The comment is not drawn when it is
+    not asked for: it is the costliest column, and the columns drawn
+    before it keep their values."""
+    import pyarrow as pa
+    if columns is None or comment in columns:
+        cols[comment] = make_comment()
+    t = pa.table(cols)
+    return t if columns is None else t.select(list(columns))
+
+
 def tpch_table(name: str, scale_factor: float = 0.01,
-               seed: int = 42) -> pa.Table:
-    """Generate one TPC-H table as a pyarrow.Table."""
+               seed: int = 42, columns=None) -> pa.Table:
+    """Generate one TPC-H table as a pyarrow.Table; with ``columns``, only
+    those (a comment drawn last is then skipped unless named)."""
     import pyarrow as pa
     rng = np.random.default_rng(seed + TPCH_TABLES.index(name))
     sf = scale_factor
@@ -392,19 +405,17 @@ def tpch_table(name: str, scale_factor: float = 0.01,
     n_supp = max(int(_SUPP_PER_SF * sf), 3)
 
     if name == "region":
-        return pa.table({
+        return _finish({
             "r_regionkey": pa.array(range(5), type=pa.int64()),
             "r_name": pa.array(_REGIONS),
-            "r_comment": _comments(rng, 5, 31, 115),
-        })
+        }, "r_comment", lambda: _comments(rng, 5, 31, 115), columns)
 
     if name == "nation":
-        return pa.table({
+        return _finish({
             "n_nationkey": pa.array(range(25), type=pa.int64()),
             "n_name": pa.array(_NATIONS),
             "n_regionkey": pa.array(_NATION_REGION, type=pa.int64()),
-            "n_comment": _comments(rng, 25, 31, 114),
-        })
+        }, "n_comment", lambda: _comments(rng, 25, 31, 114), columns)
 
     if name == "supplier":
         k = np.arange(1, n_supp + 1, dtype=np.int64)
@@ -421,7 +432,7 @@ def tpch_table(name: str, scale_factor: float = 0.01,
                    else "Customer Recommends")
             base = py[row]
             py[row] = (base[:max(len(base) - len(tag), 0)] + tag)
-        return pa.table({
+        return _finish({
             "s_suppkey": pa.array(k),
             "s_name": _numbered("Supplier", k),
             "s_address": _vstring(rng, n_supp, 10, 40),
@@ -429,13 +440,12 @@ def tpch_table(name: str, scale_factor: float = 0.01,
             "s_phone": _phones(rng, nationkey),
             "s_acctbal": pa.array(
                 np.round(rng.uniform(-999.99, 9999.99, n_supp), 2)),
-            "s_comment": pa.array(py, type=pa.string()),
-        })
+        }, "s_comment", lambda: pa.array(py, type=pa.string()), columns)
 
     if name == "customer":
         k = np.arange(1, n_cust + 1, dtype=np.int64)
         nationkey = rng.integers(0, 25, n_cust)
-        return pa.table({
+        return _finish({
             "c_custkey": pa.array(k),
             "c_name": _numbered("Customer", k),
             "c_address": _vstring(rng, n_cust, 10, 40),
@@ -444,8 +454,7 @@ def tpch_table(name: str, scale_factor: float = 0.01,
             "c_acctbal": pa.array(
                 np.round(rng.uniform(-999.99, 9999.99, n_cust), 2)),
             "c_mktsegment": _dict_col(rng, n_cust, _SEGMENTS),
-            "c_comment": _comments(rng, n_cust, 29, 116),
-        })
+        }, "c_comment", lambda: _comments(rng, n_cust, 29, 116), columns)
 
     if name == "part":
         k = np.arange(1, n_part + 1, dtype=np.int64)
@@ -460,7 +469,7 @@ def tpch_table(name: str, scale_factor: float = 0.01,
                                    colors[pick[:, j]])
         mfgr = rng.integers(1, 6, n_part)
         brand = mfgr * 10 + rng.integers(1, 6, n_part)
-        return pa.table({
+        return _finish({
             "p_partkey": pa.array(k),
             "p_name": pa.array(name_col),
             "p_mfgr": pa.DictionaryArray.from_arrays(
@@ -473,22 +482,20 @@ def tpch_table(name: str, scale_factor: float = 0.01,
                                type=pa.int64()),
             "p_container": _dict_col(rng, n_part, _CONTAINERS),
             "p_retailprice": pa.array(_retailprice(k)),
-            "p_comment": _comments(rng, n_part, 5, 22),
-        })
+        }, "p_comment", lambda: _comments(rng, n_part, 5, 22), columns)
 
     if name == "partsupp":
         nps = n_part * 4
         pkey = np.repeat(np.arange(1, n_part + 1, dtype=np.int64), 4)
         i = np.tile(np.arange(4, dtype=np.int64), n_part)
-        return pa.table({
+        return _finish({
             "ps_partkey": pa.array(pkey),
             "ps_suppkey": pa.array(_ps_suppkey(pkey, i, n_supp)),
             "ps_availqty": pa.array(rng.integers(1, 10000, nps),
                                     type=pa.int64()),
             "ps_supplycost": pa.array(
                 np.round(rng.uniform(1.0, 1000.0, nps), 2)),
-            "ps_comment": _comments(rng, nps, 49, 198),
-        })
+        }, "ps_comment", lambda: _comments(rng, nps, 49, 198), columns)
 
     if name == "orders":
         n_orders, okey, ckey, odate, nlines = _orders_skeleton(rng, sf)
@@ -509,7 +516,7 @@ def tpch_table(name: str, scale_factor: float = 0.01,
                               np.where(n_open == nlines, 1, 2)
                               ).astype(np.int32)  # F / O / P
         clerks = rng.integers(1, max(int(1000 * sf), 1) + 1, n_orders)
-        return pa.table({
+        return _finish({
             "o_orderkey": pa.array(okey),
             "o_custkey": pa.array(ckey, type=pa.int64()),
             "o_orderstatus": pa.DictionaryArray.from_arrays(
@@ -519,8 +526,7 @@ def tpch_table(name: str, scale_factor: float = 0.01,
             "o_orderpriority": _dict_col(rng, n_orders, _PRIORITIES),
             "o_clerk": _numbered("Clerk", clerks),
             "o_shippriority": pa.array(np.zeros(n_orders, np.int64)),
-            "o_comment": _comments(rng, n_orders, 19, 78),
-        })
+        }, "o_comment", lambda: _comments(rng, n_orders, 19, 78), columns)
 
     if name == "lineitem":
         # regenerate the SAME skeleton the orders table used
@@ -537,7 +543,7 @@ def tpch_table(name: str, scale_factor: float = 0.01,
         rf = rng.integers(0, 2, n).astype(np.int32)  # R or A when returned
         returnflag_idx = np.where(receiptdate <= _CURRENTDATE, rf,
                                   2).astype(np.int32)
-        return pa.table({
+        return _finish({
             "l_orderkey": pa.array(l_okey),
             "l_partkey": pa.array(partkey, type=pa.int64()),
             "l_suppkey": pa.array(suppkey, type=pa.int64()),
@@ -555,7 +561,6 @@ def tpch_table(name: str, scale_factor: float = 0.01,
             "l_receiptdate": _date32(receiptdate),
             "l_shipinstruct": _dict_col(rng, n, _INSTRUCT),
             "l_shipmode": _dict_col(rng, n, _MODES),
-            "l_comment": _comments(rng, n, 10, 43),
-        })
+        }, "l_comment", lambda: _comments(rng, n, 10, 43), columns)
 
     raise KeyError(f"unknown TPC-H table {name!r}")

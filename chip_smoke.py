@@ -129,13 +129,38 @@ rows (BASELINE config #2) and checks each result against a numpy oracle:
           the card, RE2 over the 4,096 unique slots on the host, one take
           by code); both against Python ``re`` over the words, indexed by
           the rows' codes;
+  path 13 ``arrow_tpu_torch.entry.entry_q12``: TPC-H Q12 at SF 10 on
+          path 10's orders and a lineitem of 60M rows (its five columns
+          Q12 reads and Q7's three more, generated once without
+          ``l_comment``): ``l_shipmode IN ('MAIL', 'SHIP')`` (``is_in``
+          on the dictionary), date32 ranges, the join to orders, the
+          CASE as ``cast(is_in(o_orderpriority, ...), int64)``, sums by
+          ship mode; against pyarrow's run, exactly;
+  path 14 ``arrow_tpu_torch.entry.entry_q7``: TPC-H Q7 at SF 10 on the
+          same tables with supplier and nation: ``is_in`` on each nation
+          side, five joins, the pair predicate, ``year(l_shipdate)`` on
+          the card, revenue by (supp_nation, cust_nation, l_year);
+          against pyarrow (keys exact, revenue within 1e-12 relative);
   the string sweep: the string family's 71 functions
           (``entry.STRING_SWEEP``, the unit tests' options) once each on
           the card over the first 2^20 rows of path 10's ``o_comment``
           (one in 16 a non-ASCII string of the unit tests', one in 97
           null), each byte for byte against the port's CPU result on the
           same rows (the CPU's run once each card call is timed, after
-          every path); its device ms and the peak above the input.
+          every path); its device ms and the peak above the input;
+  the A7b sweep: the 83 functions of the casts, temporal functions,
+          checked arithmetic, vector_misc and set lookup, and ``cast``
+          over every pair of types it dispatches (``cast:<src>-><dst>``),
+          527 entries (``entry.A7B_SWEEP``) over 2^20-row columns made
+          from the seed (``entry.a7b_sweep_columns``: every integer and
+          float width, one row in 97 null; Q7's ``l_shipdate``; an
+          instant over 1900-2100 with its nanosecond digits, naive, in
+          New York and in Paris; times, durations, strings), each on the
+          card against the CPU's run: integers, bools, dates, offsets
+          and bytes byte for byte, floats within the entry's stated ulps
+          or 1e-12 (float32: 1e-5) times the running sum of |x|; and
+          ``add_checked`` past INT64_MAX raising ``ArrowInvalid`` on
+          both devices.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -159,10 +184,10 @@ the shards of the card, and no ``torch.sort`` inside the exchange's
 the two exchange kernels and the key packing against its plain version,
 and the launches those calls make against their counted runs'.
 
-Paths 10-12 hold every call they make to B1, B2, the stitch,
+Paths 10-14 hold every call they make to B1, B2, the stitch,
 ``pack_key_lanes`` and B3 against its plain version. Prints the card's
 name and power limit, one line per check, a JSON line ``{"sweep": {...}}``
-(each sweep function's ms and peak), a JSON line ``{"paths": {...}}`` (each path's counted step: ms and peak device bytes;
+(each entry of both sweeps: ms and peak), a JSON line ``{"paths": {...}}`` (each path's counted step: ms and peak device bytes;
 path 1 also its filter layer's device ms, the expression excluded), a JSON
 line ``{"kernels": [...]}`` (the four kernels that stand for the JAX package's
 Pallas kernels, the tile stitch and the join's key packing, which stand for
@@ -1153,9 +1178,16 @@ def check_q6(table, oracle, label: str, k: int = Q6_K) -> int:
 
 
 def result_parts(a) -> list:
-    """An Array as the sweep compares it, as bytes on the host: length,
-    capacities, validity, and a varlen column's offsets and used bytes, or
-    a fixed-width column's type and valid rows' values."""
+    """An Array (or a Batch: its columns) as the sweeps compare it, as
+    bytes on the host: length, capacities, validity, and a varlen column's
+    offsets and used bytes, a struct-layout column's children, or a
+    fixed-width column's type and valid rows' values."""
+    if hasattr(a, "arrays"):
+        return [p for c in a.arrays for p in result_parts(c)]
+    if a.children:
+        ok = a.validity
+        return [p for c in a.children
+                for p in result_parts(c.with_validity(ok))]
     n = int(a.length)
     varlen = a.offsets is not None
     ok = a.validity_or_true()[:n].cpu()
@@ -1169,6 +1201,33 @@ def result_parts(a) -> list:
         parts += [str(a.type).encode(),
                   a.values[:n].cpu()[ok].numpy().tobytes()]
     return parts
+
+
+def float_parts_close(got, want, tol, scale_of=None) -> bool:
+    """The sweeps' float comparison: validity equal and, at the valid
+    rows, ``("ulps", k)``: |got - want| <= k ulps of the larger magnitude
+    (NaN equal to NaN); ``("sum", rtol)``: |got - want| <= rtol times
+    ``scale_of`` (the running sum of |x| of the input) plus 1e-6 for a
+    float32 result."""
+    n = int(want.length)
+    ok = want.validity_or_true()[:n].cpu().numpy()
+    if not np.array_equal(got.validity_or_true()[:n].cpu().numpy(), ok):
+        return False
+    g = got.values[:n].cpu().numpy()[ok]
+    w = want.values[:n].cpu().numpy()[ok]
+    if g.dtype != w.dtype:
+        return False
+    same = (g == w) | (np.isnan(g) & np.isnan(w))
+    kind, k = tol
+    with np.errstate(invalid="ignore", over="ignore"):
+        if kind == "ulps":
+            mag = np.maximum(np.abs(g), np.abs(w))
+            close = np.abs(g - w) <= k * np.spacing(mag.astype(g.dtype))
+        else:
+            f32 = g.dtype == np.float32
+            close = np.abs(g.astype(np.float64) - w) <= \
+                k * scale_of[:n][ok] + (1e-6 if f32 else 0.0)
+    return bool(np.all(same | close))
 
 
 def main() -> int:
@@ -2895,14 +2954,15 @@ def main() -> int:
 
     # ---- paths 10-12 and the sweep: the string family --------------------
     from arrow_tpu_torch.ops import strings_regex
+    import pyarrow as pa
     from arrow_tpu_torch.utils.tpch import tpch_table
-    string_kernels = ("filter_compact_chunks", "tile_compact_local",
+    plan_kernels = ("filter_compact_chunks", "tile_compact_local",
                       "tile_stitch", "pack_key_lanes", "dense_group_reduce")
 
-    def check_string_calls(label, fn, counts):
+    def check_plan_calls(label, fn, counts):
         """One more run of fn recording every call of the kernels the
-        string paths reach; each against its plain version, the calls'
-        launches against the counted run's."""
+        plan paths 10-14 reach; each against its plain version, the
+        calls' launches against the counted run's."""
         forget()
         out_ = recorded(selection, "filter_compact_columns", lambda: recorded(
             selection, "tile_compact_local", lambda: recorded(
@@ -2910,7 +2970,7 @@ def main() -> int:
                     join_mod, "pack_key_lanes", lambda: recorded(
                         hash_aggregate, "dense_group_reduce", fn)))))
         del out_
-        for kname in string_kernels:
+        for kname in plan_kernels:
             calls = seen_calls.get(wrapper.get(kname, kname), [])
             n = sum(kernel_launches(ck, kname, a) for a in calls) \
                 if kname in ("filter_compact_chunks", "pack_key_lanes") \
@@ -2935,7 +2995,7 @@ def main() -> int:
                                f"{label} call", valid)
         print(f"{label}: " + ", ".join(
             f"{len(seen_calls.get(wrapper.get(k, k), []))} {k}"
-            for k in string_kernels) + " calls equal their plain versions")
+            for k in plan_kernels) + " calls equal their plain versions")
 
     t0 = time.time()
     source = {name: tpch_table(name, TPCH_SF, TPCH_SEED)
@@ -2971,7 +3031,7 @@ def main() -> int:
           f"hops {hops10}; launches {launches10}")
     paths["path 10"]["host_hops"] = hops10
     del out
-    check_string_calls("path 10", lambda: step(*tables), launches10)
+    check_plan_calls("path 10", lambda: step(*tables), launches10)
     del step, tables
     forget()
     torch.cuda.empty_cache()
@@ -3001,7 +3061,7 @@ def main() -> int:
           f"totacctbal max |diff| {float(np.abs(g - w).max()):.3g}; peak "
           f"device memory {peak} B; launches {launches11}")
     del out
-    check_string_calls("path 11", lambda: step(*tables), launches11)
+    check_plan_calls("path 11", lambda: step(*tables), launches11)
     del step, tables
     forget()
     torch.cuda.empty_cache()
@@ -3048,7 +3108,7 @@ def main() -> int:
               f"B; host hops {hops}; launches {launches12[label]}")
         paths[label]["host_hops"] = hops
         del out, s
-        check_string_calls(label, lambda: step(b), launches12[label])
+        check_plan_calls(label, lambda: step(b), launches12[label])
         calls = seen_calls["filter_compact_columns"]
         fc12[label] = [measure_filter(torch, ck, *a, f"{label} {what}")
                        for a, what in zip(calls, ("rows", "pool"))]
@@ -3056,6 +3116,60 @@ def main() -> int:
         forget()
         torch.cuda.empty_cache()
     del keep12, v_kept, codes12
+
+    # ---- paths 13 and 14: TPC-H Q12 and Q7, casts, dates and is_in ------
+    t0 = time.time()
+    li_cols = sorted(set(entry_mod.Q12_COLUMNS["lineitem"]) |
+                     set(entry_mod.Q7_COLUMNS["lineitem"]))
+    source.update({name: tpch_table(name, TPCH_SF, TPCH_SEED, columns=cols)
+                   for name, cols in (("lineitem", li_cols),
+                                      ("supplier", None), ("nation", None))})
+    n_li = source["lineitem"].num_rows
+    print(f"TPC-H SF {TPCH_SF}: lineitem {n_li} rows ({len(li_cols)} "
+          f"columns, no l_comment), supplier and nation generated in "
+          f"{time.time() - t0:.1f} s")
+    launches1314 = {}
+    for label, make, oracle in (
+            ("path 13", entry_mod.entry_q12, entry_mod.q12_pyarrow),
+            ("path 14", entry_mod.entry_q7, entry_mod.q7_pyarrow)):
+        t0 = time.time()
+        step, tables = make(dev, TPCH_SF, TPCH_SEED, source=source)
+        torch.cuda.synchronize()
+        print(f"{label} data: {len(tables)} tables staged in "
+              f"{time.time() - t0:.1f} s, lineitem in "
+              f"{len(tables[0 if label == 'path 13' else 1].batches)} "
+              "batches")
+        out, secs, launches1314[label], peak = timed(
+            lambda: step(*tables), label, ("filter_compact_chunks",))
+        t0 = time.time()
+        got, want = out.to_pydict(), oracle(step.source).to_pydict()
+        if label == "path 13":
+            check(got == want, f"{label}: Q12 differs from pyarrow's: "
+                  f"{got} {want}")
+            what = f"{len(got['l_shipmode'])} ship modes"
+        else:
+            g, w = np.array(got.pop("revenue")), np.array(want.pop(
+                "revenue"))
+            check(got == want and len(g) == 4 and bool(np.all(
+                np.abs(g - w) <= 1e-12 * np.abs(w))),
+                f"{label}: Q7 differs from pyarrow's: {got} {g} {want} {w}")
+            what = f"{len(g)} (nation, nation, year) groups"
+        print(f"{label} ({'TPC-H Q12' if label == 'path 13' else 'TPC-H Q7'}"
+              f" at SF {TPCH_SF}): {n_li} lineitem rows in "
+              f"{secs * 1e3:.3f} ms = {n_li / secs:.6g} rows/s; {what} "
+              f"equal pyarrow's (oracle {time.time() - t0:.1f} s); peak "
+              f"device memory {peak} B; launches {launches1314[label]}")
+        del out
+        check_plan_calls(label, lambda: step(*tables), launches1314[label])
+        del step, tables
+        forget()
+        torch.cuda.empty_cache()
+    shipdate = source["lineitem"]["l_shipdate"].slice(0, N_SWEEP) \
+        .cast(pa.int32()).to_numpy()
+    shipmode = source["lineitem"]["l_shipmode"].slice(0, N_SWEEP) \
+        .combine_chunks().indices.to_numpy()
+    for name in ("lineitem", "supplier", "nation"):
+        del source[name]
 
     # ---- the string sweep: the family's 71 functions over 2^20 comments ---
     t0 = time.time()
@@ -3099,11 +3213,87 @@ def main() -> int:
         del got, want
         print(f"sweep {name:26s} {sweep[name]['ms']:10.3f} ms, peak above "
               f"the input {sweep[name]['peak_bytes']} B; equal to the CPU's")
-    print(json.dumps({"sweep": sweep}))
     print(f"string sweep: {len(sweep)} functions equal the CPU's byte for "
           f"byte; card {sum(m['ms'] for m in sweep.values()):.1f} ms in "
           f"all, the CPU {cpu_s:.1f} s")
     del col, col_cpu
+    torch.cuda.empty_cache()
+
+    # ---- the A7b sweep: 83 functions and every cast pair at 2^20 rows ----
+    from arrow_tpu_torch.utils.errors import ArrowInvalid
+    t0 = time.time()
+    cols = entry_mod.a7b_sweep_columns(N_SWEEP, TPCH_SEED, shipdate,
+                                       shipmode, device=dev)
+    cols_cpu = entry_mod.a7b_sweep_columns(N_SWEEP, TPCH_SEED, shipdate,
+                                           shipmode, device="cpu")
+    for name, c in cols.items():
+        check(result_parts(c) == result_parts(cols_cpu[name]),
+              f"A7b sweep: the CPU's input {name} differs from the card's")
+    print(f"A7b sweep: {len(cols)} columns of {N_SWEEP} rows (Q7's "
+          f"l_shipdate and Q12's l_shipmode among them) made in "
+          f"{time.time() - t0:.1f} s")
+    a7b_host = {"strftime", "strptime"}
+    n_a7b, cpu_s, a7b_ms = 0, 0.0, 0.0
+    for entry in entry_mod.A7B_SWEEP:
+        label, fn, names, kw, tol = entry
+        src = cols[names[0]].type
+        host = fn in a7b_host or (fn == "cast" and (
+            (src.is_floating and str(kw["target_type"]) == "string") or
+            (str(src) == "string" and kw["target_type"].is_temporal) or
+            (src.is_temporal and str(kw["target_type"]) == "string")))
+        if not host:
+            entry_mod.a7b_sweep_call(entry, cols)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        got = entry_mod.a7b_sweep_call(entry, cols)
+        end.record()
+        torch.cuda.synchronize()
+        sweep[label] = {"ms": start.elapsed_time(end),
+                        "peak_bytes": torch.cuda.max_memory_allocated() - base}
+        a7b_ms += sweep[label]["ms"]
+        check(sweep[label]["peak_bytes"] < SWEEP_PEAK_BYTES,
+              f"A7b sweep {label}: peak {sweep[label]['peak_bytes']} B")
+        t1 = time.time()
+        want = entry_mod.a7b_sweep_call(entry, cols_cpu)
+        cpu_s += time.time() - t1
+        if tol is None and getattr(want, "offsets", 1) is None and \
+                not want.children and want.values.dtype.is_floating_point:
+            tol = ("ulps", 0)     # NaN bits differ: the card's canonical
+        if tol is None:
+            same = result_parts(got) == result_parts(want)
+        else:
+            x = cols_cpu[names[0]]
+            scale = np.cumsum(np.nan_to_num(np.abs(
+                x.values.numpy().astype(np.float64)) *
+                x.validity_or_true().numpy())) if tol[0] == "sum" else None
+            same = float_parts_close(got, want, tol, scale)
+        check(same, f"A7b sweep {label}: the card's result differs from "
+              f"the CPU's (tolerance {tol})")
+        del got, want
+        n_a7b += 1
+    # one call that wraps raises on both devices
+    big = cols["c_a"].values.clone()
+    big[7] = (1 << 63) - 1
+    for d, c in ((dev, cols["c_a"]), ("cpu", cols_cpu["c_a"])):
+        a = Array(c.type, big.to(d), c.validity, length=c.length)
+        try:
+            entry_mod.a7b_sweep_call(("", "add_checked", ("x", "x"), {},
+                                      None), {"x": a})
+            check(False, f"A7b sweep: add_checked past INT64_MAX on {d} "
+                  "did not raise")
+        except ArrowInvalid as e:
+            check(str(e) == "overflow", f"A7b sweep: message {e!r}")
+    print(f"A7b sweep: {n_a7b} entries ({len(set(e[1] for e in entry_mod.A7B_SWEEP))} "
+          f"functions) equal the CPU's (exact, or within the stated "
+          f"ulps / sums); add_checked past INT64_MAX raises on both "
+          f"devices; card {a7b_ms:.1f} ms in all, the CPU {cpu_s:.1f} s, "
+          f"{time.time() - t0:.1f} s in all")
+    print(json.dumps({"sweep": sweep}))
+    del cols, cols_cpu
     torch.cuda.empty_cache()
 
     def row(name, source, replaces, n_launches, m):
@@ -3192,7 +3382,8 @@ def main() -> int:
             ("path 7d", launches7d), ("path 7s", launches7s),
             ("path 7e", launches7e), ("path 3s", launches3s),
             ("path 9", launches9), ("path 10", launches10),
-            ("path 11", launches11)] + list(launches12.items()):
+            ("path 11", launches11)] + list(launches12.items()) + \
+            list(launches1314.items()):
         suffix = suffix_of(label)
         for kernel in kernels:
             if counts[kernel["name"]] and not (

@@ -7,7 +7,10 @@ Q3-shaped plan, which loads ``acero/plan`` and ``acero/nodes``; the string
 slice's three, which load ``ops/strings`` and the string paths of the
 rest; a Unicode case map, which loads ``ops/unicode_text`` and its tables;
 and ``ops/strings_regex`` and ``utils/tpch``, which import pyarrow only
-when they run), and check which modules got loaded. And the default-device rule: an entry point given
+when they run; a cast, a local-time field of a zoned timestamp, ``is_in``,
+a cumulative sum and a checked add, which load the five modules of the
+casts, temporal, set-lookup, vector_misc and checked functions), and check
+which modules got loaded. And the default-device rule: an entry point given
 no device takes the card."""
 
 import subprocess
@@ -66,6 +69,22 @@ assert {"arrow_tpu_torch.ops.sorting", "arrow_tpu_torch.ops.join",
         "arrow_tpu_torch.acero.plan", "arrow_tpu_torch.acero.nodes",
         "arrow_tpu_torch.ops.scalar_arithmetic",
         "arrow_tpu_torch.ops.strings"} <= set(sys.modules)
+from arrow_tpu_torch.core import datatype as dt
+from arrow_tpu_torch.core.array import array_from_numpy
+ts = array_from_numpy(np.array([0, 86_400_000_001, -1]),
+                      type=dt.timestamp("us", "Europe/Paris"), device="cpu")
+assert call_function("hour", [ts]).values.tolist() == [1, 1, 0]
+k = array_from_numpy(np.array([3, 1, 2]), device="cpu")
+assert call_function("cast", [k], target_type=dt.int8).values.tolist() == \
+    [3, 1, 2]
+assert call_function("is_in", [k], value_set=[1, 2]).values.tolist() == \
+    [False, True, True]
+assert call_function("cumulative_sum", [k]).values.tolist() == [3, 4, 6]
+assert call_function("add_checked", [k, k]).values.tolist() == [6, 2, 4]
+assert {"arrow_tpu_torch.ops.scalar_cast", "arrow_tpu_torch.ops.temporal",
+        "arrow_tpu_torch.ops.set_lookup", "arrow_tpu_torch.ops.vector_misc",
+        "arrow_tpu_torch.ops.scalar_checked",
+        "arrow_tpu_torch.utils.errors"} <= set(sys.modules)
 import arrow_tpu_torch.parallel.context, arrow_tpu_torch.parallel.dist_agg
 import arrow_tpu_torch.parallel.shuffle, arrow_tpu_torch.ops.hashing
 assert {"arrow_tpu_torch.parallel.shuffle", "arrow_tpu_torch.ops.hashing",
@@ -109,6 +128,7 @@ def test_no_device_means_the_card():
                entry_mod.entry_sort_dict, entry_mod.entry_q3s,
                entry_mod.entry_strings, entry_mod.entry_q13,
                entry_mod.entry_q22, entry_mod.entry_host_boundary,
+               entry_mod.entry_q12, entry_mod.entry_q7,
                array_mod.varlen_from_numpy,
                array_mod.dictionary_from_numpy,
                entry_mod.table_from_numpy, batch_mod.empty_batch,
@@ -141,7 +161,13 @@ def test_port_sources_name_neither_jax_nor_the_jax_package():
             "arrow_tpu_torch/ops/strings.py",
             "arrow_tpu_torch/ops/strings_regex.py",
             "arrow_tpu_torch/ops/unicode_text.py",
-            "arrow_tpu_torch/utils/tpch.py"} <= names
+            "arrow_tpu_torch/utils/tpch.py",
+            "arrow_tpu_torch/utils/errors.py",
+            "arrow_tpu_torch/ops/scalar_cast.py",
+            "arrow_tpu_torch/ops/temporal.py",
+            "arrow_tpu_torch/ops/scalar_checked.py",
+            "arrow_tpu_torch/ops/vector_misc.py",
+            "arrow_tpu_torch/ops/set_lookup.py"} <= names
     for f in files + [ROOT / "chip_smoke.py"]:
         assert not pat.search(f.read_text()), f
 
