@@ -21,6 +21,9 @@ from .core.schema import Field, Schema, field, schema  # noqa: F401
 from .core.batch import (  # noqa: F401
     Batch, Table, TableGroupBy, batch, batch_from_numpy, empty_batch, table,
 )
+from .core.tensor import (  # noqa: F401
+    SparseCOOTensor, SparseCSCMatrix, SparseCSRMatrix, Tensor,
+)
 from .compute.registry import ensure_kernels_loaded as _ekl
 
 _ekl()

@@ -31,13 +31,14 @@ from ..compute.expressions import execute_scalar_expression
 from ..compute.registry import call_function
 from ..compute.scalar import Scalar
 from ..ops.aggregates import make_grouped_aggregator
-from ..ops.bits import SIGNED_OF, as_signed_bits, unsigned_to_int64
+from ..ops.bits import SIGNED_OF, as_signed_bits, unsigned_to_int64, \
+    zeros_of
 from ..ops.concat import concat_batches
 from ..ops.grouper import group_key_lanes
-from ..ops.hash_aggregate import HashAggregate
+from ..ops.hash_aggregate import HashAggregate, spec_in_type
 from ..ops.join import HashJoin
 from ..ops.kernel_utils import values_of
-from ..ops.selection import filter_batch, take_batch
+from ..ops.selection import filter_batch, take_array, take_batch
 from ..ops.sorting import SortOptions, sort_indices_batch
 from ..parallel.dist_agg import DistGroupBy
 from ..parallel.dist_join import DistHashJoin
@@ -121,7 +122,7 @@ def compact_scalars(b: Batch) -> list:
     used bytes of each varlen column. The hash join fetches them with its
     own scalars in one read."""
     return [b.length] + [a.offsets[b.length] for a in b.arrays
-                         if a.offsets is not None]
+                         if a.type.is_varlen]
 
 
 def maybe_compact(b: Batch, vals: Optional[list] = None) -> Batch:
@@ -163,14 +164,21 @@ def compact_to_bucket(b: Batch, n: int, used_bytes=None) -> Batch:
     # a pool whose used bytes the caller did not read stays whole
     pools = [min(pad_capacity(max(next(used, a.values.shape[0]), 1)),
                  a.values.shape[0])
-             if a.offsets is not None else None for a in b.arrays]
+             if a.type.is_varlen else None for a in b.arrays]
     shrink = target * 2 <= b.capacity or any(
         p is not None and p * 2 <= a.values.shape[0]
         for p, a in zip(pools, b.arrays))
     if not shrink:
         out = b.with_length(n)
     else:
+        take = None
+        if any(a.type.is_nested for a in b.arrays):
+            # nested layouts (lists, structs, unions, run-end encoded) are
+            # not rebased by a slice: a take of the first rows
+            take = Array(dt.int32, torch.arange(
+                target, dtype=torch.int32, device=b.device), length=n)
         out = Batch(b.schema, [
+            take_array(a, take) if a.type.is_nested else
             Array(a.type, a.values[:target] if p is None else a.values[:p],
                   None if a.validity is None else a.validity[:target],
                   length=n, dictionary=a.dictionary,
@@ -412,10 +420,9 @@ class AggregateNode(ExecNode):
             return self.ha.out_schema
         fields = []
         for spec in self.options.aggregates:
-            ts = spec.targets
-            in_type = self._in_schema.field(ts[0]).type if ts else None
-            agg = make_grouped_aggregator(spec.function, in_type, 1,
-                                          spec.options)
+            agg = make_grouped_aggregator(
+                spec.function, spec_in_type(self._in_schema, spec), 1,
+                spec.options)
             fields.append(Field(spec.out_name, agg.out_type, True))
         return Schema(tuple(fields))
 
@@ -548,7 +555,7 @@ class AggregateNode(ExecNode):
             if fn == "count_all":
                 s = Scalar(len(big), dt.int64)
             else:
-                s = call_function(fn, [big.column(spec.targets[0])],
+                s = call_function(fn, [big.column(t) for t in spec.targets],
                                   options=spec.options)
             arrays.append(_full_column(s, 16, 1, big.device))
         yield Batch(self.output_schema(), arrays, 1, 0)
@@ -913,4 +920,64 @@ class UnionNode(ExecNode):
         for inp in self.inputs:
             for b in inp.batches():
                 yield b.with_index(i)
+                i += 1
+
+
+@register_node_factory("pivot_longer")
+class PivotLongerNode(ExecNode):
+    """``pivot_longer_node.cc:74``: unpivot by row templates. Each input
+    batch is emitted once per template: its feature columns are the
+    template's string literals, its measurement columns the input columns
+    the template names (null where it names none)."""
+
+    def __init__(self, options: opts.PivotLongerNodeOptions, inputs):
+        super().__init__(options, inputs)
+        in_schema = inputs[0].output_schema()
+        o = options
+        # a measurement column's type: that of the first field naming it
+        meas_types = []
+        for j in range(len(o.measurement_field_names)):
+            refs = [t[1][j] for t in o.row_templates if t[1][j] is not None]
+            if not refs:
+                raise ValueError("measurement column never referenced")
+            meas_types.append(in_schema.field(refs[0]).type)
+        fields = [Field(n, dt.string, False)
+                  for n in o.feature_field_names]
+        fields += [Field(n, t, True)
+                   for n, t in zip(o.measurement_field_names, meas_types)]
+        self._schema = Schema(tuple(fields))
+        self._meas_types = meas_types
+
+    def output_schema(self) -> Schema:
+        return self._schema
+
+    def _template_batch(self, b: Batch, tmpl) -> Batch:
+        feature_values, measurements = tmpl
+        cap = b.capacity
+        dev = b.device
+        arrays = []
+        for v in feature_values:
+            sb = v.encode()
+            off = torch.arange(cap + 1, dtype=torch.int32,
+                               device=dev) * len(sb)
+            pool = torch.tensor(list(sb), dtype=torch.uint8,
+                                device=dev).repeat(cap)
+            arrays.append(Array(dt.string, pool, None, length=b.length,
+                                offsets=off))
+        for j, ref in enumerate(measurements):
+            t = self._meas_types[j]
+            if ref is None:
+                arrays.append(Array(
+                    t, zeros_of(t.storage_np, cap, dev),
+                    torch.zeros((cap,), dtype=torch.bool, device=dev),
+                    length=b.length))
+            else:
+                arrays.append(b.column(ref))
+        return Batch(self._schema, arrays, b.length)
+
+    def batches(self) -> Iterator[Batch]:
+        i = 0
+        for b in self.inputs[0].batches():
+            for tmpl in self.options.row_templates:
+                yield self._template_batch(b, tmpl).with_index(i)
                 i += 1

@@ -46,6 +46,15 @@ _LAZY = {
     "StrftimeOptions": "arrow_tpu_torch.ops.temporal",
     "StrptimeOptions": "arrow_tpu_torch.ops.temporal",
     "AssumeTimezoneOptions": "arrow_tpu_torch.ops.temporal",
+    "ListSliceOptions": "arrow_tpu_torch.ops.nested",
+    "MakeStructOptions": "arrow_tpu_torch.ops.nested",
+    "StructFieldOptions": "arrow_tpu_torch.ops.nested",
+    "MapLookupOptions": "arrow_tpu_torch.ops.nested",
+    "SplitOptions": "arrow_tpu_torch.ops.strings_regex",
+    "SplitPatternOptions": "arrow_tpu_torch.ops.strings_regex",
+    "ExtractRegexOptions": "arrow_tpu_torch.ops.strings_regex",
+    "RandomOptions": "arrow_tpu_torch.ops.ree",
+    "PivotWiderOptions": "arrow_tpu_torch.ops.agg_options",
 }
 
 

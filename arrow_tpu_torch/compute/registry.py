@@ -90,7 +90,8 @@ def _apply_intersection_validity(out: Array, args: Sequence[Datum]) -> Array:
 _KERNEL_MODULES = ["scalar_arithmetic", "scalar_compare", "scalar_cast",
                    "selection", "sorting", "aggregates", "vector_hash",
                    "set_lookup", "aggregates_order", "vector_misc",
-                   "strings", "temporal", "strings_regex", "scalar_checked"]
+                   "strings", "temporal", "ree", "nested", "pivot",
+                   "strings_regex", "scalar_checked"]
 _kernels_loaded = False
 
 

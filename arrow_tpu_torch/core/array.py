@@ -19,14 +19,19 @@ offset, buffers[], child_data[]). The same model as the JAX package's
     capacity; bytes past ``offsets[length]`` are unspecified.
   * dictionary arrays hold their indices in ``values`` and the dictionary
     as a child Array (``dictionary``).
-  * the two struct-layout interval types (day_time, month_day_nano) hold
-    their components as same-length ``children`` Arrays, as the JAX
-    package's do.
+  * nested layouts, as the JAX package has them: a list (and a map, a
+    list whose child is the entries struct) keeps int32 ``offsets``
+    (capacity + 1) into its child's rows, the child Array in the
+    ``dictionary`` slot and an empty u8 ``values``; a fixed-size list of k
+    has the offsets ``arange * k``; a struct (the two struct-layout
+    interval types among them) keeps same-length ``children`` and a
+    (capacity,) placeholder ``values``; a union keeps int8 type codes in
+    ``values``, a dense union's value offsets in ``offsets``, its
+    ``children``, and no validity; a run-end-encoded array keeps its run
+    values in ``values`` and its run ends in ``offsets[1:]``.
   * constructors place their buffers on ``device``; with none given they
-    take ``default_device()``, the card. ``Array.to(device)`` moves one.
-
-The other nested layouts (list, struct, union) come with the kernels that
-need them.
+    take ``default_device()``, the card. ``Array.to(device)`` moves one,
+    its children and its list child or dictionary with it.
 """
 
 from __future__ import annotations

@@ -391,27 +391,39 @@ class TableGroupBy:
 
 def empty_batch(schema: Schema, capacity: int = 16, device=None) -> Batch:
     """A batch of no rows with ``schema``'s columns (a varlen column with
-    a 16-byte pool, a dictionary column with an empty dictionary)."""
+    a 16-byte pool, a dictionary column with an empty dictionary, a list
+    column with an empty child, a struct or union column with empty
+    children)."""
     device = resolve_device(device)
-    arrays = []
-    for f in schema.fields:
-        t = f.type
-        validity = torch.zeros((capacity,), dtype=torch.bool, device=device) \
-            if f.nullable else None
-        if t.is_varlen:
-            arrays.append(Array(
-                t, torch.zeros((16,), dtype=torch.uint8, device=device),
-                validity, length=0,
-                offsets=torch.zeros((capacity + 1,), dtype=torch.int32,
-                                    device=device)))
-            continue
-        values = torch.from_numpy(
-            np.zeros((capacity,), dtype=t.storage_np)).to(device)
-        dictionary = nulls(0, t.value_type, device=device) \
-            if isinstance(t, dt.DictionaryType) else None
-        arrays.append(Array(t, values, validity, length=0,
-                            dictionary=dictionary))
-    return Batch(schema, arrays, 0)
+    return Batch(schema, [_empty_array(f.type, capacity, f.nullable, device)
+                          for f in schema.fields], 0)
+
+
+def _empty_array(t, capacity: int, nullable: bool, device) -> Array:
+    validity = torch.zeros((capacity,), dtype=torch.bool, device=device) \
+        if nullable and not isinstance(t, dt.UnionType) else None
+    offsets = torch.zeros((capacity + 1,), dtype=torch.int32, device=device)
+    if t.is_varlen:
+        return Array(t, torch.zeros((16,), dtype=torch.uint8, device=device),
+                     validity, length=0, offsets=offsets)
+    if isinstance(t, dt.ListType):
+        return Array(t, torch.zeros((0,), dtype=torch.uint8, device=device),
+                     validity, length=0, offsets=offsets,
+                     dictionary=_empty_array(t.value_type, 16, True, device))
+    if isinstance(t, (dt.StructType, dt.UnionType)):
+        union = isinstance(t, dt.UnionType)
+        dense = union and t.mode == "dense"
+        return Array(t, torch.zeros((capacity,), dtype=torch.int8 if union
+                                    else torch.uint8, device=device),
+                     validity, length=0, offsets=offsets if dense else None,
+                     children=tuple(_empty_array(
+                         ft, 16 if dense else capacity, True, device)
+                         for _, ft in t.fields))
+    values = torch.from_numpy(
+        np.zeros((capacity,), dtype=t.storage_np)).to(device)
+    dictionary = nulls(0, t.value_type, device=device) \
+        if isinstance(t, dt.DictionaryType) else None
+    return Array(t, values, validity, length=0, dictionary=dictionary)
 
 
 def _trimmed(b: Batch) -> Batch:
@@ -419,6 +431,7 @@ def _trimmed(b: Batch) -> Batch:
     column keeps its pool whole."""
     n = len(b)
     return Batch(b.schema, [
+        a.with_length(n) if a.type.is_nested else
         Array(a.type, a.values if a.offsets is not None else a.values[:n],
               None if a.validity is None else a.validity[:n], n,
               None if a.offsets is None else a.offsets[:n + 1], a.dictionary)

@@ -1,5 +1,6 @@
-"""pyarrow <-> device-array interop for fixed-width, string, binary and
-dictionary columns, and export of the struct-layout intervals.
+"""pyarrow <-> device-array interop for fixed-width, string, binary,
+dictionary and nested (list, fixed-size list, map, struct, union) columns,
+and export of the struct-layout intervals.
 
 The engine's boundary layer, as in the JAX package's ``core/interop.py``:
 host Arrow buffers are staged into padded device buffers, and device
@@ -12,8 +13,10 @@ level: the package runs without it. Large string / binary columns arrive
 with int32 offsets: ``table_from_pyarrow`` splits a record batch so that
 every varlen pool fits them (``_split_for_pools``). Low-cardinality string
 columns of big sources are dictionary-encoded on the host at staging time
-(transparent dictionary ingest, as in the JAX package). Nested layouts come
-later.
+(transparent dictionary ingest, as in the JAX package). Nested layouts
+follow the JAX package's conventions (``core/array.py``); a large list is
+cast to a list on the way in. Run-end-encoded columns have no interop, as
+in the JAX package (``datatype.to_pyarrow_type`` raises for them).
 """
 
 from __future__ import annotations
@@ -98,6 +101,13 @@ def _check_supported(t: dt.DataType):
         return _check_supported(t.value_type)
     if t.is_varlen:
         return
+    if isinstance(t, dt.ListType):
+        return _check_supported(t.value_type)
+    if isinstance(t, (dt.StructType, dt.UnionType)) and not isinstance(
+            t, (dt.DayTimeIntervalType, dt.MonthDayNanoIntervalType)):
+        for _, ft in t.fields:
+            _check_supported(ft)
+        return
     if not t.is_primitive or isinstance(
             t, (dt.FixedSizeBinaryType, dt.DecimalType)):
         raise NotImplementedError(f"interop for {t}")
@@ -168,6 +178,21 @@ def array_from_pyarrow(pa_arr, capacity: Optional[int] = None,
         return Array(t, torch.from_numpy(data).to(device), validity,
                      length=n, offsets=torch.from_numpy(offsets).to(device))
 
+    if isinstance(t, dt.ListType):
+        return _list_from_pyarrow(pa_arr, t, n, cap, validity, device)
+    if isinstance(t, dt.UnionType):
+        return _union_from_pyarrow(pa_arr, t, n, cap, device)
+    if isinstance(t, dt.StructType):
+        # same-length children (``.field(i)``, not ``.flatten()``: a
+        # child's validity stays its own, as ArrayData.child_data has it);
+        # ``values`` is a (cap,) placeholder carrying the capacity
+        children = tuple(array_from_pyarrow(pa_arr.field(i), capacity=cap,
+                                            device=device)
+                         for i in range(pa_arr.type.num_fields))
+        return Array(t, torch.zeros((cap,), dtype=torch.uint8,
+                                    device=device), validity, length=n,
+                     children=children)
+
     buf = np.zeros((cap,), dtype=t.storage_np)
     if isinstance(t, dt.BoolType):
         buf[:n] = _unpack_bits(pa_arr.buffers()[1], pa_arr.offset, n)
@@ -175,6 +200,59 @@ def array_from_pyarrow(pa_arr, capacity: Optional[int] = None,
         raw = np.frombuffer(pa_arr.buffers()[1], dtype=t.storage_np)
         buf[:n] = raw[pa_arr.offset:pa_arr.offset + n]
     return Array(t, torch.from_numpy(buf).to(device), validity, length=n)
+
+
+def _list_from_pyarrow(pa_arr, t, n: int, cap: int, validity, device):
+    """list<T> and map<K, V> (a ListType whose child is the entries
+    struct): int32 offsets into child rows, the child Array in the
+    ``dictionary`` slot, an empty u8 ``values``. A fixed-size list's
+    offsets are ``arange * k``, so the list kernels take it unchanged."""
+    import pyarrow as pa
+    if isinstance(t, dt.FixedSizeListType):
+        k = t.list_size
+        child = array_from_pyarrow(pa_arr.values.slice(pa_arr.offset * k,
+                                                       n * k), device=device)
+        off = np.arange(n + 1, dtype=np.int32) * k
+    else:
+        if pa.types.is_large_list(pa_arr.type):
+            pa_arr = pa_arr.cast(pa.list_(pa_arr.type.value_field))
+        raw = np.frombuffer(pa_arr.buffers()[1], dtype=np.int32)
+        off = raw[pa_arr.offset:pa_arr.offset + n + 1].astype(np.int32)
+        base = int(off[0])
+        off = off - base
+        child_pa = pa_arr.values
+        if base or int(off[-1]) < len(child_pa):
+            child_pa = child_pa.slice(base, int(off[-1]))
+        child = array_from_pyarrow(child_pa, device=device)
+    offsets = np.full((cap + 1,), off[-1], dtype=np.int32)
+    offsets[:n + 1] = off
+    return Array(t, torch.zeros((0,), dtype=torch.uint8, device=device),
+                 validity, length=n, offsets=torch.from_numpy(offsets)
+                 .to(device), dictionary=child)
+
+
+def _union_from_pyarrow(pa_arr, t, n: int, cap: int, device):
+    """A union: int8 type codes in ``values`` (padding rows take the first
+    code), a dense union's value offsets in ``offsets`` (cap + 1, the last
+    unused), the children in ``children``, no top-level validity (Arrow's
+    union layout has none). A sparse union's children have the union's
+    capacity."""
+    codes = np.full((cap,), t.type_codes[0] if t.type_codes else 0,
+                    dtype=np.int8)
+    codes[:n] = np.frombuffer(pa_arr.buffers()[1], dtype=np.int8)[
+        pa_arr.offset:pa_arr.offset + n]
+    offsets = None
+    if t.mode == "dense":
+        off = np.zeros((cap + 1,), dtype=np.int32)
+        off[:n] = np.frombuffer(pa_arr.buffers()[2], dtype=np.int32)[
+            pa_arr.offset:pa_arr.offset + n]
+        offsets = torch.from_numpy(off).to(device)
+    sparse = t.mode == "sparse"
+    children = tuple(array_from_pyarrow(pa_arr.field(i), capacity=cap
+                                        if sparse else None, device=device)
+                     for i in range(pa_arr.type.num_fields))
+    return Array(t, torch.from_numpy(codes).to(device), None, length=n,
+                 offsets=offsets, children=children)
 
 
 def array_to_pyarrow(arr: Array):
@@ -204,6 +282,8 @@ def array_to_pyarrow(arr: Array):
             indices, array_to_pyarrow(arr.dictionary), ordered=t.ordered)
         # ingest-encoded columns decode back to their logical plain type
         return out.dictionary_decode() if t.transparent else out
+    if t.is_nested:
+        return _nested_to_pyarrow(arr, validity_buf, null_count)
     if t.is_varlen:
         off = arr.offsets[:n + 1].cpu().numpy().astype(np.int32)
         nbytes = int(off[-1])
@@ -226,6 +306,48 @@ def array_to_pyarrow(arr: Array):
     return pa.Array.from_buffers(
         dt.to_pyarrow_type(t), n,
         [validity_buf, pa.py_buffer(data.tobytes())], null_count=null_count)
+
+
+def _nested_to_pyarrow(arr: Array, validity_buf, null_count: int):
+    """List, fixed-size list, map, struct and union columns: the children
+    exported recursively under the column's own buffers."""
+    import pyarrow as pa
+    n = len(arr)
+    t = arr.type
+    pa_type = dt.to_pyarrow_type(t)
+    if isinstance(t, dt.ListType):
+        off = arr.offsets[:n + 1].cpu().numpy().astype(np.int32)
+        child = array_to_pyarrow(arr.dictionary.with_length(int(off[-1])))
+        if isinstance(t, dt.FixedSizeListType):
+            return pa.Array.from_buffers(pa_type, n, [validity_buf],
+                                         null_count=null_count,
+                                         children=[child])
+        if isinstance(t, dt.MapType):
+            # the entries struct's key field is not nullable
+            child = child.cast(pa.struct([
+                pa.field("key", dt.to_pyarrow_type(t.key_type),
+                         nullable=False),
+                pa.field("value", dt.to_pyarrow_type(t.item_type))]))
+        return pa.Array.from_buffers(
+            pa_type, n, [validity_buf, pa.py_buffer(off.tobytes())],
+            null_count=null_count, children=[child])
+    if isinstance(t, dt.UnionType):
+        codes = pa.array(arr.values[:n].cpu().numpy().astype(np.int8),
+                         type=pa.int8())
+        names = [nm for nm, _ in t.fields]
+        if t.mode == "sparse":
+            return pa.UnionArray.from_sparse(
+                codes, [array_to_pyarrow(c.with_length(n))
+                        for c in arr.children],
+                field_names=names, type_codes=list(t.type_codes))
+        off = arr.offsets[:n].cpu().numpy().astype(np.int32)
+        return pa.UnionArray.from_dense(
+            codes, pa.array(off, type=pa.int32()),
+            [array_to_pyarrow(c) for c in arr.children],
+            field_names=names, type_codes=list(t.type_codes))
+    return pa.Array.from_buffers(
+        pa_type, n, [validity_buf], null_count=null_count,
+        children=[array_to_pyarrow(c.with_length(n)) for c in arr.children])
 
 
 def _interval_to_pyarrow(arr: Array, validity_buf, null_count: int):

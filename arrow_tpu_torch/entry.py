@@ -126,6 +126,27 @@ Casts, temporal functions, checked arithmetic, vector_misc and set lookup:
     functions of those five modules, and every pair of types ``cast``
     dispatches, over columns made from a seed.
 
+Nested layouts (lists, structs, unions, run-end encoding, pivot, tensors):
+
+  * ``entry_wordcount(device, scale_factor, seed, max_batch_rows,
+    max_groups, source)``: HiBench's WordCount over TPC-H's
+    ``o_comment`` (``wordcount_words``: ``utf8_split_whitespace``, then
+    ``list_flatten``; ``wordcount_declaration``: the count by word,
+    ordered by count then word); ``wordcount_pyarrow`` its oracle.
+  * ``entry_baskets(device, scale_factor, seed, max_batch_rows,
+    source)``: order baskets of lineitem (``baskets_declaration``:
+    ``hash_list`` and ``hash_pivot_wider`` by ``l_orderkey``, the list
+    and struct functions, a filter of the list and struct columns);
+    ``baskets_numpy`` its oracle, ``baskets_arrays`` / ``baskets_differ``
+    the comparison.
+  * ``entry_ree_keys(device, scale_factor, seed, max_batch_rows,
+    source)``: each batch of the sorted ``l_orderkey`` run-end encoded
+    and decoded; ``ree_runs_numpy`` the run ends.
+  * ``A7C_SWEEP``, ``a7c_sweep_columns``, ``nested_parts``: the 19
+    functions, take / filter / concat of each nested layout, the grouped
+    aggregators, pivot_longer and the sparse tensors over columns made
+    from a seed.
+
 With no ``device`` they place the batch on the card
 (``arrow_tpu_torch.default_device()``). Run one on the CPU at a small
 size::
@@ -181,7 +202,14 @@ __all__ = ["AGGREGATES", "AGGREGATES_ANY_ALL", "AGGREGATES_GENERIC",
            "Q12_MODES", "Q12_PRIORITIES", "Q7_NATIONS", "entry_q12",
            "entry_q7", "q12_declaration", "q7_declaration", "q12_pyarrow",
            "q7_pyarrow", "A7B_SWEEP", "A7B_NUMERIC", "A7B_TEMPORAL",
-           "A7B_ZONES", "a7b_sweep_call", "a7b_sweep_columns"]
+           "A7B_ZONES", "a7b_sweep_call", "a7b_sweep_columns",
+           "BASKETS_COLUMNS", "BASKET_LINES", "BASKET_MIN_PARTS",
+           "WORDCOUNT_COLUMNS", "baskets_arrays", "baskets_declaration",
+           "baskets_differ", "baskets_numpy", "entry_baskets",
+           "entry_ree_keys", "entry_wordcount", "ree_runs_numpy",
+           "wordcount_declaration", "wordcount_pyarrow", "wordcount_words",
+           "A7C_SWEEP", "a7c_product_scale", "a7c_sweep_columns",
+           "nested_parts"]
 
 AGGREGATES = (AggregateSpec("sum", "v"), AggregateSpec("min", "v"),
               AggregateSpec("sum", "w"), AggregateSpec("min", "w"),
@@ -971,6 +999,158 @@ def entry_q7(device=None, scale_factor: float = 0.01, seed: int = 42,
     step.source = source
     return step, tuple(t[n] for n in ("supplier", "lineitem", "orders",
                                        "customer", "nation"))
+
+
+# ---- nested layouts: a word count over o_comment, order baskets ------------
+
+WORDCOUNT_COLUMNS = {"orders": ["o_comment"]}
+BASKETS_COLUMNS = {"lineitem": ["l_orderkey", "l_partkey", "l_linenumber",
+                                "l_quantity"]}
+BASKET_LINES = tuple(str(i) for i in range(1, 8))
+BASKET_MIN_PARTS = 5
+
+
+def wordcount_words(comments):
+    """``list_flatten(utf8_split_whitespace(comments))``: every word of a
+    string column, in order."""
+    from .compute import call_function
+    return call_function("list_flatten", [call_function(
+        "utf8_split_whitespace", [comments])])
+
+
+def wordcount_declaration(words: Table, max_groups: int = 1 << 16):
+    """count_all by ``word`` (a raw string key), ordered by the count
+    descending, then the word ascending."""
+    from .acero import AggregateNodeOptions, Declaration, \
+        OrderByNodeOptions, TableSourceNodeOptions
+    return Declaration.from_sequence([
+        Declaration("table_source", TableSourceNodeOptions(words)),
+        Declaration("aggregate", AggregateNodeOptions(
+            [AggregateSpec("count_all", None, None, "count")], ["word"],
+            max_groups=max_groups)),
+        Declaration("order_by", OrderByNodeOptions(
+            [("count", "descending"), ("word", "ascending")])),
+    ])
+
+
+def entry_wordcount(device=None, scale_factor: float = 0.01, seed: int = 42,
+                    max_batch_rows: int = 1 << 22, max_groups: int = 1 << 16,
+                    source=None):
+    """(step, (orders,)): HiBench's WordCount over TPC-H's ``o_comment``:
+    step(orders) -> the Table (word, count) of every distinct word, the
+    most frequent first (``wordcount_declaration``), each batch's words
+    from ``wordcount_words`` on the device. Over the port's TPC-H orders
+    at ``scale_factor`` or ``source``, as ``entry_q13``. ``step.source``
+    holds the pyarrow table (``wordcount_pyarrow``'s input)."""
+    from .core.schema import Field, Schema
+    source, t = tpch_tables(scale_factor, seed, WORDCOUNT_COLUMNS,
+                            max_batch_rows, device, source)
+
+    def step(orders: Table) -> Table:
+        words = [wordcount_words(b.column("o_comment"))
+                 for b in orders.batches]
+        table = Table(Schema((Field("word", words[0].type, True),)),
+                      [Batch(Schema((Field("word", w.type, True),)), [w],
+                             w.length) for w in words])
+        return wordcount_declaration(table, max_groups).to_table()
+
+    step.source = source
+    return step, (t["orders"],)
+
+
+def baskets_declaration(lineitem: Table, max_groups: int,
+                        buffer_rows: int):
+    """Order baskets (FPGrowth's input): lineitem -> ``ln =
+    cast(l_linenumber, utf8)`` -> by l_orderkey, ``parts =
+    hash_list(l_partkey)`` (``buffer_rows``) and ``qty =
+    hash_pivot_wider((ln, l_quantity))`` over the line numbers "1".."7"
+    -> n = list_value_length(parts), first = list_element(parts, 0),
+    top3 = list_slice(parts, 0, 3), q1 = struct_field(qty, "1") -> the
+    baskets of at least ``BASKET_MIN_PARTS`` parts."""
+    from types import SimpleNamespace
+
+    from .acero import AggregateNodeOptions, Declaration, \
+        FilterNodeOptions, ProjectNodeOptions, TableSourceNodeOptions
+    from .compute.expressions import call, literal
+    from .core import datatype as dt
+    from .ops.agg_options import PivotWiderOptions
+    from .ops.nested import ListSliceOptions, StructFieldOptions
+    from .ops.scalar_cast import CastOptions
+    return Declaration.from_sequence([
+        Declaration("table_source", TableSourceNodeOptions(lineitem)),
+        Declaration("project", ProjectNodeOptions(
+            [field("l_orderkey"), field("l_partkey"), field("l_quantity"),
+             call("cast", [field("l_linenumber")], CastOptions(dt.string))],
+            ["l_orderkey", "l_partkey", "l_quantity", "ln"])),
+        Declaration("aggregate", AggregateNodeOptions(
+            [AggregateSpec("hash_list", "l_partkey",
+                           SimpleNamespace(buffer_rows=buffer_rows),
+                           "parts"),
+             AggregateSpec("hash_pivot_wider", ("ln", "l_quantity"),
+                           PivotWiderOptions(list(BASKET_LINES)), "qty")],
+            ["l_orderkey"], max_groups=max_groups)),
+        Declaration("project", ProjectNodeOptions(
+            [field("l_orderkey"), field("parts"), field("qty"),
+             call("list_value_length", [field("parts")]),
+             call("list_element", [field("parts"), literal(0)]),
+             call("list_slice", [field("parts")], ListSliceOptions(0, 3)),
+             call("struct_field", [field("qty")],
+                  StructFieldOptions(name="1"))],
+            ["l_orderkey", "parts", "qty", "n", "first", "top3", "q1"])),
+        Declaration("filter", FilterNodeOptions(call(
+            "greater_equal", [field("n"), literal(BASKET_MIN_PARTS)]))),
+    ])
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(int(n) - 1, 1).bit_length()
+
+
+def entry_baskets(device=None, scale_factor: float = 0.01, seed: int = 42,
+                  max_batch_rows: int = 1 << 22, source=None):
+    """(step, (lineitem,)): step(lineitem) -> the Table of
+    ``baskets_declaration`` over the port's TPC-H lineitem at
+    ``scale_factor`` (``BASKETS_COLUMNS``) or ``source``, as ``entry_q13``;
+    ``max_groups`` the power of two at or above the order count (1.5M
+    orders per unit of scale), ``buffer_rows`` at or above the staged
+    batches' capacities (every consume buffers its batch's capacity).
+    ``step.source`` holds the pyarrow table (``baskets_numpy``'s
+    input)."""
+    source, t = tpch_tables(scale_factor, seed, BASKETS_COLUMNS,
+                            max_batch_rows, device, source)
+    li = t["lineitem"]
+    max_groups = _pow2_at_least(max(int(1_500_000 * scale_factor), 1024))
+    buffer_rows = _pow2_at_least(sum(b.capacity for b in li.batches))
+
+    def step(lineitem: Table) -> Table:
+        return baskets_declaration(lineitem, max_groups,
+                                   buffer_rows).to_table()
+
+    step.source = source
+    return step, (li,)
+
+
+def entry_ree_keys(device=None, scale_factor: float = 0.01, seed: int = 42,
+                   max_batch_rows: int = 1 << 22, source=None):
+    """(step, (lineitem,)): a sorted key column run-end encoded and
+    decoded: step(lineitem) -> [(encoded, decoded)] of each batch's
+    ``l_orderkey`` (``run_end_encode_array``, whose run ends come from
+    the two-level compaction; ``run_end_decode_array``, one host read of
+    its row count). Over ``entry_baskets``' tables."""
+    from .ops.ree import run_end_decode_array, run_end_encode_array
+    source, t = tpch_tables(scale_factor, seed,
+                            {"lineitem": ["l_orderkey"]}, max_batch_rows,
+                            device, source)
+
+    def step(lineitem: Table) -> list:
+        out = []
+        for b in lineitem.batches:
+            enc = run_end_encode_array(b.column("l_orderkey"))
+            out.append((enc, run_end_decode_array(enc)))
+        return out
+
+    step.source = source
+    return step, (t["lineitem"],)
 
 
 HB_WORDS = np.array([f"id{i % 977:03d}x{i % 31}" for i in range(4096)])
@@ -1875,3 +2055,402 @@ def host_boundary_numpy(n_rows: int, seed: int):
     rx = re.compile(HB_PATTERN)
     keep = np.array([rx.search(w) is not None for w in HB_WORDS])[codes]
     return keep, v[keep]
+
+
+def wordcount_pyarrow(source):
+    """pyarrow's word count over ``entry_wordcount``'s ``step.source``:
+    ``utf8_split_whitespace`` -> ``list_flatten`` -> count by word; the
+    oracle of the port's."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    words = pc.list_flatten(pc.utf8_split_whitespace(
+        source["orders"]["o_comment"]))
+    g = pa.table({"word": words}).group_by("word").aggregate(
+        [([], "count_all")])
+    return g.rename_columns(["word", "count"]).sort_by(
+        [("count", "descending"), ("word", "ascending")])
+
+
+def baskets_numpy(source) -> dict:
+    """numpy's order baskets over ``entry_baskets``' ``step.source``: the
+    generator emits lineitem by order, so each basket is a run of
+    l_orderkey (``np.unique`` counts give the offsets) and l_linenumber
+    places each quantity. The dict ``baskets_arrays`` gives of the port's
+    Table."""
+    li = source["lineitem"]
+    okey = li["l_orderkey"].to_numpy()
+    part = li["l_partkey"].to_numpy()
+    line = li["l_linenumber"].to_numpy()
+    qty = li["l_quantity"].to_numpy()
+    if okey.size and not (okey[1:] >= okey[:-1]).all():
+        raise ValueError("lineitem is not ordered by l_orderkey")
+    # sorted: the runs start where the key changes
+    starts = np.flatnonzero(np.concatenate([[True], okey[1:] != okey[:-1]]))
+    counts = np.diff(np.append(starts, okey.size))
+    keys = okey[starts]
+    keep = counts >= BASKET_MIN_PARTS
+    k, st, n = keys[keep], starts[keep], counts[keep]
+    rows = np.repeat(st, n) + (np.arange(int(n.sum())) -
+                               np.repeat(np.cumsum(n) - n, n))
+    top = np.minimum(n, 3)
+    top_rows = np.repeat(st, top) + (np.arange(int(top.sum())) -
+                                     np.repeat(np.cumsum(top) - top, top))
+    out = {"l_orderkey": k, "n": n.astype(np.int32),
+           "parts_offsets": np.concatenate([[0], np.cumsum(n)]),
+           "parts": part[rows], "first": part[st],
+           "top3_offsets": np.concatenate([[0], np.cumsum(top)]),
+           "top3": part[top_rows]}
+    # each quantity at its basket and line number
+    basket = np.repeat(np.arange(len(k)), n)
+    ln = line[rows] - 1
+    for j, name in enumerate(BASKET_LINES):
+        at = ln == j
+        v = np.zeros(len(k))
+        ok = np.zeros(len(k), bool)
+        v[basket[at]] = qty[rows[at]]
+        ok[basket[at]] = True
+        out[f"qty_{name}"], out[f"qty_{name}_valid"] = v, ok
+    out["q1"], out["q1_valid"] = out["qty_1"], out["qty_1_valid"]
+    return out
+
+
+def baskets_arrays(table: Table) -> dict:
+    """The port's baskets Table as ``baskets_numpy``'s dict (its rows
+    ordered by l_orderkey; the values of null slots zeroed)."""
+    cols = {}
+    batches = [x.to("cpu") for x in table.batches]
+    n_rows = [int(x.length) for x in batches]
+
+    def flat(name):
+        vals, ok = [], []
+        for x, n in zip(batches, n_rows):
+            a = x.column(name)
+            vals.append(a.values[:n].numpy())
+            ok.append(a.validity_or_true()[:n].numpy())
+        return np.concatenate(vals), np.concatenate(ok)
+
+    def lists(name):
+        offs, vals, base = [np.zeros(1, np.int64)], [], 0
+        for x, n in zip(batches, n_rows):
+            a = x.column(name)
+            off = a.offsets[:n + 1].numpy().astype(np.int64)
+            vals.append(a.dictionary.values[off[0]:off[-1]].numpy())
+            offs.append(off[1:] - off[0] + base)
+            base += int(off[-1] - off[0])
+        return np.concatenate(offs), np.concatenate(vals)
+
+    okey, _ = flat("l_orderkey")
+    order = np.argsort(okey, kind="stable")
+    cols["l_orderkey"] = okey[order]
+    cols["n"] = flat("n")[0][order]
+    cols["first"] = flat("first")[0][order]
+    for name in ("parts", "top3"):
+        off, vals = lists(name)
+        lens = np.diff(off)[order]
+        starts = off[:-1][order]
+        idx = np.repeat(starts, lens) + (np.arange(int(lens.sum())) -
+                                         np.repeat(np.cumsum(lens) - lens,
+                                                   lens))
+        cols[f"{name}_offsets"] = np.concatenate([[0], np.cumsum(lens)])
+        cols[name] = vals[idx]
+    for j, name in enumerate(BASKET_LINES):
+        vals, ok = [], []
+        for x, n in zip(batches, n_rows):
+            c = x.column("qty").children[j]
+            vals.append(c.values[:n].numpy())
+            ok.append(c.validity_or_true()[:n].numpy())
+        v, ok = np.concatenate(vals)[order], np.concatenate(ok)[order]
+        cols[f"qty_{name}"], cols[f"qty_{name}_valid"] = \
+            np.where(ok, v, 0.0), ok
+    q1, q1_ok = flat("q1")
+    cols["q1"], cols["q1_valid"] = np.where(q1_ok, q1, 0.0)[order], \
+        q1_ok[order]
+    return cols
+
+
+def baskets_differ(got: dict, want: dict) -> list:
+    """The keys of two ``baskets_numpy`` dicts whose arrays differ."""
+    return [k for k in want if k not in got or got[k].shape != want[k].shape
+            or not np.array_equal(got[k], want[k])]
+
+
+def ree_runs_numpy(keys: np.ndarray) -> np.ndarray:
+    """The run ends of a key column (rows where the next key differs, and
+    the last)."""
+    if keys.size == 0:
+        return keys.astype(np.int64)
+    return np.concatenate([np.flatnonzero(keys[1:] != keys[:-1]) + 1,
+                           [keys.size]])
+
+
+# ---- the A7c sweep: the nested layouts and their functions ----------------
+
+A7C_TENSOR_N = 4096         # square sparse matrices of the sweep
+A7C_TENSOR_DENSITY = 0.01
+A7C_TENSOR_COLS = 64        # columns of the dense right-hand side of mm
+A7C_GROUPS = 1024           # hash_list's groups
+A7C_LAYOUTS = ("lists", "fixed_size_list", "map", "struct", "sparse_union",
+               "dense_union")
+A7C_REGEX = r"(?P<w>[a-z]+) (?P<x>[a-z]+)"
+
+
+def a7c_sweep_columns(n_rows: int, seed: int, comments, device=None) -> dict:
+    """The A7c sweep's inputs on ``device``, made from ``seed`` (pyarrow
+    builds them on the host, imported here): ``comments`` (a string
+    array), lists of int64 (0-7 elements, one row in 97 null; ``lists1``
+    never empty), a fixed-size list, a map<string, int64>, a struct, a
+    sparse and a dense union, group keys and values, pivot keys (one per
+    (row // 7, row % 7); and "1".."7" then "0", which pivot_wider
+    ignores), sorted runs, a mask and take indices; the
+    sparse matrix (COO, CSR, CSC of a 4096 x 4096 at 1 %) and the dense
+    right-hand sides."""
+    import pyarrow as pa
+    from .core.interop import array_from_pyarrow
+    from .core.tensor import SparseCOOTensor, SparseCSCMatrix, \
+        SparseCSRMatrix
+    rng = np.random.default_rng(seed)
+    n = n_rows
+    null = np.arange(n) % 97 == 5
+
+    def lists(lo):
+        lens = rng.integers(lo, 8, n)
+        off = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+        vals = pa.array(rng.integers(-1000, 1000, int(off[-1])))
+        return pa.ListArray.from_arrays(pa.array(off), vals,
+                                        mask=pa.array(null))
+
+    ints = pa.array(rng.integers(0, 1 << 40, n), mask=null)
+    strs = pa.array(np.char.add("s", rng.integers(0, 999, n).astype(str)))
+    keys = np.char.add("k", rng.integers(0, 10, 3 * n).astype(str))
+    moff = np.concatenate([[0], np.cumsum(rng.integers(0, 4, n))])
+    mp = pa.MapArray.from_arrays(pa.array(moff.astype(np.int32)),
+                                 pa.array(keys[:moff[-1]]),
+                                 pa.array(rng.integers(0, 99, moff[-1])))
+    codes = pa.array(rng.integers(0, 2, n).astype(np.int8))
+    cnp = codes.to_numpy()
+    dense_off = np.where(cnp == 0, np.cumsum(cnp == 0) - 1,
+                         np.cumsum(cnp == 1) - 1).astype(np.int32)
+    words = np.char.add("w", rng.integers(0, 50, 4 * n).astype(str))
+    woff = np.concatenate([[0], np.cumsum(rng.integers(0, 5, n))])
+    host = {
+        "comments": pa.array(comments),
+        "lists": lists(0), "lists1": lists(1),
+        "fixed_size_list": pa.FixedSizeListArray.from_arrays(
+            pa.array(rng.integers(0, 100, 2 * n)), 2),
+        "map": mp,
+        "struct": pa.StructArray.from_arrays([ints, strs], ["a", "b"]),
+        "sparse_union": pa.UnionArray.from_sparse(codes, [ints, strs]),
+        "dense_union": pa.UnionArray.from_dense(
+            codes, pa.array(dense_off), [ints, strs]),
+        "ints": ints, "strs": strs,
+        "words": pa.ListArray.from_arrays(
+            pa.array(woff.astype(np.int32)), pa.array(words[:woff[-1]])),
+        "gkey": pa.array(rng.integers(0, A7C_GROUPS, n)),
+        "gval": pa.array(rng.normal(size=n), mask=null),
+        "pgroup": pa.array(np.arange(n) // 7),
+        "pkey": pa.array((np.arange(n) % 7 + 1).astype(str)),
+        "pkey1": pa.array(np.where(np.arange(n) < 7, np.arange(n) + 1,
+                                   0).astype(str)),
+        "runs": pa.array(np.repeat(rng.integers(0, 50, n),
+                                   rng.integers(1, 9, n))[:n]),
+        "mask": pa.array(rng.random(n) < 0.5, mask=null),
+        "indices": pa.array(rng.integers(0, n, n).astype(np.int32)),
+    }
+    cols = {k: array_from_pyarrow(v, device=device) for k, v in host.items()}
+    m = np.where(rng.random((A7C_TENSOR_N, A7C_TENSOR_N))
+                 < A7C_TENSOR_DENSITY,
+                 rng.normal(size=(A7C_TENSOR_N, A7C_TENSOR_N)), 0.0)
+    cols["dense"] = m
+    cols["coo"] = SparseCOOTensor.from_dense(m, device=device)
+    cols["csr"] = SparseCSRMatrix.from_dense(m, device=device)
+    cols["csc"] = SparseCSCMatrix.from_dense(m, device=device)
+    cols["x"] = rng.normal(size=A7C_TENSOR_N)
+    cols["y"] = rng.normal(size=(A7C_TENSOR_N, A7C_TENSOR_COLS))
+    return cols
+
+
+def _a7c_entries():
+    """(label, host hop?, tolerance, fn(cols) -> result) of the A7c sweep:
+    the 19 functions, take / filter / concat of each nested layout (a
+    union's concat raises: no entry),
+    hash_list and hash_pivot_wider through ``Table.group_by``, the
+    pivot_longer node, and the tensors' to_dense / mv / mm."""
+    from types import SimpleNamespace
+
+    from .compute import call_function as cf
+    from .ops import nested, ree, strings_regex as sr
+    from .ops.agg_options import PivotWiderOptions
+    from .ops.concat import concat_arrays
+    from .ops.selection import filter_array, take_array
+
+    def fn(name, *names, options=None, **kw):
+        return lambda c: cf(name, [c[x] if isinstance(x, str) and x in c
+                                   else x for x in names],
+                            options=options, **kw)
+
+    def table(c, names):
+        from .core.schema import Field, Schema
+        arrays = [c[x] for x in names]
+        return Table(Schema(tuple(Field(x, a.type, True)
+                                  for x, a in zip(names, arrays))),
+                     [Batch(Schema(tuple(Field(x, a.type, True)
+                                         for x, a in zip(names, arrays))),
+                            arrays, arrays[0].length)])
+
+    def group_list(c):
+        return table(c, ["gkey", "gval"]).group_by(
+            "gkey", max_groups=A7C_GROUPS).aggregate([AggregateSpec(
+                "hash_list", "gval", SimpleNamespace(
+                    buffer_rows=_pow2_at_least(c["gval"].capacity)),
+                "gval_list")])
+
+    def group_pivot(c):
+        t = table(c, ["pgroup", "pkey", "gval"])
+        return t.group_by("pgroup", max_groups=_pow2_at_least(
+            c["pgroup"].capacity // 7 + 1)).aggregate(
+            [(("pkey", "gval"), "pivot_wider",
+              PivotWiderOptions(list(BASKET_LINES)))])
+
+    def pivot_longer(c):
+        from .acero import Declaration, PivotLongerNodeOptions, \
+            TableSourceNodeOptions
+        return Declaration.from_sequence([
+            Declaration("table_source", TableSourceNodeOptions(
+                table(c, ["ints", "gval", "gkey"]))),
+            Declaration("pivot_longer", PivotLongerNodeOptions(
+                ["which"], ["x"], [(["ints"], ["ints"]),
+                                   (["gkey"], ["gkey"])]))]).to_table()
+
+    e = [("list_value_length", False, None, fn("list_value_length",
+                                                "lists")),
+         ("list_parent_indices", False, None, fn("list_parent_indices",
+                                                  "lists")),
+         ("list_flatten", False, None, fn("list_flatten", "lists")),
+         ("list_element", False, None, fn("list_element", "lists1", 0)),
+         ("list_slice", False, None, fn(
+             "list_slice", "lists", options=nested.ListSliceOptions(1, 6,
+                                                                    2))),
+         ("make_struct", False, None, fn(
+             "make_struct", "ints", "strs",
+             options=nested.MakeStructOptions(["a", "b"]))),
+         ("struct_field", False, None, fn(
+             "struct_field", "struct",
+             options=nested.StructFieldOptions(name="b")))]
+    for occ in ("first", "last", "all"):
+        e.append((f"map_lookup:{occ}", False, None, fn(
+            "map_lookup", "map",
+            options=nested.MapLookupOptions("k3", occ))))
+    e += [("split_pattern", False, None, fn(
+              "split_pattern", "comments",
+              options=sr.SplitPatternOptions(" "))),
+          ("split_pattern:reverse", False, None, fn(
+              "split_pattern", "comments",
+              options=sr.SplitPatternOptions("e", 2, True))),
+          ("utf8_split_whitespace", False, None, fn(
+              "utf8_split_whitespace", "comments")),
+          ("ascii_split_whitespace", False, None, fn(
+              "ascii_split_whitespace", "comments")),
+          ("split_pattern_regex", True, None, fn(
+              "split_pattern_regex", "comments",
+              options=sr.SplitPatternOptions(r"\s+"))),
+          ("extract_regex", True, None, fn(
+              "extract_regex", "comments",
+              options=sr.ExtractRegexOptions(A7C_REGEX))),
+          ("extract_regex_span", True, None, fn(
+              "extract_regex_span", "comments",
+              options=sr.ExtractRegexOptions(A7C_REGEX))),
+          ("binary_join", False, None, fn("binary_join", "words", " ")),
+          ("run_end_encode", False, None, fn("run_end_encode", "runs")),
+          ("run_end_decode", False, None, lambda c: cf(
+              "run_end_decode", [ree.run_end_encode_array(c["runs"])])),
+          ("random", False, "random", lambda c: cf(
+              "random", [], options=ree.RandomOptions(
+                  c["runs"].capacity, 7, c["runs"].device))),
+          ("pivot_wider", False, None, lambda c: cf(
+              "pivot_wider", [c["pkey1"], c["gval"]],
+              options=PivotWiderOptions(list(BASKET_LINES),
+                                        "ignore")).as_py())]
+    for lay in A7C_LAYOUTS:
+        e += [(f"take:{lay}", False, None,
+               lambda c, lay=lay: take_array(c[lay], c["indices"])),
+              (f"filter:{lay}", False, None,
+               lambda c, lay=lay: filter_array(c[lay], c["mask"]))]
+        if "union" not in lay:      # a union's concat raises
+            e.append((f"concat:{lay}", False, None,
+                      lambda c, lay=lay: concat_arrays([c[lay], c[lay]])))
+    e += [("hash_list", False, None, group_list),
+          ("hash_pivot_wider", False, None, group_pivot),
+          ("pivot_longer", False, None, pivot_longer)]
+    for kind in ("coo", "csr", "csc"):
+        e += [(f"{kind}:to_dense", False, None,
+               lambda c, k=kind: c[k].to_dense()),
+              (f"{kind}:mv", False, "product",
+               lambda c, k=kind: c[k].mv(c["x"])),
+              (f"{kind}:mm", False, "product",
+               lambda c, k=kind: c[k].mm(c["y"]))]
+    return e
+
+
+A7C_SWEEP = _a7c_entries()
+
+
+def nested_parts(a) -> list:
+    """An A7c sweep result as it is compared, as bytes on the host: a
+    Table's or Batch's rows ordered by its first column, then for each
+    Array its length and validity and a list's offsets and child (over
+    the used child rows), a struct's or union's children (a union's codes
+    and value offsets), a varlen column's offsets and used bytes, a
+    fixed-width column's valid values; a tensor's values; anything else
+    as its repr."""
+    import torch
+    from .ops.selection import take_batch
+    from .core import datatype as _dt
+    from .core.array import Array
+    from .ops.concat import concat_batches
+    if isinstance(a, Table):
+        a = concat_batches([b.to("cpu").with_length(int(b.length))
+                            for b in a.batches])
+    if isinstance(a, Batch):
+        b = a.to("cpu")
+        n = int(b.length)
+        order = torch.argsort(b.column(0).values[:n], stable=True)
+        b = take_batch(b, Array(_dt.int32, order.to(torch.int32), length=n))
+        return [p for c in b.arrays for p in nested_parts(c)]
+    if isinstance(a, torch.Tensor):
+        return [a.cpu().numpy().tobytes()]
+    if not hasattr(a, "type"):
+        return [repr(a).encode()]
+    n = int(a.length)
+    ok = a.validity_or_true()[:n].cpu()
+    parts = [np.array([n], np.int64).tobytes(), ok.numpy().tobytes()]
+    t = a.type
+    if isinstance(t, _dt.ListType):
+        off = a.offsets[:n + 1].cpu()
+        used = int(off[-1]) if n else 0
+        return parts + [off.numpy().tobytes()] + \
+            nested_parts(a.dictionary.with_length(used))
+    if isinstance(t, _dt.UnionType):
+        parts.append(a.values[:n].cpu().numpy().tobytes())
+        if t.mode == "dense":
+            parts.append(a.offsets[:n].cpu().numpy().tobytes())
+            return parts + [p for c in a.children for p in nested_parts(c)]
+        return parts + [p for c in a.children
+                        for p in nested_parts(c.with_length(n))]
+    if isinstance(t, _dt.StructType):
+        return parts + [p for c in a.children
+                        for p in nested_parts(c.with_length(n))]
+    if a.offsets is not None:       # varlen; a run-end array's run ends
+        off = a.offsets[:n + 1].cpu()
+        parts.append(off.numpy().tobytes())
+        if t.is_varlen:
+            return parts + [a.values[:int(off[-1])].cpu().numpy().tobytes()]
+    from .ops.bits import as_signed_bits
+    return parts + [str(t).encode(),
+                    as_signed_bits(a.values[:n]).cpu()[ok].numpy().tobytes()]
+
+
+def a7c_product_scale(entry_label: str, cols: dict) -> np.ndarray:
+    """|A| @ |x| (or |y|) of a product entry, on the host: the scale of its
+    float64 tolerance."""
+    rhs = cols["x"] if entry_label.endswith(":mv") else cols["y"]
+    return np.abs(cols["dense"]) @ np.abs(rhs)

@@ -1132,6 +1132,10 @@ def make_grouped_aggregator(name: str, in_type: Optional[dt.DataType],
                 f"{key} over wide (precision>18) decimals: cast to a "
                 "narrower decimal or float first")
     if key not in GROUPED_AGGREGATORS:
+        # list and pivot_wider live in kernel modules loaded on demand
+        from ..compute.registry import ensure_kernels_loaded
+        ensure_kernels_loaded()
+    if key not in GROUPED_AGGREGATORS:
         raise KeyError(f"no grouped aggregator named {name!r}")
     return GROUPED_AGGREGATORS[key](in_type, max_groups, options)
 

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 from typing import List
 
+import numpy as np
 import torch
 
 from ..core import datatype as dt
@@ -21,7 +22,7 @@ from ..core import datatype as dt
 __all__ = ["U32", "SIGNED_OF", "as_signed_bits", "as_i32", "gather_rows",
            "ordered_signed", "from_ordered_signed", "unsigned_to_int64",
            "split_u64", "join_u32", "value_lanes32", "ascending_lanes32",
-           "lane_windows"]
+           "lane_windows", "zeros_of"]
 
 U32 = 0xFFFFFFFF
 _BIAS32 = 0x80000000
@@ -34,6 +35,14 @@ _QNAN64 = 0x7FF8000000000000
 # ``bits ^ sign bit`` and computed with as int64.
 SIGNED_OF = {getattr(torch, "u" + n): getattr(torch, n)
              for n in ("int16", "int32", "int64") if hasattr(torch, "u" + n)}
+
+
+def zeros_of(np_dtype, n: int, device) -> torch.Tensor:
+    """``n`` zeros of a numpy dtype's torch counterpart, made on
+    ``device`` (an unsigned type as the signed type with its bits)."""
+    td = torch.from_numpy(np.empty(0, np_dtype)).dtype
+    return torch.zeros((n,), dtype=SIGNED_OF.get(td, td),
+                       device=device).view(td)
 
 
 def as_signed_bits(x: torch.Tensor) -> torch.Tensor:

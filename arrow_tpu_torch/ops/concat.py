@@ -47,31 +47,75 @@ def _advance(off, n, dev):
     return off + int(n)
 
 
-def _concat_varlen(arrays: Sequence[Array], cap: int, any_valid: bool
-                   ) -> Array:
+def _concat_offsets(arrays: Sequence[Array], cap: int, any_valid: bool
+                    ) -> tuple:
+    """The offsets (and validity) of a concatenation of varlen or list
+    columns, each chunk's rebased by the items (bytes or child rows) before
+    it. Returns (offsets, validity or None, rows, each chunk's first
+    item)."""
     dev = arrays[0].device
-    bcap = sum(a.values.shape[0] for a in arrays)
     out_off = torch.zeros((cap + 1,), dtype=torch.int32, device=dev)
-    out_bytes = torch.zeros((bcap,), dtype=torch.uint8, device=dev)
     out_valid = torch.zeros((cap,), dtype=torch.bool, device=dev) \
         if any_valid else None
-    row_off, byte_off = 0, 0
+    row_off, item_off, firsts = 0, 0, []
     for a in arrays:
         n = a.length
-        nbytes = a.offsets[n]
+        used = a.offsets[n]
         # rebased offsets of this chunk (its padding rows: its end)
-        _write_values(out_off, torch.minimum(a.offsets, nbytes) + byte_off,
+        _write_values(out_off, torch.minimum(a.offsets, used) + item_off,
                       row_off)
-        _write_values(out_bytes, a.values, byte_off)
+        firsts.append(item_off)
         if any_valid:
             _write_values(out_valid, a.validity_or_true(), row_off)
         row_off = _advance(row_off, n, dev)
-        byte_off = (nbytes + byte_off).to(torch.int32)
-    # offsets past the last row: the total byte length
+        item_off = (used + item_off).to(torch.int32)
+    # offsets past the last row: the total item count
     idx = torch.arange(cap + 1, device=dev)
-    out_off = torch.where(idx > row_off, byte_off, out_off)
-    return Array(arrays[0].type, out_bytes, out_valid, length=row_off,
+    return (torch.where(idx > row_off, item_off, out_off), out_valid,
+            row_off, firsts)
+
+
+def _concat_varlen(arrays: Sequence[Array], cap: int, any_valid: bool
+                   ) -> Array:
+    out_off, out_valid, n, firsts = _concat_offsets(arrays, cap, any_valid)
+    out_bytes = torch.zeros((sum(a.values.shape[0] for a in arrays),),
+                            dtype=torch.uint8, device=arrays[0].device)
+    for a, at in zip(arrays, firsts):
+        _write_values(out_bytes, a.values, at)
+    return Array(arrays[0].type, out_bytes, out_valid, length=n,
                  offsets=out_off)
+
+
+def _concat_nested(arrays: Sequence[Array], cap: int, any_valid: bool
+                   ) -> Array:
+    """List (fixed-size list, map) columns: offsets rebased by the child
+    rows before each chunk, the children's used rows concatenated. Struct
+    columns: the children concatenated row for row."""
+    t = arrays[0].type
+    dev = arrays[0].device
+    if isinstance(t, dt.ListType):
+        child = concat_arrays([a.dictionary.with_length(a.offsets[a.length])
+                               for a in arrays])
+        out_off, out_valid, n, _ = _concat_offsets(arrays, cap, any_valid)
+        return Array(t, arrays[0].values, out_valid, length=n,
+                     offsets=out_off, dictionary=child)
+    if isinstance(t, dt.StructType):
+        out_valid = None
+        if any_valid:
+            out_valid = torch.zeros((cap,), dtype=torch.bool, device=dev)
+            off = 0
+            for a in arrays:
+                _write_values(out_valid, a.validity_or_true(), off)
+                off = _advance(off, a.length, dev)
+        children = tuple(
+            concat_arrays([a.children[j].with_length(a.length)
+                           for a in arrays], total_capacity=cap)
+            for j in range(len(t.fields)))
+        return Array(t, torch.zeros((cap,), dtype=torch.uint8, device=dev),
+                     out_valid, length=children[0].length
+                     if children else sum(int(a.length) for a in arrays),
+                     children=children)
+    raise NotImplementedError(f"concat of {t} columns")
 
 
 def _first_dictionary(arrays: Sequence[Array]) -> Optional[Array]:
@@ -90,12 +134,11 @@ def concat_arrays(arrays: Sequence[Array],
                   total_capacity: Optional[int] = None) -> Array:
     assert arrays, "concat of zero arrays"
     t = arrays[0].type
-    if t.is_nested:
-        raise NotImplementedError(
-            f"concat of {t} columns (nested layouts: ROADMAP queue item A7)")
     any_valid = any(a.validity is not None for a in arrays)
     dev = arrays[0].device
     cap = total_capacity or sum(a.capacity for a in arrays)
+    if t.is_nested:
+        return _concat_nested(arrays, cap, any_valid)
     if t.is_varlen:
         return _concat_varlen(arrays, cap, any_valid)
     first = arrays[0].values

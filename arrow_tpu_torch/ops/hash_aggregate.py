@@ -45,7 +45,8 @@ from .cuda_kernels import _DG_ARITY, _DG_IDENT, DenseKey, dense_group_reduce, \
 from .grouper import Grouper, GrouperState, SlotStrings, group_key_lanes
 from .segment import make_segment_context
 
-__all__ = ["AggregateSpec", "HashAggregate", "sorted_group_reduce"]
+__all__ = ["AggregateSpec", "HashAggregate", "sorted_group_reduce",
+           "spec_in_type"]
 
 _I32MAX = (1 << 31) - 1
 # dump slots of ``sorted_group_reduce``'s scatter reductions (a power of two)
@@ -170,6 +171,16 @@ class AggregateSpec:
         return "_".join(ts + (fn,)) if ts else fn
 
 
+def spec_in_type(schema: Schema, spec: AggregateSpec):
+    """The aggregator's input type: its target's type, a tuple of them for
+    several targets (``hash_pivot_wider``'s (key, value)), None for
+    none."""
+    ts = spec.targets
+    if len(ts) > 1:
+        return tuple(schema.field(t).type for t in ts)
+    return schema.field(ts[0]).type if ts else None
+
+
 def _probe_key_domain(key: Array):
     """(min, max) of the key over active (in-range, non-null) rows; if no
     active rows, min > max."""
@@ -209,10 +220,9 @@ class HashAggregate:
                                max_groups=max_groups)
         self._aggregators = []
         for spec in self.aggs:
-            ts = spec.targets
-            in_type = in_schema.field(ts[0]).type if ts else None
             self._aggregators.append(make_grouped_aggregator(
-                spec.function, in_type, max_groups, spec.options))
+                spec.function, spec_in_type(in_schema, spec), max_groups,
+                spec.options))
         # output column order matches pyarrow Table.group_by: keys first
         fields = [Field(k, f.type, True) for k, f in zip(keys, key_fields)]
         self.key_fields = list(fields)
@@ -307,8 +317,9 @@ class HashAggregate:
             key_cols, g, rep_gids, uniques))
         new_agg_states = []
         for spec, agg, st in zip(self.aggs, self._aggregators, agg_states):
-            ts = spec.targets
-            values = batch.column(ts[0]) if ts else None
+            ts = [batch.column(t) for t in spec.targets]
+            # several targets reach the aggregator as a tuple
+            values = tuple(ts) if len(ts) > 1 else (ts[0] if ts else None)
             new_agg_states.append(agg.consume_grouped(st, values, ctx))
         return (grouper_state, tuple(new_agg_states), uniques)
 

@@ -36,6 +36,15 @@ any column; their byte pools are the new part:
     this took 19.7 ms for a 1.8e9-byte pool against 81.1 ms for the
     take's gather from the compacted row starts (``PERF.md``).
 
+Nested columns, as the JAX package takes them: a list (map, fixed-size
+list) takes its child at the rows ``source_positions`` maps from the new
+offsets (``_take_list``, ``_take_varlen``'s two phases over child rows); a
+struct takes its children; a dense union gathers its codes and value
+offsets, a sparse one takes its children; a run-end-encoded column is
+decoded, taken and encoded again. ``filter_batch`` compacts a batch's flat
+and varlen columns in its one launch and takes its nested columns at ONE
+set of take indices (``_filter_batch_mixed``).
+
 Outputs keep the input capacity; ``length`` is the number of selected rows
 (a 0-d tensor on the device). Padding rows are unspecified.
 """
@@ -49,6 +58,7 @@ import torch
 from ..core import datatype as dt
 from ..core.array import Array, row_mask
 from ..core.batch import Batch
+from ..core.schema import Schema
 from ..compute.registry import Kind, NullHandling, register_function
 from .cuda_kernels import TILE_ROWS, filter_compact_columns, \
     tile_compact_local, tile_stitch
@@ -58,7 +68,7 @@ from .segment import _scatter, rows_of_positions
 
 __all__ = ["FilterOptions", "TakeOptions", "get_take_indices", "take_array",
            "filter_array", "take_batch", "filter_batch",
-           "rows_of_positions"]
+           "rows_of_positions", "source_positions"]
 
 
 class FilterOptions:
@@ -175,18 +185,73 @@ def take_array(values: Array, indices: Array, grow: int = 1) -> Array:
     holds. The pool is at most 2^31 - 1 bytes (int32 offsets); a take past
     it keeps its true offsets, and export reports the overflow."""
     t = values.type
-    if t.is_nested:
-        raise NotImplementedError(
-            f"take of {t} (nested layouts: ROADMAP queue item A7)")
     idx = as_signed_bits(indices.values).long()
     if t.is_varlen:
         return _take_varlen(values, idx, indices, grow)
+    if isinstance(t, dt.ListType):
+        return _take_list(values, idx, indices, grow)
+    if isinstance(t, dt.StructType):
+        return Array(t, values.values[idx],
+                     _gather_validity(values, idx, indices.validity),
+                     length=indices.length, children=tuple(
+                         take_array(c, indices, grow)
+                         for c in values.children))
+    if isinstance(t, dt.UnionType):
+        # a dense union gathers its codes and value offsets and keeps its
+        # children; a sparse one takes its children row for row
+        codes = values.values[idx]
+        if t.mode == "dense":
+            off = torch.zeros((idx.shape[0] + 1,), dtype=torch.int32,
+                              device=idx.device)
+            off[:-1] = values.offsets[:-1][idx]
+            return Array(t, codes, None, length=indices.length,
+                         offsets=off, children=values.children)
+        return Array(t, codes, None, length=indices.length,
+                     children=tuple(take_array(c, indices)
+                                    for c in values.children))
+    if isinstance(t, dt.RunEndEncodedType):
+        # decode, take, encode again: the column keeps its type
+        from .ree import run_end_decode_array, run_end_encode_array
+        return run_end_encode_array(
+            take_array(run_end_decode_array(values), indices),
+            run_end_type=t.run_end_type)
     return Array(t, gather_rows(values.values, idx),
                  _gather_validity(values, idx, indices.validity),
                  length=indices.length, dictionary=values.dictionary)
 
 
 _MAX_POOL = (1 << 31) - 1
+
+
+def _take_list(values: Array, idx: torch.Tensor, indices: Array,
+               grow: int = 1) -> Array:
+    """list<T> gather, ``_take_varlen``'s two phases over child rows: new
+    offsets from the gathered lengths, then every output child row maps to
+    its list row (``rows_of_positions``) and from there to its source
+    child row, and the child is taken there. Null and padding index rows
+    take no child rows, except in a fixed-size list, whose every row keeps
+    its k."""
+    t = values.type
+    child = values.dictionary
+    ocap = idx.shape[0]
+    off = values.offsets
+    dev = off.device
+    ok = row_mask(ocap, indices.length, dev)
+    if indices.validity is not None and \
+            not isinstance(t, dt.FixedSizeListType):
+        ok = ok & indices.validity
+    starts = off[idx]
+    lens = torch.where(ok, off[idx + 1] - starts, 0)
+    new_off = torch.cat([lens.new_zeros((1,)),
+                         torch.cumsum(lens, 0, dtype=torch.int32)])
+    ccap = max(child.capacity, 1) * max(int(grow), 1)
+    src = source_positions(new_off, starts, ccap, child.capacity)
+    new_child = take_array(child, Array(dt.int32, src, None,
+                                        length=new_off[-1]))
+    return Array(t, values.values, _gather_validity(values, idx,
+                                                    indices.validity),
+                 length=indices.length, offsets=new_off,
+                 dictionary=new_child)
 
 
 def _take_varlen(values: Array, idx: torch.Tensor, indices: Array,
@@ -213,23 +278,38 @@ def _take_varlen(values: Array, idx: torch.Tensor, indices: Array,
                  length=indices.length, offsets=new_off)
 
 
+def source_positions(new_off: torch.Tensor, starts: torch.Tensor,
+                     out_cap: int, src_cap: int, step: int = 1
+                     ) -> torch.Tensor:
+    """(out_cap,) int32: output position p of row r (``new_off[r] <= p <
+    new_off[r + 1]``) reads source position ``starts[r] + (p - new_off[r])
+    * step``, clamped into [0, src_cap). Each output position finds its
+    row by ``rows_of_positions``; every per-position intermediate is
+    int32."""
+    n = starts.shape[0]
+    src = torch.arange(out_cap, dtype=torch.int32, device=new_off.device)
+    if n == 0:
+        return src.zero_()
+    r = rows_of_positions(new_off, out_cap).clamp_(0, n - 1)
+    if step == 1:
+        src += (starts.to(torch.int32) - new_off[:-1]).index_select(0, r)
+    else:
+        src = starts.to(torch.int32).index_select(0, r) + \
+            (src - new_off.index_select(0, r)) * step
+    return src.clamp_(0, max(src_cap, 1) - 1)
+
+
 def _gather_bytes(pool: torch.Tensor, starts: torch.Tensor,
                   new_off: torch.Tensor, bcap: int) -> torch.Tensor:
     """(bcap,) u8: output byte p of row r (``new_off[r] <= p <
     new_off[r + 1]``) is ``pool[starts[r] + p - new_off[r]]``; bytes past
-    ``new_off[-1]`` are 0. Every per-byte intermediate is int32."""
-    n = starts.shape[0]
-    if pool.shape[0] == 0 or n == 0:
+    ``new_off[-1]`` are 0."""
+    if pool.shape[0] == 0 or starts.shape[0] == 0:
         return torch.zeros((bcap,), dtype=torch.uint8, device=pool.device)
-    r = rows_of_positions(new_off, bcap).clamp_(0, n - 1)
-    delta = (starts.to(torch.int32) - new_off[:-1])   # per row, int32
-    src = torch.arange(bcap, dtype=torch.int32, device=pool.device)
-    live = src < new_off[-1]
-    src += delta.index_select(0, r)
-    del r
-    src.clamp_(0, pool.shape[0] - 1)
-    out = pool.index_select(0, src)
-    del src
+    live = torch.arange(bcap, dtype=torch.int32, device=pool.device) < \
+        new_off[-1]
+    out = pool.index_select(0, source_positions(new_off, starts, bcap,
+                                                pool.shape[0]))
     return out.masked_fill_(~live, 0)
 
 
@@ -354,10 +434,37 @@ def filter_batch(b: Batch, mask: Array,
         raise ValueError(f"filter_batch impl {impl!r}: 'dma' or 'pallas'")
     for i in range(b.num_columns):
         t = b.column(i).type
-        if t.is_nested or isinstance(t, dt.FixedSizeBinaryType) or \
+        if isinstance(t, dt.FixedSizeBinaryType) or \
                 (isinstance(t, dt.DecimalType) and t.wide):
             raise NotImplementedError(f"filter_batch of {t}")
-    return _filter_batch_columns(b, mask, opts.null_selection_behavior)
+    nested = [i for i in range(b.num_columns) if b.column(i).type.is_nested]
+    if not nested:
+        return _filter_batch_columns(b, mask, opts.null_selection_behavior)
+    return _filter_batch_mixed(b, mask, opts.null_selection_behavior,
+                               nested)
+
+
+def _filter_batch_mixed(b: Batch, mask: Array, null_selection: str,
+                        nested: list) -> Batch:
+    """A batch with nested columns: its flat and varlen columns compact in
+    the one launch of ``_filter_batch_columns``; its nested columns
+    (list, struct, union, run-end encoded) are taken at ONE set of take
+    indices (``get_take_indices``), as the JAX package's sort route takes
+    them through its iota payload."""
+    flat = [i for i in range(b.num_columns) if i not in nested]
+    indices = get_take_indices(mask, null_selection)
+    arrays = [None] * b.num_columns
+    for i in nested:
+        arrays[i] = take_array(b.column(i), indices)
+    out_len = indices.length
+    if flat:
+        sub = Batch(Schema(tuple(b.schema.fields[i] for i in flat)),
+                    [b.column(i) for i in flat], b.length, b.index)
+        sub = _filter_batch_columns(sub, mask, null_selection)
+        for i, a in zip(flat, sub.arrays):
+            arrays[i] = a
+        out_len = sub.length
+    return Batch(b.schema, arrays, out_len, b.index)
 
 
 # ---- registry entries ---------------------------------------------------------

@@ -26,10 +26,35 @@ takes one of three branches, as the JAX package's does:
 inside the functions.
 
 The seven functions of the JAX module whose output or input is a list or
-a struct (``split_pattern``, ``split_pattern_regex``,
-``ascii_split_whitespace``, ``utf8_split_whitespace``, ``extract_regex``,
-``extract_regex_span``, ``binary_join``) come with the nested layouts
-(ROADMAP A7).
+a struct: the JAX package runs all seven as Python loops over the rows.
+Here ``split_pattern``, ``utf8_split_whitespace``,
+``ascii_split_whitespace`` and ``binary_join`` run on the device:
+
+  * a split marks its separators (the greedy non-overlapping matches of
+    the pattern, from the right for ``reverse``, through the pattern
+    kernels of ``ops/strings``; or the maximal whitespace runs), counts
+    each row's tokens for the list offsets, takes each token's first byte
+    for the child offsets, and compacts the pool without the separator
+    bytes by one launch of the compaction kernel
+    (``cuda_kernels.filter_compact_columns``); one host read sizes the
+    child (``_split_at``);
+  * ``binary_join`` lays every element and the separator after it out as
+    two segments of one gather (``selection._gather_bytes``), the lengths
+    summed in int64 and one host read of the total, which must fit int32
+    offsets.
+
+``split_pattern_regex``, ``extract_regex`` and ``extract_regex_span`` are
+regex host hops through ``_via_pc``; a nested result of its dictionary or
+pushdown branch is taken by code on the host.
+
+Where the port follows pyarrow and not the JAX package (ROADMAP C30):
+``ascii_split_whitespace`` splits on ASCII whitespace only (the JAX
+package's ``\\s+`` splits on Unicode whitespace) and
+``utf8_split_whitespace`` on the codepoints of the oracle's ``space``
+class; ``split_pattern`` with ``reverse`` and no ``max_splits`` matches
+from the right (the JAX package matches from the left, which differs for a
+self-overlapping pattern). ``reverse`` whitespace splits raise
+``NotImplementedError``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -40,13 +65,22 @@ import re
 import numpy as np
 import torch
 
+from typing import Optional
+
 from ..core import datatype as dt
 from ..core.array import Array
 from ..compute.registry import Kind, NullHandling, register_function
-from .strings import MatchSubstringOptions, ReplaceSubstringOptions
+from ..utils.errors import ArrowInvalid
+from . import selection
+from .segment import _scatter, rows_of_positions
+from .strings import MatchSubstringOptions, ReplaceSubstringOptions, \
+    _arg_array, _greedy_selected, _lens, _match_positions, _pat_bytes, \
+    _prefix, _row_counts, _trim_flags
+from .unicode_text import row_heads, rows_of_bytes
 
 __all__ = ["MatchSubstringOptions", "ReplaceSubstringOptions",
            "ReplaceSliceOptions", "ZeroFillOptions", "Utf8NormalizeOptions",
+           "SplitOptions", "SplitPatternOptions", "ExtractRegexOptions",
            "HOST_HOPS", "reset_host_hops"]
 
 _PUSHDOWN_MIN_ROWS = 65536      # below this the direct host hop is cheap
@@ -60,6 +94,25 @@ HOST_HOPS: collections.Counter = collections.Counter()
 
 def reset_host_hops() -> None:
     HOST_HOPS.clear()
+
+
+class SplitOptions:
+    def __init__(self, max_splits: Optional[int] = None,
+                 reverse: bool = False):
+        self.max_splits = max_splits
+        self.reverse = reverse
+
+
+class SplitPatternOptions(SplitOptions):
+    def __init__(self, pattern: str = "",
+                 max_splits: Optional[int] = None, reverse: bool = False):
+        super().__init__(max_splits, reverse)
+        self.pattern = pattern
+
+
+class ExtractRegexOptions:
+    def __init__(self, pattern: str = ""):
+        self.pattern = pattern
 
 
 class ReplaceSliceOptions:
@@ -182,6 +235,16 @@ def _via_pc(name: str, a: Array, pc_options, fallback) -> Array:
         except rejected:
             return fallback()
         HOST_HOPS[branch] += 1
+        if pa.types.is_nested(uniq_out.type):
+            # a list or struct result is taken by code on the host: its
+            # children's sizes are known there
+            n = len(codes)
+            idx = codes.values[:n].cpu().numpy()
+            mask = None if codes.validity is None else \
+                ~codes.validity[:n].cpu().numpy()
+            return array_from_pyarrow(
+                uniq_out.take(pa.array(idx, mask=mask)),
+                capacity=codes.capacity, device=a.device)
         uniq_arr = array_from_pyarrow(uniq_out, capacity=uniq_cap,
                                       device=a.device)
         grow = 1
@@ -303,3 +366,300 @@ def _utf8_normalize(args, options):
     form = options.form
     return _host_elementwise(
         args[0], lambda s: unicodedata.normalize(form, s), pa.string())
+
+
+# ---- the nested functions ------------------------------------------------------
+
+def _strings_arg(a) -> Array:
+    """A string column as a plain varlen Array: a dictionary column
+    decoded, its rows' nulls kept."""
+    out = _arg_array(a)
+    if out is not a and a.validity is not None:
+        out = out.with_validity(out.validity_or_true() & a.validity)
+    return out
+
+
+def _split_at(a: Array, first: torch.Tensor, last: torch.Tensor,
+              consumed: torch.Tensor) -> Array:
+    """list<a.type> of the tokens of each present row between its
+    separators: ``first`` / ``last`` flag each separator's first and last
+    byte (separators are disjoint, in order, inside their rows),
+    ``consumed`` their bytes. A row of s separators has s + 1 tokens, the
+    empty ones included; a null row is a null list. The child's pool is
+    the present rows' pool without the separator bytes (one launch of the
+    compaction kernel); one host read of the token count sizes the
+    child."""
+    cap = a.capacity
+    B = a.values.shape[0]
+    dev = a.device
+    ntok = torch.where(a.present_mask(), _row_counts(a, first) + 1, 0)
+    list_off = _prefix(ntok)
+    T = int(list_off[cap])
+    tcap = max(T, 1)
+    # the separators' last bytes compacted by rank (B past the last)
+    L = _prefix(last)
+    lastpos = _scatter(B + 1, B, torch.where(last, L[:-1], B + 1).long(),
+                       torch.arange(B, dtype=torch.int32, device=dev))
+    t = torch.arange(tcap, dtype=torch.int32, device=dev)
+    r = rows_of_positions(list_off, tcap).clamp_(0, max(cap - 1, 0))
+    j = t - list_off.index_select(0, r)
+    row_start = a.offsets.index_select(0, r)
+    before = _prefix(first).index_select(0, row_start) + j - 1
+    start = torch.where(j == 0, row_start, lastpos.index_select(
+        0, before.clamp_(0, B)) + 1)
+    keep = selection._byte_selection(a.offsets, a.present_mask(), B) & \
+        ~consumed
+    K = _prefix(keep)
+    child_off = torch.cat([torch.where(t < T, K.index_select(
+        0, start.clamp_(0, B)), K[B]), K[B:]])
+    pool = a.values
+    if B:
+        # called through ``selection``, as every caller of the kernel is
+        (pool,), _ = selection.filter_compact_columns(keep, [pool])
+    child = Array(a.type, pool, None, length=T, offsets=child_off)
+    return Array(dt.list_(a.type), torch.zeros((0,), dtype=torch.uint8,
+                                               device=dev), a.validity,
+                 length=a.length, offsets=list_off, dictionary=child)
+
+
+def _reversed_rows(a: Array) -> Array:
+    """``a`` with each row's bytes in reverse order (the same offsets)."""
+    B = a.values.shape[0]
+    rows = rows_of_bytes(a).long()
+    p = torch.arange(B, dtype=torch.int32, device=a.device)
+    src = a.offsets[rows] + a.offsets[rows + 1] - 1 - p
+    src = torch.where(p < a.offsets[a.capacity], src, p).clamp_(0, B - 1)
+    return Array(a.type, a.values.index_select(0, src), a.validity,
+                 length=a.length, offsets=a.offsets)
+
+
+def _max_splits(options) -> Optional[int]:
+    ms = getattr(options, "max_splits", None)
+    return None if ms is None or ms < 0 else int(ms)
+
+
+@register_function("split_pattern", Kind.SCALAR, 1,
+                   null_handling=NullHandling.COMPUTED,
+                   options_class=SplitPatternOptions)
+def _split_pattern(args, options):
+    """Split at the greedy non-overlapping matches of the pattern, at most
+    ``max_splits`` of them; with ``reverse`` the matches are taken from
+    the right (on each row's bytes reversed, the pattern reversed)."""
+    a = _strings_arg(args[0])
+    pat = _pat_bytes(options.pattern)
+    m = len(pat)
+    if m == 0:
+        raise ArrowInvalid("Empty separator")
+    B = a.values.shape[0]
+    ms = _max_splits(options)
+    if B == 0:
+        none = torch.zeros((0,), dtype=torch.bool, device=a.device)
+        return _split_at(a, none, none, none)
+    if not options.reverse:
+        first = _greedy_selected(a, _match_positions(a, options), m, ms)
+    else:
+        ra = _reversed_rows(a)
+        rpat = MatchSubstringOptions(pat[::-1].tobytes())
+        sel = _greedy_selected(ra, _match_positions(ra, rpat), m, ms)
+        # a match at reversed byte s of row r starts at byte
+        # offsets[r] + offsets[r + 1] - s - m
+        rows = rows_of_bytes(a).long()
+        p = torch.arange(B, dtype=torch.int32, device=a.device)
+        at = a.offsets[rows] + a.offsets[rows + 1] - p - m
+        first = torch.zeros((B + 1,), dtype=torch.bool, device=a.device)
+        first.index_fill_(0, torch.where(sel, at, B).long(), True)
+        first = first[:B]
+    S = _prefix(first)
+    # a byte is consumed when a selected start lies in [p - m + 1, p]
+    behind = torch.cat([S.new_zeros((m - 1,)), S])[:B]
+    consumed = (S[1:] - behind) > 0
+    last = torch.cat([first.new_zeros((m - 1,)), first])[:B]
+    return _split_at(a, first, last, consumed)
+
+
+def _split_whitespace(a: Array, options, unicode: bool) -> Array:
+    """Split on maximal whitespace runs, the first ``max_splits`` of each
+    row, keeping empty leading and trailing tokens (" a " -> ['', 'a',
+    ''])."""
+    if options is not None and options.reverse:
+        raise NotImplementedError("reverse whitespace split")
+    a = _strings_arg(a)
+    B = a.values.shape[0]
+    dev = a.device
+    if B == 0:
+        none = torch.zeros((0,), dtype=torch.bool, device=dev)
+        return _split_at(a, none, none, none)
+    p = torch.arange(B, dtype=torch.int32, device=dev)
+    ws = _trim_flags(a, None, unicode) & (p < a.offsets[a.capacity])
+    heads = row_heads(a)
+    no = torch.zeros((1,), dtype=torch.bool, device=dev)
+    first = ws & ~(torch.cat([no, ws[:-1]]) & ~heads)
+    last = ws & ~(torch.cat([ws[1:], no]) & ~torch.cat([heads[1:], ~no]))
+    ms = _max_splits(options)
+    if ms is not None:
+        # the run's index in its row
+        S = _prefix(first)
+        rows = rows_of_bytes(a).long()
+        ok = S[1:] - S.index_select(0, a.offsets[rows]) <= ms
+        first, last, ws = first & ok, last & ok, ws & ok
+    return _split_at(a, first, last, ws)
+
+
+@register_function("utf8_split_whitespace", Kind.SCALAR, 1,
+                   null_handling=NullHandling.COMPUTED,
+                   options_class=SplitOptions)
+def _utf8_split_whitespace(args, options):
+    return _split_whitespace(args[0], options, unicode=True)
+
+
+@register_function("ascii_split_whitespace", Kind.SCALAR, 1,
+                   null_handling=NullHandling.COMPUTED,
+                   options_class=SplitOptions)
+def _ascii_split_whitespace(args, options):
+    return _split_whitespace(args[0], options, unicode=False)
+
+
+@register_function("split_pattern_regex", Kind.SCALAR, 1,
+                   null_handling=NullHandling.COMPUTED,
+                   options_class=SplitPatternOptions)
+def _split_pattern_regex(args, options):
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    def slow():
+        rx = _compile(options.pattern)
+        ms = _max_splits(options)
+        return _host_elementwise(
+            args[0], lambda s: rx.split(s, maxsplit=ms or 0),
+            pa.list_(pa.string()), "python_re")
+    return _via_pc("split_pattern_regex", args[0],
+                   pc.SplitPatternOptions(
+                       options.pattern, max_splits=options.max_splits,
+                       reverse=options.reverse), slow)
+
+
+def _group_names(rx, name: str) -> list:
+    names = [n for n, _ in sorted(rx.groupindex.items(),
+                                  key=lambda kv: kv[1])]
+    if not names:
+        raise ValueError(f"{name} requires named groups (?P<name>...)")
+    return names
+
+
+@register_function("extract_regex", Kind.SCALAR, 1,
+                   null_handling=NullHandling.COMPUTED,
+                   options_class=ExtractRegexOptions)
+def _extract_regex(args, options):
+    """Named groups -> struct<group: string, ...>; null on no match
+    (``extract_regex`` in scalar_string*.cc)."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    def slow():
+        rx = _compile(options.pattern)
+        names = _group_names(rx, "extract_regex")
+
+        def ext(s):
+            mt = rx.search(s)
+            return None if mt is None else {n: mt.group(n) for n in names}
+        return _host_elementwise(
+            args[0], ext, pa.struct([(n, pa.string()) for n in names]),
+            "python_re")
+    return _via_pc("extract_regex", args[0],
+                   pc.ExtractRegexOptions(options.pattern), slow)
+
+
+@register_function("extract_regex_span", Kind.SCALAR, 1,
+                   null_handling=NullHandling.COMPUTED,
+                   options_class=ExtractRegexOptions)
+def _extract_regex_span(args, options):
+    """Named groups -> struct<group: fixed_size_list<int32, 2>, ...> of
+    (byte offset, byte length) spans; null on no match, a null span for a
+    group that took no part. Where RE2 rejects the pattern, Python ``re``
+    runs over the UTF-8 bytes, so that the spans are byte spans."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    def slow():
+        names = _group_names(_compile(options.pattern), "extract_regex_span")
+        brx = re.compile(options.pattern.encode("utf-8"))
+
+        def ext(s):
+            mt = brx.search(s.encode("utf-8"))
+            if mt is None:
+                return None
+            spans = {}
+            for n in names:
+                st, en = mt.span(n)
+                spans[n] = None if st < 0 else [st, en - st]
+            return spans
+        return _host_elementwise(
+            args[0], ext, pa.struct([(n, pa.list_(pa.int32(), 2))
+                                     for n in names]), "python_re")
+    return _via_pc("extract_regex_span", args[0],
+                   pc.ExtractRegexSpanOptions(options.pattern)
+                   if hasattr(pc, "ExtractRegexSpanOptions")
+                   else pc.ExtractRegexOptions(options.pattern), slow)
+
+
+_MAX_POOL = (1 << 31) - 1
+
+
+@register_function("binary_join", Kind.SCALAR, 2,
+                   null_handling=NullHandling.COMPUTED)
+def _binary_join(args, options):
+    """list<string> and a separator (a scalar or a string column) -> the
+    joined string; null if the list, the separator or any element is null
+    (``scalar_string_ascii.cc`` binary_join). Every element and the
+    separator after it (none after a row's last element) are two segments
+    of one byte gather."""
+    lists, sep = args
+    if not isinstance(lists, Array) or \
+            not isinstance(lists.type, dt.ListType):
+        raise TypeError("binary_join expects a list<string> array")
+    child = _strings_arg(lists.dictionary)
+    cap = lists.capacity
+    dev = lists.device
+    off = lists.offsets
+    ccap = child.capacity
+    present = lists.present_mask()
+    if isinstance(sep, Array):
+        sep = _strings_arg(sep)
+        sep_pool, sep_start = sep.values, sep.offsets[:-1]
+        sep_len, sep_ok = _lens(sep), sep.validity_or_true()
+    else:
+        sv = sep.as_py()
+        sb = b"" if sv is None else (sv.encode("utf-8")
+                                     if isinstance(sv, str) else bytes(sv))
+        sep_pool = torch.tensor(list(sb), dtype=torch.uint8, device=dev)
+        sep_start = torch.zeros((cap,), dtype=torch.int32, device=dev)
+        sep_len = torch.full((cap,), len(sb), dtype=torch.int32, device=dev)
+        sep_ok = torch.full((cap,), sv is not None, dtype=torch.bool,
+                            device=dev)
+    valid = present & sep_ok
+    if child.validity is not None:
+        nulls = _prefix(~child.validity)
+        valid &= nulls.index_select(0, off[1:]) == \
+            nulls.index_select(0, off[:-1])
+    t = torch.arange(ccap, dtype=torch.int32, device=dev)
+    r = rows_of_positions(off, ccap).clamp_(0, max(cap - 1, 0))
+    row_ok = valid.index_select(0, r) & (t < off[cap])
+    last = t == off.index_select(0, r + 1) - 1
+    elen = torch.where(row_ok, _lens(child), 0)
+    slen = torch.where(row_ok & ~last, sep_len.index_select(0, r), 0)
+    seg_len = torch.stack([elen, slen], 1).reshape(-1).to(torch.int64)
+    CB = child.values.shape[0]
+    seg_start = torch.stack([child.offsets[:-1],
+                             sep_start.index_select(0, r) + CB], 1) \
+        .reshape(-1)
+    seg_off = torch.cat([seg_len.new_zeros((1,)), torch.cumsum(seg_len, 0)])
+    total = int(seg_off[-1])
+    if total > _MAX_POOL:
+        raise ValueError(
+            f"binary_join: an output pool of {total} bytes does not fit "
+            "int32 offsets (at most 2^31 - 1 bytes): split the rows")
+    seg_off = seg_off.to(torch.int32)
+    pool = selection._gather_bytes(torch.cat([child.values, sep_pool]),
+                                   seg_start, seg_off, max(total, 1))
+    return Array(child.type, pool, valid, length=lists.length,
+                 offsets=seg_off.index_select(0, 2 * off.long()))

@@ -34,7 +34,7 @@ from ..core.array import Array
 from ..core.batch import Batch, Table, empty_batch
 from ..core.schema import Schema
 from ..ops.bits import ascending_lanes32, ordered_signed
-from ..ops.aggregates import GroupedCountDistinct, GroupedTDigest
+from ..ops.aggregates import GroupedCountDistinct
 from ..ops.concat import concat_batches
 from ..ops.hash_aggregate import AggregateSpec, HashAggregate
 from ..ops.join import HashJoin
@@ -100,13 +100,13 @@ def _slice_rows(t: torch.Tensor, lo: int, hi: int, device) -> torch.Tensor:
 
 def _with_validity(b: Batch, length: int, dicts=None) -> Batch:
     """``b`` with every validity buffer present and a host length; its
-    offsets and dictionaries kept, but where ``dicts[i]`` is given: it
-    replaces column i's dictionary."""
+    offsets, children and dictionaries kept, but where ``dicts[i]`` is
+    given: it replaces column i's dictionary."""
     return Batch(b.schema, [
         Array(a.type, a.values, a.validity_or_true(), length=length,
               offsets=a.offsets,
               dictionary=a.dictionary if dicts is None or dicts[i] is None
-              else dicts[i])
+              else dicts[i], children=a.children)
         for i, a in enumerate(b.arrays)], length)
 
 
@@ -160,15 +160,16 @@ def _range_key(local: Batch, key: SortKey, null_placement: str):
 
 def _grown(spec: AggregateSpec, agg, rows: int):
     """``spec`` with the option its aggregator ran out of grown, or None
-    where it cannot grow: a tdigest's ``buffer_rows`` to ``rows`` (what one
-    consume of a received shard appends) or twice its size, a
+    where it cannot grow: a row buffer's ``buffer_rows`` (tdigest,
+    approximate_median, list) to ``rows`` (what one consume of a received
+    shard appends) or twice its size, a
     count_distinct's ``max_pairs`` doubled up to ``rows`` (a shard holds
     no more pairs than rows)."""
     opts = copy.copy(spec.options) if spec.options is not None \
         else SimpleNamespace()
     if isinstance(agg, GroupedCountDistinct) and agg.max_pairs < rows:
         opts.max_pairs = min(agg.max_pairs * 2, rows)
-    elif isinstance(agg, GroupedTDigest) and \
+    elif getattr(agg, "default_rows", None) and \
             max(agg.rows * 2, rows) <= _MAX_BUFFER_ROWS:
         opts.buffer_rows = max(agg.rows * 2, rows)
     else:

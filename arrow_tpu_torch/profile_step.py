@@ -3,7 +3,7 @@
     python -m arrow_tpu_torch.profile_step
         [--path generic|dense|dist|distdict|exchange|sort|join|q3|q3dist|
                 sortdict|q3s|q3sdist|strings|anyall|q6|q6dist|q13|q22|hb|
-                q12|q7]
+                q12|q7|wordcount|baskets]
         [--rows N] [--keys N] [--max-groups N] [--shards N] [--steps N]
         [--seed N] [--build-rows N] [--build-keys N]
         [--key-dist uniform|zipf] [--join-type T] [--wide] [--batch-rows N]
@@ -59,7 +59,10 @@ RE2, the result back) and the string functions' calls. ``--path hb`` is
 pushdown; dictionary: the dictionary branch). ``--path q12`` and ``--path
 q7`` are ``entry_q12`` and ``entry_q7`` (TPC-H Q12, Q7) at ``TPCH_SF``:
 per plan node, and per layer, among them the casts, ``is_in`` and the
-temporal fields.
+temporal fields. ``--path wordcount`` and ``--path baskets`` are
+``entry_wordcount`` and ``entry_baskets`` at ``TPCH_SF``: per plan node,
+and per layer the split, the flatten, the list and pivot aggregators and
+the list and struct functions.
 
 Wraps the functions that make up the step's layers so that each call is
 bracketed by two CUDA events on the current stream (no synchronisation
@@ -80,8 +83,8 @@ import sys
 import time
 from collections import defaultdict
 
-# TPC-H scale factor of ``--path q13|q22|q12|q7``: chip_smoke.py's paths 10,
-# 11, 13 and 14
+# TPC-H scale factor of ``--path q13|q22|q12|q7|wordcount|baskets``:
+# chip_smoke.py's paths 10, 11, 13, 14, 15 and 16
 TPCH_SF = 10
 
 
@@ -196,7 +199,8 @@ def main() -> int:
                                        "join", "q3", "q3dist", "sortdict",
                                        "q3s", "q3sdist", "strings",
                                        "anyall", "q6", "q6dist", "q13",
-                                       "q22", "hb", "q12", "q7"),
+                                       "q22", "hb", "q12", "q7",
+                                       "wordcount", "baskets"),
                     default="generic")
     ap.add_argument("--staging", choices=("dictionary", "plain"),
                     default="plain")
@@ -380,6 +384,23 @@ def main() -> int:
     layer(strings_regex, "_host_regex", "host_regex")
     layer(interop, "array_to_pyarrow", "to_host")
     layer(interop, "array_from_pyarrow", "from_host")
+    # the nested layouts: the word count's split and flatten, the baskets'
+    # list and pivot aggregators, the list and struct functions, the
+    # filter's take of nested columns
+    from .ops import nested, pivot
+    layer(entry_mod, "wordcount_words", "words")
+    for fname in ("utf8_split_whitespace", "list_flatten",
+                  "list_value_length", "list_element", "list_slice",
+                  "struct_field"):
+        layer(registry.get(fname), "exec", fname)
+    layer(strings_regex, "_split_at", "split_at")
+    layer(nested.GroupedList, "consume", "agg_list")
+    layer(nested.GroupedList, "finalize", "list_finalize")
+    layer(pivot.GroupedPivotWider, "consume", "agg_pivot_wider")
+    layer(pivot.GroupedPivotWider, "finalize", "pivot_finalize")
+    layer(pivot, "_set_probe", "pivot_key_probe")
+    layer(selection, "_filter_batch_mixed", "filter_nested")
+    layer(selection, "_take_list", "take_list")
     node_spans, node_reads, node_children, _ = node_layers(
         torch, nodes, Batch, stack)
 
@@ -459,10 +480,11 @@ def main() -> int:
     elif args.path == "q6dist":
         step, (b,) = entry_mod.entry_dist_groupby_q6(
             None, args.shards or 4, args.rows, args.seed, args.keys or 100)
-    elif args.path in ("q13", "q22", "q12", "q7"):
+    elif args.path in ("q13", "q22", "q12", "q7", "wordcount", "baskets"):
         make = {"q13": entry_mod.entry_q13, "q22": entry_mod.entry_q22,
-                "q12": entry_mod.entry_q12, "q7": entry_mod.entry_q7}[
-            args.path]
+                "q12": entry_mod.entry_q12, "q7": entry_mod.entry_q7,
+                "wordcount": entry_mod.entry_wordcount,
+                "baskets": entry_mod.entry_baskets}[args.path]
         qstep, b = make(None, TPCH_SF, args.seed,
                         max_batch_rows=args.batch_rows)
 
@@ -487,7 +509,8 @@ def main() -> int:
         step(b)
         torch.cuda.synchronize()
         host_ms.append((time.perf_counter() - t0) * 1e3)
-    size = f"SF {TPCH_SF}" if args.path in ("q13", "q22", "q12", "q7") \
+    size = f"SF {TPCH_SF}" if args.path in ("q13", "q22", "q12", "q7",
+                                            "wordcount", "baskets") \
         else f"{args.rows} rows"
     hops = {k: v / args.steps for k, v in strings_regex.HOST_HOPS.items()}
     print(f"path {args.path}: {size}; host-clock ms per step "
@@ -526,7 +549,7 @@ def main() -> int:
           f"{max(0.0, 1 - busy_ms / wall_ms):.3f}; peak device memory "
           f"{torch.cuda.max_memory_allocated()} B; launches "
           f"{dict(cuda_kernels.LAUNCHES)}")
-    for e in sorted(events, key=dev_us, reverse=True)[:10]:
+    for e in sorted(events, key=dev_us, reverse=True)[:25]:
         print(f"  {dev_us(e) / 1e3:10.3f} ms  x{e.count:<5d} {e.key[:90]}")
     return 0
 

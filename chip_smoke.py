@@ -141,13 +141,30 @@ rows (BASELINE config #2) and checks each result against a numpy oracle:
           side, five joins, the pair predicate, ``year(l_shipdate)`` on
           the card, revenue by (supp_nation, cust_nation, l_year);
           against pyarrow (keys exact, revenue within 1e-12 relative);
+  path 15 ``arrow_tpu_torch.entry.entry_wordcount``: HiBench's WordCount
+          over path 10's 15M ``o_comment`` rows (``utf8_split_whitespace``
+          on the card, its pool compacted by B1, ``list_flatten``, a
+          count by the raw string word, ordered by count then word),
+          against pyarrow's split, flatten and count;
+  path 16 ``arrow_tpu_torch.entry.entry_baskets``: order baskets of
+          paths 13 / 14's lineitem (``l_orderkey``, ``l_partkey``,
+          ``l_linenumber``, ``l_quantity``; 60M rows into 15M groups):
+          ``hash_list`` of the parts (2^26 buffer rows),
+          ``hash_pivot_wider`` of the quantities by line number, the list
+          and struct functions, a filter whose flat columns B1 compacts
+          and whose list and struct columns B2 and the stitch take;
+          against numpy (each basket a run of the sorted key);
+  path 16r ``arrow_tpu_torch.entry.entry_ree_keys``: each batch of path
+          16's ``l_orderkey`` run-end encoded (B2 and the stitch) and
+          decoded, against its input and numpy's run ends;
   the string sweep: the string family's 71 functions
           (``entry.STRING_SWEEP``, the unit tests' options) once each on
           the card over the first 2^20 rows of path 10's ``o_comment``
           (one in 16 a non-ASCII string of the unit tests', one in 97
           null), each byte for byte against the port's CPU result on the
-          same rows (the CPU's run once each card call is timed, after
-          every path); its device ms and the peak above the input;
+          same rows (the CPU's run once every card call is timed, after
+          every path, ``SWEEP_CPU_WORKERS`` functions at a time); its
+          device ms and the peak above the input;
   the A7b sweep: the 83 functions of the casts, temporal functions,
           checked arithmetic, vector_misc and set lookup, and ``cast``
           over every pair of types it dispatches (``cast:<src>-><dst>``),
@@ -160,7 +177,15 @@ rows (BASELINE config #2) and checks each result against a numpy oracle:
           and bytes byte for byte, floats within the entry's stated ulps
           or 1e-12 (float32: 1e-5) times the running sum of |x|; and
           ``add_checked`` past INT64_MAX raising ``ArrowInvalid`` on
-          both devices.
+          both devices;
+  the A7c sweep: the 19 functions of the nested layouts, ``ree`` and
+          ``pivot``, take / filter / concat of list, fixed-size-list, map,
+          struct and union columns, ``hash_list`` and ``hash_pivot_wider``
+          through ``Table.group_by``, the pivot_longer node and the sparse
+          tensors' to_dense / mv / mm (``entry.A7C_SWEEP``) over 2^20-row
+          columns made from the seed and a 4096^2 matrix at 1 %, each on
+          the card against the CPU's run: exact, the products within
+          1e-12 of |A| |x|, ``random`` by its range and its seed.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -184,7 +209,7 @@ the shards of the card, and no ``torch.sort`` inside the exchange's
 the two exchange kernels and the key packing against its plain version,
 and the launches those calls make against their counted runs'.
 
-Paths 10-14 hold every call they make to B1, B2, the stitch,
+Paths 10-16r hold every call they make to B1, B2, the stitch,
 ``pack_key_lanes`` and B3 against its plain version. Prints the card's
 name and power limit, one line per check, a JSON line ``{"sweep": {...}}``
 (each entry of both sweeps: ms and peak), a JSON line ``{"paths": {...}}`` (each path's counted step: ms and peak device bytes;
@@ -223,6 +248,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -297,6 +323,13 @@ TPCH_SEED = 42
 HB_SEED = 7
 N_SWEEP = 1 << 20
 SWEEP_PEAK_BYTES = 24e9
+# the string sweep's CPU results, computed this many functions at a time
+# once every card call is timed
+SWEEP_CPU_WORKERS = 4
+# the A7c sweep's rows; its sparse products' float64 tolerance, times
+# |A| |x| (cuSPARSE and the CPU add in other orders)
+N_A7C = 1 << 20
+A7C_PRODUCT_RTOL = 1e-12
 
 
 def check(cond, msg: str) -> None:
@@ -3120,7 +3153,8 @@ def main() -> int:
     # ---- paths 13 and 14: TPC-H Q12 and Q7, casts, dates and is_in ------
     t0 = time.time()
     li_cols = sorted(set(entry_mod.Q12_COLUMNS["lineitem"]) |
-                     set(entry_mod.Q7_COLUMNS["lineitem"]))
+                     set(entry_mod.Q7_COLUMNS["lineitem"]) |
+                     set(entry_mod.BASKETS_COLUMNS["lineitem"]))
     source.update({name: tpch_table(name, TPCH_SF, TPCH_SEED, columns=cols)
                    for name, cols in (("lineitem", li_cols),
                                       ("supplier", None), ("nation", None))})
@@ -3164,6 +3198,110 @@ def main() -> int:
         del step, tables
         forget()
         torch.cuda.empty_cache()
+    # ---- path 15: HiBench's WordCount over TPC-H's o_comment ------------
+    t0 = time.time()
+    step, tables = entry_mod.entry_wordcount(dev, TPCH_SF, TPCH_SEED,
+                                             source=source)
+    torch.cuda.synchronize()
+    print(f"path 15 data: o_comment staged in {time.time() - t0:.1f} s in "
+          f"{len(tables[0].batches)} batches")
+    out, secs, launches15, peak = timed(
+        lambda: step(*tables), "path 15", ("filter_compact_chunks",))
+    t0 = time.time()
+    got = out.to_pyarrow()
+    want = entry_mod.wordcount_pyarrow(step.source)
+    n_words = int(np.sum(want["count"].to_numpy()))
+    check(got.equals(want), "path 15: the word counts differ from "
+          f"pyarrow's: {got.slice(0, 5).to_pydict()} "
+          f"{want.slice(0, 5).to_pydict()}")
+    top = got.slice(0, 100).to_pydict()
+    print(f"path 15 (WordCount over o_comment at SF {TPCH_SF}): "
+          f"{n_orders} comments, {n_words} words in {secs * 1e3:.3f} ms = "
+          f"{n_words / secs:.6g} words/s; {got.num_rows} distinct words "
+          f"and their counts equal pyarrow's (oracle "
+          f"{time.time() - t0:.1f} s), top 3 {list(zip(top['word'][:3], top['count'][:3]))}"
+          f"; peak device memory {peak} B; launches {launches15}")
+    paths["path 15"].update(words=n_words, distinct=got.num_rows)
+    del out, got, want, top
+    check_plan_calls("path 15", lambda: step(*tables), launches15)
+    fc15 = measure_filter(torch, ck, *seen_calls["filter_compact_columns"][0],
+                          "path 15 pool")
+    del step, tables
+    forget()
+    torch.cuda.empty_cache()
+
+    # ---- path 16: order baskets of lineitem (hash_list, pivot_wider) ----
+    t0 = time.time()
+    step, tables = entry_mod.entry_baskets(dev, TPCH_SF, TPCH_SEED,
+                                           source=source)
+    torch.cuda.synchronize()
+    print(f"path 16 data: lineitem's four columns staged in "
+          f"{time.time() - t0:.1f} s in {len(tables[0].batches)} batches")
+    out, secs, launches16, peak = timed(
+        lambda: step(*tables), "path 16",
+        ("filter_compact_chunks", "tile_compact_local", "tile_stitch"))
+    t0 = time.time()
+    want = entry_mod.baskets_numpy(step.source)
+    bad = entry_mod.baskets_differ(entry_mod.baskets_arrays(out), want)
+    check(not bad, f"path 16: the baskets' {bad} differ from numpy's")
+    print(f"path 16 (order baskets at SF {TPCH_SF}): {n_li} lineitem rows "
+          f"in {secs * 1e3:.3f} ms = {n_li / secs:.6g} rows/s; "
+          f"{len(want['l_orderkey'])} baskets of at least "
+          f"{entry_mod.BASKET_MIN_PARTS} parts (lists, first, top 3, the "
+          f"pivot by line number, q1) equal numpy's (oracle "
+          f"{time.time() - t0:.1f} s); peak device memory {peak} B; "
+          f"launches {launches16}")
+    paths["path 16"]["baskets"] = len(want["l_orderkey"])
+    del out, want
+    check_plan_calls("path 16", lambda: step(*tables), launches16)
+    fc16 = measure_filter(torch, ck, *seen_calls["filter_compact_columns"][0],
+                          "path 16 flat columns")
+    tc16 = measure_tile_compact(torch, ck,
+                                seen_calls["tile_compact_local"][0][0],
+                                "path 16 nested columns")
+    ts16 = measure_tile_stitch(torch, ck, *seen_calls["tile_stitch"][0],
+                               "path 16 nested columns")
+    del step, tables
+    forget()
+    torch.cuda.empty_cache()
+
+    # ---- path 16r: run-end encoding of path 16's sorted l_orderkey -------
+    t0 = time.time()
+    step, tables = entry_mod.entry_ree_keys(dev, TPCH_SF, TPCH_SEED,
+                                            source=source)
+    torch.cuda.synchronize()
+    print(f"path 16r data: l_orderkey staged in {time.time() - t0:.1f} s")
+    res, secs, launches16r, peak = timed(
+        lambda: step(*tables), "path 16r",
+        ("tile_compact_local", "tile_stitch"))
+    n_runs = 0
+    for i, ((enc, dec), b) in enumerate(zip(res, tables[0].batches)):
+        col = b.column("l_orderkey")
+        n = len(col)
+        check(int(dec.length) == n and torch.equal(dec.values[:n],
+                                                   col.values[:n]),
+              f"path 16r: batch {i} does not decode to its input")
+        runs = entry_mod.ree_runs_numpy(col.values[:n].cpu().numpy())
+        check(len(enc) == len(runs) and np.array_equal(
+            enc.offsets[1:len(runs) + 1].cpu().numpy(), runs),
+            f"path 16r: batch {i}'s run ends differ from numpy's")
+        n_runs += len(runs)
+    print(f"path 16r (run-end encode and decode of l_orderkey): {n_li} "
+          f"rows, {n_runs} runs in {secs * 1e3:.3f} ms; every batch "
+          f"decodes to its input and its run ends equal numpy's; peak "
+          f"device memory {peak} B; launches {launches16r}")
+    paths["path 16r"]["runs"] = n_runs
+    del res
+    check_plan_calls("path 16r", lambda: step(*tables), launches16r)
+    tc16r = measure_tile_compact(torch, ck,
+                                 seen_calls["tile_compact_local"][0][0],
+                                 "path 16r")
+    ts16r = measure_tile_stitch(torch, ck, *seen_calls["tile_stitch"][0],
+                                "path 16r")
+    del step, tables
+    forget()
+    torch.cuda.empty_cache()
+
     shipdate = source["lineitem"]["l_shipdate"].slice(0, N_SWEEP) \
         .cast(pa.int32()).to_numpy()
     shipmode = source["lineitem"]["l_shipmode"].slice(0, N_SWEEP) \
@@ -3174,20 +3312,23 @@ def main() -> int:
     # ---- the string sweep: the family's 71 functions over 2^20 comments ---
     t0 = time.time()
     comments = source["orders"]["o_comment"].slice(0, N_SWEEP).to_pylist()
+    a7c_comments = source["orders"]["o_comment"].slice(0, N_A7C) \
+        .combine_chunks()
     col = entry_mod.sweep_column(comments, device=dev)
     col_cpu = entry_mod.sweep_column(comments, device="cpu")
     del source, comments
     check(result_parts(col) == result_parts(col_cpu),
           "sweep: the CPU's input rows differ from the card's")
-    print(f"string sweep: {N_SWEEP} rows of path 10's o_comment, one in 16 "
-          f"non-ASCII, one in 97 null ({col.values.shape[0]} B), made in "
+    print(f"string sweep: {N_SWEEP} rows of path 10's o_comment, "
+          f"one in 16 non-ASCII, one in 97 null ({col.values.shape[0]} B), "
+          "made in "
           f"{time.time() - t0:.1f} s")
     host_fns = {"match_substring_regex", "count_substring_regex",
                 "find_substring_regex", "replace_substring_regex",
                 "binary_replace_slice", "utf8_replace_slice",
                 "utf8_zero_fill", "utf8_normalize"}
     sweep = {}
-    cpu_s = 0.0
+    card_parts = {}
     for name, extra, kw in entry_mod.STRING_SWEEP:
         if name not in host_fns:
             entry_mod.sweep_call(name, extra, kw, col)
@@ -3204,20 +3345,29 @@ def main() -> int:
                        "peak_bytes": torch.cuda.max_memory_allocated() - base}
         check(sweep[name]["peak_bytes"] < SWEEP_PEAK_BYTES,
               f"sweep {name}: peak {sweep[name]['peak_bytes']} B")
-        # the CPU's result, once the card's call is timed
-        t0 = time.time()
-        want = entry_mod.sweep_call(name, extra, kw, col_cpu)
-        cpu_s += time.time() - t0
-        check(result_parts(got) == result_parts(want),
-              f"sweep {name}: the card's result differs from the CPU's")
-        del got, want
-        print(f"sweep {name:26s} {sweep[name]['ms']:10.3f} ms, peak above "
-              f"the input {sweep[name]['peak_bytes']} B; equal to the CPU's")
+        card_parts[name] = result_parts(got)
+        del got
+    del col
+    torch.cuda.empty_cache()
+    # the CPU's results, once every card call is timed
+    t0 = time.time()
+    pool = ThreadPoolExecutor(SWEEP_CPU_WORKERS)
+    try:
+        wants = pool.map(lambda f: result_parts(entry_mod.sweep_call(
+            *f, col_cpu)), entry_mod.STRING_SWEEP)
+        for (name, _, _), want in zip(entry_mod.STRING_SWEEP, wants):
+            check(card_parts.pop(name) == want,
+                  f"sweep {name}: the card's result differs from the CPU's")
+            print(f"sweep {name:26s} {sweep[name]['ms']:10.3f} ms, peak "
+                  f"above the input {sweep[name]['peak_bytes']} B; equal "
+                  "to the CPU's")
+    finally:
+        pool.shutdown(cancel_futures=True)
+    cpu_s = time.time() - t0
     print(f"string sweep: {len(sweep)} functions equal the CPU's byte for "
           f"byte; card {sum(m['ms'] for m in sweep.values()):.1f} ms in "
-          f"all, the CPU {cpu_s:.1f} s")
-    del col, col_cpu
-    torch.cuda.empty_cache()
+          f"all, the CPU {cpu_s:.1f} s ({SWEEP_CPU_WORKERS} at a time)")
+    del col_cpu
 
     # ---- the A7b sweep: 83 functions and every cast pair at 2^20 rows ----
     from arrow_tpu_torch.utils.errors import ArrowInvalid
@@ -3292,8 +3442,67 @@ def main() -> int:
           f"ulps / sums); add_checked past INT64_MAX raises on both "
           f"devices; card {a7b_ms:.1f} ms in all, the CPU {cpu_s:.1f} s, "
           f"{time.time() - t0:.1f} s in all")
-    print(json.dumps({"sweep": sweep}))
     del cols, cols_cpu
+    torch.cuda.empty_cache()
+
+    # ---- the A7c sweep: nested layouts and their functions ---------------
+    t0 = time.time()
+    cols = entry_mod.a7c_sweep_columns(N_A7C, TPCH_SEED, a7c_comments,
+                                       device=dev)
+    cols_cpu = entry_mod.a7c_sweep_columns(N_A7C, TPCH_SEED, a7c_comments,
+                                           device="cpu")
+    print(f"A7c sweep: {N_A7C} rows of each layout (the comments path 10's "
+          f"first o_comment rows), a {entry_mod.A7C_TENSOR_N}^2 matrix at "
+          f"{entry_mod.A7C_TENSOR_DENSITY} made in {time.time() - t0:.1f} s")
+    n_a7c, cpu_s, a7c_ms = 0, 0.0, 0.0
+    for label, host, tol, fn in entry_mod.A7C_SWEEP:
+        if not host:
+            fn(cols)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        got = fn(cols)
+        end.record()
+        torch.cuda.synchronize()
+        key = f"a7c:{label}"
+        sweep[key] = {"ms": start.elapsed_time(end),
+                      "peak_bytes": torch.cuda.max_memory_allocated() - base}
+        a7c_ms += sweep[key]["ms"]
+        check(sweep[key]["peak_bytes"] < SWEEP_PEAK_BYTES,
+              f"A7c sweep {label}: peak {sweep[key]['peak_bytes']} B")
+        t1 = time.time()
+        want = fn(cols_cpu)
+        cpu_s += time.time() - t1
+        if tol == "random":
+            # other generators: the range, the type, one initializer's
+            # values again on the card
+            again = fn(cols)
+            same = torch.equal(got.values, again.values) and \
+                got.values.dtype == want.values.dtype == torch.float64 and \
+                bool(((got.values >= 0) & (got.values < 1)).all())
+        elif tol == "product":
+            scale = entry_mod.a7c_product_scale(label, cols_cpu)
+            same = bool(np.all(np.abs(got.cpu().numpy() - want.numpy())
+                               <= A7C_PRODUCT_RTOL * scale))
+        else:
+            same = entry_mod.nested_parts(got) == \
+                entry_mod.nested_parts(want)
+        check(same, f"A7c sweep {label}: the card's result differs from "
+              f"the CPU's (tolerance {tol})")
+        print(f"A7c sweep {label:28s} {sweep[key]['ms']:10.3f} ms, peak "
+              f"above the input {sweep[key]['peak_bytes']} B; equal to the "
+              f"CPU's")
+        del got, want
+        n_a7c += 1
+    print(f"A7c sweep: {n_a7c} entries equal the CPU's (exact; products "
+          f"within {A7C_PRODUCT_RTOL} of |A| |x|; random by range and "
+          f"seed); card {a7c_ms:.1f} ms in all, the CPU {cpu_s:.1f} s, "
+          f"{time.time() - t0:.1f} s in all")
+    print(json.dumps({"sweep": sweep}))
+    del cols, cols_cpu, a7c_comments
     torch.cuda.empty_cache()
 
     def row(name, source, replaces, n_launches, m):
@@ -3373,6 +3582,12 @@ def main() -> int:
     also(kernels[0], "path_12d", fc12["path 12d"][0])
     also(kernels[0], "path_12p_rows", fc12["path 12p"][0])
     also(kernels[0], "path_12p_pool", fc12["path 12p"][1])
+    also(kernels[0], "path_15_pool", fc15)
+    also(kernels[0], "path_16_flat_columns", fc16)
+    also(kernels[2], "path_16_nested_columns", tc16)
+    also(kernels[3], "path_16_nested_columns", ts16)
+    also(kernels[2], "path_16r", tc16r)
+    also(kernels[3], "path_16r", ts16r)
     # the launches of the join paths', path 1b's and path 6's counted runs
     for label, counts in list(launches5.items()) + [
             ("path 1b", launches1b), ("path 6", launches6),
@@ -3383,7 +3598,9 @@ def main() -> int:
             ("path 7e", launches7e), ("path 3s", launches3s),
             ("path 9", launches9), ("path 10", launches10),
             ("path 11", launches11)] + list(launches12.items()) + \
-            list(launches1314.items()):
+            list(launches1314.items()) + [
+            ("path 15", launches15), ("path 16", launches16),
+            ("path 16r", launches16r)]:
         suffix = suffix_of(label)
         for kernel in kernels:
             if counts[kernel["name"]] and not (

@@ -420,7 +420,7 @@ def test_scalar_aggregates_vs_jax(fn, col, opts):
 def test_port_registers_every_jax_aggregate_name():
     """Every function name the JAX package registers in aggregates.py,
     aggregates_order.py and vector_hash.py is registered in the port,
-    with the same kind; the grouped aggregators have the same 19 names."""
+    with the same kind; the grouped aggregators have the same 21 names."""
     mods = {"arrow_tpu.ops.aggregates", "arrow_tpu.ops.aggregates_order",
             "arrow_tpu.ops.vector_hash"}
     jregistry.list_functions()
@@ -430,11 +430,10 @@ def test_port_registers_every_jax_aggregate_name():
     for name, f in names.items():
         assert name in tregistry, name
         assert tregistry.get(name).kind.name == f.kind.name, name
-    # list and pivot_wider join the JAX table from its nested and pivot
-    # modules (ROADMAP A7), not from aggregates.py
-    assert set(taggs.GROUPED_AGGREGATORS) == \
-        set(jaggs.GROUPED_AGGREGATORS) - {"list", "pivot_wider"}
-    assert len(taggs.GROUPED_AGGREGATORS) == 19
+    # list and pivot_wider join the table from the nested and pivot
+    # modules, which the registry loads, in both packages
+    assert set(taggs.GROUPED_AGGREGATORS) == set(jaggs.GROUPED_AGGREGATORS)
+    assert len(taggs.GROUPED_AGGREGATORS) == 21
     with pytest.raises(ValueError, match="Direct calls"):
         tcall("hash_stddev", [TArray(tdt.float64, torch.zeros(4))])
 

@@ -9,8 +9,10 @@ rest; a Unicode case map, which loads ``ops/unicode_text`` and its tables;
 and ``ops/strings_regex`` and ``utils/tpch``, which import pyarrow only
 when they run; a cast, a local-time field of a zoned timestamp, ``is_in``,
 a cumulative sum and a checked add, which load the five modules of the
-casts, temporal, set-lookup, vector_misc and checked functions), and check
-which modules got loaded. And the default-device rule: an entry point given
+casts, temporal, set-lookup, vector_misc and checked functions; a
+whitespace split, a list function, a run-end encoding and a sparse matrix,
+which load ``ops/nested``, ``ops/ree``, ``ops/pivot`` and
+``core/tensor``), and check which modules got loaded. And the default-device rule: an entry point given
 no device takes the card."""
 
 import subprocess
@@ -85,6 +87,24 @@ assert {"arrow_tpu_torch.ops.scalar_cast", "arrow_tpu_torch.ops.temporal",
         "arrow_tpu_torch.ops.set_lookup", "arrow_tpu_torch.ops.vector_misc",
         "arrow_tpu_torch.ops.scalar_checked",
         "arrow_tpu_torch.utils.errors"} <= set(sys.modules)
+from arrow_tpu_torch.core.interop import array_from_pyarrow
+from arrow_tpu_torch.core.array import Array
+from arrow_tpu_torch.core.tensor import SparseCSRMatrix
+s = varlen_from_numpy(np.array(["a b", " c"]), device="cpu")
+parts = call_function("utf8_split_whitespace", [s])
+assert call_function("list_value_length", [parts]).values.tolist() == [2, 2]
+assert call_function("list_element", [parts, 1]).offsets.tolist() == \
+    [0, 1, 2]
+enc = call_function("run_end_encode", [array_from_numpy(
+    np.array([4, 4, 5]), device="cpu")])
+assert enc.offsets[1:3].tolist() == [2, 3]
+m = SparseCSRMatrix(np.array([2.0]), np.array([0, 1, 1]), np.array([1]),
+                    (2, 2), device="cpu")
+assert m.to_dense().tolist() == [[0.0, 2.0], [0.0, 0.0]]
+from arrow_tpu_torch.entry import entry_baskets, entry_wordcount
+assert {"arrow_tpu_torch.ops.nested", "arrow_tpu_torch.ops.ree",
+        "arrow_tpu_torch.ops.pivot", "arrow_tpu_torch.core.tensor"} <= \
+    set(sys.modules)
 import arrow_tpu_torch.parallel.context, arrow_tpu_torch.parallel.dist_agg
 import arrow_tpu_torch.parallel.shuffle, arrow_tpu_torch.ops.hashing
 assert {"arrow_tpu_torch.parallel.shuffle", "arrow_tpu_torch.ops.hashing",
@@ -129,6 +149,8 @@ def test_no_device_means_the_card():
                entry_mod.entry_strings, entry_mod.entry_q13,
                entry_mod.entry_q22, entry_mod.entry_host_boundary,
                entry_mod.entry_q12, entry_mod.entry_q7,
+               entry_mod.entry_wordcount, entry_mod.entry_baskets,
+               entry_mod.entry_ree_keys,
                array_mod.varlen_from_numpy,
                array_mod.dictionary_from_numpy,
                entry_mod.table_from_numpy, batch_mod.empty_batch,
@@ -167,7 +189,10 @@ def test_port_sources_name_neither_jax_nor_the_jax_package():
             "arrow_tpu_torch/ops/temporal.py",
             "arrow_tpu_torch/ops/scalar_checked.py",
             "arrow_tpu_torch/ops/vector_misc.py",
-            "arrow_tpu_torch/ops/set_lookup.py"} <= names
+            "arrow_tpu_torch/ops/set_lookup.py",
+            "arrow_tpu_torch/ops/nested.py", "arrow_tpu_torch/ops/ree.py",
+            "arrow_tpu_torch/ops/pivot.py",
+            "arrow_tpu_torch/core/tensor.py"} <= names
     for f in files + [ROOT / "chip_smoke.py"]:
         assert not pat.search(f.read_text()), f
 

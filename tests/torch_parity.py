@@ -98,3 +98,51 @@ def both(fn, arrs, capacity=None, ulps=0, rtol=None, options=None,
     want = jcall(fn, j_args, options=jax_options, **kw)
     assert_same(got, want, ulps=ulps, rtol=rtol)
     return got
+
+
+def assert_layout_same(t, j):
+    """A port Array against a JAX Array of any layout: the length and
+    validity, then a list's offsets and its child (over the used child
+    rows), a struct's children, a union's codes (and a dense union's value
+    offsets) and children, else ``assert_same`` on the values."""
+    from arrow_tpu_torch.core import datatype as tdt
+    n = len(j)
+    assert len(t) == n, (len(t), n)
+    np.testing.assert_array_equal(valid_of(t.validity, n),
+                                  valid_of(j.validity, n))
+    typ = t.type
+    if isinstance(typ, tdt.ListType):
+        off = t.offsets[:n + 1].numpy()
+        np.testing.assert_array_equal(off, np.asarray(j.offsets)[:n + 1])
+        used = int(off[-1])
+        assert_layout_same(t.dictionary.with_length(used),
+                           j.dictionary.with_length(used))
+        return
+    if isinstance(typ, tdt.UnionType):
+        np.testing.assert_array_equal(t.values[:n].numpy(),
+                                      np.asarray(j.values)[:n])
+        if typ.mode == "dense":
+            np.testing.assert_array_equal(t.offsets[:n].numpy(),
+                                          np.asarray(j.offsets)[:n])
+        for tc_, jc_ in zip(t.children, j.children):
+            assert_layout_same(tc_, jc_)
+        return
+    if isinstance(typ, tdt.StructType):
+        assert len(t.children) == len(j.children)
+        for tc_, jc_ in zip(t.children, j.children):
+            assert_layout_same(tc_.with_length(n), jc_.with_length(n))
+        return
+    if t.capacity != j.capacity:
+        # capacities may differ where the packages size a result apart:
+        # compare the live rows only
+        t = t.with_length(n)
+    ok = valid_of(t.validity, n)
+    if j.offsets is not None:
+        off = t.offsets[:n + 1].numpy()
+        np.testing.assert_array_equal(off, np.asarray(j.offsets)[:n + 1])
+        np.testing.assert_array_equal(t.values[:off[-1]].numpy(),
+                                      np.asarray(j.values)[:off[-1]])
+        return
+    got = t.values[:n].numpy()[ok]
+    want = np.asarray(j.values)[:n][ok]
+    np.testing.assert_array_equal(got.view(np.uint8), want.view(np.uint8))
