@@ -197,9 +197,9 @@ def materialized_stream(input_node: "ExecNode") -> Iterator[Batch]:
 
 def _full_column(s: Scalar, capacity: int, length, device) -> Array:
     """A scalar broadcast to a column of ``capacity`` rows."""
-    v = values_of(s)
-    values = as_signed_bits(v).to(device).expand(capacity).clone() \
-        .view(v.dtype)
+    v = values_of(s)        # a wide decimal's: its two limbs
+    values = as_signed_bits(v).to(device).expand((capacity,) + v.shape) \
+        .clone().view(v.dtype)
     validity = None if s.is_valid else torch.zeros(
         (capacity,), dtype=torch.bool, device=device)
     return Array(s.type, values, validity, length=length)
@@ -981,3 +981,332 @@ class PivotLongerNode(ExecNode):
             for tmpl in self.options.row_templates:
                 yield self._template_batch(b, tmpl).with_index(i)
                 i += 1
+
+
+# ---- ordered nodes: tpch_gen, sorted_merge, asofjoin -------------------------
+
+@register_node_factory("tpch_gen")
+class TpchGenNode(ExecNode):
+    """Built-in TPC-H table generator (``tpch_node.cc:3362`` TpchGen):
+    generates on the host (``utils/tpch.py``, pyarrow imported there) and
+    feeds the plan as a table_source does, in batches of at most
+    ``max_batch_rows`` rows on the options' device (the default device
+    when it names none). Only the options' ``columns`` are generated when
+    they are set (the plan's projection pushdown sets them)."""
+
+    def __init__(self, options: opts.TpchGenNodeOptions, inputs):
+        super().__init__(options, inputs)
+        from ..utils.tpch import tpch_table
+        pa_table = tpch_table(options.table_name,
+                              scale_factor=options.scale_factor,
+                              seed=options.seed, columns=options.columns)
+        self.table = Table.from_pyarrow(
+            pa_table, max_rows_per_batch=options.max_batch_rows,
+            device=options.device)
+
+    def output_schema(self) -> Schema:
+        return self.table.schema
+
+    def device(self) -> torch.device:
+        return self.table.device
+
+    def batches(self) -> Iterator[Batch]:
+        for i, b in enumerate(self.table.batches):
+            yield b.with_index(i)
+
+
+def _exact_sort(b: Batch, keys, null_placement: str, words=None) -> Batch:
+    """``b`` sorted by ``keys`` (varlen keys exact to ``words`` prefix
+    words)."""
+    from ..ops.sorting import _composite_sort_perm
+    perm = _composite_sort_perm([b.column(k.name) for k in keys],
+                                [k.order for k in keys], null_placement,
+                                b.capacity, b.length, varlen_words=words)
+    return take_batch(b, Array(dt.int64, perm, None, length=b.length))
+
+
+def _seat_dictionaries(carry: Batch, like: Batch) -> Batch:
+    """The empty carry with ``like``'s dictionaries in its dictionary
+    columns, so that the merged rows keep theirs."""
+    return Batch(carry.schema, [
+        Array(a.type, a.values, a.validity, length=a.length,
+              dictionary=like.column(j).dictionary)
+        if isinstance(a.type, dt.DictionaryType) else a
+        for j, a in enumerate(carry.arrays)], carry.length)
+
+
+def streaming_sorted_merge(iters, schema: Schema, sort_keys,
+                           null_placement: str,
+                           device=None) -> Iterator[Batch]:
+    """Bounded-memory k-way merge of internally sorted batch streams (the
+    JAX package's ``streaming_sorted_merge``; the algorithm is
+    ``SortedMergeNode``'s docstring).
+
+    Rows compare across batches by ``sorting.merge_key_lanes`` (dictionary
+    keys by their values' lanes, string keys by prefix words, exact up to
+    ``ARROW_TPU_SORT_PREFIX_BYTES``). Each pulled batch costs ONE host read
+    (its last row's key lanes and its longest string key); a batch whose
+    string keys are longer than the prefix turns the rest of the merge
+    into one exact sort with a prefix that covers them, which is safe at
+    any round: every row emitted so far precedes every row not yet seen.
+    Each round sorts the carry with the pulled batch, emits the prefix at
+    or below the bound (the least of the inputs' tail keys), and keeps the
+    rest; ONE host read a round fetches both parts' compaction scalars."""
+    from ..ops.sorting import (_varlen_words_default, lex_leq,
+                               merge_key_lanes)
+    keys, npl = sort_keys, null_placement
+    vcols = _varlen_key_cols(schema, keys)
+    len_budget = 4 * _varlen_words_default()
+    its = list(iters)
+    k = len(its)
+    tails: list = [None] * k
+    pending: list = []
+    long_strings = False
+
+    def tail_scalars(b: Batch) -> list:
+        """The length, the last row's key lanes, the longest string key."""
+        last = max(b.length - 1, 0) if b.has_static_length else \
+            (b.length - 1).clamp(min=0).long()
+        out = [b.length] + [l[last] for l in merge_key_lanes(b, keys, npl)]
+        for name in vcols:
+            c = b.column(name)
+            src = c.dictionary if isinstance(c.type, dt.DictionaryType) \
+                else c
+            out.append((src.offsets[1:] - src.offsets[:-1]).max())
+        return out
+
+    def pull(i: int) -> None:
+        nonlocal long_strings
+        for b in its[i]:
+            t = host_ints(tail_scalars(b))
+            if t[0] == 0:
+                continue
+            t = t[1:]
+            nk = len(t) - len(vcols)
+            if vcols and max(t[nk:]) > len_budget:
+                long_strings = True
+            tails[i] = tuple(t[:nk])
+            pending.append(b)
+            return
+        tails[i] = None
+
+    for i in range(k):
+        pull(i)
+    carry = empty_batch(schema, device=device if device is not None
+                        else (pending[0].device if pending else None))
+    if pending:
+        carry = _seat_dictionaries(carry, pending[0])
+    out_i = 0
+    while not long_strings:
+        alive = [i for i in range(k) if tails[i] is not None]
+        if not alive:
+            break
+        bound = min(tails[i] for i in alive)
+        working = concat_batches([carry] + pending) if pending else carry
+        pending = []
+        sb = _exact_sort(working, keys, npl)
+        cap = sb.capacity
+        live = sb.row_mask()
+        n_emit = (lex_leq(merge_key_lanes(sb, keys, npl), bound)
+                  & live).sum(dtype=torch.int32)
+        iota = torch.arange(cap, dtype=torch.int32, device=sb.device)
+        emit = sb.with_length(n_emit)
+        rest = take_batch(sb, Array(
+            dt.int32, torch.clamp(iota + n_emit, max=cap - 1), None,
+            length=sb.length - n_emit))
+        e_scal, c_scal = compact_scalars(emit), compact_scalars(rest)
+        vals = host_ints(e_scal + c_scal)
+        ev, cv = vals[:len(e_scal)], vals[len(e_scal):]
+        if ev[0]:
+            yield maybe_compact(emit.with_index(out_i), vals=ev)
+            out_i += 1
+        carry = maybe_compact(rest, vals=cv)
+        pull(min(alive, key=lambda i: tails[i]))
+    if long_strings:
+        acc = [carry] + pending
+        for i in range(k):
+            if tails[i] is not None:
+                acc.extend(its[i])
+        big = concat_batches([b for b in acc if b.capacity])
+        yield _exact_sort(big, keys, npl,
+                          probe_varlen_sort_words(big, keys)
+                          ).with_index(out_i)
+        return
+    if int(carry.length):
+        yield carry.with_index(out_i)
+
+
+@register_node_factory("sorted_merge")
+class SortedMergeNode(ExecNode):
+    """``sorted_merge_node.cc:256``: a k-way merge of inputs that are each
+    ordered by ``sort_keys``.
+
+    Streaming, as in the JAX package: the reference's heap merge is a loop
+    over rows; here each round sorts (carry ++ newly pulled batch) on the
+    device and emits the prefix at or below the bound, the least of the
+    inputs' tail keys (the last row of each input's latest batch): no
+    unseen row can precede it. The rest carries to the next round, so
+    memory stays near one batch an input. One input is one sort of its
+    batches' concatenation."""
+
+    def __init__(self, options: opts.SortedMergeNodeOptions, inputs):
+        super().__init__(options, inputs)
+
+    def output_schema(self) -> Schema:
+        return self.inputs[0].output_schema()
+
+    def batches(self) -> Iterator[Batch]:
+        keys, npl = self.options.sort_keys, self.options.null_placement
+        if len(self.inputs) >= 2:
+            yield from streaming_sorted_merge(
+                [materialized_stream(inp) for inp in self.inputs],
+                self.output_schema(), keys, npl, self.device())
+            return
+        acc = list(materialized_stream(self.inputs[0]))
+        if not acc:
+            return
+        big = concat_batches(acc) if len(acc) > 1 else acc[0]
+        yield _exact_sort(big, keys, npl,
+                          probe_varlen_sort_words(big, keys)).with_index(0)
+
+
+@register_node_factory("asofjoin")
+class AsofJoinNode(ExecNode):
+    """``asof_join_node.cc``: the ordered temporal join. Each left row
+    takes the right payload of the latest right row of its ``by`` key whose
+    ``on`` is at or before its own and within the tolerance (tolerance >=
+    0: the earliest at or after it), else nulls.
+
+    As in the JAX package: instead of the reference's per-input queues and
+    row cursors, the ``by`` keys are grouped by one ``Grouper``, both sides
+    sort together by (inactive, group, on, side), right before left at an
+    equal ``on`` (so the later right row of a tie wins), and one segmented
+    carry of the last right row (``segment.segmented_carry_last``: the
+    doubling ``segmented_scan`` of "the right row if any, else the carry",
+    in a constant number of passes) gives every left row its candidate. A
+    tolerance >= 0 mirrors ``on`` (negates it) into the past case."""
+
+    def __init__(self, options: opts.AsofJoinNodeOptions, inputs):
+        super().__init__(options, inputs)
+        from ..ops.grouper import Grouper
+        lschema = inputs[0].output_schema()
+        rschema = inputs[1].output_schema()
+        o = options
+        self.right_payload = [n for n in rschema.names
+                              if n != o.right_on and n not in o.right_by]
+        fields = list(lschema.fields)
+        for n in self.right_payload:
+            f = rschema.field(n)
+            fields.append(Field(f.name, f.type, True))
+        self._schema = Schema(tuple(fields))
+        by_fields = [lschema.field(k) for k in o.left_by]
+        self._grouper = Grouper(
+            [f.type for f in by_fields],
+            [f.nullable or rschema.field(rk).nullable
+             for f, rk in zip(by_fields, o.right_by)],
+            max_groups=o.max_by_groups)
+
+    def output_schema(self) -> Schema:
+        return self._schema
+
+    def _run(self, left: Batch, right: Batch) -> Batch:
+        from ..ops.bits import U32, split_u64
+        from ..ops.distinct import _lexsort_perm
+        from ..ops.segment import _scatter, segmented_carry_last
+        o = self.options
+        capL, capR = left.capacity, right.capacity
+        dev = left.device
+        # both sides' by keys grouped by ONE sort (right rows first)
+        g = self._grouper
+        lanes = torch.cat([
+            group_key_lanes([right.column(k) for k in o.right_by],
+                            g.key_nullable),
+            group_key_lanes([left.column(k) for k in o.left_by],
+                            g.key_nullable)])
+        _, rep_gids, sg, _ = g.consume_lanes_grouped(
+            g.init_state(dev), lanes,
+            torch.cat([right.row_mask(), left.row_mask()]), first=True)
+        R = rep_gids.shape[0]
+        gid = torch.where(sg.codes >= 0, rep_gids[
+            sg.codes.clamp(0, max(R - 1, 0)).long()], -1).to(torch.int64)
+        gid_l = gid[capR:]
+        on_l = left.column(o.left_on).values.to(torch.int64)
+        on_r = right.column(o.right_on).values.to(torch.int64)
+        if o.tolerance >= 0:        # the future match mirrored to the past
+            on_l, on_r = -on_l, -on_r
+        on_hi, on_lo = split_u64(torch.cat([on_r, on_l]))
+        side = torch.cat([torch.zeros((capR,), dtype=torch.int64,
+                                      device=dev),
+                          torch.ones((capL,), dtype=torch.int64,
+                                     device=dev)])
+        inactive = (gid < 0).to(torch.int64)
+        order = _lexsort_perm([(inactive, 1), (gid & U32, 32),
+                               (on_hi ^ (1 << 31), 32), (on_lo, 32),
+                               (side, 1)])
+        s_gid = gid[order]
+        head = torch.cat([torch.ones((1,), dtype=torch.bool, device=dev),
+                          s_gid[1:] != s_gid[:-1]])
+        # the right row of each sorted position (-1 for a left row)
+        s_ridx = torch.where(order < capR, order, -1).to(torch.int32)
+        last_right = segmented_carry_last(s_ridx, head)
+        # each left row's candidate back at its row (torch's scatter does
+        # not drop: right positions go to the dump slot explicitly)
+        src = order - capR
+        cand = _scatter(capL, -1, torch.where(src >= 0, src, capL),
+                        last_right)
+        candc = cand.clamp(0, max(capR - 1, 0)).long()
+        matched = (cand >= 0) & (gid_l >= 0) & \
+            (on_l - on_r[candc] <= abs(o.tolerance)) & left.row_mask()
+        idx = Array(dt.int32, candc.to(torch.int32), matched,
+                    length=left.length)
+        out = list(left.arrays) + [take_array(right.column(n), idx)
+                                   for n in self.right_payload]
+        return Batch(self._schema, out, left.length)
+
+    def batches(self) -> Iterator[Batch]:
+        """Streaming: both inputs are ordered by ``on`` (the reference's
+        contract), so the right side keeps only a carry: per left batch
+        ONE host read of its last ``on``, right batches pulled (one host
+        read each, of its last ``on``) until one passes the batch's reach,
+        then the carry shrinks (a filter: one launch of the compaction
+        kernel) to the rows a later left row can still match: at or after
+        (last left ``on`` - |tolerance|), or after the last left ``on`` for
+        a future match."""
+        o = self.options
+        rschema = self.inputs[1].output_schema()
+        tol = o.tolerance
+
+        def last_on(b: Batch, col: str) -> int:
+            return int(b.column(col).values[max(int(b.length) - 1, 0)])
+
+        rights = self.inputs[1].batches()
+        carry = None
+        right_done = False
+        right_tail = None
+        for i, lb in enumerate(b for b in self.inputs[0].batches()
+                               if int(b.length)):
+            lmax = last_on(lb, o.left_on)
+            reach = lmax + max(tol, 0)
+            pulled = []
+            while not right_done and (right_tail is None
+                                      or right_tail <= reach):
+                rb = next(rights, None)
+                if rb is None:
+                    right_done = True
+                    break
+                if int(rb.length) == 0:
+                    continue
+                pulled.append(rb)
+                right_tail = last_on(rb, o.right_on)
+            if pulled:          # one concat a left batch
+                carry = concat_batches(
+                    ([carry] if carry is not None else []) + pulled)
+            working = carry if carry is not None else \
+                empty_batch(rschema, device=lb.device)
+            yield maybe_compact(self._run(lb, working).with_index(i))
+            if carry is not None:
+                th = lmax + tol if tol < 0 else lmax
+                on = carry.column(o.right_on).values.to(torch.int64)
+                carry = maybe_compact(filter_batch(
+                    carry, Array(dt.bool_, on >= th, None,
+                                 length=carry.length)))

@@ -176,11 +176,17 @@ class TpchGenNodeOptions(ExecNodeOptions):
     """Reference: TpchGenNodeOptions (``acero/tpch_node.h``)."""
 
     def __init__(self, table_name: str, scale_factor: float = 1.0,
-                 seed: int = 42, max_batch_rows: int = 1 << 15):
+                 seed: int = 42, max_batch_rows: int = 1 << 15,
+                 device=None, columns=None):
         self.table_name = table_name
         self.scale_factor = scale_factor
         self.seed = seed
         self.max_batch_rows = max_batch_rows
+        # where the generated batches go (None: the default device)
+        self.device = device
+        # the columns to generate, as the reference's TpchGen takes them
+        # (None: all; the plan's projection pushdown sets them)
+        self.columns = None if columns is None else list(columns)
 
 
 class SortedMergeNodeOptions(ExecNodeOptions):

@@ -169,6 +169,13 @@ def prune_columns(decl: Declaration,
         return rebuild(TableSourceNodeOptions(
             table.select(names), o.max_batch_rows), [])
 
+    if f == "tpch_gen":
+        if needed is None or o.columns is not None:
+            return decl
+        o2 = copy.copy(o)
+        o2.columns = sorted(needed)
+        return rebuild(o2, [])
+
     if f == "filter":
         child_needed = None if needed is None else \
             frozenset(needed | _expr_fields(o.filter_expression))
@@ -205,7 +212,7 @@ def prune_columns(decl: Declaration,
         return rebuild(o, [prune_columns(decl.inputs[0], lneed),
                            prune_columns(decl.inputs[1], rneed)])
 
-    if f == "order_by":
+    if f in ("order_by", "sorted_merge"):
         child_needed = None if needed is None else frozenset(
             needed | {k.name for k in o.sort_keys})
         return rebuild(o, [prune_columns(i, child_needed)

@@ -55,12 +55,40 @@ _LAZY = {
     "ExtractRegexOptions": "arrow_tpu_torch.ops.strings_regex",
     "RandomOptions": "arrow_tpu_torch.ops.ree",
     "PivotWiderOptions": "arrow_tpu_torch.ops.agg_options",
+    "MatchSubstringOptions": "arrow_tpu_torch.ops.strings",
+    "SliceOptions": "arrow_tpu_torch.ops.strings",
+    "TrimOptions": "arrow_tpu_torch.ops.strings",
+    "PadOptions": "arrow_tpu_torch.ops.strings",
+    "ReplaceSubstringOptions": "arrow_tpu_torch.ops.strings",
+    "JoinOptions": "arrow_tpu_torch.ops.strings",
+    "FilterOptions": "arrow_tpu_torch.ops.selection",
+    "TakeOptions": "arrow_tpu_torch.ops.selection",
+    "filter_array": "arrow_tpu_torch.ops.selection",
+    "filter_batch": "arrow_tpu_torch.ops.selection",
+    "take_array": "arrow_tpu_torch.ops.selection",
+    "take_batch": "arrow_tpu_torch.ops.selection",
+    "get_take_indices": "arrow_tpu_torch.ops.selection",
+    "SortKey": "arrow_tpu_torch.ops.sorting",
+    "SortOptions": "arrow_tpu_torch.ops.sorting",
+    "ArraySortOptions": "arrow_tpu_torch.ops.sorting",
+    "SelectKOptions": "arrow_tpu_torch.ops.sorting",
+    "RankOptions": "arrow_tpu_torch.ops.sorting",
 }
 
 
 def __getattr__(name):
+    """An option class or selection helper of ``_LAZY``, or a registered
+    function as a module-level helper: ``compute.add(a, b)``."""
     if name in _LAZY:
         import importlib
         return getattr(importlib.import_module(_LAZY[name]), name)
+    fn = registry.get(name) if name in registry else None
+    if fn is not None:
+        def wrapper(*args, options=None, **kwargs):
+            return call_function(name, list(args), options=options,
+                                 **kwargs)
+        wrapper.__name__ = name
+        wrapper.__doc__ = fn.doc or f"compute function {name!r}"
+        return wrapper
     raise AttributeError(
         f"module 'arrow_tpu_torch.compute' has no attribute {name!r}")

@@ -39,6 +39,8 @@ class Scalar:
         if self.type.is_varlen:
             return self.value
         v = self.value
+        if isinstance(self.type, dt.DecimalType):
+            return _decimal_storage(v, self.type)
         if isinstance(v, _dtm.datetime):
             epoch = _dtm.datetime(1970, 1, 1)
             us = int((v - epoch).total_seconds() * 1e6)
@@ -54,6 +56,19 @@ class Scalar:
 
     def __repr__(self):
         return f"Scalar<{self.type}>({self.as_py()!r})"
+
+
+def _decimal_storage(v, t) -> np.ndarray:
+    """A decimal value as its column stores it: the integer of
+    ``v * 10^scale`` (a ``decimal.Decimal``, int, or str, exact), one int64,
+    or for a wide type the int64 limbs [low 64 bits, high signed 64]."""
+    import decimal
+    q = int(decimal.Decimal(v).scaleb(t.scale))
+    if not t.wide:
+        return np.int64(q)
+    lo = q & ((1 << 64) - 1)
+    return np.array([lo - (1 << 64) if lo >> 63 else lo, q >> 64],
+                    dtype=np.int64)
 
 
 def _infer_scalar_type(value) -> dt.DataType:

@@ -111,6 +111,11 @@ class Array:
         return int(self.length)
 
     # ---- null handling ----------------------------------------------------
+    @property
+    def all_valid(self) -> bool:
+        """True iff statically known to have no nulls."""
+        return self.validity is None
+
     def validity_or_true(self) -> torch.Tensor:
         if self.validity is not None:
             return self.validity
@@ -169,6 +174,9 @@ class Array:
     def to_pyarrow(self):
         from .interop import array_to_pyarrow
         return array_to_pyarrow(self)
+
+    def to_numpy(self, zero_copy_only: bool = False):
+        return self.to_pyarrow().to_numpy(zero_copy_only=zero_copy_only)
 
 
 def row_mask(capacity: int, length, device=None) -> torch.Tensor:
@@ -299,16 +307,30 @@ def array_from_numpy(values, type: Optional[dt.DataType] = None,
     if isinstance(t, dt.DictionaryType):
         raise TypeError("a dictionary column needs its dictionary: "
                         "dictionary_from_numpy(indices, values)")
-    if not t.is_primitive or isinstance(t, dt.FixedSizeBinaryType) \
-            or (isinstance(t, dt.DecimalType) and t.wide):
+    if not t.is_primitive:
         raise NotImplementedError(f"array_from_numpy for {t}")
     n = values.shape[0]
     cap = n if capacity is None else capacity
     if cap < n:
         raise ValueError(f"capacity {cap} < length {n}")
+    width = value_row_shape(t)
+    if values.shape[1:] != width:
+        raise ValueError(f"{t} takes values of shape (n,) + {width}, "
+                         f"not {values.shape}")
     buf = _padded(values.astype(t.storage_np, copy=False), cap, t.storage_np)
     return Array(t, torch.from_numpy(buf).to(device),
                  _validity_tensor(validity, n, cap, device), length=n)
+
+
+def value_row_shape(t: dt.DataType) -> tuple:
+    """The shape of one row's values: a fixed-size binary's bytes (w,), a
+    wide decimal's two int64 limbs (2,) [low 64 bits, high signed 64]
+    as the JAX package stores them, one element otherwise."""
+    if isinstance(t, dt.FixedSizeBinaryType):
+        return (t.byte_width,)
+    if isinstance(t, dt.DecimalType) and t.wide:
+        return (2,)
+    return ()
 
 
 def array(values, type: Optional[dt.DataType] = None, validity=None,
@@ -334,7 +356,8 @@ def nulls(n: int, type: dt.DataType, capacity: Optional[int] = None,
                                        device=device), valid, length=n,
                      offsets=torch.zeros((cap + 1,), dtype=torch.int32,
                                          device=device))
-    buf = torch.from_numpy(np.zeros((cap,), dtype=type.storage_np))
+    buf = torch.from_numpy(np.zeros((cap,) + value_row_shape(type),
+                                    dtype=type.storage_np))
     dictionary = nulls(0, type.value_type, device=device) \
         if isinstance(type, dt.DictionaryType) else None
     return Array(type, buf.to(device), valid, length=n,

@@ -17,7 +17,7 @@ import torch
 
 from . import datatype as dt
 from .array import Array, array as make_array, array_from_numpy, nulls, \
-    resolve_device, row_mask
+    resolve_device, row_mask, value_row_shape
 from .schema import Field, Schema
 
 __all__ = ["Batch", "Table", "TableGroupBy", "batch", "batch_from_numpy",
@@ -420,7 +420,8 @@ def _empty_array(t, capacity: int, nullable: bool, device) -> Array:
                          ft, 16 if dense else capacity, True, device)
                          for _, ft in t.fields))
     values = torch.from_numpy(
-        np.zeros((capacity,), dtype=t.storage_np)).to(device)
+        np.zeros((capacity,) + value_row_shape(t), dtype=t.storage_np)
+    ).to(device)
     dictionary = nulls(0, t.value_type, device=device) \
         if isinstance(t, dt.DictionaryType) else None
     return Array(t, values, validity, length=0, dictionary=dictionary)

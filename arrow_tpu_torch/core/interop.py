@@ -1,6 +1,7 @@
-"""pyarrow <-> device-array interop for fixed-width, string, binary,
-dictionary and nested (list, fixed-size list, map, struct, union) columns,
-and export of the struct-layout intervals.
+"""pyarrow <-> device-array interop for fixed-width (decimal and
+fixed-size binary among them), string, binary, dictionary and nested
+(list, fixed-size list, map, struct, union) columns, and the struct-layout
+intervals.
 
 The engine's boundary layer, as in the JAX package's ``core/interop.py``:
 host Arrow buffers are staged into padded device buffers, and device
@@ -103,13 +104,11 @@ def _check_supported(t: dt.DataType):
         return
     if isinstance(t, dt.ListType):
         return _check_supported(t.value_type)
-    if isinstance(t, (dt.StructType, dt.UnionType)) and not isinstance(
-            t, (dt.DayTimeIntervalType, dt.MonthDayNanoIntervalType)):
+    if isinstance(t, (dt.StructType, dt.UnionType)):
         for _, ft in t.fields:
             _check_supported(ft)
         return
-    if not t.is_primitive or isinstance(
-            t, (dt.FixedSizeBinaryType, dt.DecimalType)):
+    if not t.is_primitive:
         raise NotImplementedError(f"interop for {t}")
 
 
@@ -178,6 +177,8 @@ def array_from_pyarrow(pa_arr, capacity: Optional[int] = None,
         return Array(t, torch.from_numpy(data).to(device), validity,
                      length=n, offsets=torch.from_numpy(offsets).to(device))
 
+    if isinstance(t, (dt.DayTimeIntervalType, dt.MonthDayNanoIntervalType)):
+        return _interval_from_pyarrow(pa_arr, t, n, cap, validity, device)
     if isinstance(t, dt.ListType):
         return _list_from_pyarrow(pa_arr, t, n, cap, validity, device)
     if isinstance(t, dt.UnionType):
@@ -193,6 +194,20 @@ def array_from_pyarrow(pa_arr, capacity: Optional[int] = None,
                                     device=device), validity, length=n,
                      children=children)
 
+    if isinstance(t, dt.FixedSizeBinaryType):
+        w = t.byte_width
+        buf = np.zeros((cap, w), dtype=np.uint8)
+        if n:
+            raw = np.frombuffer(pa_arr.buffers()[1], dtype=np.uint8)
+            buf[:n] = raw[pa_arr.offset * w:(pa_arr.offset + n) * w] \
+                .reshape(n, w)
+        return Array(t, torch.from_numpy(buf).to(device), validity,
+                     length=n)
+    if isinstance(t, dt.DecimalType):
+        buf = np.zeros((cap, 2) if t.wide else (cap,), dtype=np.int64)
+        buf[:n] = _decimal_values(pa_arr, t, n, validity_np)
+        return Array(t, torch.from_numpy(buf).to(device), validity,
+                     length=n)
     buf = np.zeros((cap,), dtype=t.storage_np)
     if isinstance(t, dt.BoolType):
         buf[:n] = _unpack_bits(pa_arr.buffers()[1], pa_arr.offset, n)
@@ -200,6 +215,53 @@ def array_from_pyarrow(pa_arr, capacity: Optional[int] = None,
         raw = np.frombuffer(pa_arr.buffers()[1], dtype=t.storage_np)
         buf[:n] = raw[pa_arr.offset:pa_arr.offset + n]
     return Array(t, torch.from_numpy(buf).to(device), validity, length=n)
+
+
+def _decimal_values(pa_arr, t, n: int, valid: Optional[np.ndarray]
+                    ) -> np.ndarray:
+    """A decimal column's scaled integers, as the JAX package stores them:
+    precision up to 18 one int64 a row; above it (n, 2) int64 limbs [low
+    64 bits, high signed 64 bits]. Arrow's wire holds 16 (decimal128) or
+    32 (decimal256) little-endian bytes a value; a value past the storage
+    raises, as in the JAX package. Null slots become 0."""
+    words = t.bits // 64
+    raw = np.frombuffer(pa_arr.buffers()[1], dtype="<i8").reshape(-1, words)
+    raw = raw[pa_arr.offset:pa_arr.offset + n]
+    keep = 2 if t.wide else 1
+    sign = raw[:, keep - 1] >> 63       # the words above: sign extension
+    bad = np.zeros((n,), np.bool_)
+    for w_i in range(keep, words):
+        bad |= raw[:, w_i] != sign
+    if valid is not None:
+        bad &= valid
+    if bad.any():
+        raise NotImplementedError(
+            f"{t} value past the engine's "
+            f"{'128' if t.wide else '64'}-bit scaled-integer range")
+    out = np.array(raw[:, :keep] if t.wide else raw[:, 0], dtype=np.int64)
+    if valid is not None:
+        out[~valid] = 0
+    return out
+
+
+def _interval_from_pyarrow(pa_arr, t, n: int, cap: int, validity, device):
+    """The intervals, struct-layout as the JAX package stages them: Arrow's
+    packed (i32, i32[, i64]) records unpacked into one child a
+    component."""
+    packed = np.dtype([(nm, ft.storage_np) for nm, ft in t.fields])
+    rec = None
+    if pa_arr.buffers()[1] is not None and n:
+        rec = np.frombuffer(pa_arr.buffers()[1], dtype=packed)[
+            pa_arr.offset:pa_arr.offset + n]
+    children = []
+    for nm, ft in t.fields:
+        buf = np.zeros((cap,), dtype=ft.storage_np)
+        if rec is not None:
+            buf[:n] = rec[nm]
+        children.append(Array(ft, torch.from_numpy(buf).to(device), None,
+                              length=n))
+    return Array(t, torch.zeros((cap,), dtype=torch.uint8, device=device),
+                 validity, length=n, children=tuple(children))
 
 
 def _list_from_pyarrow(pa_arr, t, n: int, cap: int, validity, device):
@@ -299,7 +361,16 @@ def array_to_pyarrow(arr: Array):
             [validity_buf, pa.py_buffer(off.tobytes()),
              pa.py_buffer(data.tobytes())], null_count=null_count)
     vals = arr.values[:n].cpu().numpy()
-    if isinstance(t, dt.BoolType):
+    if isinstance(t, dt.DecimalType):
+        # the wire's words: the storage, then its sign extension
+        words = t.bits // 64
+        wide = np.empty((n, words), dtype="<i8")
+        keep = 2 if t.wide else 1
+        wide[:, :keep] = vals.reshape(n, keep)
+        for w_i in range(keep, words):
+            wide[:, w_i] = wide[:, keep - 1] >> 63
+        data = wide
+    elif isinstance(t, dt.BoolType):
         data = np.packbits(vals.astype(np.bool_), bitorder="little")
     else:
         data = np.ascontiguousarray(vals.astype(t.storage_np, copy=False))

@@ -68,8 +68,12 @@
 //     rows. The TPU caller instead widens each bool column to an int32
 //     stream pre-masked with the identity and reduces it as imax / imin:
 //     two elementwise passes and 4 bytes a row more;
-//   * f32 min / max use an order-preserving int32 key with NaN mapped to
-//     the winning extreme, so NaN propagates as jnp.min / jnp.max do;
+//   * f32 min / max use an order-preserving int32 key. NaN is skipped, as
+//     pyarrow skips it: its key loses to every number's and wins only
+//     against the identity (INT_MAX for min, INT_MIN for max, which no
+//     float maps to), so a slot of NaNs alone gives NaN and an empty one
+//     +inf / -inf (the TPU kernel maps NaN to the winning extreme, as
+//     jnp.min / jnp.max propagate it);
 //   * shared memory is (1 + 4-byte outputs + 2 per 8-byte output) * G * 4
 //     bytes; the wrapper splits the kinds over launches so each launch
 //     fits. Up to half of an SM's shared memory a block has 512 threads
@@ -128,17 +132,17 @@ constexpr int kI32Min = -2147483647 - 1;
 constexpr int kI32Max = 2147483647;
 constexpr long long kI64Min = -9223372036854775807LL - 1;
 constexpr long long kI64Max = 9223372036854775807LL;
-constexpr unsigned kKeyPosInf = 0x7f800000u;   // f2key(+inf)
-constexpr unsigned kKeyNegInf = 0x807fffffu;   // f2key(-inf)
+constexpr int kKeyNaNMin = 0x7fc00000;         // f2key(+NaN), above +inf
+constexpr int kKeyNaNMax = ~kKeyNaNMin;        // f2key(-NaN), below -inf
 
 // identity of the accumulator of kind k, as raw bits
 __device__ inline unsigned long long ident_bits(int k) {
   switch (k) {
-    case kMin: return kKeyPosInf;
-    case kMax: return kKeyNegInf;
+    case kMin:
     case kIMin:
     case kFirstRow: return static_cast<unsigned>(kI32Max);
     case kAll8: return 1u;
+    case kMax:
     case kIMax: return static_cast<unsigned>(kI32Min);
     case kIMin64:
     case kMin64: return static_cast<unsigned long long>(kI64Max);
@@ -476,9 +480,8 @@ dg_reduce_kernel(const int* __restrict__ gid, int64_t n, DGArgs a, int G,
             int key[4];
 #pragma unroll
             for (int r = 0; r < 4; ++r)
-              key[r] = isnan(xf[r]) ? kI32Min : f2key(xf[r]);
-            fold4(hot_mode, lane, g0, g, okk, hot, key,
-                  static_cast<int>(kKeyPosInf),
+              key[r] = isnan(xf[r]) ? kKeyNaNMin : f2key(xf[r]);
+            fold4(hot_mode, lane, g0, g, okk, hot, key, kI32Max,
                   [](int x, int y) { return x < y ? x : y; },
                   [&](int s, int v) {
                     s_min_i32(reinterpret_cast<int*>(acc) + s, v);
@@ -487,9 +490,8 @@ dg_reduce_kernel(const int* __restrict__ gid, int64_t n, DGArgs a, int G,
             int key[4];
 #pragma unroll
             for (int r = 0; r < 4; ++r)
-              key[r] = isnan(xf[r]) ? kI32Max : f2key(xf[r]);
-            fold4(hot_mode, lane, g0, g, okk, hot, key,
-                  static_cast<int>(kKeyNegInf),
+              key[r] = isnan(xf[r]) ? kKeyNaNMax : f2key(xf[r]);
+            fold4(hot_mode, lane, g0, g, okk, hot, key, kI32Min,
                   [](int x, int y) { return x > y ? x : y; },
                   [&](int s, int v) {
                     s_max_i32(reinterpret_cast<int*>(acc) + s, v);
@@ -655,9 +657,11 @@ __global__ void dg_finish_kernel(const char* __restrict__ ws, DGArgs a,
     int* o1 = static_cast<int*>(a.out1[k]);
     if (kd == kMin || kd == kMax) {
       const int key = reinterpret_cast<const int*>(p)[s];
-      const bool nan = key == (kd == kMin ? kI32Min : kI32Max);
-      reinterpret_cast<float*>(o0)[s] =
-          nan ? __int_as_float(0x7fc00000) : key2f(key);
+      float v = key2f(key);
+      if (key == kI32Max) v = __int_as_float(0x7f800000);        // +inf
+      else if (key == kI32Min) v = -__int_as_float(0x7f800000);  // -inf
+      else if (key == kKeyNaNMax) v = __int_as_float(0x7fc00000);
+      reinterpret_cast<float*>(o0)[s] = v;
     } else if (kd == kSumC) {
       const unsigned long long t =
           reinterpret_cast<const unsigned long long*>(p)[s];

@@ -170,7 +170,7 @@ from .compute.expressions import execute_scalar_expression, field
 from .acero.nodes import (  # noqa: F401 (_host_probe: re-exported)
     _host_probe, build_and_route, consume_routed)
 from .acero.options import HashJoinNodeOptions
-from .core.array import array_from_numpy, dictionary_from_numpy, \
+from .core.array import Array, array_from_numpy, dictionary_from_numpy, \
     resolve_device, varlen_from_numpy
 from .core.batch import Batch, Table, batch, batch_from_numpy
 from .ops.hash_aggregate import AggregateSpec, HashAggregate
@@ -209,7 +209,15 @@ __all__ = ["AGGREGATES", "AGGREGATES_ANY_ALL", "AGGREGATES_GENERIC",
            "entry_ree_keys", "entry_wordcount", "ree_runs_numpy",
            "wordcount_declaration", "wordcount_pyarrow", "wordcount_words",
            "A7C_SWEEP", "a7c_product_scale", "a7c_sweep_columns",
-           "nested_parts"]
+           "nested_parts", "ASOF_QUOTE_GAP", "ASOF_SYMBOLS",
+           "DECIMAL_COLUMNS", "DECIMAL_Q1_COLUMNS", "DECIMAL_WIDE",
+           "Q1_COLUMNS", "SMERGE_COLUMNS", "SMERGE_KEYS", "asof_declaration",
+           "asof_differ", "asof_numpy", "decimal_ints", "decimal_lineitem",
+           "decimal_q1_declarations", "decimal_q1_differ",
+           "decimal_q1_numpy", "discount_counts_declaration", "entry_asof",
+           "entry_decimal_q1", "entry_sorted_merge", "entry_tpch_gen_q1",
+           "example_columns_asof", "q1_differ", "q1_numpy",
+           "sorted_merge_differ", "tpch_gen_q1_declaration"]
 
 AGGREGATES = (AggregateSpec("sum", "v"), AggregateSpec("min", "v"),
               AggregateSpec("sum", "w"), AggregateSpec("min", "w"),
@@ -2454,3 +2462,561 @@ def a7c_product_scale(entry_label: str, cols: dict) -> np.ndarray:
     float64 tolerance."""
     rhs = cols["x"] if entry_label.endswith(":mv") else cols["y"]
     return np.abs(cols["dense"]) @ np.abs(rhs)
+
+
+# ---- the ordered plan nodes and the decimal columns (A7d, A10) -------------
+
+SMERGE_COLUMNS = {"lineitem": ["l_orderkey", "l_linenumber", "l_shipdate",
+                               "l_extendedprice", "l_shipmode"]}
+SMERGE_KEYS = (("l_shipdate", "ascending"), ("l_orderkey", "ascending"),
+               ("l_linenumber", "ascending"))
+Q1_SHIPDATE = (1998, 9, 2)          # TPC-H Q1's date - 90 days
+DECIMAL_Q1_COLUMNS = {"lineitem": ["l_orderkey", "l_shipdate",
+                                   "l_returnflag", "l_linestatus",
+                                   "l_quantity", "l_extendedprice",
+                                   "l_discount", "l_tax"]}
+# the TPC-H spec's DECIMAL(15,2) columns; l_extendedprice also at (38, 2)
+DECIMAL_COLUMNS = ("l_quantity", "l_extendedprice", "l_discount", "l_tax")
+DECIMAL_WIDE = "l_extendedprice_w"
+DECIMAL_PRICE_FLOOR = "50000.00"
+ASOF_QUOTE_GAP = 468_000            # ns; 100M quotes span 6.5 hours
+ASOF_SYMBOLS = 8192
+
+
+def _row_slices(b: Batch, rows: int) -> list:
+    """A batch of flat and dictionary columns as batches of at most
+    ``rows`` rows: views of its buffers, its dictionaries shared."""
+    n = int(b.length)
+    out = []
+    for s in range(0, n, rows):
+        e = min(s + rows, n)
+        out.append(Batch(b.schema, [
+            Array(a.type, a.values[s:e], None if a.validity is None
+                  else a.validity[s:e], length=e - s,
+                  dictionary=a.dictionary) for a in b.arrays], e - s))
+    return out
+
+
+def entry_sorted_merge(device=None, scale_factor: float = 0.01,
+                       seed: int = 42, n_sources: int = 8,
+                       max_batch_rows: int = 1 << 22, source=None):
+    """(step, sources): a merge of ordered partitions, as Acero's
+    ``sorted_merge`` merges ordered fragments. The port's TPC-H lineitem
+    (``SMERGE_COLUMNS``; or ``source``) is cut into ``n_sources`` sources
+    by ``l_orderkey`` range, like files; each source is sorted by
+    ``SMERGE_KEYS`` on the device (set-up) and cut into batches of
+    ``max_batch_rows`` rows. step(*sources) -> the Table of the plan
+    ``sorted_merge`` over one ``table_source`` a source.
+    ``step.source`` holds the pyarrow table (``sorted_merge_differ``'s
+    input)."""
+    from .acero import Declaration, SortedMergeNodeOptions, \
+        TableSourceNodeOptions
+    from .utils.tpch import tpch_table
+    cols = SMERGE_COLUMNS["lineitem"]
+    src = source["lineitem"].select(cols) if source else \
+        tpch_table("lineitem", scale_factor, seed, columns=cols)
+    okey = src["l_orderkey"].to_numpy()
+    edges = np.searchsorted(okey, np.linspace(okey[0], okey[-1] + 1,
+                                              n_sources + 1))
+    sort = SortOptions(list(SMERGE_KEYS))
+    tables = []
+    for lo, hi in zip(edges[:-1], edges[1:]):
+        part = Table.from_pyarrow(src.slice(lo, hi - lo),
+                                  max_rows_per_batch=max(hi - lo, 1),
+                                  device=device)
+        b = part.batches[0]
+        b = take_batch(b, sort_indices_batch(b, sort))
+        tables.append(Table(b.schema, _row_slices(b, max_batch_rows)))
+
+    def step(*parts: Table) -> Table:
+        return Declaration("sorted_merge", SortedMergeNodeOptions(
+            list(SMERGE_KEYS)), [
+            Declaration("table_source", TableSourceNodeOptions(t))
+            for t in parts]).to_table()
+
+    step.source = {"lineitem": src}
+    return step, tuple(tables)
+
+
+def _host_values(t: Table, name: str) -> np.ndarray:
+    """A column's values over the table's batches, on the host."""
+    return np.concatenate([b.column(name).values[:int(b.length)].cpu()
+                           .numpy() for b in t.batches]) if t.batches \
+        else np.zeros((0,))
+
+
+def sorted_merge_differ(out: Table, source) -> list:
+    """What of a merged lineitem differs from its input (empty when it is
+    right): the key tuples non-decreasing; the ids ``l_orderkey * 8 +
+    l_linenumber`` a permutation of the input's (the input is generated in
+    id order, so an order's first row and the line number map each output
+    row to its input row, and its id must be that row's); every payload
+    its input row's, the dictionary decoded."""
+    src = source["lineitem"]
+    bad = []
+    sd, ok, ln = (_host_values(out, c) for c in ("l_shipdate", "l_orderkey",
+                                                  "l_linenumber"))
+    d0, d1, d2 = np.diff(sd), np.diff(ok), np.diff(ln)
+    if not np.all((d0 > 0) | ((d0 == 0) & ((d1 > 0) | ((d1 == 0) &
+                                                      (d2 >= 0))))):
+        bad.append("order")
+    in_ok = src["l_orderkey"].to_numpy()
+    in_ids = in_ok * 8 + src["l_linenumber"].to_numpy()
+    ids = ok * 8 + ln
+    # the input is in id order: an order's rows start at its first row,
+    # line number 1 first (a table by order key in place of a search)
+    first = np.flatnonzero(np.diff(in_ok, prepend=in_ok[:1] - 1))
+    row_of = np.full(int(in_ok[-1]) + 2, -1, np.int64)
+    row_of[in_ok[first]] = first
+    pos = np.clip(row_of[np.clip(ok, 0, len(row_of) - 1)] + ln - 1, 0,
+                  len(in_ids) - 1)
+    seen = np.zeros(len(in_ids), bool)
+    seen[pos] = True
+    if len(ids) != len(in_ids) or not np.array_equal(in_ids[pos], ids) \
+            or not seen.all():
+        bad.append("ids")
+    if not np.array_equal(_host_values(out, "l_extendedprice"),
+                          src["l_extendedprice"].to_numpy()[pos]) or \
+            not np.array_equal(sd, src["l_shipdate"].cast("int32")
+                               .to_numpy()[pos]):
+        bad.append("payload")
+    mode = src["l_shipmode"].combine_chunks()
+    vocab = mode.dictionary.to_pylist()
+    for b in out.batches:
+        col = b.column("l_shipmode")
+        d = col.dictionary
+        words = [bytes(d.values[int(d.offsets[i]):int(d.offsets[i + 1])]
+                       .cpu().numpy()).decode() for i in range(len(d))]
+        if any(w not in vocab for w in words):
+            bad.append("dictionary")
+            break
+    else:
+        codes = np.concatenate([b.column("l_shipmode").values[
+            :int(b.length)].cpu().numpy() for b in out.batches])
+        d = out.batches[0].column("l_shipmode").dictionary
+        words = [bytes(d.values[int(d.offsets[i]):int(d.offsets[i + 1])]
+                       .cpu().numpy()).decode() for i in range(len(d))]
+        to_src = np.array([vocab.index(w) for w in words])
+        if not np.array_equal(to_src[codes],
+                              mode.indices.to_numpy()[pos]):
+            bad.append("l_shipmode")
+    return bad
+
+
+def example_columns_asof(n_quotes: int, n_trades: int, seed: int,
+                         n_symbols: int = ASOF_SYMBOLS):
+    """A trading session's quotes and trades, made with numpy from
+    ``seed``: quotes ``ts`` (int64 ns, non-decreasing, gaps uniform in
+    [0, ``ASOF_QUOTE_GAP``), so equal times occur), ``sym`` uniform over
+    ``n_symbols``, ``bid`` / ``ask`` float64; trades ``ts`` over the same
+    span (gaps uniform), ``sym``, ``price`` float64, ``size`` int64."""
+    rng = np.random.default_rng(seed)
+    q_ts = np.cumsum(rng.integers(0, ASOF_QUOTE_GAP, n_quotes))
+    bid = np.round(rng.random(n_quotes) * 500 + 1, 2)
+    quotes = {"ts": q_ts, "sym": rng.integers(0, n_symbols, n_quotes),
+              "bid": bid, "ask": bid + np.round(rng.random(n_quotes), 2)}
+    gap = max(2 * int(q_ts[-1]) // max(n_trades, 1), 1)
+    trades = {"ts": np.cumsum(rng.integers(0, gap, n_trades)),
+              "sym": rng.integers(0, n_symbols, n_trades),
+              "price": np.round(rng.random(n_trades) * 500 + 1, 2),
+              "size": rng.integers(1, 1000, n_trades)}
+    return quotes, trades
+
+
+def asof_declaration(trades: Table, quotes: Table, tolerance: int):
+    """``asofjoin`` of trades (left) and quotes (right) on ``ts`` by
+    ``sym``: each trade with the latest quote of its symbol at most
+    ``|tolerance|`` ns older (tolerance >= 0: the earliest at most that
+    much newer)."""
+    from .acero import AsofJoinNodeOptions, Declaration, \
+        TableSourceNodeOptions
+    return Declaration("asofjoin", AsofJoinNodeOptions(
+        "ts", ["sym"], "ts", ["sym"], tolerance), [
+        Declaration("table_source", TableSourceNodeOptions(trades)),
+        Declaration("table_source", TableSourceNodeOptions(quotes))])
+
+
+def entry_asof(device=None, n_quotes: int = 1 << 16, n_trades: int = 1 << 14,
+               seed: int = 0, tolerance: int = -1_000_000_000,
+               max_batch_rows: int = 1 << 22):
+    """(step, (trades, quotes)): the trades-and-quotes as-of join of
+    kdb+ and pandas ``merge_asof`` users over ``example_columns_asof``'s
+    session, staged in batches of ``max_batch_rows`` rows:
+    step(trades, quotes) -> the trades with the matched quote's bid and
+    ask (``asof_declaration``). ``step.columns`` holds the numpy columns
+    (``asof_numpy``'s input)."""
+    quotes, trades = example_columns_asof(n_quotes, n_trades, seed)
+    q = table_from_numpy(quotes, max_batch_rows, device)
+    t = table_from_numpy(trades, max_batch_rows, device)
+
+    def step(trades_t: Table, quotes_t: Table) -> Table:
+        return asof_declaration(trades_t, quotes_t, tolerance).to_table()
+
+    step.columns = (quotes, trades)
+    return step, (t, q)
+
+
+def asof_numpy(quotes, trades, tolerance: int) -> np.ndarray:
+    """Each trade's matched quote row (-1 for none): a stable argsort of
+    the quotes' combined key ``sym << 45 | ts`` (a stable sort by ``sym``
+    keeps their time order), then per trade ``searchsorted(side="right")
+    - 1``, the same symbol and the tolerance: the later quote of a tie
+    wins. A tolerance >= 0 takes the first quote at or after the trade
+    (``side="left"``), and among the quotes of that time the last in
+    input order."""
+    def by_symbol(sym):
+        # a stable sort by symbol keeps the time order (a radix sort of
+        # 16-bit symbols)
+        return np.argsort(sym.astype(np.int16 if ASOF_SYMBOLS <= 1 << 15
+                                     else np.int64), kind="stable")
+    sym = quotes["sym"]
+    perm = by_symbol(sym)
+    keys = (sym[perm] << 45) | quotes["ts"][perm]
+    # the trades' keys searched in their order, which keeps each search
+    # near the last
+    tperm = by_symbol(trades["sym"])
+    tsym = trades["sym"][tperm]
+    tts = trades["ts"][tperm]
+    tkey = (tsym << 45) | tts
+    n = len(keys)
+    if tolerance < 0:
+        pos = np.searchsorted(keys, tkey, side="right") - 1
+        pc = np.clip(pos, 0, max(n - 1, 0))
+        ok = (pos >= 0) & (keys[pc] >> 45 == tsym) & \
+            (tts - (keys[pc] & ((1 << 45) - 1)) <= -tolerance)
+    else:
+        pos = np.searchsorted(keys, tkey, side="left")
+        pc = np.clip(pos, 0, max(n - 1, 0))
+        ok = (pos < n) & (keys[pc] >> 45 == tsym) & \
+            ((keys[pc] & ((1 << 45) - 1)) - tts <= tolerance)
+        pc = np.searchsorted(keys, keys[pc], side="right") - 1
+    out = np.empty(len(tkey), np.int64)
+    out[tperm] = np.where(ok, perm[pc], -1)
+    return out
+
+
+def asof_differ(out: Table, quotes, match: np.ndarray) -> list:
+    """What of the join's output differs from ``asof_numpy``'s matches
+    (empty when it is right): the matched bid and ask exact, and the
+    nulls."""
+    bad = []
+    hit = match >= 0
+    for name in ("bid", "ask"):
+        got = _host_values(out, name)
+        valid = np.concatenate([
+            b.column(name).validity_or_true()[:int(b.length)].cpu().numpy()
+            for b in out.batches])
+        if len(got) != len(match) or not np.array_equal(valid, hit) or \
+                not np.array_equal(got[hit], quotes[name][match[hit]]):
+            bad.append(name)
+    return bad
+
+
+Q1_COLUMNS = ["l_returnflag", "l_linestatus", "l_quantity",
+              "l_extendedprice", "l_discount", "l_tax", "l_shipdate"]
+
+
+def tpch_gen_q1_declaration(scale_factor: float, seed: int,
+                            max_batch_rows: int, device=None):
+    """TPC-H Q1 (clause 2.4.1) over the plan's own generator: ``tpch_gen``
+    lineitem -> ``l_shipdate <= 1998-09-02`` -> disc_price and charge ->
+    by (l_returnflag, l_linestatus): the sums of l_quantity,
+    l_extendedprice, disc_price and charge, the means of l_quantity,
+    l_extendedprice and l_discount, count_all -> ordered by the keys (the
+    generator's float columns)."""
+    import datetime as _dtm
+    from .acero import (AggregateNodeOptions, Declaration,
+                        FilterNodeOptions, OrderByNodeOptions,
+                        ProjectNodeOptions, TpchGenNodeOptions)
+    from .compute.expressions import literal
+    price = field("l_extendedprice")
+    disc_price = price * (literal(1.0) - field("l_discount"))
+    keys = ["l_returnflag", "l_linestatus"]
+    return Declaration.from_sequence([
+        Declaration("tpch_gen", TpchGenNodeOptions(
+            "lineitem", scale_factor, seed, max_batch_rows, device)),
+        Declaration("filter", FilterNodeOptions(
+            field("l_shipdate") <= literal(_dtm.date(*Q1_SHIPDATE)))),
+        Declaration("project", ProjectNodeOptions(
+            [field(k) for k in keys] + [
+                field("l_quantity"), price, disc_price,
+                disc_price * (literal(1.0) + field("l_tax")),
+                field("l_discount")],
+            keys + ["l_quantity", "l_extendedprice", "disc_price",
+                    "charge", "l_discount"])),
+        Declaration("aggregate", AggregateNodeOptions([
+            AggregateSpec("sum", "l_quantity", name="sum_qty"),
+            AggregateSpec("sum", "l_extendedprice", name="sum_base_price"),
+            AggregateSpec("sum", "disc_price", name="sum_disc_price"),
+            AggregateSpec("sum", "charge", name="sum_charge"),
+            AggregateSpec("mean", "l_quantity", name="avg_qty"),
+            AggregateSpec("mean", "l_extendedprice", name="avg_price"),
+            AggregateSpec("mean", "l_discount", name="avg_disc"),
+            AggregateSpec("count_all", name="count_order")],
+            keys=keys, max_groups=16)),
+        Declaration("order_by", OrderByNodeOptions(
+            [(k, "ascending") for k in keys])),
+    ])
+
+
+def entry_tpch_gen_q1(device=None, scale_factor: float = 0.01,
+                      seed: int = 42, max_batch_rows: int = 1 << 22):
+    """(step, ()): step() -> the Table of ``tpch_gen_q1_declaration``:
+    the generator runs inside the plan, on the host, on each call (its
+    projection pushdown generates Q1's seven columns)."""
+    def step() -> Table:
+        return tpch_gen_q1_declaration(scale_factor, seed, max_batch_rows,
+                                       device).to_table()
+    return step, ()
+
+
+def q1_numpy(lineitem) -> dict:
+    """TPC-H Q1 over a pyarrow lineitem in numpy: the (returnflag,
+    linestatus) groups in key order, each group's sums, means and count
+    (float64)."""
+    import datetime as _dtm
+    keep = lineitem["l_shipdate"].cast("int32").to_numpy() <= \
+        (_dtm.date(*Q1_SHIPDATE) - _dtm.date(1970, 1, 1)).days
+    groups, gid = _q1_groups(lineitem, keep)
+    q, p, d, t = (lineitem[c].to_numpy()[keep] for c in (
+        "l_quantity", "l_extendedprice", "l_discount", "l_tax"))
+    dp = p * (1.0 - d)
+
+    def s(x):
+        return np.bincount(gid, weights=x, minlength=len(groups))
+    cnt = np.bincount(gid, minlength=len(groups))
+    return {"l_returnflag": [g[0] for g in groups],
+            "l_linestatus": [g[1] for g in groups],
+            "sum_qty": s(q), "sum_base_price": s(p), "sum_disc_price": s(dp),
+            "sum_charge": s(dp * (1.0 + t)), "avg_qty": s(q) / cnt,
+            "avg_price": s(p) / cnt, "avg_disc": s(d) / cnt,
+            "count_order": cnt, "abs": {"sum_qty": s(np.abs(q)),
+                                        "sum_base_price": s(np.abs(p)),
+                                        "sum_disc_price": s(np.abs(dp)),
+                                        "sum_charge": s(np.abs(dp * (1 + t))),
+                                        "avg_qty": s(np.abs(q)) / cnt,
+                                        "avg_price": s(np.abs(p)) / cnt,
+                                        "avg_disc": s(np.abs(d)) / cnt}}
+
+
+def _q1_groups(lineitem, keep: np.ndarray):
+    """(the (l_returnflag, l_linestatus) pairs of the kept rows in key
+    order, each kept row's group), from the dictionaries' codes."""
+    rf = lineitem["l_returnflag"].combine_chunks()
+    ls = lineitem["l_linestatus"].combine_chunks()
+    rfd, lsd = rf.dictionary.to_pylist(), ls.dictionary.to_pylist()
+    code = rf.indices.to_numpy()[keep].astype(np.int64) * len(lsd) + \
+        ls.indices.to_numpy()[keep]
+    present = np.flatnonzero(np.bincount(code, minlength=len(rfd) *
+                                         len(lsd)))
+    pairs = sorted((rfd[c // len(lsd)], lsd[c % len(lsd)], c)
+                   for c in present)
+    group = np.full(len(rfd) * len(lsd), -1, np.int64)
+    group[[c for _, _, c in pairs]] = np.arange(len(pairs))
+    return [(r, s) for r, s, _ in pairs], group[code]
+
+
+def q1_differ(got: dict, want: dict, rtol: float = 1e-12) -> list:
+    """The Q1 columns of ``got`` (a to_pydict) that differ from
+    ``q1_numpy``'s: keys and counts exact, sums and means within ``rtol``
+    of the sums of |x|."""
+    bad = [k for k in ("l_returnflag", "l_linestatus", "count_order")
+           if list(got[k]) != list(want[k])]
+    for k, scale in want["abs"].items():
+        g = np.asarray(got[k], dtype=np.float64)
+        if g.shape != scale.shape or not np.all(
+                np.abs(g - want[k]) <= rtol * scale + 1e-12):
+            bad.append(k)
+    return bad
+
+
+def decimal_lineitem(lineitem, max_batch_rows: int, device=None):
+    """``DECIMAL_Q1_COLUMNS`` of a pyarrow lineitem staged on ``device`` in
+    batches of ``max_batch_rows`` rows, the spec's DECIMAL(15,2) columns as
+    decimal128(15, 2) from their integer cents (no pyarrow decimals) and
+    l_extendedprice also at decimal128(38, 2), two limbs, as
+    ``DECIMAL_WIDE``; returns (the Table, the cents by column)."""
+    from .core import datatype as dt
+    from .core.schema import Field, Schema
+    cents = {c: np.rint(lineitem[c].to_numpy() * 100).astype(np.int64)
+             for c in DECIMAL_COLUMNS}
+    cents[DECIMAL_WIDE] = cents["l_extendedprice"]
+    types = {c: dt.decimal128(15, 2) for c in DECIMAL_COLUMNS}
+    types[DECIMAL_WIDE] = dt.decimal128(38, 2)
+    rest = Table.from_pyarrow(
+        lineitem.select([c for c in DECIMAL_Q1_COLUMNS["lineitem"]
+                         if c not in DECIMAL_COLUMNS]),
+        max_rows_per_batch=max_batch_rows, device=device)
+    schema = Schema(tuple(rest.schema.fields) + tuple(
+        Field(c, t, False) for c, t in types.items()))
+    batches, start = [], 0
+    for b in rest.batches:
+        n = int(b.length)
+        arrays = list(b.arrays)
+        for c, t in types.items():
+            v = cents[c][start:start + n]
+            if t.wide:
+                v = np.stack([v, v >> 63], axis=1)
+            arrays.append(array_from_numpy(v, type=t, capacity=b.capacity,
+                                           device=device))
+        batches.append(Batch(schema, arrays, n))
+        start += n
+    return Table(schema, batches), cents
+
+
+def decimal_q1_declarations(lineitem: Table):
+    """(Q1's filter and exact decimal sums by (l_returnflag,
+    l_linestatus), ordered by them; the rows of ``DECIMAL_WIDE > 50000.00``
+    against a decimal scalar, sorted by (``DECIMAL_WIDE`` descending,
+    l_orderkey ascending))."""
+    import datetime as _dtm
+    import decimal
+    from .acero import (AggregateNodeOptions, Declaration,
+                        FilterNodeOptions, OrderByNodeOptions,
+                        TableSourceNodeOptions)
+    from .compute.expressions import literal
+    from .core import datatype as dt
+    keys = ["l_returnflag", "l_linestatus"]
+    source = Declaration("table_source", TableSourceNodeOptions(lineitem))
+    q1 = Declaration.from_sequence([
+        source,
+        Declaration("filter", FilterNodeOptions(
+            field("l_shipdate") <= literal(_dtm.date(*Q1_SHIPDATE)))),
+        Declaration("aggregate", AggregateNodeOptions([
+            AggregateSpec("sum", "l_quantity", name="sum_qty"),
+            AggregateSpec("sum", "l_extendedprice", name="sum_base_price"),
+            AggregateSpec("sum", DECIMAL_WIDE, name="sum_base_price_w"),
+            AggregateSpec("sum", "l_discount", name="sum_disc"),
+            AggregateSpec("count_all", name="count_order")],
+            keys=keys, max_groups=16)),
+        Declaration("order_by", OrderByNodeOptions(
+            [(k, "ascending") for k in keys]))])
+    floor = literal(decimal.Decimal(DECIMAL_PRICE_FLOOR),
+                    dt.decimal128(38, 2))
+    big = Declaration.from_sequence([
+        source,
+        Declaration("filter", FilterNodeOptions(field(DECIMAL_WIDE) > floor)),
+        Declaration("order_by", OrderByNodeOptions(
+            [(DECIMAL_WIDE, "descending"), ("l_orderkey", "ascending")]))])
+    return q1, big
+
+
+def discount_counts_declaration(rows: Table):
+    """count_all by the decimal key l_discount, ordered by it."""
+    from .acero import AggregateNodeOptions, Declaration, \
+        OrderByNodeOptions, TableSourceNodeOptions
+    return Declaration.from_sequence([
+        Declaration("table_source", TableSourceNodeOptions(rows)),
+        Declaration("aggregate", AggregateNodeOptions(
+            [AggregateSpec("count_all", name="n")], keys=["l_discount"],
+            max_groups=64)),
+        Declaration("order_by", OrderByNodeOptions(
+            [("l_discount", "ascending")]))])
+
+
+def entry_decimal_q1(device=None, scale_factor: float = 0.01, seed: int = 42,
+                     max_batch_rows: int = 1 << 22, source=None):
+    """(step, (lineitem,)): TPC-H Q1's filter and group-by with exact
+    decimal sums (Q1's products need decimal arithmetic, which neither
+    package has), then the rows priced above ``DECIMAL_PRICE_FLOOR``
+    sorted by price, then their count by the decimal l_discount, over
+    ``decimal_lineitem``: step(lineitem) -> (Q1 table, sorted rows,
+    discount counts). ``step.cents`` holds the integer cents and
+    ``step.source`` the pyarrow lineitem (``decimal_q1_numpy``'s
+    input)."""
+    from .utils.tpch import tpch_table
+    cols = DECIMAL_Q1_COLUMNS["lineitem"]
+    src = source["lineitem"].select(cols) if source else \
+        tpch_table("lineitem", scale_factor, seed, columns=cols)
+    li, cents = decimal_lineitem(src, max_batch_rows, device)
+
+    def step(lineitem: Table):
+        q1, big = decimal_q1_declarations(lineitem)
+        rows = big.to_table()
+        return q1.to_table(), rows, \
+            discount_counts_declaration(rows).to_table()
+
+    step.cents, step.source = cents, src
+    return step, (li,)
+
+
+def decimal_ints(a: Array) -> np.ndarray:
+    """The scaled integers of a decimal column's rows as int64 (a wide
+    column's must fit: its high limb the low one's sign)."""
+    v = a.values[:int(a.length)].cpu().numpy()
+    if v.ndim == 1:
+        return v
+    if not np.array_equal(v[:, 1], v[:, 0] >> 63):
+        raise ValueError("a decimal past int64")
+    return v[:, 0]
+
+
+def decimal_q1_numpy(cents: dict, source) -> dict:
+    """``entry_decimal_q1``'s three results in numpy int64 (exact)."""
+    import datetime as _dtm
+    li = source["lineitem"] if isinstance(source, dict) else source
+    keep = li["l_shipdate"].cast("int32").to_numpy() <= \
+        (_dtm.date(*Q1_SHIPDATE) - _dtm.date(1970, 1, 1)).days
+    groups, gid = _q1_groups(li, keep)
+
+    def s(c):
+        # float64 sums of integer cents are exact below 2^53
+        out = np.bincount(gid, weights=cents[c][keep], minlength=len(groups))
+        if np.abs(out).max(initial=0) >= 2.0 ** 53:
+            raise ValueError("a decimal sum past float64's exact range")
+        return out.astype(np.int64)
+    q1 = {"l_returnflag": [g[0] for g in groups],
+          "l_linestatus": [g[1] for g in groups],
+          "sum_qty": s("l_quantity"), "sum_base_price": s("l_extendedprice"),
+          "sum_base_price_w": s(DECIMAL_WIDE), "sum_disc": s("l_discount"),
+          "count_order": np.bincount(gid, minlength=len(groups))}
+    price = cents[DECIMAL_WIDE]
+    big = np.flatnonzero(price > int(DECIMAL_PRICE_FLOOR.replace(".", "")))
+    okey = li["l_orderkey"].to_numpy()
+    # (price descending, orderkey) as one int64 key: both below 2^31
+    if price.max(initial=0) >= 1 << 31 or okey.max(initial=0) >= 1 << 31:
+        raise ValueError("the sort oracle's key needs 31-bit prices and "
+                         "order keys")
+    key = (((1 << 31) - 1 - price[big]) << 31) | okey[big]
+    order = big[np.argsort(key, kind="stable")]
+    disc, counts = np.unique(cents["l_discount"][big], return_counts=True)
+    return {"q1": q1, "rows": order, "okey": okey, "price": price,
+            "discount": disc, "counts": counts}
+
+
+def decimal_q1_differ(res, want: dict) -> list:
+    """What of ``entry_decimal_q1``'s results differs from
+    ``decimal_q1_numpy``'s (empty when they agree)."""
+    q1, rows, disc = res
+    bad = []
+    b = q1.combine_chunks().batches[0] if q1.batches else None
+    q = want["q1"]
+    n = len(q["count_order"])
+    if b is None or int(b.length) != n:
+        return ["q1 groups"]
+    got = q1.to_pydict()
+    for k in ("l_returnflag", "l_linestatus"):
+        if got[k] != q[k]:
+            bad.append(k)
+    for k in ("sum_qty", "sum_base_price", "sum_base_price_w", "sum_disc"):
+        if not np.array_equal(decimal_ints(b.column(k)), q[k]):
+            bad.append(k)
+    if not np.array_equal(b.column("count_order").values[:n].cpu().numpy(),
+                          q["count_order"]):
+        bad.append("count_order")
+    order = want["rows"]
+    got_price = np.concatenate([decimal_ints(x.column(DECIMAL_WIDE))
+                                for x in rows.batches]) if rows.batches \
+        else np.zeros(0, np.int64)
+    got_okey = _host_values(rows, "l_orderkey") if rows.batches else \
+        np.zeros(0, np.int64)
+    if not (np.array_equal(got_price, want["price"][order]) and
+            np.array_equal(got_okey, want["okey"][order])):
+        bad.append("sorted rows")
+    d = disc.combine_chunks().batches[0] if disc.batches else None
+    if d is None or not np.array_equal(decimal_ints(d.column("l_discount")),
+                                       want["discount"]) or \
+            not np.array_equal(d.column("n").values[:int(d.length)].cpu()
+                               .numpy(), want["counts"]):
+        bad.append("discount counts")
+    return bad

@@ -41,7 +41,8 @@ from ..compute.registry import Kind, NullHandling, register_function, \
 from ..compute.scalar import Scalar
 from .agg_options import CountOptions, ScalarAggregateOptions, \
     VarianceOptions
-from .bits import SIGNED_OF, U32, as_signed_bits, from_ordered_signed, \
+from .bits import FLOAT_KEY, SIGNED_OF, U32, as_signed_bits, \
+    float_extreme_key, float_from_extreme_key, from_ordered_signed, \
     gather_rows, ordered_signed, unsigned_to_int64
 from .kernel_utils import torch_dtype
 from .segment import extreme_identity, seg_all, seg_any, seg_first_row, \
@@ -330,8 +331,11 @@ class GroupedMean(GroupedSum):
 class _GroupedExtremum(GroupedAggregator):
     """min / max. The accumulator has the column's dtype, except that a
     uint16 / uint32 / uint64 column is held as its ordered signed value
-    (``bits.ordered_signed``; torch reduces no wide unsigned type) and a
-    bool column as uint8; ``finalize`` turns both back."""
+    (``bits.ordered_signed``; torch reduces no wide unsigned type), a bool
+    column as uint8, and a float column as its order-preserving keys
+    (``bits.float_extreme_key``): NaN is skipped as pyarrow skips it, and
+    a group of NaNs alone gives NaN (the JAX package's NaN wins every
+    min and max); ``finalize`` turns all three back."""
 
     is_min = True
 
@@ -344,23 +348,38 @@ class _GroupedExtremum(GroupedAggregator):
 
     def _dtype(self) -> torch.dtype:
         d = torch_dtype(self.in_type)
+        if d in FLOAT_KEY:
+            return FLOAT_KEY[d]
         return torch.uint8 if d == torch.bool else SIGNED_OF.get(d, d)
 
     def _to_acc(self, v: torch.Tensor) -> torch.Tensor:
         if v.dtype in SIGNED_OF:
             return ordered_signed(v)
+        if v.dtype in FLOAT_KEY:
+            return float_extreme_key(v, self.is_min)
         return v.to(self._dtype())
 
-    def acc_from_numpy(self, acc):
-        if acc.dtype.kind == "u" and acc.dtype.itemsize > 1:
-            signed = np.dtype(f"i{acc.dtype.itemsize}")
-            return acc.view(signed) ^ np.iinfo(signed).min
-        return acc
+    def acc_of_values(self, v: torch.Tensor, cnt: torch.Tensor
+                      ) -> torch.Tensor:
+        """The accumulator of per-group results ``v`` over ``cnt`` valid
+        rows (the dense route's, the JAX package's): a group without a
+        valid row holds the identity."""
+        acc = self._to_acc(v)
+        return torch.where(cnt > 0, acc, self._identity(acc.dtype))
+
+    def state_from_numpy(self, st, tensor):
+        v, cnt = tensor(np.asarray(st[0])), tensor(np.asarray(st[1]))
+        if v.dtype in SIGNED_OF:
+            return ordered_signed(v), cnt
+        return self.acc_of_values(v, cnt), cnt
 
     def acc_to_numpy(self, acc):
         want = np.dtype(self.in_type.storage_np)
         if want.kind == "u" and want.itemsize > 1:
             return (acc ^ np.iinfo(acc.dtype).min).view(want)
+        if want.kind == "f":
+            return float_from_extreme_key(torch.from_numpy(acc), self.is_min,
+                                          torch_dtype(self.in_type)).numpy()
         return acc
 
     def init(self, device=None):
@@ -371,7 +390,6 @@ class _GroupedExtremum(GroupedAggregator):
 
     @property
     def _reduce(self) -> str:
-        # scatter_reduce amin/amax propagate NaN, as jnp's scatter-min does
         return "amin" if self.is_min else "amax"
 
     def consume(self, state, values, group_ids):
@@ -406,6 +424,8 @@ class _GroupedExtremum(GroupedAggregator):
         d = torch_dtype(self.in_type)
         if d in SIGNED_OF:
             out = from_ordered_signed(acc, d)
+        elif d in FLOAT_KEY:
+            out = float_from_extreme_key(acc, self.is_min, d)
         else:
             out = acc.to(torch.bool) if d == torch.bool else acc
         return Array(self.in_type, out, cnt > 0, length=num_groups)
@@ -1131,6 +1151,12 @@ def make_grouped_aggregator(name: str, in_type: Optional[dt.DataType],
             raise NotImplementedError(
                 f"{key} over wide (precision>18) decimals: cast to a "
                 "narrower decimal or float first")
+    if key in ("min", "max", "first", "last", "one", "list") and \
+            in_type is not None and (in_type.is_varlen or isinstance(
+                in_type, dt.DictionaryType) or
+                (isinstance(in_type, dt.DecimalType) and in_type.wide)):
+        raise NotImplementedError(
+            f"hash_{key} of {in_type}: not ported (ROADMAP C32 (c))")
     if key not in GROUPED_AGGREGATORS:
         # list and pivot_wider live in kernel modules loaded on demand
         from ..compute.registry import ensure_kernels_loaded
@@ -1192,6 +1218,9 @@ def _scalar_reduce(name: str, a: Array, options) -> Scalar:
         return done(total, t, ok)
     if name in ("min", "max"):
         d = torch_dtype(a.type)
+        if d in FLOAT_KEY:
+            return done(_float_extremum(v, present, name == "min"), a.type,
+                        ok)
         if d in SIGNED_OF:
             v = ordered_signed(v)
         elif d == torch.bool:
@@ -1218,6 +1247,16 @@ def _scalar_reduce(name: str, a: Array, options) -> Scalar:
         return done(torch.sqrt(var) if name == "stddev" else var,
                     dt.float64, valid)
     raise KeyError(name)
+
+
+def _float_extremum(v: torch.Tensor, present: torch.Tensor,
+                    is_min: bool) -> torch.Tensor:
+    """The min (max) of the present values of a float column, NaN skipped
+    as pyarrow skips it: NaN only when every present value is NaN."""
+    k = torch.where(present, float_extreme_key(v, is_min),
+                    extreme_identity(FLOAT_KEY[v.dtype], is_min))
+    return float_from_extreme_key(k.min() if is_min else k.max(), is_min,
+                                  v.dtype)
 
 
 def _register_scalar_aggs():

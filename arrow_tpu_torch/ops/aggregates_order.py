@@ -29,7 +29,8 @@ from ..core.schema import Field, Schema
 from ..compute.registry import Kind, NullHandling, register_function
 from ..compute.scalar import Scalar
 from .agg_options import CountOptions, ScalarAggregateOptions
-from .bits import SIGNED_OF, from_ordered_signed, ordered_signed
+from .aggregates import _float_extremum
+from .bits import FLOAT_KEY, SIGNED_OF, from_ordered_signed, ordered_signed
 from .kernel_utils import torch_dtype
 from .segment import extreme_identity
 
@@ -107,6 +108,8 @@ def _agg_guard(a: Array, options) -> tuple:
 
 
 def _py(v: torch.Tensor, t: dt.DataType):
+    if t.is_varlen:             # v: a row of the column
+        return v
     out = v.item()
     if isinstance(t, dt.BoolType):
         return bool(out)
@@ -125,9 +128,42 @@ def _orderable(v: torch.Tensor):
 
 # ---- min_max / first / last / first_last -------------------------------------
 
-def _extremum(a: Array, which: str) -> torch.Tensor:
+def _row_value(a: Array, row) -> object:
+    """Row ``row`` of a string (str) or binary (bytes) column: one host
+    read of its bytes."""
+    lo, hi = (int(x) for x in a.offsets[row:row + 2].cpu())
+    raw = a.values[lo:hi].cpu().numpy().tobytes()
+    return raw.decode("utf-8") if isinstance(a.type, dt.StringType) else raw
+
+
+def _check_orderable(a: Array, fn: str) -> None:
+    """A dictionary or nested column raises naming its type: these
+    functions are defined on it and not ported."""
+    t = a.type
+    if isinstance(t, dt.DictionaryType) or t.is_nested:
+        raise NotImplementedError(f"{fn} of {t}")
+
+
+def _varlen_extremum(a: Array, which: str):
+    """The least (greatest) present string or binary value: a sort whose
+    prefix covers the longest row (one host read), read at the first
+    (last) present position."""
+    from .sorting import sort_indices_array
+    present = a.present_mask()
+    lens = torch.where(present, a.offsets[1:] - a.offsets[:-1], 0)
+    words = max(1, -(-int(lens.max()) // 4))
+    perm = sort_indices_array(a, varlen_words=words).values.view(torch.int64)
+    pos = 0 if which == "min" else int(present.sum()) - 1
+    return _row_value(a, perm[pos])
+
+
+def _extremum(a: Array, which: str):
+    if a.type.is_varlen:
+        return _varlen_extremum(a, which)
     v, back = _orderable(a.values)
     present = a.present_mask()
+    if v.dtype in FLOAT_KEY:        # NaN skipped, as pyarrow skips it
+        return _float_extremum(v, present, which == "min")
     ident = extreme_identity(v.dtype, which == "min")
     acc = torch.where(present, v, ident)
     return back(acc.min() if which == "min" else acc.max())
@@ -138,6 +174,7 @@ def _extremum(a: Array, which: str) -> torch.Tensor:
                    options_class=ScalarAggregateOptions)
 def _min_max(args, options):
     (a,) = args
+    _check_orderable(a, "min_max")
     _, ok = _agg_guard(a, options)
     t = a.type
     st = dt.struct([("min", t), ("max", t)])
@@ -156,12 +193,15 @@ def _edge_value(a: Array, first: bool):
         pos = torch.where(present, idx, cap).min().clamp(max=cap - 1)
     else:
         pos = torch.where(present, idx, -1).max().clamp(min=0)
+    if a.type.is_varlen:
+        return _row_value(a, pos), bool(present.any())
     return a.values[pos], bool(present.any())
 
 
 def _first_last_exec(which):
     def _fn(args, options):
         (a,) = args
+        _check_orderable(a, which)
         _, ok = _agg_guard(a, options)
         t = a.type
         if which in ("first", "last"):

@@ -22,7 +22,8 @@ from ..core import datatype as dt
 __all__ = ["U32", "SIGNED_OF", "as_signed_bits", "as_i32", "gather_rows",
            "ordered_signed", "from_ordered_signed", "unsigned_to_int64",
            "split_u64", "join_u32", "value_lanes32", "ascending_lanes32",
-           "lane_windows", "zeros_of"]
+           "lane_windows", "zeros_of", "FLOAT_KEY", "float_extreme_key",
+           "float_from_extreme_key"]
 
 U32 = 0xFFFFFFFF
 _BIAS32 = 0x80000000
@@ -35,6 +36,40 @@ _QNAN64 = 0x7FF8000000000000
 # ``bits ^ sign bit`` and computed with as int64.
 SIGNED_OF = {getattr(torch, "u" + n): getattr(torch, n)
              for n in ("int16", "int32", "int64") if hasattr(torch, "u" + n)}
+
+
+# the signed integer type of a float's width: a min / max over floats runs
+# on its order-preserving keys (``float_extreme_key``)
+FLOAT_KEY = {torch.float16: torch.int16, torch.float32: torch.int32,
+             torch.float64: torch.int64}
+
+
+def float_extreme_key(x: torch.Tensor, is_min: bool) -> torch.Tensor:
+    """Order-preserving signed keys of a float tensor for a min (max) that
+    skips NaN, as pyarrow's does: a number's key orders as the number; a
+    NaN's key loses to every number and wins only against the identity
+    (the key type's largest (smallest) value, which no float maps to), so
+    a group whose values are all NaN gives NaN, an empty one the
+    identity."""
+    kt = FLOAT_KEY[x.dtype]
+    i = x.view(kt)
+    k = torch.where(i >= 0, i, i ^ torch.iinfo(kt).max)
+    # the key of the canonical positive NaN is above +inf's; its
+    # complement, the key of the negative one, below -inf's
+    nan_key = {torch.int16: 0x7E00, torch.int32: 0x7FC00000,
+               torch.int64: _QNAN64}[kt]
+    return torch.where(torch.isnan(x), nan_key if is_min else ~nan_key, k)
+
+
+def float_from_extreme_key(k: torch.Tensor, is_min: bool,
+                           dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of ``float_extreme_key``: the identity becomes +inf (-inf),
+    a NaN key the canonical NaN."""
+    i = torch.where(k >= 0, k, k ^ torch.iinfo(k.dtype).max)
+    x = i.view(dtype)
+    ident = torch.iinfo(k.dtype).max if is_min else torch.iinfo(k.dtype).min
+    x = torch.where(k == ident, float("inf") if is_min else float("-inf"), x)
+    return torch.where(torch.isnan(x), float("nan"), x)
 
 
 def zeros_of(np_dtype, n: int, device) -> torch.Tensor:
@@ -114,7 +149,7 @@ def lane_windows(lanes: torch.Tensor, active: torch.Tensor):
 
 def value_lanes32(values: torch.Tensor, type_) -> List[torch.Tensor]:
     """Bit-equality u32 lanes (int64 tensors) of an integer, temporal,
-    float or bool values buffer."""
+    decimal, float or bool values buffer."""
     t = type_
     v = values
     if isinstance(t, dt.BoolType):
@@ -130,9 +165,12 @@ def value_lanes32(values: torch.Tensor, type_) -> List[torch.Tensor]:
             return [torch.where(torch.isnan(v), 0x7FC00000, bits)]
         bits = v.view(torch.int16).to(torch.int64) & 0xFFFF
         return [torch.where(torch.isnan(v), 0x7E00, bits)]
-    if isinstance(t, (dt.DictionaryType, dt.DecimalType)):
+    if isinstance(t, dt.DictionaryType):
         raise NotImplementedError(f"value lanes for {t}")
-    if t.is_integer or t.is_temporal:
+    if isinstance(t, dt.DecimalType) and t.wide:
+        # two limbs [lo, hi] -> the hi limb's lanes, then the lo limb's
+        return split_u64(v[:, 1]) + split_u64(v[:, 0])
+    if t.is_integer or t.is_temporal or isinstance(t, dt.DecimalType):
         if t.bit_width == 64:
             return split_u64(v)
         if v.dtype in SIGNED_OF:

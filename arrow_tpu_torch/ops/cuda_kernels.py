@@ -58,6 +58,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
+from .bits import float_extreme_key, float_from_extreme_key
 from .segment import rows_of_positions
 
 __all__ = ["filter_compact_columns", "filter_compact_columns_plain",
@@ -670,9 +671,13 @@ def dense_group_reduce_plain(gid, inputs, kinds: tuple, G: int, valid=None):
         x = inputs[ij] if _DG_ARITY[kind][0] else None
         if kind in ("sum", "count", "sum64"):       # int64 adds wrap
             outs.append(acc(x, 0, at=at))
-        elif kind in ("min", "max", "imin", "imax", "min64", "max64"):
-            # scatter_reduce amin/amax propagate NaN (CPU and CUDA), as
-            # jnp.min / jnp.max do
+        elif kind in ("min", "max"):
+            # NaN skipped, NaN alone kept: on order-preserving int32 keys
+            is_min = kind == "min"
+            k = acc(float_extreme_key(x, is_min), (1 << 31) - 1 if is_min
+                    else -(1 << 31), "amin" if is_min else "amax", at=at)
+            outs.append(float_from_extreme_key(k, is_min, torch.float32))
+        elif kind in ("imin", "imax", "min64", "max64"):
             outs.append(acc(x, _DG_IDENT[kind],
                             "amin" if "min" in kind else "amax", at=at))
         elif kind in _DG_BOOL:
@@ -705,7 +710,8 @@ def dense_group_reduce(gid, inputs, kinds: tuple, G: int, valid=None):
       (negative = inactive). Or a ``DenseKey``: the kernel forms the slot
       from the key column itself.
     kinds, with their input streams in ``inputs`` in order:
-      "sum"|"min"|"max" (one float32 stream), "count"|"imin"|"imax" (one
+      "sum"|"min"|"max" (one float32 stream; min / max skip NaN, and a
+      slot of NaNs alone gives NaN, as pyarrow's), "count"|"imin"|"imax" (one
       int32 stream), "sumc" (int32 stream of 16-bit limbs -> (u32-wrap lo,
       carry)), "imin64"/"imax64" ((hi, biased lo) int32 pair -> their
       lexicographic min/max pair): the TPU kernel's contract;

@@ -127,8 +127,6 @@ def _raw_lanes(a: Array) -> List[torch.Tensor]:
     if isinstance(a.type, dt.DictionaryType):
         from .hashing import dict_content_lanes
         return dict_content_lanes(a)
-    if isinstance(a.type, dt.DecimalType):
-        raise NotImplementedError(f"group keys of type {a.type}")
     return value_lanes32(a.values, a.type)
 
 
@@ -203,6 +201,8 @@ class Grouper:
             elif isinstance(t, dt.DictionaryType):
                 from .hashing import dict_value_lane_width
                 width = dict_value_lane_width(t)
+            elif isinstance(t, dt.DecimalType) and t.wide:
+                width = 4          # two limbs
             else:
                 width = 2 if t.is_primitive and t.bit_width == 64 else 1
             self.num_lanes += width + (1 if nb else 0)
@@ -396,7 +396,8 @@ class Grouper:
         # gids past a full table (the error flag is set) are dropped
         pos = torch.clamp(pos, max=G)
         if uniques is None:
-            vals = torch.zeros((G,), dtype=k.values.dtype, device=k.device)
+            vals = torch.zeros((G,) + tuple(k.values.shape[1:]),
+                               dtype=k.values.dtype, device=k.device)
             valid = torch.zeros((G,), dtype=torch.bool, device=k.device)
         else:
             vals = uniques[i].values

@@ -34,16 +34,17 @@ import numpy as np
 import torch
 
 from ..core import datatype as dt
-from ..core.array import Array, nulls, resolve_device, row_mask
+from ..core.array import Array, nulls, resolve_device, row_mask, \
+    value_row_shape
 from ..core.batch import Batch
 from ..core.schema import Field, Schema
 from .aggregates import GroupedAggregator, make_grouped_aggregator
-from .bits import SIGNED_OF, from_ordered_signed, lane_windows, \
-    ordered_signed, unsigned_to_int64
+from .bits import SIGNED_OF, float_extreme_key, float_from_extreme_key, \
+    from_ordered_signed, lane_windows, ordered_signed, unsigned_to_int64
 from .cuda_kernels import _DG_ARITY, _DG_IDENT, DenseKey, dense_group_reduce, \
     dense_key_gid
 from .grouper import Grouper, GrouperState, SlotStrings, group_key_lanes
-from .segment import make_segment_context
+from .segment import extreme_identity, make_segment_context
 
 __all__ = ["AggregateSpec", "HashAggregate", "sorted_group_reduce",
            "spec_in_type"]
@@ -114,13 +115,18 @@ def sorted_group_reduce(gid, inputs, kinds: tuple, G: int, valid=None):
                 dump = G + (torch.arange(n, device=dev) & (_DUMP_SLOTS - 1))
                 slot64 = torch.where(slot < G, slot, dump)
             at = slot64 if v is None else torch.where(v, slot64, dump)
+            is_min = kind in ("min", "min64", "all8")
             if kind in ("any8", "all8"):
                 x = (x != 0).to(torch.int32)
-            buf = torch.full((G + _DUMP_SLOTS,), _DG_IDENT[kind],
-                             dtype=x.dtype, device=dev)
-            outs.append(buf.scatter_reduce_(
-                0, at, x, "amin" if kind in ("min", "min64", "all8")
-                else "amax")[:G])
+            elif kind in ("min", "max"):
+                x = float_extreme_key(x, is_min)    # NaN skipped
+            buf = torch.full((G + _DUMP_SLOTS,), extreme_identity(
+                x.dtype, is_min) if kind in ("min", "max")
+                else _DG_IDENT[kind], dtype=x.dtype, device=dev)
+            out = buf.scatter_reduce_(0, at, x,
+                                      "amin" if is_min else "amax")[:G]
+            outs.append(float_from_extreme_key(out, is_min, torch.float32)
+                        if kind in ("min", "max") else out)
         else:
             raise NotImplementedError(
                 f"sorted_group_reduce kind {kind!r}: the limb and pair "
@@ -544,7 +550,10 @@ class HashAggregate:
                                  cnt))
             elif agg.name in ("any", "all"):
                 o_states.append((out_for((tgt, agg.name)) != 0, cnt))
-            else:       # int64 sum / min / max, f32 min / max: as they are
+            elif agg.name in ("min", "max"):
+                o_states.append((agg.acc_of_values(
+                    out_for((tgt, agg.name)), cnt), cnt))
+            else:       # int64 sum: as it is
                 o_states.append((out_for((tgt, agg.name)), cnt))
         return self.merge_rows(state, [o_key], tuple(o_states), o_count)
 
@@ -599,7 +608,8 @@ class HashAggregate:
                                  self.grouper.varlen_slot_bytes, dev)
                 if f.type.is_varlen else
                 Array(f.type, torch.from_numpy(np.zeros(
-                    (self.max_groups,), f.type.storage_np)).to(dev),
+                    (self.max_groups,) + value_row_shape(f.type),
+                    f.type.storage_np)).to(dev),
                     dictionary=nulls(0, f.type.value_type, device=dev)
                     if isinstance(f.type, dt.DictionaryType) else None)
                 for f in self.key_fields]

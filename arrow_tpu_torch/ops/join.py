@@ -43,8 +43,8 @@ materialize / finish, and the three probe ``impl``s.
 
   * Materialize: the fixed-width output columns of a side (dictionary
     columns as their indices) pack into ONE (rows, W) plane matrix and
-    gather by ROW, then unpack; varlen columns gather through
-    ``take_array``, their pools sized by the fanout.
+    gather by ROW, then unpack; the other columns gather through
+    ``take_arrays``, their pools sized by one host read a side.
 
   * Outer joins: matched bits are kept in sorted-payload space (per pair)
     plus per-seg group hits; ``finish`` rebases them to original rows.
@@ -73,7 +73,7 @@ from .distinct import merge_find, sort_group
 from .grouper import Grouper, group_key_lane_list, group_key_lanes
 from .planes import pack_columns, pack_spec, plane_width, unpack_columns
 from .segment import rows_of_positions
-from .selection import filter_batch, get_take_indices, take_array
+from .selection import filter_batch, get_take_indices, take_arrays
 
 __all__ = ["HashJoin", "BuildState", "build_state_from_numpy"]
 
@@ -252,7 +252,7 @@ class HashJoin:
         self.out_schema = Schema(tuple(fields))
 
         # the plane-packable output columns of each side gather through
-        # its plane matrix; the varlen ones through take_array
+        # its plane matrix; the others through take_arrays
         self._rpack = [n for n in self.right_out
                        if plane_width(right_schema.field(n).type) is not None]
         self._lpack = [n for n in self.left_out
@@ -597,14 +597,12 @@ class HashJoin:
         brow = bs.perm[brow_sorted]
         left_idx = Array(dt.int64, r, None, length=total)
         right_idx = Array(dt.int64, brow, None, length=total)
-        fields = []
-        arrays = []
-        for n in self._resid_left:
-            fields.append(self.left_schema.field(n))
-            arrays.append(take_array(left.column(n), left_idx))
-        for n in self._resid_right:
-            fields.append(self.right_schema.field(n))
-            a = take_array(bs.batch.column(n), right_idx)
+        fields = [self.left_schema.field(n) for n in self._resid_left] + \
+            [self.right_schema.field(n) for n in self._resid_right]
+        arrays = take_arrays([left.column(n) for n in self._resid_left],
+                             left_idx)
+        for a in take_arrays([bs.batch.column(n)
+                              for n in self._resid_right], right_idx):
             v = a.validity
             arrays.append(a.with_validity(
                 has_match if v is None else (v & has_match)))
@@ -643,8 +641,8 @@ class HashJoin:
     def _materialize(self, bs: BuildState, left: Batch, r, brow_sorted,
                      bvalid, total) -> Batch:
         """Gather the output columns: ONE packed row gather per side for
-        the plane-packable columns, a ``take_array`` for each varlen one
-        (its pool ``ceil(T / cap)`` times its input's). ``r``: probe row
+        the plane-packable columns, ``take_arrays`` of the others (one
+        host read of their pools' sizes per side). ``r``: probe row
         per output row; ``brow_sorted``: build row in sorted payload space;
         ``bvalid``: the output row has a build row (else its right columns
         are null)."""
@@ -664,21 +662,18 @@ class HashJoin:
                     extra_valid=bvalid,        # (T, WR) row gather
                     dictionaries=[c.dictionary for c in rcols])):
                 cols[("r", n)] = a
-        left_idx = Array(dt.int64, r, None, length=total)
-        for n in self.left_out:
-            if ("l", n) not in cols:
-                cols[("l", n)] = take_array(
-                    left.column(n), left_idx,
-                    grow=-(-T // max(left.capacity, 1)))
-        if any(("r", n) not in cols for n in self.right_out):
+        rest = [n for n in self.left_out if ("l", n) not in cols]
+        if rest:
+            left_idx = Array(dt.int64, r, None, length=total)
+            cols.update(zip((("l", n) for n in rest), take_arrays(
+                [left.column(n) for n in rest], left_idx)))
+        rest = [n for n in self.right_out if ("r", n) not in cols]
+        if rest:
             bcap = bs.batch.capacity
             brow = bs.perm[brow_sorted.clamp(0, max(bcap - 1, 0))]
             right_idx = Array(dt.int64, brow, None, length=total)
-            for n in self.right_out:
-                if ("r", n) in cols:
-                    continue
-                a = take_array(bs.batch.column(n), right_idx,
-                               grow=-(-T // max(bcap, 1)))
+            for n, a in zip(rest, take_arrays(
+                    [bs.batch.column(n) for n in rest], right_idx)):
                 v = a.validity
                 cols[("r", n)] = a.with_validity(
                     bvalid if v is None else (v & bvalid))

@@ -57,13 +57,11 @@ class CastOptions:
 
 def dictionary_decode(a: Array) -> Array:
     """dictionary<T> -> T by gathering dictionary values at indices (a
-    varlen pool grown to the rows it may need)."""
+    varlen pool sized to its rows)."""
     from .selection import take_array
     idx = Array(dt.int32, a.values.to(torch.int32), a.validity,
                 length=a.length)
-    return take_array(a.dictionary, idx,
-                      grow=-(-max(a.capacity, 1) //
-                             max(a.dictionary.capacity, 1)))
+    return take_array(a.dictionary, idx)
 
 
 @register_function("cast", Kind.SCALAR, 1,

@@ -3,7 +3,7 @@
 Reference: ``scalar_compare.cc``, ``scalar_boolean.cc``,
 ``scalar_validity.cc``, ``scalar_if_else.cc`` (if_else / case_when /
 coalesce / choose); the counterpart of the JAX package's
-``ops/scalar_compare.py`` for numeric, bool, temporal, string and
+``ops/scalar_compare.py`` for numeric, bool, temporal, decimal, string and
 dictionary-of-string inputs (the last two through ``ops/strings``'s exact
 byte comparison).
 """
@@ -48,7 +48,39 @@ def _comparable_values(args):
         return [_orderable(v) for v in vals]
     if all(t.is_temporal for t in types) and len(set(types)) == 1:
         return [values_of(a) for a in args]
+    if all(isinstance(t, dt.DecimalType) for t in types) and \
+            len({t.scale for t in types}) == 1:
+        # scaled integers of one scale: int64, or two limbs (a scalar's
+        # moved to the column's device: it is no 0-d tensor then)
+        vals = [values_of(a) for a in args]
+        if not any(t.wide for t in types):
+            return vals
+        dev = device_of(args)
+        return [_limb_key(v.to(dev), t.wide) for v, t in zip(vals, types)]
     raise TypeError(f"cannot compare {types}")
+
+
+def _limb_key(v: torch.Tensor, wide: bool) -> torch.Tensor:
+    """(n, 2) int64 [high signed, low as ordered signed] of a decimal's
+    storage (a scalar's: (1, 2)), whose lexicographic signed order is the
+    128-bit order (torch compares no uint64 on the card)."""
+    if not wide:
+        v = torch.stack([v, v >> 63], dim=-1)
+    v = v.reshape(-1, 2)
+    return torch.stack([v[:, 1], v[:, 0] ^ torch.iinfo(torch.int64).min],
+                       dim=1)
+
+
+def _lex_compare(op, va: torch.Tensor, vb: torch.Tensor) -> torch.Tensor:
+    """``op`` over the rows of two (n, 2) limb keys in lexicographic
+    order."""
+    if op is operator.eq:
+        return (va == vb).all(dim=1)
+    if op is operator.ne:
+        return (va != vb).any(dim=1)
+    strict = {operator.le: operator.lt, operator.ge: operator.gt}.get(op, op)
+    hi_eq = va[:, 0] == vb[:, 0]
+    return strict(va[:, 0], vb[:, 0]) | (hi_eq & op(va[:, 1], vb[:, 1]))
 
 
 def _is_stringy(a) -> bool:
@@ -66,6 +98,8 @@ def _compare(name, op):
             return output_like(compare_varlen(_name, args[0], args[1]),
                                dt.bool_, args)
         va, vb = _comparable_values(args)
+        if va.ndim == 2:            # wide decimals: two limbs a row
+            return output_like(_lex_compare(_op, va, vb), dt.bool_, args)
         return output_like(_op(va, vb), dt.bool_, args)
     return _fn
 

@@ -49,14 +49,14 @@ _BIAS32 = 0x80000000
 
 def _scatter(size: int, fill, index: torch.Tensor, src: torch.Tensor
              ) -> torch.Tensor:
-    """out = full(size, fill); out[index] = src with index == size (the
-    dump slot) dropped: JAX's ``.at[index].set(src, mode="drop")``. Wide
-    unsigned types move as their signed bits (no ``index_copy_`` for
-    them)."""
+    """out = full(size, fill); out[index] = src with every index past
+    ``size - 1`` dropped (into a dump slot): JAX's ``.at[index].set(src,
+    mode="drop")``. Wide unsigned types move as their signed bits (no
+    ``index_copy_`` for them)."""
     buf = torch.full((size + 1,) + tuple(src.shape[1:]), fill,
                      dtype=src.dtype, device=src.device)
     return as_signed_bits(buf).index_copy_(
-        0, index, as_signed_bits(src))[:size].view(src.dtype)
+        0, index.clamp(max=size), as_signed_bits(src))[:size].view(src.dtype)
 
 
 def rows_of_positions(new_off: torch.Tensor, out_cap: int) -> torch.Tensor:

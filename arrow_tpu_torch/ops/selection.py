@@ -51,7 +51,7 @@ Outputs keep the input capacity; ``length`` is the number of selected rows
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -175,27 +175,44 @@ def _gather_validity(values: Array, idx: torch.Tensor,
     return validity
 
 
-def take_array(values: Array, indices: Array, grow: int = 1) -> Array:
+def take_array(values: Array, indices: Array) -> Array:
     """Gather rows of ``values`` at ``indices`` (Arrow ``take``). Indices
     (any integer type; uint64 as ``sort_indices`` gives them) must be in
     [0, values.capacity), padding rows included.
 
-    ``grow`` scales the byte pool of a varlen result: a take whose indices
-    repeat rows (join fanout) can need more bytes than the input pool
-    holds. The pool is at most 2^31 - 1 bytes (int32 offsets); a take past
-    it keeps its true offsets, and export reports the overflow."""
-    t = values.type
+    A varlen result's byte pool (a list's child) holds the rows' gathered
+    total, one host read, so a take whose indices repeat rows (join
+    fanout) fits where the JAX package's pool of ``grow`` times the
+    input's overflows. The pool is at most 2^31 - 1 bytes (int32
+    offsets): a take past it raises. ``take_arrays`` reads the totals of
+    several columns at once."""
+    return take_arrays([values], indices)[0]
+
+
+def take_arrays(columns: Sequence[Array], indices: Array) -> list:
+    """``take_array`` of each column at the same ``indices``, with ONE
+    host read of the byte totals of all the flat varlen columns."""
     idx = as_signed_bits(indices.values).long()
-    if t.is_varlen:
-        return _take_varlen(values, idx, indices, grow)
+    varlen = {i: _gathered_offsets(c.offsets, idx, indices)
+              for i, c in enumerate(columns) if c.type.is_varlen}
+    totals = dict(zip(varlen, torch.stack(
+        [total for _, _, total in varlen.values()]).tolist())) \
+        if varlen else {}
+    return [_take_varlen(c, idx, indices, *varlen[i][:2], totals[i])
+            if i in varlen else _take_other(c, idx, indices)
+            for i, c in enumerate(columns)]
+
+
+def _take_other(values: Array, idx: torch.Tensor, indices: Array) -> Array:
+    """``take_array`` of a column that is not flat varlen."""
+    t = values.type
     if isinstance(t, dt.ListType):
-        return _take_list(values, idx, indices, grow)
+        return _take_list(values, idx, indices)
     if isinstance(t, dt.StructType):
         return Array(t, values.values[idx],
                      _gather_validity(values, idx, indices.validity),
-                     length=indices.length, children=tuple(
-                         take_array(c, indices, grow)
-                         for c in values.children))
+                     length=indices.length,
+                     children=tuple(take_arrays(values.children, indices)))
     if isinstance(t, dt.UnionType):
         # a dense union gathers its codes and value offsets and keeps its
         # children; a sparse one takes its children row for row
@@ -207,8 +224,7 @@ def take_array(values: Array, indices: Array, grow: int = 1) -> Array:
             return Array(t, codes, None, length=indices.length,
                          offsets=off, children=values.children)
         return Array(t, codes, None, length=indices.length,
-                     children=tuple(take_array(c, indices)
-                                    for c in values.children))
+                     children=tuple(take_arrays(values.children, indices)))
     if isinstance(t, dt.RunEndEncodedType):
         # decode, take, encode again: the column keeps its type
         from .ree import run_end_decode_array, run_end_encode_array
@@ -223,28 +239,34 @@ def take_array(values: Array, indices: Array, grow: int = 1) -> Array:
 _MAX_POOL = (1 << 31) - 1
 
 
-def _take_list(values: Array, idx: torch.Tensor, indices: Array,
-               grow: int = 1) -> Array:
-    """list<T> gather, ``_take_varlen``'s two phases over child rows: new
-    offsets from the gathered lengths, then every output child row maps to
-    its list row (``rows_of_positions``) and from there to its source
-    child row, and the child is taken there. Null and padding index rows
-    take no child rows, except in a fixed-size list, whose every row keeps
+def _gathered_offsets(off: torch.Tensor, idx: torch.Tensor, indices: Array,
+                      fixed: bool = False):
+    """(starts, new_off, total): each index row's source start, the
+    prefix sum of the gathered row lengths and their int64 sum (past
+    2^31 - 1 the int32 offsets wrap). Null and padding index rows take
+    none, except in a fixed-size list (``fixed``), whose every row keeps
     its k."""
-    t = values.type
-    child = values.dictionary
-    ocap = idx.shape[0]
-    off = values.offsets
-    dev = off.device
-    ok = row_mask(ocap, indices.length, dev)
-    if indices.validity is not None and \
-            not isinstance(t, dt.FixedSizeListType):
+    ok = row_mask(idx.shape[0], indices.length, off.device)
+    if indices.validity is not None and not fixed:
         ok = ok & indices.validity
     starts = off[idx]
     lens = torch.where(ok, off[idx + 1] - starts, 0)
-    new_off = torch.cat([lens.new_zeros((1,)),
-                         torch.cumsum(lens, 0, dtype=torch.int32)])
-    ccap = max(child.capacity, 1) * max(int(grow), 1)
+    return starts, torch.cat([lens.new_zeros((1,)),
+                              torch.cumsum(lens, 0, dtype=torch.int32)]), \
+        lens.sum(dtype=torch.int64)
+
+
+def _take_list(values: Array, idx: torch.Tensor, indices: Array) -> Array:
+    """list<T> gather, ``_take_varlen``'s two phases over child rows: new
+    offsets from the gathered lengths, then every output child row maps to
+    its list row (``rows_of_positions``) and from there to its source
+    child row, and the child is taken there. The child holds the gathered
+    total of rows (one host read)."""
+    t = values.type
+    child = values.dictionary
+    starts, new_off, total = _gathered_offsets(
+        values.offsets, idx, indices, isinstance(t, dt.FixedSizeListType))
+    ccap = max(int(total), 1)
     src = source_positions(new_off, starts, ccap, child.capacity)
     new_child = take_array(child, Array(dt.int32, src, None,
                                         length=new_off[-1]))
@@ -255,24 +277,17 @@ def _take_list(values: Array, idx: torch.Tensor, indices: Array,
 
 
 def _take_varlen(values: Array, idx: torch.Tensor, indices: Array,
-                 grow: int = 1) -> Array:
+                 starts: torch.Tensor, new_off: torch.Tensor,
+                 total: int) -> Array:
     """Varlen gather in two phases (the JAX package's): the gathered row
-    lengths' prefix sum is the new offsets, then every output byte maps to
-    its row (``rows_of_positions``) and from there to its source byte.
-    Null and padding index rows take no bytes."""
-    ocap = idx.shape[0]
-    off = values.offsets
-    dev = off.device
-    ok = row_mask(ocap, indices.length, dev)
-    if indices.validity is not None:
-        ok = ok & indices.validity
-    starts = off[idx]
-    lens = torch.where(ok, off[idx + 1] - starts, 0)
-    new_off = torch.cat([lens.new_zeros((1,)),
-                         torch.cumsum(lens, 0, dtype=torch.int32)])
-    in_bcap = max(values.values.shape[0], 1)
-    bcap = min(in_bcap * max(int(grow), 1), _MAX_POOL)
-    pool = _gather_bytes(values.values, starts, new_off, bcap)
+    lengths' prefix sum is the new offsets (``_gathered_offsets``), then
+    every output byte maps to its row (``rows_of_positions``) and from
+    there to its source byte. ``total`` (the lengths' sum, read on the
+    host) sizes the pool."""
+    if total > _MAX_POOL:
+        raise ValueError(f"take of {values.type}: the rows span {total} "
+                         f"bytes, past the pool's limit of {_MAX_POOL}")
+    pool = _gather_bytes(values.values, starts, new_off, max(total, 1))
     return Array(values.type, pool,
                  _gather_validity(values, idx, indices.validity),
                  length=indices.length, offsets=new_off)
@@ -342,7 +357,7 @@ def _byte_selection(offsets: torch.Tensor, sel: torch.Tensor,
 
 
 def take_batch(b: Batch, indices: Array) -> Batch:
-    arrays = [take_array(b.column(i), indices) for i in range(b.num_columns)]
+    arrays = take_arrays(b.arrays, indices)
     return Batch(b.schema, arrays, indices.length, b.index)
 
 
@@ -374,9 +389,11 @@ def _filter_batch_columns(b: Batch, mask: Array,
                 lens = torch.where(emit_valid, lens, 0)
             columns.append(lens)
         else:
+            # bool as bytes; a fixed-size binary's or a wide decimal's
+            # (cap, w) rows as one (cap, bytes) u8 matrix
             v = a.values
-            columns.append(v.view(torch.uint8) if v.dtype == torch.bool
-                           else v)
+            columns.append(v.contiguous().view(torch.uint8)
+                           if v.dtype == torch.bool or v.ndim == 2 else v)
         validity = a.validity
         if emit_valid is not None:
             validity = emit_valid if validity is None \
@@ -394,8 +411,8 @@ def _filter_batch_columns(b: Batch, mask: Array,
             arrays.append(_filter_pool(a, keep, lens, out_len, validity))
             continue
         values = next(outs)
-        if a.values.dtype == torch.bool:
-            values = values.view(torch.bool)
+        if a.values.dtype == torch.bool or a.values.ndim == 2:
+            values = values.view(a.values.dtype)
         validity = next(outs).view(torch.bool) if valid else None
         arrays.append(Array(a.type, values, validity, length=out_len,
                             dictionary=a.dictionary))
@@ -432,11 +449,6 @@ def filter_batch(b: Batch, mask: Array,
             mask, opts.null_selection_behavior))
     if impl != "dma":
         raise ValueError(f"filter_batch impl {impl!r}: 'dma' or 'pallas'")
-    for i in range(b.num_columns):
-        t = b.column(i).type
-        if isinstance(t, dt.FixedSizeBinaryType) or \
-                (isinstance(t, dt.DecimalType) and t.wide):
-            raise NotImplementedError(f"filter_batch of {t}")
     nested = [i for i in range(b.num_columns) if b.column(i).type.is_nested]
     if not nested:
         return _filter_batch_columns(b, mask, opts.null_selection_behavior)

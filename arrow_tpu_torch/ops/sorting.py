@@ -20,8 +20,8 @@ index for index.
 
 Semantics matched to Arrow:
   * stable (equal keys keep input order)
-  * NaN sorts after all numbers (before nulls when at_end); NaNs are
-    canonicalized to one bit pattern
+  * NaN sorts between the numbers and the nulls, ascending or
+    descending: after the numbers at_end, before them at_start
   * null_placement at_start / at_end applies per batch, independent of
     ascending / descending
   * varlen (string / binary) keys sort by unsigned bytes: big-endian u32
@@ -60,7 +60,12 @@ class SortKey:
     order: str = "ascending"  # ascending | descending
 
 
-def _sort_keys(sort_keys: Sequence) -> List[SortKey]:
+def _sort_keys(sort_keys) -> List[SortKey]:
+    """SortKeys from SortKeys or (name, order) pairs; a bare order string
+    (pyarrow's ``RankOptions(sort_keys="descending")``) is one key with
+    that order."""
+    if isinstance(sort_keys, str):
+        return [SortKey("", sort_keys)]
     return [k if isinstance(k, SortKey) else SortKey(*k) for k in sort_keys]
 
 
@@ -191,10 +196,18 @@ def _key_lanes(a: Array, order: str, null_placement: str,
                varlen_words: Optional[int] = None) -> List[torch.Tensor]:
     """[null_lane, value_lanes...] for one sort key. The null lane holds 0
     or 1; a descending key's value lanes are the ascending ones with all 32
-    bits flipped; value lanes of null rows are 0."""
+    bits flipped; value lanes of null rows are 0. A NaN's lanes are all
+    ones at_end and all zero at_start, which no number's are: NaN sorts
+    between the numbers and the nulls in either order, as in pyarrow (the
+    JAX package puts NaN after the numbers of an ascending sort and before
+    those of a descending one, whatever the null placement)."""
     lanes = sortable_lanes(a, varlen_words, cross_batch)
     if order == "descending":
         lanes = [l ^ U32 for l in lanes]
+    if a.type.is_floating:
+        nan = torch.isnan(a.values)
+        edge = U32 if null_placement == "at_end" else 0
+        lanes = [torch.where(nan, edge, l) for l in lanes]
     if a.validity is not None:
         null_lane = (~a.validity if null_placement == "at_end"
                      else a.validity).to(torch.int64)
@@ -377,6 +390,8 @@ def _rank(args, options):
         sorted_pad = (~row_mask(cap, a.length, dev))[perm]
         boundary = sorted_pad[1:] != sorted_pad[:-1]
         for l in sortable_lanes(a):
+            if a.validity is not None:      # null rows tie, as in pyarrow
+                l = torch.where(a.validity, l, 0)
             sl = l[perm]
             boundary = boundary | (sl[1:] != sl[:-1])
         if a.validity is not None:

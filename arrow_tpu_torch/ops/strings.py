@@ -217,9 +217,7 @@ def _decode(a: Array) -> Array:
     rows' values."""
     from .selection import take_array
     return take_array(a.dictionary, Array(dt.int32, a.values, None,
-                                          length=a.length),
-                      grow=-(-max(a.capacity, 1) //
-                             max(a.dictionary.capacity, 1)))
+                                          length=a.length))
 
 
 def _arg_array(a) -> Array:

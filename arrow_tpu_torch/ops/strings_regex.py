@@ -201,7 +201,6 @@ def _via_pc(name: str, a: Array, pc_options, fallback) -> Array:
     rejects the pattern (pyarrow's ArrowInvalid / ArrowNotImplementedError).
     Any other error propagates."""
     import pyarrow as pa
-    import pyarrow.compute as pc
     from ..core.interop import (array_from_pyarrow, array_to_pyarrow,
                                 host_dictionary)
     from .selection import take_array
@@ -247,14 +246,7 @@ def _via_pc(name: str, a: Array, pc_options, fallback) -> Array:
                 capacity=codes.capacity, device=a.device)
         uniq_arr = array_from_pyarrow(uniq_out, capacity=uniq_cap,
                                       device=a.device)
-        grow = 1
-        if uniq_arr.type.is_varlen:
-            # every output row may repeat the LONGEST unique value: sizes
-            # are known on the host here, so the bound is exact
-            max_len = int(pc.max(pc.binary_length(uniq_out)).as_py() or 0)
-            pool = max(int(uniq_arr.values.shape[0]), 1)
-            grow = max(1, -(-codes.capacity * max(max_len, 1) // pool))
-        return take_array(uniq_arr, codes, grow)
+        return take_array(uniq_arr, codes)
 
     try:
         out = _host_regex(name, array_to_pyarrow(a), pc_options)

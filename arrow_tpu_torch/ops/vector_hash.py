@@ -27,7 +27,7 @@ from ..core.array import Array
 from ..core.batch import Batch
 from ..core.schema import Field, Schema
 from ..compute.registry import Kind, NullHandling, register_function
-from .bits import U32, split_u64, value_lanes32
+from .bits import U32, value_lanes32
 from .distinct import sort_distinct
 from .grouper import group_key_lanes
 from .kernel_utils import torch_dtype
@@ -45,9 +45,6 @@ def _value_lanes(a: Array):
     t, v = a.type, a.values
     if isinstance(t, dt.DictionaryType):
         return [v.to(torch.int64) & U32]
-    if isinstance(t, dt.DecimalType):
-        return split_u64(v[:, 1]) + split_u64(v[:, 0]) if t.wide \
-            else split_u64(v)
     return value_lanes32(v, t)
 
 

@@ -5,6 +5,8 @@ group-by and the join that the plan nodes use."""
 from .context import DistContext, Mesh, ShardedBatch
 from .dist_agg import DistGroupBy
 from .dist_join import DistHashJoin
+from .shuffle import partition_for_exchange, shuffle_batch, shuffle_rows
 
 __all__ = ["DistContext", "DistGroupBy", "DistHashJoin", "Mesh",
-           "ShardedBatch"]
+           "ShardedBatch", "partition_for_exchange", "shuffle_batch",
+           "shuffle_rows"]

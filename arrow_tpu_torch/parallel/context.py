@@ -146,6 +146,10 @@ def _range_key(local: Batch, key: SortKey, null_placement: str):
         word = word | lanes[1]
     if key.order == "descending":
         word = ~word
+    if a.type.is_floating:
+        # NaN between the numbers and the nulls, as in the one-card sort
+        word = torch.where(torch.isnan(a.values),
+                           -1 if null_placement == "at_end" else 0, word)
     kv = ordered_signed(word.view(torch.uint64))
     live = local.row_mask()
     top = torch.iinfo(torch.int64).max

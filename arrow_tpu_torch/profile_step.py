@@ -3,7 +3,7 @@
     python -m arrow_tpu_torch.profile_step
         [--path generic|dense|dist|distdict|exchange|sort|join|q3|q3dist|
                 sortdict|q3s|q3sdist|strings|anyall|q6|q6dist|q13|q22|hb|
-                q12|q7|wordcount|baskets]
+                q12|q7|wordcount|baskets|smerge|asof]
         [--rows N] [--keys N] [--max-groups N] [--shards N] [--steps N]
         [--seed N] [--build-rows N] [--build-keys N]
         [--key-dist uniform|zipf] [--join-type T] [--wide] [--batch-rows N]
@@ -62,7 +62,14 @@ per plan node, and per layer, among them the casts, ``is_in`` and the
 temporal fields. ``--path wordcount`` and ``--path baskets`` are
 ``entry_wordcount`` and ``entry_baskets`` at ``TPCH_SF``: per plan node,
 and per layer the split, the flatten, the list and pivot aggregators and
-the list and struct functions.
+the list and struct functions. ``--path smerge`` is
+``entry_sorted_merge`` (the merge of 8 sorted partitions of lineitem at
+``TPCH_SF``): per plan node, and per layer the rounds' sorts, their
+cross-batch lanes, the takes and the host reads. ``--path asof`` is
+``entry_asof`` over ``--rows`` quotes and a quarter as many trades
+(tolerance ``--tolerance``, default -1 s): per layer the grouping of the
+``by`` keys, the lexsort, the segmented carry, the payload takes, the
+carry's shrink and the host reads.
 
 Wraps the functions that make up the step's layers so that each call is
 bracketed by two CUDA events on the current stream (no synchronisation
@@ -200,8 +207,10 @@ def main() -> int:
                                        "q3s", "q3sdist", "strings",
                                        "anyall", "q6", "q6dist", "q13",
                                        "q22", "hb", "q12", "q7",
-                                       "wordcount", "baskets"),
+                                       "wordcount", "baskets", "smerge",
+                                       "asof"),
                     default="generic")
+    ap.add_argument("--tolerance", type=int, default=-1_000_000_000)
     ap.add_argument("--staging", choices=("dictionary", "plain"),
                     default="plain")
     ap.add_argument("--batch-rows", type=int, default=1 << 22)
@@ -401,6 +410,14 @@ def main() -> int:
     layer(pivot, "_set_probe", "pivot_key_probe")
     layer(selection, "_filter_batch_mixed", "filter_nested")
     layer(selection, "_take_list", "take_list")
+    # the ordered nodes: sorted_merge's rounds, asofjoin's join
+    from .ops import segment
+    layer(sorting, "_composite_sort_perm", "sort")
+    layer(sorting, "merge_key_lanes", "merge_lanes")
+    layer(nodes, "host_ints", "host_read")
+    layer(segment, "segmented_carry_last", "carry_last")
+    layer(grouper.Grouper, "consume_lanes_grouped", "group_by_keys")
+    layer(nodes, "take_array", "take_payload")
     node_spans, node_reads, node_children, _ = node_layers(
         torch, nodes, Batch, stack)
 
@@ -490,6 +507,19 @@ def main() -> int:
 
         def step(tables_):
             return qstep(*tables_)
+    elif args.path == "smerge":
+        qstep, b = entry_mod.entry_sorted_merge(
+            None, TPCH_SF, args.seed, max_batch_rows=args.batch_rows)
+
+        def step(tables_):
+            return qstep(*tables_)
+    elif args.path == "asof":
+        qstep, b = entry_mod.entry_asof(None, args.rows, args.rows // 4,
+                                        args.seed, args.tolerance,
+                                        args.batch_rows)
+
+        def step(tables_):
+            return qstep(*tables_)
     elif args.path == "hb":
         step, (b,) = entry_mod.entry_host_boundary(
             None, args.rows, args.seed, args.staging)
@@ -510,7 +540,8 @@ def main() -> int:
         torch.cuda.synchronize()
         host_ms.append((time.perf_counter() - t0) * 1e3)
     size = f"SF {TPCH_SF}" if args.path in ("q13", "q22", "q12", "q7",
-                                            "wordcount", "baskets") \
+                                            "wordcount", "baskets",
+                                            "smerge") \
         else f"{args.rows} rows"
     hops = {k: v / args.steps for k, v in strings_regex.HOST_HOPS.items()}
     print(f"path {args.path}: {size}; host-clock ms per step "

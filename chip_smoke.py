@@ -61,9 +61,12 @@ rows (BASELINE config #2) and checks each result against a numpy oracle:
   path 7d ``arrow_tpu_torch.entry.entry_dist_sort``: ``DistContext.sort_by``
           of config #3's columns at 25M rows (cut from 100M as 7c is);
   path 7s path 7b with path 6s's segment: ``entry_q3_dist(...,
-          segment="BUILDING")``'s step on path 6's lineitem and orders and
-          path 6s's customer table, ``c_mktsegment`` a dictionary<int32,
-          utf8> whose codes cross the exchange; against path 6's oracle;
+          segment="BUILDING")``'s step on path 6's orders, path 6s's
+          customer table and the first 6 batches of path 6's lineitem
+          (25,165,824 rows),
+          ``c_mktsegment`` a dictionary<int32, utf8> whose codes cross the
+          exchange; against numpy's oracle for those rows (cut from
+          100M rows for the script's time limit);
   path 7e ``arrow_tpu_torch.entry.entry_dist_sort_dict``: path 7d with path
           4d's dictionary string in ``k2``'s place (BASELINE config #3
           across shards, 25M rows): ``k1`` ascending, then ``s`` over
@@ -157,6 +160,35 @@ rows (BASELINE config #2) and checks each result against a numpy oracle:
   path 16r ``arrow_tpu_torch.entry.entry_ree_keys``: each batch of path
           16's ``l_orderkey`` run-end encoded (B2 and the stitch) and
           decoded, against its input and numpy's run ends;
+  path 17 ``arrow_tpu_torch.entry.entry_sorted_merge``: paths 13 / 14's
+          lineitem (``l_orderkey``, ``l_linenumber``, ``l_shipdate``,
+          ``l_extendedprice``, the dictionary ``l_shipmode``) cut into 8
+          sources by ``l_orderkey`` range, each sorted by (shipdate,
+          orderkey, linenumber) on the card in set-up, in 2^22-row
+          batches; the plan ``sorted_merge`` of the 8 ``table_source``
+          nodes; against numpy: keys in order, the ids ``l_orderkey * 8 +
+          l_linenumber`` a permutation of the input's, every payload its
+          input row's, the dictionary decoded;
+  path 17g ``arrow_tpu_torch.entry.entry_tpch_gen_q1``: TPC-H Q1 over the
+          plan's own ``tpch_gen`` lineitem at SF 1 (the host generator in
+          the step, only Q1's seven columns by the projection pushdown),
+          against numpy's Q1 of the same table (keys and counts exact,
+          sums and means within 1e-12 of the sums of |x|);
+  paths 18 / 18f ``arrow_tpu_torch.entry.entry_asof``: the
+          trades-and-quotes as-of join of 25M trades against 100M quotes
+          of one 6.5-hour session over 8,192 symbols (2^22-row batches),
+          ``asofjoin`` on ``ts`` by ``sym``, a quote at most 1 s old; 18f
+          a tenth of the rows and a quote at most 1 s ahead; against
+          numpy's searchsorted on the quotes sorted by (sym, ts): bid,
+          ask and nulls exact;
+  path 19 ``arrow_tpu_torch.entry.entry_decimal_q1``: paths 13 / 14's
+          lineitem with ``l_quantity``, ``l_extendedprice``,
+          ``l_discount``, ``l_tax`` as decimal128(15, 2) (and
+          ``l_extendedprice`` at decimal128(38, 2), two limbs): Q1's
+          filter and exact decimal sums by (returnflag, linestatus), the
+          rows priced above 50000.00 (a decimal scalar) sorted by price
+          descending and orderkey, their count by the decimal
+          ``l_discount``; against numpy int64, exactly;
   the string sweep: the string family's 71 functions
           (``entry.STRING_SWEEP``, the unit tests' options) once each on
           the card over the first 2^20 rows of path 10's ``o_comment``
@@ -173,8 +205,10 @@ rows (BASELINE config #2) and checks each result against a numpy oracle:
           float width, one row in 97 null; Q7's ``l_shipdate``; an
           instant over 1900-2100 with its nanosecond digits, naive, in
           New York and in Paris; times, durations, strings), each on the
-          card against the CPU's run: integers, bools, dates, offsets
-          and bytes byte for byte, floats within the entry's stated ulps
+          card against the CPU's run (once every card call is timed,
+          ``SWEEP_CPU_WORKERS`` entries at a time): integers, bools,
+          dates, offsets and bytes byte for byte, floats within the
+          entry's stated ulps
           or 1e-12 (float32: 1e-5) times the running sum of |x|; and
           ``add_checked`` past INT64_MAX raising ``ArrowInvalid`` on
           both devices;
@@ -184,7 +218,8 @@ rows (BASELINE config #2) and checks each result against a numpy oracle:
           through ``Table.group_by``, the pivot_longer node and the sparse
           tensors' to_dense / mv / mm (``entry.A7C_SWEEP``) over 2^20-row
           columns made from the seed and a 4096^2 matrix at 1 %, each on
-          the card against the CPU's run: exact, the products within
+          the card against the CPU's run (as the A7b sweep's): exact, the
+          products within
           1e-12 of |A| |x|, ``random`` by its range and its seed.
 
 Run from the repository root on a machine with a CUDA card:
@@ -209,7 +244,7 @@ the shards of the card, and no ``torch.sort`` inside the exchange's
 the two exchange kernels and the key packing against its plain version,
 and the launches those calls make against their counted runs'.
 
-Paths 10-16r hold every call they make to B1, B2, the stitch,
+Paths 10-19 hold every call they make to B1, B2, the stitch,
 ``pack_key_lanes`` and B3 against its plain version. Prints the card's
 name and power limit, one line per check, a JSON line ``{"sweep": {...}}``
 (each entry of both sweeps: ms and peak), a JSON line ``{"paths": {...}}`` (each path's counted step: ms and peak device bytes;
@@ -293,6 +328,9 @@ NUM_KEYS_SORTED_DENSE = 100_000
 MAX_GROUPS_SORTED_DENSE = 1 << 17
 # path 6 (BASELINE #5 cut to 100M lineitem rows) and 6b
 N_LINEITEM = 100_000_000
+# path 7s: path 7b's plan on the first 6 of its lineitem batches (cut from
+# path 6's 100M rows: the script's time limit)
+N_LINEITEM_7S = 25_000_000
 Q3_BATCH_ROWS = 1 << 22         # the JAX package's Q3 bench (bench.py)
 Q3_MAX_GROUPS = 1 << 22         # holds path 6's ~3.8M groups: no replay
 BLOOM_LV_MIN = -1.0             # path 6b's probe filter keeps 84 % of rows
@@ -323,13 +361,21 @@ TPCH_SEED = 42
 HB_SEED = 7
 N_SWEEP = 1 << 20
 SWEEP_PEAK_BYTES = 24e9
-# the string sweep's CPU results, computed this many functions at a time
-# once every card call is timed
+# the sweeps' CPU results, computed this many entries at a time once
+# every card call is timed
 SWEEP_CPU_WORKERS = 4
 # the A7c sweep's rows; its sparse products' float64 tolerance, times
 # |A| |x| (cuSPARSE and the CPU add in other orders)
 N_A7C = 1 << 20
 A7C_PRODUCT_RTOL = 1e-12
+# path 17g: the generator in the step runs on the host three times (the
+# warm-up, the counted run, the recording run): SF 1, cut from SF 10
+TPCH_GEN_SF = 1.0
+# path 18: a session of 100M quotes and 25M trades, a quote at most 1 s
+# old; path 18f a tenth of the rows, a quote at most 1 s ahead
+N_QUOTES = 100_000_000
+N_TRADES = 25_000_000
+ASOF_TOLERANCE = -1_000_000_000
 
 
 def check(cond, msg: str) -> None:
@@ -609,7 +655,8 @@ def dg_compare(torch, ck, gid, inputs, kinds, G, label: str,
 
 def synthetic_dg_inputs(torch, n: int, G: int, gen, dev):
     """Every kind of the TPU contract once; gid in [-1, G + 8): inactive
-    rows, rows past G, and one slot whose f32 inputs hold a NaN."""
+    rows, rows past G, one slot whose f32 inputs are all NaN and one
+    where half of them are (min and max skip NaN)."""
     gid = torch.randint(-1, G + 8, (n,), generator=gen, device=dev,
                         dtype=torch.int32)
     kinds, inputs = [], []
@@ -621,6 +668,8 @@ def synthetic_dg_inputs(torch, n: int, G: int, gen, dev):
             x = torch.randn(n, generator=gen, device=dev)
             if kind != "sum":
                 x[gid == 3] = float("nan")
+                x[(gid == 7) & (torch.rand(n, generator=gen, device=dev)
+                                < 0.5)] = float("nan")
             inputs.append(x)
         elif kind == "sumc":
             inputs.append(torch.randint(0, 1 << 16, (n,), **i32))
@@ -634,8 +683,9 @@ def synthetic_dg_inputs(torch, n: int, G: int, gen, dev):
 
 def synthetic_native_dg_inputs(torch, n: int, G: int, gen, dev, gid=None):
     """The card's native kinds over shared streams: first_row; sum, min and
-    max of one f32 column (NaNs in slot 3); sum64, min64 and max64 of one
-    int64 column (the type's extremes, sums that wrap); a count. ``gid`` as
+    max of one f32 column (slot 3 all NaN, slot 7 half NaN); sum64, min64
+    and max64 of one int64 column (the type's extremes, sums that wrap); a
+    count. ``gid`` as
     in ``synthetic_dg_inputs`` unless given. Returns (gid, inputs, kinds,
     valid): each column with its own validity stream."""
     if gid is None:
@@ -643,6 +693,8 @@ def synthetic_native_dg_inputs(torch, n: int, G: int, gen, dev, gid=None):
                             dtype=torch.int32)
     v = torch.randn(n, generator=gen, device=dev)
     v[gid == 3] = float("nan")
+    v[(gid == 7) & (torch.rand(n, generator=gen, device=dev) < 0.5)] = \
+        float("nan")
     w = torch.randint(-(1 << 62), 1 << 62, (n,), generator=gen, device=dev,
                       dtype=torch.int64)
     w[:n // 3] = torch.randint(-100, 100, (n // 3,), generator=gen,
@@ -757,28 +809,34 @@ def kernel_launches(ck, kname: str, args) -> int:
     return 1 if args[0][0].shape[0] else 0
 
 
+def first_appearance(k: np.ndarray, num_keys: int) -> np.ndarray:
+    """The keys in [0, num_keys) that ``k`` holds, in the order of their
+    first row (``np.minimum.at`` of the row numbers: no sort of the
+    rows)."""
+    first = np.full(num_keys, k.shape[0], np.int64)
+    np.minimum.at(first, k, np.arange(k.shape[0]))
+    present = np.flatnonzero(first < k.shape[0])
+    return present[np.argsort(first[present], kind="stable")]
+
+
 def numpy_oracle(cols, num_keys: int = NUM_KEYS):
     """Group-by of the slice computed independently with numpy: per key
-    (first-appearance order) count, sums (float64 bincount), mins (sort)."""
+    (first-appearance order) count, sums (float64 bincount), mins
+    (``np.minimum.at``)."""
     sel = cols["w"] > 0
     k, v, w = cols["k"][sel], cols["v"][sel], cols["w"][sel]
-    keys, first = np.unique(k, return_index=True)
-    keys = keys[np.argsort(first, kind="stable")]
     cnt = np.bincount(k, minlength=num_keys)
     v_sum = np.bincount(k, weights=v.astype(np.float64), minlength=num_keys)
     v_abs = np.bincount(k, weights=np.abs(v).astype(np.float64),
                         minlength=num_keys)
     w_sum = np.bincount(k, weights=w.astype(np.float64), minlength=num_keys)
-    order = np.argsort(k, kind="stable")
-    ks = k[order]
-    starts = np.flatnonzero(np.r_[True, ks[1:] != ks[:-1]])
     v_min = np.full(num_keys, np.inf, np.float32)
-    w_min = np.zeros(num_keys, np.int64)
-    v_min[ks[starts]] = np.minimum.reduceat(v[order], starts)
-    w_min[ks[starts]] = np.minimum.reduceat(w[order], starts)
-    return dict(keys=keys, count=cnt, v_sum=v_sum, v_abs=v_abs,
-                w_sum=np.rint(w_sum).astype(np.int64), v_min=v_min,
-                w_min=w_min)
+    np.minimum.at(v_min, k, v)
+    w_min = np.full(num_keys, np.iinfo(np.int64).max, np.int64)
+    np.minimum.at(w_min, k, w)
+    return dict(keys=first_appearance(k, num_keys), count=cnt, v_sum=v_sum,
+                v_abs=v_abs, w_sum=np.rint(w_sum).astype(np.int64),
+                v_min=v_min, w_min=np.where(cnt > 0, w_min, 0))
 
 
 def check_slice(out, oracle) -> int:
@@ -804,22 +862,18 @@ def check_slice(out, oracle) -> int:
 
 
 def numpy_oracle_generic(cols, num_keys: int):
-    """Path 2's group-by computed independently with numpy: one stable sort
-    of the selected keys gives the present keys, their first rows and the
-    run starts for the mins; bincount gives counts and float64 sums."""
+    """Path 2's group-by computed independently with numpy: the present
+    keys in first-appearance order (``first_appearance``), the mins by
+    ``np.minimum.at``, bincount for counts and float64 sums."""
     sel = cols["w"] > 0
     k, v, w = cols["k"][sel], cols["v"][sel], cols["w"][sel]
-    order = np.argsort(k, kind="stable")
-    ks = k[order]
-    starts = np.flatnonzero(np.r_[True, ks[1:] != ks[:-1]])
-    present = ks[starts]
-    keys = present[np.argsort(order[starts], kind="stable")]
-    w_min = np.zeros(num_keys, np.int64)
-    w_min[present] = np.minimum.reduceat(w[order], starts)
-    return dict(keys=keys, count=np.bincount(k, minlength=num_keys),
+    w_min = np.full(num_keys, np.iinfo(np.int64).max, np.int64)
+    np.minimum.at(w_min, k, w)
+    count = np.bincount(k, minlength=num_keys)
+    return dict(keys=first_appearance(k, num_keys), count=count,
                 v_sum=np.bincount(k, weights=v, minlength=num_keys),
                 v_abs=np.bincount(k, weights=np.abs(v), minlength=num_keys),
-                w_min=w_min)
+                w_min=np.where(count > 0, w_min, 0))
 
 
 def check_slice_generic(out, oracle, label: str = "path 2",
@@ -1294,6 +1348,7 @@ def main() -> int:
     print(smi.stdout.strip())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
+    t_all = time.time()
 
     t0 = time.time()
     path, log = ck.build()
@@ -1925,63 +1980,81 @@ def main() -> int:
           f"{N_ROWS * 8 * 9} B, sort buffers {N_ROWS * 8 * 4} B, output "
           f"{N_ROWS * 29} B")
     (idx, out), secs, launches4, peak = timed(lambda: step(b), "path 4")
-    t0 = time.time()
-    want = numpy_sort_oracle(cols)
-    perm = idx.values.view(torch.int64)
-    check(len(idx) == N_ROWS and perm.shape == (N_ROWS,),
-          "path 4: the permutation's length")
-    check(torch.equal(perm.cpu(), torch.from_numpy(want)),
-          "path 4: the permutation differs from numpy's stable sort")
-    check(torch.equal(out.column("v").values.cpu(),
-                      torch.from_numpy(cols["v"][want])) and
-          torch.equal(out.column("k1").values.cpu(),
-                      torch.from_numpy(cols["k1"][want])) and
-          torch.equal(out.column("k2").validity.cpu(),
-                      torch.from_numpy(cols["k2_valid"][want])),
-          "path 4: the taken batch")
-    print(f"path 4 (sort; second key int32, not a dictionary string): "
-          f"{N_ROWS} rows in {secs * 1e3:.3f} ms = {N_ROWS / secs:.6g} "
-          f"rows/s; the permutation equals numpy's stable sort index for "
-          f"index (oracle {time.time() - t0:.1f} s); peak device memory "
-          f"{peak} B; launches {launches4}")
-    del idx, out, perm, want, cols, b, step
+    # both sort oracles run in workers while paths 4d, 5a and 5b make their
+    # data and run, and are checked after them (the script's time limit)
+    from arrow_tpu_torch.entry import example_columns_sort_dict
+    cols4d = example_columns_sort_dict(N_ROWS, args.seed, NUM_VALUES_DICT)
+    sort_oracles = ThreadPoolExecutor(max_workers=2)
+    want4 = sort_oracles.submit(numpy_sort_oracle, cols)
+    want4d = sort_oracles.submit(numpy_sort_dict_oracle, cols4d)
+
+    def check_path4(n, perm, got, cols, secs, peak, t0):
+        """Path 4's permutation and taken columns, fetched to the host
+        after its run, against numpy's."""
+        want = want4.result()
+        check(n == N_ROWS and perm.shape == (N_ROWS,),
+              "path 4: the permutation's length")
+        check(torch.equal(perm, torch.from_numpy(want)),
+              "path 4: the permutation differs from numpy's stable sort")
+        check(torch.equal(got["v"], torch.from_numpy(cols["v"][want])) and
+              torch.equal(got["k1"], torch.from_numpy(cols["k1"][want])) and
+              torch.equal(got["k2_valid"],
+                          torch.from_numpy(cols["k2_valid"][want])),
+              "path 4: the taken batch")
+        print(f"path 4 (sort; second key int32, not a dictionary string): "
+              f"{N_ROWS} rows in {secs * 1e3:.3f} ms = {N_ROWS / secs:.6g} "
+              f"rows/s; the permutation equals numpy's stable sort index "
+              f"for index (oracle in a worker, checked "
+              f"{time.time() - t0:.1f} s after the run); peak device memory "
+              f"{peak} B; launches {launches4}")
+
+    deferred = [(check_path4, (
+        len(idx), idx.values.view(torch.int64).cpu(),
+        {"v": out.column("v").values.cpu(),
+         "k1": out.column("k1").values.cpu(),
+         "k2_valid": out.column("k2").validity.cpu()},
+        cols, secs, peak, time.time()))]
+    del idx, out, cols, b, step
     torch.cuda.empty_cache()
 
     # ---- path 4d: BASELINE #3 with its dictionary-encoded string key ------
-    from arrow_tpu_torch.entry import example_columns_sort_dict
     t0 = time.time()
-    cols = example_columns_sort_dict(N_ROWS, args.seed, NUM_VALUES_DICT)
     step, (b,) = entry_mod.entry_sort_dict(dev, N_ROWS, args.seed,
                                            NUM_VALUES_DICT)
     torch.cuda.synchronize()
     print(f"path 4d data: {N_ROWS} rows made and staged in "
           f"{time.time() - t0:.1f} s")
     (idx, out), secs, launches4d, peak = timed(lambda: step(b), "path 4d")
-    t0 = time.time()
-    want = torch.from_numpy(numpy_sort_dict_oracle(cols))
-    perm = idx.values.view(torch.int64)
-    check(len(idx) == N_ROWS and perm.shape == (N_ROWS,),
-          "path 4d: the permutation's length")
-    check(torch.equal(perm.cpu(), want),
-          "path 4d: the permutation differs from numpy's stable sort")
+
+    def check_path4d(n, perm, got, same_dict, cols, secs, peak, t0):
+        """Path 4d's, as path 4's."""
+        want = torch.from_numpy(want4d.result())
+        check(n == N_ROWS and perm.shape == (N_ROWS,),
+              "path 4d: the permutation's length")
+        check(torch.equal(perm, want),
+              "path 4d: the permutation differs from numpy's stable sort")
+        check(torch.equal(got["i"], torch.from_numpy(cols["i"])[want]) and
+              torch.equal(got["v"], torch.from_numpy(cols["v"])[want]) and
+              torch.equal(got["s_valid"],
+                          torch.from_numpy(cols["s_valid"])[want]) and
+              torch.equal(got["s"], torch.from_numpy(np.where(
+                  cols["s_valid"], cols["s_idx"], 0))[want]) and same_dict,
+              "path 4d: the taken batch")
+        print(f"path 4d (sort on a dictionary<int32, utf8> key and an "
+              f"int64): {N_ROWS} rows in {secs * 1e3:.3f} ms = "
+              f"{N_ROWS / secs:.6g} rows/s; the permutation equals numpy's "
+              f"stable sort of the dictionary ranks index for index (oracle "
+              f"in a worker, checked {time.time() - t0:.1f} s after the "
+              f"run); peak device memory {peak} B; launches {launches4d}")
+
     s_out = out.column("s")
-    check(torch.equal(out.column("i").values.cpu(),
-                      torch.from_numpy(cols["i"])[want]) and
-          torch.equal(out.column("v").values.cpu(),
-                      torch.from_numpy(cols["v"])[want]) and
-          torch.equal(s_out.validity.cpu(),
-                      torch.from_numpy(cols["s_valid"])[want]) and
-          torch.equal(s_out.values.cpu(), torch.from_numpy(np.where(
-              cols["s_valid"], cols["s_idx"], 0))[want]) and
-          s_out.dictionary is b.column("s").dictionary,
-          "path 4d: the taken batch")
-    print(f"path 4d (sort on a dictionary<int32, utf8> key and an int64): "
-          f"{N_ROWS} rows in {secs * 1e3:.3f} ms = {N_ROWS / secs:.6g} "
-          f"rows/s; the permutation equals numpy's stable sort of the "
-          f"dictionary ranks index for index (oracle "
-          f"{time.time() - t0:.1f} s); peak device memory {peak} B; "
-          f"launches {launches4d}")
-    del idx, out, perm, want, cols, b, step, s_out
+    deferred.append((check_path4d, (
+        len(idx), idx.values.view(torch.int64).cpu(),
+        {"i": out.column("i").values.cpu(), "v": out.column("v").values.cpu(),
+         "s_valid": s_out.validity.cpu(), "s": s_out.values.cpu()},
+        s_out.dictionary is b.column("s").dictionary, cols4d, secs, peak,
+        time.time())))
+    del idx, out, b, cols4d, step, s_out
     torch.cuda.empty_cache()
 
     # ---- paths 5a, 5b: arrow_tpu_torch.entry.entry_join (BASELINE #4) ---
@@ -2037,6 +2110,13 @@ def main() -> int:
             forget()
         del bb, pb, step
         torch.cuda.empty_cache()
+
+    # paths 4 and 4d against their oracles, computed in the meantime
+    for fn, fn_args in deferred:
+        fn(*fn_args)
+    sort_oracles.shutdown()
+    del deferred
+    torch.cuda.empty_cache()
 
     # ---- path 5c: the other routes, 10M probe rows ----------------------
     wide_mul = 0x2545F4914F6CDD1D
@@ -2133,7 +2213,7 @@ def main() -> int:
 
     # ---- path 6: the Q3-shaped plan (BASELINE #5), entry_q3 ---------------
     from arrow_tpu_torch.acero import nodes as nodes_mod
-    from arrow_tpu_torch.core.batch import Batch
+    from arrow_tpu_torch.core.batch import Batch, Table
     from arrow_tpu_torch.entry import example_columns_q3
     from arrow_tpu_torch.entry import table_from_numpy as \
         table_from_numpy_dict
@@ -2418,8 +2498,9 @@ def main() -> int:
 
     # ---- path 7s: path 7b with path 6s's string segment ------------------
     # the step of entry_q3_dist with segment= (made at a small size: its
-    # tables are not the ones run) on path 6's lineitem and orders and path
-    # 6s's customer table; no warm-up: path 7b's runs were the same plan's
+    # tables are not the ones run) on the first N_LINEITEM_7S rows of path
+    # 6's lineitem, its orders and path 6s's customer table (the script's
+    # time limit); no warm-up: path 7b's runs were the same plan's
     step, _ = entry_mod.entry_q3_dist(dev, N_SHARDS, 768, args.seed,
                                       Q3_MAX_GROUPS, Q3_BATCH_ROWS,
                                       "BUILDING")
@@ -2427,27 +2508,31 @@ def main() -> int:
         {"c_custkey": qcols[2]["c_custkey"],
          "c_mktsegment": qcols[2]["c_seg"]}, Q3_BATCH_ROWS, dev,
         {"c_mktsegment": np.array(entry_mod.SEGMENTS)})
-    tables7s = (tables[0], tables[1], cu7s)
+    n_li7s = -(-N_LINEITEM_7S // Q3_BATCH_ROWS) * Q3_BATCH_ROWS
+    li7s = Table(tables[0].schema, tables[0].batches[:n_li7s //
+                                                      Q3_BATCH_ROWS])
+    tables7s = (li7s, tables[1], cu7s)
+    oracle7s = numpy_q3_oracle({k: v[:n_li7s] for k, v in qcols[0].items()},
+                               qcols[1], qcols[2])
     del tables, qcols, ctx7
     out, secs, launches7s, peak = timed(
         lambda: step(*tables7s), "path 7s",
         ("filter_compact_chunks", "partition_histogram",
          "partition_positions", "pack_key_lanes"), warm=False)
-    check_q3(out, q3_oracle, "path 7s")
-    for kname in dist_kernels:
-        check(launches7s[kname] == launches7b[kname],
-              f"path 7s: {launches7s[kname]} {kname} launches, path 7b's "
-              f"{launches7b[kname]}")
+    check_q3(out, oracle7s, "path 7s")
     print(f"path 7s (path 7b with c_mktsegment == 'BUILDING' on a "
-          f"dictionary string): {N_LINEITEM} lineitem rows in "
-          f"{secs * 1e3:.3f} ms = {N_LINEITEM / secs:.6g} rows/s; the top 10 "
-          f"match path 6's numpy oracle; peak device memory {peak} B; "
-          f"launches {launches7s}")
+          f"dictionary string, cut to {n_li7s} lineitem rows): {n_li7s} "
+          f"lineitem rows in {secs * 1e3:.3f} ms = {n_li7s / secs:.6g} "
+          f"rows/s; the top 10 match numpy's oracle; peak device memory "
+          f"{peak} B; launches {launches7s}")
     del out
+    # one more run: every B1, B4 and pack_key_lanes call recorded and held
+    # against its plain version (the dictionary c_mktsegment codes cross
+    # the exchange here only)
     forget()
     record_kernels("path 7s", lambda: step(*tables7s))
     check_calls("path 7s", launches7s)
-    del step, tables7s, cu7s
+    del step, tables7s, cu7s, li7s
     forget()
     torch.cuda.empty_cache()
 
@@ -3154,7 +3239,9 @@ def main() -> int:
     t0 = time.time()
     li_cols = sorted(set(entry_mod.Q12_COLUMNS["lineitem"]) |
                      set(entry_mod.Q7_COLUMNS["lineitem"]) |
-                     set(entry_mod.BASKETS_COLUMNS["lineitem"]))
+                     set(entry_mod.BASKETS_COLUMNS["lineitem"]) |
+                     set(entry_mod.SMERGE_COLUMNS["lineitem"]) |
+                     set(entry_mod.DECIMAL_Q1_COLUMNS["lineitem"]))
     source.update({name: tpch_table(name, TPCH_SF, TPCH_SEED, columns=cols)
                    for name, cols in (("lineitem", li_cols),
                                       ("supplier", None), ("nation", None))})
@@ -3302,6 +3389,118 @@ def main() -> int:
     forget()
     torch.cuda.empty_cache()
 
+    # ---- paths 17-19: the ordered nodes and the decimal columns --------
+    # each path's numpy oracle runs in this worker while the card runs
+    # the path's recording run (after its counted run, which it would slow)
+    oracles = ThreadPoolExecutor(max_workers=1)
+
+    # path 17: a merge of 8 sorted lineitem partitions (sorted_merge)
+    t0 = time.time()
+    step, tables = entry_mod.entry_sorted_merge(dev, TPCH_SF, TPCH_SEED,
+                                                source=source)
+    torch.cuda.synchronize()
+    print(f"path 17 data: {len(tables)} sources, each sorted on the card, "
+          f"in {sum(len(t.batches) for t in tables)} batches, staged in "
+          f"{time.time() - t0:.1f} s")
+    out, secs, launches17, peak = timed(lambda: step(*tables), "path 17")
+    t0 = time.time()
+    bad = oracles.submit(entry_mod.sorted_merge_differ, out, step.source)
+    check_plan_calls("path 17", lambda: step(*tables), launches17)
+    bad = bad.result()
+    check(not bad, f"path 17: the merged lineitem's {bad} differ from its "
+          "input's")
+    print(f"path 17 (sorted_merge of {len(tables)} sorted lineitem "
+          f"partitions at SF {TPCH_SF}): {n_li} rows in {secs * 1e3:.3f} ms "
+          f"= {n_li / secs:.6g} rows/s; keys in order, the ids a "
+          f"permutation of the input's, every payload its row's (oracle "
+          f"and recording run {time.time() - t0:.1f} s); peak device "
+          f"memory {peak} B; launches {launches17}")
+    del out, step, tables
+    forget()
+    torch.cuda.empty_cache()
+
+    # path 17g: TPC-H Q1 over the plan's own generator (tpch_gen)
+    step, args17g = entry_mod.entry_tpch_gen_q1(dev, TPCH_GEN_SF, TPCH_SEED)
+    out, secs, launches17g, peak = timed(
+        lambda: step(*args17g), "path 17g", ("filter_compact_chunks",))
+    got = out.to_pydict()
+    t0 = time.time()
+    q1_want = oracles.submit(lambda: entry_mod.q1_numpy(tpch_table(
+        "lineitem", TPCH_GEN_SF, TPCH_SEED, columns=entry_mod.Q1_COLUMNS)))
+    check_plan_calls("path 17g", lambda: step(*args17g), launches17g)
+    bad = entry_mod.q1_differ(got, q1_want.result())
+    check(not bad, f"path 17g: Q1's {bad} differ from numpy's: {got}")
+    print(f"path 17g (TPC-H Q1 from tpch_gen at SF {TPCH_GEN_SF}, the "
+          f"generator in the step): {sum(got['count_order'])} rows "
+          f"aggregated in {secs * 1e3:.3f} ms; {len(got['count_order'])} "
+          f"groups equal numpy's (sums within 1e-12 of the sums of |x|; "
+          f"recording run and oracle {time.time() - t0:.1f} s); peak "
+          f"device memory {peak} B; launches {launches17g}")
+    del out, step
+    forget()
+    torch.cuda.empty_cache()
+
+    # paths 18 and 18f: the trades-and-quotes as-of join (asofjoin)
+    launches18 = {}
+    for label, n_q, n_t, tol in (
+            ("path 18", N_QUOTES, N_TRADES, ASOF_TOLERANCE),
+            ("path 18f", N_QUOTES // 10, N_TRADES // 10, -ASOF_TOLERANCE)):
+        t0 = time.time()
+        step, tables = entry_mod.entry_asof(dev, n_q, n_t, TPCH_SEED, tol)
+        torch.cuda.synchronize()
+        quotes, trades = step.columns
+        print(f"{label} data: {n_q} quotes, {n_t} trades made and staged "
+              f"in {time.time() - t0:.1f} s")
+        out, secs, launches18[label], peak = timed(
+            lambda: step(*tables), label, ("filter_compact_chunks",))
+        t0 = time.time()
+        match = oracles.submit(entry_mod.asof_numpy, quotes, trades, tol)
+        check_plan_calls(label, lambda: step(*tables), launches18[label])
+        match = match.result()
+        bad = entry_mod.asof_differ(out, quotes, match)
+        check(not bad, f"{label}: the matched {bad} differ from numpy's")
+        print(f"{label} (asofjoin on ts by sym, tolerance {tol} ns): "
+              f"{n_t} trades against {n_q} quotes in {secs * 1e3:.3f} ms = "
+              f"{(n_t + n_q) / secs:.6g} rows/s; {int((match >= 0).sum())} "
+              f"matched, bid / ask and nulls equal numpy's (recording run "
+              f"and oracle {time.time() - t0:.1f} s); peak device memory "
+              f"{peak} B; launches {launches18[label]}")
+        paths[label]["matched"] = int((match >= 0).sum())
+        del out, step, tables, quotes, trades, match
+        forget()
+        torch.cuda.empty_cache()
+
+    # path 19: Q1's sums on the spec's decimal(15, 2) columns
+    t0 = time.time()
+    step, tables = entry_mod.entry_decimal_q1(dev, TPCH_SF, TPCH_SEED,
+                                              source=source)
+    torch.cuda.synchronize()
+    print(f"path 19 data: lineitem's four DECIMAL(15,2) columns and "
+          f"l_extendedprice at decimal128(38, 2) staged in "
+          f"{time.time() - t0:.1f} s in {len(tables[0].batches)} batches")
+    out, secs, launches19, peak = timed(
+        lambda: step(*tables), "path 19", ("filter_compact_chunks",))
+    t0 = time.time()
+    want19 = oracles.submit(entry_mod.decimal_q1_numpy, step.cents,
+                            step.source)
+    check_plan_calls("path 19", lambda: step(*tables), launches19)
+    want19 = want19.result()
+    bad = entry_mod.decimal_q1_differ(out, want19)
+    check(not bad, f"path 19: {bad} differ from numpy's")
+    print(f"path 19 (Q1's filter and decimal sums, a decimal filter, sort "
+          f"and group-by at SF {TPCH_SF}): {n_li} lineitem rows in "
+          f"{secs * 1e3:.3f} ms = {n_li / secs:.6g} rows/s; "
+          f"{len(want19['q1']['count_order'])} Q1 groups, "
+          f"{len(want19['rows'])} rows past {entry_mod.DECIMAL_PRICE_FLOOR} "
+          f"in order and {len(want19['counts'])} discount groups equal "
+          f"numpy's exactly (recording run and oracle "
+          f"{time.time() - t0:.1f} s); peak device memory {peak} B; "
+          f"launches {launches19}")
+    del out, step, tables, want19
+    oracles.shutdown()
+    forget()
+    torch.cuda.empty_cache()
+
     shipdate = source["lineitem"]["l_shipdate"].slice(0, N_SWEEP) \
         .cast(pa.int32()).to_numpy()
     shipmode = source["lineitem"]["l_shipmode"].slice(0, N_SWEEP) \
@@ -3383,7 +3582,8 @@ def main() -> int:
           f"l_shipdate and Q12's l_shipmode among them) made in "
           f"{time.time() - t0:.1f} s")
     a7b_host = {"strftime", "strptime"}
-    n_a7b, cpu_s, a7b_ms = 0, 0.0, 0.0
+    n_a7b, a7b_ms = 0, 0.0
+    card_got = {}
     for entry in entry_mod.A7B_SWEEP:
         label, fn, names, kw, tol = entry
         src = cols[names[0]].type
@@ -3407,24 +3607,37 @@ def main() -> int:
         a7b_ms += sweep[label]["ms"]
         check(sweep[label]["peak_bytes"] < SWEEP_PEAK_BYTES,
               f"A7b sweep {label}: peak {sweep[label]['peak_bytes']} B")
-        t1 = time.time()
-        want = entry_mod.a7b_sweep_call(entry, cols_cpu)
-        cpu_s += time.time() - t1
-        if tol is None and getattr(want, "offsets", 1) is None and \
-                not want.children and want.values.dtype.is_floating_point:
-            tol = ("ulps", 0)     # NaN bits differ: the card's canonical
-        if tol is None:
-            same = result_parts(got) == result_parts(want)
-        else:
-            x = cols_cpu[names[0]]
-            scale = np.cumsum(np.nan_to_num(np.abs(
-                x.values.numpy().astype(np.float64)) *
-                x.validity_or_true().numpy())) if tol[0] == "sum" else None
-            same = float_parts_close(got, want, tol, scale)
-        check(same, f"A7b sweep {label}: the card's result differs from "
-              f"the CPU's (tolerance {tol})")
-        del got, want
-        n_a7b += 1
+        card_got[label] = got
+        del got
+    # the CPU's results, once every card call is timed
+    t1 = time.time()
+    pool = ThreadPoolExecutor(SWEEP_CPU_WORKERS)
+    try:
+        wants = pool.map(lambda e: entry_mod.a7b_sweep_call(e, cols_cpu),
+                         entry_mod.A7B_SWEEP)
+        for entry, want in zip(entry_mod.A7B_SWEEP, wants):
+            label, fn, names, kw, tol = entry
+            got = card_got.pop(label)
+            if tol is None and getattr(want, "offsets", 1) is None and \
+                    not want.children and \
+                    want.values.dtype.is_floating_point:
+                tol = ("ulps", 0)   # NaN bits differ: the card's canonical
+            if tol is None:
+                same = result_parts(got) == result_parts(want)
+            else:
+                x = cols_cpu[names[0]]
+                scale = np.cumsum(np.nan_to_num(np.abs(
+                    x.values.numpy().astype(np.float64)) *
+                    x.validity_or_true().numpy())) \
+                    if tol[0] == "sum" else None
+                same = float_parts_close(got, want, tol, scale)
+            check(same, f"A7b sweep {label}: the card's result differs "
+                  f"from the CPU's (tolerance {tol})")
+            del got, want
+            n_a7b += 1
+    finally:
+        pool.shutdown(cancel_futures=True)
+    cpu_s = time.time() - t1
     # one call that wraps raises on both devices
     big = cols["c_a"].values.clone()
     big[7] = (1 << 63) - 1
@@ -3440,8 +3653,9 @@ def main() -> int:
     print(f"A7b sweep: {n_a7b} entries ({len(set(e[1] for e in entry_mod.A7B_SWEEP))} "
           f"functions) equal the CPU's (exact, or within the stated "
           f"ulps / sums); add_checked past INT64_MAX raises on both "
-          f"devices; card {a7b_ms:.1f} ms in all, the CPU {cpu_s:.1f} s, "
-          f"{time.time() - t0:.1f} s in all")
+          f"devices; card {a7b_ms:.1f} ms in all, the CPU {cpu_s:.1f} s "
+          f"({SWEEP_CPU_WORKERS} at a time), {time.time() - t0:.1f} s in "
+          "all")
     del cols, cols_cpu
     torch.cuda.empty_cache()
 
@@ -3454,7 +3668,8 @@ def main() -> int:
     print(f"A7c sweep: {N_A7C} rows of each layout (the comments path 10's "
           f"first o_comment rows), a {entry_mod.A7C_TENSOR_N}^2 matrix at "
           f"{entry_mod.A7C_TENSOR_DENSITY} made in {time.time() - t0:.1f} s")
-    n_a7c, cpu_s, a7c_ms = 0, 0.0, 0.0
+    n_a7c, a7c_ms = 0, 0.0
+    card_got = {}
     for label, host, tol, fn in entry_mod.A7C_SWEEP:
         if not host:
             fn(cols)
@@ -3473,34 +3688,46 @@ def main() -> int:
         a7c_ms += sweep[key]["ms"]
         check(sweep[key]["peak_bytes"] < SWEEP_PEAK_BYTES,
               f"A7c sweep {label}: peak {sweep[key]['peak_bytes']} B")
-        t1 = time.time()
-        want = fn(cols_cpu)
-        cpu_s += time.time() - t1
-        if tol == "random":
-            # other generators: the range, the type, one initializer's
-            # values again on the card
-            again = fn(cols)
-            same = torch.equal(got.values, again.values) and \
-                got.values.dtype == want.values.dtype == torch.float64 and \
-                bool(((got.values >= 0) & (got.values < 1)).all())
-        elif tol == "product":
-            scale = entry_mod.a7c_product_scale(label, cols_cpu)
-            same = bool(np.all(np.abs(got.cpu().numpy() - want.numpy())
-                               <= A7C_PRODUCT_RTOL * scale))
-        else:
-            same = entry_mod.nested_parts(got) == \
-                entry_mod.nested_parts(want)
-        check(same, f"A7c sweep {label}: the card's result differs from "
-              f"the CPU's (tolerance {tol})")
-        print(f"A7c sweep {label:28s} {sweep[key]['ms']:10.3f} ms, peak "
-              f"above the input {sweep[key]['peak_bytes']} B; equal to the "
-              f"CPU's")
-        del got, want
-        n_a7c += 1
+        # other generators: one initializer's values again on the card
+        card_got[label] = (got, fn(cols) if tol == "random" else None)
+        del got
+    # the CPU's results, once every card call is timed
+    t1 = time.time()
+    pool = ThreadPoolExecutor(SWEEP_CPU_WORKERS)
+    try:
+        wants = pool.map(lambda e: e[3](cols_cpu), entry_mod.A7C_SWEEP)
+        for (label, _, tol, _), want in zip(entry_mod.A7C_SWEEP, wants):
+            got, again = card_got.pop(label)
+            key = f"a7c:{label}"
+            if tol == "random":
+                # the range, the type, the initializer's values again
+                same = torch.equal(got.values, again.values) and \
+                    got.values.dtype == want.values.dtype == \
+                    torch.float64 and \
+                    bool(((got.values >= 0) & (got.values < 1)).all())
+            elif tol == "product":
+                scale = entry_mod.a7c_product_scale(label, cols_cpu)
+                same = bool(np.all(np.abs(got.cpu().numpy() -
+                                          want.numpy())
+                                   <= A7C_PRODUCT_RTOL * scale))
+            else:
+                same = entry_mod.nested_parts(got) == \
+                    entry_mod.nested_parts(want)
+            check(same, f"A7c sweep {label}: the card's result differs "
+                  f"from the CPU's (tolerance {tol})")
+            print(f"A7c sweep {label:28s} {sweep[key]['ms']:10.3f} ms, peak "
+                  f"above the input {sweep[key]['peak_bytes']} B; equal to "
+                  f"the CPU's")
+            del got, again, want
+            n_a7c += 1
+    finally:
+        pool.shutdown(cancel_futures=True)
+    cpu_s = time.time() - t1
     print(f"A7c sweep: {n_a7c} entries equal the CPU's (exact; products "
           f"within {A7C_PRODUCT_RTOL} of |A| |x|; random by range and "
-          f"seed); card {a7c_ms:.1f} ms in all, the CPU {cpu_s:.1f} s, "
-          f"{time.time() - t0:.1f} s in all")
+          f"seed); card {a7c_ms:.1f} ms in all, the CPU {cpu_s:.1f} s "
+          f"({SWEEP_CPU_WORKERS} at a time), {time.time() - t0:.1f} s in "
+          "all")
     print(json.dumps({"sweep": sweep}))
     del cols, cols_cpu, a7c_comments
     torch.cuda.empty_cache()
@@ -3600,12 +3827,16 @@ def main() -> int:
             ("path 11", launches11)] + list(launches12.items()) + \
             list(launches1314.items()) + [
             ("path 15", launches15), ("path 16", launches16),
-            ("path 16r", launches16r)]:
+            ("path 16r", launches16r), ("path 17", launches17),
+            ("path 17g", launches17g), ("path 19", launches19)] + \
+            list(launches18.items()):
         suffix = suffix_of(label)
         for kernel in kernels:
             if counts[kernel["name"]] and not (
                     label == "path 5a" and kernel["name"] == "pack_key_lanes"):
                 kernel[f"launches_{suffix}"] = counts[kernel["name"]]
+    print(f"chip_smoke: {time.time() - t_all:.1f} s in all, the build "
+          "included")
     print(json.dumps({"paths": paths}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

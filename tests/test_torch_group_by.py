@@ -3,6 +3,10 @@ dense route against the JAX package, on the same numpy data.
 
 Integers, nulls, NaNs and group order must match exactly; f32 sums within
 |diff| <= 1e-5 * sum(|x|) + 1e-6 per group (the two sum in another order).
+A float min / max skips NaN in the port, as in pyarrow, and is held against
+the NaN-skipping reduction of the data; the JAX package's (whose NaN wins)
+against the same where it is not NaN (ROADMAP C32 (b),
+``test_torch_consume._extremes``).
 """
 
 import jax
@@ -24,6 +28,7 @@ from arrow_tpu_torch.ops import distinct as tdist
 from arrow_tpu_torch.ops import segment as tseg
 from arrow_tpu_torch.ops.agg_options import CountOptions
 from arrow_tpu_torch.ops.hash_aggregate import AggregateSpec, HashAggregate
+from test_torch_consume import _extremes
 
 
 def _lanes(rng, cap, L):
@@ -164,7 +169,9 @@ def _abs_sums(rbs):
     return out
 
 
-def _assert_same_table(got, want, rbs):
+def _assert_same_table(got, want, rbs, extreme_rbs=None):
+    """``extreme_rbs``: what v's min / max reduce over, where it is not
+    ``rbs`` (a state carried from the JAX package)."""
     assert got.schema.names == want.schema.names
     abs_sums = _abs_sums(rbs)
     keys = want["k"].to_pylist()
@@ -173,7 +180,17 @@ def _assert_same_table(got, want, rbs):
         g, w = got[name], want[name]
         assert g.type == w.type, name
         assert g.is_null().to_pylist() == w.is_null().to_pylist(), name
-        if name in ("v_sum", "v_mean"):
+        if name in ("v_min", "v_max"):
+            ref = _extremes((extreme_rbs or {}).get(name[2:], rbs), ["k"],
+                            "v", name[2:])
+            for k, a, b in zip(keys, g.to_pylist(), w.to_pylist()):
+                if a is None:
+                    assert b is None, name
+                    continue
+                r = float(np.float32(ref[(k,)]))
+                assert a == r or (a != a and r != r), (name, k, a, r)
+                assert b == r or b != b, (name, k, b, r)
+        elif name in ("v_sum", "v_mean"):
             for k, a, b in zip(keys, g.to_pylist(), w.to_pylist()):
                 if a is None or a != a:
                     assert (a is None and b is None) or (b != b), name
@@ -230,25 +247,47 @@ def test_hash_aggregate_carried_state_jax_to_port():
     tst = tha.state_from_numpy(leaves, device="cpu")
     assert int(tst[0].num_groups) == int(jst1[0].num_groups)
     tst = consume_routed(tha, tst, batch_from_pyarrow(second, device="cpu"))
+    # the carried min / max are the JAX package's (NaN where the first
+    # half held one): they reduce with the second half's values
+    half = jha.finalize(jst1).to_pyarrow()
     _assert_same_table(tha.finalize(tst).to_pyarrow(), want,
-                       [first, second])
+                       [first, second],
+                       {w: [pa.record_batch({"k": half["k"],
+                                             "v": half[f"v_{w}"]}), second]
+                        for w in ("min", "max")})
 
 
-def test_consume_routed_raises_for_routes_not_ported():
-    """What the port cannot group yet raises and gives no wrong answer:
-    decimal keys wait for the wider column types."""
-    from arrow_tpu_torch.core import datatype as tdt
-    from arrow_tpu_torch.core.array import Array
-    from arrow_tpu_torch.core.batch import Batch
-    from arrow_tpu_torch.core.schema import field as tfield, schema as tschema
-    dec = tdt.decimal128(10, 2)
-    tb = Batch(tschema([tfield("k", dec), tfield("v", tdt.float32)]),
-               [Array(dec, torch.zeros((8, 2), dtype=torch.int64)),
-                Array(tdt.float32, torch.ones(8))])
-    tha = HashAggregate(tb.schema, ["k"], [AggregateSpec("sum", "v")],
-                        max_groups=16)
-    with pytest.raises(NotImplementedError, match="decimal128"):
-        consume_routed(tha, tha.init_state("cpu"), tb)
+@pytest.mark.parametrize("precision", [10, 38])
+def test_consume_routed_decimal_keys_vs_jax(precision):
+    """Decimal keys (one int64 lane, or two limbs past precision 18) group
+    as in the JAX package: the same groups in the same order, the same
+    decimal sums and counts, exactly."""
+    import decimal
+    rng = np.random.default_rng(precision)
+    n = 300
+    dec = pa.decimal128(precision, 2)
+    keys = [decimal.Decimal(int(x)).scaleb(-2) * (10 ** 15 if precision > 18
+                                                  else 1)
+            for x in rng.integers(-20, 20, n)]
+    rb = pa.record_batch({
+        "k": pa.array(keys, dec, mask=rng.random(n) < 0.05),
+        "d": pa.array(keys[::-1], dec, mask=rng.random(n) < 0.1),
+        "v": pa.array(rng.integers(-100, 100, n))})
+    specs = [("sum", "d"), ("sum", "v"), ("count", "v"), ("count_all", None)]
+    jha = JHashAggregate(at.Batch.from_pyarrow(rb).schema, ["k"],
+                         [JSpec(f, t) if t else JSpec(f)
+                          for f, t in specs], max_groups=64)
+    jst = jha.consume(jha.init_state(), at.Batch.from_pyarrow(rb))
+    want = jha.finalize(jst).to_pyarrow()
+    tb = batch_from_pyarrow(rb, device="cpu")
+    tha = HashAggregate(tb.schema, ["k"],
+                        [AggregateSpec(f, t) if t else AggregateSpec(f)
+                         for f, t in specs], max_groups=64)
+    got = tha.finalize(consume_routed(tha, tha.init_state("cpu"), tb)
+                       ).to_pyarrow()
+    assert got.equals(want)
+    assert got["k"].to_pylist() == list(dict.fromkeys(
+        rb["k"].to_pylist()))       # first-appearance order, null a group
 
 
 def test_consume_routed_sorted_dense_route_runs():

@@ -221,7 +221,7 @@ def test_take_vs_jax(kind, nulls):
     t, j = _stage(arr, capacity=512)
     idx = _indices(700, 400, 12, nulls)
     ti, ji = _stage(idx, capacity=1024)
-    got = tsel.take_array(t, ti, grow=2)
+    got = tsel.take_array(t, ti)
     want = jsel.take_array(j, ji, grow=2)
     _assert_same(got, want, 700)
     assert got.to_pyarrow().equals(arr.take(idx))

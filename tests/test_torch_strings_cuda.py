@@ -82,16 +82,16 @@ def test_varlen_filter_on_card_vs_plain(cuda_device, ragged):
 
 def test_varlen_take_on_card_vs_plain(cuda_device):
     """The varlen take (its gather from ``rows_of_positions``) with
-    repeated and null indices, a grown pool."""
+    repeated and null indices, a pool past the input's."""
     n = 1 << 20
     b = _names(n, 2, cuda_device, ragged=True)
     g = torch.Generator(device=cuda_device).manual_seed(2)
     idx = torch.randint(0, n, (2 * n,), generator=g, device=cuda_device)
     valid = torch.rand(2 * n, generator=g, device=cuda_device) > 0.1
     indices = Array(dt.int64, idx, valid, length=2 * n - 5)
-    got = selection.take_array(b.column("name"), indices, grow=2)
+    got = selection.take_array(b.column("name"), indices)
     want = selection.take_array(b.column("name").to("cpu"),
-                                indices.to("cpu"), grow=2)
+                                indices.to("cpu"))
     _assert_same(got, want)
 
 

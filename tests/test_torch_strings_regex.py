@@ -56,7 +56,9 @@ def _both(fn, arr, kw, branch):
     tsre.reset_host_hops()
     got = tcall(fn, [t], **kw)
     assert tsre.HOST_HOPS == {branch: 1}, dict(tsre.HOST_HOPS)
-    _assert_same(got, jcall(fn, [j], **kw))
+    # the dictionary and pushdown branches take their results from the
+    # unique values' results
+    _assert_same(got, jcall(fn, [j], **kw), taken=branch != "direct")
     plain = arr.dictionary_decode() if pa.types.is_dictionary(arr.type) \
         else arr
     assert got.to_pylist() == getattr(pc, fn)(plain, **kw).to_pylist()
