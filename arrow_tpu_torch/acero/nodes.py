@@ -120,8 +120,11 @@ def _spill_budget_bytes(options) -> Optional[int]:
 def compact_scalars(b: Batch) -> list:
     """The device scalars ``maybe_compact`` reads: the length, then the
     used bytes of each varlen column. The hash join fetches them with its
-    own scalars in one read."""
-    return [b.length] + [a.offsets[b.length] for a in b.arrays
+    own scalars in one read. A length past the capacity (a probe whose
+    fanout overflowed, which the join retries) reads the last offset."""
+    end = min(b.length, b.capacity) if b.has_static_length else \
+        torch.clamp(b.length, max=b.capacity)
+    return [b.length] + [a.offsets[end] for a in b.arrays
                          if a.type.is_varlen]
 
 

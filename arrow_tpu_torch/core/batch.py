@@ -210,7 +210,14 @@ class Table:
     def join(self, right: "Table", keys, right_keys=None,
              join_type: str = "left outer",
              left_suffix: str = "", right_suffix: str = "",
-             **kw) -> "Table":
+             coalesce_keys: bool = True, **kw) -> "Table":
+        """pyarrow parity (``Table.join``, ``acero.py`` ``_perform_join``):
+        with ``coalesce_keys`` each key column appears once, the left's
+        (the right's for a right outer join); a full outer join's key is
+        the left key where the left row exists, else the right key (a
+        ``coalesce`` of the two after the hashjoin node). Without it,
+        every column of both sides, as the JAX package's ``join`` gives
+        them."""
         from ..acero import (Declaration, HashJoinNodeOptions,
                              TableSourceNodeOptions)
         if isinstance(keys, str):
@@ -218,14 +225,29 @@ class Table:
         right_keys = right_keys or keys
         if isinstance(right_keys, str):
             right_keys = [right_keys]
+        left_cols, right_cols = None, None
+        if coalesce_keys:
+            left_cols, right_cols = self.schema.names, right.schema.names
+            if join_type in ("left semi", "left anti"):
+                right_cols = []
+            elif join_type in ("right semi", "right anti"):
+                left_cols = []
+            elif join_type in ("inner", "left outer"):
+                right_cols = [c for c in right_cols if c not in right_keys]
+            elif join_type == "right outer":
+                left_cols = [c for c in left_cols if c not in keys]
         decl = Declaration("hashjoin", HashJoinNodeOptions(
-            join_type, keys, right_keys,
+            join_type, keys, right_keys, left_cols, right_cols,
             output_suffix_for_left=left_suffix,
             output_suffix_for_right=right_suffix, **kw), [
             Declaration("table_source", TableSourceNodeOptions(self)),
             Declaration("table_source", TableSourceNodeOptions(right)),
         ])
-        return decl.to_table()
+        out = decl.to_table()
+        if coalesce_keys and join_type == "full outer":
+            out = _coalesce_join_keys(out, left_cols, right_cols, keys,
+                                      right_keys)
+        return out
 
     # ---- structural methods (pyarrow.Table parity) -------------------------
     def select(self, names: Sequence[str]) -> "Table":
@@ -387,6 +409,62 @@ class TableGroupBy:
                 target = tuple(target)
             specs.append(AggregateSpec(fn, target, options))
         return _gb(self.table, self.keys, specs, max_groups=self.max_groups)
+
+
+def _coalesce_join_keys(out: Table, left_cols, right_cols, keys,
+                        right_keys) -> Table:
+    """A full outer join's output (``left_cols`` then ``right_cols``) with
+    each left key column replaced by ``coalesce(left key, right key)`` and
+    the right key columns dropped: pyarrow's projection after the join."""
+    nl = len(left_cols)
+    pair = {left_cols.index(k): nl + right_cols.index(rk)
+            for k, rk in zip(keys, right_keys)}
+    drop = set(pair.values())
+    keep = [i for i in range(len(out.schema)) if i not in drop]
+    # a coalesced key keeps its own name (no suffix), as pyarrow's
+    names = {left_cols.index(k): k for k in keys}
+    schema = Schema(tuple(Field(names[i], f.type, f.nullable)
+                          if i in names else f
+                          for i, f in ((i, out.schema.fields[i])
+                                       for i in keep)))
+    batches = []
+    for b in out.batches:
+        arrays = [_coalesce_pair(b.column(i), b.column(pair[i]))
+                  if i in pair else b.arrays[i] for i in keep]
+        batches.append(Batch(schema, arrays, b.length, b.index))
+    return Table(schema, batches)
+
+
+def _coalesce_pair(a: Array, b: Array) -> Array:
+    """``coalesce(a, b)`` of two key columns of one batch, of any key type:
+    ``a``'s row where it is valid, else ``b``'s. A dictionary's codes
+    point into the two dictionaries side by side (``b``'s codes shifted
+    past ``a``'s dictionary) unless both share one; a varlen column is a
+    take of the two concatenated; other values (a (cap, w) decimal too) a
+    ``torch.where`` of their bits."""
+    from ..ops.bits import as_signed_bits
+    ok_a = a.validity_or_true()
+    if a.type.is_varlen:
+        from ..ops.concat import concat_arrays
+        from ..ops.selection import take_array
+        cap = a.capacity
+        both = concat_arrays([a.with_length(cap), b.with_length(cap)])
+        rows = torch.arange(cap, device=a.device)
+        got = take_array(both, Array(dt.int64, torch.where(ok_a, rows,
+                                                           rows + cap)))
+        return got.with_length(a.length)
+    dictionary, vb = a.dictionary, b.values
+    if isinstance(a.type, dt.DictionaryType) and dictionary is not \
+            b.dictionary:
+        from ..ops.concat import concat_arrays
+        vb = vb + int(dictionary.length)
+        dictionary = concat_arrays([dictionary, b.dictionary])
+    va = a.values
+    cond = ok_a.reshape(ok_a.shape + (1,) * (va.ndim - 1))
+    values = torch.where(cond, as_signed_bits(va), as_signed_bits(vb)) \
+        .view(va.dtype)
+    return Array(a.type, values, ok_a | b.validity_or_true(),
+                 length=a.length, dictionary=dictionary)
 
 
 def empty_batch(schema: Schema, capacity: int = 16, device=None) -> Batch:

@@ -217,7 +217,9 @@ __all__ = ["AGGREGATES", "AGGREGATES_ANY_ALL", "AGGREGATES_GENERIC",
            "decimal_q1_numpy", "discount_counts_declaration", "entry_asof",
            "entry_decimal_q1", "entry_sorted_merge", "entry_tpch_gen_q1",
            "example_columns_asof", "q1_differ", "q1_numpy",
-           "sorted_merge_differ", "tpch_gen_q1_declaration"]
+           "sorted_merge_differ", "tpch_gen_q1_declaration", "DIST_CASES",
+           "dist_case_tables", "dist_worker", "launch_dist_workers",
+           "table_host_arrays"]
 
 AGGREGATES = (AggregateSpec("sum", "v"), AggregateSpec("min", "v"),
               AggregateSpec("sum", "w"), AggregateSpec("min", "w"),
@@ -302,16 +304,19 @@ def entry_generic(device=None, n_rows: int = 1024, num_keys: int = 16,
 
 def entry_distributed(device=None, n_shards: int = 8, n_rows: int = 1024,
                       num_keys: int = 16, max_groups_per_shard: int = 64,
-                      seed: int = 0):
+                      seed: int = 0, ctx: Optional[DistContext] = None):
     """(step, (batch,)): step(batch) -> the distributed group-by's Table.
-    The mesh is ``n_shards`` logical shards of ``device``; each shard
+    The mesh is ``n_shards`` logical shards of ``device``, or ``ctx``'s
+    (across processes too: every process stages the same global batch on
+    its first shard's device and keeps its shards of it); each shard
     filters and pre-aggregates its block of rows, the per-group state rows
     are exchanged by key hash and merged, so every group ends on exactly
     one shard."""
-    device = resolve_device(device)
+    device = resolve_device(device) if ctx is None else ctx.devices[0]
     b = batch_from_numpy(example_columns_generic(n_rows, num_keys, seed),
                          device=device)
-    ctx = DistContext(devices=[device] * n_shards)
+    if ctx is None:
+        ctx = DistContext(devices=[device] * n_shards)
     predicate = field("w") > 0
 
     def step(batch: Batch) -> Table:
@@ -533,7 +538,7 @@ def table_from_numpy(cols: Dict[str, np.ndarray], max_batch_rows: int,
 
 
 def q3_declaration(li, od, cu, max_groups: int = 256, dist=None,
-                   segment=None):
+                   segment=None, fanout_capacity: Optional[int] = None):
     """The Q3-shaped Declaration of the JAX package's dry run
     (``__graft_entry__.py``, BASELINE config #5) over the tables ``li``,
     ``od``, ``cu``, on one device, or with ``dist`` (a ``DistContext``) on
@@ -545,7 +550,8 @@ def q3_declaration(li, od, cu, max_groups: int = 256, dist=None,
     are the orders' and customers' row counts (at least 16). With
     ``segment`` (a string, as ``entry_q3s`` passes), the customers are
     filtered by TPC-H's ``c_mktsegment == segment`` instead of
-    ``c_seg == 1``."""
+    ``c_seg == 1``. ``fanout_capacity`` is the lineitem join's (with
+    ``dist``: a shard's)."""
     from .acero import (AggregateNodeOptions, Declaration, FetchNodeOptions,
                         FilterNodeOptions, OrderByNodeOptions,
                         ProjectNodeOptions, TableSourceNodeOptions)
@@ -571,7 +577,7 @@ def q3_declaration(li, od, cu, max_groups: int = 256, dist=None,
             "inner", left_keys=["l_orderkey"], right_keys=["o_orderkey"],
             left_output=["l_orderkey", "l_price", "l_disc"],
             right_output=["o_date"], max_build_rows=max(no, 16),
-            dist=dist),
+            fanout_capacity=fanout_capacity, dist=dist),
             inputs=[
                 Declaration.from_sequence([
                     Declaration("table_source", TableSourceNodeOptions(li)),
@@ -1828,22 +1834,23 @@ def _host_column(t: Table, name: str) -> np.ndarray:
     return np.concatenate(parts) if parts else np.zeros((0,))
 
 
-def dryrun_multichip(n_shards: int = 8, device=None) -> dict:
+def dryrun_multichip(n_shards: int = 8, device=None,
+                     ctx: Optional[DistContext] = None) -> dict:
     """The JAX package's ``dryrun_multichip`` (``__graft_entry__.py``) on
-    ``n_shards`` logical shards of ``device``, with its seeds, sizes and
-    oracles: the distributed group-by (filter -> state-row exchange ->
-    merge), the co-partitioned hash join, the range-partitioned sort, one
-    hot key, and BASELINE config #5's Q3 Declaration with ``dist=`` on both
-    joins and the aggregate against pyarrow's run of the same plan.
-    Raises AssertionError at the first check that fails; returns each
-    check's Table ("group_by", "join", "sort", "skew", "q3") and the Q3
-    plan's input columns ("q3_columns")."""
-    from .acero import (AggregateNodeOptions, Declaration, FetchNodeOptions,
-                        FilterNodeOptions, OrderByNodeOptions,
-                        ProjectNodeOptions, TableSourceNodeOptions)
-    from .compute.expressions import literal
-    device = resolve_device(device)
-    ctx = DistContext(devices=[device] * n_shards)
+    ``n_shards`` logical shards of ``device``, or over ``ctx``'s mesh
+    (across processes too: every process runs the same checks on the same
+    inputs), with its seeds, sizes and oracles: the distributed group-by
+    (filter -> state-row exchange -> merge), the co-partitioned hash join,
+    the range-partitioned sort, one hot key, and BASELINE config #5's Q3
+    Declaration with ``dist=`` on both joins and the aggregate against
+    pyarrow's run of the same plan. Raises AssertionError at the first
+    check that fails; returns each check's Table ("group_by", "join",
+    "sort", "skew", "q3") and the Q3 plan's input columns
+    ("q3_columns")."""
+    if ctx is None:
+        device = resolve_device(device)
+        ctx = DistContext(devices=[device] * n_shards)
+    device, n_shards = ctx.devices[0], ctx.n
 
     rng = np.random.default_rng(0)
     n = 64 * n_shards
@@ -3020,3 +3027,328 @@ def decimal_q1_differ(res, want: dict) -> list:
                                .numpy(), want["counts"]):
         bad.append("discount counts")
     return bad
+
+
+# ---- across processes (ROADMAP A8) -----------------------------------------
+#
+# ``dist_worker`` is one process of a group (``parallel/multihost``): it runs
+# named cases over the global mesh and writes every Table it got, as host
+# arrays, for the launcher (``launch_dist_workers``) to read. The same cases
+# run over a single-controller ``DistContext`` of the same mesh
+# (``dist_case_tables``), which every process's results must equal bit for
+# bit: the same shard holds the same rows in the same order.
+
+DIST_CASES = ("group_by", "join", "sort_at_end", "sort_at_start",
+              "raw_rows_retry", "dict_key", "q3", "dryrun",
+              "too_small_raises", "q3_fanout_raises", "uint64")
+
+
+def dist_case_step(ctx: DistContext, name: str, n_rows: int = 4096,
+                   num_keys: int = 37, seed: int = 0,
+                   max_groups_per_shard: int = 64, n_lineitem: int = 768,
+                   q3_batches: int = 0, q3_batch_rows: int = 64,
+                   q3_max_groups: int = 256):
+    """One case over ``ctx``, its inputs made (on the first shard's
+    device): a function of no arguments whose call runs the case and
+    gives a Table, a dict of Tables (``dryrun``), or the messages every
+    process raised (``too_small_raises``, ``q3_fanout_raises``)."""
+    device = ctx.devices[0]
+    rng = np.random.default_rng(seed)
+    if name == "group_by":
+        # the JAX package's multi-process test: 37 keys, sum and count
+        cols = {"k": rng.integers(0, num_keys, n_rows),
+                "v": rng.standard_normal(n_rows)}
+        b = batch_from_numpy(cols, device=device)
+        return lambda: ctx.group_by(b, ["k"], [("sum", "v"), ("count_all",)],
+                                    max_groups_per_shard=64)
+    if name == "entry_distributed":
+        step, (b,) = entry_distributed(
+            device, ctx.n, n_rows, num_keys, max_groups_per_shard, seed,
+            ctx=ctx)
+        return lambda: step(b)
+    if name == "join":
+        keys = rng.permutation(2 * num_keys)
+        left = batch_from_numpy({
+            "k": array_from_numpy(rng.integers(0, 2 * num_keys, n_rows),
+                                  validity=rng.random(n_rows) >= 0.03,
+                                  device=device),
+            "lv": rng.integers(-1000, 1000, n_rows)}, device=device)
+        right = batch_from_numpy({"k": keys[:num_keys],
+                                  "rv": rng.standard_normal(num_keys)},
+                                 device=device)
+        options = HashJoinNodeOptions(
+            "full outer", ["k"], ["k"], right_output=["k", "rv"],
+            output_suffix_for_right="_r", max_build_rows=2 * num_keys)
+        return lambda: ctx.join(left, right, options)
+    if name in ("sort_at_end", "sort_at_start"):
+        b = batch_from_numpy({
+            "k1": array_from_numpy(rng.integers(0, num_keys, n_rows),
+                                   validity=rng.random(n_rows) >= 0.05,
+                                   device=device),
+            "k2": array_from_numpy(
+                rng.integers(-100, 100, n_rows).astype(np.int32),
+                validity=rng.random(n_rows) >= 0.05, device=device),
+            "v": rng.standard_normal(n_rows)}, device=device)
+        return lambda: ctx.sort_by(
+            b, [("k1", "ascending"), ("k2", "descending")],
+            null_placement=name[len("sort_"):])
+    if name == "raw_rows_retry":
+        # Zipf keys over buckets of one local capacity and 4 groups a
+        # shard: the buckets and the group tables overflow, and the
+        # group-by retries at doubled capacities
+        b = batch_from_numpy({"k": rng.zipf(1.5, n_rows) % (2 * num_keys),
+                              "w": rng.integers(0, 50, n_rows)},
+                             device=device)
+        return lambda: ctx.group_by_raw_rows(
+            b, ["k"], [("count_distinct", "w"), ("count_all",)],
+            max_groups_per_shard=4, bucket_factor=1)
+    if name == "dict_key":
+        words = np.array([f"name{i:04d}" for i in range(num_keys)])
+        codes = rng.integers(0, num_keys, n_rows)
+        b = batch_from_numpy({
+            "s": dictionary_from_numpy(codes, words,
+                                       validity=rng.random(n_rows) >= 0.05,
+                                       device=device),
+            "v": rng.integers(0, 100, n_rows)}, device=device)
+        return lambda: ctx.group_by(b, ["s"], [("sum", "v"), ("min", "v")],
+                                    max_groups_per_shard=2 * num_keys)
+    if name in ("q3", "q3_fanout_raises"):
+        li, od, cu = example_columns_q3(n_lineitem, seed)
+        if q3_batches:
+            li = {k: v[:q3_batches * q3_batch_rows] for k, v in li.items()}
+        tables = (table_from_numpy(li, q3_batch_rows, device),
+                  table_from_numpy(od, q3_batch_rows, device),
+                  table_from_numpy(cu, q3_batch_rows, device))
+        del li, od, cu
+        if name == "q3":
+            return lambda: q3_declaration(*tables, q3_max_groups,
+                                          dist=ctx).to_table()
+
+        def fanout_raises():
+            # a fanout of 2 rows a shard: some shard's probe output
+            # outgrows it mid-stream, the rows past it are dropped on every
+            # process, and finish raises the gathered error on every one
+            try:
+                q3_declaration(*tables, q3_max_groups, dist=ctx,
+                               fanout_capacity=2).to_table()
+            except RuntimeError as e:
+                return str(e)
+            raise AssertionError(f"{name}: no error raised")
+        return fanout_raises
+    if name == "dryrun":
+        def dryrun():
+            out = dryrun_multichip(ctx=ctx)
+            del out["q3_columns"]
+            return out
+        return dryrun
+    if name == "too_small_raises":
+        # 37 keys into group tables of 4 a shard, and one key's 4096 probe
+        # rows into a fanout of 64 a shard: both raise, on every process
+        b = batch_from_numpy({"k": rng.integers(0, num_keys, n_rows),
+                              "v": rng.standard_normal(n_rows)},
+                             device=device)
+        left = batch_from_numpy({"k": np.zeros(n_rows, np.int64),
+                                 "lv": rng.integers(0, 9, n_rows)},
+                                device=device)
+        right = batch_from_numpy({"k": np.arange(4, dtype=np.int64),
+                                  "rv": np.arange(4.0)}, device=device)
+        runs = (lambda: ctx.group_by(b, ["k"], [("sum", "v")],
+                                     max_groups_per_shard=4),
+                lambda: ctx.join(left, right, HashJoinNodeOptions(
+                    "inner", ["k"], ["k"], right_output=["rv"],
+                    max_build_rows=64), fanout_per_shard=64))
+
+        def too_small():
+            msgs = []
+            for run in runs:
+                try:
+                    run()
+                except RuntimeError as e:
+                    msgs.append(str(e))
+                else:
+                    raise AssertionError(f"{name}: no error raised")
+            return "\n".join(msgs)
+        return too_small
+    if name == "uint64":
+        # keys and values from 2^63 up cross the exchange as their bits
+        k = (np.uint64(1) << np.uint64(63)) + \
+            rng.integers(0, num_keys, n_rows).astype(np.uint64)
+        b = batch_from_numpy({"k": k, "v": rng.integers(
+            0, 1 << 62, n_rows).astype(np.uint64) << np.uint64(1)},
+            device=device)
+        return lambda: ctx.group_by(b, ["k"], [("min", "v"), ("max", "v"),
+                                               ("count_all",)],
+                                    max_groups_per_shard=64)
+    raise ValueError(f"no distributed case {name!r}")
+
+
+def dist_case_tables(ctx: DistContext, cases=DIST_CASES, run=None,
+                     **params) -> dict:
+    """Each named case over ``ctx`` (``dist_case_step``, with ``params``):
+    name -> Table or message; a case that gives several Tables (``dryrun``)
+    gives "name.check" for each. ``run(name, step)`` runs a case's step
+    (default: ``step()``)."""
+    out = {}
+    for name in cases:
+        step = dist_case_step(ctx, name, **params)
+        got = step() if run is None else run(name, step)
+        del step
+        if isinstance(got, dict):
+            out.update({f"{name}.{k}": v for k, v in got.items()})
+        else:
+            out[name] = got
+    return out
+
+
+def _host_bits(x) -> np.ndarray:
+    from .ops.bits import as_signed_bits
+    return as_signed_bits(x).cpu().numpy()
+
+
+def table_host_arrays(tables: dict) -> Dict[str, np.ndarray]:
+    """The host arrays of ``dist_case_tables``' results: per case its
+    batches' lengths, each column's values (bits) and validity over the
+    rows in order, a dictionary column's dictionary (offsets and bytes),
+    or the message it raised."""
+    out = {}
+    for name, t in tables.items():
+        if isinstance(t, str):
+            out[f"{name}.error"] = np.array(t)
+            continue
+        out[f"{name}.lengths"] = np.array([len(b) for b in t.batches],
+                                          np.int64)
+        for i, f in enumerate(t.schema.fields):
+            cols = [b.arrays[i] for b in t.batches]
+            lens = [len(b) for b in t.batches]
+            vals = [_host_bits(a.values[:n]) for a, n in zip(cols, lens)]
+            valid = [a.validity_or_true()[:n].cpu().numpy()
+                     for a, n in zip(cols, lens)]
+            out[f"{name}.{i}.values"] = np.concatenate(vals) if vals \
+                else np.zeros(0)
+            out[f"{name}.{i}.validity"] = np.concatenate(valid) if valid \
+                else np.zeros(0, bool)
+            d = cols[0].dictionary if cols else None
+            if d is not None:
+                n = int(d.length)
+                out[f"{name}.{i}.dictionary"] = _host_bits(
+                    d.values[:int(d.offsets[n])])
+                out[f"{name}.{i}.dictionary_offsets"] = \
+                    d.offsets[:n + 1].cpu().numpy()
+    return out
+
+
+def _resolve_hook(hook: Optional[str]):
+    if hook is None:
+        return None
+    import importlib
+    module, fn = hook.split(":")
+    return getattr(importlib.import_module(module), fn)
+
+
+def dist_worker(rank: int, world: int, port: int, local_devices, backend,
+                out_dir: str, cases=DIST_CASES, params=None,
+                hook: Optional[str] = None, timeout: float = 120.0,
+                threads: int = 0) -> None:
+    """One process of a ``world``-process group on this host
+    (``multihost.initialize`` at ``127.0.0.1:port``, this process's shards
+    on ``local_devices`` over ``backend``): runs ``cases`` over the global
+    mesh (``dist_case_tables``; ``hook``, "module:function", runs each
+    case), then writes ``table_host_arrays`` of the results to
+    ``out_dir/rank<rank>.npz``, with whether jax or the JAX package were
+    ever imported here."""
+    import os
+    import sys
+    import torch
+    from .parallel import multihost
+    if threads:
+        torch.set_num_threads(threads)
+    ctx = multihost.initialize(
+        coordinator=f"127.0.0.1:{port}", num_processes=world,
+        process_id=rank, local_devices=local_devices, backend=backend,
+        timeout=timeout)
+    try:
+        tables = dist_case_tables(ctx, cases, _resolve_hook(hook),
+                                  **(params or {}))
+        arrays = table_host_arrays(tables)
+        arrays["imported_jax"] = np.array(
+            any(m == "jax" or m.startswith(("jax.", "arrow_tpu."))
+                or m == "arrow_tpu" for m in sys.modules))
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **arrays)
+    finally:
+        multihost.shutdown()
+
+
+def launch_dist_workers(world: int, local_devices, backend: str,
+                        cases=DIST_CASES, params=None,
+                        hook: Optional[str] = None, timeout: float = 300.0,
+                        threads: int = 0):
+    """Start ``world`` processes of ``dist_worker`` on this host (a free
+    port, a temporary directory), wait for all of them at most ``timeout``
+    seconds (killing every one at the limit), and return (per rank the
+    dict of its arrays, per rank its output). Raises naming the ranks that
+    failed, with their output."""
+    import json
+    import os
+    import shutil
+    import socket
+    import subprocess
+    import sys
+    import tempfile
+    import time
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    out_dir = tempfile.mkdtemp(prefix="arrow_tpu_torch_dist_")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    # the processes share this host: gloo's connections over loopback
+    env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    code = ("import json, sys; from arrow_tpu_torch.entry import "
+            "dist_worker; dist_worker(**json.loads(sys.argv[1]))")
+    procs, logs = [], []
+    try:
+        for rank in range(world):
+            kw = dict(rank=rank, world=world, port=port,
+                      local_devices=[str(d) for d in local_devices],
+                      backend=backend, out_dir=out_dir, cases=list(cases),
+                      params=params or {}, hook=hook,
+                      timeout=max(timeout - 10, 10), threads=threads)
+            log = open(os.path.join(out_dir, f"rank{rank}.log"), "w+")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", code, json.dumps(kw)], stdout=log,
+                stderr=subprocess.STDOUT, env=env, cwd=root))
+        deadline = time.monotonic() + timeout
+        for p in procs:
+            try:
+                p.wait(timeout=max(deadline - time.monotonic(), 0.1))
+            except subprocess.TimeoutExpired:
+                break
+        outputs = []
+        for log in logs:
+            log.seek(0)
+            outputs.append(log.read())
+        hung = [r for r, p in enumerate(procs) if p.poll() is None]
+        failed = [r for r, p in enumerate(procs)
+                  if p.poll() is not None and p.returncode != 0]
+        if hung or failed:
+            raise RuntimeError(
+                f"launch_dist_workers: ranks {failed} failed, ranks {hung} "
+                f"ran past {timeout} s; output:\n" + "\n".join(
+                    f"--- rank {r} ---\n{o[-4000:]}"
+                    for r, o in enumerate(outputs)))
+        results = []
+        for rank in range(world):
+            with np.load(os.path.join(out_dir, f"rank{rank}.npz")) as z:
+                results.append({k: z[k] for k in z.files})
+        return results, outputs
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+        shutil.rmtree(out_dir, ignore_errors=True)

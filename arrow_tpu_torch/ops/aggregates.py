@@ -1156,7 +1156,7 @@ def make_grouped_aggregator(name: str, in_type: Optional[dt.DataType],
                 in_type, dt.DictionaryType) or
                 (isinstance(in_type, dt.DecimalType) and in_type.wide)):
         raise NotImplementedError(
-            f"hash_{key} of {in_type}: not ported (ROADMAP C32 (c))")
+            f"hash_{key} of {in_type}: not ported (ROADMAP C37)")
     if key not in GROUPED_AGGREGATORS:
         # list and pivot_wider live in kernel modules loaded on demand
         from ..compute.registry import ensure_kernels_loaded

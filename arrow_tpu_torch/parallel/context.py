@@ -1,11 +1,20 @@
 """Distributed execution context: a mesh + table operations over it.
 
 The counterpart of the JAX package's ``parallel/context.py``. That package
-is single-controller SPMD: one process, ``shard_map`` over n devices. So is
-this one: a ``Mesh`` is an ordered list of n ``torch.device``s under an axis
-name, **which may repeat one device** (n logical shards on one card, or on
-the CPU), one process runs each shard's step in turn on that shard's
-device, and the shards meet only in ``parallel/shuffle.exchange``.
+is SPMD: ``shard_map`` over n devices, of one process or of several
+(``parallel/multihost.py``). So is this one: a ``Mesh`` is an ordered list
+of ``torch.device``s under an axis name, **which may repeat one device**
+(logical shards on one card, or on the CPU), one process runs each of its
+shards' steps in turn on that shard's device, and the shards meet only in
+``parallel/shuffle.exchange``. Across processes (a mesh with a
+``torch.distributed`` group, ``multihost.initialize``) every process holds
+the same number L of shards, process r the global shards [r·L, (r+1)·L):
+the JAX package's process-major device order. Every process runs the same
+calls on the same global input; ``shard_batch`` keeps its own shards, the
+exchange is a collective, and the host reads (``fetch``) and the results
+(``_collect_shards``) are gathered, so that every process takes the same
+branches and returns every shard's rows, as the JAX package's
+``process_allgather`` gives them.
 
 Layout: a distributed table is a ``ShardedBatch``: the rows of a Batch in
 contiguous blocks of ``capacity / n`` rows, one local Batch per shard on
@@ -22,24 +31,28 @@ partition, then one local sort per shard).
 from __future__ import annotations
 
 import copy
+import math
 from types import SimpleNamespace
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..compute.expressions import Expression, execute_scalar_expression
 from ..core import datatype as dt
 from ..core.array import Array
 from ..core.batch import Batch, Table, empty_batch
 from ..core.schema import Schema
-from ..ops.bits import ascending_lanes32, ordered_signed
+from ..ops.bits import SIGNED_OF, as_signed_bits, ascending_lanes32, \
+    ordered_signed
 from ..ops.aggregates import GroupedCountDistinct
 from ..ops.concat import concat_batches
 from ..ops.hash_aggregate import AggregateSpec, HashAggregate
 from ..ops.join import HashJoin
 from ..ops.selection import filter_batch, take_batch
 from ..ops.sorting import SortKey, SortOptions, sort_indices_batch
+from . import collective
 from .shuffle import dictionaries_on, shuffle_batch
 
 __all__ = ["DistContext", "Mesh", "ShardedBatch"]
@@ -49,26 +62,43 @@ _MAX_BUFFER_ROWS = 1 << 31
 
 
 class Mesh:
-    """An ordered list of devices, one per shard, under one axis name."""
+    """An ordered list of devices, one per shard, under one axis name.
+    With a process ``group`` the devices are this process's shards, and
+    the mesh is every process's: ``size`` = len(devices) x the group's
+    size, this process's shards starting at global index ``first``."""
 
-    def __init__(self, devices: Sequence, axis: str = "d"):
+    def __init__(self, devices: Sequence, axis: str = "d", group=None):
         self.devices = [torch.device(d) for d in devices]
         if not self.devices:
             raise ValueError("a mesh needs at least one device")
         self.axis = axis
+        self.group = group
+        self.world = 1 if group is None else dist.get_world_size(group)
+        self.rank = 0 if group is None else dist.get_rank(group)
+
+    @property
+    def size(self) -> int:
+        return len(self.devices) * self.world
+
+    @property
+    def first(self) -> int:
+        return self.rank * len(self.devices)
 
     @property
     def shape(self) -> dict:
-        return {self.axis: len(self.devices)}
+        return {self.axis: self.size}
 
     def __repr__(self) -> str:
-        return f"Mesh({self.axis}={[str(d) for d in self.devices]})"
+        procs = "" if self.group is None else \
+            f", process {self.rank} of {self.world}"
+        return f"Mesh({self.axis}={[str(d) for d in self.devices]}{procs})"
 
 
 class ShardedBatch:
-    """A Batch split over a mesh: ``shards[s]`` holds rows
-    [s * local_capacity, (s + 1) * local_capacity) on ``mesh.devices[s]``,
-    with its local length; ``length`` is the global length."""
+    """A Batch split over a mesh: ``shards[i]`` holds global shard
+    s = ``mesh.first`` + i, rows [s * local_capacity, (s + 1) *
+    local_capacity), on ``mesh.devices[i]``, with its local length;
+    ``length`` is the global length."""
 
     def __init__(self, mesh: Mesh, schema: Schema, shards: List[Batch],
                  length):
@@ -83,7 +113,7 @@ class ShardedBatch:
 
     @property
     def capacity(self) -> int:
-        return self.local_capacity * len(self.shards)
+        return self.local_capacity * self.mesh.size
 
     def __len__(self) -> int:
         return int(self.length)
@@ -182,10 +212,12 @@ def _grown(spec: AggregateSpec, agg, rows: int):
 
 
 class DistContext:
-    """Single-controller loop over a 1-D data mesh."""
+    """A loop over this process's shards of a 1-D data mesh; with a
+    process ``group``, every process's loop over its own shards, the
+    processes meeting in the exchange, ``fetch`` and the results."""
 
     def __init__(self, mesh: Optional[Mesh] = None, axis: str = "d",
-                 devices=None):
+                 devices=None, group=None):
         if mesh is None:
             if devices is None:
                 # the default is the cards, as every entry point's is
@@ -195,21 +227,40 @@ class DistContext:
                     raise RuntimeError(
                         "DistContext: no CUDA device; pass devices=[...] "
                         "(a device may repeat: logical shards)")
-            mesh = Mesh(devices, axis)
+            mesh = Mesh(devices, axis, group)
         self.mesh = mesh
         self.axis = mesh.axis
         self.n = mesh.shape[self.axis]
+        self.group = mesh.group
+        # the mesh spans processes, as the JAX package's ``multihost``
+        self.multihost = mesh.world > 1
 
     @property
     def devices(self) -> List[torch.device]:
+        """This process's shards' devices."""
         return self.mesh.devices
 
     def fetch(self, tensors: Sequence[torch.Tensor]) -> np.ndarray:
-        """The shards' equal-shaped small tensors (error flags, lengths) as
-        one numpy array with a leading shard axis: gathered on the first
-        shard's device, then ONE copy to the host."""
+        """This process's shards' equal-shaped small tensors (error flags,
+        lengths) as one numpy array with a leading shard axis: gathered on
+        the first shard's device, then ONE copy to the host. The list may
+        hold k per-shard lists one after another (errors, then lengths):
+        the result holds k x n rows, each list's n shards in order. With a
+        process group the n shards are every process's, gathered by ONE
+        collective, so every process reads the same array."""
         dev = tensors[0].device
-        return torch.stack([t.to(dev) for t in tensors]).cpu().numpy()
+        local = torch.stack([t.to(dev) for t in tensors])
+        if self.group is None:
+            return local.cpu().numpy()
+        L, world = len(self.devices), self.mesh.world
+        if len(tensors) % L:
+            raise ValueError(f"fetch: {len(tensors)} tensors are not whole "
+                             f"lists of this process's {L} shards")
+        k = len(tensors) // L
+        got = collective.all_gather(local, self.group).cpu().numpy()
+        rest = got.shape[2:]
+        return got.reshape((world, k, L) + rest).swapaxes(0, 1) \
+            .reshape((k * world * L,) + rest)
 
     # -------------------------------------------------------------------
     def shard_batch(self, b: Batch) -> ShardedBatch:
@@ -226,10 +277,12 @@ class DistContext:
             if b.column(i).type.is_varlen:
                 raise NotImplementedError(
                     "distributed varlen columns: dictionary-encode first")
-        dicts = dictionaries_on([[a.dictionary for a in b.arrays]] * n,
-                                self.devices)
+        dicts = dictionaries_on(
+            [[a.dictionary for a in b.arrays]] * len(self.devices),
+            self.devices)
         shards = []
-        for s, dev in enumerate(self.devices):
+        for i, dev in enumerate(self.devices):
+            s = self.mesh.first + i
             lo, hi = s * local_cap, (s + 1) * local_cap
             if b.has_static_length:
                 local_len = min(max(int(b.length) - lo, 0), local_cap)
@@ -239,8 +292,8 @@ class DistContext:
                 a.type, _slice_rows(a.values, lo, hi, dev),
                 None if a.validity is None
                 else _slice_rows(a.validity, lo, hi, dev),
-                length=local_len, dictionary=dicts[s][i])
-                for i, a in enumerate(b.arrays)]
+                length=local_len, dictionary=dicts[i][c])
+                for c, a in enumerate(b.arrays)]
             shards.append(Batch(b.schema, arrays, local_len))
         return ShardedBatch(self.mesh, b.schema, shards, b.length)
 
@@ -305,7 +358,8 @@ class DistContext:
                 local = filter_batch(local, mask)
             locals_.append(local)
         shuffled = shuffle_batch(locals_, keys, self.devices,
-                                 bucket_capacity=bucket_factor * local_cap)
+                                 bucket_capacity=bucket_factor * local_cap,
+                                 group=self.group)
         del locals_
         received_rows = shuffled[0][0].capacity
         outs, flags, carriers = [], [], []
@@ -375,11 +429,13 @@ class DistContext:
         lcap, rcap = left.local_capacity, right.local_capacity
         fanout = fanout_per_shard or max(2 * lcap, 1 << 12)
         lsh = shuffle_batch(left.shards, hj.left_keys, self.devices,
-                            bucket_capacity=bucket_factor * lcap)
+                            bucket_capacity=bucket_factor * lcap,
+                            group=self.group)
         rsh = shuffle_batch(right.shards, hj.right_keys, self.devices,
-                            bucket_capacity=bucket_factor * rcap)
+                            bucket_capacity=bucket_factor * rcap,
+                            group=self.group)
         outs, errs = [], []
-        for s in range(self.n):
+        for s in range(len(self.devices)):
             (lb, lerr), (rb, rerr) = lsh[s], rsh[s]
             lsh[s] = rsh[s] = None
             bs = hj.build(rb)
@@ -428,9 +484,12 @@ class DistContext:
         ranged = [_range_key(local, keys[0], null_placement)
                   for local in b.shards]
         dev0 = self.devices[0]
-        allsamp = torch.sort(torch.cat(
-            [torch.sort(kv[::stride]).values.to(dev0)
-             for kv, _ in ranged])).values
+        samples = torch.stack([torch.sort(kv[::stride]).values.to(dev0)
+                               for kv, _ in ranged])
+        if self.multihost:
+            # every process's samples, so that all compute the same bounds
+            samples = collective.all_gather(samples, self.group)
+        allsamp = torch.sort(samples.reshape(-1)).values
         S = allsamp.shape[0]
         bounds = allsamp[torch.arange(1, n, device=dev0) * (S // n)]
         null_dest = n - 1 if null_placement == "at_end" else 0
@@ -443,10 +502,10 @@ class DistContext:
         del ranged
         shuffled = shuffle_batch(b.shards, [], self.devices,
                                  bucket_capacity=bucket_factor * local_cap,
-                                 dest=dests)
+                                 dest=dests, group=self.group)
         del dests
         outs, errs = [], []
-        for s in range(n):
+        for s in range(len(self.devices)):
             shuf, err = shuffled[s]
             shuffled[s] = None
             outs.append(take_batch(shuf, sort_indices_batch(shuf, opts)))
@@ -459,18 +518,131 @@ class DistContext:
                         hint: str = "raise bucket_factor/capacities or "
                         "repartition skewed keys", dicts=None) -> Table:
         """The shards' result batches as one Table: one batch per shard
-        that has rows, in shard order, each left on its device; ``dicts``
-        (per shard, per field: a dictionary or None) replace the
-        dictionaries the batches carry."""
+        that has rows, in shard order (``shard_results``). Raises on every
+        process where any shard's error is set."""
         if errs_host.any():
             raise RuntimeError(
                 f"distributed {what} overflow (per-shard errors="
                 f"{errs_host.tolist()}): {hint}")
-        lengths = [torch.as_tensor(o.length, device=o.device) for o in outs]
-        lengths_host = self.fetch(lengths)
-        dicts = dicts or [None] * len(outs)
-        batches = [_with_validity(o, int(ln), d)
-                   for o, ln, d in zip(outs, lengths_host, dicts) if int(ln)]
+        sizes = self.fetch(self.result_sizes(outs))
+        batches = self.shard_results(schema, outs, sizes[:self.n], dicts,
+                                     sizes[self.n:])
         if not batches:
             batches = [empty_batch(schema, device=self.devices[0])]
         return Table(schema, batches)
+
+    @staticmethod
+    def result_sizes(outs: Sequence[Batch]) -> List[torch.Tensor]:
+        """The scalars ``shard_results`` reads: this process's shards'
+        result lengths, then their capacities (int64; one ``fetch`` with a
+        caller's own scalars before them)."""
+        return [torch.as_tensor(o.length, device=o.device).to(torch.int64)
+                for o in outs] + [torch.tensor(o.capacity, device=o.device)
+                                  for o in outs]
+
+    def shard_results(self, schema: Schema, outs: Sequence[Batch],
+                      lengths_host: np.ndarray, dicts=None,
+                      capacities_host: Optional[np.ndarray] = None
+                      ) -> List[Batch]:
+        """Every shard's batch that has rows (``lengths_host`` /
+        ``capacities_host``: every shard's length and capacity, ``fetch``'s
+        of ``result_sizes``), in shard order, every validity present;
+        ``dicts`` (per local shard, per field: a dictionary or None)
+        replace the dictionaries this process's batches carry. A local
+        shard's batch stays on its device. Across processes, the other
+        processes' shards' rows come by ONE all-gather of their bytes onto
+        this process's first device, as the JAX package's
+        ``process_allgather`` brings them, each in a batch of its shard's
+        capacity (zeros past its rows), so that every process holds
+        batches of the same shapes and splits them alike downstream;
+        their dictionary columns read through this process's first
+        shard's dictionaries (the shards of one input share its
+        dictionary). Flat and dictionary columns only: a varlen or nested
+        result raises on every process. A shard whose output outgrew its
+        capacity (an overflow, raised later at its operator's finish) keeps
+        its first capacity rows, on every process alike, so that every
+        process reaches that finish."""
+        if capacities_host is not None:
+            lengths_host = np.minimum(lengths_host, capacities_host)
+        dicts = dicts or [None] * len(outs)
+        local = [_with_validity(o, int(ln), d) for o, ln, d in
+                 zip(outs, lengths_host[self.mesh.first:], dicts)]
+        if not self.multihost:
+            return [b for b in local if len(b)]
+        return self._gathered_results(schema, local, lengths_host,
+                                      capacities_host)
+
+    def _gathered_results(self, schema: Schema, local: List[Batch],
+                          lengths_host: np.ndarray,
+                          capacities_host: np.ndarray) -> List[Batch]:
+        """``shard_results`` across processes: each process packs its
+        shards' rows (values, then validity, per column; 16-byte aligned)
+        into one byte buffer whose size every process computes from
+        ``lengths_host``; one ``all_gather_bytes``; the other processes'
+        shards unpacked as batches on this process's first device."""
+        for f, a in zip(schema.fields, local[0].arrays):
+            if a.offsets is not None or a.children is not None:
+                raise NotImplementedError(
+                    f"distributed results across processes: column "
+                    f"{f.name!r} of type {f.type} (flat and dictionary "
+                    f"columns only)")
+        leaf_specs = []              # per column: (dtype, row shape) x 2
+        for a in local[0].arrays:
+            leaf_specs.append(((a.values.dtype, tuple(a.values.shape[1:])),
+                               (torch.bool, ())))
+
+        def nbytes(spec, rows):
+            dtype, row = spec
+            return -(-rows * math.prod(row) * dtype.itemsize // 16) * 16
+
+        L, world = len(self.devices), self.mesh.world
+        sizes = [sum(nbytes(sp, int(lengths_host[q * L + i]))
+                     for i in range(L) for pair in leaf_specs for sp in pair)
+                 for q in range(world)]
+        dev0 = self.devices[0]
+        parts = []
+        for b in local:
+            n = len(b)
+            for a, pair in zip(b.arrays, leaf_specs):
+                for x, sp in zip((a.values, a.validity), pair):
+                    flat = collective.as_bytes(
+                        as_signed_bits(x[:n]).to(dev0))
+                    pad = nbytes(sp, n) - flat.numel()
+                    parts.append(flat)
+                    if pad:
+                        parts.append(flat.new_zeros((pad,)))
+        mine = torch.cat(parts) if parts else \
+            torch.zeros((0,), dtype=torch.uint8, device=dev0)
+        got = collective.all_gather_bytes(mine, sizes, self.group)
+        del mine, parts
+        batches = []
+        for q in range(world):
+            off = 0
+            for i in range(L):
+                s = q * L + i
+                n = int(lengths_host[s])
+                if not n:
+                    continue
+                if q == self.mesh.rank:
+                    batches.append(local[i])
+                    continue
+                cap = int(capacities_host[s])
+                arrays = []
+                for f, a0, pair in zip(schema.fields, local[0].arrays,
+                                       leaf_specs):
+                    leaves = []
+                    for sp in pair:
+                        dtype, row = sp
+                        size = nbytes(sp, n)
+                        signed = SIGNED_OF.get(dtype, dtype)
+                        raw = got[q][off:off + size]
+                        off += size
+                        leaf = torch.zeros((cap,) + row, dtype=signed,
+                                           device=dev0)
+                        leaf[:n] = raw.view(signed)[:n * math.prod(row)] \
+                            .reshape((n,) + row)
+                        leaves.append(leaf.view(dtype))
+                    arrays.append(Array(f.type, leaves[0], leaves[1],
+                                        length=n, dictionary=a0.dictionary))
+                batches.append(Batch(schema, arrays, n))
+        return batches

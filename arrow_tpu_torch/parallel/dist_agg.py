@@ -25,9 +25,10 @@ merges, the codes with it attached, so by the content they name. A raw
 varlen key raises where the JAX package's does: at ``consume``'s
 ``shard_batch``.
 
-The state is a list with one HashAggregate state per shard, each on its
-shard's device. ``state_from_numpy`` / ``state_to_numpy`` carry it from and
-to the JAX package's packed form.
+The state is a list with one HashAggregate state per shard of this
+process, each on its shard's device. ``state_from_numpy`` /
+``state_to_numpy`` carry it from and to the JAX package's packed form
+(this process's shards of it, across processes).
 """
 
 from __future__ import annotations
@@ -131,9 +132,9 @@ class DistGroupBy:
 
     # ------------------------------------------------------------------
     def _key_arrays(self, s: int, pairs) -> List[Array]:
-        """Shard s's key columns of state rows from their (values,
-        validity): a dictionary key's codes with the dictionary captured on
-        shard s attached."""
+        """This process's shard s's key columns of state rows from their
+        (values, validity): a dictionary key's codes with the dictionary
+        captured on shard s attached."""
         return [Array(f.type, v, m, dictionary=self._key_dicts[f.name][s]
                       if f.name in self._key_dicts else None)
                 for f, (v, m) in zip(self.ha.key_fields, pairs)]
@@ -190,10 +191,11 @@ class DistGroupBy:
             leaves.append(lv)
             dests.append(dest)
             local_errs.append(err)
-        received = shuffle_rows(leaves, dests, self.G, ctx.devices)
+        received = shuffle_rows(leaves, dests, self.G, ctx.devices,
+                                group=ctx.group)
         del leaves, dests
         outs, errs = [], []
-        for s in range(self.n):
+        for s in range(len(state)):
             recv, total, x_err = received[s]
             received[s] = None
             out, m_err = self._merge_received(s, recv, total)
@@ -217,19 +219,21 @@ def _leaves(st) -> tuple:
 
 
 def state_from_numpy(dgb: DistGroupBy, leaves, dictionaries=None) -> List:
-    """The port's per-shard states from the JAX ``DistGroupBy`` state whose
-    leaves were fetched as numpy; shard s's state lands on shard s's
-    device. The state holds a dictionary key's codes; ``dictionaries``
-    maps such a key's name to its dictionary (a port Array), which ``dgb``
-    captures as its ``consume`` would."""
-    n = dgb.n
+    """The port's per-shard states of this process's shards from the JAX
+    ``DistGroupBy`` state (every shard's) whose leaves were fetched as
+    numpy; global shard s's state lands on its device. The state holds a
+    dictionary key's codes; ``dictionaries`` maps such a key's name to its
+    dictionary (a port Array), which ``dgb`` captures as its ``consume``
+    would."""
+    n, devices = dgb.n, dgb.ctx.devices
     for name, d in (dictionaries or {}).items():
         dgb._key_dicts[name] = [
-            ds[0] for ds in dictionaries_on([[d]] * n, dgb.ctx.devices)]
+            ds[0] for ds in dictionaries_on([[d]] * len(devices), devices)]
     per_shard = [np.split(np.asarray(leaf), n) for leaf in leaves]
+    first = dgb.ctx.mesh.first
     out = []
-    for s, dev in enumerate(dgb.ctx.devices):
-        it = iter(leaf[s] for leaf in per_shard)
+    for i, dev in enumerate(devices):
+        it = iter(leaf[first + i] for leaf in per_shard)
         gs = SimpleNamespace(table_lanes=next(it), table_gid=next(it),
                              num_groups=next(it).reshape(()),
                              error=next(it).reshape(()))
@@ -247,7 +251,8 @@ def state_from_numpy(dgb: DistGroupBy, leaves, dictionaries=None) -> List:
 
 def state_to_numpy(dgb: DistGroupBy, state: List) -> tuple:
     """The JAX ``DistGroupBy`` state (numpy leaves) of the port's per-shard
-    states."""
+    states (across processes: this process's shards' part, which the
+    processes' parts concatenate to in rank order)."""
     def host(t):
         return np.atleast_1d(t.cpu().numpy())
 

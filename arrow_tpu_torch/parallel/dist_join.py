@@ -15,9 +15,11 @@ partitioned. The shape follows the one-device plan node:
   finish:       the right / full outer and right semi / anti tails, which
                 are shard-local (every build row lives on one shard).
 
-The state is a list with one entry per shard, each on its shard's device;
-nothing is compiled. A probe batch costs one host read (the shards' output
-lengths), ``finish`` one (errors and tail lengths together).
+The state is a list with one entry per shard of this process, each on its
+shard's device; nothing is compiled. A probe batch costs one host read (the
+shards' output lengths), ``finish`` one (errors and tail lengths
+together); across processes each read is one collective, and every
+process yields every shard's output rows (``DistContext.shard_results``).
 
 Dictionary columns: the accumulation holds a build column's codes, and
 each side's dictionaries are captured by name, the first seen, as in the
@@ -43,8 +45,7 @@ from ..core.schema import Schema
 from ..ops.bits import as_signed_bits
 from ..ops.join import BuildState, HashJoin
 from ..ops.kernel_utils import torch_dtype
-from .context import _with_validity, capture_dictionaries, \
-    join_dictionaries
+from .context import capture_dictionaries, join_dictionaries
 from .shuffle import shuffle_batch
 
 __all__ = ["DistHashJoin"]
@@ -125,8 +126,8 @@ class DistHashJoin:
         self.fanout = fanout_per_shard
         # per shard, the dictionaries of the build and of the probe
         # batches' dictionary columns by name, the first seen
-        self._build_dicts = [{} for _ in range(self.n)]
-        self._probe_dicts = [{} for _ in range(self.n)]
+        self._build_dicts = [{} for _ in ctx.devices]
+        self._probe_dicts = [{} for _ in ctx.devices]
 
     @staticmethod
     def _capture_dicts(dicts, b) -> None:
@@ -148,7 +149,8 @@ class DistHashJoin:
         self._capture_dicts(self._build_dicts, b)
         shuffled = shuffle_batch(
             b.shards, self.hj.right_keys, self.ctx.devices,
-            bucket_capacity=self.bucket_factor * b.local_capacity)
+            bucket_capacity=self.bucket_factor * b.local_capacity,
+            group=self.ctx.group)
         for s, acc in enumerate(state):
             shuf, err = shuffled[s]
             shuffled[s] = None
@@ -177,7 +179,8 @@ class DistHashJoin:
         fanout = self.fanout or max(2 * local_cap, 1 << 12)
         shuffled = shuffle_batch(
             b.shards, self.hj.left_keys, self.ctx.devices,
-            bucket_capacity=self.bucket_factor * local_cap)
+            bucket_capacity=self.bucket_factor * local_cap,
+            group=self.ctx.group)
         outs, new_state = [], []
         for s, bs in enumerate(pstate):
             shuf, err = shuffled[s]
@@ -187,19 +190,17 @@ class DistHashJoin:
             outs.append(out)
         if outs[0] is None:
             return [], new_state
-        lengths = self.ctx.fetch([torch.as_tensor(o.length, device=o.device)
-                                  .to(torch.int64) for o in outs])
-        return self._collect(outs, lengths), new_state
+        sizes = self.ctx.fetch(self.ctx.result_sizes(outs))
+        return self._collect(outs, sizes), new_state
 
     def finish(self, pstate: List[BuildState]) -> List[Batch]:
         """Per-shard trailing rows; raises if any shard's build, exchange
         or fanout overflowed. One host read: the errors and the tails'
-        lengths together."""
+        lengths and capacities together."""
         tails = [self.hj.finish(bs) for bs in pstate]
         scalars = [bs.error.to(torch.int64) for bs in pstate]
         if tails[0] is not None:
-            scalars += [torch.as_tensor(t.length, device=t.device)
-                        .to(torch.int64) for t in tails]
+            scalars += self.ctx.result_sizes(tails)
         host = self.ctx.fetch(scalars)
         errs = host[:self.n]
         if errs.any():
@@ -211,10 +212,15 @@ class DistHashJoin:
             return []
         return self._collect(tails, host[self.n:])
 
-    def _collect(self, outs: List[Batch], lengths: np.ndarray) -> List[Batch]:
-        """The shards' batches that hold rows, in shard order, each left on
-        its device with its host length, every validity present and the
-        captured dictionaries attached."""
-        return [_with_validity(o, int(ln), join_dictionaries(self.hj, pd, bd))
-                for o, ln, pd, bd in zip(outs, lengths, self._probe_dicts,
-                                         self._build_dicts) if int(ln)]
+    def _collect(self, outs: List[Batch], sizes: np.ndarray) -> List[Batch]:
+        """Every shard's batch that holds rows, in shard order, with its
+        host length (``sizes``: every shard's length, then capacity),
+        every validity present and the captured dictionaries attached
+        (``DistContext.shard_results``: across processes the other
+        processes' shards' rows too)."""
+        n = self.n
+        return self.ctx.shard_results(
+            self.hj.out_schema, outs, sizes[:n],
+            [join_dictionaries(self.hj, pd, bd)
+             for pd, bd in zip(self._probe_dicts, self._build_dicts)],
+            sizes[n:])

@@ -26,24 +26,31 @@ shard's LOCAL tensors, run for each shard in turn on its device, and
      received (P, B) buckets compact to the front of one local buffer.
 
 ``shuffle_rows`` and ``shuffle_batch`` compose the three over per-shard
-lists. The per-shard steps see local tensors only, so a multi-process
-``torch.distributed`` form of ``exchange`` can take this one's place
-without touching them (ROADMAP A8).
+lists. The per-shard steps see local tensors only, so across processes
+(``group=``, a ``torch.distributed`` process group; ROADMAP A8) they run
+unchanged over this process's shards, and ``exchange`` takes its
+collective form: process r's L shards are the global shards [r·L,
+(r+1)·L), P is every process's shards together, and the buckets cross by
+``all_to_all_single`` (``_exchange_group``).
 """
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.array import Array, row_mask
 from ..core.batch import Batch
 from ..core.schema import Schema
-from ..ops.bits import as_signed_bits
+from ..ops.bits import SIGNED_OF, as_signed_bits
 from ..ops.cuda_kernels import partition_histogram_segments, \
     partition_positions
 from ..ops.hashing import hash32
+from . import collective
 
 __all__ = ["partition_for_exchange", "exchange", "flatten_received",
            "shuffle_batch", "shuffle_rows", "dictionaries_on",
@@ -194,14 +201,26 @@ def partition_for_exchange(b: Batch, key_names: Sequence[str],
 
 # ---- all shards: the collective ----------------------------------------------
 
-def exchange(send_buffers, counts, devices: Sequence[torch.device]):
+_ALIGN = 16
+
+
+def _aligned(nbytes: int) -> int:
+    return -(-nbytes // _ALIGN) * _ALIGN
+
+
+def exchange(send_buffers, counts, devices: Sequence[torch.device],
+             group=None):
     """The all-to-all of the (P, B) buckets and their counts over the mesh.
 
     ``send_buffers[s]`` is shard s's list of (P, B, ...) buffers (None
     passes through) and ``counts[s]`` its (P,) counts; ``devices[p]`` is
     where shard p lives. Returns (recv, recv_counts) with
     ``recv[p][leaf][s] = send_buffers[s][leaf][p]`` and
-    ``recv_counts[p][s] = counts[s][p]``, on ``devices[p]``."""
+    ``recv_counts[p][s] = counts[s][p]``, on ``devices[p]``. With
+    ``group``, s and p index this process's shards and P spans every
+    process's (``_exchange_group``)."""
+    if group is not None:
+        return _exchange_group(send_buffers, counts, devices, group)
     n = len(devices)
 
     def gather(per_shard, p):
@@ -215,6 +234,82 @@ def exchange(send_buffers, counts, devices: Sequence[torch.device]):
             else gather([send_buffers[s][j] for s in range(n)], p)
             for j in range(len(send_buffers[0]))])
         recv_counts.append(gather(counts, p))
+    return recv, recv_counts
+
+
+def _exchange_group(send_buffers, counts, devices, group):
+    """``exchange`` across the processes of ``group``, each holding L
+    shards (process r the global shards [r·L, (r+1)·L)).
+
+    ONE all-gather gives every process every shard's counts (the (P, P)
+    matrix, read on the host); from it every process computes, for each
+    (source process, destination process), the most rows any of its
+    buckets holds, capped at B: the rows of that block that cross, the
+    rest of each bucket being the zeros its send buffer holds anyway.
+    Each leaf's blocks are laid out per destination process as (L source
+    shards, L destination shards, rows, ...) and the bytes of every leaf
+    cross in ONE ``all_to_all_single``;
+    each received block lands in zero-filled (P, B, ...) buffers, so the
+    result is ``exchange``'s: ``recv[p][leaf][s] = send_buffers[s][leaf][p]``
+    for every global s."""
+    L = len(devices)
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    n = L * world
+    dev0 = devices[0]
+    local = torch.stack([c.to(dev0, torch.int32) for c in counts])
+    m = collective.all_gather(local, group).reshape(n, n).cpu().numpy()
+    leaves = [j for j, x in enumerate(send_buffers[0]) if x is not None]
+    B = send_buffers[0][leaves[0]].shape[1] if leaves else 0
+    rows = np.minimum(m.reshape(world, L, world, L).max(axis=(1, 3)), B)
+    spec = {j: (send_buffers[0][j].dtype, tuple(send_buffers[0][j].shape[2:]))
+            for j in leaves}
+
+    def nbytes(j, t):
+        dtype, row = spec[j]
+        return L * L * int(t) * math.prod(row) * dtype.itemsize
+
+    def block(buf, off, j, t):
+        """The (L, L, t, ...) leaf-j view at byte ``off`` of ``buf``."""
+        dtype, row = spec[j]
+        return buf[off:off + nbytes(j, t)].view(SIGNED_OF.get(dtype, dtype)) \
+            .view((L, L, int(t)) + row)
+
+    recv = [[None if x is None else torch.zeros(
+        (n,) + tuple(x.shape[1:]), dtype=x.dtype, device=devices[p])
+        for x in send_buffers[0]] for p in range(L)]
+    # no call where no block holds a row (every process knows the counts)
+    if rows.any():
+        send_sizes = [sum(_aligned(nbytes(j, rows[rank, r])) for j in leaves)
+                      for r in range(world)]
+        recv_sizes = [sum(_aligned(nbytes(j, rows[q, rank])) for j in leaves)
+                      for q in range(world)]
+        send = torch.empty((sum(send_sizes),), dtype=torch.uint8,
+                           device=dev0)
+        off = 0
+        for r in range(world):
+            t = rows[rank, r]
+            for j in leaves:
+                view = block(send, off, j, t)
+                for s in range(L):
+                    view[s].copy_(as_signed_bits(
+                        send_buffers[s][j][r * L:(r + 1) * L, :t]))
+                off += _aligned(nbytes(j, t))
+        got = collective.all_to_all_bytes(send, send_sizes, recv_sizes,
+                                          group)
+        del send
+        off = 0
+        for q in range(world):
+            t = rows[q, rank]
+            for j in leaves:
+                view = block(got, off, j, t)
+                for p in range(L):
+                    as_signed_bits(recv[p][j])[q * L:(q + 1) * L, :t] \
+                        .copy_(view[:, p])
+                off += _aligned(nbytes(j, t))
+        del got
+    first = rank * L
+    recv_counts = [torch.from_numpy(np.ascontiguousarray(m[:, first + p]))
+                   .to(devices[p]) for p in range(L)]
     return recv, recv_counts
 
 
@@ -256,54 +351,63 @@ def flatten_received(schema: Schema, dictionaries, recv_buffers,
 
 # ---- the three composed over the mesh ----------------------------------------
 
-def _over_mesh(dest_step, send_step, receive_step, devices, B: int):
+def _over_mesh(dest_step, send_step, receive_step, devices, B: int,
+               group=None):
     """``dest_step(s)`` -> shard s's int32 destinations for every shard;
     per device ONE ``_bucket_positions`` call over the shards whose
     destinations lie there; ``send_step(s, counts, positions)`` -> (send,
     counts, error) for every shard; the exchange; then
     ``receive_step(p, recv, recv_counts)`` for every shard. Each shard's
     buffers are dropped as soon as the next step has them. Returns per
-    shard (what receive_step gave, error)."""
-    n = len(devices)
-    dests = [dest_step(s) for s in range(n)]
+    shard (what receive_step gave, error). With ``group``, the shards are
+    this process's and the destinations span every process's."""
+    L, n = len(devices), _partitions(devices, group)
+    dests = [dest_step(s) for s in range(L)]
     by_device = {}
     for s, d in enumerate(dests):
         by_device.setdefault(d.device, []).append(s)
-    counts, positions = [None] * n, [None] * n
+    counts, positions = [None] * L, [None] * L
     for shards in by_device.values():
         c, pos = _bucket_positions([dests[s] for s in shards], n, B)
         for i, s in enumerate(shards):
             counts[s], positions[s] = c[i], pos[i]
     del dests
     sends, counts, errors = map(list, zip(*[
-        send_step(s, counts[s], positions[s]) for s in range(n)]))
+        send_step(s, counts[s], positions[s]) for s in range(L)]))
     del positions
-    recv, recv_counts = exchange(sends, counts, devices)
+    recv, recv_counts = exchange(sends, counts, devices, group)
     del sends
     out = []
-    for p in range(n):
+    for p in range(L):
         out.append((receive_step(p, recv[p], recv_counts[p]), errors[p]))
         recv[p] = None
     return out
 
 
+def _partitions(devices, group) -> int:
+    """P: the shards of every process of ``group`` (this one's without)."""
+    return len(devices) * (1 if group is None
+                           else dist.get_world_size(group))
+
+
 def shuffle_rows(leaves, dest, bucket_capacity: int,
-                 devices: Sequence[torch.device]):
+                 devices: Sequence[torch.device], group=None):
     """Exchange arbitrary per-row leaves by explicit destination: the
     leaf-level core of the exchange, shared by batch shuffles and the
     exchange of pre-aggregated state rows (``parallel/dist_agg``).
 
     ``leaves[s]`` / ``dest[s]``: shard s's leaves and (rows,) destinations.
     Returns per shard (recv_leaves of P*B rows, total 0-d int32, error 0-d
-    int32: one of this shard's SEND buckets overflowed)."""
-    n = len(devices)
+    int32: one of this shard's SEND buckets overflowed). With ``group``,
+    this process's shards, P every process's."""
+    n = _partitions(devices, group)
     B = bucket_capacity
     out = _over_mesh(
         lambda s: dest[s].to(torch.int32),
         lambda s, counts, pos: shuffle_rows_send(
             leaves[s], dest[s], n, B, counts=counts, positions=pos),
         lambda p, recv, recv_counts: shuffle_rows_receive(recv, recv_counts),
-        devices, B)
+        devices, B, group)
     return [(recv_leaves, total, err) for (recv_leaves, total), err in out]
 
 
@@ -311,15 +415,16 @@ def shuffle_batch(batches: Sequence[Batch], key_names: Sequence[str],
                   devices: Sequence[torch.device],
                   bucket_capacity: Optional[int] = None,
                   seed: int = EXCHANGE_SEED,
-                  dest=None) -> List[Tuple[Batch, torch.Tensor]]:
+                  dest=None, group=None) -> List[Tuple[Batch, torch.Tensor]]:
     """Full shuffle of the shards' local batches by key hash (or explicit
     per-shard ``dest``). Returns per shard (re-partitioned local batch of
     capacity P * bucket_capacity, error flag). A dictionary column moves
     its codes, which the received batch of shard p reads through shard
     p's own dictionary of that column, as the JAX package's does: the
     shards of one batch share its dictionary (``DistContext.shard_batch``
-    replicates it), and a key hashes by the content its code names."""
-    n = len(devices)
+    replicates it), and a key hashes by the content its code names. With
+    ``group``, this process's shards, P every process's."""
+    n = _partitions(devices, group)
     B = bucket_capacity or batches[0].capacity
     dicts = dictionaries_on([[a.dictionary for a in b.arrays]
                              for b in batches], devices)
@@ -330,4 +435,4 @@ def shuffle_batch(batches: Sequence[Batch], key_names: Sequence[str],
             batches[s], key_names, n, B, counts=counts, positions=pos),
         lambda p, recv, recv_counts: flatten_received(
             batches[p].schema, dicts[p], recv, recv_counts),
-        devices, B)
+        devices, B, group)

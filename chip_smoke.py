@@ -17,6 +17,19 @@ rows (BASELINE config #2) and checks each result against a numpy oracle:
   path 3b ``arrow_tpu_torch.parallel.shuffle.shuffle_batch``: the raw-row
           exchange of the same batch by key hash over 4 logical shards,
           and one shard's send side of the same exchange over 8;
+  path 3m path 3a's group-by across processes (``parallel/multihost``):
+          2 worker processes x 4 logical shards of the card in one gloo
+          group (the card's tensors through pinned host buffers; the
+          exchange one ``all_to_all_single``), each process's Table row for
+          row against path 3a's; then ``dryrun_multichip``'s five checks
+          and path 7b's Declaration on its first two lineitem batches
+          (against numpy) across the two processes; per process its step
+          ms, the bytes it sent to the other, the collectives' ms, peak
+          memory, its kernel calls against their plain versions; run
+          after path 7b;
+  path 3n path 3a's group-by in one worker process over 8 logical shards,
+          the exchange through a one-rank NCCL group, against path 3a's
+          Table row for row;
   path 4  ``arrow_tpu_torch.entry.entry_sort``: a two-key stable sort of
           100M rows (int64 ascending, int32 with 5 % nulls descending,
           nulls last) and the take through it: path 4d with an int32 in
@@ -318,6 +331,10 @@ MAX_GROUPS_PER_SHARD = 1 << 21
 # buffers and the results alone are 77 GB, so path 3b runs 4 shards; rows,
 # keys and the bucket factor are not cut.
 N_SHARDS_RAW = 4
+# paths 3m / 3n: path 3a's rows; path 7b's lineitem batches Q3 reads
+N_ROWS_3M = N_ROWS
+Q3M_BATCHES = 2
+DIST_TIMEOUT = 240             # seconds for a path's worker processes
 # path 4 (sort) and path 5 (join)
 NUM_KEYS_SORT = 1_000_000
 N_BUILD = 1 << 20
@@ -807,6 +824,206 @@ def kernel_launches(ck, kname: str, args) -> int:
     if kname in ("partition_histogram", "partition_positions"):
         return 1 if sum(d.shape[0] for d in args[0]) else 0
     return 1 if args[0][0].shape[0] else 0
+
+
+# the kernels the distributed paths launch, and the function each is
+# recorded at where its name is not the kernel's
+DIST_KERNELS = ("filter_compact_chunks", "partition_histogram",
+                "partition_positions", "pack_key_lanes")
+DIST_WRAPPER = {"filter_compact_chunks": "filter_compact_columns",
+                "partition_histogram": "partition_histogram_segments"}
+
+
+def recorded_dist_calls(torch, fn):
+    """Run fn recording the arguments of every call of the distributed
+    paths' kernels' wrappers (B1, B4, ``partition_positions``,
+    ``pack_key_lanes``). Returns (fn's result, wrapper name -> the calls'
+    arguments, the ``torch.sort`` calls inside the exchange's
+    ``_bucket_rows``)."""
+    from arrow_tpu_torch.ops import join as join_mod, selection
+    from arrow_tpu_torch.parallel import shuffle
+    calls = {}
+    saved = [(m, n, getattr(m, n)) for m, n in (
+        (selection, "filter_compact_columns"),
+        (shuffle, "partition_histogram_segments"),
+        (shuffle, "partition_positions"), (join_mod, "pack_key_lanes"))]
+
+    def wrap(name, inner):
+        def rec(*a):
+            calls.setdefault(name, []).append(a)
+            return inner(*a)
+        return rec
+    for m, n, inner in saved:
+        setattr(m, n, wrap(n, inner))
+    try:
+        out, sorts = bucket_sorts(torch, shuffle, fn)
+    finally:
+        for m, n, inner in saved:
+            setattr(m, n, inner)
+    return out, calls, sorts
+
+
+def check_dist_calls(torch, ck, label, calls, counts, n_shards) -> None:
+    """Every recorded call of the distributed paths' kernels against its
+    plain version; the launches those calls make against the counted
+    run's ``counts``; each exchange kernel call over ``n_shards`` shards
+    (one launch a shuffle over all the shards of the card)."""
+    for kname in DIST_KERNELS:
+        got = calls.get(DIST_WRAPPER.get(kname, kname), [])
+        n = sum(kernel_launches(ck, kname, a) for a in got)
+        check(n == counts[kname], f"{label}: {len(got)} recorded calls of "
+              f"{kname} make {n} launches, the counted run {counts[kname]}")
+        for a in got:
+            if kname == "filter_compact_chunks":
+                check_filter(torch, ck, *a, f"{label} call")
+            elif kname == "partition_histogram":
+                want = ck.partition_histogram_segments_plain(*a)
+                check(all(torch.equal(g, w) for g, w in zip(
+                    ck.partition_histogram_segments(*a), want)),
+                    f"{label}: a partition_histogram call differs from its "
+                    "plain version")
+                check(len(a[0]) == n_shards, f"{label}: a "
+                      f"partition_histogram call over {len(a[0])} shards")
+            elif kname == "partition_positions":
+                dests, P, B, _ = a
+                check(all(torch.equal(g, w) for g, w in zip(
+                    ck.partition_positions(*a),
+                    ck.partition_positions_plain(dests, P, B))),
+                    f"{label}: a partition_positions call differs from its "
+                    "plain version")
+            else:
+                check_pack_lanes(torch, ck, *a, f"{label} call", True)
+    print(f"{label}: " + ", ".join(
+        f"{len(calls.get(DIST_WRAPPER.get(k, k), []))} {k}"
+        for k in DIST_KERNELS) + " calls equal their plain versions")
+
+
+def dist_case_hook(name, step):
+    """``entry.dist_worker``'s hook in the worker processes of paths 3m
+    and 3n: one case of the process. ``entry_distributed`` (path 3a's
+    group-by) runs a warm-up, then the counted run (its launches, step ms,
+    the bytes this process sent to others, the collectives' ms, peak
+    device memory), then one more run recording every B1 / B4 /
+    ``partition_positions`` / ``pack_key_lanes`` call; the other cases
+    record their calls in their one counted run (no warm-up: their times
+    are first runs). Every recorded call is held
+    against its plain version, and the calls' launches against the counted
+    run's. Prints one JSON line ``{"dist_case": ...}``; returns the counted
+    run's result."""
+    import torch
+    import torch.distributed as dist
+    from arrow_tpu_torch.ops import cuda_kernels as ck
+    from arrow_tpu_torch.parallel import collective, multihost
+    rank, world = dist.get_rank(), dist.get_world_size()
+    n_local = len(multihost.global_context().devices)
+    label = f"{name} (process {rank} of {world})"
+
+    def counted(run):
+        """``run()`` timed, its collectives timed by CUDA events recorded
+        around each call on the current stream (no synchronization added:
+        an NCCL call's events close when its transfer is done, a gloo
+        call's when the host returns from it)."""
+        events = []
+        plain_run = collective._run
+
+        def timed_run(fn, remote_bytes):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            plain_run(fn, remote_bytes)
+            b.record()
+            events.append((a, b))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ck.reset_launch_counts()
+        collective.reset_stats()
+        collective._run = timed_run
+        try:
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            collective._run = plain_run
+        return out, {"ms": secs * 1e3,
+                     "bytes_remote": collective.STATS["bytes_remote"],
+                     "collective_ms": sum(a.elapsed_time(b)
+                                          for a, b in events),
+                     "collective_calls": collective.STATS["calls"],
+                     "peak_bytes": torch.cuda.max_memory_allocated(),
+                     "launches": dict(ck.LAUNCHES)}
+    line = {"dist_case": name, "rank": rank, "world": world,
+            "backend": dist.get_backend(), "shards": n_local}
+    if name != "entry_distributed":
+        (out, calls, sorts), line["counted"] = counted(
+            lambda: recorded_dist_calls(torch, step))
+    else:
+        step()                  # warm-up
+        out, line["counted"] = counted(step)
+        launches = line["counted"]["launches"]
+        for kname in ("partition_histogram", "partition_positions"):
+            check(launches[kname] == 1, f"{label}: {launches[kname]} "
+                  f"{kname} launches, not one for its one exchange")
+        check(launches["filter_compact_chunks"] == n_local,
+              f"{label}: one pre-filter launch per local shard")
+        _, calls, sorts = recorded_dist_calls(torch, step)
+    check(sorts == 0, f"{label}: {sorts} torch.sort calls in _bucket_rows")
+    check_dist_calls(torch, ck, label, calls, line["counted"]["launches"],
+                     n_local)
+    print(json.dumps(line), flush=True)
+    return out
+
+
+def dist_lines(outputs) -> list:
+    """The ``{"dist_case": ...}`` lines of the worker processes' outputs."""
+    return [json.loads(ln) for out in outputs for ln in out.splitlines()
+            if ln.startswith('{"dist_case"')]
+
+
+def same_rows_as_3a(got, ref, oracle, label: str) -> bool:
+    """A worker's ``entry_distributed`` arrays against path 3a's Table's
+    (``table_host_arrays``): the same shards hold the same groups in the
+    same order, keys, counts and mins exact; the f64 sums bit for bit or
+    within the tolerance of the numpy oracle's. Returns whether the sums
+    are bit for bit."""
+    keys = [k for k in ref if k.startswith("entry_distributed.")]
+    check(sorted(k for k in got if k.startswith("entry_distributed.")) ==
+          sorted(keys), f"{label}: the result's columns")
+    bits = True
+    k = ref["entry_distributed.0.values"]
+    for name in keys:
+        a, b = got[name], ref[name]
+        check(a.dtype == b.dtype and a.shape == b.shape,
+              f"{label}: {name} is {a.dtype} {a.shape}, path 3a's "
+              f"{b.dtype} {b.shape}")
+        if a.dtype.kind == "f":
+            if not np.array_equal(a, b):
+                bits = False
+                d = np.abs(a - oracle["v_sum"][k])
+                check(bool((d <= SUM64_RTOL * oracle["v_abs"][k] +
+                            SUM64_ATOL).all()),
+                      f"{label}: {name} off by up to {d.max():.3g}")
+        else:
+            check(np.array_equal(a, b), f"{label}: {name} differs from "
+                  "path 3a's")
+    return bits
+
+
+def check_q3_arrays(got, oracle, label: str) -> None:
+    """``check_q3`` on a worker's ``q3`` arrays (``table_host_arrays``)."""
+    check(got["q3.lengths"].tolist() == [10], f"{label}: "
+          f"{got['q3.lengths'].tolist()} rows a batch")
+    k, date, rev = (got[f"q3.{i}.values"] for i in range(3))
+    check(all(bool(got[f"q3.{i}.validity"].all()) for i in range(3)),
+          f"{label}: nulls")
+    want = oracle["revenue"]
+    tol = 1e-12 * want + 1e-12
+    check(rev.dtype == np.float64 and bool((np.abs(rev - want) <= tol).all()),
+          f"{label}: revenue differs from the oracle's")
+    tie = np.abs(oracle["all_revenue"][k] - want) <= tol
+    check(bool(((k == oracle["keys"]) | tie).all()),
+          f"{label}: keys {k.tolist()}, the oracle's "
+          f"{oracle['keys'].tolist()}")
+    check(np.array_equal(date, oracle["all_o_date"][k]), f"{label}: o_date")
 
 
 def first_appearance(k: np.ndarray, num_keys: int) -> np.ndarray:
@@ -1570,6 +1787,7 @@ def main() -> int:
 
     # ---- path 1: arrow_tpu_torch.entry.entry ----------------------------
     paths = {}      # each path's counted run: step ms and peak bytes
+    launches_dist = {}  # paths 3m / 3n: each process's counted launches
     t0 = time.time()
     cols = example_columns(N_ROWS, NUM_KEYS, args.seed)
     step, (b,) = entry_mod.entry(dev, N_ROWS, NUM_KEYS, args.seed)
@@ -1748,13 +1966,16 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- path 3a: arrow_tpu_torch.entry.entry_distributed ---------------
+    from arrow_tpu_torch.core.batch import batch_from_numpy
     from arrow_tpu_torch.ops.hashing import hash32
     from arrow_tpu_torch.parallel import dist_agg, shuffle
     t0 = time.time()
     cols = example_columns_generic(N_ROWS, NUM_KEYS_DIST, args.seed)
-    step, (b,) = entry_mod.entry_distributed(
-        dev, N_SHARDS, N_ROWS, NUM_KEYS_DIST, MAX_GROUPS_PER_SHARD,
-        args.seed)
+    # the step (it does not depend on the rows) over the columns made
+    # above, staged as entry_distributed stages them
+    step, _ = entry_mod.entry_distributed(
+        dev, N_SHARDS, 1, NUM_KEYS_DIST, MAX_GROUPS_PER_SHARD, args.seed)
+    b = batch_from_numpy(cols, device=dev)
     torch.cuda.synchronize()
     print(f"path 3 data: {N_ROWS} rows made and staged in "
           f"{time.time() - t0:.1f} s")
@@ -1788,14 +2009,17 @@ def main() -> int:
     def shard_of(seed, n_shards):
         return lambda key: hash32([key], seed=seed) % n_shards
 
+    oracle3a = numpy_oracle_generic(cols, NUM_KEYS_DIST)
     n_groups = check_dist_group_by(
-        np, table, numpy_oracle_generic(cols, NUM_KEYS_DIST), N_SHARDS,
+        np, table, oracle3a, N_SHARDS,
         shard_of(dist_agg._STATE_EXCHANGE_SEED, N_SHARDS))
     print(f"path 3a: {N_ROWS} rows over {N_SHARDS} logical shards in "
           f"{secs * 1e3:.3f} ms = {N_ROWS / secs:.6g} rows/s; {n_groups} "
           f"groups match the numpy oracle, each on the one shard its hash "
           f"names; peak device memory {peak} B; launches {launches3}")
     paths["path 3a"] = {"ms": secs * 1e3, "peak_bytes": peak}
+    # its result, row for row, for paths 3m and 3n
+    ref3a = entry_mod.table_host_arrays({"entry_distributed": table})
     del table
 
     # one more run, recording what the kernels get (the last shard's
@@ -1943,6 +2167,11 @@ def main() -> int:
     from arrow_tpu_torch.entry import example_columns_join, \
         example_columns_sort
     from arrow_tpu_torch.ops import join as join_mod
+    # path 5b's 100M Zipf probe keys, made once on the host in a thread
+    # (numpy draws them with the GIL released) while paths 4 and 4d run
+    data5b = ThreadPoolExecutor(1)
+    cols5b = data5b.submit(example_columns_join, N_BUILD, N_ROWS, args.seed,
+                           "zipf")
 
     def timed(fn, label, must_launch=(), warm=True, before=None):
         """Warm-up run (unless ``warm`` is False: an earlier path ran the
@@ -2061,10 +2290,18 @@ def main() -> int:
     launches5 = {}
     for label, key_dist in (("path 5a", "uniform"), ("path 5b", "zipf")):
         t0 = time.time()
-        bcols, pcols = example_columns_join(N_BUILD, N_ROWS, args.seed,
-                                            key_dist)
-        step, (bb, pb) = entry_mod.entry_join(dev, N_BUILD, N_ROWS,
-                                              args.seed, "inner", key_dist)
+        if key_dist == "zipf":
+            bcols, pcols = cols5b.result()
+            data5b.shutdown()
+        else:
+            bcols, pcols = example_columns_join(N_BUILD, N_ROWS, args.seed,
+                                                key_dist)
+        # the step (the join's options do not depend on the probe rows)
+        # over the columns made above, staged as entry_join stages them
+        step, _ = entry_mod.entry_join(dev, N_BUILD, 1, args.seed, "inner",
+                                       key_dist)
+        bb = batch_from_numpy(bcols, device=dev)
+        pb = batch_from_numpy(pcols, device=dev)
         torch.cuda.synchronize()
         print(f"{label} data: {N_BUILD} build and {N_ROWS} probe rows made "
               f"and staged in {time.time() - t0:.1f} s")
@@ -2495,6 +2732,81 @@ def main() -> int:
         "path 7b orders build")
     del sel, columns, hist_calls, pos_calls, dests
     forget()
+
+    # ---- paths 3m / 3n: path 3a's group-by across processes -------------
+    # 3m: 2 processes x 4 logical shards of the card over gloo (the card's
+    # tensors through pinned host buffers): path 3a's group-by at its full
+    # size, dryrun_multichip's five checks and path 7b's Declaration on
+    # the first Q3M_BATCHES of its lineitem batches; 3n: path 3a's
+    # group-by in one process over 8 logical shards, the exchange through
+    # a one-rank NCCL group. Both in worker processes (the parent's group
+    # stays clean), each process's cases through ``dist_case_hook``.
+    torch.cuda.empty_cache()
+    params3m = dict(n_rows=N_ROWS_3M, num_keys=NUM_KEYS_DIST,
+                    seed=args.seed, max_groups_per_shard=MAX_GROUPS_PER_SHARD,
+                    n_lineitem=N_LINEITEM, q3_batches=Q3M_BATCHES,
+                    q3_batch_rows=Q3_BATCH_ROWS, q3_max_groups=Q3_MAX_GROUPS)
+    cut = Q3M_BATCHES * Q3_BATCH_ROWS
+    with ThreadPoolExecutor(1) as pool:
+        oracle3m = pool.submit(numpy_q3_oracle, {
+            k: v[:cut] for k, v in qcols[0].items()}, *qcols[1:])
+        t0 = time.time()
+        got3m, outs3m = entry_mod.launch_dist_workers(
+            2, [dev] * (N_SHARDS // 2), "gloo",
+            ["entry_distributed", "dryrun", "q3"], params3m,
+            hook="chip_smoke:dist_case_hook", timeout=DIST_TIMEOUT)
+        secs3m = time.time() - t0
+        oracle3m = oracle3m.result()
+    lines3m = dist_lines(outs3m)
+    check(len(got3m) == 2 and len(lines3m) == 6,
+          f"path 3m: {len(got3m)} processes, {len(lines3m)} case lines")
+    for r, got in enumerate(got3m):
+        bits = same_rows_as_3a(got, ref3a, oracle3a, f"path 3m process {r}")
+        check_q3_arrays(got, oracle3m, f"path 3m process {r} Q3")
+        check(all(np.array_equal(got[k], got3m[0][k]) for k in got
+                  if k.startswith("dryrun.")),
+              f"path 3m: process {r}'s dry run differs from process 0's")
+        print(f"path 3m process {r}: path 3a's {int(ref3a['entry_distributed.lengths'].sum())} "
+              f"groups row for row (v_sum {'bit for bit' if bits else 'within tolerance'}), "
+              f"the dry run's five checks, Q3 on {cut} lineitem rows "
+              "against numpy")
+    print(f"path 3m: 2 processes x {N_SHARDS // 2} shards over gloo in "
+          f"{secs3m:.1f} s, worker start-up and data included")
+    t0 = time.time()
+    got3n, outs3n = entry_mod.launch_dist_workers(
+        1, [dev] * N_SHARDS, "nccl", ["entry_distributed"], params3m,
+        hook="chip_smoke:dist_case_hook", timeout=DIST_TIMEOUT)
+    secs3n = time.time() - t0
+    lines3n = dist_lines(outs3n)
+    bits = same_rows_as_3a(got3n[0], ref3a, oracle3a, "path 3n")
+    print(f"path 3n: one process x {N_SHARDS} shards, a one-rank NCCL "
+          f"group, in {secs3n:.1f} s, worker start-up and data included; "
+          f"path 3a's groups row for row (v_sum "
+          f"{'bit for bit' if bits else 'within tolerance'})")
+    for label, lines in (("path 3m", lines3m), ("path 3n", lines3n)):
+        for ln in lines:
+            c = ln["counted"]
+            kl = {k: c["launches"][k] for k in DIST_KERNELS}
+            print(f"{label} {ln['dist_case']} process {ln['rank']} of "
+                  f"{ln['world']} ({ln['backend']}, {ln['shards']} shards): "
+                  f"{c['ms']:.3f} ms, {c['bytes_remote']} B to other "
+                  f"processes, collectives {c['collective_ms']:.3f} ms in "
+                  f"{c['collective_calls']} calls, peak {c['peak_bytes']} "
+                  f"B, launches {kl}")
+    print(json.dumps({"path_3m_3n": {"3m": lines3m, "3n": lines3n,
+                                     "3m_s": secs3m, "3n_s": secs3n}}))
+    for label, lines in (("path 3m", lines3m), ("path 3n", lines3n)):
+        for ln in lines:
+            if ln["dist_case"] == "entry_distributed":
+                key = f"{label} process {ln['rank']}"
+                paths[key] = {"ms": ln["counted"]["ms"],
+                              "peak_bytes": ln["counted"]["peak_bytes"]}
+                launches_dist[key] = ln["counted"]["launches"]
+    print(f"path 3n {lines3n[0]['counted']['ms']:.3f} ms beside path 3a "
+          f"{paths['path 3a']['ms']:.3f} ms; path 3m "
+          + ", ".join(f"{ln['counted']['ms']:.3f}" for ln in lines3m
+                      if ln["dist_case"] == "entry_distributed") + " ms")
+    del got3m, got3n, ref3a
 
     # ---- path 7s: path 7b with path 6s's string segment ------------------
     # the step of entry_q3_dist with segment= (made at a small size: its
@@ -3829,7 +4141,7 @@ def main() -> int:
             ("path 15", launches15), ("path 16", launches16),
             ("path 16r", launches16r), ("path 17", launches17),
             ("path 17g", launches17g), ("path 19", launches19)] + \
-            list(launches18.items()):
+            list(launches18.items()) + list(launches_dist.items()):
         suffix = suffix_of(label)
         for kernel in kernels:
             if counts[kernel["name"]] and not (

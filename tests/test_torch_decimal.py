@@ -166,9 +166,16 @@ def test_decimal_join_vs_jax(t, join_type):
     right = pa.table({"k": _decimals(rng, 40, t, lo=-10, hi=10),
                       "rv": rng.integers(0, 100, 40),
                       "rd": _decimals(rng, 40, t)})
-    got = Table.from_pyarrow(left, max_rows_per_batch=64, device="cpu").join(
-        Table.from_pyarrow(right, max_rows_per_batch=64, device="cpu"), "k",
-        join_type=join_type).to_pyarrow()
+    port_left = Table.from_pyarrow(left, max_rows_per_batch=64, device="cpu")
+    port_right = Table.from_pyarrow(right, max_rows_per_batch=64,
+                                    device="cpu")
+    # the JAX package's join keeps both key columns (ROADMAP C34)
+    got = port_left.join(port_right, "k", join_type=join_type,
+                         coalesce_keys=False).to_pyarrow()
+    # the port's default coalesces them, as pyarrow's
+    assert _rows(port_left.join(port_right, "k", join_type=join_type,
+                                max_build_rows=64).to_pyarrow()) == \
+        _rows(left.join(right, "k", join_type=join_type))
     jtable = at.Table.from_pyarrow(left, max_rows_per_batch=64).join(
         at.Table.from_pyarrow(right, max_rows_per_batch=64), "k",
         join_type=join_type)
@@ -178,8 +185,7 @@ def test_decimal_join_vs_jax(t, join_type):
         # export fails; the port's answer is pyarrow's
         with pytest.raises(IndexError):
             jtable.to_pyarrow()
-        # (pyarrow coalesces the key columns, Table.join of neither
-        # package does: ROADMAP C34) the payload columns, row for row
+        # the payload columns, row for row
         want = left.join(right, "k", join_type=join_type)
         cols = ["lv", "ld", "rv", "rd"]
         assert _rows(got.select(cols)) == _rows(want.select(cols))

@@ -12,7 +12,8 @@ a cumulative sum and a checked add, which load the five modules of the
 casts, temporal, set-lookup, vector_misc and checked functions; a
 whitespace split, a list function, a run-end encoding and a sparse matrix,
 which load ``ops/nested``, ``ops/ree``, ``ops/pivot`` and
-``core/tensor``), and check which modules got loaded. And the default-device rule: an entry point given
+``core/tensor``; ``parallel/multihost`` and its collectives), and check
+which modules got loaded. And the default-device rule: an entry point given
 no device takes the card."""
 
 import subprocess
@@ -107,8 +108,12 @@ assert {"arrow_tpu_torch.ops.nested", "arrow_tpu_torch.ops.ree",
     set(sys.modules)
 import arrow_tpu_torch.parallel.context, arrow_tpu_torch.parallel.dist_agg
 import arrow_tpu_torch.parallel.shuffle, arrow_tpu_torch.ops.hashing
+from arrow_tpu_torch.parallel import multihost
+assert not multihost.is_initialized()
 assert {"arrow_tpu_torch.parallel.shuffle", "arrow_tpu_torch.ops.hashing",
-        "arrow_tpu_torch.parallel.dist_agg"} <= set(sys.modules)
+        "arrow_tpu_torch.parallel.dist_agg",
+        "arrow_tpu_torch.parallel.multihost",
+        "arrow_tpu_torch.parallel.collective"} <= set(sys.modules)
 bad = sorted(m for m in ("jax", "jaxlib", "pyarrow", "arrow_tpu")
              if m in sys.modules)
 print("LOADED", bad)
@@ -173,6 +178,9 @@ def test_port_sources_name_neither_jax_nor_the_jax_package():
             "arrow_tpu_torch/parallel/context.py",
             "arrow_tpu_torch/parallel/dist_agg.py",
             "arrow_tpu_torch/parallel/shuffle.py",
+            "arrow_tpu_torch/parallel/dist_join.py",
+            "arrow_tpu_torch/parallel/multihost.py",
+            "arrow_tpu_torch/parallel/collective.py",
             "arrow_tpu_torch/ops/hashing.py",
             "arrow_tpu_torch/ops/sorting.py", "arrow_tpu_torch/ops/concat.py",
             "arrow_tpu_torch/ops/planes.py", "arrow_tpu_torch/ops/bloom.py",

@@ -144,9 +144,17 @@ def test_table_join_vs_jax():
     tt, jt = _both(t)
     tr, jr = _both(r)
     for jtype in ("inner", "left outer"):
+        # the JAX package's join keeps both key columns (ROADMAP C34):
+        # pyarrow's coalesce_keys=False
         got = tt.join(tr, "k", join_type=jtype, right_suffix="_r",
-                      max_build_rows=64).to_pyarrow()
+                      max_build_rows=64, coalesce_keys=False).to_pyarrow()
         want = jt.join(jr, "k", join_type=jtype, right_suffix="_r",
                        max_build_rows=64).to_pyarrow()
+        assert got.column_names == want.column_names
+        assert _rows(got) == _rows(want)
+        # the default coalesces them, as pyarrow's
+        got = tt.join(tr, "k", join_type=jtype, right_suffix="_r",
+                      max_build_rows=64).to_pyarrow()
+        want = t.join(r, "k", join_type=jtype, right_suffix="_r")
         assert got.column_names == want.column_names
         assert _rows(got) == _rows(want)
