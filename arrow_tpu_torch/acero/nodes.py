@@ -43,6 +43,8 @@ from ..ops.sorting import SortOptions, sort_indices_batch
 from ..parallel.dist_agg import DistGroupBy
 from ..parallel.dist_join import DistHashJoin
 from . import options as opts
+from .spill import (GracePartitioner, SpillSorter, batch_device_bytes,
+                    spill_budget_bytes, spill_supported)
 
 __all__ = ["ExecNode", "FACTORIES", "register_node_factory", "empty_batch",
            "compact_to_bucket", "maybe_compact", "materialized_stream",
@@ -94,25 +96,6 @@ def _host_probe(vals: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
         out[k] = piece.reshape(vals[k].shape)
         pos += n
     return out
-
-
-def batch_device_bytes(b: Batch) -> int:
-    """Bytes of a batch's buffers."""
-    total = 0
-    for a in b.arrays:
-        total += a.values.nbytes
-        if a.validity is not None:
-            total += a.validity.nbytes
-        if a.offsets is not None:
-            total += a.offsets.nbytes
-    return total
-
-
-def _spill_budget_bytes(options) -> Optional[int]:
-    """The device-byte budget an option's ``spill_bytes`` sets (None:
-    unbounded)."""
-    v = getattr(options, "spill_bytes", None)
-    return None if v is None else int(v)
 
 
 # ---- compaction ---------------------------------------------------------------
@@ -616,16 +599,34 @@ class OrderByNode(ExecNode):
         if self._limit is not None:
             yield from self._batches_topk(self._limit)
             return
-        budget = _spill_budget_bytes(self.options)
+        budget = spill_budget_bytes(self.options)
+        can_spill = budget is not None and \
+            spill_supported(self.output_schema())
         accumulated: list = []
         acc_bytes = 0
-        for b in materialized_stream(self.inputs[0]):
-            accumulated.append(b)
-            acc_bytes += batch_device_bytes(b)
-            if budget is not None and acc_bytes > budget:
-                raise NotImplementedError(
-                    "order_by past its spill budget: the external sort is "
-                    "ROADMAP queue item A9")
+        spill = None
+        try:
+            for b in materialized_stream(self.inputs[0]):
+                if spill is not None:
+                    spill.add(b)
+                    continue
+                accumulated.append(b)
+                acc_bytes += batch_device_bytes(b)
+                if can_spill and acc_bytes > budget:
+                    # the external sort: the accumulated batches go to
+                    # sorted runs on disk, and so does the rest
+                    spill = SpillSorter(
+                        self.output_schema(), self.options.sort_keys,
+                        self.options.null_placement, device=b.device)
+                    while accumulated:
+                        spill.add(accumulated.pop(0))
+            if spill is not None:
+                for i, b in enumerate(spill.finish()):
+                    yield b.with_index(i)
+                return
+        finally:
+            if spill is not None:
+                spill.close()
         if not accumulated:
             return
         big = concat_batches(accumulated)
@@ -791,16 +792,19 @@ class HashJoinNode(ExecNode):
         if self._dist is not None:
             yield from self._batches_dist()
             return
-        budget = _spill_budget_bytes(self.join.options)
+        budget = spill_budget_bytes(self.join.options)
+        can_grace = budget is not None and \
+            spill_supported(self.inputs[0].output_schema()) and \
+            spill_supported(self.inputs[1].output_schema())
+        build_stream = materialized_stream(self.inputs[1])
         build_batches = []
         build_bytes = 0
-        for b in materialized_stream(self.inputs[1]):
+        for b in build_stream:
             build_batches.append(b)
             build_bytes += batch_device_bytes(b)
-            if budget is not None and build_bytes > budget:
-                raise NotImplementedError(
-                    "hashjoin build side past its spill budget: the grace "
-                    "join is ROADMAP queue item A9")
+            if can_grace and build_bytes > budget:
+                yield from self._batches_grace(build_batches, build_stream)
+                return
         if not build_batches:
             build_in = empty_batch(self.inputs[1].output_schema(),
                                    device=self.device())
@@ -844,6 +848,74 @@ class HashJoinNode(ExecNode):
         tail = self.join.finish(bs)
         if tail is not None:
             yield tail.with_index(i)
+
+    def _batches_grace(self, initial: list, build_stream
+                       ) -> Iterator[Batch]:
+        """The Grace hash join: the build side passed the spill budget, so
+        BOTH sides hash-partition by join key into K = 16 groups of ATB
+        files (``spill.GracePartitioner``: the rows ordered by partition on
+        the device by B4 and ``partition_positions``, one host copy a
+        column) and the join runs partition by partition. Beside the
+        inputs and the output its consumer keeps, the device holds one
+        batch's split while partitioning, then a K-th of the build side,
+        its join state and one probe morsel: the in-memory join's state
+        over the whole build side is what goes (at SF 10, orders joined
+        with lineitem: 0.34 GB while partitioning, the output's 3.4 GB
+        plus about 0.1 GB while joining, against the in-memory join's
+        output plus 2 GB). Equal keys co-partition
+        (``HashJoin.partition_ids``), so every
+        join type's matched and unmatched semantics hold per partition.
+        Each partition builds a join sized to its own rows (never more
+        than the options' ``max_build_rows``); its probe and finish size
+        their outputs (and string pools) from the partition's batches,
+        with the in-memory join's fanout retry. ``initial`` is consumed
+        (its batches freed as they are written)."""
+        import itertools
+        import shutil
+        import tempfile
+        lschema = self.inputs[0].output_schema()
+        rschema = self.inputs[1].output_schema()
+        K = 16
+        base = tempfile.mkdtemp(prefix="arrow_tpu_grace_")
+        try:
+            bp = GracePartitioner(rschema, K, "build", base)
+
+            def drain(batches):
+                while batches:
+                    yield batches.pop(0)
+            for b in itertools.chain(drain(initial), build_stream):
+                bp.add(b, self.join.partition_ids(b, "build", K))
+            pp = GracePartitioner(lschema, K, "probe", base)
+            for b in materialized_stream(self.inputs[0]):
+                pp.add(b, self.join.partition_ids(b, "probe", K))
+            dev = self.device()
+            full = self.join.options
+            i = 0
+            for p in range(K):
+                if bp.rows[p] == 0 and pp.rows[p] == 0:
+                    continue
+                o2 = copy.copy(full)
+                o2.max_build_rows = min(full.max_build_rows,
+                                        max(bp.rows[p], 16))
+                self.join = HashJoin(lschema, rschema, o2)
+                runs = list(bp.read_partition(p, device=dev))
+                build_in = concat_batches(runs) if runs else \
+                    empty_batch(rschema, device=dev)
+                del runs
+                bs, impl = self._build_recover(build_in)
+                del build_in
+                for b in pp.read_partition(p, device=dev):
+                    out, bs, cvals = self._probe_retry(bs, b, None, impl)
+                    if out is not None:
+                        yield maybe_compact(out.with_index(i), vals=cvals)
+                        i += 1
+                tail = self.join.finish(bs)
+                del bs
+                if tail is not None:
+                    yield maybe_compact(tail.with_index(i))
+                    i += 1
+        finally:
+            shutil.rmtree(base, ignore_errors=True)
 
     def _batches_dist(self) -> Iterator[Batch]:
         """Over the mesh (``parallel/dist_join``): the build batches
@@ -1018,6 +1090,40 @@ class TpchGenNode(ExecNode):
             yield b.with_index(i)
 
 
+@register_node_factory("scan")
+class ScanNode(ExecNode):
+    """``dataset/scan_node.cc:123``: a dataset scan as a plan source.
+    Pruning and the residual filter live in ``dataset.Scanner``; this node
+    adapts it to the plan's batch protocol. Its schema comes from the
+    first selected fragment's metadata (``Fragment.physical_schema``: the
+    parquet footer, the IPC schema, the ATB header), the partition columns
+    appended."""
+
+    def __init__(self, options: opts.ScanNodeOptions, inputs):
+        super().__init__(options, inputs)
+        self._scanner = options.dataset.scanner(
+            columns=options.columns, filter=options.filter,
+            batch_rows=options.batch_rows, device=options.device)
+        self._schema = None
+
+    def output_schema(self) -> Schema:
+        if self._schema is None:
+            sch = self._scanner.dataset_schema()
+            if sch is None:
+                raise ValueError("scan matched no fragments")
+            schema = Schema.from_pyarrow(sch)
+            cols = self.options.columns
+            self._schema = schema.select(cols) if cols else schema
+        return self._schema
+
+    def device(self) -> torch.device:
+        return self._scanner.device
+
+    def batches(self) -> Iterator[Batch]:
+        for i, b in enumerate(self._scanner.to_batches()):
+            yield b.with_index(i)
+
+
 def _exact_sort(b: Batch, keys, null_placement: str, words=None) -> Batch:
     """``b`` sorted by ``keys`` (varlen keys exact to ``words`` prefix
     words)."""
@@ -1028,14 +1134,32 @@ def _exact_sort(b: Batch, keys, null_placement: str, words=None) -> Batch:
     return take_batch(b, Array(dt.int64, perm, None, length=b.length))
 
 
-def _seat_dictionaries(carry: Batch, like: Batch) -> Batch:
+def _carry_like(carry: Batch, like: Batch) -> Batch:
     """The empty carry with ``like``'s dictionaries in its dictionary
-    columns, so that the merged rows keep theirs."""
+    columns, so that the merged rows keep theirs, and a validity only
+    where ``like``'s column has one: an all-false validity of the empty
+    carry would give every merged column one (a byte a row)."""
     return Batch(carry.schema, [
-        Array(a.type, a.values, a.validity, length=a.length,
-              dictionary=like.column(j).dictionary)
-        if isinstance(a.type, dt.DictionaryType) else a
+        Array(a.type, a.values,
+              a.validity if like.column(j).validity is not None else None,
+              length=a.length, offsets=a.offsets,
+              dictionary=like.column(j).dictionary
+              if isinstance(a.type, dt.DictionaryType) else a.dictionary,
+              children=a.children)
         for j, a in enumerate(carry.arrays)], carry.length)
+
+
+def _owned(b: Batch) -> Batch:
+    """``b`` with every buffer that views a larger storage copied: a
+    merge's output outlives its round, and a prefix view of the round's
+    sorted batch would hold all of it."""
+    def own(t):
+        return t if t is None or t.untyped_storage().nbytes() == t.nbytes \
+            else t.clone()
+    return Batch(b.schema, [
+        Array(a.type, own(a.values), own(a.validity), length=a.length,
+              offsets=own(a.offsets), dictionary=a.dictionary,
+              children=a.children) for a in b.arrays], b.length, b.index)
 
 
 def streaming_sorted_merge(iters, schema: Schema, sort_keys,
@@ -1098,7 +1222,7 @@ def streaming_sorted_merge(iters, schema: Schema, sort_keys,
     carry = empty_batch(schema, device=device if device is not None
                         else (pending[0].device if pending else None))
     if pending:
-        carry = _seat_dictionaries(carry, pending[0])
+        carry = _carry_like(carry, pending[0])
     out_i = 0
     while not long_strings:
         alive = [i for i in range(k) if tails[i] is not None]
@@ -1121,7 +1245,7 @@ def streaming_sorted_merge(iters, schema: Schema, sort_keys,
         vals = host_ints(e_scal + c_scal)
         ev, cv = vals[:len(e_scal)], vals[len(e_scal):]
         if ev[0]:
-            yield maybe_compact(emit.with_index(out_i), vals=ev)
+            yield _owned(maybe_compact(emit.with_index(out_i), vals=ev))
             out_i += 1
         carry = maybe_compact(rest, vals=cv)
         pull(min(alive, key=lambda i: tails[i]))

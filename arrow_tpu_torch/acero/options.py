@@ -238,8 +238,10 @@ class ScanNodeOptions(ExecNodeOptions):
     source with fragment pruning + residual filter pushdown."""
 
     def __init__(self, dataset, columns=None, filter=None,
-                 batch_rows: int = 1 << 15):
+                 batch_rows: int = 1 << 15, device=None):
         self.dataset = dataset
         self.columns = columns
         self.filter = filter
         self.batch_rows = batch_rows
+        # where the scanned batches go (None: the default device)
+        self.device = device

@@ -13,8 +13,10 @@ order_by streams top-k (``fuse_topk``).
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import os
+import time
 from typing import Iterator, Optional, Sequence
 
 from ..core.batch import Batch, Table
@@ -71,22 +73,115 @@ class Declaration:
             return node.batches()
 
         def gen():
-            for b in node.batches():
-                stop_token.raise_if_stopped()
-                yield b
+            it = node.batches()
+            try:
+                for b in it:
+                    stop_token.raise_if_stopped()
+                    yield b
+            finally:
+                it.close()      # a node's disk state goes with the stop
         return gen()
 
     def to_table(self, stop_token=None) -> Table:
         """Run the plan; its batches of no rows are dropped (one host read
-        of each batch's length)."""
+        of each batch's length, which also gives the metric's rows). A ``plan:<factory>`` span covers the run,
+        and ``metrics`` records its rows and wall time."""
+        from ..utils.tracing import metrics, trace_span
+        name = f"plan:{self.factory_name}"
+        t0 = time.perf_counter()
         node = self._build()
         schema = node.output_schema()
         batches = []
-        for b in node.batches():
-            if stop_token is not None:
-                stop_token.raise_if_stopped()
-            batches.append(b)
-        return Table(schema, [b for b in batches if len(b) > 0])
+        with trace_span(name):
+            it = node.batches()
+            try:
+                for b in it:
+                    if stop_token is not None:
+                        stop_token.raise_if_stopped()
+                    batches.append(b)
+            finally:
+                it.close()
+        ns = [len(b) for b in batches]
+        metrics.record(name, sum(ns), time.perf_counter() - t0)
+        return Table(schema, [b for b, n in zip(batches, ns) if n > 0])
+
+    def to_batches_prefetched(self, prefetch: int = 2,
+                              stop_token=None) -> Iterator[Batch]:
+        """Bounded readahead: a producer thread drives the plan while the
+        consumer lags at most ``prefetch`` batches (the pull-engine form
+        of Acero's backpressure, ``options.h:369`` BackpressureOptions:
+        pause == queue full). The producer's exceptions reach the
+        consumer. The plan is built and the producer started at the first
+        ``next``; closing the generator (or leaving a ``for`` over it)
+        stops the producer at its next put, closes the plan (a node's disk
+        state goes) and releases the queued batches.
+
+        On a card the producer runs its work on the consumer's current
+        stream at that first ``next``, so a batch the consumer takes has its kernels queued
+        before any the consumer queues next: no batch is read on another
+        stream than the one that wrote it."""
+        import queue as _q
+        import threading
+        import torch
+        q: "_q.Queue" = _q.Queue(maxsize=max(prefetch, 1))
+        closed = threading.Event()
+        DONE = object()
+
+        def put(item) -> bool:
+            while not closed.is_set():
+                try:
+                    q.put(item, timeout=0.05)
+                    return True
+                except _q.Full:
+                    continue
+            return False
+
+        def produce(node, stream):
+            ctx = torch.cuda.stream(stream) if stream is not None \
+                else contextlib.nullcontext()
+            it = node.batches()
+            try:
+                with ctx:
+                    for b in it:
+                        if stop_token is not None:
+                            stop_token.raise_if_stopped()
+                        if not put(b):
+                            return
+                    put(DONE)
+            except BaseException as e:  # the consumer re-raises it
+                put(_Failure(e))
+            finally:
+                it.close()
+
+        def gen():
+            # the plan and its producer start at the first next(): a
+            # generator closed before it runs never reaches its finally
+            node = self._build()
+            stream = None
+            if torch.cuda.is_available():
+                dev = node.device()
+                stream = torch.cuda.current_stream(
+                    dev if dev.type == "cuda" else None)
+            t = threading.Thread(target=produce, args=(node, stream),
+                                 daemon=True, name="arrow_tpu_prefetch")
+            t.start()
+            try:
+                while True:
+                    item = q.get()
+                    if item is DONE:
+                        return
+                    if isinstance(item, _Failure):
+                        raise item.error
+                    yield item
+            finally:
+                closed.set()
+                while True:     # release what the producer queued
+                    try:
+                        q.get_nowait()
+                    except _q.Empty:
+                        break
+                t.join()
+        return gen()
 
     def to_string(self, indent: int = 0) -> str:
         """Plan dump (ExecPlan::ToString analog)."""
@@ -110,6 +205,14 @@ class Declaration:
         if self.inputs:
             inner += "(" + ", ".join(repr(i) for i in self.inputs) + ")"
         return inner
+
+
+class _Failure:
+    """An exception of ``to_batches_prefetched``'s producer, queued for
+    the consumer."""
+
+    def __init__(self, error: BaseException):
+        self.error = error
 
 
 def declaration_to_table(decl: Declaration) -> Table:

@@ -505,14 +505,15 @@ def _mark_transparent_schema(schema: Schema, names) -> Schema:
 
 
 def batch_from_pyarrow(rb, capacity: Optional[int] = None,
-                       device=None, _transparent=frozenset()) -> Batch:
+                       device=None, _transparent=frozenset(),
+                       _ingest: bool = True) -> Batch:
     import pyarrow as pa
     if isinstance(rb, pa.Table):
         rb = rb.combine_chunks().to_batches()
         if len(rb) != 1:
             raise ValueError("batch_from_pyarrow takes one record batch")
         rb = rb[0]
-    if not _transparent:
+    if not _transparent and _ingest:
         rb, _transparent = _dict_ingest_encode(rb)
     cap = pad_capacity(rb.num_rows, capacity)
     arrays = []
@@ -574,19 +575,22 @@ def _split_for_pools(rb, limit: int):
 
 
 def table_from_pyarrow(pa_table, max_rows_per_batch: Optional[int] = None,
-                       capacity: Optional[int] = None, device=None) -> Table:
+                       capacity: Optional[int] = None, device=None,
+                       dictionary_ingest: bool = True) -> Table:
     """A pyarrow Table as batches of at most ``max_rows_per_batch`` rows
     (default 2^15, ExecPlan::kMaxBatchSize's analog), each padded to
     ``capacity`` or its bucket, each cut further where a varlen pool would
     not fit int32 offsets; a table of no rows keeps the empty record
     batches pyarrow gives for it. Transparent dictionary ingest runs once
     for the whole table, so every batch of a column shares one
-    dictionary."""
+    dictionary; ``dictionary_ingest=False`` skips it, so the staged schema
+    is the table's (a dataset scan's fragments then share one schema)."""
     import pyarrow as pa
     if max_rows_per_batch is None:
         max_rows_per_batch = 1 << 15
     pa_table = pa_table.combine_chunks()
-    pa_table, transparent = _dict_ingest_encode(pa_table)
+    pa_table, transparent = _dict_ingest_encode(pa_table) \
+        if dictionary_ingest else (pa_table, frozenset())
     has_varlen = any(_is_varlen_pa(f.type) for f in pa_table.schema)
     rbs = pa_table.to_batches(max_chunksize=max_rows_per_batch)
     batches: List[Batch] = []
@@ -602,10 +606,11 @@ def table_from_pyarrow(pa_table, max_rows_per_batch: Optional[int] = None,
                     schema=piece.schema)
             batches.append(batch_from_pyarrow(
                 piece, capacity=capacity, device=device,
-                _transparent=transparent))
+                _transparent=transparent, _ingest=dictionary_ingest))
     if not batches:
         batches = [batch_from_pyarrow(rb, capacity=capacity, device=device,
-                                      _transparent=transparent)
+                                      _transparent=transparent,
+                                      _ingest=dictionary_ingest)
                    for rb in rbs]
     return Table(_mark_transparent_schema(
         Schema.from_pyarrow(pa_table.schema), transparent), batches)

@@ -147,6 +147,24 @@ Nested layouts (lists, structs, unions, run-end encoding, pivot, tensors):
     aggregators, pivot_longer and the sparse tensors over columns made
     from a seed.
 
+The out-of-core and dataset layer (``dataset``, ``acero/spill``):
+
+  * ``entry_scan_q12(device, scale_factor, seed, max_batch_rows,
+    source)``: TPC-H Q12 with ``scan`` sources over lineitem written as a
+    hive-partitioned parquet dataset by ``l_shipmode`` (the ship-mode
+    ``IN`` prunes files on the host) and orders as one file.
+  * ``entry_disk_sort(device, scale_factor, seed, max_batch_rows,
+    source)``: the external sort of lineitem's ``DISK_SORT`` columns past
+    a budget of 1/``DISK_SORT_SPILL_FRACTION`` of their bytes, read
+    through ``to_batches_prefetched``; ``disk_sort_order`` /
+    ``disk_sort_differ`` its oracle, ``same_rows`` the comparison with
+    the in-memory sort.
+  * ``entry_partitioned_join(device, scale_factor, seed, max_batch_rows,
+    source)``: the Grace join of orders and lineitem past a budget of
+    1/``PJOIN_SPILL_FRACTION`` of the orders' bytes;
+    ``pjoin_slices`` a tenth of each with rows that match nothing,
+    ``tables_differ`` the comparison with the in-memory join.
+
 With no ``device`` they place the batch on the card
 (``arrow_tpu_torch.default_device()``). Run one on the CPU at a small
 size::
@@ -219,7 +237,11 @@ __all__ = ["AGGREGATES", "AGGREGATES_ANY_ALL", "AGGREGATES_GENERIC",
            "example_columns_asof", "q1_differ", "q1_numpy",
            "sorted_merge_differ", "tpch_gen_q1_declaration", "DIST_CASES",
            "dist_case_tables", "dist_worker", "launch_dist_workers",
-           "table_host_arrays"]
+           "table_host_arrays", "DISK_SORT_COLUMNS", "DISK_SORT_KEYS",
+           "PJOIN_COLUMNS", "disk_sort_differ", "disk_sort_order",
+           "entry_disk_sort", "same_rows",
+           "entry_partitioned_join", "entry_scan_q12", "pjoin_slices",
+           "q12_filter", "sorted_columns", "tables_differ"]
 
 AGGREGATES = (AggregateSpec("sum", "v"), AggregateSpec("min", "v"),
               AggregateSpec("sum", "w"), AggregateSpec("min", "w"),
@@ -861,39 +883,48 @@ Q7_COLUMNS = {"supplier": ["s_suppkey", "s_nationkey"],
               "nation": ["n_nationkey", "n_name"]}
 
 
-def q12_declaration(lineitem: Table, orders: Table):
-    """TPC-H Q12 (clause 2.4.12) as a Declaration: lineitem filtered by
-    ``l_shipmode IN ('MAIL', 'SHIP')`` (``is_in`` on the dictionary),
+def q12_filter():
+    """Q12's lineitem predicate: ``l_shipmode IN ('MAIL', 'SHIP')``,
     ``l_commitdate < l_receiptdate``, ``l_shipdate < l_commitdate`` and
-    l_receiptdate in [1994-01-01, 1995-01-01) (date32 scalars) -> join
-    orders on o_orderkey = l_orderkey -> high_line_count =
-    sum(cast(is_in(o_orderpriority, ('1-URGENT', '2-HIGH')), int64)) and
-    low_line_count the same of its inverse (TPC-H's CASE as a cast) by
-    l_shipmode, ordered by l_shipmode."""
+    l_receiptdate in [1994-01-01, 1995-01-01) (date32 scalars)."""
     import datetime as _dtm
-    from .acero import (AggregateNodeOptions, Declaration,
-                        FilterNodeOptions, OrderByNodeOptions,
-                        ProjectNodeOptions, TableSourceNodeOptions)
     from .compute.expressions import literal
-    from .core import datatype as dt
     lo = literal(_dtm.date(Q12_YEAR, 1, 1))
     hi = literal(_dtm.date(Q12_YEAR + 1, 1, 1))
-    keep = field("l_shipmode").isin(Q12_MODES) & \
+    return field("l_shipmode").isin(Q12_MODES) & \
         (field("l_commitdate") < field("l_receiptdate")) & \
         (field("l_shipdate") < field("l_commitdate")) & \
         (field("l_receiptdate") >= lo) & (field("l_receiptdate") < hi)
+
+
+def q12_declaration(lineitem, orders, build_rows: Optional[int] = None):
+    """TPC-H Q12 (clause 2.4.12) as a Declaration: lineitem filtered by
+    ``q12_filter`` (``is_in`` on the dictionary) -> join orders on
+    o_orderkey = l_orderkey -> high_line_count =
+    sum(cast(is_in(o_orderpriority, ('1-URGENT', '2-HIGH')), int64)) and
+    low_line_count the same of its inverse (TPC-H's CASE as a cast) by
+    l_shipmode, ordered by l_shipmode. ``lineitem`` and ``orders`` are
+    Tables, or Declarations of their sources (a lineitem source applies
+    ``q12_filter`` itself, as a dataset scan does); ``build_rows``: the
+    orders' rows where ``orders`` is not a Table."""
+    from .acero import (AggregateNodeOptions, Declaration,
+                        FilterNodeOptions, OrderByNodeOptions,
+                        ProjectNodeOptions, TableSourceNodeOptions)
+    from .core import datatype as dt
+    if isinstance(lineitem, Table):
+        lineitem = Declaration.from_sequence([
+            Declaration("table_source", TableSourceNodeOptions(lineitem)),
+            Declaration("filter", FilterNodeOptions(q12_filter()))])
+    if isinstance(orders, Table):
+        build_rows = orders.num_rows
+        orders = Declaration("table_source", TableSourceNodeOptions(orders))
     urgent = field("o_orderpriority").isin(Q12_PRIORITIES)
     return Declaration.from_sequence([
         Declaration("hashjoin", HashJoinNodeOptions(
             "inner", left_keys=["l_orderkey"], right_keys=["o_orderkey"],
             left_output=["l_shipmode"], right_output=["o_orderpriority"],
-            max_build_rows=max(orders.num_rows, 16)),
-            inputs=[
-                Declaration.from_sequence([
-                    Declaration("table_source",
-                                TableSourceNodeOptions(lineitem)),
-                    Declaration("filter", FilterNodeOptions(keep))]),
-                Declaration("table_source", TableSourceNodeOptions(orders))]),
+            max_build_rows=max(build_rows, 16)),
+            inputs=[lineitem, orders]),
         Declaration("project", ProjectNodeOptions(
             [field("l_shipmode"), urgent.cast(dt.int64),
              (~urgent).cast(dt.int64)],
@@ -3352,3 +3383,361 @@ def launch_dist_workers(world: int, local_devices, backend: str,
         for log in logs:
             log.close()
         shutil.rmtree(out_dir, ignore_errors=True)
+
+
+# ---- the out-of-core and dataset layer: a scan, the external sort, the Grace
+# join (paths 20-22 of chip_smoke.py) ------------------------------------------
+
+DISK_SORT_COLUMNS = SMERGE_COLUMNS
+DISK_SORT_KEYS = SMERGE_KEYS
+PJOIN_COLUMNS = {"orders": ["o_orderkey", "o_custkey", "o_orderdate",
+                            "o_totalprice"],
+                 "lineitem": ["l_orderkey", "l_linenumber", "l_shipdate",
+                              "l_extendedprice"]}
+# the spill budgets: 1/8 of the sorted input's device bytes (about 15 runs
+# at SF 10), 1/4 of the join's build side; the join's second check runs on
+# a tenth of each table
+DISK_SORT_SPILL_FRACTION = 8
+PJOIN_SPILL_FRACTION = 4
+PJOIN_SLICE_FRACTION = 10
+
+
+def entry_scan_q12(device=None, scale_factor: float = 0.01, seed: int = 42,
+                   max_batch_rows: int = 1 << 22, source=None):
+    """(step, (lineitem dataset, orders dataset)): TPC-H Q12 over dataset
+    scans, the tables laid out as a data lake keeps them. Set-up writes
+    lineitem (``Q12_COLUMNS``) with ``dataset.write_dataset`` as a
+    hive-partitioned parquet dataset by ``l_shipmode``, and orders as one
+    parquet file, under a new temporary directory (``step.root``;
+    ``step.cleanup()`` removes it), from the port's TPC-H tables at
+    ``scale_factor`` or from ``source``. step(lineitem, orders) -> the
+    Table of ``q12_declaration`` with ``scan`` sources on ``device`` in
+    batches of ``max_batch_rows`` rows: the lineitem scan's filter is
+    ``q12_filter``, whose ``is_in(l_shipmode, ...)`` prunes fragments on
+    the host and whose date conjuncts run on the device.
+    ``dataset.STATS`` counts the fragments read and pruned and the bytes
+    read; ``step.source`` holds the pyarrow tables (``q12_pyarrow``'s
+    input)."""
+    import os
+    import shutil
+    import tempfile
+    from .acero import Declaration, ScanNodeOptions
+    from .dataset import dataset, write_dataset
+    from .utils.tpch import tpch_table
+    src = {name: (source[name].select(cols) if source else
+                  tpch_table(name, scale_factor, seed, columns=cols))
+           for name, cols in Q12_COLUMNS.items()}
+    root = tempfile.mkdtemp(prefix="arrow_tpu_scan_q12_")
+    li_root, od_root = (os.path.join(root, n) for n in ("lineitem",
+                                                        "orders"))
+    write_dataset(src["lineitem"], li_root, partitioning=["l_shipmode"])
+    write_dataset(src["orders"], od_root)
+    n_orders = src["orders"].num_rows
+
+    def step(lineitem, orders) -> Table:
+        return q12_declaration(
+            Declaration("scan", ScanNodeOptions(
+                lineitem, filter=q12_filter(), batch_rows=max_batch_rows,
+                device=device)),
+            Declaration("scan", ScanNodeOptions(
+                orders, batch_rows=max_batch_rows, device=device)),
+            build_rows=n_orders).to_table()
+
+    step.source = src
+    step.root = root
+    step.cleanup = lambda: shutil.rmtree(root, ignore_errors=True)
+    return step, (dataset(li_root, partitioning=["l_shipmode"]),
+                  dataset(od_root))
+
+
+def _staged_bytes(rb) -> int:
+    """The device bytes of a pyarrow record batch of flat and string
+    columns once staged (``core/interop``'s capacities: the rows' bucket,
+    a pool's bucket, validity where there are nulls)."""
+    import pyarrow as pa
+    from .core.interop import pad_capacity
+    cap = pad_capacity(rb.num_rows)
+    total = 0
+    for col in rb.columns:
+        if pa.types.is_string(col.type) or pa.types.is_binary(col.type):
+            used = col.buffers()[1] and int(np.frombuffer(
+                col.buffers()[1], np.int32)[col.offset + len(col)] -
+                np.frombuffer(col.buffers()[1], np.int32)[col.offset])
+            total += 4 * (cap + 1) + pad_capacity(max(used or 0, 1))
+        else:
+            total += cap * col.type.bit_width // 8 if col.type.bit_width > 1 \
+                else cap
+        if col.null_count:
+            total += cap
+    return total
+
+
+def entry_disk_sort(device=None, scale_factor: float = 0.01, seed: int = 42,
+                    max_batch_rows: int = 1 << 22, source=None):
+    """(step, (record batches,)): the external sort. Set-up takes the port's
+    TPC-H lineitem (``DISK_SORT_COLUMNS``; or ``source``), casts
+    ``l_shipmode`` from its dictionary to a plain string column on the host
+    (so that a string pool goes to disk too: a dictionary column stays in
+    memory) and cuts it into record batches of ``max_batch_rows`` rows.
+    ``step.input_bytes`` is their device bytes once staged,
+    ``step.spill_bytes`` that over ``DISK_SORT_SPILL_FRACTION``.
+
+    step(batches, spill_bytes=-1, stop_after=None) -> the
+    Table of ``order_by`` on ``DISK_SORT_KEYS`` over a ``source`` that
+    stages each record batch on ``device`` as it is pulled (nothing of the
+    input is resident before), with ``spill_bytes`` (-1:
+    ``step.spill_bytes``; None: in memory), consumed through
+    ``Declaration.to_batches_prefetched``.
+    With ``stop_after`` the consumer requests a stop (a ``StopSource``)
+    once it holds that many batches, and the run raises
+    ``CancelledError``. ``spill.STATS`` counts the runs and the bytes to
+    and from disk; ``step.source`` holds the pyarrow table."""
+    import pyarrow as pa
+    from .acero import (Declaration, OrderByNodeOptions, SourceNodeOptions)
+    from .core.interop import batch_from_pyarrow
+    from .core.schema import Schema
+    from .utils.cancel import StopSource
+    from .utils.tpch import tpch_table
+    cols = DISK_SORT_COLUMNS["lineitem"]
+    src = source["lineitem"].select(cols) if source else \
+        tpch_table("lineitem", scale_factor, seed, columns=cols)
+    i = src.schema.get_field_index("l_shipmode")
+    src = src.set_column(i, "l_shipmode",
+                         src["l_shipmode"].cast(pa.string())).combine_chunks()
+    rbs = src.to_batches(max_chunksize=max_batch_rows)
+    schema = Schema.from_pyarrow(src.schema)
+    dev = resolve_device(device)
+
+    def step(batches, spill_bytes=-1,
+             stop_after: Optional[int] = None) -> Table:
+        if spill_bytes == -1:
+            spill_bytes = step.spill_bytes
+
+        def staged():
+            for rb in batches:
+                yield batch_from_pyarrow(rb, device=dev, _ingest=False)
+        decl = Declaration.from_sequence([
+            Declaration("source", SourceNodeOptions(schema, staged)),
+            Declaration("order_by", OrderByNodeOptions(
+                list(DISK_SORT_KEYS), spill_bytes=spill_bytes))])
+        stop = StopSource() if stop_after is not None else None
+        out = []
+        for b in decl.to_batches_prefetched(
+                stop_token=None if stop is None else stop.token()):
+            out.append(b)
+            if stop is not None and len(out) >= stop_after:
+                stop.request_stop("the consumer stopped the sort")
+        return Table(schema, out)
+
+    step.input_bytes = sum(_staged_bytes(rb) for rb in rbs)
+    step.spill_bytes = step.input_bytes // DISK_SORT_SPILL_FRACTION
+    step.source = {"lineitem": src}
+    return step, (rbs,)
+
+
+def disk_sort_order(source) -> np.ndarray:
+    """numpy's stable sort of ``entry_disk_sort``'s ``step.source`` by
+    ``DISK_SORT_KEYS`` (the oracle's permutation)."""
+    import pyarrow as pa
+    src = source["lineitem"]
+    return np.lexsort([src[name].cast(pa.int32()).to_numpy()
+                       if pa.types.is_date32(src[name].type)
+                       else src[name].to_numpy()
+                       for name, _ in reversed(DISK_SORT_KEYS)])
+
+
+def _host_strings(t: Table, name: str):
+    """A string column's row lengths and bytes over the table's batches,
+    on the host."""
+    lens, pools = [], []
+    for b in t.batches:
+        c = b.column(name)
+        n = int(b.length)
+        off = c.offsets[:n + 1].cpu().numpy().astype(np.int64)
+        lens.append(np.diff(off))
+        pools.append(c.values[int(off[0]):int(off[-1])].cpu().numpy())
+    return np.concatenate(lens), np.concatenate(pools)
+
+
+def disk_sort_differ(out: Table, source, order: np.ndarray) -> list:
+    """The columns of a sorted lineitem that differ from ``source``'s rows
+    taken in ``order`` (``disk_sort_order``; empty when it is right): each
+    fixed-width column value for value, the string column by its row
+    lengths and bytes."""
+    import pyarrow as pa
+    src = source["lineitem"]
+    if out.num_rows != src.num_rows:
+        return ["rows"]
+    bad = []
+    for name in src.column_names:
+        want = src[name].combine_chunks().take(pa.array(order))
+        if pa.types.is_string(want.type):
+            lens, pool = _host_strings(out, name)
+            off = np.frombuffer(want.buffers()[1], np.int32)[
+                want.offset:want.offset + len(want) + 1].astype(np.int64)
+            wpool = np.frombuffer(want.buffers()[2], np.uint8)[
+                off[0]:off[-1]]
+            ok = np.array_equal(lens, np.diff(off)) and \
+                np.array_equal(pool, wpool)
+        else:
+            if pa.types.is_date32(want.type):
+                want = want.cast(pa.int32())
+            ok = np.array_equal(_host_values(out, name), want.to_numpy())
+        if not ok:
+            bad.append(name)
+    return bad
+
+
+def same_rows(a: Table, b: Table) -> list:
+    """The columns in which two Tables' rows differ in order (empty when
+    they hold the same rows in the same order): values and validity of
+    the live rows, a string column's offsets from its first row and its
+    used bytes; compared on their device, batch boundaries ignored."""
+    import torch
+    from .ops.concat import concat_batches
+    if a.num_rows != b.num_rows:
+        return ["rows"]
+    if not a.batches:
+        return []
+    ca, cb = (concat_batches(t.batches) if len(t.batches) > 1
+              else t.batches[0] for t in (a, b))
+    n = int(ca.length)
+    bad = []
+    for name in ca.schema.names:
+        x, y = ca.column(name), cb.column(name)
+        vx = x.validity_or_true()[:n]
+        vy = y.validity_or_true()[:n]
+        if x.offsets is not None:
+            ox = x.offsets[:n + 1].long()
+            oy = y.offsets[:n + 1].long()
+            same = torch.equal(ox - ox[0], oy - oy[0]) and torch.equal(
+                x.values[ox[0]:ox[-1]], y.values[oy[0]:oy[-1]])
+        else:
+            same = torch.equal(torch.where(vx, x.values[:n], 0),
+                               torch.where(vy, y.values[:n], 0))
+        if not (same and torch.equal(vx, vy)):
+            bad.append(name)
+    return bad
+
+
+def entry_partitioned_join(device=None, scale_factor: float = 0.01,
+                           seed: int = 42, max_batch_rows: int = 1 << 22,
+                           source=None):
+    """(step, (lineitem, orders)): the Grace hash join. The port's TPC-H
+    orders (``PJOIN_COLUMNS``, the build side) and lineitem (the probe
+    side), or ``source``'s, staged on ``device`` in batches of
+    ``max_batch_rows`` rows; ``step.build_bytes`` is the orders' device
+    bytes, ``step.spill_bytes`` that over ``PJOIN_SPILL_FRACTION``.
+    step(lineitem, orders, join_type="inner", spill_bytes=-1) -> the Table
+    of ``hashjoin`` on l_orderkey = o_orderkey with ``spill_bytes`` (-1:
+    ``step.spill_bytes``; None: in memory): past the budget both sides go
+    to 16 partitions on disk and the join runs partition by partition. ``spill.STATS`` counts the
+    partition files and the bytes; ``step.source`` holds the pyarrow
+    tables (``pjoin_slices``' input)."""
+    from .acero import Declaration, TableSourceNodeOptions
+    from .acero.spill import batch_device_bytes
+    source, t = tpch_tables(scale_factor, seed, PJOIN_COLUMNS,
+                            max_batch_rows, device, source)
+
+    def step(lineitem: Table, orders: Table, join_type: str = "inner",
+             spill_bytes=-1) -> Table:
+        if spill_bytes == -1:
+            spill_bytes = step.spill_bytes
+        return Declaration("hashjoin", HashJoinNodeOptions(
+            join_type, left_keys=["l_orderkey"], right_keys=["o_orderkey"],
+            max_build_rows=max(orders.num_rows, 16),
+            spill_bytes=spill_bytes), [
+            Declaration("table_source", TableSourceNodeOptions(lineitem)),
+            Declaration("table_source", TableSourceNodeOptions(orders))]
+        ).to_table()
+
+    step.build_bytes = sum(batch_device_bytes(b)
+                           for b in t["orders"].batches)
+    step.spill_bytes = step.build_bytes // PJOIN_SPILL_FRACTION
+    step.source = source
+    return step, (t["lineitem"], t["orders"])
+
+
+def pjoin_slices(source, device=None, max_batch_rows: int = 1 << 22):
+    """(lineitem, orders) Tables of about a ``PJOIN_SLICE_FRACTION``-th of
+    each of
+    ``entry_partitioned_join``'s tables, cut so that both sides have rows
+    without a match: the orders' first rows, and the lineitem rows from
+    half a slice on (lineitem is generated in order-key order, so its
+    slice starts inside the orders' and runs past their end)."""
+    li, od = source["lineitem"], source["orders"]
+    n_l, n_o = li.num_rows, od.num_rows
+    fraction = PJOIN_SLICE_FRACTION
+    return (Table.from_pyarrow(li.slice(n_l // (2 * fraction),
+                                        n_l // fraction),
+                               max_rows_per_batch=max_batch_rows,
+                               device=device),
+            Table.from_pyarrow(od.slice(0, n_o // fraction),
+                               max_rows_per_batch=max_batch_rows,
+                               device=device))
+
+
+def table_device_bytes(t: Table) -> Dict[str, int]:
+    """A Table's rows and device bytes: ``live`` (each column's live rows,
+    a string column's offsets and used pool bytes, the validity),
+    ``capacity`` (its buffers as sized, ``batch_device_bytes``) and
+    ``storage`` (the distinct allocations those buffers view: a prefix
+    view keeps its whole allocation). One host read a batch."""
+    from .acero.nodes import compact_scalars, host_ints
+    from .acero.spill import batch_device_bytes
+    rows = live = cap = 0
+    storages = {}
+    for b in t.batches:
+        n, *used = host_ints(compact_scalars(b))
+        used = iter(used)
+        rows += n
+        cap += batch_device_bytes(b)
+        for a in b.arrays:
+            live += 4 * (n + 1) + next(used) if a.type.is_varlen \
+                else a.values[:n].nbytes
+            if a.validity is not None:
+                live += a.validity[:n].nbytes
+            for x in (a.values, a.validity, a.offsets):
+                if x is not None:
+                    st = x.untyped_storage()
+                    storages[st.data_ptr()] = st.nbytes()
+    return {"rows": rows, "live": live, "capacity": cap,
+            "storage": sum(storages.values())}
+
+
+def sorted_columns(t: Table, keys) -> Dict[str, tuple]:
+    """A Table's rows sorted on its device by ``keys`` (names, ascending,
+    nulls last): column name -> (values, validity or None) tensors of its
+    live rows."""
+    from .ops.concat import concat_batches
+    if not t.batches:
+        return {}
+    b = concat_batches(t.batches) if len(t.batches) > 1 else t.batches[0]
+    b = take_batch(b, sort_indices_batch(b, SortOptions(
+        [(k, "ascending") for k in keys])))
+    n = int(b.length)
+    return {name: (b.column(name).values[:n],
+                   None if b.column(name).validity is None
+                   else b.column(name).validity[:n])
+            for name in b.schema.names}
+
+
+def tables_differ(a: Table, b: Table, keys) -> list:
+    """The columns in which two Tables differ once both are sorted on the
+    device by ``keys`` (a total order of their rows); ["rows"] if their
+    row counts do."""
+    import torch
+    if a.num_rows != b.num_rows:
+        return ["rows"]
+    sa, sb = sorted_columns(a, keys), sorted_columns(b, keys)
+    bad = []
+    for name, (va, ma) in sa.items():
+        vb, mb = sb[name]
+        valid = torch.ones_like(va, dtype=torch.bool) if ma is None else ma
+        valid_b = torch.ones_like(vb, dtype=torch.bool) if mb is None else mb
+        same = torch.equal(valid, valid_b) and torch.equal(
+            torch.where(valid, va, torch.zeros_like(va)),
+            torch.where(valid_b, vb, torch.zeros_like(vb)))
+        if not same:
+            bad.append(name)
+    return bad

@@ -108,17 +108,28 @@ def _find_nvcc() -> str:
                        "/usr/local/cuda/bin): the CUDA kernels cannot build")
 
 
+def _library_path() -> Tuple[Path, str]:
+    """(the shared library's path, its tag): keyed by the flags and the
+    sources' hash."""
+    h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+    for s in sorted(_CSRC.glob("*.cu")) + sorted(_CSRC.glob("*.cuh")):
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    tag = h.hexdigest()[:16]
+    return _BUILD_DIR / f"libarrow_tpu_torch_{tag}.so", tag
+
+
+def is_built() -> bool:
+    """Whether the library of the current sources is built (or loaded)."""
+    return _lib_handle is not None or _library_path()[0].is_file()
+
+
 def build() -> Tuple[Path, str]:
     """Compile csrc/*.cu into one shared library if it is not built yet:
     one nvcc per source, all started together, then one link. Returns
     (library path, compiler output — empty when already built)."""
     sources = sorted(_CSRC.glob("*.cu"))
-    h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
-    for s in sources + sorted(_CSRC.glob("*.cuh")):
-        h.update(s.name.encode())
-        h.update(s.read_bytes())
-    tag = h.hexdigest()[:16]
-    lib = _BUILD_DIR / f"libarrow_tpu_torch_{tag}.so"
+    lib, tag = _library_path()
     if lib.is_file():
         return lib, ""
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)

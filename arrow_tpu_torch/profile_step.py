@@ -3,7 +3,8 @@
     python -m arrow_tpu_torch.profile_step
         [--path generic|dense|dist|distdict|exchange|sort|join|q3|q3dist|
                 sortdict|q3s|q3sdist|strings|anyall|q6|q6dist|q13|q22|hb|
-                q12|q7|wordcount|baskets|smerge|asof]
+                q12|q7|wordcount|baskets|smerge|asof|scanq12|disksort|
+                pjoin]
         [--rows N] [--keys N] [--max-groups N] [--shards N] [--steps N]
         [--seed N] [--build-rows N] [--build-keys N]
         [--key-dist uniform|zipf] [--join-type T] [--wide] [--batch-rows N]
@@ -69,7 +70,19 @@ cross-batch lanes, the takes and the host reads. ``--path asof`` is
 ``entry_asof`` over ``--rows`` quotes and a quarter as many trades
 (tolerance ``--tolerance``, default -1 s): per layer the grouping of the
 ``by`` keys, the lexsort, the segmented carry, the payload takes, the
-carry's shrink and the host reads.
+carry's shrink and the host reads. ``--path scanq12`` is ``entry_scan_q12``
+(Q12 over dataset scans at ``TPCH_SF``; its parquet set-up outside the
+step): per plan node, and per layer the scan's read and staging and its
+residual filter. ``--path disksort`` is ``entry_disk_sort`` at ``TPCH_SF``
+past its budget: the runs' sort, their copy to the host and their write,
+the merge and its reads of the runs. ``--path pjoin`` is
+``entry_partitioned_join`` at ``TPCH_SF`` past its budget: the partition
+ids, the split (B4 and ``partition_positions``), the partition files'
+writes and reads, and each partition's build, probe and finish. For
+``disksort`` and ``pjoin`` a last JSON line accounts for the device
+memory of the step in memory and past its budget (``memory_account``). A layer
+around host work (a read or a write of a file) spans the host's time too:
+its end event is queued after that work.
 
 Wraps the functions that make up the step's layers so that each call is
 bracketed by two CUDA events on the current stream (no synchronisation
@@ -90,8 +103,8 @@ import sys
 import time
 from collections import defaultdict
 
-# TPC-H scale factor of ``--path q13|q22|q12|q7|wordcount|baskets``:
-# chip_smoke.py's paths 10, 11, 13, 14, 15 and 16
+# TPC-H scale factor of ``--path q13|q22|q12|q7|wordcount|baskets|smerge|
+# scanq12|disksort|pjoin``: chip_smoke.py's paths 10, 11, 13-17, 20-22
 TPCH_SF = 10
 
 
@@ -208,7 +221,8 @@ def main() -> int:
                                        "anyall", "q6", "q6dist", "q13",
                                        "q22", "hb", "q12", "q7",
                                        "wordcount", "baskets", "smerge",
-                                       "asof"),
+                                       "asof", "scanq12", "disksort",
+                                       "pjoin"),
                     default="generic")
     ap.add_argument("--tolerance", type=int, default=-1_000_000_000)
     ap.add_argument("--staging", choices=("dictionary", "plain"),
@@ -269,6 +283,30 @@ def main() -> int:
                 end.record()
                 spans[full].append((start, end))
         setattr(owner, attr, timed)
+
+    def gen_layer(owner, attr, name):
+        """Bracket each ``next()`` of the generators owner.attr returns
+        with events under ``name``."""
+        inner = getattr(owner, attr)
+
+        def wrapped(*a, **kw):
+            it = inner(*a, **kw)
+            while True:
+                full = ".".join(stack + [name]) if stack else name
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                stack.append(name)
+                try:
+                    b = next(it)
+                except StopIteration:
+                    return
+                finally:
+                    stack.pop()
+                    end.record()
+                    spans[full].append((start, end))
+                yield b
+        setattr(owner, attr, wrapped)
 
     HA = hash_aggregate.HashAggregate
     layer(entry_mod, "execute_scalar_expression", "expression")
@@ -418,6 +456,25 @@ def main() -> int:
     layer(segment, "segmented_carry_last", "carry_last")
     layer(grouper.Grouper, "consume_lanes_grouped", "group_by_keys")
     layer(nodes, "take_array", "take_payload")
+    # the out-of-core and dataset layer: the scan, the external sort, the
+    # Grace join
+    from . import dataset
+    from .acero import spill
+    layer(dataset.Fragment, "read_pyarrow", "scan_read")
+    layer(interop, "table_from_pyarrow", "scan_stage")
+    layer(selection, "filter_batch", "scan_filter")
+    layer(spill.SpillSorter, "_sorted_with_seq", "run_sort")
+    layer(spill, "host_columns", "to_host")
+    layer(spill, "_write", "file_write")
+    gen_layer(spill, "read_run", "file_read")
+    gen_layer(spill.SpillSorter, "finish", "merge")
+    layer(join.HashJoin, "partition_ids", "partition_ids")
+    layer(spill, "partition_order", "partition_order")
+    layer(spill, "partition_histogram_segments", "B4_partition_histogram")
+    layer(spill, "partition_positions", "partition_positions")
+    layer(spill.GracePartitioner, "add", "partition_split")
+    layer(nodes.HashJoinNode, "_build_recover", "partition_build")
+    layer(nodes.HashJoinNode, "_probe_retry", "partition_probe")
     node_spans, node_reads, node_children, _ = node_layers(
         torch, nodes, Batch, stack)
 
@@ -520,6 +577,24 @@ def main() -> int:
 
         def step(tables_):
             return qstep(*tables_)
+    elif args.path == "scanq12":
+        import atexit
+        qstep, b = entry_mod.entry_scan_q12(None, TPCH_SF, args.seed,
+                                            args.batch_rows)
+        atexit.register(qstep.cleanup)
+
+        def step(tables_):
+            return qstep(*tables_)
+    elif args.path == "disksort":
+        qstep, (b,) = entry_mod.entry_disk_sort(None, TPCH_SF, args.seed,
+                                                args.batch_rows)
+        step = qstep
+    elif args.path == "pjoin":
+        qstep, b = entry_mod.entry_partitioned_join(None, TPCH_SF, args.seed,
+                                                    args.batch_rows)
+
+        def step(tables_):
+            return qstep(*tables_)
     elif args.path == "hb":
         step, (b,) = entry_mod.entry_host_boundary(
             None, args.rows, args.seed, args.staging)
@@ -541,7 +616,8 @@ def main() -> int:
         host_ms.append((time.perf_counter() - t0) * 1e3)
     size = f"SF {TPCH_SF}" if args.path in ("q13", "q22", "q12", "q7",
                                             "wordcount", "baskets",
-                                            "smerge") \
+                                            "smerge", "scanq12", "disksort",
+                                            "pjoin") \
         else f"{args.rows} rows"
     hops = {k: v / args.steps for k, v in strings_regex.HOST_HOPS.items()}
     print(f"path {args.path}: {size}; host-clock ms per step "
@@ -566,10 +642,13 @@ def main() -> int:
         step(b)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # device events only: an operator's own entry repeats its kernels' time
+    # device events only: an operator's own entry repeats its kernels'
+    # time, and a span's range on the device timeline (``trace_span``'s
+    # record_function: a user annotation) spans the kernels inside it
     from torch.autograd import DeviceType
     events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
+              if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
@@ -582,7 +661,61 @@ def main() -> int:
           f"{dict(cuda_kernels.LAUNCHES)}")
     for e in sorted(events, key=dev_us, reverse=True)[:25]:
         print(f"  {dev_us(e) / 1e3:10.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    if args.path == "disksort":
+        memory_account(torch, entry_mod, lambda sb: qstep(b, spill_bytes=sb),
+                       (spill.SpillSorter, "finish"))
+    elif args.path == "pjoin":
+        memory_account(torch, entry_mod, lambda sb: qstep(*b, spill_bytes=sb),
+                       (spill.GracePartitioner, "read_partition"))
     return 0
+
+
+def memory_account(torch, entry_mod, run, boundary) -> None:
+    """Where an out-of-core step's device memory goes: ``run(None)`` (in
+    memory) and ``run(-1)`` (past the entry's budget), each from the bytes
+    already allocated (``base``: the inputs the caller holds) and holding
+    its output Table. For the spilled run the peak is split at the first
+    call of ``boundary`` (owner, name of a generator function: the
+    external sort's merge, the Grace join's first partition read): the
+    bytes held there and the peak before and after. The output's rows and
+    its live, sized and allocated bytes come from
+    ``entry.table_device_bytes``. Prints one JSON line ``{"memory": ...}``."""
+    import gc
+    account = {}
+    owner, attr = boundary
+    inner = getattr(owner, attr)
+    for label, spill_bytes in (("in_memory", None), ("spilled", -1)):
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        before = {}
+
+        def hooked(*a, **kw):
+            if not before:
+                torch.cuda.synchronize()
+                before["peak_above_base"] = \
+                    torch.cuda.max_memory_allocated() - base
+                before["held_above_base"] = \
+                    torch.cuda.memory_allocated() - base
+                torch.cuda.reset_peak_memory_stats()
+            yield from inner(*a, **kw)
+        setattr(owner, attr, hooked)
+        try:
+            out = run(spill_bytes)
+            torch.cuda.synchronize()
+        finally:
+            setattr(owner, attr, inner)
+        after = torch.cuda.max_memory_allocated() - base
+        account[label] = {
+            "base": base,
+            "peak_above_base": max(after, before.get("peak_above_base", 0)),
+            "output": entry_mod.table_device_bytes(out)}
+        if before:
+            account[label]["until_" + attr] = before
+            account[label]["peak_above_base_from_" + attr] = after
+        del out
+    print(json.dumps({"memory": account}))
 
 
 if __name__ == "__main__":

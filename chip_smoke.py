@@ -202,9 +202,43 @@ rows (BASELINE config #2) and checks each result against a numpy oracle:
           rows priced above 50000.00 (a decimal scalar) sorted by price
           descending and orderkey, their count by the decimal
           ``l_discount``; against numpy int64, exactly;
+  path 20 ``arrow_tpu_torch.entry.entry_scan_q12``: TPC-H Q12 over dataset
+          scans: set-up writes paths 13 / 14's lineitem (Q12's columns)
+          with ``dataset.write_dataset`` as a hive-partitioned parquet
+          dataset by ``l_shipmode`` and orders as one file; the step is
+          Q12's plan with ``scan`` sources (``is_in(l_shipmode, ...)``
+          prunes 5 of 7 fragments on the host, the date conjuncts run on
+          the card); against path 13's result and pyarrow's, exactly;
+          fragments read and pruned, bytes read, the scan's share;
+  path 21 ``arrow_tpu_torch.entry.entry_disk_sort``: the external sort of
+          path 17's lineitem columns (``l_shipmode`` a plain string, so a
+          byte pool goes to disk too) in 2^22-row batches staged as they
+          are pulled, by (shipdate, orderkey, linenumber) with a budget of
+          1/8 of the input's device bytes (a sorted ATB run a batch,
+          merged back), consumed through ``to_batches_prefetched``; row
+          for row against the same sort in memory on the card and
+          numpy's stable sort; each run's peak device memory is taken
+          above the bytes held before it, and the in-memory sort's must
+          be the higher; the output's live and allocated bytes; a second
+          run stopped by a ``StopSource`` after the first merged batch
+          raises ``CancelledError`` and leaves no run directory;
+  path 22 ``arrow_tpu_torch.entry.entry_partitioned_join``: the Grace
+          join of SF 10's orders (the build side, 15M rows) and lineitem
+          (60M) on the order key with a budget of 1/4 of the orders'
+          bytes: both sides split into 16 partition files on the card (B4
+          and ``partition_positions``, one launch each a batch), joined
+          partition by partition; both outputs sorted by (l_orderkey,
+          l_linenumber) on the card, equal column for column to the
+          in-memory join's; its peak above the bytes held before it
+          (the inputs and the in-memory join's output) below the
+          in-memory join's above its own; a left anti and a full outer
+          join on about a
+          tenth of each table (rows without a match on both sides)
+          against their in-memory runs; the tracing metrics after paths
+          20-22 as a JSON line ``{"metrics": ...}``;
   the string sweep: the string family's 71 functions
           (``entry.STRING_SWEEP``, the unit tests' options) once each on
-          the card over the first 2^20 rows of path 10's ``o_comment``
+          the card over the first 2^18 rows of path 10's ``o_comment``
           (one in 16 a non-ASCII string of the unit tests', one in 97
           null), each byte for byte against the port's CPU result on the
           same rows (the CPU's run once every card call is timed, after
@@ -213,7 +247,7 @@ rows (BASELINE config #2) and checks each result against a numpy oracle:
   the A7b sweep: the 83 functions of the casts, temporal functions,
           checked arithmetic, vector_misc and set lookup, and ``cast``
           over every pair of types it dispatches (``cast:<src>-><dst>``),
-          527 entries (``entry.A7B_SWEEP``) over 2^20-row columns made
+          527 entries (``entry.A7B_SWEEP``) over 2^18-row columns made
           from the seed (``entry.a7b_sweep_columns``: every integer and
           float width, one row in 97 null; Q7's ``l_shipdate``; an
           instant over 1900-2100 with its nanosecond digits, naive, in
@@ -229,7 +263,7 @@ rows (BASELINE config #2) and checks each result against a numpy oracle:
           ``pivot``, take / filter / concat of list, fixed-size-list, map,
           struct and union columns, ``hash_list`` and ``hash_pivot_wider``
           through ``Table.group_by``, the pivot_longer node and the sparse
-          tensors' to_dense / mv / mm (``entry.A7C_SWEEP``) over 2^20-row
+          tensors' to_dense / mv / mm (``entry.A7C_SWEEP``) over 2^18-row
           columns made from the seed and a 4096^2 matrix at 1 %, each on
           the card against the CPU's run (as the A7b sweep's): exact, the
           products within
@@ -257,8 +291,9 @@ the shards of the card, and no ``torch.sort`` inside the exchange's
 the two exchange kernels and the key packing against its plain version,
 and the launches those calls make against their counted runs'.
 
-Paths 10-19 hold every call they make to B1, B2, the stitch,
-``pack_key_lanes`` and B3 against its plain version. Prints the card's
+Paths 10-22 hold every call they make to B1, B2, the stitch,
+``pack_key_lanes``, B3, B4 and ``partition_positions`` against its plain
+version. Prints the card's
 name and power limit, one line per check, a JSON line ``{"sweep": {...}}``
 (each entry of both sweeps: ms and peak), a JSON line ``{"paths": {...}}`` (each path's counted step: ms and peak device bytes;
 path 1 also its filter layer's device ms, the expression excluded), a JSON
@@ -372,18 +407,21 @@ Q6_SD_RTOL = 1e-9
 N_SHARDS_Q6 = 4
 # paths 10 and 11: TPC-H Q13 and Q22 at SF 10 (cut from SF 100: the host
 # generator and Q13's host regex); path 12: bench.py's host_boundary at
-# 100M rows (its own cut there is 2M); the string sweep over 2^20 rows
+# 100M rows (its own cut there is 2M); the string and A7b sweeps over
+# 2^18 rows (cut from 2^20: their CPU sides are host time, and paths 20-22
+# need it inside the script's time limit)
 TPCH_SF = 10
 TPCH_SEED = 42
 HB_SEED = 7
-N_SWEEP = 1 << 20
+N_SWEEP = 1 << 18
 SWEEP_PEAK_BYTES = 24e9
 # the sweeps' CPU results, computed this many entries at a time once
 # every card call is timed
 SWEEP_CPU_WORKERS = 4
-# the A7c sweep's rows; its sparse products' float64 tolerance, times
-# |A| |x| (cuSPARSE and the CPU add in other orders)
-N_A7C = 1 << 20
+# the A7c sweep's rows (cut from 2^20 as the others); its sparse
+# products' float64 tolerance, times |A| |x| (cuSPARSE and the CPU add in
+# other orders)
+N_A7C = 1 << 18
 A7C_PRODUCT_RTOL = 1e-12
 # path 17g: the generator in the step runs on the host three times (the
 # warm-up, the counted run, the recording run): SF 1, cut from SF 10
@@ -1532,6 +1570,267 @@ def float_parts_close(got, want, tol, scale_of=None) -> bool:
             close = np.abs(g.astype(np.float64) - w) <= \
                 k * scale_of[:n][ok] + (1e-6 if f32 else 0.0)
     return bool(np.all(same | close))
+
+
+def device_nulls(t, name: str) -> int:
+    """The nulls of a column over a Table's batches, counted on the
+    card."""
+    return int(sum((~b.column(name).validity_or_true()[:int(b.length)])
+                   .sum() for b in t.batches)) if t.batches else 0
+
+
+def out_of_core_paths(torch, ck, dev, source, q12_results, timed,
+                      check_plan_calls, seen_calls, forget,
+                      max_batch_rows: int = 1 << 22):
+    """Paths 20-22 on SF 10's lineitem and orders (``source``, made for
+    paths 10-19): the scan, the external sort and the Grace join of
+    ``entry.entry_scan_q12``, ``entry_disk_sort`` and
+    ``entry_partitioned_join``, each against its oracles; every call they
+    make to B1, B2, the stitch, ``pack_key_lanes``, B4 and
+    ``partition_positions`` against its plain version (``check_plan_calls``).
+    Returns (each counted run's launches by label, B4's, the positions'
+    and B1's measurements at paths 22's and 20's largest calls). The
+    tables go in batches of ``max_batch_rows`` rows."""
+    import os
+    import shutil
+    import tempfile
+    import arrow_tpu_torch.entry as entry_mod
+    from arrow_tpu_torch import dataset as dataset_mod
+    from arrow_tpu_torch.acero import spill as spill_mod
+    from arrow_tpu_torch.acero.spill import batch_device_bytes
+    from arrow_tpu_torch.utils.cancel import CancelledError
+    from arrow_tpu_torch.utils.tracing import metrics
+    launches, measured = {}, {}
+    oracles = ThreadPoolExecutor(max_workers=1)
+
+    def allocated():
+        """Device bytes held now (what a counted run's peak starts from:
+        ``timed``'s warm-up result is gone by then)."""
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+    metrics.reset()
+    tmp = tempfile.gettempdir()
+    print(f"paths 20-22: spill and dataset directory {tmp}, "
+          f"{shutil.disk_usage(tmp).free} B free")
+
+    def largest(name):
+        """The recorded call of ``name`` with the most rows."""
+        calls = seen_calls.get(name, [])
+        check(bool(calls), f"no recorded call of {name}")
+        return max(calls, key=lambda a: sum(
+            x.shape[0] for x in (a[0] if isinstance(a[0], list) else
+                                 [a[0]])))
+
+    # path 20: TPC-H Q12 over scans of a hive-partitioned parquet lineitem
+    t0 = time.time()
+    step, (li, od) = entry_mod.entry_scan_q12(dev, TPCH_SF, TPCH_SEED,
+                                              max_batch_rows, source)
+    frags = li.fragments + od.fragments
+    on_disk = sum(os.path.getsize(f.path) for f in frags)
+    print(f"path 20 data: lineitem written as {len(li.fragments)} parquet "
+          f"fragments by l_shipmode, orders as {len(od.fragments)}, "
+          f"{on_disk} B in {time.time() - t0:.1f} s")
+    try:
+        out, secs, launches["path 20"], peak = timed(
+            lambda: step(li, od), "path 20",
+            ("filter_compact_chunks", "tile_compact_local"),
+            before=dataset_mod.reset_stats)
+        st = dict(dataset_mod.STATS)
+        got = out.to_pydict()
+        check(got == q12_results["port"] == q12_results["pyarrow"],
+              f"path 20: Q12 over scans differs from path 13's or "
+              f"pyarrow's: {got} {q12_results}")
+        check(st["read"] == 3 and st["pruned"] == 5,
+              f"path 20: fragments read / pruned {st}")
+        print(f"path 20 (TPC-H Q12 over dataset scans at SF {TPCH_SF}): "
+              f"{st['rows_read']} rows read in {secs * 1e3:.3f} ms; "
+              f"{st['read']} fragments read ({st['bytes_read']} B), "
+              f"{st['pruned']} pruned on the host; reading and staging "
+              f"{st['read_s'] * 1e3:.3f} ms = "
+              f"{100 * st['read_s'] / secs:.1f} % of the step; "
+              f"{len(got['l_shipmode'])} ship modes equal path 13's and "
+              f"pyarrow's; peak device memory {peak} B; launches "
+              f"{launches['path 20']}")
+        paths_entry = {"fragments_read": st["read"],
+                       "fragments_pruned": st["pruned"],
+                       "bytes_read": st["bytes_read"],
+                       "read_ms": st["read_s"] * 1e3}
+        del out
+        check_plan_calls("path 20", lambda: step(li, od), launches["path 20"])
+        measured["filter_compact_chunks"] = measure_filter(
+            torch, ck, *largest("filter_compact_columns"), "path 20 call")
+        forget()
+    finally:
+        step.cleanup()
+    torch.cuda.empty_cache()
+
+    # path 21: the external sort of SF 10's lineitem
+    t0 = time.time()
+    step, (rbs,) = entry_mod.entry_disk_sort(dev, TPCH_SF, TPCH_SEED,
+                                             max_batch_rows, source)
+    order = oracles.submit(entry_mod.disk_sort_order, step.source)
+    n_li = step.source["lineitem"].num_rows
+    names = ", ".join(step.source["lineitem"].column_names)
+    print(f"path 21 data: {n_li} lineitem rows ({names}; l_shipmode a "
+          f"plain string) in {len(rbs)} record batches on the host, "
+          f"{step.input_bytes} B "
+          f"once staged, budget {step.spill_bytes} B, made in "
+          f"{time.time() - t0:.1f} s")
+    # each run's peak is taken from the bytes held before it (the other
+    # run's output), and holds its own output
+    base_m = allocated()
+    mem, secs_m, launches["path 21 in memory"], peak_m = timed(
+        lambda: step(rbs, spill_bytes=None), "path 21 in memory", warm=False)
+    base = allocated()
+    out, secs, launches["path 21"], peak = timed(
+        lambda: step(rbs), "path 21", warm=False,
+        before=spill_mod.reset_stats)
+    st = dict(spill_mod.STATS)
+    check(st["runs"] >= 8 and st["run_rows"] == n_li,
+          f"path 21: {st['runs']} runs of {st['run_rows']} rows")
+    check(peak - base < peak_m - base_m, f"path 21: peak {peak - base} B "
+          f"above what was held is not below the in-memory sort's "
+          f"{peak_m - base_m} B")
+    acct, acct_m = (entry_mod.table_device_bytes(t) for t in (out, mem))
+    bad = entry_mod.same_rows(out, mem)
+    check(not bad, f"path 21: {bad} differ from the in-memory sort's")
+    del mem
+    t1 = time.time()
+    differ = oracles.submit(entry_mod.disk_sort_differ, out, step.source,
+                            order.result())
+    # the cancelled run, while the oracle compares
+    spill_mod.reset_stats()
+    try:
+        step(rbs, stop_after=1)
+        check(False, "path 21: the stopped sort did not raise")
+    except CancelledError:
+        pass
+    run_dir = spill_mod.STATS["last_dir"]
+    check(run_dir is not None and not os.path.exists(run_dir),
+          f"path 21: the stopped sort left {run_dir}")
+    bad = differ.result()
+    check(not bad, f"path 21: {bad} differ from numpy's stable sort")
+    print(f"path 21 (the external sort of SF {TPCH_SF}'s lineitem by "
+          f"(l_shipdate, l_orderkey, l_linenumber), budget 1/8 of its "
+          f"bytes): {n_li} rows in {secs * 1e3:.3f} ms = "
+          f"{n_li / secs:.6g} rows/s; {st['runs']} runs, "
+          f"{st['bytes_written']} B written and {st['bytes_read']} B read, "
+          f"{st['write_s'] * 1e3:.3f} ms writing, {st['merge_s'] * 1e3:.3f} "
+          f"ms merging; {shutil.disk_usage(tmp).free} B free; peak device "
+          f"memory {peak - base} B above the {base} B held before it "
+          f"against the in-memory sort's {peak_m - base_m} B above "
+          f"{base_m} B ({secs_m * 1e3:.3f} ms); output {acct} against "
+          f"the in-memory sort's {acct_m}; row for row equal to it and "
+          f"to numpy's "
+          f"stable sort (oracle {time.time() - t1:.1f} s); a stop after "
+          f"the first merged batch raised CancelledError and removed "
+          f"{run_dir}; launches {launches['path 21']}")
+    paths_21 = {"runs": st["runs"], "bytes_written": st["bytes_written"],
+                "bytes_read": st["bytes_read"],
+                "write_ms": st["write_s"] * 1e3,
+                "merge_ms": st["merge_s"] * 1e3}
+    del out
+    if any(launches["path 21"][k] for k in ck.LAUNCHES):
+        check_plan_calls("path 21", lambda: step(rbs), launches["path 21"])
+        forget()
+    del step, rbs
+    torch.cuda.empty_cache()
+
+    # path 22: the Grace join of SF 10's orders and lineitem
+    t0 = time.time()
+    step, (li, od) = entry_mod.entry_partitioned_join(
+        dev, TPCH_SF, TPCH_SEED, max_batch_rows, source)
+    n_li = li.num_rows
+    print(f"path 22 data: orders {od.num_rows} rows ({step.build_bytes} B, "
+          f"the build side), lineitem {n_li} rows, staged in "
+          f"{time.time() - t0:.1f} s; budget {step.spill_bytes} B")
+    base_m = allocated()
+    mem, secs_m, launches["path 22 in memory"], peak_m = timed(
+        lambda: step(li, od, spill_bytes=None), "path 22 in memory")
+    base = allocated()
+    out, secs, launches["path 22"], peak = timed(
+        lambda: step(li, od), "path 22",
+        ("partition_histogram", "partition_positions"), warm=False,
+        before=spill_mod.reset_stats)
+    st = dict(spill_mod.STATS)
+    check(peak - base < peak_m - base_m, f"path 22: peak {peak - base} B "
+          f"above what was held is not below the in-memory join's "
+          f"{peak_m - base_m} B")
+    acct, acct_m = (entry_mod.table_device_bytes(t) for t in (out, mem))
+    check(st["partition_files"] >= 16 * len(li.batches),
+          f"path 22: {st['partition_files']} partition files")
+    check(launches["path 22"]["partition_histogram"] ==
+          launches["path 22"]["partition_positions"] ==
+          len(li.batches) + len(od.batches),
+          "path 22: not one B4 and one positions launch a batch")
+    check(out.num_rows == n_li, f"path 22: {out.num_rows} rows")
+    t1 = time.time()
+    bad = entry_mod.tables_differ(out, mem, ["l_orderkey", "l_linenumber"])
+    check(not bad, f"path 22: {bad} differ from the in-memory join's")
+    rows = st["partition_rows"]
+    print(f"path 22 (the Grace join of SF {TPCH_SF}'s orders and lineitem "
+          f"on the order key, 16 partitions, budget 1/4 of the build "
+          f"side): {n_li} probe rows in {secs * 1e3:.3f} ms = "
+          f"{n_li / secs:.6g} rows/s; a partition's rows: build "
+          f"{min(rows['build'])}-{max(rows['build'])}, probe "
+          f"{min(rows['probe'])}-{max(rows['probe'])}; "
+          f"{st['partition_files']} partition "
+          f"files, {st['bytes_written']} B to disk, {st['bytes_read']} B "
+          f"back; peak device memory {peak - base} B above the {base} B "
+          f"held before it (the inputs, the in-memory join's output) "
+          f"against the in-memory join's {peak_m - base_m} B above "
+          f"{base_m} B ({secs_m * 1e3:.3f} ms); output {acct} against the "
+          f"in-memory join's {acct_m}; sorted by "
+          f"(l_orderkey, l_linenumber) on the card, equal column for "
+          f"column to the in-memory join's (compare {time.time() - t1:.1f} "
+          f"s); launches {launches['path 22']}")
+    paths_22 = {"partition_rows": rows,
+                "partition_files": st["partition_files"],
+                "bytes_written": st["bytes_written"],
+                "bytes_read": st["bytes_read"]}
+    del out, mem
+    check_plan_calls("path 22", lambda: step(li, od), launches["path 22"])
+    dests, P = largest("partition_histogram_segments")
+    measured["partition_histogram"] = measure_hist(
+        torch, ck, dests, P, "path 22 lineitem batch")
+    dests, P, B, _ = largest("partition_positions")
+    measured["partition_positions"] = measure_positions(
+        torch, ck, dests, P, B, "path 22 lineitem batch")
+    del dests
+    forget()
+    # a left anti and a full outer join on about a tenth of each table
+    ls, os_ = entry_mod.pjoin_slices(step.source, dev, max_batch_rows)
+    budget = sum(batch_device_bytes(b) for b in os_.batches) // 4
+    for jt, keys in (("left anti", ["l_orderkey", "l_linenumber"]),
+                     ("full outer", ["l_orderkey", "l_linenumber",
+                                     "o_orderkey"])):
+        spill_mod.reset_stats()
+        g = step(ls, os_, jt, budget)
+        files = spill_mod.STATS["partition_files"]
+        m = step(ls, os_, jt, None)
+        bad = entry_mod.tables_differ(g, m, keys)
+        check(files > 16 and not bad, f"path 22 {jt}: {files} partition "
+              f"files, {bad} differ from the in-memory join's")
+        what = f"{g.num_rows} lineitem rows without an order"
+        if jt == "full outer":
+            no_order = device_nulls(g, "o_orderkey")
+            no_line = device_nulls(g, "l_orderkey")
+            check(no_order > 0 and no_line > 0, f"path 22 {jt}: "
+                  f"{no_order} / {no_line} rows without a match")
+            what = (f"{g.num_rows} rows: {no_order} lineitem rows without "
+                    f"an order, {no_line} orders without a lineitem")
+        print(f"path 22 {jt} on {ls.num_rows} lineitem and {os_.num_rows} "
+              f"orders rows: {what}; {files} partition files; equal to "
+              f"the in-memory join's")
+        del g, m
+    del step, li, od, ls, os_
+    oracles.shutdown()
+    torch.cuda.empty_cache()
+    print(json.dumps({"metrics": metrics.snapshot()}))
+    print(json.dumps({"out_of_core": {"path 20": paths_entry,
+                                      "path 21": paths_21,
+                                      "path 22": paths_22}}))
+    return launches, measured
 
 
 def main() -> int:
@@ -3386,24 +3685,33 @@ def main() -> int:
     from arrow_tpu_torch.ops import strings_regex
     import pyarrow as pa
     from arrow_tpu_torch.utils.tpch import tpch_table
+    from arrow_tpu_torch.acero import spill as spill_mod
     plan_kernels = ("filter_compact_chunks", "tile_compact_local",
-                      "tile_stitch", "pack_key_lanes", "dense_group_reduce")
+                    "tile_stitch", "pack_key_lanes", "dense_group_reduce",
+                    "partition_histogram", "partition_positions")
+    # the Grace join's split calls the exchange's kernels from acero/spill
+    plan_wrapper = dict(wrapper, partition_histogram=(
+        "partition_histogram_segments"))
 
     def check_plan_calls(label, fn, counts):
         """One more run of fn recording every call of the kernels the
-        plan paths 10-14 reach; each against its plain version, the
+        plan paths 10-22 reach; each against its plain version, the
         calls' launches against the counted run's."""
         forget()
         out_ = recorded(selection, "filter_compact_columns", lambda: recorded(
             selection, "tile_compact_local", lambda: recorded(
                 selection, "tile_stitch", lambda: recorded(
                     join_mod, "pack_key_lanes", lambda: recorded(
-                        hash_aggregate, "dense_group_reduce", fn)))))
+                        hash_aggregate, "dense_group_reduce", lambda: recorded(
+                            spill_mod, "partition_histogram_segments",
+                            lambda: recorded(spill_mod, "partition_positions",
+                                             fn)))))))
         del out_
         for kname in plan_kernels:
-            calls = seen_calls.get(wrapper.get(kname, kname), [])
+            calls = seen_calls.get(plan_wrapper.get(kname, kname), [])
             n = sum(kernel_launches(ck, kname, a) for a in calls) \
-                if kname in ("filter_compact_chunks", "pack_key_lanes") \
+                if kname in ("filter_compact_chunks", "pack_key_lanes",
+                             "partition_histogram", "partition_positions") \
                 else len(calls)
             check(n == counts[kname], f"{label}: {len(calls)} recorded "
                   f"calls of {kname} make {n} launches, the counted run "
@@ -3419,12 +3727,25 @@ def main() -> int:
                           f"{label}: a tile_stitch call differs")
                 elif kname == "pack_key_lanes":
                     check_pack_lanes(torch, ck, *a, f"{label} call", True)
+                elif kname == "partition_histogram":
+                    check(all(torch.equal(g, w) for g, w in zip(
+                        ck.partition_histogram_segments(*a),
+                        ck.partition_histogram_segments_plain(*a))),
+                        f"{label}: a partition_histogram call differs from "
+                        "its plain version")
+                elif kname == "partition_positions":
+                    dests, P, B, _ = a
+                    check(all(torch.equal(g, w) for g, w in zip(
+                        ck.partition_positions(*a),
+                        ck.partition_positions_plain(dests, P, B))),
+                        f"{label}: a partition_positions call differs from "
+                        "its plain version")
                 else:
                     gid, inputs, kinds, G, valid = a
                     dg_compare(torch, ck, gid, inputs, kinds, G,
                                f"{label} call", valid)
         print(f"{label}: " + ", ".join(
-            f"{len(seen_calls.get(wrapper.get(k, k), []))} {k}"
+            f"{len(seen_calls.get(plan_wrapper.get(k, k), []))} {k}"
             for k in plan_kernels) + " calls equal their plain versions")
 
     t0 = time.time()
@@ -3579,6 +3900,7 @@ def main() -> int:
         if label == "path 13":
             check(got == want, f"{label}: Q12 differs from pyarrow's: "
                   f"{got} {want}")
+            q12_results = {"port": got, "pyarrow": want}
             what = f"{len(got['l_shipmode'])} ship modes"
         else:
             g, w = np.array(got.pop("revenue")), np.array(want.pop(
@@ -3813,6 +4135,11 @@ def main() -> int:
     forget()
     torch.cuda.empty_cache()
 
+    # ---- paths 20-22: the out-of-core and dataset layer ------------------
+    launches2022, m2022 = out_of_core_paths(
+        torch, ck, dev, source, q12_results, timed, check_plan_calls,
+        seen_calls, forget)
+
     shipdate = source["lineitem"]["l_shipdate"].slice(0, N_SWEEP) \
         .cast(pa.int32()).to_numpy()
     shipmode = source["lineitem"]["l_shipmode"].slice(0, N_SWEEP) \
@@ -3820,7 +4147,7 @@ def main() -> int:
     for name in ("lineitem", "supplier", "nation"):
         del source[name]
 
-    # ---- the string sweep: the family's 71 functions over 2^20 comments ---
+    # ---- the string sweep: the family's 71 functions over 2^18 comments ---
     t0 = time.time()
     comments = source["orders"]["o_comment"].slice(0, N_SWEEP).to_pylist()
     a7c_comments = source["orders"]["o_comment"].slice(0, N_A7C) \
@@ -3880,7 +4207,7 @@ def main() -> int:
           f"all, the CPU {cpu_s:.1f} s ({SWEEP_CPU_WORKERS} at a time)")
     del col_cpu
 
-    # ---- the A7b sweep: 83 functions and every cast pair at 2^20 rows ----
+    # ---- the A7b sweep: 83 functions and every cast pair at 2^18 rows ----
     from arrow_tpu_torch.utils.errors import ArrowInvalid
     t0 = time.time()
     cols = entry_mod.a7b_sweep_columns(N_SWEEP, TPCH_SEED, shipdate,
@@ -4127,6 +4454,9 @@ def main() -> int:
     also(kernels[3], "path_16_nested_columns", ts16)
     also(kernels[2], "path_16r", tc16r)
     also(kernels[3], "path_16r", ts16r)
+    also(kernels[4], "path_22", m2022["partition_histogram"])
+    also(kernels[6], "path_22", m2022["partition_positions"])
+    also(kernels[0], "path_20", m2022["filter_compact_chunks"])
     # the launches of the join paths', path 1b's and path 6's counted runs
     for label, counts in list(launches5.items()) + [
             ("path 1b", launches1b), ("path 6", launches6),
@@ -4141,7 +4471,8 @@ def main() -> int:
             ("path 15", launches15), ("path 16", launches16),
             ("path 16r", launches16r), ("path 17", launches17),
             ("path 17g", launches17g), ("path 19", launches19)] + \
-            list(launches18.items()) + list(launches_dist.items()):
+            list(launches18.items()) + list(launches_dist.items()) + \
+            list(launches2022.items()):
         suffix = suffix_of(label)
         for kernel in kernels:
             if counts[kernel["name"]] and not (

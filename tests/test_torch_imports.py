@@ -12,8 +12,9 @@ a cumulative sum and a checked add, which load the five modules of the
 casts, temporal, set-lookup, vector_misc and checked functions; a
 whitespace split, a list function, a run-end encoding and a sparse matrix,
 which load ``ops/nested``, ``ops/ree``, ``ops/pivot`` and
-``core/tensor``; ``parallel/multihost`` and its collectives), and check
-which modules got loaded. And the default-device rule: an entry point given
+``core/tensor``; ``parallel/multihost`` and its collectives; the native
+host runtime, ``acero/spill``, ``dataset`` and the cancellation, config and
+tracing utilities), and check which modules got loaded. And the default-device rule: an entry point given
 no device takes the card."""
 
 import subprocess
@@ -114,6 +115,20 @@ assert {"arrow_tpu_torch.parallel.shuffle", "arrow_tpu_torch.ops.hashing",
         "arrow_tpu_torch.parallel.dist_agg",
         "arrow_tpu_torch.parallel.multihost",
         "arrow_tpu_torch.parallel.collective"} <= set(sys.modules)
+from arrow_tpu_torch import native
+from arrow_tpu_torch.acero import spill
+from arrow_tpu_torch.utils import cancel, config, tracing
+import arrow_tpu_torch.dataset
+assert native.available(), native.build_error()
+assert set(config.build_info()) >= {"version", "native_runtime"}
+with tracing.trace_span("imports"):
+    stop = cancel.StopSource()
+assert not stop.token().stop_requested
+assert spill.spill_supported(table.batches[0].schema)
+assert {"arrow_tpu_torch.native", "arrow_tpu_torch.acero.spill",
+        "arrow_tpu_torch.utils.cancel", "arrow_tpu_torch.utils.config",
+        "arrow_tpu_torch.utils.tracing", "arrow_tpu_torch.dataset"} <= \
+    set(sys.modules)
 bad = sorted(m for m in ("jax", "jaxlib", "pyarrow", "arrow_tpu")
              if m in sys.modules)
 print("LOADED", bad)
@@ -155,7 +170,8 @@ def test_no_device_means_the_card():
                entry_mod.entry_q22, entry_mod.entry_host_boundary,
                entry_mod.entry_q12, entry_mod.entry_q7,
                entry_mod.entry_wordcount, entry_mod.entry_baskets,
-               entry_mod.entry_ree_keys,
+               entry_mod.entry_ree_keys, entry_mod.entry_scan_q12,
+               entry_mod.entry_disk_sort, entry_mod.entry_partitioned_join,
                array_mod.varlen_from_numpy,
                array_mod.dictionary_from_numpy,
                entry_mod.table_from_numpy, batch_mod.empty_batch,
@@ -200,7 +216,12 @@ def test_port_sources_name_neither_jax_nor_the_jax_package():
             "arrow_tpu_torch/ops/set_lookup.py",
             "arrow_tpu_torch/ops/nested.py", "arrow_tpu_torch/ops/ree.py",
             "arrow_tpu_torch/ops/pivot.py",
-            "arrow_tpu_torch/core/tensor.py"} <= names
+            "arrow_tpu_torch/core/tensor.py",
+            "arrow_tpu_torch/utils/cancel.py",
+            "arrow_tpu_torch/utils/config.py",
+            "arrow_tpu_torch/utils/tracing.py",
+            "arrow_tpu_torch/native.py", "arrow_tpu_torch/acero/spill.py",
+            "arrow_tpu_torch/dataset/__init__.py"} <= names
     for f in files + [ROOT / "chip_smoke.py"]:
         assert not pat.search(f.read_text()), f
 

@@ -77,9 +77,9 @@ def test_array_to_numpy_and_all_valid():
 
 
 def test_plan_node_factories():
-    """Every node factory of the JAX package but ``scan``, which waits for
-    ``dataset/`` (ROADMAP A9)."""
+    """Every node factory of the JAX package, ``scan`` (over ``dataset/``,
+    ROADMAP A9a) included."""
     import arrow_tpu.acero.nodes as jnodes
     import arrow_tpu_torch.acero.nodes as tnodes
-    assert set(jnodes.FACTORIES) - set(tnodes.FACTORIES) == {"scan"}
+    assert set(jnodes.FACTORIES) - set(tnodes.FACTORIES) == set()
     assert {"sorted_merge", "asofjoin", "tpch_gen"} <= set(tnodes.FACTORIES)
