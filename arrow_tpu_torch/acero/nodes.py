@@ -11,12 +11,32 @@ batches to their capacity bucket after one host read (``maybe_compact``).
 Capacity errors (a full group table, a join's build or fanout capacity)
 come back in the same host reads as the lengths and recover by doubling,
 as in the JAX package.
+
+The lazy mode (``LAZY``, ``Declaration.to_table(lazy=True)``; each thread
+has its own): nodes skip the host reads that are heuristics and register
+the device flags of their checks with ``LAZY.defer``; the driver reads them
+all at the end, with the batch lengths, in ONE host read, and runs the plan
+again eagerly if one fired. Node by node, as the JAX package has it:
+
+  * ``maybe_compact`` (and with it ``compact_scalars``' read): skipped;
+  * aggregate: the group table's error, each aggregator's flag and each
+    string key's slot overflow are deferred instead of read (no replay at
+    a doubled ``max_groups``: the eager run does it); the route probe of
+    ``consume_routed`` stays (the JAX package keeps its probe read); a
+    keyless aggregate keeps its one read;
+  * hashjoin: the Bloom pre-filter and its per-batch read are skipped; a
+    probe's fanout flag is deferred instead of read (``_probe_retry``);
+    the build's one read (``build_and_route``: the route and the build
+    capacity's recovery) stays, as the JAX package's ``_build_recover``;
+  * fetch's length read, order_by's string-width probe, the ordered
+    nodes' reads and the distributed nodes stay as they are.
 """
 
 from __future__ import annotations
 
 import copy
 import os
+import threading
 from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
@@ -49,7 +69,7 @@ from .spill import (GracePartitioner, SpillSorter, batch_device_bytes,
 __all__ = ["ExecNode", "FACTORIES", "register_node_factory", "empty_batch",
            "compact_to_bucket", "maybe_compact", "materialized_stream",
            "consume_routed", "build_and_route", "host_ints",
-           "batch_device_bytes"]
+           "batch_device_bytes", "LAZY"]
 
 FACTORIES: Dict[str, type] = {}
 
@@ -98,6 +118,25 @@ def _host_probe(vals: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     return out
 
 
+class _LazyPlan(threading.local):
+    """The lazy (fully asynchronous) run's context: while ``active``, nodes
+    skip their heuristic host reads and ``defer`` the device flags of
+    their checks; the driver reads every one at the end (JAX
+    ``acero/nodes.py`` ``_LazyPlan``). Each thread has its own: a plan
+    pulled by another thread meanwhile (``to_batches_prefetched``'s
+    producer) keeps its own checks and retries."""
+
+    def __init__(self):
+        self.active = False
+        self.deferred: list = []    # (label, 0-d device flag)
+
+    def defer(self, label: str, flag) -> None:
+        self.deferred.append((label, flag))
+
+
+LAZY = _LazyPlan()
+
+
 # ---- compaction ---------------------------------------------------------------
 
 def compact_scalars(b: Batch) -> list:
@@ -125,8 +164,8 @@ def maybe_compact(b: Batch, vals: Optional[list] = None) -> Batch:
     (16 MB) are left alone (the read costs more than it could save), and so
     is a batch whose buckets are all more than half its capacities; the
     decision is kept on the batch (``_compacted``). Off:
-    ``ARROW_TPU_NO_COMPACT=1``."""
-    if os.environ.get("ARROW_TPU_NO_COMPACT"):
+    ``ARROW_TPU_NO_COMPACT=1``, and in a lazy run."""
+    if os.environ.get("ARROW_TPU_NO_COMPACT") or LAZY.active:
         return b
     if b.capacity <= int(os.environ.get("ARROW_TPU_COMPACT_MIN",
                                         str(1 << 20))):
@@ -304,11 +343,13 @@ class FilterNode(ExecNode):
     def output_schema(self) -> Schema:
         return self.inputs[0].output_schema()
 
+    def _run(self, b: Batch) -> Batch:
+        mask = execute_scalar_expression(self.options.filter_expression, b)
+        return filter_batch(b, mask).with_index(b.index)
+
     def batches(self) -> Iterator[Batch]:
-        expr = self.options.filter_expression
         for b in self.inputs[0].batches():
-            mask = execute_scalar_expression(expr, b)
-            yield filter_batch(b, mask).with_index(b.index)
+            yield self._run(b)
 
 
 @register_node_factory("project")
@@ -436,6 +477,12 @@ class AggregateNode(ExecNode):
                 kept_bytes += batch_device_bytes(b)
                 if kept_bytes > budget:
                     kept = None   # too big to replay; raise on overflow
+        if LAZY.active:
+            LAZY.defer("aggregate group table", state[0].error)
+            for agg, flag in self.ha.error_flags(state):
+                LAZY.defer(f"aggregate {agg.name}", flag)
+            yield self.ha.finalize(state).with_index(0)
+            return
         (err,) = host_ints([state[0].error])
         while err and kept is not None and \
                 self._max_groups * 2 <= (1 << 26):
@@ -761,8 +808,11 @@ class HashJoinNode(ExecNode):
         the fanout, up to 2^27 pair slots. The overflow flag and the
         output's ``compact_scalars`` come back in ONE host read; they ride
         into ``maybe_compact``. Returns (output or None, state, those
-        scalars)."""
+        scalars). A lazy run defers the flag instead (no scalars)."""
         out, bs2 = self.join.probe(bs, b, fanout, impl)
+        if LAZY.active:
+            LAZY.defer("hashjoin fanout", bs2.error)
+            return out, bs2, None
         while True:
             vals = host_ints([bs2.error] +
                              (compact_scalars(out) if out is not None
@@ -817,7 +867,7 @@ class HashJoinNode(ExecNode):
         # host read per probe batch
         bits = self.join.bloom_build(bs) \
             if self._bloom_kind is not None and \
-            not impl.startswith("packed") else None
+            not impl.startswith("packed") and not LAZY.active else None
         seen = passed = 0
         i = 0
         for b in materialized_stream(self.inputs[0]):

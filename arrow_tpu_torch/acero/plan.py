@@ -1,4 +1,4 @@
-"""Declaration-based plan construction and its eager driver.
+"""Declaration-based plan construction and its drivers.
 
 Reference: ``acero/exec_plan.h:389`` (Declaration), ``exec_plan.cc:647``
 (DeclarationToTable), the node factory registry (``exec_plan.h:353``); the
@@ -9,6 +9,15 @@ pipeline breakers (aggregate, order_by, join build) hold their state on the
 device. Before the build the plan is rewritten: sources keep only the
 columns some ancestor reads (``prune_columns``) and a fetch over an
 order_by streams top-k (``fuse_topk``).
+
+``to_table`` has three drivers, as the JAX package's: the eager driver,
+the default; the fused driver (``acero/fuse.py``, ``fused=True``), tried
+first when asked for; the lazy run (``lazy=True``: nodes defer their
+checks, ``nodes.LAZY``). A plan whose deferred check fired runs again on
+the eager driver. The JAX package picks its drivers by environment
+variables and tries the fused one by default; the port takes them as
+arguments and runs eager unless asked, because the fused and lazy drivers
+lose to it on the card (ROADMAP P13).
 """
 
 from __future__ import annotations
@@ -82,28 +91,62 @@ class Declaration:
                 it.close()      # a node's disk state goes with the stop
         return gen()
 
-    def to_table(self, stop_token=None) -> Table:
-        """Run the plan; its batches of no rows are dropped (one host read
-        of each batch's length, which also gives the metric's rows). A ``plan:<factory>`` span covers the run,
-        and ``metrics`` records its rows and wall time."""
+    def to_table(self, stop_token=None, lazy: bool = False,
+                 fused: bool = False) -> Table:
+        """Run the plan; its batches of no rows are dropped. A
+        ``plan:<factory>`` span covers the run on every driver, and
+        ``metrics`` records its rows and wall time.
+
+        ``fused`` tries the fused driver first (not with a ``stop_token``
+        or inside a lazy run); a plan it does not take, or whose deferred
+        check fired, goes on. ``lazy`` runs the nodes lazily and ends in
+        ONE host read of every deferred flag and batch length; a fired
+        flag runs the plan again eagerly. The eager run reads its batches'
+        lengths in one host read at the end."""
         from ..utils.tracing import metrics, trace_span
+        from . import nodes as _n
         name = f"plan:{self.factory_name}"
         t0 = time.perf_counter()
+        with trace_span(name):
+            t = None
+            if fused and not _n.LAZY.active and stop_token is None:
+                from .fuse import try_fused_to_table
+                t = try_fused_to_table(self)
+            if t is None and lazy and not _n.LAZY.active:
+                _n.LAZY.active = True
+                _n.LAZY.deferred = []
+                try:
+                    t = self._run_nodes(stop_token, _n.LAZY.deferred)
+                finally:
+                    _n.LAZY.active = False
+                    _n.LAZY.deferred = []
+            if t is None:
+                t = self._run_nodes(stop_token, [])
+        metrics.record(name, t.num_rows, time.perf_counter() - t0)
+        return t
+
+    def _run_nodes(self, stop_token, deferred) -> Optional[Table]:
+        """Pull the built plan's batches; then ONE host read of the
+        ``deferred`` (label, flag) pairs and the batches' lengths. None if
+        a flag fired, else the Table of the batches with rows (their
+        lengths now host ints)."""
         node = self._build()
         schema = node.output_schema()
         batches = []
-        with trace_span(name):
-            it = node.batches()
-            try:
-                for b in it:
-                    if stop_token is not None:
-                        stop_token.raise_if_stopped()
-                    batches.append(b)
-            finally:
-                it.close()
-        ns = [len(b) for b in batches]
-        metrics.record(name, sum(ns), time.perf_counter() - t0)
-        return Table(schema, [b for b, n in zip(batches, ns) if n > 0])
+        it = node.batches()
+        try:
+            for b in it:
+                if stop_token is not None:
+                    stop_token.raise_if_stopped()
+                batches.append(b)
+        finally:
+            it.close()
+        vals = _nodes.host_ints([f for _, f in deferred] +
+                                [b.length for b in batches])
+        if any(vals[:len(deferred)]):
+            return None
+        return Table(schema, [b.with_length(n) for b, n in
+                              zip(batches, vals[len(deferred):]) if n > 0])
 
     def to_batches_prefetched(self, prefetch: int = 2,
                               stop_token=None) -> Iterator[Batch]:

@@ -6,8 +6,9 @@ with readahead, partitioned write through DatasetWriter); the counterpart
 of the JAX package's ``dataset/__init__.py``.
 
 Fragments are files: the native ATB format (``native.py``, the engine's
-own) or parquet / ipc / feather / csv / json / orc read through pyarrow at
-the edges (pyarrow is imported only inside functions). Each fragment
+own), parquet / ipc / feather / csv / json / orc read through pyarrow at
+the edges (pyarrow is imported only inside functions), or Avro container
+files decoded on the host by ``dataset/avro.py``. Each fragment
 carries a partition GUARANTEE (field = value conjunction from its path);
 the scanner splits the filter into partition-only conjuncts, evaluated on
 the host to prune whole fragments (the reference's SimplifyWithGuarantee,
@@ -116,10 +117,6 @@ class Fragment:
         self.filesystem = filesystem  # a pyarrow.fs.FileSystem, None: local
 
     def _check_format(self) -> None:
-        if self.format == "avro":
-            raise NotImplementedError(
-                f"avro fragment {self.path}: the avro reader is ROADMAP "
-                "queue item A9b")
         if self.format == "atb" and self.filesystem is not None:
             raise ValueError("atb fragments are local-mmap only; use "
                              "parquet/ipc on remote filesystems")
@@ -159,6 +156,12 @@ class Fragment:
             import pyarrow.orc as porc
             with self._open() as f:
                 return porc.ORCFile(f).read()
+        if fmt == "avro":
+            from .avro import read_avro
+            if self.filesystem is None:
+                return read_avro(self.path)
+            with self._open() as f:
+                return read_avro(f)
         from .. import native
         cols, nrows = native.read_atb(self.path)
         return pa.table({name: _atb_col_to_pa(c, nrows)
@@ -166,8 +169,9 @@ class Fragment:
 
     def physical_schema(self):
         """The file's pyarrow schema from its metadata alone (parquet's
-        footer, the IPC schema message, ORC's footer, the ATB header);
-        csv and json carry none, so those files are read."""
+        footer, the IPC schema message, ORC's footer, the ATB header, the
+        Avro header's schema); csv and json carry none, so those files are
+        read."""
         import pyarrow as pa
         self._check_format()
         fmt = self.format
@@ -181,6 +185,12 @@ class Fragment:
             import pyarrow.orc as porc
             with self._open() as f:
                 return porc.ORCFile(f).schema
+        if fmt == "avro":
+            from .avro import AvroFile, _to_pyarrow_type
+            with self._open() as f:
+                fields = AvroFile(f).schema.fields
+            return pa.schema([(name, _to_pyarrow_type(node))
+                              for name, node in fields])
         if fmt == "atb":
             from .. import native
             with native.open_atb(self.path) as f:

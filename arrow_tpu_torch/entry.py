@@ -241,7 +241,10 @@ __all__ = ["AGGREGATES", "AGGREGATES_ANY_ALL", "AGGREGATES_GENERIC",
            "PJOIN_COLUMNS", "disk_sort_differ", "disk_sort_order",
            "entry_disk_sort", "same_rows",
            "entry_partitioned_join", "entry_scan_q12", "pjoin_slices",
-           "q12_filter", "sorted_columns", "tables_differ"]
+           "q12_filter", "sorted_columns", "tables_differ",
+           "AVRO_ORDERS_COLUMNS", "PLAN_DRIVERS", "avro_orders_declaration",
+           "avro_orders_numpy", "entry_avro_scan", "entry_fused_q3",
+           "entry_substrait_q3", "plan_driver", "write_avro_orders"]
 
 AGGREGATES = (AggregateSpec("sum", "v"), AggregateSpec("min", "v"),
               AggregateSpec("sum", "w"), AggregateSpec("min", "w"),
@@ -3741,3 +3744,152 @@ def tables_differ(a: Table, b: Table, keys) -> list:
         if not same:
             bad.append(name)
     return bad
+
+
+# ---- Substrait, Avro and the plan drivers --------------------------------------
+
+def entry_substrait_q3(device=None, n_lineitem: int = 768, seed: int = 0,
+                       max_groups: int = 256, max_batch_rows: int = 64,
+                       binary: bool = True):
+    """(step, (lineitem, orders, customer)): ``entry_q3``'s plan through
+    Substrait. step(li, od, cu) -> the Table of ``q3_declaration``
+    serialized by ``engine.declaration_to_substrait`` (protobuf with
+    ``binary``, else the JSON form) and run by ``engine.run_query`` on
+    ``device`` (the Tables are used where they lie). A Substrait plan
+    carries no capacities: the consumer's joins and aggregate start from
+    the options' defaults and grow as the eager driver grows them."""
+    from .engine import declaration_to_substrait, run_query
+    tables = _q3_tables(device, n_lineitem, seed, max_batch_rows)
+
+    def step(li_: Table, od_: Table, cu_: Table) -> Table:
+        plan, named = declaration_to_substrait(
+            q3_declaration(li_, od_, cu_, max_groups), binary=binary)
+        return run_query(plan, named, device=li_.device)
+
+    return step, tables
+
+
+# the columns of TPC-H's orders that the Avro scan reads
+AVRO_ORDERS_COLUMNS = ["o_orderkey", "o_orderstatus", "o_totalprice",
+                       "o_orderdate"]
+
+
+def write_avro_orders(root: str, scale_factor: float = 1.0, seed: int = 42,
+                      n_files: int = 4, codec: str = "deflate",
+                      source=None) -> list:
+    """Write TPC-H's orders (``AVRO_ORDERS_COLUMNS``; ``source``: a pyarrow
+    Table of them, else ``utils/tpch`` at ``scale_factor``) as ``n_files``
+    Avro container files of equal row ranges under ``root`` with
+    ``dataset.avro.write_avro``; returns their paths. ``o_orderstatus``, a
+    dictionary column in the generator's table, is written as the string
+    it stands for (Avro has no dictionary type)."""
+    import os
+    import pyarrow as pa
+    from .dataset.avro import write_avro
+    from .utils.tpch import tpch_table
+    t = source if source is not None else tpch_table(
+        "orders", scale_factor, seed, columns=AVRO_ORDERS_COLUMNS)
+    t = t.select(AVRO_ORDERS_COLUMNS)
+    status = t.column("o_orderstatus")
+    if pa.types.is_dictionary(status.type):
+        t = t.set_column(1, "o_orderstatus", status.cast(pa.string()))
+    os.makedirs(root, exist_ok=True)
+    n = t.num_rows
+    paths = []
+    for i in range(n_files):
+        lo, hi = n * i // n_files, n * (i + 1) // n_files
+        path = os.path.join(root, f"orders_{i:02d}.avro")
+        write_avro(t.slice(lo, hi - lo), path, codec=codec)
+        paths.append(path)
+    return paths
+
+
+def avro_orders_declaration(ds, device=None, batch_rows: int = 1 << 22):
+    """scan(``ds``) -> filter 1995-01-01 <= o_orderdate < 1996-01-01 ->
+    aggregate by o_orderstatus: ``n`` (count_all), ``price`` (sum of
+    o_totalprice)."""
+    import datetime
+    from .acero import (AggregateNodeOptions, Declaration,
+                        FilterNodeOptions, ScanNodeOptions)
+    lo, hi = datetime.date(1995, 1, 1), datetime.date(1996, 1, 1)
+    return Declaration.from_sequence([
+        Declaration("scan", ScanNodeOptions(ds, batch_rows=batch_rows,
+                                            device=device)),
+        Declaration("filter", FilterNodeOptions(
+            (field("o_orderdate") >= lo) & (field("o_orderdate") < hi))),
+        Declaration("aggregate", AggregateNodeOptions(
+            [AggregateSpec("count_all", name="n"),
+             AggregateSpec("sum", "o_totalprice", name="price")],
+            keys=["o_orderstatus"], max_groups=16)),
+    ])
+
+
+def avro_orders_numpy(source) -> Dict[str, tuple]:
+    """The Avro scan's answer from a pyarrow Table of the same rows, with
+    numpy: status -> (count, sum of o_totalprice, sum of |o_totalprice|)
+    over 1995's orders."""
+    days = source.column("o_orderdate").cast("int32").to_numpy()
+    keep = (days >= 9131) & (days < 9496)       # 1995-01-01, 1996-01-01
+    status = np.asarray(source.column("o_orderstatus").cast(
+        "string").to_pylist(), dtype=object)[keep]
+    price = source.column("o_totalprice").to_numpy()[keep]
+    return {s: (int((status == s).sum()), float(price[status == s].sum()),
+                float(np.abs(price[status == s]).sum()))
+            for s in sorted(set(status))}
+
+
+def entry_avro_scan(device=None, scale_factor: float = 0.01, seed: int = 42,
+                    n_files: int = 4, batch_rows: int = 1 << 22,
+                    root: Optional[str] = None):
+    """(step, (dataset,)): TPC-H's orders at ``scale_factor`` as ``n_files``
+    deflate Avro files (``write_avro_orders``), scanned by the ``dataset``
+    layer on ``device``: step(ds) -> the Table of
+    ``avro_orders_declaration``. Set-up writes the files under a new
+    temporary directory (``step.cleanup()`` removes it), or reads those
+    already under ``root`` (left in place). ``step.source`` holds the
+    pyarrow Table written, or None when ``root`` was given."""
+    import shutil
+    import tempfile
+    from .dataset import dataset
+    source = None
+    cleanup = lambda: None
+    if root is None:
+        from .utils.tpch import tpch_table
+        root = tempfile.mkdtemp(prefix="arrow_tpu_avro_")
+        source = tpch_table("orders", scale_factor, seed,
+                            columns=AVRO_ORDERS_COLUMNS)
+        write_avro_orders(root, n_files=n_files, source=source)
+        cleanup = lambda: shutil.rmtree(root, ignore_errors=True)
+
+    def step(ds) -> Table:
+        return avro_orders_declaration(ds, device, batch_rows).to_table()
+
+    step.source = source
+    step.root = root
+    step.cleanup = cleanup
+    return step, (dataset(root),)
+
+
+# ``to_table``'s drivers by name: the arguments that pick each one
+PLAN_DRIVERS = {"eager": {}, "fused": {"fused": True}, "lazy": {"lazy": True}}
+
+
+def plan_driver(decl, driver: str = "fused") -> Table:
+    """``decl.to_table`` through the named driver of ``PLAN_DRIVERS``."""
+    return decl.to_table(**PLAN_DRIVERS[driver])
+
+
+def entry_fused_q3(device=None, n_lineitem: int = 768, seed: int = 0,
+                   max_groups: int = 256, max_batch_rows: int = 64,
+                   driver: str = "fused"):
+    """``entry_q3`` through a named plan driver (``plan_driver``): "fused"
+    (``acero/fuse.py``; on the card each lineitem morsel after the first
+    replays a captured graph of its segment), "lazy" or "eager".
+    ``acero.fuse.STATS`` counts the fused runs, their host reads, graphs
+    and replays."""
+    tables = _q3_tables(device, n_lineitem, seed, max_batch_rows)
+
+    def step(li_: Table, od_: Table, cu_: Table) -> Table:
+        return plan_driver(q3_declaration(li_, od_, cu_, max_groups), driver)
+
+    return step, tables

@@ -156,9 +156,7 @@ def value_lanes32(values: torch.Tensor, type_) -> List[torch.Tensor]:
         return [v.to(torch.int64)]
     if t.is_floating:
         if t.bits == 64:
-            bits = torch.where(torch.isnan(v),
-                               torch.tensor(_QNAN64, device=v.device),
-                               v.view(torch.int64))
+            bits = torch.where(torch.isnan(v), _QNAN64, v.view(torch.int64))
             return split_u64(bits)
         if t.bits == 32:
             bits = v.view(torch.int32).to(torch.int64) & U32
@@ -192,8 +190,7 @@ def ascending_lanes32(values: torch.Tensor, type_) -> List[torch.Tensor]:
     if t.is_floating:
         vv = torch.where(v == 0, torch.zeros_like(v), v)
         if t.bits == 64:
-            bits = torch.where(torch.isnan(vv),
-                               torch.tensor(_QNAN64, device=v.device),
+            bits = torch.where(torch.isnan(vv), _QNAN64,
                                vv.view(torch.int64))
             hi, lo = split_u64(bits)
             sign = (hi >> 31) != 0

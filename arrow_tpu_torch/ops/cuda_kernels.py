@@ -38,6 +38,14 @@ when its tensors lie on the CPU. CUDA tensors launch the kernel or raise;
 nothing falls back. ``LAUNCHES`` counts kernel launches per wrapper, so a
 run can show that its path went through the kernels.
 
+Calls may be captured into a CUDA graph (``capture_graph``): a captured B1
+call takes a scratch of its own that its launch clears (a replay cannot
+renew the epoch and ticket base an eager call takes from ``_fc_scratch``),
+and a captured histogram call a ticket buffer of its own that the graph
+zeroes; neither touches the per-stream buffers of eager calls. A capture
+adds nothing to ``LAUNCHES``; each replay adds the launches its graph
+holds.
+
 The sources build at first use with nvcc into ``<repo>/.kernels_build/``
 (one compile per source, all started together, linked into one shared
 library with a plain C interface and loaded with ctypes), keyed by a hash
@@ -72,7 +80,8 @@ __all__ = ["filter_compact_columns", "filter_compact_columns_plain",
            "partition_histogram_segments_plain",
            "partition_positions", "partition_positions_plain",
            "pack_key_lanes", "pack_key_lanes_plain", "build",
-           "LAUNCHES", "reset_launch_counts", "TILE_ROWS", "MAX_PARTITIONS",
+           "LAUNCHES", "reset_launch_counts", "capture_graph",
+           "CapturedGraph", "TILE_ROWS", "MAX_PARTITIONS",
            "MAX_SEGMENTS", "PH_TILE_ROWS",
            "MAX_PACK_LANES", "PACK_MISS", "FC_MAX_COLUMNS", "FC_TILE_ROWS"]
 
@@ -93,6 +102,67 @@ LAUNCHES = {"filter_compact_chunks": 0, "tile_compact_local": 0,
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+# ---- CUDA graphs ---------------------------------------------------------------
+
+# the buffers the wrappers allocate for the capture in progress (B1's
+# scratch, the histogram's tickets): kept with its graph
+_captured = []
+
+
+class CapturedGraph:
+    """A captured ``torch.cuda.CUDAGraph``, what its function returned
+    (static tensors that each replay rewrites), the kernel launches it
+    holds and the buffers its captured calls own."""
+
+    def __init__(self, graph, output, launches, buffers):
+        self.graph = graph
+        self.output = output
+        self.launches = launches
+        self.buffers = buffers
+
+    def replay(self):
+        """Replay the graph on the current stream; adds its launches to
+        ``LAUNCHES``. Returns the output."""
+        self.graph.replay()
+        for name, n in self.launches.items():
+            LAUNCHES[name] += n
+        return self.output
+
+
+def capture_graph(fn) -> CapturedGraph:
+    """Capture ``fn()`` into a CUDA graph (``torch.cuda.graph``, its own
+    memory pool): nothing runs until ``replay``. The tensors ``fn`` reads
+    are read again, where they lie, by every replay. A capture that fails
+    raises; nothing falls back. The capture checks only this thread's CUDA
+    calls: another thread's work meanwhile (a prefetching producer) does
+    not break it."""
+    before = dict(LAUNCHES)
+    _captured.clear()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            output = fn()
+    finally:
+        buffers = list(_captured)
+        _captured.clear()
+        held = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+        for k, n in held.items():
+            LAUNCHES[k] -= n        # a capture launches nothing
+    return CapturedGraph(graph, output,
+                         {k: n for k, n in held.items() if n}, buffers)
+
+
+def _capturing() -> bool:
+    return torch.cuda.is_current_stream_capturing()
+
+
+def keep_for_capture(t: torch.Tensor) -> torch.Tensor:
+    """``t`` kept alive with the graph being captured (a buffer a captured
+    call owns, a pinned buffer a captured copy reads at every replay)."""
+    _captured.append(t)
+    return t
 
 
 # ---- build and load ---------------------------------------------------------
@@ -360,14 +430,22 @@ def filter_compact_columns(sel: torch.Tensor, columns):
         for v in (c.data_ptr(), o.data_ptr(), c.stride(0) * c.element_size(),
                   w)])
     ctx, stream = _device_stream(dev)
-    scratch, epoch, base, reset = _fc_scratch_for(dev, stream, tiles)
+    if _capturing():
+        # a graph replays this launch with its parameters frozen: a scratch
+        # of its own, cleared by every launch, at epoch 1 and ticket base 0
+        scratch = keep_for_capture(torch.empty((tiles + 1,),
+                                               dtype=torch.int64, device=dev))
+        epoch, base, reset = 1, 0, 8 * (tiles + 1)
+    else:
+        scratch, epoch, base, reset = _fc_scratch_for(dev, stream, tiles)
     with ctx:
         rc = lib.atp_filter_compact(
             sel.data_ptr(), cap, desc, len(columns), count.data_ptr(),
             scratch.data_ptr(), epoch, base, reset,
             None if starts is None else starts.data_ptr(), stream)
     if rc != 0:
-        _fc_scratch.pop((dev.index, stream), None)    # its state is unknown
+        if not _capturing():
+            _fc_scratch.pop((dev.index, stream), None)  # its state is unknown
         _check_rc(rc, "filter_compact_columns")
     LAUNCHES["filter_compact_chunks"] += launches
     return outs, count
@@ -902,7 +980,14 @@ def partition_histogram_segments(dests, P: int):
     tiles = torch.empty((P, T), dtype=torch.int32, device=dev)
     ctx, stream = _device_stream(dev)
     key = (dev.index, stream)
-    ticket = _ph_tickets.get(key)
+    if _capturing():
+        # tickets of the graph's own, zeroed by every replay (the kernel
+        # resets them too: this does not rest on that)
+        key = None
+        ticket = keep_for_capture(torch.zeros((MAX_SEGMENTS,),
+                                              dtype=torch.int32, device=dev))
+    else:
+        ticket = _ph_tickets.get(key)
     if ticket is None:
         ticket = _ph_tickets[key] = torch.zeros(
             (MAX_SEGMENTS,), dtype=torch.int32, device=dev)

@@ -24,6 +24,7 @@ from .bits import SIGNED_OF, unsigned_to_int64
 __all__ = [
     "common_numeric_type", "promote_args", "values_of", "output_like",
     "capacity_of", "length_of", "device_of", "torch_dtype", "to_storage",
+    "host_to_device",
 ]
 
 
@@ -103,6 +104,19 @@ def values_of(a: Union[Array, Scalar],
     return v
 
 
+def host_to_device(v: torch.Tensor, device) -> torch.Tensor:
+    """A small host tensor (a scalar's 0-d value) copied to ``device``.
+    Inside a CUDA graph's capture the copy is taken from pinned memory kept
+    with the graph (a capture takes no copy from pageable memory), so a
+    replay copies the same value again."""
+    device = torch.device(device)
+    if device.type == "cuda" and v.device.type == "cpu" and \
+            torch.cuda.is_current_stream_capturing():
+        from .cuda_kernels import keep_for_capture
+        return keep_for_capture(v.pin_memory()).to(device, non_blocking=True)
+    return v.to(device)
+
+
 def to_storage(v: torch.Tensor, t: dt.DataType) -> torch.Tensor:
     """Integer or float values -> ``t``'s storage dtype (a uint16 / uint32 /
     uint64 by the low bits of the signed type of its width: the card
@@ -130,5 +144,5 @@ def output_like(values: torch.Tensor, type: dt.DataType,
     """
     cap = capacity_of(args)
     if values.ndim == 0:
-        values = values.to(device_of(args)).expand(cap).clone()
+        values = host_to_device(values, device_of(args)).expand(cap).clone()
     return Array(type, values, validity, length=length_of(args))

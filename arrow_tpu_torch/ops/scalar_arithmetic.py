@@ -23,7 +23,8 @@ from ..compute.registry import Kind, NullHandling, register_function
 from ..compute.scalar import Scalar
 from .bits import SIGNED_OF, unsigned_to_int64
 from .kernel_utils import (capacity_of, common_numeric_type, device_of,
-                           output_like, to_storage, torch_dtype, values_of)
+                           host_to_device, output_like, to_storage,
+                           torch_dtype, values_of)
 
 __all__ = ["ElementWiseAggregateOptions", "RoundOptions",
            "RoundToMultipleOptions"]
@@ -40,7 +41,7 @@ def _work(a, t: dt.DataType, device) -> torch.Tensor:
             else v.to(torch.int64)
     else:
         v = values_of(a, t)
-    return v.to(device) if v.ndim == 0 else v
+    return host_to_device(v, device) if v.ndim == 0 else v
 
 
 def _is_u64(t: dt.DataType) -> bool:

@@ -21,8 +21,8 @@ from ..compute.scalar import Scalar
 from .bits import SIGNED_OF, as_signed_bits, ordered_signed, \
     unsigned_to_int64
 from .kernel_utils import (capacity_of, common_numeric_type, device_of,
-                           length_of, output_like, promote_args, torch_dtype,
-                           values_of)
+                           host_to_device, length_of, output_like,
+                           promote_args, torch_dtype, values_of)
 
 __all__ = ["FillNullOptions"]
 
@@ -56,7 +56,8 @@ def _comparable_values(args):
         if not any(t.wide for t in types):
             return vals
         dev = device_of(args)
-        return [_limb_key(v.to(dev), t.wide) for v, t in zip(vals, types)]
+        return [_limb_key(host_to_device(v, dev), t.wide)
+                for v, t in zip(vals, types)]
     raise TypeError(f"cannot compare {types}")
 
 
@@ -225,7 +226,7 @@ def _column(a, t, cap, device) -> torch.Tensor:
     """``a``'s values in ``t``'s storage as a (cap,) column."""
     v = values_of(a, t)
     if v.ndim == 0:
-        v = v.to(device).expand(cap)
+        v = host_to_device(v, device).expand(cap)
     return v
 
 

@@ -31,6 +31,7 @@ ENV_VARS = (
     "ARROW_TPU_MAX_POOL_BYTES",     # core/interop: a batch's string pool
     "ARROW_TPU_NO_COMPACT",         # acero/nodes: compaction off
     "ARROW_TPU_NO_PRUNE",           # acero/plan: projection pushdown off
+    "ARROW_TPU_PLAN_CACHE",         # acero/fuse: the learned plan store file
     "ARROW_TPU_SORT_PREFIX_BYTES",  # ops/sorting: string key prefix
     "ARROW_TPU_SPILL_BYTES",        # acero/spill: the spill budget
     "ARROW_TPU_TRACE_DIR",          # utils/tracing: profiler traces

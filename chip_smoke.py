@@ -236,6 +236,37 @@ rows (BASELINE config #2) and checks each result against a numpy oracle:
           tenth of each table (rows without a match on both sides)
           against their in-memory runs; the tracing metrics after paths
           20-22 as a JSON line ``{"metrics": ...}``;
+  path 23 ``engine.declaration_to_substrait`` / ``engine.run_query``:
+          path 6's Q3 Declaration on its tables serialized as a binary
+          Substrait plan and as its JSON form, each run by ``run_query``
+          on the card with the default driver, against path 6's numpy
+          oracle and path 6's Table row for row (run after path 6);
+  path 24 an Avro scan: TPC-H's orders at SF 1 (``o_orderkey``,
+          ``o_orderstatus``, ``o_totalprice``, ``o_orderdate``) written
+          by a worker process (no card) as 4 deflate Avro files while
+          paths 1-22 run, then read through ``dataset`` by a scan ->
+          filter (1995) -> aggregate (count, sum of ``o_totalprice`` by
+          status) plan on the card, against numpy on the same rows; the
+          host's decode and staging apart from the rest (run after path
+          22);
+  path 25 the plan drivers side by side: path 6's Q3 and path 13's Q12
+          each eager (the default), fused (``to_table(fused=True)``;
+          each lineitem morsel of a recurring shape after the first
+          replays a CUDA graph of its segment where the plan's shape
+          allows: Q3's) and lazy, each against its oracle and all three
+          row for row; per driver its step's ms, its host reads (torch's
+          sync debug mode counts them; the fused Q3's at most
+          ``Q3_FUSED_SYNCS``), the graphs captured and replayed, its
+          launches (replays counted); every B1 and B2 call captured in
+          one more fused Q3 run against its plain version on the inputs
+          of its graph's last replay; a fused Q12 whose deferred check fires (a one-slot
+          group table) and falls back; and a learned probe route
+          unlearned (ROADMAP C2) when the data changes under it (path 6's
+          first 2 lineitem batches, the order keys spread past 30 bits);
+  the graph replay phase: ONE CUDA graph holding a B1 call and a B4 +
+          ``partition_positions`` pair, replayed 3 times on new data, each
+          replay's outputs against the plain versions, an eager B1 call
+          between replays (``graph_replay_phase``);
   the string sweep: the string family's 71 functions
           (``entry.STRING_SWEEP``, the unit tests' options) once each on
           the card over the first 2^18 rows of path 10's ``o_comment``
@@ -291,6 +322,9 @@ the shards of the card, and no ``torch.sort`` inside the exchange's
 the two exchange kernels and the key packing against its plain version,
 and the launches those calls make against their counted runs'.
 
+Paths 1-23 run their plans on the eager driver, ``to_table``'s default;
+24 and 25 name theirs.
+
 Paths 10-22 hold every call they make to B1, B2, the stitch,
 ``pack_key_lanes``, B3, B4 and ``partition_positions`` against its plain
 version. Prints the card's
@@ -328,8 +362,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -431,6 +468,441 @@ TPCH_GEN_SF = 1.0
 N_QUOTES = 100_000_000
 N_TRADES = 25_000_000
 ASOF_TOLERANCE = -1_000_000_000
+# the kernel phase under capture: one graph of a B1 call and a B4 +
+# positions pair at path 6's batch rows, replayed on new data
+GRAPH_ROWS = 1 << 22
+GRAPH_P = 16
+GRAPH_REPLAYS = 3
+# paths 23-25: the plan drivers ``entry.plan_driver`` names; path 25's
+# unlearning on path 6's first lineitem batches, its keys spread by a
+# factor past the packed route's 30 bits
+PLAN_DRIVERS = ("eager", "fused", "lazy")
+# the synchronising operations of path 25's fused Q3 run (measured 3 by
+# tools/torch_fused_q3_ab.py on an H100 80GB HBM3 at 700 W): the driver's
+# ONE read at the end, and a scalar's copy from pageable memory
+# (``kernel_utils.host_to_device``) in each of the two morsels of one
+# segment that run as plain calls (its first, its tail); a run that makes
+# more fails
+Q3_FUSED_SYNCS = 3
+Q3_UNLEARN_BATCHES = 2
+Q3_KEY_SPREAD = 1 << 20
+# path 24: TPC-H's orders at SF 1 (cut from SF 10: the Avro decoder is
+# pure Python on the host) as 4 deflate files
+AVRO_SF = 1.0
+AVRO_FILES = 4
+AVRO_WRITER_TIMEOUT = 900
+
+
+def counted_syncs(torch, fn):
+    """(fn(), the synchronizing CUDA operations it made): torch's sync
+    debug mode warns once at each (a device-to-host copy, ``item``,
+    ``nonzero``, a stream synchronisation), and the warnings are counted:
+    the host reads of a plan run, whichever module made them."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            res = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return res, sum("synchroniz" in str(w.message) for w in seen)
+
+
+def replayed_calls_agree(torch, ck, selection, run, label: str):
+    """``run()`` with B1's and B2's wrappers in ``selection`` recording
+    every call made while a graph is captured, its inputs and outputs
+    (held, so the graph's memory pool does not reuse them): after the run
+    they hold what the last replay of their graph gave, and each call's
+    outputs are held against its plain version on those inputs. Returns
+    (run's result, the calls checked of each wrapper)."""
+    names = ("filter_compact_columns", "tile_compact_local")
+    calls = {n: [] for n in names}
+    inner = {n: getattr(selection, n) for n in names}
+
+    def wrap(n):
+        def rec(*a):
+            out = inner[n](*a)
+            if torch.cuda.is_current_stream_capturing():
+                calls[n].append((a, out))
+            return out
+        return rec
+    for n in names:
+        setattr(selection, n, wrap(n))
+    try:
+        res = run()
+    finally:
+        for n in names:
+            setattr(selection, n, inner[n])
+    torch.cuda.synchronize()
+    for (sel, cols), (outs, count) in calls["filter_compact_columns"]:
+        want, wn = ck.filter_compact_columns_plain(sel, cols)
+        n = int(wn)
+        check(int(count) == n and all(torch.equal(o[:n], w[:n])
+                                      for o, w in zip(outs, want)),
+              f"{label}: a replayed B1 call differs from its plain version")
+    for (sel,), (loc, counts) in calls["tile_compact_local"]:
+        wl, wc = ck.tile_compact_local_plain(sel)
+        check(torch.equal(loc, wl) and torch.equal(counts, wc),
+              f"{label}: a replayed B2 call differs from its plain version")
+    return res, {n: len(v) for n, v in calls.items()}
+
+
+def graph_replay_phase(torch, ck, dev, gen) -> dict:
+    """The kernels under capture: ONE CUDA graph holding a B1 call (three
+    columns: int64, int32 and a (cap, 12) byte matrix) and a B4 +
+    ``partition_positions`` pair, replayed GRAPH_REPLAYS times on new data
+    copied into its inputs; after each replay its outputs against the
+    plain versions on the same inputs, and an eager B1 call on the default
+    stream between replays against them too (the graph's B1 scratch is its
+    own: a replay with the frozen epoch and ticket base of a shared one
+    would read the last replay's status words). The launches a capture
+    adds (none) and each replay adds (the graph's three). Returns the
+    report: replays, launches a replay, the graph's replay ms against the
+    same calls made eagerly."""
+    cap, P, B = GRAPH_ROWS, GRAPH_P, GRAPH_ROWS // GRAPH_P
+    sel = torch.empty(cap, dtype=torch.bool, device=dev)
+    cols = [torch.empty(cap, dtype=torch.int64, device=dev),
+            torch.empty(cap, dtype=torch.int32, device=dev),
+            torch.empty((cap, 12), dtype=torch.uint8, device=dev)]
+    dest = torch.empty(cap, dtype=torch.int32, device=dev)
+
+    def fill(r):
+        sel.copy_(torch.rand(cap, generator=gen, device=dev) < 0.2 + 0.2 * r)
+        cols[0].copy_(torch.randint(-(1 << 62), 1 << 62, (cap,),
+                                    generator=gen, device=dev))
+        cols[1].copy_(torch.randint(-(1 << 31), 1 << 31, (cap,),
+                                    generator=gen, device=dev,
+                                    dtype=torch.int32))
+        cols[2].copy_(torch.randint(0, 256, (cap, 12), generator=gen,
+                                    device=dev, dtype=torch.uint8))
+        dest.copy_(torch.randint(-1, P + 1, (cap,), generator=gen,
+                                 device=dev, dtype=torch.int32))
+
+    def body():
+        outs, count = ck.filter_compact_columns(sel, cols)
+        counts, tiles = ck.partition_histogram_segments([dest], P)
+        (pos,) = ck.partition_positions([dest], P, B, tiles)
+        return outs, count, counts, pos
+
+    def same(got, label):
+        outs, count, counts, pos = got
+        want, n = ck.filter_compact_columns_plain(sel, cols)
+        n = int(n)
+        check(int(count) == n and all(torch.equal(o[:n], w[:n])
+                                      for o, w in zip(outs, want)),
+              f"graph replay {label}: B1 differs from its plain version")
+        wc, _ = ck.partition_histogram_segments_plain([dest], P)
+        check(torch.equal(counts, wc), f"graph replay {label}: B4's counts "
+              "differ from its plain version")
+        (wp,) = ck.partition_positions_plain([dest], P, B)
+        check(torch.equal(pos, wp), f"graph replay {label}: the positions "
+              "differ from their plain version")
+        return n
+
+    fill(0)
+    body()                  # loads the kernels
+    torch.cuda.synchronize()
+    before = dict(ck.LAUNCHES)
+    graph = ck.capture_graph(body)
+    check(ck.LAUNCHES == before, "graph replay: the capture added launches")
+    check(graph.launches == {"filter_compact_chunks": 1,
+                             "partition_histogram": 1,
+                             "partition_positions": 1},
+          f"graph replay: the graph holds {graph.launches}")
+    kept = []
+    for r in range(GRAPH_REPLAYS):
+        fill(r)
+        got = graph.replay()
+        torch.cuda.synchronize()
+        kept.append(same(got, f"{r + 1}"))
+        # an eager call on the default stream between replays
+        outs, count = ck.filter_compact_columns(sel, cols)
+        n = int(count)
+        check(n == kept[-1] and all(torch.equal(o[:n], g[:n]) for o, g in
+                                    zip(outs, got[0])),
+              f"graph replay {r + 1}: the eager B1 call between replays "
+              "differs")
+    check(ck.LAUNCHES["filter_compact_chunks"] - before[
+        "filter_compact_chunks"] == 2 * GRAPH_REPLAYS and
+        ck.LAUNCHES["partition_histogram"] - before["partition_histogram"]
+        == GRAPH_REPLAYS, f"graph replay: launches {ck.LAUNCHES}")
+    replay_ms = cuda_ms(torch, graph.replay, 10)
+    eager_ms = cuda_ms(torch, body, 10)
+    print(f"graph replay phase: ONE graph of a B1 call ({cap} rows, 8, 4, "
+          f"12 B) and a B4 + positions pair (P {P}, B {B}) replayed "
+          f"{GRAPH_REPLAYS} times on new data, each replay's outputs equal "
+          f"their plain versions (selected {kept}), an eager B1 call "
+          f"between replays equal too; a replay {replay_ms:.4f} ms, the "
+          f"same calls made eagerly {eager_ms:.4f} ms")
+    return {"replays": GRAPH_REPLAYS, "launches_a_replay": graph.launches,
+            "replay_ms": replay_ms, "eager_ms": eager_ms}
+
+
+def q3_rows_agree(a, b, oracle, label: str) -> None:
+    """Two Q3 Tables row for row: both against the numpy oracle
+    (``check_q3``), their revenues within 1e-12 of each other at each
+    place and their keys equal but at a tie the oracle allows."""
+    check_q3(a, oracle, label)
+    check_q3(b, oracle, label)
+    ga, gb = (dict((c, t.batches[0].column(c).values[:10].cpu().numpy())
+                   for c in ("l_orderkey", "o_date", "revenue"))
+              for t in (a, b))
+    tol = 1e-12 * np.abs(oracle["revenue"]) + 1e-12
+    check(bool((np.abs(ga["revenue"] - gb["revenue"]) <= 2 * tol).all()),
+          f"{label}: revenues differ row for row")
+    tie = np.abs(oracle["all_revenue"][ga["l_orderkey"]] -
+                 oracle["revenue"]) <= tol
+    check(bool(((ga["l_orderkey"] == gb["l_orderkey"]) | tie).all()),
+          f"{label}: keys differ row for row")
+
+
+def driver_runs(torch, ck, fuse, run, label: str, drivers=PLAN_DRIVERS):
+    """Each named driver of ``run(driver)``: a warm-up run, a timed run
+    (ms and kernel launches, graph replays counted) and a run whose host
+    reads are counted (``counted_syncs``; for the fused driver also its
+    own reads, ``fuse.STATS``, and the graphs it captured and replayed).
+    Returns ({driver: Table}, {driver: report})."""
+    tables, report = {}, {}
+    for d in drivers:
+        run(d)
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        run(d)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(ck.LAUNCHES)
+        fuse.reset_stats()
+        tables[d], reads = counted_syncs(torch, lambda: run(d))
+        st = dict(fuse.STATS)
+        report[d] = {"ms": ms, "host_reads": reads,
+                     "driver_reads": st["host_reads"],
+                     "graphs": st["graphs"], "replays": st["replays"],
+                     "fused_runs": st["fused"], "fallbacks": st["fallbacks"],
+                     "launches": launches}
+        print(f"{label} {d:5s}: {ms:10.3f} ms; host reads {reads} (the fused "
+              f"driver's own {st['host_reads']}); graphs captured "
+              f"{st['graphs']}, replayed {st['replays']}; fused runs "
+              f"{st['fused']}, fallbacks {st['fallbacks']}; launches "
+              f"{launches}")
+    return tables, report
+
+
+def write_avro_worker(root: str, scale_factor: float, seed: int) -> None:
+    """Path 24's writer, run in a worker process (no card): TPC-H's orders
+    at ``scale_factor`` as AVRO_FILES deflate Avro files under
+    ``root``/files, and the numpy answer of the scan's plan over the same
+    rows in ``root``/oracle.json."""
+    import os
+    from arrow_tpu_torch.entry import (AVRO_ORDERS_COLUMNS,
+                                       avro_orders_numpy, write_avro_orders)
+    from arrow_tpu_torch.utils.tpch import tpch_table
+    t0 = time.time()
+    source = tpch_table("orders", scale_factor, seed,
+                        columns=AVRO_ORDERS_COLUMNS)
+    t1 = time.time()
+    paths = write_avro_orders(os.path.join(root, "files"), n_files=AVRO_FILES,
+                              source=source)
+    t2 = time.time()
+    with open(os.path.join(root, "oracle.json"), "w") as f:
+        json.dump({"answer": avro_orders_numpy(source),
+                   "rows": source.num_rows, "generate_s": t1 - t0,
+                   "write_s": t2 - t1,
+                   "bytes": sum(os.path.getsize(p) for p in paths)}, f)
+
+
+def q3_driver_paths(torch, ck, entry_mod, dev, tables, qcols, out6, oracle,
+                    paths) -> dict:
+    """Paths 23 (Q3 through Substrait) and 25 (Q3 through the three
+    drivers, the unlearning of a learned route) on path 6's tables.
+    Returns each counted run's launches."""
+    from arrow_tpu_torch.acero import fuse
+    from arrow_tpu_torch.engine import declaration_to_substrait, run_query
+    from arrow_tpu_torch.ops import selection
+    launches = {}
+    # path 23: the plan serialized (protobuf, then JSON) and run by
+    # run_query with the default driver
+    for binary in (True, False):
+        label = f"path 23 {'binary' if binary else 'JSON'}"
+        t0 = time.perf_counter()
+        plan, named = declaration_to_substrait(
+            entry_mod.q3_declaration(*tables, Q3_MAX_GROUPS), binary=binary)
+        ser_ms = (time.perf_counter() - t0) * 1e3
+        size = len(plan) if binary else len(json.dumps(plan))
+        ck.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = run_query(plan, named, device=dev)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches[label] = dict(ck.LAUNCHES)
+        q3_rows_agree(got, out6, oracle, label)
+        paths[label] = {"ms": ms, "serialize_ms": ser_ms, "plan_bytes": size}
+        print(f"{label} (path 6's Q3 as a {size}-byte Substrait plan, "
+              f"serialized in {ser_ms:.3f} ms, run by run_query on the "
+              f"card, eager): {ms:.3f} ms (one run: the consumer's "
+              f"capacities start from the options' defaults and grow); "
+              f"the top 10 match the numpy oracle and path 6's Table row "
+              f"for row; launches {launches[label]}")
+        del got
+    # path 25: the drivers side by side
+    tabs, rep_ = driver_runs(torch, ck, fuse, lambda d: entry_mod.plan_driver(
+        entry_mod.q3_declaration(*tables, Q3_MAX_GROUPS), d), "path 25 Q3")
+    for d, t in tabs.items():
+        q3_rows_agree(t, tabs["eager"], oracle, f"path 25 Q3 {d}")
+        paths[f"path 25 Q3 {d}"] = {k: v for k, v in rep_[d].items()
+                                    if k != "launches"}
+        launches[f"path 25 Q3 {d}"] = rep_[d]["launches"]
+    f = rep_["fused"]
+    check(f["fused_runs"] == 1 and f["graphs"] >= 1 and f["replays"] >= 1
+          and f["driver_reads"] == 1 and f["host_reads"] <= Q3_FUSED_SYNCS,
+          f"path 25 Q3: the fused run {f}")
+    # one more fused run: the B1 and B2 calls its graphs hold, against
+    # their plain versions on the inputs of each graph's last replay
+    t, checked = replayed_calls_agree(torch, ck, selection, lambda:
+                                      entry_mod.plan_driver(
+                                          entry_mod.q3_declaration(
+                                              *tables, Q3_MAX_GROUPS),
+                                          "fused"), "path 25 Q3 fused")
+    q3_rows_agree(t, tabs["eager"], oracle, "path 25 Q3 fused, recorded")
+    check(sum(checked.values()) >= 1, f"path 25 Q3: captured calls "
+          f"{checked}")
+    paths["path 25 Q3 fused"]["replayed_calls_checked"] = checked
+    print(f"path 25 Q3 fused: the captured calls {checked}, each equal to "
+          f"its plain version on its graph's last replay")
+    del t
+    # the unlearning (ROADMAP C2): the first lineitem batches and orders
+    # with their keys spread past 30 bits; the route learned above
+    # ("packed_u") is checked in the run, fires, is removed, and the next
+    # run learns the sort route
+    rows = Q3_UNLEARN_BATCHES * Q3_BATCH_ROWS
+    li_np = {k: v[:rows] for k, v in qcols[0].items()}
+    oracle_u = numpy_q3_oracle(li_np, qcols[1], qcols[2])
+    li_u = dict(li_np, l_orderkey=li_np["l_orderkey"] * Q3_KEY_SPREAD)
+    od_u = dict(qcols[1], o_orderkey=qcols[1]["o_orderkey"] * Q3_KEY_SPREAD)
+    li_t = entry_mod.table_from_numpy(li_u, Q3_BATCH_ROWS, dev)
+    od_t = entry_mod.table_from_numpy(od_u, Q3_BATCH_ROWS, dev)
+    learned = dict(fuse._PLAN_IMPL)
+    check("packed_u" in learned.values(), f"path 25: learned {learned}")
+    runs = []
+    for i in range(2):
+        fuse.reset_stats()
+        t, reads = counted_syncs(torch, lambda: entry_mod.plan_driver(
+            entry_mod.q3_declaration(li_t, od_t, tables[2], Q3_MAX_GROUPS),
+            "fused"))
+        check_q3(t, oracle_u, f"path 25 unlearn {i}", Q3_KEY_SPREAD)
+        runs.append(dict(fuse.STATS, host_reads_counted=reads))
+        del t
+    check(runs[0]["unlearned"] == 1 and runs[0]["fallbacks"] == 1 and
+          runs[1]["fused"] == 1 and runs[1]["fallbacks"] == 0 and
+          "sort" in fuse._PLAN_IMPL.values(),
+          f"path 25 unlearn: {runs}, learned {fuse._PLAN_IMPL}")
+    paths["path 25 unlearn"] = {"runs": runs}
+    print(f"path 25 unlearn (the first {rows} lineitem rows, order keys "
+          f"x {Q3_KEY_SPREAD}): the learned packed_u route's check fired, "
+          f"the run fell back to the eager driver and matched the oracle, "
+          f"the route was removed (unlearned {runs[0]['unlearned']}); the "
+          f"next fused run bootstrapped and learned 'sort' (host reads "
+          f"{runs[1]['host_reads_counted']}); {runs}")
+    del li_t, od_t, tabs
+    return launches
+
+
+def q12_driver_paths(torch, ck, entry_mod, tables, want, paths) -> dict:
+    """Path 25's Q12 on path 13's tables: the three drivers, each against
+    pyarrow's answer, and one fused run whose deferred check fires (its
+    aggregate's group table at one slot: TPC-H's order keys are unique, so
+    the join takes the unique route, which has no fanout to overflow)."""
+    from arrow_tpu_torch.acero import fuse
+    tabs, rep_ = driver_runs(torch, ck, fuse, lambda d: entry_mod.plan_driver(
+        entry_mod.q12_declaration(*tables), d), "path 25 Q12")
+    launches = {}
+    for d, t in tabs.items():
+        check(t.to_pydict() == want, f"path 25 Q12 {d}: differs from "
+              "pyarrow's")
+        paths[f"path 25 Q12 {d}"] = {k: v for k, v in rep_[d].items()
+                                     if k != "launches"}
+        launches[f"path 25 Q12 {d}"] = rep_[d]["launches"]
+    check(rep_["fused"]["fused_runs"] == 1, f"path 25 Q12: {rep_['fused']}")
+    print(f"path 25 Q12 fused: {rep_['fused']['host_reads']} synchronising "
+          f"operations against the driver's own "
+          f"{rep_['fused']['driver_reads']}: a known departure from ONE "
+          f"read a run (ROADMAP P13: ``is_in`` and the casts synchronise "
+          f"inside each morsel), not checked")
+    decl = entry_mod.q12_declaration(*tables)
+    decl.inputs[0].options.max_groups = 1       # the aggregate's table
+    fuse.reset_stats()
+    t0 = time.perf_counter()
+    got = entry_mod.plan_driver(decl, "fused")
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    check(got.to_pydict() == want and fuse.STATS["fallbacks"] == 1,
+          f"path 25 Q12 fallback: {fuse.STATS}")
+    paths["path 25 Q12 fallback"] = {"ms": ms, **fuse.STATS}
+    print(f"path 25 Q12 fallback (a one-slot group table): the fused run's "
+          f"check fired, the eager driver re-ran the plan and matched "
+          f"pyarrow's answer in {ms:.3f} ms in all; {fuse.STATS}")
+    return launches
+
+
+def avro_path(torch, ck, entry_mod, dev, root, writer, paths) -> dict:
+    """Path 24: the Avro files the worker wrote, scanned through
+    ``dataset`` into a scan -> filter -> aggregate plan on the card,
+    against numpy on the same rows. Returns its launches."""
+    from arrow_tpu_torch import dataset as ds_mod
+    from arrow_tpu_torch.dataset.avro import read_avro
+    t0 = time.time()
+    rc = writer.wait(timeout=AVRO_WRITER_TIMEOUT)
+    waited = time.time() - t0
+    check(rc == 0, f"path 24: the Avro writer exited {rc}")
+    with open(os.path.join(root, "oracle.json")) as f:
+        info = json.load(f)
+    files = sorted(os.listdir(os.path.join(root, "files")))
+    check(len(files) == AVRO_FILES, f"path 24: files {files}")
+    t0 = time.perf_counter()
+    one = read_avro(os.path.join(root, "files", files[0]))
+    decode_s = time.perf_counter() - t0
+    ds = ds_mod.dataset(os.path.join(root, "files"))
+    ds_mod.reset_stats()
+    ck.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = entry_mod.avro_orders_declaration(ds, dev).to_table()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(ck.LAUNCHES)
+    got = out.to_pydict()
+    want = info["answer"]
+    check(sorted(got["o_orderstatus"]) == sorted(want), f"path 24: "
+          f"statuses {got['o_orderstatus']}")
+    for s_, n_, p_ in zip(got["o_orderstatus"], got["n"], got["price"]):
+        wn, wp, wabs = want[s_]
+        check(n_ == wn and abs(p_ - wp) <= 1e-12 * wabs + 1e-12,
+              f"path 24 {s_}: {n_}, {p_} against {wn}, {wp}")
+    check(launches["filter_compact_chunks"] > 0, "path 24: no B1 launch")
+    st = dict(ds_mod.STATS)
+    rows = info["rows"]
+    paths["path 24"] = {"ms": secs * 1e3, "read_s": st["read_s"],
+                        "decode_rows_per_s": one.num_rows / decode_s,
+                        "rows": rows, "bytes": info["bytes"],
+                        "writer_generate_s": info["generate_s"],
+                        "writer_write_s": info["write_s"]}
+    print(f"path 24 (TPC-H SF {AVRO_SF} orders, {rows} rows x 4 columns, "
+          f"as {AVRO_FILES} deflate Avro files of {info['bytes']} B, "
+          f"written by a worker in {info['generate_s']:.1f} + "
+          f"{info['write_s']:.1f} s while paths 1-22 ran; {waited:.1f} s "
+          f"waited for it): scan -> filter (1995) -> count and sum by "
+          f"status in {secs:.3f} s, of which reading (the host's decode "
+          f"and staging) {st['read_s']:.3f} s over {st['rows_read']} rows "
+          f"in {st['read']} fragments and the rest (the card's filter and "
+          f"aggregate, their dispatch) {secs - st['read_s']:.3f} s; the "
+          f"decode alone {one.num_rows / decode_s:.6g} rows/s on the host "
+          f"(one file, {one.num_rows} rows in {decode_s:.3f} s); "
+          f"{len(want)} statuses match numpy; launches {launches}")
+    return launches
 
 
 def check(cond, msg: str) -> None:
@@ -1367,12 +1839,13 @@ def numpy_q3_oracle(li, od, cu):
                 n_groups=keys.shape[0])
 
 
-def check_q3(table, oracle, label: str = "path 6") -> int:
+def check_q3(table, oracle, label: str = "path 6", scale: int = 1) -> int:
     """Path 6's (or 7b's) Table against the numpy oracle: 10 rows; o_date
     exact; revenue within 1e-12 * revenue + 1e-12 of the oracle's at each place
     (a sum of positive terms: its sum of |rev| is itself); keys exact but
     where a key's oracle revenue lies within that tolerance of the oracle's
-    revenue at the place (a tie the summation order may break either way).
+    revenue at the place (a tie the summation order may break either way);
+    with ``scale``, the Table's keys are the oracle's times ``scale``.
     Returns the oracle's group count."""
     check(len(table.batches) == 1, f"{label}: one result batch")
     b = table.batches[0]
@@ -1383,6 +1856,9 @@ def check_q3(table, oracle, label: str = "path 6") -> int:
         a = b.column(c)
         check(a.validity is None or bool(a.validity[:n].all()),
               f"{label}: nulls in {c}")
+    check(bool((got["l_orderkey"] % scale == 0).all()),
+          f"{label}: keys not multiples of {scale}")
+    got["l_orderkey"] = got["l_orderkey"] // scale
     want = oracle["revenue"]
     tol = 1e-12 * want + 1e-12
     check(n == 10 and got["revenue"].dtype == np.float64,
@@ -1866,6 +2342,24 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}")
     t_all = time.time()
 
+    # path 24's writer: a worker process (no card) writes the Avro files
+    # while paths 1-22 run; stopped and its files removed at exit
+    import atexit
+    avro_root = tempfile.mkdtemp(prefix="arrow_tpu_avro_")
+    writer = subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "chip_smoke.write_avro_worker(sys.argv[1], float(sys.argv[2]), "
+         "int(sys.argv[3]))", avro_root, str(AVRO_SF), str(TPCH_SEED)],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+
+    def stop_writer():
+        if writer.poll() is None:
+            writer.kill()
+            writer.wait()
+        shutil.rmtree(avro_root, ignore_errors=True)
+    atexit.register(stop_writer)
+
     t0 = time.time()
     path, log = ck.build()
     print(f"build: {time.time() - t0:.1f} s -> {path.name}")
@@ -2084,8 +2578,13 @@ def main() -> int:
             del cols_, active
     torch.cuda.empty_cache()
 
+    # ---- the kernels under capture: one graph replayed on new data -------
+    graph_phase = graph_replay_phase(torch, ck, dev, gen)
+    torch.cuda.empty_cache()
+
     # ---- path 1: arrow_tpu_torch.entry.entry ----------------------------
     paths = {}      # each path's counted run: step ms and peak bytes
+    paths["graph replay phase"] = graph_phase
     launches_dist = {}  # paths 3m / 3n: each process's counted launches
     t0 = time.time()
     cols = example_columns(N_ROWS, NUM_KEYS, args.seed)
@@ -2775,7 +3274,15 @@ def main() -> int:
           f"lineitem rows in {secs * 1e3:.3f} ms = {N_LINEITEM / secs:.6g} "
           f"rows/s; the top 10 of {n_groups} groups match the numpy oracle "
           f"(oracle {time.time() - t0:.1f} s); peak device memory {peak} B; "
-          f"launches {launches6}")
+          f"launches {launches6}; the eager driver, the default (the fused "
+          f"driver's step: path 25 Q3)")
+    # ---- paths 23 and 25 (Q3): Substrait, the three drivers ---------------
+    launches_new = q3_driver_paths(torch, ck, entry_mod, dev, tables, qcols,
+                                   out, q3_oracle, paths)
+    print(f"path 6's step: eager {paths['path 6']['ms']:.3f} ms, fused "
+          f"{paths['path 25 Q3 fused']['ms']:.3f} ms, lazy "
+          f"{paths['path 25 Q3 lazy']['ms']:.3f} ms")
+    torch.cuda.empty_cache()
     del out
     # one more run with each plan node's stream bracketed by CUDA events
     # and its host reads counted
@@ -3902,6 +4409,8 @@ def main() -> int:
                   f"{got} {want}")
             q12_results = {"port": got, "pyarrow": want}
             what = f"{len(got['l_shipmode'])} ship modes"
+            launches_new.update(q12_driver_paths(torch, ck, entry_mod,
+                                                 tables, want, paths))
         else:
             g, w = np.array(got.pop("revenue")), np.array(want.pop(
                 "revenue"))
@@ -4139,6 +4648,12 @@ def main() -> int:
     launches2022, m2022 = out_of_core_paths(
         torch, ck, dev, source, q12_results, timed, check_plan_calls,
         seen_calls, forget)
+
+    # ---- path 24: an Avro scan (the files the worker wrote) --------------
+    launches_new["path 24"] = avro_path(torch, ck, entry_mod, dev,
+                                        avro_root, writer, paths)
+    stop_writer()
+    torch.cuda.empty_cache()
 
     shipdate = source["lineitem"]["l_shipdate"].slice(0, N_SWEEP) \
         .cast(pa.int32()).to_numpy()
@@ -4472,7 +4987,7 @@ def main() -> int:
             ("path 16r", launches16r), ("path 17", launches17),
             ("path 17g", launches17g), ("path 19", launches19)] + \
             list(launches18.items()) + list(launches_dist.items()) + \
-            list(launches2022.items()):
+            list(launches2022.items()) + list(launches_new.items()):
         suffix = suffix_of(label)
         for kernel in kernels:
             if counts[kernel["name"]] and not (

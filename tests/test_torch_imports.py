@@ -14,7 +14,11 @@ whitespace split, a list function, a run-end encoding and a sparse matrix,
 which load ``ops/nested``, ``ops/ree``, ``ops/pivot`` and
 ``core/tensor``; ``parallel/multihost`` and its collectives; the native
 host runtime, ``acero/spill``, ``dataset`` and the cancellation, config and
-tracing utilities), and check which modules got loaded. And the default-device rule: an entry point given
+tracing utilities; the Q3 plan through Substrait, protobuf and JSON, and
+through the fused and lazy drivers, which load ``engine``,
+``engine/substrait_pb`` and ``acero/fuse``; and ``dataset/avro``, which
+imports pyarrow only when it reads or writes), and check which modules
+got loaded. And the default-device rule: an entry point given
 no device takes the card."""
 
 import subprocess
@@ -129,6 +133,25 @@ assert {"arrow_tpu_torch.native", "arrow_tpu_torch.acero.spill",
         "arrow_tpu_torch.utils.cancel", "arrow_tpu_torch.utils.config",
         "arrow_tpu_torch.utils.tracing", "arrow_tpu_torch.dataset"} <= \
     set(sys.modules)
+from arrow_tpu_torch.entry import entry_fused_q3
+from arrow_tpu_torch.acero import (Declaration, FilterNodeOptions,
+                                   TableSourceNodeOptions)
+from arrow_tpu_torch.compute.expressions import field
+from arrow_tpu_torch.engine import declaration_to_substrait, run_query
+import arrow_tpu_torch.dataset.avro
+decl = Declaration.from_sequence([
+    Declaration("table_source", TableSourceNodeOptions(
+        arrow_tpu_torch.table({"a": np.arange(8)}, device="cpu"))),
+    Declaration("filter", FilterNodeOptions(field("a") > 3))])
+for binary in (True, False):
+    plan, named = declaration_to_substrait(decl, binary=binary)
+    assert run_query(plan, named, device="cpu").num_rows == 4
+for driver in ("fused", "lazy"):
+    step, args = entry_fused_q3("cpu", driver=driver)
+    assert step(*args).num_rows == 10
+assert {"arrow_tpu_torch.engine", "arrow_tpu_torch.engine.substrait",
+        "arrow_tpu_torch.engine.substrait_pb", "arrow_tpu_torch.acero.fuse",
+        "arrow_tpu_torch.dataset.avro"} <= set(sys.modules)
 bad = sorted(m for m in ("jax", "jaxlib", "pyarrow", "arrow_tpu")
              if m in sys.modules)
 print("LOADED", bad)
@@ -172,6 +195,8 @@ def test_no_device_means_the_card():
                entry_mod.entry_wordcount, entry_mod.entry_baskets,
                entry_mod.entry_ree_keys, entry_mod.entry_scan_q12,
                entry_mod.entry_disk_sort, entry_mod.entry_partitioned_join,
+               entry_mod.entry_substrait_q3, entry_mod.entry_avro_scan,
+               entry_mod.entry_fused_q3,
                array_mod.varlen_from_numpy,
                array_mod.dictionary_from_numpy,
                entry_mod.table_from_numpy, batch_mod.empty_batch,
@@ -221,7 +246,12 @@ def test_port_sources_name_neither_jax_nor_the_jax_package():
             "arrow_tpu_torch/utils/config.py",
             "arrow_tpu_torch/utils/tracing.py",
             "arrow_tpu_torch/native.py", "arrow_tpu_torch/acero/spill.py",
-            "arrow_tpu_torch/dataset/__init__.py"} <= names
+            "arrow_tpu_torch/dataset/__init__.py",
+            "arrow_tpu_torch/dataset/avro.py",
+            "arrow_tpu_torch/engine/__init__.py",
+            "arrow_tpu_torch/engine/substrait.py",
+            "arrow_tpu_torch/engine/substrait_pb.py",
+            "arrow_tpu_torch/acero/fuse.py"} <= names
     for f in files + [ROOT / "chip_smoke.py"]:
         assert not pat.search(f.read_text()), f
 

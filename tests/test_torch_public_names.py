@@ -1,7 +1,8 @@
 """The port's public names against the JAX package's (ROADMAP C33): the
 package's top level, ``compute`` (its option classes and helpers, and every
-registered function as a module attribute), ``parallel``, ``acero`` and the
-methods of Array, Batch and Table. The names the port leaves out are the
+registered function as a module attribute), ``parallel``, ``acero``,
+``engine`` (the Substrait consumer and producer), ``to_table(lazy=)`` and
+the methods of Array, Batch and Table. The names the port leaves out are the
 JAX-only ones, listed here by name."""
 
 import types
@@ -12,10 +13,12 @@ import pytest
 import arrow_tpu as jax_pkg
 import arrow_tpu.acero as jacero
 import arrow_tpu.compute as jcompute
+import arrow_tpu.engine as jengine
 import arrow_tpu.parallel as jparallel
 import arrow_tpu_torch as port
 import arrow_tpu_torch.acero as tacero
 import arrow_tpu_torch.compute as tcompute
+import arrow_tpu_torch.engine as tengine
 import arrow_tpu_torch.parallel as tparallel
 
 # JAX-only: placement on a JAX device and the pytree protocol
@@ -31,7 +34,8 @@ def _public(obj) -> set:
 
 @pytest.mark.parametrize("jmod,tmod", [
     (jax_pkg, port), (jcompute, tcompute), (jparallel, tparallel),
-    (jacero, tacero)], ids=["package", "compute", "parallel", "acero"])
+    (jacero, tacero), (jengine, tengine)],
+    ids=["package", "compute", "parallel", "acero", "engine"])
 def test_modules_have_the_jax_packages_names(jmod, tmod):
     missing = {n for n in _public(jmod) if not hasattr(tmod, n)}
     assert not missing, sorted(missing)
@@ -83,3 +87,23 @@ def test_plan_node_factories():
     import arrow_tpu_torch.acero.nodes as tnodes
     assert set(jnodes.FACTORIES) - set(tnodes.FACTORIES) == set()
     assert {"sorted_merge", "asofjoin", "tpch_gen"} <= set(tnodes.FACTORIES)
+
+
+def test_to_table_takes_lazy():
+    """``Declaration.to_table(stop_token=None, lazy=...)`` in both
+    packages; the port takes the fused driver as an argument too (the JAX
+    package reads ``ARROW_TPU_FUSE_PLAN`` and ``ARROW_TPU_LAZY_PLAN``),
+    runs eager by default, and each driver gives the same rows."""
+    import inspect
+    jp = inspect.signature(jacero.Declaration.to_table).parameters
+    tp = inspect.signature(tacero.Declaration.to_table).parameters
+    assert list(jp) == ["self", "stop_token", "lazy"]
+    assert list(tp) == ["self", "stop_token", "lazy", "fused"]
+    assert tp["lazy"].default is False and tp["fused"].default is False
+    t = port.table({"a": np.arange(4)}, device="cpu")
+    src = tacero.Declaration("table_source",
+                             tacero.TableSourceNodeOptions(t))
+    decl = tacero.Declaration("filter", tacero.FilterNodeOptions(
+        port.compute.field("a") > 1), [src])
+    for kw in ({}, {"lazy": True}, {"fused": True}):
+        assert decl.to_table(**kw).to_pydict() == {"a": [2, 3]}, kw
